@@ -10,8 +10,9 @@ Phases; any failure exits non-zero (nothing is caught and passed over):
 1. Device: require CUDA, print the card's name and power limit
    (nvidia-smi). TF32 is switched off for matmuls and cuDNN, so every
    f32 product on the card is a full-precision one.
-2. Build: compile `csrc/int8_matmul.cu` with nvcc for sm_90a (the
-   port's build-at-first-use) and print the build time and ptxas report.
+2. Build: compile `csrc/int8_matmul.cu` and `csrc/flash_attention.cu`
+   with nvcc for sm_90a, one process each, started together, and print
+   the build times and each kernel's ptxas registers and spills.
 3. Kernel vs plain version on the card, at the four GPT-2-small decode
    projection shapes with M = 8 slots, plus M = 3 and M = 256: identical
    int8 activation codes and scales, outputs within rtol/atol 1e-6;
@@ -32,8 +33,29 @@ Phases; any failure exits non-zero (nothing is caught and passed over):
    CPU codes may differ only by rounding ties that start from f32
    noise, and their logits by less than int8 differs from f32. A small
    model's logits on the card must match the CPU's tightly.
-5. One `{"kernels": [...]}` JSON line, then the nvidia-smi line, then
-   the last line `{"ok": true, "device": {...}}`.
+   The flash-attention kernels K1-K3 (`csrc/flash_attention.cu`) are
+   checked against their plain versions, f32 and bf16, at the training
+   path's shape (B 8, T 1024, H 12, Dh 64, causal, all-true key mask),
+   at T 1000 (a ragged tile) and with a batch row whose keys are all
+   masked; at the path shape each is timed (CUDA events and profiler),
+   beside its plain version, SDPA (forward; forward + backward; a
+   yardstick the port never calls), its bound (f32 67 / bf16 989
+   TFLOP/s vs 3.35 TB/s) and a tile sweep.
+5. LM training: the port's LM CLI (`cli/lm.py` main) at GPT-2-small
+   width (vocab 50257, dim 768, 12 layers, 12 heads, ffn 3072, T 1024,
+   batch 8; random weights from seed 0), 4 train steps and 1 validation
+   batch, `--attention ulysses_flash` in f32 and bf16, then a 2-layer
+   `--attention ring_flash` run (the external-LSE entry points). Exact
+   launch counts (K1 = layers x (steps + val batches), K2 = K3 = layers
+   x steps), finite losses, per-step loss and ms, tokens/s, and one
+   profiled step's device idle share and per-kernel device time. Then
+   one train step of a small GPT on the card against the CPU (loss and
+   every gradient leaf), and at full width the kernels against the
+   plain attention swapped in on the card.
+6. One `{"kernels": [...]}` JSON line (int8_matmul, flash_fwd,
+   flash_bwd_dq, flash_bwd_dkv), then the nvidia-smi line, then the
+   last line `{"ok": true, "device": {...}}`. Each phase prints its
+   seconds.
 """
 
 from __future__ import annotations
@@ -122,10 +144,11 @@ def time_ms(fn, arg_sets, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_ms(fn, arg_sets, iters: int):
-    """Mean device time per call of the int8 kernel alone, from
-    torch.profiler's CUDA activity (None when the profiler records no
-    kernel): the part of `time_ms` that is not host launch overhead."""
+def device_ms(fn, arg_sets, iters: int, key: str = "int8_matmul_kernel"):
+    """Mean device time per call of the device kernels whose name holds
+    `key`, from torch.profiler's CUDA activity (None when the profiler
+    records none): the part of `time_ms` that is not host launch
+    overhead."""
     from torch.profiler import ProfilerActivity, profile
 
     fn(*arg_sets[0])
@@ -136,7 +159,7 @@ def device_ms(fn, arg_sets, iters: int):
         torch.cuda.synchronize()
     total_us = sum(
         getattr(e, "device_time_total", 0.0)
-        for e in prof.key_averages() if "int8_matmul_kernel" in e.key
+        for e in prof.key_averages() if key in e.key
     )
     return total_us / iters / 1e3 if total_us else None
 
@@ -371,6 +394,18 @@ def first_step_readings(serve, engine_cls, cfg_cls, qm):
     return readings, breakdown
 
 
+def device_kernels(prof):
+    """(device us, launches, name) of every device kernel a profile
+    holds. Device-side entries only: a CPU op's own entry repeats the
+    device time of the kernels it launched."""
+    from torch.autograd import DeviceType
+
+    return [(e.self_device_time_total, e.count, e.key)
+            for e in prof.key_averages()
+            if getattr(e, "self_device_time_total", 0.0) > 0
+            and getattr(e, "device_type", None) == DeviceType.CUDA]
+
+
 def decode_breakdown(eng, p, tokens, active, prompts, steps=10):
     """Where one decode step's time goes at full width, all slots
     active: host wall time per step (synchronized), device busy time per
@@ -394,20 +429,10 @@ def decode_breakdown(eng, p, tokens, active, prompts, steps=10):
         for _ in range(steps):
             eng.decode_step(p, cache, tokens, active)
         torch.cuda.synchronize()
-    from torch.autograd import DeviceType
-
-    busy = kernel = launches = 0.0
-    by_kernel = []
-    for e in prof.key_averages():
-        # Device-side entries only: a CPU op's own entry repeats the
-        # device time of the kernels it launched.
-        t = getattr(e, "self_device_time_total", 0.0)
-        if t > 0 and getattr(e, "device_type", None) == DeviceType.CUDA:
-            busy += t
-            launches += e.count
-            by_kernel.append((t, e.count, e.key))
-            if "int8_matmul_kernel" in e.key:
-                kernel += t
+    by_kernel = device_kernels(prof)
+    busy = sum(t for t, _, _ in by_kernel)
+    launches = sum(n for _, n, _ in by_kernel)
+    kernel = sum(t for t, _, key in by_kernel if "int8_matmul_kernel" in key)
     busy_ms = busy / steps / 1e3
     top = [{"kernel": key[:80], "ms_per_step": t / steps / 1e3,
             "launches_per_step": n / steps}
@@ -461,7 +486,441 @@ def small_model_matches_cpu(engine_cls, cfg_cls, init_params):
     return worst
 
 
+# ---------------------------------------------------------------------
+# Flash attention (K1-K3) and LM training
+
+
+F32_OPS_PER_S = 67e12    # H100 SXM f32 outside the tensor cores
+BF16_OPS_PER_S = 989e12  # H100 SXM dense bf16 tensor-core peak
+FLASH_KERNELS = (  # wrapper, device kernel name, TPU kernel it replaces
+    ("flash_fwd", "flash_fwd_kernel",
+     "distributed_model_parallel_tpu/ops/pallas_attention.py:260"),
+    ("flash_bwd_dq", "flash_bwd_dq_kernel",
+     "distributed_model_parallel_tpu/ops/pallas_attention.py:420"),
+    ("flash_bwd_dkv", "flash_bwd_dkv_kernel",
+     "distributed_model_parallel_tpu/ops/pallas_attention.py:459"),
+)
+# (name, B, T, H, Dh, mask kind): the training path's shape (GPT-2-small
+# width, batch 8, all-true key mask from pad_token_id=0, causal), a
+# length that is a multiple of 8 but not of the tile, and a batch row
+# whose keys are all masked.
+FLASH_CASES = (
+    ("path", 8, 1024, 12, 64, "all"),
+    ("ragged_tile", 2, 1000, 12, 64, "random"),
+    ("masked_row", 2, 256, 12, 64, "row"),
+)
+# Kernel vs plain version on the card, causal, same inputs. Both sum
+# f32 products in another order; f32: rtol 1e-4, atol 2e-5 (the worst
+# reading on one H100 was 2.9e-6, dk/dv). bf16: outputs are rounded to
+# bf16 (2**-8 relative), and p / dS values an f32 ulp apart may round to
+# neighbouring bf16 values before their products: rtol/atol 2e-2 (worst
+# reading 7.8e-3, one bf16 ulp of a value near 2). LSE is f32 in both
+# dtypes: 1e-5 (worst reading 2.4e-6).
+FLASH_TOL = {torch.float32: dict(rtol=1e-4, atol=2e-5),
+             torch.bfloat16: dict(rtol=2e-2, atol=2e-2)}
+LM_FLAGS = [
+    "--device", "cuda", "--vocab-size", "50257", "--dim", "768",
+    "--heads", "12", "--ffn-dim", "3072", "--seq-len", "1024", "-b", "8",
+    "--epochs", "1", "--steps-per-epoch", "4",
+]
+LM_RUNS = (  # (name, layers, extra flags)
+    ("f32", 12, ["--attention", "ulysses_flash", "--dtype", "float32"]),
+    ("bf16", 12, ["--attention", "ulysses_flash", "--dtype", "bfloat16"]),
+    ("ring_flash_f32", 2, ["--attention", "ring_flash",
+                           "--dtype", "float32"]),
+)
+LM_STEPS, LM_VAL_BATCHES, LM_TOKENS = 4, 1, 8 * 1024
+# One train step, f32, as max|d|/max|ref| over the loss and every
+# compared gradient leaf. A small GPT on the card (kernels) against the
+# CPU (plain versions) read 1.0e-7 (loss) and 7.1e-7 (worst leaf) on one
+# H100; the full-width step with the kernels against the plain attention
+# on the card read 0.0 (loss) and 1.3e-6 (worst attention projection
+# gradient). Both bars are about ten times the worst reading: f32 sums in
+# another order, nothing else differs.
+SMALL_CARD_VS_CPU = 1e-5
+FULL_KERNEL_VS_PLAIN = 1e-5
+
+
+def flash_inputs(b, t, h, dh, kind, dtype, seed):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    q, k, v, do = (torch.randn((b, t, h, dh), generator=g, device="cuda")
+                   .to(dtype) for _ in range(4))
+    mask = torch.ones((b, t), dtype=torch.bool, device="cuda")
+    if kind == "random":
+        mask = torch.rand((b, t), generator=g, device="cuda") > 0.2
+        mask[:, 0] = True
+    elif kind == "row":
+        mask[1] = False
+    return q, k, v, do, mask
+
+
+def visible_pairs(mask, h) -> int:
+    """Causal (q, k) pairs with a valid key, over batch and heads: the
+    work this run's data needs."""
+    t = mask.shape[1]
+    tri = torch.ones((t, t), dtype=torch.bool, device=mask.device).tril()
+    per_b = (tri[None] & mask[:, None, :]).sum()
+    return int(per_b) * h
+
+
+def flash_bound(kind, b, t, h, dh, dtype, pairs):
+    """Least time of one launch: each input read once, each output
+    written once, against its flops (4, 6 or 8 x Dh per visible pair)
+    at the dtype's peak."""
+    act = b * t * h * dh * (4 if dtype == torch.float32 else 2)
+    stats, maskb = b * h * t * 4, b * t
+    nbytes, per_pair = {
+        "flash_fwd": (4 * act + maskb + stats, 4),
+        "flash_bwd_dq": (5 * act + maskb + 2 * stats, 6),
+        "flash_bwd_dkv": (6 * act + maskb + 2 * stats, 8),
+    }[kind]
+    ops = per_pair * dh * pairs
+    peak = F32_OPS_PER_S if dtype == torch.float32 else BF16_OPS_PER_S
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / peak
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations", nbytes, ops)
+
+
+def flash_case(fa, case, dtype):
+    """K1 (with and without LSE), K2 and K3 against their plain versions
+    at one case; returns the max errors per kernel and the tensors the
+    timings reuse."""
+    name, b, t, h, dh, kind = case
+    q, k, v, do, mask = flash_inputs(b, t, h, dh, kind, dtype, seed=t + dh)
+    kw = dict(scale=1.0 / math.sqrt(dh), causal=True)
+    out, lse = fa.flash_fwd(q, k, v, mask, need_lse=True, **kw)
+    out_nolse, none = fa.flash_fwd(q, k, v, mask, **kw)
+    ref_out, ref_lse = fa.flash_fwd_plain(q, k, v, mask, need_lse=True, **kw)
+    delta = fa.flash_delta(do, ref_out)
+    dq = fa.flash_bwd_dq(q, k, v, do, ref_lse, delta, mask, **kw)
+    dk, dv = fa.flash_bwd_dkv(q, k, v, do, ref_lse, delta, mask, **kw)
+    torch.cuda.synchronize()
+    ref_dq = fa.flash_bwd_dq_plain(q, k, v, do, ref_lse, delta, mask, **kw)
+    ref_dk, ref_dv = fa.flash_bwd_dkv_plain(q, k, v, do, ref_lse, delta,
+                                            mask, **kw)
+    tol = FLASH_TOL[dtype]
+
+    def err(a, r):
+        fin = torch.isfinite(r)
+        require(bool((torch.isfinite(a) == fin).all())
+                and bool((a[~fin] == r[~fin]).all()),
+                f"{name} {dtype}: non-finite values differ from the plain "
+                f"version's")
+        return float((a.float() - r.float())[fin].abs().max())
+
+    errs = {"flash_fwd": max(err(out, ref_out), err(out_nolse, ref_out)),
+            "flash_fwd_lse": err(lse, ref_lse),
+            "flash_bwd_dq": err(dq, ref_dq),
+            "flash_bwd_dkv": max(err(dk, ref_dk), err(dv, ref_dv))}
+    emit({"flash_check": name, "dtype": str(dtype).split(".")[-1],
+          "shape": [b, t, h, dh], "max_abs_err": errs})
+    require(none is None, "flash_fwd returned an LSE it was not asked for")
+    for got, want in ((out, ref_out), (out_nolse, ref_out), (dq, ref_dq),
+                      (dk, ref_dk), (dv, ref_dv)):
+        torch.testing.assert_close(got, want, **tol)
+    torch.testing.assert_close(lse, ref_lse, rtol=1e-5, atol=1e-5)
+    if kind == "row":
+        require(bool((out[1] == 0).all()) and bool(torch.isinf(lse[1]).all())
+                and bool((dq[1] == 0).all()) and bool((dk[1] == 0).all())
+                and bool((dv[1] == 0).all()),
+                "a row with no valid key must give out 0, LSE +inf and "
+                "zero gradients")
+    return errs, (q, k, v, do, mask, ref_lse, delta, kw)
+
+
+def flash_timings(fa, dtype, tensors):
+    """At the path shape: per kernel the CUDA-event time per launch
+    (host launch included), its device time (profiler), the plain
+    version's time and the bound; SDPA (forward; forward + backward) as
+    the library yardstick the port never calls; the Dh-64 tile sweep."""
+    import torch.nn.functional as F
+
+    q, k, v, do, mask, lse, delta, kw = tensors
+    b, t, h, dh = q.shape
+    pairs = visible_pairs(mask, h)
+    calls = {
+        "flash_fwd": lambda **x: fa.flash_fwd(q, k, v, mask, need_lse=True,
+                                              **kw, **x),
+        "flash_bwd_dq": lambda **x: fa.flash_bwd_dq(q, k, v, do, lse, delta,
+                                                    mask, **kw, **x),
+        "flash_bwd_dkv": lambda **x: fa.flash_bwd_dkv(q, k, v, do, lse,
+                                                      delta, mask, **kw, **x),
+    }
+    plains = {
+        "flash_fwd": lambda: fa.flash_fwd_plain(q, k, v, mask, need_lse=True,
+                                                **kw),
+        "flash_bwd_dq": lambda: fa.flash_bwd_dq_plain(q, k, v, do, lse, delta,
+                                                      mask, **kw),
+        "flash_bwd_dkv": lambda: fa.flash_bwd_dkv_plain(q, k, v, do, lse,
+                                                        delta, mask, **kw),
+    }
+    qt, kt, vt, dot = (x.transpose(1, 2).contiguous() for x in (q, k, v, do))
+    qg, kg, vg = (x.clone().requires_grad_(True) for x in (qt, kt, vt))
+    fq, fk, fv = (x.clone().requires_grad_(True) for x in (q, k, v))
+
+    def sdpa_fwd():
+        return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+
+    def sdpa_fwd_bwd():
+        F.scaled_dot_product_attention(qg, kg, vg, is_causal=True).backward(
+            dot)
+
+    def flash_fwd_bwd():
+        fa.flash_attention(fq, fk, fv, mask, causal=True).backward(do)
+
+    rows = {}
+    for name, dev_key, _ in FLASH_KERNELS:
+        bound_ms, bound_by, nbytes, ops = flash_bound(name, b, t, h, dh,
+                                                      dtype, pairs)
+        sweep = {tile: time_ms(lambda: calls[name](tile=tile), [()], 10)
+                 for tile in fa.TILES[dh]}
+        rows[name] = {
+            "ms": time_ms(calls[name], [()], 20),
+            "device_ms": device_ms(calls[name], [()], 10, dev_key),
+            "plain_ms": time_ms(plains[name], [()], 3),
+            "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes,
+            "flops": ops, "visible_pairs": pairs,
+            "tile": fa.DEFAULT_TILE[name][dh], "tile_sweep_ms": sweep,
+        }
+    rows["flash_fwd"]["library_ms"] = time_ms(sdpa_fwd, [()], 20)
+    yard = {"sdpa_fwd_bwd_ms": time_ms(sdpa_fwd_bwd, [()], 10),
+            "flash_attention_fwd_bwd_ms": time_ms(flash_fwd_bwd, [()], 10)}
+    for name in ("flash_bwd_dq", "flash_bwd_dkv"):
+        rows[name]["library_ms"] = None  # no one PyTorch call computes it
+        rows[name].update(yard)
+    emit({"flash_timings": str(dtype).split(".")[-1], "shape": [b, t, h, dh],
+          **rows})
+    return rows
+
+
+def flash_phase(fa):
+    errs, timings = {}, {}
+    for dtype in (torch.float32, torch.bfloat16):
+        for case in FLASH_CASES:
+            e, tensors = flash_case(fa, case, dtype)
+            for key, val in e.items():
+                errs[key] = max(errs.get(key, 0.0), val)
+            if case[0] == "path":
+                timings[dtype] = flash_timings(fa, dtype, tensors)
+            del tensors
+    return errs, timings
+
+
+def reset_counts(fa, qm) -> None:
+    for name, _, _ in FLASH_KERNELS:
+        getattr(fa, name).launches = 0
+    qm.int8_matmul.launches = 0
+
+
+def counts(fa) -> dict:
+    return {name: getattr(fa, name).launches for name, _, _ in FLASH_KERNELS}
+
+
+def lm_run(lm, engine_cls, fa, qm, name, layers, extra):
+    """One training run through the port's LM CLI (`cli/lm.py` main);
+    each train step is timed (synchronized) and its loss recorded."""
+    steps, seen = [], {}
+    train_step = engine_cls.train_step
+
+    def recorded(self, ts, ids, targets, lr):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ts, m = train_step(self, ts, ids, targets, lr)
+        torch.cuda.synchronize()
+        steps.append({"ms": (time.perf_counter() - t0) * 1e3,
+                      "loss": float(m["loss_sum"] / m["count"])})
+        seen.update(engine=self, state=ts, batch=(ids, targets), lr=lr)
+        return ts, m
+
+    flags = LM_FLAGS + ["--layers", str(layers)] + extra
+    reset_counts(fa, qm)
+    buf = io.StringIO()
+    with patched(engine_cls, "train_step", recorded), \
+            contextlib.redirect_stdout(buf):
+        out = lm.main(flags)
+    got = counts(fa)
+    want = {"flash_fwd": layers * (LM_STEPS + LM_VAL_BATCHES),
+            "flash_bwd_dq": layers * LM_STEPS,
+            "flash_bwd_dkv": layers * LM_STEPS}
+    require(got == want, f"LM run {name}: kernel launches {got}, want {want}")
+    require(qm.int8_matmul.launches == 0, f"LM run {name} launched int8")
+    hist = out["history"][0]
+    losses = [s["loss"] for s in steps] + [hist["train"]["loss"],
+                                           hist["val"]["loss"]]
+    require(len(steps) == LM_STEPS and all(map(math.isfinite, losses)),
+            f"LM run {name}: {len(steps)} steps, losses {losses}")
+    warm = steps[1:]
+    ms = sum(s["ms"] for s in warm) / len(warm)
+    row = {"lm_run": name, "layers": layers, "flags": extra,
+           "launches": got, "step_ms": [s["ms"] for s in steps],
+           "step_loss": [s["loss"] for s in steps],
+           "ms_per_step": ms, "tokens_per_s": LM_TOKENS / ms * 1e3,
+           "train_loss": hist["train"]["loss"],
+           "val_loss": hist["val"]["loss"], "loss_floor": out["loss_floor"]}
+    row.update(step_breakdown(seen, ms))
+    emit(row)
+    return row
+
+
+def step_breakdown(seen, wall_ms):
+    """One more train step under torch.profiler: device busy time, the
+    idle share against the unprofiled step wall time, and each flash
+    kernel's device ms within the step."""
+    from torch.profiler import ProfilerActivity, profile
+
+    eng, ts = seen["engine"], seen["state"]
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        eng.train_step(ts, *seen["batch"], seen["lr"])
+        torch.cuda.synchronize()
+    top = device_kernels(prof)
+    busy = sum(t for t, _, _ in top)
+    per_kernel = {dev_key: sum(t for t, _, key in top if dev_key in key)
+                  for _, dev_key, _ in FLASH_KERNELS}
+    busy_ms = busy / 1e3
+    return {"device_busy_ms": busy_ms,
+            "device_idle_share": 1 - busy_ms / wall_ms,
+            "flash_kernel_device_ms": {k: v / 1e3
+                                       for k, v in per_kernel.items()},
+            "flash_share_of_busy": sum(per_kernel.values()) / busy
+            if busy else None,
+            "top_device_kernels": [
+                {"kernel": key[:70], "ms": t / 1e3, "launches": n}
+                for t, n, key in sorted(top, reverse=True)[:8]]}
+
+
+def rel_diff(got, ref) -> float:
+    return float((got.float() - ref.float()).abs().max()
+                 / ref.float().abs().max().clamp_min(1e-30))
+
+
+def training_card_vs_cpu(fa, engine_cls, cfg_cls, init_params, optim, lm):
+    """(a) A small GPT, same weights and batch: one train step's loss and
+    every gradient leaf on the card (kernels) against the CPU (plain
+    versions). (b) At full width on the card: the kernels against the
+    plain attention swapped in, loss and the attention projections'
+    gradients."""
+    small = cfg_cls(vocab_size=97, dim=64, num_layers=2, num_heads=4,
+                    ffn_dim=256, max_position=64, dropout_rate=0.0,
+                    pad_token_id=0)
+    host = init_params(small, 0, device="cpu")
+    ids = lm.synthetic_corpus(97, 4 * 64, seed=3).reshape(4, 64)
+    res = {}
+    for dev in ("cuda", "cpu"):
+        eng = engine_cls(small, optim.SGD(), attention="ulysses_flash",
+                         device=dev)
+        ts = eng.state_from_params(host)
+        m, g = eng.grads(ts, *eng.shard_batch(ids))
+        res[dev] = (m["loss_sum"] / m["count"],
+                    dict(zip(leaf_names(g), optim.tree_leaves(g))))
+    small_loss = rel_diff(res["cuda"][0].cpu(), res["cpu"][0])
+    small_grads = {n: rel_diff(res["cuda"][1][n].cpu(), res["cpu"][1][n])
+                   for n in res["cpu"][1]}
+
+    full = cfg_cls(dropout_rate=0.0, pad_token_id=0)
+    eng = engine_cls(full, optim.SGD(), attention="ulysses_flash",
+                     device="cuda")
+    ts = eng.state_from_params(init_params(full, 0, device="cuda"))
+    ids = lm.synthetic_corpus(50257, LM_TOKENS, seed=0).reshape(8, 1024)
+    batch = eng.shard_batch(ids)
+    m_k, g_k = eng.grads(ts, *batch)
+    with patched(fa, "flash_fwd", fa.flash_fwd_plain), \
+            patched(fa, "flash_bwd_dq", fa.flash_bwd_dq_plain), \
+            patched(fa, "flash_bwd_dkv", fa.flash_bwd_dkv_plain):
+        m_p, g_p = eng.grads(ts, *batch)
+    gk = dict(zip(leaf_names(g_k), optim.tree_leaves(g_k)))
+    gp = dict(zip(leaf_names(g_p), optim.tree_leaves(g_p)))
+    attn = [n for n in gp if "/attn/" in n]
+    full_loss = rel_diff(m_k["loss_sum"] / m_k["count"],
+                         m_p["loss_sum"] / m_p["count"])
+    full_grads = {n: rel_diff(gk[n], gp[n]) for n in attn}
+    readings = {
+        "small_loss_rel": small_loss,
+        "small_grad_rel_max": max(small_grads.values()),
+        "small_grad_rel_worst_leaf": max(small_grads, key=small_grads.get),
+        "full_loss_rel": full_loss,
+        "full_attn_grad_rel_max": max(full_grads.values()),
+        "full_attn_grad_rel_worst_leaf": max(full_grads, key=full_grads.get),
+        "full_loss": float(m_k["loss_sum"] / m_k["count"]),
+    }
+    emit({"training_card_vs_cpu": readings})
+    require(len(small_grads) == 27 and len(full_grads) == 48,
+            f"compared {len(small_grads)} / {len(full_grads)} leaves")
+    require(max(small_loss, readings["small_grad_rel_max"])
+            <= SMALL_CARD_VS_CPU, f"small GPT train step on the card "
+            f"differs from the CPU's: {readings}")
+    require(max(full_loss, readings["full_attn_grad_rel_max"])
+            <= FULL_KERNEL_VS_PLAIN, f"full-width step with the kernels "
+            f"differs from the plain attention's: {readings}")
+    return readings
+
+
+def leaf_names(tree, prefix=""):
+    """Leaf paths of a nested dict, in `tree_leaves` (sorted) order."""
+    if isinstance(tree, dict):
+        return [n for k in sorted(tree)
+                for n in leaf_names(tree[k], f"{prefix}/{k}")]
+    return [prefix]
+
+
+def ptxas_summary(report: str):
+    """One line per kernel of a ptxas -v report: registers and spills."""
+    import re
+
+    name, out = None, []
+    for line in report.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            name = m.group(1)
+            k = re.search(r"(flash_(?:fwd|bwd_dq|bwd_dkv)_kernel)I"
+                          r"(f|13__nv_bfloat16)Li(\d+)ELi(\d+)E", name)
+            if k:
+                name = (f"{k.group(1)}<{'f32' if k.group(2) == 'f' else 'bf16'}"
+                        f",Dh={k.group(3)},tile={k.group(4)}>")
+            elif "int8_matmul_kernel" in name:
+                name = "int8_matmul_kernel"
+        elif "registers" in line or "spill" in line:
+            out.append(f"ptxas: {name}: {line.split(':', 1)[-1].strip()}")
+    return out
+
+
+def flash_entry(name, replaces, lm_rows, errs, times):
+    """A flash kernel's entry of the kernels line: launches over the LM
+    training runs, the worst error against the plain version over every
+    check, and the f32 times at the path shape (bf16 beside them)."""
+    f32, bf16 = times[torch.float32][name], times[torch.bfloat16][name]
+    keys = ("ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms", "tile_sweep_ms")
+    return {
+        "name": name,
+        "route": "cuda",
+        "source": "distributed_model_parallel_tpu_torch/csrc/"
+                  "flash_attention.cu",
+        "replaces": replaces,
+        "launches": sum(r["launches"][name] for r in lm_rows),
+        "launches_by_run": {r["lm_run"]: r["launches"][name]
+                            for r in lm_rows},
+        "max_abs_err": max(errs[name], errs["flash_fwd_lse"])
+        if name == "flash_fwd" else errs[name],
+        # One launch at the path shape (B 8, T 1024, H 12, Dh 64, causal,
+        # all-true key mask), f32; "bf16" holds the same in bf16.
+        **{k: f32[k] for k in keys},
+        "bf16": {k: bf16[k] for k in keys},
+        **{k: f32[k] for k in ("sdpa_fwd_bwd_ms",
+                               "flash_attention_fwd_bwd_ms") if k in f32},
+    }
+
+
 def main() -> int:
+    phase_t0 = time.perf_counter()
+
+    def phase_done(name: str) -> None:
+        nonlocal phase_t0
+        now = time.perf_counter()
+        print(f"phase {name}: {now - phase_t0:.1f} s", flush=True)
+        phase_t0 = now
+
     # ---- 1. device -------------------------------------------------
     require(torch.cuda.is_available(), "torch.cuda.is_available() is "
             "false: this smoke run needs a CUDA GPU")
@@ -476,26 +935,36 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False  # full f32 products
     torch.backends.cudnn.allow_tf32 = False
 
-    from distributed_model_parallel_tpu_torch.cli import serve
+    from distributed_model_parallel_tpu_torch.cli import lm, serve
+    from distributed_model_parallel_tpu_torch.data import lm as lm_data
     from distributed_model_parallel_tpu_torch.models.gpt import (
         GPTConfig,
         init_params,
     )
     from distributed_model_parallel_tpu_torch.ops import _cuda
+    from distributed_model_parallel_tpu_torch.ops import flash_attention as fa
     from distributed_model_parallel_tpu_torch.ops import quant_matmul as qm
+    from distributed_model_parallel_tpu_torch.parallel.sequence_parallel \
+        import CausalLMSequenceParallelEngine
     from distributed_model_parallel_tpu_torch.serving.engine import (
         ServingEngine,
     )
+    from distributed_model_parallel_tpu_torch.training import optim
+    phase_done("device")
 
-    # ---- 2. build --------------------------------------------------
+    # ---- 2. build: both sources at once, one nvcc each ----------------
     t0 = time.perf_counter()
+    _cuda.build(["int8_matmul.cu", "flash_attention.cu"])
     qm._library()
-    build_s, report = _cuda.build_info["int8_matmul.cu"]
-    print(f"build: int8_matmul.cu in {build_s:.2f} s (load "
-          f"{time.perf_counter() - t0:.2f} s)", flush=True)
-    for line in report.splitlines():
-        if "registers" in line or "spill" in line:
-            print(f"ptxas: {line.strip()}", flush=True)
+    fa._library()
+    print(f"build: both sources in {time.perf_counter() - t0:.2f} s wall",
+          flush=True)
+    for source in ("int8_matmul.cu", "flash_attention.cu"):
+        build_s, report = _cuda.build_info[source]
+        print(f"build: {source} in {build_s:.2f} s", flush=True)
+        for line in ptxas_summary(report):
+            print(line, flush=True)
+    phase_done("build")
 
     # ---- 3. kernel vs plain version ---------------------------------
     shapes = []
@@ -509,15 +978,19 @@ def main() -> int:
         shapes.append(r)
         emit({"int8_matmul_shape": r})
     max_err = max(r["max_abs_err"] for r in shapes)
+    phase_done("int8 kernel vs plain")
+    flash_errs, flash_times = flash_phase(fa)
+    phase_done("flash kernels vs plain")
 
-    # ---- 4. serving at full width (the main path) --------------------
-    qm.int8_matmul.launches = 0
+    # ---- 4. serving at full width (a main path) ----------------------
+    reset_counts(fa, qm)
     out_f32 = serve_run(serve, SERVE_FLAGS + ["--compute-dtype", "f32"])
     require(qm.int8_matmul.launches == 0,
             "the f32 run launched the int8 kernel")
-    qm.int8_matmul.launches = 0
+    reset_counts(fa, qm)
     out_i8 = serve_run(serve, SERVE_FLAGS + ["--compute-dtype", "int8"])
     launches = qm.int8_matmul.launches
+    require(not any(counts(fa).values()), "serving launched flash kernels")
     steps = out_i8["serving"]["decode_steps"]
     require(steps > 0 and launches == 4 * LAYERS * steps,
             f"int8 run launched the kernel {launches} times over {steps} "
@@ -550,8 +1023,17 @@ def main() -> int:
           "card_vs_cpu_max_abs": readings["card_vs_cpu_max_abs"],
           "small_model_gpu_vs_cpu_max_abs_err": small,
           "decode_step_breakdown": breakdown})
+    phase_done("serving")
 
-    # ---- 5. kernels line, card line, last line -----------------------
+    # ---- 5. LM training at GPT-2-small width (a main path) -----------
+    lm_rows = [lm_run(lm, CausalLMSequenceParallelEngine, fa, qm, *run)
+               for run in LM_RUNS]
+    phase_done("LM training")
+    training_card_vs_cpu(fa, CausalLMSequenceParallelEngine, GPTConfig,
+                         init_params, optim, lm_data)
+    phase_done("training card vs CPU")
+
+    # ---- 6. kernels line, card line, last line -----------------------
     decode = [r for r in shapes if r["M"] == SLOTS]
     step = {key: LAYERS * sum(r[key] for r in decode)
             for key in ("kernel_ms", "plain_ms", "library_ms", "bound_ms",
@@ -572,7 +1054,8 @@ def main() -> int:
                      >= step["ops"] / INT8_OPS_PER_S else "operations"),
         "library_ms": step["library_ms"],
         "per_shape": shapes,
-    }]})
+    }] + [flash_entry(name, replaces, lm_rows, flash_errs, flash_times)
+          for name, _, replaces in FLASH_KERNELS]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})

@@ -13,8 +13,14 @@ first use and bound with ctypes (`ops/_cuda.py`); beside each kernel
 lives a plain PyTorch version with the same arithmetic, which the
 wrapper takes only for tensors on the CPU.
 
-Ported so far (slice 1): GPT serving with int8 decode projections —
-`cli/serve.py` -> `serving/engine.py::ServingEngine` on the
-`models/gpt.py` decoder, with the int8 GEMM kernel
-`csrc/int8_matmul.cu` (replacing `ops/quant_matmul.py::_int8_kernel`).
+Ported so far:
+* slice 1, GPT serving with int8 decode projections — `cli/serve.py`
+  -> `serving/engine.py::ServingEngine` on the `models/gpt.py` decoder,
+  with the int8 GEMM kernel `csrc/int8_matmul.cu` (replacing
+  `ops/quant_matmul.py::_int8_kernel`);
+* slice 2, causal-LM training on one device — `cli/lm.py` ->
+  `training/trainer.py::Trainer` -> `parallel/sequence_parallel.py::
+  CausalLMSequenceParallelEngine`, with the flash-attention forward,
+  dq and dk/dv kernels `csrc/flash_attention.cu` (replacing
+  `ops/pallas_attention.py`'s three Pallas kernels).
 """

@@ -1,10 +1,10 @@
-"""Serving-flag checks for `cli/serve.py` (port of the serving parts of
-`cli/common.py`).
+"""Shared CLI pieces for `cli/serve.py` and `cli/lm.py` (port of the
+serving and LM parts of `cli/common.py`).
 
-The serve parser carries the reference's whole flag surface, including
-the shared training flags, so a pasted launch line fails with an
-explanation instead of an argparse error; flags whose features belong to
-later port slices are refused loudly, naming the slice.
+Both parsers carry the reference's whole flag surface, so a pasted
+launch line fails with an explanation instead of an argparse error;
+flags whose features belong to later port slices are refused loudly,
+naming the slice (`check_serving_args`, `check_lm_args`).
 """
 
 from __future__ import annotations
@@ -21,20 +21,21 @@ from distributed_model_parallel_tpu_torch.serving.engine import (
 
 
 def add_grad_reduction_flags(parser: argparse.ArgumentParser) -> None:
-    """The training engines' reducer flags, carried so a pasted training
-    line is refused with an explanation (`check_serving_args`)."""
+    """The training engines' reducer flags, carried so a pasted launch
+    line is refused with an explanation (`check_serving_args`: serving
+    runs no backward; `check_lm_args`: not ported yet)."""
     parser.add_argument("--grad-reduction", default="monolithic",
                         choices=("monolithic", "bucketed", "overlapped"),
-                        help="TRAINING flag; rejected here")
+                        help="gradient-reduction flag; refused")
     parser.add_argument("--bucket-mb", default=None, type=float,
-                        help="TRAINING flag; rejected here")
+                        help="gradient-reduction flag; refused")
     parser.add_argument("--dcn-slices", default=1, type=int,
-                        help="TRAINING flag; rejected here")
+                        help="gradient-reduction flag; refused")
     parser.add_argument("--overlap-stages", default=None, type=int,
-                        help="TRAINING flag; rejected here")
+                        help="gradient-reduction flag; refused")
     parser.add_argument("--dcn-compression", default="none",
                         choices=("none", "bf16", "int8"),
-                        help="TRAINING flag; rejected here")
+                        help="gradient-reduction flag; refused")
 
 
 def add_metrics_out_flag(parser: argparse.ArgumentParser) -> None:
@@ -151,6 +152,108 @@ def check_serving_args(args) -> None:
         )
 
 
+def build_optimizer(args):
+    """--optimizer flag -> optimizer instance. --wd is the decay strength
+    of both; --momentum applies to sgd only."""
+    from distributed_model_parallel_tpu_torch.training.optim import (
+        SGD,
+        AdamW,
+    )
+
+    if args.optimizer == "adamw":
+        return AdamW(weight_decay=args.weight_decay)
+    return SGD(momentum=args.momentum, weight_decay=args.weight_decay)
+
+
+def compute_dtype_from_flag(name: str):
+    """--dtype flag value -> engine compute_dtype (None = pure f32)."""
+    import torch
+
+    return {"float32": None, "bfloat16": torch.bfloat16}[name]
+
+
+def add_checkpoint_flags(parser: argparse.ArgumentParser) -> None:
+    """The training CLIs' checkpoint flags, carried so a reference launch
+    line is refused with an explanation (`check_lm_args`)."""
+    parser.add_argument("--checkpoint-dir", default="./checkpoint",
+                        help="not ported yet (checkpointing slice)")
+    parser.add_argument("--checkpoint-format", default="legacy",
+                        choices=("legacy", "sharded"),
+                        help="not ported yet (checkpointing slice)")
+    parser.add_argument("--async-save", action="store_true",
+                        help="not ported yet (checkpointing slice)")
+
+
+def add_auto_tune_flags(parser: argparse.ArgumentParser) -> None:
+    """The tuner's flags, carried so they are refused by name."""
+    parser.add_argument("--auto-tune", default=None, metavar="PLAN|search",
+                        help="not ported yet (auto-tuning slice)")
+    parser.add_argument("--auto-tune-out", default=None, metavar="PATH",
+                        help="not ported yet (auto-tuning slice)")
+    parser.add_argument("--auto-tune-calibration", default=None,
+                        metavar="JSON",
+                        help="not ported yet (auto-tuning slice)")
+
+
+# Later port slices named by `check_lm_args`.
+LM_SLICES = {
+    "plan": "the composed-parallel-plan slice",
+    "tune": "the auto-tuning slice",
+    "pipeline": "the pipeline slice",
+    "seq": "the sequence-parallel slice",
+    "moe": "the expert-parallel slice",
+    "cm": "the collective-matmul slice",
+    "reducer": "the gradient-reduction slice",
+    "remat": "the activation-rematerialization slice",
+    "checkpoint": "the checkpointing slice",
+    "multistep": "the multi-step dispatch slice",
+    "profile": "the profiler-capture slice",
+}
+
+
+def check_lm_args(args) -> None:
+    """Startup-time validation of the LM CLI surface: every flag whose
+    feature belongs to a later port slice is refused, naming the slice,
+    before any engine or corpus is built."""
+    s = LM_SLICES
+    refusals = (
+        ("--plan", args.plan, s["plan"]),
+        ("--auto-tune / --auto-tune-out / --auto-tune-calibration",
+         args.auto_tune or args.auto_tune_out or args.auto_tune_calibration,
+         s["tune"]),
+        ("--pipeline-stages > 1", args.pipeline_stages != 1, s["pipeline"]),
+        ("--microbatches / --pipeline-schedule / --virtual-stages",
+         args.microbatches != 1 or args.pipeline_schedule != "gpipe"
+         or args.virtual_stages != 1, s["pipeline"]),
+        ("--seq-shards > 1", args.seq_shards != 1, s["seq"]),
+        ("--moe-experts > 0", args.moe_experts != 0, s["moe"]),
+        ("--moe-every / --moe-dispatch / --moe-overlap / --expert-shards",
+         args.moe_every != 2 or args.moe_dispatch != "gspmd"
+         or args.moe_overlap or args.expert_shards != 1, s["moe"]),
+        ("--collective-matmul", args.collective_matmul, s["cm"]),
+        ("--grad-reduction / --bucket-mb / --dcn-slices / "
+         "--overlap-stages / --dcn-compression",
+         args.grad_reduction != "monolithic" or args.bucket_mb is not None
+         or args.dcn_slices != 1 or args.overlap_stages is not None
+         or args.dcn_compression != "none", s["reducer"]),
+        ("--remat", args.remat, s["remat"]),
+        ("--resume / --checkpoint-dir / --checkpoint-format / --async-save",
+         args.resume or args.checkpoint_dir != "./checkpoint"
+         or args.checkpoint_format != "legacy" or args.async_save,
+         s["checkpoint"]),
+        ("--steps-per-dispatch > 1", args.steps_per_dispatch != 1,
+         s["multistep"]),
+        ("--profile-dir", args.profile_dir, s["profile"]),
+    )
+    for flag, bad, later in refusals:
+        if bad:
+            raise SystemExit(
+                f"{flag} is not ported to the PyTorch package yet: it "
+                f"belongs to {later} (ROADMAP.md) — drop the flag, or run "
+                "the JAX package's cli/lm.py"
+            )
+
+
 def setup_metrics_out(path) -> None:
     """Validate + enable for `--metrics-out`, before anything runs."""
     if not path:
@@ -177,9 +280,15 @@ def export_metrics_out(path) -> None:
 
 
 __all__ = [
+    "LM_SLICES",
+    "add_auto_tune_flags",
+    "add_checkpoint_flags",
     "add_grad_reduction_flags",
     "add_metrics_out_flag",
+    "build_optimizer",
+    "check_lm_args",
     "check_serving_args",
+    "compute_dtype_from_flag",
     "export_metrics_out",
     "setup_metrics_out",
 ]

@@ -20,6 +20,7 @@ import dataclasses
 from functools import partial
 from typing import Optional
 
+import numpy as np
 import torch
 
 from distributed_model_parallel_tpu_torch.models import layers as L
@@ -29,6 +30,9 @@ from distributed_model_parallel_tpu_torch.models.transformer import (
 )
 from distributed_model_parallel_tpu_torch.ops.attention import (
     dot_product_attention,
+)
+from distributed_model_parallel_tpu_torch.training.metrics import (
+    cross_entropy,
 )
 
 # The block's LayerNorm epsilon (the reference passes eps=1e-5).
@@ -97,14 +101,18 @@ def init_params(cfg: GPTConfig, seed: int = 0, device="cpu") -> dict:
     }
 
 
-def stem_apply(params, ids: torch.Tensor, cfg: GPTConfig, ctx: L.Context):
-    """Token + position embeddings (dropout identity in eval). Returns
-    (hidden, mask)."""
+def stem_apply(params, ids: torch.Tensor, cfg: GPTConfig, ctx: L.Context,
+               *, positions: Optional[torch.Tensor] = None):
+    """Token + position embeddings, then dropout. `positions` (T, dim)
+    replaces the table's first T rows (a sequence shard passes its own
+    slice). Returns (hidden, mask)."""
     mask = (
         torch.ones(ids.shape, dtype=torch.bool, device=ids.device)
         if cfg.pad_token_id is None else ids != cfg.pad_token_id
     )
-    h = params["word"][ids] + params["position"][: ids.shape[1]][None]
+    pos = (params["position"][: ids.shape[1]] if positions is None
+           else positions)
+    h = params["word"][ids] + pos[None]
     if ctx.dtype is not None:
         h = h.to(ctx.dtype)
     return L.dropout(h, cfg.dropout_rate, ctx), mask
@@ -146,6 +154,39 @@ def gpt_lm(params, ids: torch.Tensor, cfg: GPTConfig,
     return head_apply(params["head"], h)
 
 
+def lm_targets(ids, pad_token_id: Optional[int] = None) -> np.ndarray:
+    """Per-position next-token targets on the host: targets[t] =
+    ids[t+1], the last position and pad targets -1 (the label
+    `cross_entropy` excludes). int32 before the -1 fill, so an unsigned
+    ids dtype cannot wrap the sentinel."""
+    ids = np.asarray(ids).astype(np.int32)
+    targets = np.concatenate(
+        [ids[:, 1:], np.full((ids.shape[0], 1), -1, np.int32)], axis=1
+    )
+    if pad_token_id is not None:
+        targets = np.where(targets == pad_token_id, -1, targets)
+    return targets.astype(np.int32)
+
+
+def lm_loss(logits: torch.Tensor, ids: torch.Tensor,
+            pad_token_id: Optional[int] = None) -> torch.Tensor:
+    """Next-token cross-entropy: position t predicts ids[t+1]; pad
+    targets are excluded through the -1 label."""
+    targets = ids[:, 1:]
+    if pad_token_id is not None:
+        targets = torch.where(targets == pad_token_id,
+                              torch.full_like(targets, -1), targets)
+    logits = logits[:, :-1, :]
+    b, t, v = logits.shape
+    return cross_entropy(logits.reshape(b * t, v), targets.reshape(b * t))
+
+
+def lm_loss_fn(cfg: GPTConfig):
+    """`lm_loss` bound to the config's pad_token_id, so loss masking
+    follows the attention mask."""
+    return partial(lm_loss, pad_token_id=cfg.pad_token_id)
+
+
 __all__ = [
     "EPS",
     "GPTConfig",
@@ -153,5 +194,8 @@ __all__ = [
     "gpt_lm",
     "head_apply",
     "init_params",
+    "lm_loss",
+    "lm_loss_fn",
+    "lm_targets",
     "stem_apply",
 ]

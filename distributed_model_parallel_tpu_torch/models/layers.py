@@ -27,6 +27,12 @@ class Context:
     # Projection policy (`ops/quant_matmul.QuantMatmul`) consumed by
     # `project`; None => every projection is a plain dot.
     matmul: Optional[Any] = None
+    # Random bits for train-mode dropout: a torch.Generator on the
+    # activations' device, seeded per step by the engine (the reference
+    # folds the step into a PRNG key instead). Each dropout call draws
+    # the next bits from it, so sibling layers get independent masks.
+    # None => dropout is the identity, as with the reference's rng=None.
+    generator: Optional[torch.Generator] = None
 
 
 def layernorm(params, x: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
@@ -45,15 +51,16 @@ def gelu(x: torch.Tensor) -> torch.Tensor:
 
 
 def dropout(x: torch.Tensor, rate: float, ctx: Context) -> torch.Tensor:
-    """Identity in eval, and for rate 0 — the only uses on this path
-    (serving and parity runs set dropout 0). Training-time dropout
-    belongs to the LM-training slice."""
-    if ctx.train and rate > 0.0:
-        raise NotImplementedError(
-            "train-mode dropout is not ported yet (LM-training slice); "
-            "use rate 0 or Context(train=False)"
-        )
-    return x
+    """Inverted dropout: in training, zero each element with probability
+    `rate` and scale the kept ones by 1/(1 - rate). The identity in eval,
+    for rate 0, and without a generator. The bits come from
+    `ctx.generator` and cannot match jax.random's; parity runs use
+    rate 0."""
+    if not ctx.train or rate == 0.0 or ctx.generator is None:
+        return x
+    keep = torch.rand(x.shape, generator=ctx.generator,
+                      device=x.device) < (1.0 - rate)
+    return torch.where(keep, x / (1.0 - rate), torch.zeros_like(x))
 
 
 def project(h, w, b, ctx: Context):

@@ -5,7 +5,8 @@ interface and loaded with ctypes (no PyTorch headers, so a build takes
 seconds). The library lands in `<package>/build/`, named by a hash of
 the source and the flags, so an edited source rebuilds and an unchanged
 one loads the library already there. Nothing is built at import time:
-the first wrapper call that needs a kernel builds it.
+the first wrapper call that needs a kernel builds it, or `build` builds
+several sources at once, one nvcc process each, started together.
 """
 
 from __future__ import annotations
@@ -66,38 +67,58 @@ def library_path(source: str) -> Path:
     return BUILD / f"lib{src.stem}-{digest}.so"
 
 
-def _build(src: Path, lib: Path) -> str:
+def _start(source: str):
+    """Start nvcc for `csrc/<source>` into a temporary file; returns
+    (process, command, temporary path, library path)."""
     BUILD.mkdir(parents=True, exist_ok=True)
+    lib = library_path(source)
     tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
-    cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / source)]
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+    return proc, cmd, tmp, lib
+
+
+def _finish(source: str, started, t0: float) -> None:
+    proc, cmd, tmp, lib = started
+    out, _ = proc.communicate()
     if proc.returncode != 0:
         raise RuntimeError(
-            f"nvcc failed ({proc.returncode}) building {src.name}:\n"
-            f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}"
+            f"nvcc failed ({proc.returncode}) building {source}:\n"
+            f"{' '.join(cmd)}\n{out}"
         )
     os.replace(tmp, lib)  # atomic: a concurrent loader sees all or none
-    return proc.stdout + proc.stderr
+    build_info[source] = (time.perf_counter() - t0, out)
+
+
+def build(sources) -> None:
+    """Build every source of `sources` whose library is not on disk yet,
+    one nvcc process each, all started together."""
+    with _lock:
+        t0 = time.perf_counter()
+        started = {s: _start(s) for s in sources
+                   if s not in _loaded and not library_path(s).exists()}
+        try:
+            for source, st in started.items():
+                _finish(source, st, t0)
+        finally:
+            for proc, *_ in started.values():
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
 
 
 def load(source: str) -> ctypes.CDLL:
     """The ctypes library for `csrc/<source>`, built on first use."""
+    build([source])
     with _lock:
         lib = _loaded.get(source)
-        if lib is not None:
-            return lib
-        path = library_path(source)
-        t0 = time.perf_counter()
-        report = ""
-        if not path.exists():
-            report = _build(CSRC / source, path)
-        build_info[source] = (
-            time.perf_counter() - t0 if report else 0.0, report
-        )
-        lib = ctypes.CDLL(str(path))
-        _loaded[source] = lib
+        if lib is None:
+            build_info.setdefault(source, (0.0, ""))
+            lib = ctypes.CDLL(str(library_path(source)))
+            _loaded[source] = lib
         return lib
 
 
-__all__ = ["BUILD", "CSRC", "NVCC_FLAGS", "build_info", "library_path",
-           "load", "nvcc"]
+__all__ = ["BUILD", "CSRC", "NVCC_FLAGS", "build", "build_info",
+           "library_path", "load", "nvcc"]

@@ -1,0 +1,401 @@
+"""Flash attention, forward and backward (port of
+`ops/pallas_attention.py`).
+
+Three kernels in `csrc/flash_attention.cu`, each with a plain torch twin
+of the same function here:
+
+  kernel wrapper   | replaces (JAX package)               | plain version
+  -----------------|--------------------------------------|-----------------------
+  `flash_fwd`      | `_fwd_kernel`/`_flash_step` (K1)     | `flash_fwd_plain`
+  `flash_bwd_dq`   | `_bwd_dq_step` (K2)                  | `flash_bwd_dq_plain`
+  `flash_bwd_dkv`  | `_bwd_dkv_step` (K3)                 | `flash_bwd_dkv_plain`
+
+A wrapper given CPU tensors computes its plain version; given CUDA
+tensors it launches its kernel (and raises if the launch fails): there
+is no fallback. Each counts its kernel launches in `<wrapper>.launches`.
+
+Contract, the reference's: (B, T, H, Dh) tensors of f32 or bf16, an
+optional (B, Tkv) key-validity mask, `causal=True` for decoders; logits
+`scale * q @ k^T` in f32, masked logits at finfo(f32).min (never -inf),
+p rounded to v's dtype before P @ V, out in q's dtype. A row with no
+valid key gets out 0 and LSE +inf, so its gradients are 0. The LSE is
+(B, H, Tq) f32. delta = rowsum(dO * O) is plain torch (`flash_delta`),
+outside the kernels, as the reference computes it outside Pallas.
+
+`flash_attention` is the `attention_fn`: it sends a pair of lengths to
+the kernels exactly when the reference's `_blocks_viable` does (both
+multiples of 8) and runs the dense `dot_product_attention`, forward and
+backward, otherwise. The two disagree on a fully masked row: the dense
+path gives the mean of V there, the kernels 0 — as in the reference.
+`flash_forward_lse` / `flash_backward` (external LSE) are the entry
+points the sequence-parallel ring builds on.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+from typing import Optional, Tuple
+
+import torch
+
+from distributed_model_parallel_tpu_torch.ops.attention import (
+    dot_product_attention,
+)
+
+_NEG = torch.finfo(torch.float32).min
+_SOURCE = "flash_attention.cu"
+DTYPES = (torch.float32, torch.bfloat16)
+# Head dims the kernels are built for, and the tiles (rows per block; 4
+# threads a row) built for each. Shared memory holds two TILE x Dh f32
+# tiles, inside the 48 KB static limit: Dh 128 fits only TILE 32.
+TILES = {16: (64,), 32: (64,), 64: (32, 64), 128: (32,)}
+# Each kernel's tile per head dim. At Dh 64 chip_smoke.py's sweep on an
+# H100 (B 8, T 1024, H 12, causal) chose 32 for the forward (1.79 vs
+# 2.57 ms f32: TILE 64 holds 64 logits a thread in registers, 168
+# registers, one block an SM) and 64 for both backward kernels (1.73 vs
+# 1.94 and 1.59 vs 1.82 ms).
+DEFAULT_TILE = {
+    "flash_fwd": {16: 64, 32: 64, 64: 32, 128: 32},
+    "flash_bwd_dq": {16: 64, 32: 64, 64: 64, 128: 32},
+    "flash_bwd_dkv": {16: 64, 32: 64, 64: 64, 128: 32},
+}
+
+
+def kernel_viable(tq: int, tk: int) -> bool:
+    """The reference's `_blocks_viable` test: its `_pick_block` finds a
+    multiple-of-8 divisor of a length exactly when the length is a
+    multiple of 8, for both the query and the key length."""
+    return tq % 8 == 0 and tk % 8 == 0 and tq > 0 and tk > 0
+
+
+# ------------------------------------------------------- plain versions
+
+
+def _logits(q, k, mask, scale: float, causal: bool) -> torch.Tensor:
+    """(B, H, Tq, Tk) f32 logits with the mask and causal predicate at
+    finfo.min; bf16 inputs widen to f32 (exact products, f32 sums)."""
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
+    if mask is not None:
+        s = s.masked_fill(~mask[:, None, None, :], _NEG)
+    if causal:
+        tq, tk = q.shape[1], k.shape[1]
+        tri = (torch.arange(tq, device=q.device)[:, None]
+               >= torch.arange(tk, device=q.device)[None, :])
+        s = s.masked_fill(~tri[None, None], _NEG)
+    return s
+
+
+def flash_fwd_plain(q, k, v, mask=None, *, scale: float, causal: bool,
+                    need_lse: bool = False):
+    """K1's function in dense torch: (out (B, Tq, H, Dh) in q's dtype,
+    LSE (B, H, Tq) f32 or None)."""
+    s = _logits(q, k, mask, scale, causal)
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.exp(s - m)
+    p = torch.where(s == _NEG, torch.zeros_like(p), p)
+    l = p.sum(dim=-1, keepdim=True)
+    denom = torch.where(l > 0, l, torch.ones_like(l))
+    o = torch.einsum("bhqk,bkhd->bqhd", p.to(v.dtype).float(), v.float())
+    out = (o / denom.transpose(1, 2)).to(q.dtype)
+    if not need_lse:
+        return out, None
+    lse = torch.where(l > 0, m + torch.log(denom),
+                      torch.full_like(l, math.inf))
+    return out, lse[..., 0]
+
+
+def flash_bwd_dq_plain(q, k, v, g, lse, delta, mask=None, *, scale: float,
+                       causal: bool):
+    """K2's function in dense torch: dq in q's dtype."""
+    s = _logits(q, k, mask, scale, causal)
+    p = torch.exp(s - lse[..., None])
+    dp = torch.einsum("bqhd,bkhd->bhqk", g.float(), v.float())
+    ds = p * (dp - delta[..., None])
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds.to(k.dtype).float(), k.float())
+    return (dq * scale).to(q.dtype)
+
+
+def flash_bwd_dkv_plain(q, k, v, g, lse, delta, mask=None, *,
+                        scale: float, causal: bool):
+    """K3's function in dense torch: (dk, dv) in k's and v's dtypes."""
+    s = _logits(q, k, mask, scale, causal)
+    p = torch.exp(s - lse[..., None])
+    dv = torch.einsum("bhqk,bqhd->bkhd", p.to(g.dtype).float(), g.float())
+    dp = torch.einsum("bqhd,bkhd->bhqk", g.float(), v.float())
+    ds = p * (dp - delta[..., None])
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds.to(q.dtype).float(), q.float())
+    return (dk * scale).to(k.dtype), dv.to(v.dtype)
+
+
+def flash_delta(g: torch.Tensor, out: torch.Tensor) -> torch.Tensor:
+    """delta = rowsum(dO * O) in f32, (B, H, Tq) contiguous."""
+    d = (g.float() * out.float()).sum(dim=-1)  # (B, Tq, H)
+    return d.transpose(1, 2).contiguous()
+
+
+# -------------------------------------------------------------- kernels
+
+
+def _library() -> ctypes.CDLL:
+    from distributed_model_parallel_tpu_torch.ops import _cuda
+
+    lib = _cuda.load(_SOURCE)
+    if not getattr(lib, "_dmp_bound", False):
+        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        tail = [i, i, i, i, i, i, i, f, i, p]  # B Tq Tk H D tile bf16 scale causal stream
+        lib.dmp_flash_fwd.argtypes = [p, p, p, p, p, p, p] + tail
+        lib.dmp_flash_bwd_dq.argtypes = [p, p, p, p, p, p, p, p, p] + tail
+        lib.dmp_flash_bwd_dkv.argtypes = [p] * 10 + tail
+        for fn in (lib.dmp_flash_fwd, lib.dmp_flash_bwd_dq,
+                   lib.dmp_flash_bwd_dkv):
+            fn.restype = ctypes.c_int
+        lib._dmp_bound = True
+    return lib
+
+
+def _check(name: str, q, k, v, g=None, mask=None, stats=()) -> None:
+    """What the kernels take: (B, T, H, Dh) operands of one dtype (f32 or
+    bf16) on one CUDA device, Dh contiguous; a (B, Tk) bool mask; (B, H,
+    Tq) f32 stats."""
+    ops = [q, k, v] + ([g] if g is not None else [])
+    if any(t.dim() != 4 for t in ops):
+        raise ValueError(f"{name}: q/k/v/dO must be (B, T, H, Dh)")
+    b, tq, h, dh = q.shape
+    if k.shape != v.shape or k.shape[0] != b or k.shape[2:] != (h, dh) \
+            or (g is not None and g.shape != q.shape):
+        raise ValueError(
+            f"{name}: shapes disagree: q {tuple(q.shape)}, k "
+            f"{tuple(k.shape)}, v {tuple(v.shape)}"
+            + ("" if g is None else f", dO {tuple(g.shape)}")
+        )
+    if q.dtype not in DTYPES or any(t.dtype != q.dtype for t in ops):
+        raise ValueError(
+            f"{name}: q/k/v/dO must share one dtype of {DTYPES}, got "
+            f"{[t.dtype for t in ops]}"
+        )
+    if dh not in TILES:
+        raise ValueError(
+            f"{name}: the kernels are built for head dims {sorted(TILES)}, "
+            f"got {dh}"
+        )
+    others = list(ops) + ([mask] if mask is not None else []) + list(stats)
+    if any(t.device != q.device for t in others):
+        raise ValueError(f"{name}: operands on different devices")
+    if mask is not None and (mask.dtype != torch.bool
+                             or mask.shape != (b, k.shape[1])):
+        raise ValueError(
+            f"{name}: mask must be a (B, Tkv) bool key mask, got "
+            f"{tuple(mask.shape)} {mask.dtype}"
+        )
+    for t in stats:
+        if t.dtype != torch.float32 or t.shape != (b, h, tq) \
+                or not t.is_contiguous():
+            raise ValueError(
+                f"{name}: lse/delta must be contiguous (B, H, Tq) f32, got "
+                f"{tuple(t.shape)} {t.dtype}"
+            )
+
+
+def _dh_contiguous(t: torch.Tensor) -> torch.Tensor:
+    return t if t.stride(-1) == 1 else t.contiguous()
+
+
+def _strides(*ts) -> ctypes.Array:
+    flat = [s for t in ts for s in (t.stride(0), t.stride(1), t.stride(2))]
+    return (ctypes.c_longlong * len(flat))(*flat)
+
+
+def _tile(name: str, dh: int, tile: Optional[int]) -> int:
+    tile = DEFAULT_TILE[name][dh] if tile is None else tile
+    if tile not in TILES[dh]:
+        raise ValueError(f"tile {tile} is not built for Dh {dh} "
+                         f"({TILES[dh]})")
+    return tile
+
+
+def _raise_on(rc: int, name: str, q, k) -> None:
+    if rc != 0:
+        raise RuntimeError(
+            f"{name} kernel launch failed: cudaError {rc} (q "
+            f"{tuple(q.shape)}, k {tuple(k.shape)}, {q.dtype})"
+        )
+
+
+def _on_cuda(name: str, t: torch.Tensor) -> bool:
+    if t.device.type == "cpu":
+        return False
+    if t.device.type != "cuda":
+        raise ValueError(f"{name}: no kernel for device {t.device}")
+    return True
+
+
+def flash_fwd(q, k, v, mask=None, *, scale: float, causal: bool = False,
+              need_lse: bool = False, tile: Optional[int] = None):
+    """K1: (out, LSE (B, H, Tq) f32 or None unless `need_lse`)."""
+    if not _on_cuda("flash_fwd", q):
+        return flash_fwd_plain(q, k, v, mask, scale=scale, causal=causal,
+                               need_lse=need_lse)
+    _check("flash_fwd", q, k, v, mask=mask)
+    q, k, v = (_dh_contiguous(t) for t in (q, k, v))
+    b, tq, h, dh = q.shape
+    tile = _tile("flash_fwd", dh, tile)
+    lib = _library()
+    with torch.cuda.device(q.device):
+        out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+        lse = (torch.empty((b, h, tq), dtype=torch.float32, device=q.device)
+               if need_lse else None)
+        mask_c = mask.contiguous() if mask is not None else None
+        rc = lib.dmp_flash_fwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), _strides(q, k, v),
+            mask_c.data_ptr() if mask_c is not None else None,
+            out.data_ptr(), lse.data_ptr() if lse is not None else None,
+            b, tq, k.shape[1], h, dh, tile, int(q.dtype == torch.bfloat16),
+            scale, int(causal), torch.cuda.current_stream().cuda_stream,
+        )
+    _raise_on(rc, "flash_fwd", q, k)
+    flash_fwd.launches += 1
+    return out, lse
+
+
+def flash_bwd_dq(q, k, v, g, lse, delta, mask=None, *, scale: float,
+                 causal: bool = False, tile: Optional[int] = None):
+    """K2: dq (B, Tq, H, Dh) in q's dtype, from the saved LSE."""
+    if not _on_cuda("flash_bwd_dq", q):
+        return flash_bwd_dq_plain(q, k, v, g, lse, delta, mask,
+                                  scale=scale, causal=causal)
+    _check("flash_bwd_dq", q, k, v, g, mask, (lse, delta))
+    q, k, v, g = (_dh_contiguous(t) for t in (q, k, v, g))
+    b, tq, h, dh = q.shape
+    tile = _tile("flash_bwd_dq", dh, tile)
+    lib = _library()
+    with torch.cuda.device(q.device):
+        dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+        mask_c = mask.contiguous() if mask is not None else None
+        rc = lib.dmp_flash_bwd_dq(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
+            _strides(q, k, v, g),
+            mask_c.data_ptr() if mask_c is not None else None,
+            lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+            b, tq, k.shape[1], h, dh, tile, int(q.dtype == torch.bfloat16),
+            scale, int(causal), torch.cuda.current_stream().cuda_stream,
+        )
+    _raise_on(rc, "flash_bwd_dq", q, k)
+    flash_bwd_dq.launches += 1
+    return dq
+
+
+def flash_bwd_dkv(q, k, v, g, lse, delta, mask=None, *, scale: float,
+                  causal: bool = False, tile: Optional[int] = None):
+    """K3: (dk, dv) (B, Tk, H, Dh) in k's and v's dtypes."""
+    if not _on_cuda("flash_bwd_dkv", q):
+        return flash_bwd_dkv_plain(q, k, v, g, lse, delta, mask,
+                                   scale=scale, causal=causal)
+    _check("flash_bwd_dkv", q, k, v, g, mask, (lse, delta))
+    q, k, v, g = (_dh_contiguous(t) for t in (q, k, v, g))
+    b, tq, h, dh = q.shape
+    tile = _tile("flash_bwd_dkv", dh, tile)
+    lib = _library()
+    with torch.cuda.device(q.device):
+        dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
+        dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)
+        mask_c = mask.contiguous() if mask is not None else None
+        rc = lib.dmp_flash_bwd_dkv(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
+            _strides(q, k, v, g),
+            mask_c.data_ptr() if mask_c is not None else None,
+            lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            b, tq, k.shape[1], h, dh, tile, int(q.dtype == torch.bfloat16),
+            scale, int(causal), torch.cuda.current_stream().cuda_stream,
+        )
+    _raise_on(rc, "flash_bwd_dkv", q, k)
+    flash_bwd_dkv.launches += 1
+    return dk, dv
+
+
+flash_fwd.launches = 0
+flash_bwd_dq.launches = 0
+flash_bwd_dkv.launches = 0
+
+
+# ------------------------------------------------ entry points, autograd
+
+
+def flash_forward_lse(q, k, v, mask=None, *, scale: float,
+                      causal: bool = False) -> Tuple[torch.Tensor,
+                                                     torch.Tensor]:
+    """Forward that also returns the per-row LSE (B, H, Tq) f32 (+inf for
+    rows with no valid key): the ring's per-hop forward."""
+    return flash_fwd(q, k, v, mask, scale=scale, causal=causal,
+                     need_lse=True)
+
+
+def flash_backward(q, k, v, mask, out, lse, g, *, scale: float,
+                   causal: bool = False):
+    """(dq, dk, dv) under an external LSE (B, H, Tq) (+inf = empty row):
+    delta in torch, then K2, then K3."""
+    g = g.to(q.dtype)
+    delta = flash_delta(g, out)
+    dq = flash_bwd_dq(q, k, v, g, lse, delta, mask, scale=scale,
+                      causal=causal)
+    dk, dv = flash_bwd_dkv(q, k, v, g, lse, delta, mask, scale=scale,
+                           causal=causal)
+    return dq, dk, dv
+
+
+class FlashAttention(torch.autograd.Function):
+    """The reference's `_flash` custom_vjp: the forward saves (q, k, v,
+    mask, out, lse), computing the LSE only when a gradient is needed;
+    the backward runs K2 then K3 and returns dq, dk, dv in the input
+    dtypes."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, mask, scale: float, causal: bool):
+        need_lse = any(ctx.needs_input_grad[:3])
+        out, lse = flash_fwd(q, k, v, mask, scale=scale, causal=causal,
+                             need_lse=need_lse)
+        ctx.save_for_backward(q, k, v, mask, out, lse)
+        ctx.scale, ctx.causal = scale, causal
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, mask, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_backward(q, k, v, mask, out, lse, g,
+                                    scale=ctx.scale, causal=ctx.causal)
+        return dq, dk, dv, None, None, None
+
+
+def flash_attention(q, k, v, mask=None, *, scale: Optional[float] = None,
+                    causal: bool = False) -> torch.Tensor:
+    """Drop-in `attention_fn` on the flash kernels. `scale` defaults to
+    1/sqrt(Dh) in Python double, as the reference's does. Only (B, Tkv)
+    key masks are taken."""
+    scale = scale if scale is not None else 1.0 / math.sqrt(q.shape[-1])
+    if mask is not None and mask.dim() != 2:
+        raise NotImplementedError(
+            "flash_attention supports (B, Tkv) key-validity masks; use "
+            "dot_product_attention for general logit masks"
+        )
+    if not kernel_viable(q.shape[1], k.shape[1]):
+        return dot_product_attention(q, k, v, mask, scale=scale,
+                                     causal=causal)
+    return FlashAttention.apply(q, k, v, mask, scale, causal)
+
+
+__all__ = [
+    "DEFAULT_TILE",
+    "FlashAttention",
+    "TILES",
+    "flash_attention",
+    "flash_backward",
+    "flash_bwd_dkv",
+    "flash_bwd_dkv_plain",
+    "flash_bwd_dq",
+    "flash_bwd_dq_plain",
+    "flash_delta",
+    "flash_forward_lse",
+    "flash_fwd",
+    "flash_fwd_plain",
+    "kernel_viable",
+]

@@ -52,3 +52,105 @@ def test_int8_kernel_refuses_what_it_cannot_take(cuda):
         qm.int8_matmul(x, wq_t, ws)
     with pytest.raises(ValueError, match="different devices"):
         qm.int8_matmul(x.cpu(), wq_t, ws)
+
+
+# ------------------------------------------------ flash attention K1-K3
+
+from distributed_model_parallel_tpu_torch.ops import flash_attention as fa  # noqa: E402
+
+# Kernel vs plain version on the card. f32: both sum f32 products, in
+# another order, over up to T terms: rtol 1e-4, atol 2e-5. bf16: out,
+# dq, dk and dv are rounded to bf16 (one bf16 ulp is 2**-8 relative),
+# and p or dS values an f32 ulp apart can round to neighbouring bf16
+# values before their products: rtol/atol 2e-2.
+FLASH_TOL = {torch.float32: dict(rtol=1e-4, atol=2e-5),
+             torch.bfloat16: dict(rtol=2e-2, atol=2e-2)}
+FLASH_CASES = [  # (B, T, H, Dh, causal, mask kind)
+    (2, 128, 3, 64, True, "all"),     # the path's case, cut down
+    (2, 40, 2, 64, True, "random"),   # ragged tile: 40 % 64 != 0
+    (2, 64, 2, 32, False, "row"),     # batch row 1 has no valid key
+    (1, 96, 2, 128, True, None),
+    (1, 72, 2, 16, False, "random"),
+]
+
+
+def _flash_inputs(cuda, case, dtype):
+    b, t, h, dh, causal, kind = case
+    g = torch.Generator(device=cuda).manual_seed(t * 31 + dh)
+    q, k, v, do = (torch.randn((b, t, h, dh), generator=g, device=cuda)
+                   .to(dtype) for _ in range(4))
+    mask = None
+    if kind is not None:
+        mask = torch.ones((b, t), dtype=torch.bool, device=cuda)
+        if kind == "random":
+            mask = torch.rand((b, t), generator=g, device=cuda) > 0.2
+            mask[:, 0] = True
+        elif kind == "row":
+            mask[1] = False
+    return q, k, v, do, mask, causal, 1.0 / dh ** 0.5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", FLASH_CASES)
+def test_flash_kernels_match_plain(cuda, case, dtype):
+    q, k, v, do, mask, causal, scale = _flash_inputs(cuda, case, dtype)
+    kw = dict(scale=scale, causal=causal)
+    tol = FLASH_TOL[dtype]
+    n0 = (fa.flash_fwd.launches, fa.flash_bwd_dq.launches,
+          fa.flash_bwd_dkv.launches)
+    out, lse = fa.flash_fwd(q, k, v, mask, need_lse=True, **kw)
+    out_nolse, none = fa.flash_fwd(q, k, v, mask, **kw)
+    ref_out, ref_lse = fa.flash_fwd_plain(q, k, v, mask, need_lse=True, **kw)
+    delta = fa.flash_delta(do, ref_out)
+    dq = fa.flash_bwd_dq(q, k, v, do, ref_lse, delta, mask, **kw)
+    dk, dv = fa.flash_bwd_dkv(q, k, v, do, ref_lse, delta, mask, **kw)
+    torch.cuda.synchronize()
+    assert (fa.flash_fwd.launches, fa.flash_bwd_dq.launches,
+            fa.flash_bwd_dkv.launches) == (n0[0] + 2, n0[1] + 1, n0[2] + 1)
+    assert none is None and torch.equal(out, out_nolse)
+    assert out.dtype == dq.dtype == dk.dtype == dv.dtype == dtype
+    torch.testing.assert_close(out, ref_out, **tol)
+    torch.testing.assert_close(lse, ref_lse, rtol=1e-5, atol=1e-5)
+    ref_dq = fa.flash_bwd_dq_plain(q, k, v, do, ref_lse, delta, mask, **kw)
+    ref_dk, ref_dv = fa.flash_bwd_dkv_plain(q, k, v, do, ref_lse, delta,
+                                            mask, **kw)
+    for got, want in ((dq, ref_dq), (dk, ref_dk), (dv, ref_dv)):
+        torch.testing.assert_close(got, want, **tol)
+    if case[5] == "row":  # no valid key: out 0, LSE +inf, zero grads
+        assert bool((out[1] == 0).all()) and bool(torch.isinf(lse[1]).all())
+        assert bool((dq[1] == 0).all())
+
+
+@pytest.mark.cuda
+def test_flash_attention_autograd_on_the_card(cuda):
+    """FlashAttention through autograd on strided q/k/v views (the
+    model's split of a fused qkv projection), against autograd of the
+    dense reference."""
+    g = torch.Generator(device=cuda).manual_seed(5)
+    qkv = torch.randn((2, 64, 3 * 4 * 32), generator=g, device=cuda)
+    qkv.requires_grad_(True)
+    q, k, v = (x.reshape(2, 64, 4, 32) for x in qkv.split(128, dim=-1))
+    out = fa.flash_attention(q, k, v, causal=True)
+    out.square().sum().backward()
+    got = qkv.grad.clone()
+    qkv.grad = None
+    from distributed_model_parallel_tpu_torch.ops.attention import (
+        dot_product_attention,
+    )
+    ref = dot_product_attention(q, k, v, causal=True, scale=32 ** -0.5)
+    ref.square().sum().backward()
+    torch.testing.assert_close(out, ref, rtol=1e-4, atol=2e-5)
+    torch.testing.assert_close(got, qkv.grad, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_flash_kernels_refuse_what_they_cannot_take(cuda):
+    q = torch.randn((1, 16, 2, 24), device=cuda)  # Dh 24 is not built
+    with pytest.raises(ValueError, match="head dims"):
+        fa.flash_fwd(q, q, q, scale=0.2)
+    q = torch.randn((1, 16, 2, 32), device=cuda)
+    with pytest.raises(ValueError, match="one dtype"):
+        fa.flash_fwd(q, q.half(), q, scale=0.2)
+    with pytest.raises(ValueError, match="different devices"):
+        fa.flash_fwd(q, q.cpu(), q, scale=0.2)
