@@ -12,13 +12,16 @@ Phases; any failure exits non-zero (nothing is caught and passed over):
    f32 product on the card is a full-precision one.
 2. Build: compile `csrc/int8_matmul.cu` and `csrc/flash_attention.cu`
    with nvcc for sm_90a, one process each, started together, and print
-   the build times and each kernel's ptxas registers and spills.
+   the build times and each kernel's ptxas registers and spills; the
+   flash kernels at their default tiles must not spill.
 3. Kernel vs plain version on the card, at the four GPT-2-small decode
    projection shapes with M = 8 slots, plus M = 3 and M = 256: identical
    int8 activation codes and scales, outputs within rtol/atol 1e-6;
    per shape the kernel's, the plain version's and `torch.matmul`'s
-   (f32, same (M,K)x(K,N); a yardstick the port never calls) times and
-   the bound (bytes over 3.35 TB/s vs int8 ops over 1,979 TOP/s).
+   (f32, same (M,K)x(K,N); an unquantized product, not the kernel's
+   function, and a yardstick the port never calls) times, CUDA events
+   and profiler device time, and the bound (bytes over 3.35 TB/s vs
+   int8 ops over 1,979 TOP/s).
 4. Serving: the port's serve CLI (`cli/serve.py` main) at the full
    width of `GPTConfig()` (vocab 50257, dim 768, 12 layers, 12 heads,
    ffn 3072, 1024 positions; random weights from seed 0): 8 slots,
@@ -38,9 +41,10 @@ Phases; any failure exits non-zero (nothing is caught and passed over):
    path's shape (B 8, T 1024, H 12, Dh 64, causal, all-true key mask),
    at T 1000 (a ragged tile) and with a batch row whose keys are all
    masked; at the path shape each is timed (CUDA events and profiler),
-   beside its plain version, SDPA (forward; forward + backward; a
+   beside its plain version, SDPA (forward; forward + backward, and the
+   backward's device time, which computes dq, dk and dv together; a
    yardstick the port never calls), its bound (f32 67 / bf16 989
-   TFLOP/s vs 3.35 TB/s) and a tile sweep.
+   TFLOP/s vs 3.35 TB/s) and a sweep over every tile `TILES` lists.
 5. LM training: the port's LM CLI (`cli/lm.py` main) at GPT-2-small
    width (vocab 50257, dim 768, 12 layers, 12 heads, ffn 3072, T 1024,
    batch 8; random weights from seed 0), 4 train steps and 1 validation
@@ -144,24 +148,27 @@ def time_ms(fn, arg_sets, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_ms(fn, arg_sets, iters: int, key: str = "int8_matmul_kernel"):
+def device_ms(fn, arg_sets, iters: int, key="int8_matmul_kernel"):
     """Mean device time per call of the device kernels whose name holds
-    `key`, from torch.profiler's CUDA activity (None when the profiler
-    records none): the part of `time_ms` that is not host launch
-    overhead."""
+    `key` (of every kernel `fn` launches when `key` is None), from
+    torch.profiler's CUDA activity: the part of `time_ms` that is not
+    host launch overhead. A profile that records no such kernel (seen
+    now and then on the card) is taken again, twice at most; None if
+    none records one."""
     from torch.profiler import ProfilerActivity, profile
 
     fn(*arg_sets[0])
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for i in range(iters):
-            fn(*arg_sets[i % len(arg_sets)])
-        torch.cuda.synchronize()
-    total_us = sum(
-        getattr(e, "device_time_total", 0.0)
-        for e in prof.key_averages() if key in e.key
-    )
-    return total_us / iters / 1e3 if total_us else None
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for i in range(iters):
+                fn(*arg_sets[i % len(arg_sets)])
+            torch.cuda.synchronize()
+        total_us = sum(t for t, _, name in device_kernels(prof)
+                       if key is None or key in name)
+        if total_us:
+            return total_us / iters / 1e3
+    return None
 
 
 def copies_for(nbytes: int) -> int:
@@ -192,10 +199,12 @@ def check_shape(qm, m, k, n, seed):
     kernel_device_ms = device_ms(qm.int8_matmul, kcopies, 60)
     plain_ms = time_ms(qm.int8_matmul_plain, kcopies, 30)
     library_ms = time_ms(torch.matmul, fcopies, 300)
+    library_device_ms = device_ms(torch.matmul, fcopies, 60, None)
     bound_ms, bound_by, nbytes, ops = bound(m, k, n)
     return {"M": m, "K": k, "N": n, "kernel_ms": kernel_ms,
             "kernel_device_ms": kernel_device_ms,
             "plain_ms": plain_ms, "library_ms": library_ms,
+            "library_device_ms": library_device_ms,
             "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes,
             "ops": ops, "max_abs_err": err}
 
@@ -492,6 +501,17 @@ def small_model_matches_cpu(engine_cls, cfg_cls, init_params):
 
 F32_OPS_PER_S = 67e12    # H100 SXM f32 outside the tensor cores
 BF16_OPS_PER_S = 989e12  # H100 SXM dense bf16 tensor-core peak
+# How each flash kernel is built (the kernels line's "design").
+FLASH_DESIGN = {
+    "flash_fwd": "bf16: mma.sync m16n8k16 (q fragments resident, p fed "
+                 "back in registers); f32: FFMA on 4 x keys/8 register "
+                 "tiles; cp.async 2-stage K/V ring",
+    "flash_bwd_dq": "bf16: mma.sync m16n8k16 (q, dO fragments resident, "
+                    "dS fed back in registers); f32: FFMA on 4 x keys/8 "
+                    "register tiles; cp.async 2-stage K/V ring",
+    "flash_bwd_dkv": "scalar f32 FMA, 4 threads a row, synchronous "
+                     "shared-memory tiles",
+}
 FLASH_KERNELS = (  # wrapper, device kernel name, TPU kernel it replaces
     ("flash_fwd", "flash_fwd_kernel",
      "distributed_model_parallel_tpu/ops/pallas_attention.py:260"),
@@ -631,8 +651,9 @@ def flash_case(fa, case, dtype):
 def flash_timings(fa, dtype, tensors):
     """At the path shape: per kernel the CUDA-event time per launch
     (host launch included), its device time (profiler), the plain
-    version's time and the bound; SDPA (forward; forward + backward) as
-    the library yardstick the port never calls; the Dh-64 tile sweep."""
+    version's time and the bound; SDPA (forward; forward + backward; the
+    backward's device time) as the library yardstick the port never
+    calls; the sweep over every tile TILES lists at Dh 64."""
     import torch.nn.functional as F
 
     q, k, v, do, mask, lse, delta, kw = tensors
@@ -662,8 +683,9 @@ def flash_timings(fa, dtype, tensors):
         return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
 
     def sdpa_fwd_bwd():
-        F.scaled_dot_product_attention(qg, kg, vg, is_causal=True).backward(
-            dot)
+        torch.autograd.grad(
+            F.scaled_dot_product_attention(qg, kg, vg, is_causal=True),
+            (qg, kg, vg), dot)
 
     def flash_fwd_bwd():
         fa.flash_attention(fq, fk, fv, mask, causal=True).backward(do)
@@ -672,18 +694,26 @@ def flash_timings(fa, dtype, tensors):
     for name, dev_key, _ in FLASH_KERNELS:
         bound_ms, bound_by, nbytes, ops = flash_bound(name, b, t, h, dh,
                                                       dtype, pairs)
-        sweep = {tile: time_ms(lambda: calls[name](tile=tile), [()], 10)
-                 for tile in fa.TILES[dh]}
+        sweep = {tile_key(tile): device_ms(
+            lambda: calls[name](tile=tile), [()], 10, dev_key)
+            for tile in fa.TILES[name][dh]}
         rows[name] = {
             "ms": time_ms(calls[name], [()], 20),
             "device_ms": device_ms(calls[name], [()], 10, dev_key),
             "plain_ms": time_ms(plains[name], [()], 3),
             "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes,
             "flops": ops, "visible_pairs": pairs,
-            "tile": fa.DEFAULT_TILE[name][dh], "tile_sweep_ms": sweep,
+            "tile": tile_key(fa.DEFAULT_TILE[name][dtype][dh]),
+            "tile_sweep_device_ms": sweep,
         }
+    fwd_dev = device_ms(sdpa_fwd, [()], 10, None)
+    both_dev = device_ms(sdpa_fwd_bwd, [()], 10, None)
     rows["flash_fwd"]["library_ms"] = time_ms(sdpa_fwd, [()], 20)
+    rows["flash_fwd"]["library_device_ms"] = fwd_dev
     yard = {"sdpa_fwd_bwd_ms": time_ms(sdpa_fwd_bwd, [()], 10),
+            # SDPA's backward alone: dq, dk and dv together in one call
+            "sdpa_bwd_device_ms": None if None in (fwd_dev, both_dev)
+            else both_dev - fwd_dev,
             "flash_attention_fwd_bwd_ms": time_ms(flash_fwd_bwd, [()], 10)}
     for name in ("flash_bwd_dq", "flash_bwd_dkv"):
         rows[name]["library_ms"] = None  # no one PyTorch call computes it
@@ -691,6 +721,11 @@ def flash_timings(fa, dtype, tensors):
     emit({"flash_timings": str(dtype).split(".")[-1], "shape": [b, t, h, dh],
           **rows})
     return rows
+
+
+def tile_key(tile) -> str:
+    """"64x64" for a (rows, keys) tile, "64" for K3's."""
+    return "x".join(map(str, tile)) if isinstance(tile, tuple) else str(tile)
 
 
 def flash_phase(fa):
@@ -864,25 +899,40 @@ def leaf_names(tree, prefix=""):
     return [prefix]
 
 
-def ptxas_summary(report: str):
-    """One line per kernel of a ptxas -v report: registers and spills."""
+def kernel_label(mangled: str) -> str:
+    """flash_fwd_kernel<bf16,Dh=64,rows=64,keys=64> (K1/K2),
+    flash_bwd_dkv_kernel<f32,Dh=64,tile=64> (K3) or int8_matmul_kernel
+    from a mangled entry name."""
     import re
 
-    name, out = None, []
+    k = re.search(r"(flash_(?:fwd|bwd_dq|bwd_dkv)_kernel)I"
+                  r"(f|13__nv_bfloat16)((?:Li\d+E)+)", mangled)
+    if not k:
+        return ("int8_matmul_kernel" if "int8_matmul_kernel" in mangled
+                else mangled)
+    ints = re.findall(r"Li(\d+)E", k.group(3))
+    names = ("Dh", "rows", "keys") if len(ints) == 3 else ("Dh", "tile")
+    dtype = "f32" if k.group(2) == "f" else "bf16"
+    return (f"{k.group(1)}<{dtype},"
+            + ",".join(f"{n}={v}" for n, v in zip(names, ints)) + ">")
+
+
+def ptxas_summary(report: str):
+    """(one line per kernel of a ptxas -v report: registers and spills;
+    {kernel label: spill store bytes})."""
+    import re
+
+    name, out, spills = None, [], {}
     for line in report.splitlines():
         m = re.search(r"Compiling entry function '(\w+)'", line)
         if m:
-            name = m.group(1)
-            k = re.search(r"(flash_(?:fwd|bwd_dq|bwd_dkv)_kernel)I"
-                          r"(f|13__nv_bfloat16)Li(\d+)ELi(\d+)E", name)
-            if k:
-                name = (f"{k.group(1)}<{'f32' if k.group(2) == 'f' else 'bf16'}"
-                        f",Dh={k.group(3)},tile={k.group(4)}>")
-            elif "int8_matmul_kernel" in name:
-                name = "int8_matmul_kernel"
+            name = kernel_label(m.group(1))
         elif "registers" in line or "spill" in line:
             out.append(f"ptxas: {name}: {line.split(':', 1)[-1].strip()}")
-    return out
+            st = re.search(r"(\d+) bytes spill stores", line)
+            if st:
+                spills[name] = int(st.group(1))
+    return out, spills
 
 
 def flash_entry(name, replaces, lm_rows, errs, times):
@@ -891,13 +941,16 @@ def flash_entry(name, replaces, lm_rows, errs, times):
     check, and the f32 times at the path shape (bf16 beside them)."""
     f32, bf16 = times[torch.float32][name], times[torch.bfloat16][name]
     keys = ("ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
-            "library_ms", "tile_sweep_ms")
+            "library_ms", "tile", "tile_sweep_device_ms")
+    extra = ("library_device_ms", "sdpa_fwd_bwd_ms", "sdpa_bwd_device_ms",
+             "flash_attention_fwd_bwd_ms")
     return {
         "name": name,
         "route": "cuda",
         "source": "distributed_model_parallel_tpu_torch/csrc/"
                   "flash_attention.cu",
         "replaces": replaces,
+        "design": FLASH_DESIGN[name],
         "launches": sum(r["launches"][name] for r in lm_rows),
         "launches_by_run": {r["lm_run"]: r["launches"][name]
                             for r in lm_rows},
@@ -905,10 +958,8 @@ def flash_entry(name, replaces, lm_rows, errs, times):
         if name == "flash_fwd" else errs[name],
         # One launch at the path shape (B 8, T 1024, H 12, Dh 64, causal,
         # all-true key mask), f32; "bf16" holds the same in bf16.
-        **{k: f32[k] for k in keys},
-        "bf16": {k: bf16[k] for k in keys},
-        **{k: f32[k] for k in ("sdpa_fwd_bwd_ms",
-                               "flash_attention_fwd_bwd_ms") if k in f32},
+        **{k: f32[k] for k in keys + extra if k in f32},
+        "bf16": {k: bf16[k] for k in keys + extra if k in bf16},
     }
 
 
@@ -954,16 +1005,30 @@ def main() -> int:
 
     # ---- 2. build: both sources at once, one nvcc each ----------------
     t0 = time.perf_counter()
+    for source in ("int8_matmul.cu", "flash_attention.cu"):
+        # a library left by an earlier run would give no ptxas report
+        _cuda.library_path(source).unlink(missing_ok=True)
     _cuda.build(["int8_matmul.cu", "flash_attention.cu"])
     qm._library()
     fa._library()
     print(f"build: both sources in {time.perf_counter() - t0:.2f} s wall",
           flush=True)
+    spills = {}
     for source in ("int8_matmul.cu", "flash_attention.cu"):
         build_s, report = _cuda.build_info[source]
         print(f"build: {source} in {build_s:.2f} s", flush=True)
-        for line in ptxas_summary(report):
+        lines, found = ptxas_summary(report)
+        spills.update(found)
+        for line in lines:
             print(line, flush=True)
+    for name in ("flash_fwd", "flash_bwd_dq"):
+        for dtype, tiles in fa.DEFAULT_TILE[name].items():
+            for dh, (rows, keys) in tiles.items():
+                label = (f"{name}_kernel<"
+                         f"{'f32' if dtype == torch.float32 else 'bf16'},"
+                         f"Dh={dh},rows={rows},keys={keys}>")
+                require(spills.get(label) == 0,
+                        f"{label}: ptxas spill stores {spills.get(label)}")
     phase_done("build")
 
     # ---- 3. kernel vs plain version ---------------------------------
@@ -1035,8 +1100,10 @@ def main() -> int:
 
     # ---- 6. kernels line, card line, last line -----------------------
     decode = [r for r in shapes if r["M"] == SLOTS]
-    step = {key: LAYERS * sum(r[key] for r in decode)
-            for key in ("kernel_ms", "plain_ms", "library_ms", "bound_ms",
+    step = {key: None if any(r[key] is None for r in decode)
+            else LAYERS * sum(r[key] for r in decode)
+            for key in ("kernel_ms", "kernel_device_ms", "plain_ms",
+                        "library_ms", "library_device_ms", "bound_ms",
                         "bytes", "ops")}
     emit({"kernels": [{
         "name": "int8_matmul",
@@ -1053,6 +1120,11 @@ def main() -> int:
         "bound_by": ("bytes" if step["bytes"] / HBM_BYTES_PER_S
                      >= step["ops"] / INT8_OPS_PER_S else "operations"),
         "library_ms": step["library_ms"],
+        # Device time (profiler) of the same 48 launches, and of the f32
+        # torch.matmul yardstick: an unquantized product, not the
+        # kernel's function.
+        "device_ms": step["kernel_device_ms"],
+        "library_device_ms": step["library_device_ms"],
         "per_shape": shapes,
     }] + [flash_entry(name, replaces, lm_rows, flash_errs, flash_times)
           for name, _, replaces in FLASH_KERNELS]})

@@ -13,6 +13,9 @@ of the same function here:
 A wrapper given CPU tensors computes its plain version; given CUDA
 tensors it launches its kernel (and raises if the launch fails): there
 is no fallback. Each counts its kernel launches in `<wrapper>.launches`.
+K1 and K2 copy operand rows in 16-byte chunks and refuse an operand
+whose address or strides are not 16-byte aligned (`_check_aligned`);
+the views of a fused qkv projection split at head boundaries are.
 
 Contract, the reference's: (B, T, H, Dh) tensors of f32 or bf16, an
 optional (B, Tkv) key-validity mask, `causal=True` for decoders; logits
@@ -46,19 +49,43 @@ from distributed_model_parallel_tpu_torch.ops.attention import (
 _NEG = torch.finfo(torch.float32).min
 _SOURCE = "flash_attention.cu"
 DTYPES = (torch.float32, torch.bfloat16)
-# Head dims the kernels are built for, and the tiles (rows per block; 4
-# threads a row) built for each. Shared memory holds two TILE x Dh f32
-# tiles, inside the 48 KB static limit: Dh 128 fits only TILE 32.
-TILES = {16: (64,), 32: (64,), 64: (32, 64), 128: (32,)}
-# Each kernel's tile per head dim. At Dh 64 chip_smoke.py's sweep on an
-# H100 (B 8, T 1024, H 12, causal) chose 32 for the forward (1.79 vs
-# 2.57 ms f32: TILE 64 holds 64 logits a thread in registers, 168
-# registers, one block an SM) and 64 for both backward kernels (1.73 vs
-# 1.94 and 1.59 vs 1.82 ms).
+HEAD_DIMS = (16, 32, 64, 128)
+# The tiles built per kernel and head dim. K1 and K2 take (rows, keys):
+# a block of rows/16 warps owns `rows` query rows and loops over key
+# tiles of `keys` keys; each pair is built for both kernels and both
+# dtypes (csrc/flash_attention.cu's DMP_QCASE list). Dh 64 (GPT-2 small)
+# has the sweep's tiles: rows {64, 128} x keys {32, 64, 128} less (128,
+# 128), where the f32 K1 needs 242 KB of shared memory (227 KB is the
+# limit). K3 keeps its scalar design: its tile is its rows per block (4
+# threads a row), two TILE x Dh f32 tiles inside the 48 KB static limit.
+_ROW_TILES = {16: ((64, 64),), 32: ((64, 64),),
+              64: ((64, 32), (64, 64), (64, 128), (128, 32), (128, 64)),
+              128: ((64, 32), (64, 64))}
+TILES = {
+    "flash_fwd": _ROW_TILES,
+    "flash_bwd_dq": _ROW_TILES,
+    "flash_bwd_dkv": {16: (64,), 32: (64,), 64: (32, 64), 128: (32,)},
+}
+# Each kernel's tile per dtype and head dim, from chip_smoke.py's sweep
+# at Dh 64 on one H100 80GB HBM3, 700 W (B 8, T 1024, H 12, causal;
+# device ms a launch; PERF.md), rows x keys = 64x32 / 64x64 / 64x128 /
+# 128x32 / 128x64:
+#   K1 f32  .572 .584 .794 .586 .607   bf16 .149 .135 .179 .163 .140
+#   K2 f32  .739 .913 .905 .822 .728   bf16 .151 .146 .171 .161 .190
+# (f32 fits 2 blocks an SM at 64x32 and 8 warps at 128x64; 128 keys
+# doubles the ring). K3: tile 64 (1.59 vs 1.82 ms at 32).
+_F32, _BF16 = torch.float32, torch.bfloat16
 DEFAULT_TILE = {
-    "flash_fwd": {16: 64, 32: 64, 64: 32, 128: 32},
-    "flash_bwd_dq": {16: 64, 32: 64, 64: 64, 128: 32},
-    "flash_bwd_dkv": {16: 64, 32: 64, 64: 64, 128: 32},
+    "flash_fwd": {
+        _F32: {16: (64, 64), 32: (64, 64), 64: (64, 32), 128: (64, 64)},
+        _BF16: {16: (64, 64), 32: (64, 64), 64: (64, 64), 128: (64, 64)},
+    },
+    "flash_bwd_dq": {
+        _F32: {16: (64, 64), 32: (64, 64), 64: (128, 64), 128: (64, 32)},
+        _BF16: {16: (64, 64), 32: (64, 64), 64: (64, 64), 128: (64, 32)},
+    },
+    "flash_bwd_dkv": {dt: {16: 64, 32: 64, 64: 64, 128: 32}
+                      for dt in DTYPES},
 }
 
 
@@ -143,9 +170,12 @@ def _library() -> ctypes.CDLL:
     lib = _cuda.load(_SOURCE)
     if not getattr(lib, "_dmp_bound", False):
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        tail = [i, i, i, i, i, i, i, f, i, p]  # B Tq Tk H D tile bf16 scale causal stream
-        lib.dmp_flash_fwd.argtypes = [p, p, p, p, p, p, p] + tail
-        lib.dmp_flash_bwd_dq.argtypes = [p, p, p, p, p, p, p, p, p] + tail
+        # B Tq Tk H D, then (rows, keys) for K1/K2 or tile for K3, then
+        # bf16 scale causal stream
+        rows = [i, i, i, i, i, i, i, i, f, i, p]
+        tail = [i, i, i, i, i, i, i, f, i, p]
+        lib.dmp_flash_fwd.argtypes = [p] * 7 + rows
+        lib.dmp_flash_bwd_dq.argtypes = [p] * 9 + rows
         lib.dmp_flash_bwd_dkv.argtypes = [p] * 10 + tail
         for fn in (lib.dmp_flash_fwd, lib.dmp_flash_bwd_dq,
                    lib.dmp_flash_bwd_dkv):
@@ -174,9 +204,9 @@ def _check(name: str, q, k, v, g=None, mask=None, stats=()) -> None:
             f"{name}: q/k/v/dO must share one dtype of {DTYPES}, got "
             f"{[t.dtype for t in ops]}"
         )
-    if dh not in TILES:
+    if dh not in HEAD_DIMS:
         raise ValueError(
-            f"{name}: the kernels are built for head dims {sorted(TILES)}, "
+            f"{name}: the kernels are built for head dims {HEAD_DIMS}, "
             f"got {dh}"
         )
     others = list(ops) + ([mask] if mask is not None else []) + list(stats)
@@ -201,16 +231,39 @@ def _dh_contiguous(t: torch.Tensor) -> torch.Tensor:
     return t if t.stride(-1) == 1 else t.contiguous()
 
 
+def _check_aligned(name: str, *ts) -> None:
+    """K1 and K2 copy operand rows in 16-byte chunks (cp.async): each
+    operand's base address and its batch, sequence and head strides (on
+    axes longer than 1) must be multiples of 16 bytes. Views of a fused
+    qkv projection split at head boundaries are; anything else is
+    refused here rather than copied behind the caller's back (pass
+    `.contiguous()` copies)."""
+    for t in ts:
+        es = t.element_size()
+        bad = t.data_ptr() % 16 or any(
+            (t.stride(d) * es) % 16 for d in range(3) if t.shape[d] > 1)
+        if bad:
+            raise ValueError(
+                f"{name}: operands must be 16-byte aligned (base address "
+                f"and batch/seq/head strides), got address "
+                f"{t.data_ptr()} % 16 = {t.data_ptr() % 16}, strides "
+                f"{tuple(t.stride())} of {es}-byte elements"
+            )
+
+
 def _strides(*ts) -> ctypes.Array:
     flat = [s for t in ts for s in (t.stride(0), t.stride(1), t.stride(2))]
     return (ctypes.c_longlong * len(flat))(*flat)
 
 
-def _tile(name: str, dh: int, tile: Optional[int]) -> int:
-    tile = DEFAULT_TILE[name][dh] if tile is None else tile
-    if tile not in TILES[dh]:
-        raise ValueError(f"tile {tile} is not built for Dh {dh} "
-                         f"({TILES[dh]})")
+def _tile(name: str, dtype, dh: int, tile):
+    """`tile`, or the kernel's default for this dtype and head dim,
+    checked against what is built: (rows, keys) for K1/K2, an int for
+    K3."""
+    tile = DEFAULT_TILE[name][dtype][dh] if tile is None else tile
+    if tile not in TILES[name][dh]:
+        raise ValueError(f"{name}: tile {tile} is not built for Dh {dh} "
+                         f"({TILES[name][dh]})")
     return tile
 
 
@@ -231,15 +284,19 @@ def _on_cuda(name: str, t: torch.Tensor) -> bool:
 
 
 def flash_fwd(q, k, v, mask=None, *, scale: float, causal: bool = False,
-              need_lse: bool = False, tile: Optional[int] = None):
-    """K1: (out, LSE (B, H, Tq) f32 or None unless `need_lse`)."""
+              need_lse: bool = False,
+              tile: Optional[Tuple[int, int]] = None):
+    """K1: (out, LSE (B, H, Tq) f32 or None unless `need_lse`). `tile`
+    is (rows, keys); operands must be 16-byte aligned
+    (`_check_aligned`)."""
     if not _on_cuda("flash_fwd", q):
         return flash_fwd_plain(q, k, v, mask, scale=scale, causal=causal,
                                need_lse=need_lse)
     _check("flash_fwd", q, k, v, mask=mask)
     q, k, v = (_dh_contiguous(t) for t in (q, k, v))
+    _check_aligned("flash_fwd", q, k, v)
     b, tq, h, dh = q.shape
-    tile = _tile("flash_fwd", dh, tile)
+    rows, keys = _tile("flash_fwd", q.dtype, dh, tile)
     lib = _library()
     with torch.cuda.device(q.device):
         out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
@@ -250,7 +307,8 @@ def flash_fwd(q, k, v, mask=None, *, scale: float, causal: bool = False,
             q.data_ptr(), k.data_ptr(), v.data_ptr(), _strides(q, k, v),
             mask_c.data_ptr() if mask_c is not None else None,
             out.data_ptr(), lse.data_ptr() if lse is not None else None,
-            b, tq, k.shape[1], h, dh, tile, int(q.dtype == torch.bfloat16),
+            b, tq, k.shape[1], h, dh, rows, keys,
+            int(q.dtype == torch.bfloat16),
             scale, int(causal), torch.cuda.current_stream().cuda_stream,
         )
     _raise_on(rc, "flash_fwd", q, k)
@@ -259,15 +317,18 @@ def flash_fwd(q, k, v, mask=None, *, scale: float, causal: bool = False,
 
 
 def flash_bwd_dq(q, k, v, g, lse, delta, mask=None, *, scale: float,
-                 causal: bool = False, tile: Optional[int] = None):
-    """K2: dq (B, Tq, H, Dh) in q's dtype, from the saved LSE."""
+                 causal: bool = False,
+                 tile: Optional[Tuple[int, int]] = None):
+    """K2: dq (B, Tq, H, Dh) in q's dtype, from the saved LSE. `tile` is
+    (rows, keys); operands must be 16-byte aligned (`_check_aligned`)."""
     if not _on_cuda("flash_bwd_dq", q):
         return flash_bwd_dq_plain(q, k, v, g, lse, delta, mask,
                                   scale=scale, causal=causal)
     _check("flash_bwd_dq", q, k, v, g, mask, (lse, delta))
     q, k, v, g = (_dh_contiguous(t) for t in (q, k, v, g))
+    _check_aligned("flash_bwd_dq", q, k, v, g)
     b, tq, h, dh = q.shape
-    tile = _tile("flash_bwd_dq", dh, tile)
+    rows, keys = _tile("flash_bwd_dq", q.dtype, dh, tile)
     lib = _library()
     with torch.cuda.device(q.device):
         dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
@@ -277,7 +338,8 @@ def flash_bwd_dq(q, k, v, g, lse, delta, mask=None, *, scale: float,
             _strides(q, k, v, g),
             mask_c.data_ptr() if mask_c is not None else None,
             lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
-            b, tq, k.shape[1], h, dh, tile, int(q.dtype == torch.bfloat16),
+            b, tq, k.shape[1], h, dh, rows, keys,
+            int(q.dtype == torch.bfloat16),
             scale, int(causal), torch.cuda.current_stream().cuda_stream,
         )
     _raise_on(rc, "flash_bwd_dq", q, k)
@@ -294,7 +356,7 @@ def flash_bwd_dkv(q, k, v, g, lse, delta, mask=None, *, scale: float,
     _check("flash_bwd_dkv", q, k, v, g, mask, (lse, delta))
     q, k, v, g = (_dh_contiguous(t) for t in (q, k, v, g))
     b, tq, h, dh = q.shape
-    tile = _tile("flash_bwd_dkv", dh, tile)
+    tile = _tile("flash_bwd_dkv", q.dtype, dh, tile)
     lib = _library()
     with torch.cuda.device(q.device):
         dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
@@ -333,8 +395,10 @@ def flash_forward_lse(q, k, v, mask=None, *, scale: float,
 def flash_backward(q, k, v, mask, out, lse, g, *, scale: float,
                    causal: bool = False):
     """(dq, dk, dv) under an external LSE (B, H, Tq) (+inf = empty row):
-    delta in torch, then K2, then K3."""
-    g = g.to(q.dtype)
+    delta in torch, then K2, then K3. The incoming gradient is made
+    contiguous in q's dtype (a copy only where it is not already), so
+    that K2 can take it whatever autograd hands in."""
+    g = g.to(q.dtype).contiguous()
     delta = flash_delta(g, out)
     dq = flash_bwd_dq(q, k, v, g, lse, delta, mask, scale=scale,
                       causal=causal)
@@ -386,6 +450,7 @@ def flash_attention(q, k, v, mask=None, *, scale: Optional[float] = None,
 __all__ = [
     "DEFAULT_TILE",
     "FlashAttention",
+    "HEAD_DIMS",
     "TILES",
     "flash_attention",
     "flash_backward",

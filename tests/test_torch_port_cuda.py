@@ -71,6 +71,8 @@ FLASH_CASES = [  # (B, T, H, Dh, causal, mask kind)
     (2, 64, 2, 32, False, "row"),     # batch row 1 has no valid key
     (1, 96, 2, 128, True, None),
     (1, 72, 2, 16, False, "random"),
+    (1, 200, 2, 128, True, "all"),    # Dh 128, ragged causal T
+    (2, 256, 2, 64, True, "tile"),    # keys 64-127 all masked
 ]
 
 
@@ -87,6 +89,8 @@ def _flash_inputs(cuda, case, dtype):
             mask[:, 0] = True
         elif kind == "row":
             mask[1] = False
+        elif kind == "tile":  # every key of one 64-key tile invalid
+            mask[:, 64:128] = False
     return q, k, v, do, mask, causal, 1.0 / dh ** 0.5
 
 
@@ -122,6 +126,46 @@ def test_flash_kernels_match_plain(cuda, case, dtype):
         assert bool((dq[1] == 0).all())
 
 
+def _kernel_vs_plain(q, k, v, do, mask, causal, scale, tiles):
+    """Each kernel at its given tile against its plain version."""
+    kw = dict(scale=scale, causal=causal)
+    tol = FLASH_TOL[q.dtype]
+    out, lse = fa.flash_fwd(q, k, v, mask, need_lse=True,
+                            tile=tiles["flash_fwd"], **kw)
+    ref_out, ref_lse = fa.flash_fwd_plain(q, k, v, mask, need_lse=True, **kw)
+    delta = fa.flash_delta(do, ref_out)
+    dq = fa.flash_bwd_dq(q, k, v, do, ref_lse, delta, mask,
+                         tile=tiles["flash_bwd_dq"], **kw)
+    dk, dv = fa.flash_bwd_dkv(q, k, v, do, ref_lse, delta, mask,
+                              tile=tiles["flash_bwd_dkv"], **kw)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out, ref_out, **tol)
+    torch.testing.assert_close(lse, ref_lse, rtol=1e-5, atol=1e-5)
+    ref_dq = fa.flash_bwd_dq_plain(q, k, v, do, ref_lse, delta, mask, **kw)
+    ref_dk, ref_dv = fa.flash_bwd_dkv_plain(q, k, v, do, ref_lse, delta,
+                                            mask, **kw)
+    for got, want in ((dq, ref_dq), (dk, ref_dk), (dv, ref_dv)):
+        torch.testing.assert_close(got, want, **tol)
+
+
+_BUILT_TILES = [(name, dh, tile) for name in sorted(fa.TILES)
+                for dh in fa.HEAD_DIMS for tile in fa.TILES[name][dh]]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("name,dh,tile", _BUILT_TILES)
+def test_every_built_tile_matches_plain(cuda, name, dh, tile, dtype):
+    """Every (Dh, tile) of TILES, causal with a random key mask and a
+    length (136) that no tile divides; the other kernels at their
+    defaults."""
+    q, k, v, do, mask, _, scale = _flash_inputs(
+        cuda, (2, 136, 2, dh, True, "random"), dtype)
+    tiles = {n: fa.DEFAULT_TILE[n][dtype][dh] for n in fa.TILES}
+    tiles[name] = tile
+    _kernel_vs_plain(q, k, v, do, mask, True, scale, tiles)
+
+
 @pytest.mark.cuda
 def test_flash_attention_autograd_on_the_card(cuda):
     """FlashAttention through autograd on strided q/k/v views (the
@@ -142,6 +186,42 @@ def test_flash_attention_autograd_on_the_card(cuda):
     ref.square().sum().backward()
     torch.testing.assert_close(out, ref, rtol=1e-4, atol=2e-5)
     torch.testing.assert_close(got, qkv.grad, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_flash_attention_autograd_bf16_strided_split(cuda):
+    """bf16 q/k/v as views of a fused qkv projection through autograd:
+    the gradient of qkv against the plain versions' dq, dk, dv."""
+    g = torch.Generator(device=cuda).manual_seed(6)
+    qkv = torch.randn((2, 128, 3 * 4 * 32), generator=g, device=cuda)
+    qkv = qkv.to(torch.bfloat16).requires_grad_(True)
+    q, k, v = (x.reshape(2, 128, 4, 32) for x in qkv.split(128, dim=-1))
+    out = fa.flash_attention(q, k, v, causal=True)
+    do = torch.randn(out.shape, generator=g, device=cuda).to(out.dtype)
+    out.backward(do)
+    kw = dict(scale=32 ** -0.5, causal=True)
+    ref_out, ref_lse = fa.flash_fwd_plain(q, k, v, need_lse=True, **kw)
+    delta = fa.flash_delta(do, out.detach())
+    dq = fa.flash_bwd_dq_plain(q, k, v, do, ref_lse, delta, **kw)
+    dk, dv = fa.flash_bwd_dkv_plain(q, k, v, do, ref_lse, delta, **kw)
+    ref = torch.cat([x.reshape(2, 128, 128) for x in (dq, dk, dv)], dim=-1)
+    tol = FLASH_TOL[torch.bfloat16]
+    torch.testing.assert_close(out, ref_out, **tol)
+    torch.testing.assert_close(qkv.grad, ref, **tol)
+
+
+@pytest.mark.cuda
+def test_flash_kernels_refuse_misaligned_operands(cuda):
+    """K1/K2 copy 16-byte chunks: a view 4 bytes off is refused, never
+    sent to the plain version."""
+    n = 1 * 16 * 2 * 32
+    q = torch.randn(n + 1, device=cuda)[1:].view(1, 16, 2, 32)
+    ok = torch.randn((1, 16, 2, 32), device=cuda)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        fa.flash_fwd(q, ok, ok, scale=0.2)
+    lse = torch.zeros((1, 2, 16), device=cuda)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        fa.flash_bwd_dq(ok, ok, ok, q, lse, lse, scale=0.2)
 
 
 @pytest.mark.cuda
