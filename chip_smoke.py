@@ -13,15 +13,18 @@ Phases; any failure exits non-zero (nothing is caught and passed over):
 2. Build: compile `csrc/int8_matmul.cu` and `csrc/flash_attention.cu`
    with nvcc for sm_90a, one process each, started together, and print
    the build times and each kernel's ptxas registers and spills; the
-   flash kernels at their default tiles must not spill.
+   flash kernels at their default tiles (K3 at Dh 64) and the int8
+   kernel must not spill.
 3. Kernel vs plain version on the card, at the four GPT-2-small decode
    projection shapes with M = 8 slots, plus M = 3 and M = 256: identical
-   int8 activation codes and scales, outputs within rtol/atol 1e-6;
-   per shape the kernel's, the plain version's and `torch.matmul`'s
-   (f32, same (M,K)x(K,N); an unquantized product, not the kernel's
-   function, and a yardstick the port never calls) times, CUDA events
-   and profiler device time, and the bound (bytes over 3.35 TB/s vs
-   int8 ops over 1,979 TOP/s).
+   int8 activation codes, scales and outputs (torch.equal); per shape
+   the kernel's, the plain version's and `torch.matmul`'s (f32, same
+   (M,K)x(K,N); an unquantized product, not the kernel's function, and
+   a yardstick the port never calls) times, CUDA events and profiler
+   device time, the device time of `torch._int_mm` on the same codes
+   (cuBLASLt s8 x s8 -> s32 with M padded to 32: the integer product
+   alone, not K4's function, never called by the port), and the bound
+   (bytes over 3.35 TB/s vs int8 ops over 1,979 TOP/s).
 4. Serving: the port's serve CLI (`cli/serve.py` main) at the full
    width of `GPTConfig()` (vocab 50257, dim 768, 12 layers, 12 heads,
    ffn 3072, 1024 positions; random weights from seed 0): 8 slots,
@@ -40,7 +43,8 @@ Phases; any failure exits non-zero (nothing is caught and passed over):
    checked against their plain versions, f32 and bf16, at the training
    path's shape (B 8, T 1024, H 12, Dh 64, causal, all-true key mask),
    at T 1000 (a ragged tile) and with a batch row whose keys are all
-   masked; at the path shape each is timed (CUDA events and profiler),
+   masked, K3 at every tile `TILES` lists; at the path shape each is
+   timed (CUDA events and profiler),
    beside its plain version, SDPA (forward; forward + backward, and the
    backward's device time, which computes dq, dk and dv together; a
    yardstick the port never calls), its bound (f32 67 / bf16 989
@@ -190,8 +194,9 @@ def check_shape(qm, m, k, n, seed):
             f"int8 codes differ from the plain version at {(m, k, n)}")
     require(torch.equal(scales, ref_scales),
             f"activation scales differ at {(m, k, n)}")
-    torch.testing.assert_close(y, ref, rtol=1e-6, atol=1e-6)
     err = float((y - ref).abs().max())
+    require(torch.equal(y, ref), f"int8 outputs differ from the plain "
+            f"version at {(m, k, n)} by up to {err:.3e}")
     kcopies = [(x, *qm.prepare_weight(w.roll(i, 1)))
                for i in range(copies_for(n * k))]
     fcopies = [(x, w.roll(i, 1)) for i in range(copies_for(4 * n * k))]
@@ -200,11 +205,19 @@ def check_shape(qm, m, k, n, seed):
     plain_ms = time_ms(qm.int8_matmul_plain, kcopies, 30)
     library_ms = time_ms(torch.matmul, fcopies, 300)
     library_device_ms = device_ms(torch.matmul, fcopies, 60, None)
+    int_mm_device_ms = None
+    if k % 8 == 0 and n % 8 == 0:  # cuBLASLt's shape rule for _int_mm
+        padded = torch.zeros((max(32, m), k), dtype=torch.int8,
+                             device="cuda")
+        padded[:m] = codes
+        icopies = [(padded, wq.t()) for _, wq, _ in kcopies]
+        int_mm_device_ms = device_ms(torch._int_mm, icopies, 60, None)
     bound_ms, bound_by, nbytes, ops = bound(m, k, n)
     return {"M": m, "K": k, "N": n, "kernel_ms": kernel_ms,
             "kernel_device_ms": kernel_device_ms,
             "plain_ms": plain_ms, "library_ms": library_ms,
             "library_device_ms": library_device_ms,
+            "int_mm_device_ms": int_mm_device_ms,
             "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes,
             "ops": ops, "max_abs_err": err}
 
@@ -509,9 +522,17 @@ FLASH_DESIGN = {
     "flash_bwd_dq": "bf16: mma.sync m16n8k16 (q, dO fragments resident, "
                     "dS fed back in registers); f32: FFMA on 4 x keys/8 "
                     "register tiles; cp.async 2-stage K/V ring",
-    "flash_bwd_dkv": "scalar f32 FMA, 4 threads a row, synchronous "
-                     "shared-memory tiles",
+    "flash_bwd_dkv": "bf16: mma.sync m16n8k16, 16 keys a warp (K, V "
+                     "fragments resident to Dh 64), S^T/dP^T in registers, "
+                     "P^T and dS^T fed back as A operands of dV and dK; "
+                     "f32: FFMA on 4-key x rows/8 register tiles; cp.async "
+                     "2-stage q/dO ring with LSE/delta, heaviest key tiles "
+                     "first",
 }
+INT8_DESIGN = ("a cluster of 2 (K <= 1024) or 8 blocks splits K for 64 "
+               "columns x 8 rows (row absmax and int32 partial sums meet "
+               "in distributed shared memory), 16-byte weight loads "
+               "issued first, x quantized once per cluster, __dp4a")
 FLASH_KERNELS = (  # wrapper, device kernel name, TPU kernel it replaces
     ("flash_fwd", "flash_fwd_kernel",
      "distributed_model_parallel_tpu/ops/pallas_attention.py:260"),
@@ -618,6 +639,11 @@ def flash_case(fa, case, dtype):
     ref_dq = fa.flash_bwd_dq_plain(q, k, v, do, ref_lse, delta, mask, **kw)
     ref_dk, ref_dv = fa.flash_bwd_dkv_plain(q, k, v, do, ref_lse, delta,
                                             mask, **kw)
+    # K3 at every tile it is built for (the default's result is dk, dv)
+    dkv_tiles = {tile: fa.flash_bwd_dkv(q, k, v, do, ref_lse, delta, mask,
+                                        tile=tile, **kw)
+                 for tile in fa.TILES["flash_bwd_dkv"][dh]}
+    torch.cuda.synchronize()
     tol = FLASH_TOL[dtype]
 
     def err(a, r):
@@ -632,17 +658,26 @@ def flash_case(fa, case, dtype):
             "flash_fwd_lse": err(lse, ref_lse),
             "flash_bwd_dq": err(dq, ref_dq),
             "flash_bwd_dkv": max(err(dk, ref_dk), err(dv, ref_dv))}
+    by_tile = {tile_key(tl): max(err(x, ref_dk), err(y, ref_dv))
+               for tl, (x, y) in dkv_tiles.items()}
+    errs["flash_bwd_dkv"] = max(errs["flash_bwd_dkv"], *by_tile.values())
     emit({"flash_check": name, "dtype": str(dtype).split(".")[-1],
-          "shape": [b, t, h, dh], "max_abs_err": errs})
+          "shape": [b, t, h, dh], "max_abs_err": errs,
+          "flash_bwd_dkv_by_tile": by_tile})
     require(none is None, "flash_fwd returned an LSE it was not asked for")
-    for got, want in ((out, ref_out), (out_nolse, ref_out), (dq, ref_dq),
-                      (dk, ref_dk), (dv, ref_dv)):
+    pairs = [(out, ref_out), (out_nolse, ref_out), (dq, ref_dq),
+             (dk, ref_dk), (dv, ref_dv)]
+    for tk, tv in dkv_tiles.values():
+        pairs += [(tk, ref_dk), (tv, ref_dv)]
+    for got, want in pairs:
         torch.testing.assert_close(got, want, **tol)
     torch.testing.assert_close(lse, ref_lse, rtol=1e-5, atol=1e-5)
     if kind == "row":
         require(bool((out[1] == 0).all()) and bool(torch.isinf(lse[1]).all())
-                and bool((dq[1] == 0).all()) and bool((dk[1] == 0).all())
-                and bool((dv[1] == 0).all()),
+                and bool((dq[1] == 0).all())
+                and all(bool((x[1] == 0).all())
+                        for pair in [(dk, dv), *dkv_tiles.values()]
+                        for x in pair),
                 "a row with no valid key must give out 0, LSE +inf and "
                 "zero gradients")
     return errs, (q, k, v, do, mask, ref_lse, delta, kw)
@@ -901,17 +936,20 @@ def leaf_names(tree, prefix=""):
 
 def kernel_label(mangled: str) -> str:
     """flash_fwd_kernel<bf16,Dh=64,rows=64,keys=64> (K1/K2),
-    flash_bwd_dkv_kernel<f32,Dh=64,tile=64> (K3) or int8_matmul_kernel
-    from a mangled entry name."""
+    flash_bwd_dkv_kernel<f32,Dh=64,keys=64,rows=64> (K3) or
+    int8_matmul_kernel<V=4,S=2> (K4: V 4-byte words a weight load, S
+    blocks a cluster) from a mangled entry name."""
     import re
 
     k = re.search(r"(flash_(?:fwd|bwd_dq|bwd_dkv)_kernel)I"
                   r"(f|13__nv_bfloat16)((?:Li\d+E)+)", mangled)
     if not k:
-        return ("int8_matmul_kernel" if "int8_matmul_kernel" in mangled
-                else mangled)
+        i8 = re.search(r"int8_matmul_kernelILi(\d+)ELi(\d+)E", mangled)
+        return (f"int8_matmul_kernel<V={i8.group(1)},S={i8.group(2)}>"
+                if i8 else mangled)
     ints = re.findall(r"Li(\d+)E", k.group(3))
-    names = ("Dh", "rows", "keys") if len(ints) == 3 else ("Dh", "tile")
+    names = (("Dh", "keys", "rows") if k.group(1) == "flash_bwd_dkv_kernel"
+             else ("Dh", "rows", "keys"))
     dtype = "f32" if k.group(2) == "f" else "bf16"
     return (f"{k.group(1)}<{dtype},"
             + ",".join(f"{n}={v}" for n, v in zip(names, ints)) + ">")
@@ -1021,14 +1059,22 @@ def main() -> int:
         spills.update(found)
         for line in lines:
             print(line, flush=True)
-    for name in ("flash_fwd", "flash_bwd_dq"):
+    must_not_spill = [f"int8_matmul_kernel<V={v},S={s}>"
+                      for v in (1, 4) for s in (2, 8)]
+    for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
         for dtype, tiles in fa.DEFAULT_TILE[name].items():
-            for dh, (rows, keys) in tiles.items():
-                label = (f"{name}_kernel<"
-                         f"{'f32' if dtype == torch.float32 else 'bf16'},"
-                         f"Dh={dh},rows={rows},keys={keys}>")
-                require(spills.get(label) == 0,
-                        f"{label}: ptxas spill stores {spills.get(label)}")
+            for dh, (t0, t1) in tiles.items():
+                if name == "flash_bwd_dkv" and dh != 64:
+                    continue  # K3: the path's Dh (Dh 128 is printed)
+                names = ("keys", "rows") if name == "flash_bwd_dkv" \
+                    else ("rows", "keys")
+                must_not_spill.append(
+                    f"{name}_kernel<"
+                    f"{'f32' if dtype == torch.float32 else 'bf16'},"
+                    f"Dh={dh},{names[0]}={t0},{names[1]}={t1}>")
+    for label in must_not_spill:
+        require(spills.get(label) == 0,
+                f"{label}: ptxas spill stores {spills.get(label)}")
     phase_done("build")
 
     # ---- 3. kernel vs plain version ---------------------------------
@@ -1103,13 +1149,14 @@ def main() -> int:
     step = {key: None if any(r[key] is None for r in decode)
             else LAYERS * sum(r[key] for r in decode)
             for key in ("kernel_ms", "kernel_device_ms", "plain_ms",
-                        "library_ms", "library_device_ms", "bound_ms",
-                        "bytes", "ops")}
+                        "library_ms", "library_device_ms",
+                        "int_mm_device_ms", "bound_ms", "bytes", "ops")}
     emit({"kernels": [{
         "name": "int8_matmul",
         "route": "cuda",
         "source": "distributed_model_parallel_tpu_torch/csrc/int8_matmul.cu",
         "replaces": "distributed_model_parallel_tpu/ops/quant_matmul.py:190",
+        "design": INT8_DESIGN,
         "launches": launches,
         "max_abs_err": max_err,
         # Times of one decode step's 48 launches (12 layers x the four
@@ -1125,6 +1172,9 @@ def main() -> int:
         # kernel's function.
         "device_ms": step["kernel_device_ms"],
         "library_device_ms": step["library_device_ms"],
+        # cuBLASLt's s8 x s8 -> s32 (torch._int_mm, M padded to 32) on the
+        # same codes: the integer product alone, not K4's function.
+        "int_mm_device_ms": step["int_mm_device_ms"],
         "per_shape": shapes,
     }] + [flash_entry(name, replaces, lm_rows, flash_errs, flash_times)
           for name, _, replaces in FLASH_KERNELS]})

@@ -25,8 +25,9 @@
 // (B 8, T 1024, H 12, Dh 64) each kernel touches a few MB (q, k, v, dO
 // and the outputs, read once) but does 4*Dh (K1), 6*Dh (K2) or 8*Dh (K3)
 // flops per visible (q, k) pair, ~13-26 GFLOP per call: operations bound,
-// ~0.2-0.4 ms at the 67 TFLOP/s f32 rate outside the tensor cores (f32
-// inputs) and ~0.01-0.03 ms at the 989 TFLOP/s bf16 tensor-core rate.
+// 0.19 / 0.29 / 0.385 ms at the 67 TFLOP/s f32 rate outside the tensor
+// cores (f32 inputs) and 0.015 / 0.020 / 0.026 ms at the 989 TFLOP/s
+// bf16 tensor-core rate (K1's bf16 bound is its bytes).
 //
 // K1 and K2 (flash_fwd_kernel<T, D, ROWS, KEYS>, flash_bwd_dq_kernel<...>).
 // A block of ROWS/16 warps owns ROWS query rows, 16 a warp, and loops
@@ -64,11 +65,41 @@
 // would halve that), the softmax's instruction count (the f32 kernels
 // keep the accurate expf), wgmma and TMA, and a persistent grid.
 //
-// K3 (the first, scalar design): each block keeps one tile of keys in
-// registers (k, v) and streams q / dO tiles through shared memory from
-// the causal frontier; scalar f32 FMAs, four threads a row, each owning
-// Dh/4 of its columns as float4s; bf16 widened to f32. No tensor cores
-// yet (the next port PR).
+// K3 (flash_bwd_dkv_kernel<T, D, KEYS, ROWS>), the same building blocks
+// with the roles of rows and keys swapped. A block of KEYS/16 warps owns
+// KEYS keys, 16 a warp, of one (batch, head); its K and V rows are
+// copied once, and q and dO tiles of ROWS rows stream through a 2-stage
+// cp.async ring from the q tile that holds the block's first key (when
+// causal) to Tq, with each tile's LSE and delta (+inf and 0 past Tq)
+// loaded into registers before the previous tile's math and stored into
+// shared memory beside it. Per-element masking runs only on tiles that
+// cross the diagonal or hold an invalid key (a warp vote on its keys;
+// rows past Tq need none, their p is exp(-inf) = 0); a warp whose keys
+// all lie after a tile's last row skips it. Key tiles run on blockIdx.z,
+// the slowest grid axis, so under causal masking the heaviest tiles
+// (the first keys, seen by every later q tile) start first.
+//   bf16: Sᵀ = K·Qᵀ and dPᵀ = V·dOᵀ on mma.sync (the q / dO tile as the
+//   B operand, by ldmatrix), scale and masks on the accumulators, Pᵀ =
+//   exp(Sᵀ − LSE[col]) (__expf: p is rounded to bf16 at once), dSᵀ = Pᵀ ∘
+//   (dPᵀ − delta[col]); then dV += Pᵀ·dO and dK += dSᵀ·Q with Pᵀ / dSᵀ
+//   rounded to bf16 in registers as the A operand and dO / Q read by
+//   ldmatrix.trans. K and V stay resident as A fragments up to Dh 64
+//   (32 registers at Dh 64); at Dh 128 they are re-read from shared
+//   memory per tile, as resident they would not fit beside the 128
+//   registers of the dK / dV accumulators.
+//   f32: each thread owns 4 keys x ROWS/8 q columns of Sᵀ and dPᵀ (FFMA
+//   micro-tiles from the shared K / V rows and q / dO tiles, accurate
+//   expf), and 4 keys x Dh/8 columns of dK and dV, fed through the
+//   warp's rows of two shared p / dS tiles.
+//   dk is multiplied by `scale` once, at the end, as the port's plain
+//   version does (the reference scales each tile's product; both are
+//   inside FLASH_TOL). Key rows past Tk are zero-filled and never stored.
+// On one H100 80GB HBM3 (700 W) at the training shape K3 takes 0.161
+// ms a launch in bf16 (64 keys x 64 rows; bound 0.026) and 0.814 ms in
+// f32 (128 x 64; bound 0.385), from 1.630 / 1.589 in PR 2's scalar
+// design (PERF.md). What
+// remains: as for K1 / K2, and in f32 the default tile's 209 KB of
+// shared memory leave one block of 8 warps an SM.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
 //        -Xcompiler -fPIC (no --use_fast_math: expf/logf stay accurate
@@ -108,24 +139,6 @@ struct Args {
   float scale;
   int causal;
 };
-
-template <typename T> __device__ __forceinline__ float to_f(T x);
-template <> __device__ __forceinline__ float to_f<float>(float x) { return x; }
-template <> __device__ __forceinline__ float to_f<bf16>(bf16 x) {
-  return __bfloat162float(x);
-}
-
-template <typename T> __device__ __forceinline__ T from_f(float x);
-template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <> __device__ __forceinline__ bf16 from_f<bf16>(float x) {
-  return __float2bfloat16_rn(x);
-}
-
-// x rounded to T and back (the reference's `.astype(v.dtype)` before a
-// product): identity for f32, round-to-nearest-even for bf16.
-template <typename T> __device__ __forceinline__ float round_as(float x) {
-  return to_f<T>(from_f<T>(x));
-}
 
 __device__ __forceinline__ const char* row_ptr(const Operand& o, int b,
                                                int t, int h, int esize) {
@@ -842,138 +855,259 @@ __global__ void __launch_bounds__(2 * ROWS) flash_bwd_dq_kernel(Args a) {
   }
 }
 
-// ------------------------------------------ K3 (the scalar design)
+// ------------------------------------------------------------------- K3
+// A block of KEYS/16 warps owns KEYS keys (16 a warp) of one (batch,
+// head); q and dO tiles of ROWS rows stream past it.
 
-// This thread's Dh/4 columns of one row: float4 chunks part, part+4, ...
-// (so the four threads of a row read 64 contiguous bytes together).
-template <typename T, int D>
-__device__ __forceinline__ void load_slice(const Operand& o, int b, int t,
-                                           int h, int part, float4* dst) {
-  const T* r = reinterpret_cast<const T*>(row_ptr(o, b, t, h, sizeof(T)));
-#pragma unroll
-  for (int f = 0; f < D / 16; ++f) {
-    const int c = 4 * (part + 4 * f);
-    dst[f] = make_float4(to_f(r[c]), to_f(r[c + 1]), to_f(r[c + 2]),
-                         to_f(r[c + 3]));
-  }
+// Shared memory of K3: the block's K and V rows, a 2-stage ring of q and
+// dO tiles and, for f32, the p and dS tiles (KEYS x (ROWS + 4) each).
+template <typename T, int D, int KEYS, int ROWS>
+__host__ __device__ constexpr int dkv_smem_bytes() {
+  return (2 * KEYS + 4 * ROWS) * row_ld<T, D>() * static_cast<int>(sizeof(T)) +
+         (std::is_same<T, float>::value ? 2 * KEYS * (ROWS + 4) * 4 : 0);
 }
 
-// A tile of `rows` rows starting at t0 into shared memory as f32; rows
-// past `limit` are zeros.
-template <typename T, int D, int TILE>
-__device__ __forceinline__ void load_tile(const Operand& o, int b, int t0,
-                                          int limit, int h, float* dst) {
-  for (int idx = threadIdx.x; idx < TILE * D; idx += blockDim.x) {
-    const int j = idx / D, d = idx - j * D;
-    const int t = t0 + j;
-    float x = 0.0f;
-    if (t < limit) {
-      x = to_f(reinterpret_cast<const T*>(row_ptr(o, b, t, h, sizeof(T)))[d]);
-    }
-    dst[idx] = x;
-  }
+// (LSE, delta) of q row `row`; (+inf, 0) past Tq, so p = 0 there.
+__device__ __forceinline__ float2 row_stats(const Args& a, long long stat0,
+                                            int row) {
+  return row < a.Tq ? make_float2(a.lse_in[stat0 + row], a.delta[stat0 + row])
+                    : make_float2(INFINITY, 0.0f);
 }
 
-// Dot of this thread's slice with row j of a shared tile, summed over
-// the row's four threads (adjacent lanes).
-template <int D>
-__device__ __forceinline__ float row_dot(const float4* mine,
-                                         const float4* tile_row, int part) {
-  float acc = 0.0f;
-#pragma unroll
-  for (int f = 0; f < D / 16; ++f) {
-    const float4 t = tile_row[part + 4 * f];
-    acc = fmaf(mine[f].x, t.x, acc);
-    acc = fmaf(mine[f].y, t.y, acc);
-    acc = fmaf(mine[f].z, t.z, acc);
-    acc = fmaf(mine[f].w, t.w, acc);
-  }
-  acc += __shfl_xor_sync(kFull, acc, 1);
-  acc += __shfl_xor_sync(kFull, acc, 2);
-  return acc;
-}
-
-template <int D>
-__device__ __forceinline__ void axpy(float a, const float4* tile_row,
-                                     int part, float4* acc) {
-#pragma unroll
-  for (int f = 0; f < D / 16; ++f) {
-    const float4 t = tile_row[part + 4 * f];
-    acc[f].x = fmaf(a, t.x, acc[f].x);
-    acc[f].y = fmaf(a, t.y, acc[f].y);
-    acc[f].z = fmaf(a, t.z, acc[f].z);
-    acc[f].w = fmaf(a, t.w, acc[f].w);
-  }
-}
-
-template <typename T, int D>
-__device__ __forceinline__ void store_slice(T* base, int b, int t, int h,
-                                            int H, int T_len, int part,
-                                            const float4* src, float mul) {
-  T* r = base + ((static_cast<long long>(b) * T_len + t) * H + h) * D;
-#pragma unroll
-  for (int f = 0; f < D / 16; ++f) {
-    const int c = 4 * (part + 4 * f);
-    r[c] = from_f<T>(src[f].x * mul);
-    r[c + 1] = from_f<T>(src[f].y * mul);
-    r[c + 2] = from_f<T>(src[f].z * mul);
-    r[c + 3] = from_f<T>(src[f].w * mul);
-  }
-}
-
-// One block per (key tile of TILE keys, head, batch), looping over query
-// tiles from the first one at or below the causal frontier.
-template <typename T, int D, int TILE>
-__global__ void __launch_bounds__(4 * TILE) flash_bwd_dkv_kernel(Args a) {
-  __shared__ float4 qS[TILE][D / 4];
-  __shared__ float4 gS[TILE][D / 4];
-  __shared__ float lS[TILE];
-  __shared__ float dS[TILE];
-  const int r = threadIdx.x >> 2, part = threadIdx.x & 3;
-  const int h = blockIdx.y, b = blockIdx.z;
-  const int k0 = blockIdx.x * TILE, key = k0 + r;
-  const bool live = key < a.Tk;
-
-  float4 kr[D / 16], vr[D / 16], dk[D / 16], dv[D / 16];
-  load_slice<T, D>(a.k, b, live ? key : a.Tk - 1, h, part, kr);
-  load_slice<T, D>(a.v, b, live ? key : a.Tk - 1, h, part, vr);
-#pragma unroll
-  for (int f = 0; f < D / 16; ++f) {
-    dk[f] = make_float4(0.f, 0.f, 0.f, 0.f);
-    dv[f] = make_float4(0.f, 0.f, 0.f, 0.f);
-  }
-  const bool valid =
-      live && (a.mask == nullptr ||
-               a.mask[static_cast<long long>(b) * a.Tk + key]);
+// K3's stream, K/V-side twin of stream_begin / tile_start. Copies the
+// block's K and V rows and the first q tile (that holding key k0 when
+// causal: earlier tiles see only masked pairs), then for each q tile up
+// to Tq: issues the next tile's q / dO copy into the other stage and
+// loads its LSE / delta into registers, waits for this tile, runs
+// `math(it, q0, q tile, dO tile, LSE, delta)` between two block
+// barriers, and stores the next tile's LSE / delta beside its copy.
+template <typename T, int D, int KEYS, int ROWS, typename F>
+__device__ __forceinline__ void dkv_stream(const Args& a, int b, int h,
+                                           int k0, T* sK, T* sV, T* sQ,
+                                           T* sG, float (&sL)[2][ROWS],
+                                           float (&sD)[2][ROWS], F&& math) {
+  constexpr int LD = row_ld<T, D>();
+  const int first = a.causal ? k0 / ROWS : 0;
+  const int nq = (a.Tq + ROWS - 1) / ROWS;
+  if (first >= nq) return;  // no q row sees these keys: dk = dv = 0
   const long long stat0 = (static_cast<long long>(b) * a.H + h) * a.Tq;
-
-  // Query tiles whose last row is before k0 see only masked pairs.
-  for (int q0 = a.causal ? k0 : 0; q0 < a.Tq; q0 += TILE) {
-    __syncthreads();
-    load_tile<T, D, TILE>(a.q, b, q0, a.Tq, h, &qS[0][0].x);
-    load_tile<T, D, TILE>(a.g, b, q0, a.Tq, h, &gS[0][0].x);
-    for (int i = threadIdx.x; i < TILE; i += blockDim.x) {
-      const int row = q0 + i;
-      lS[i] = row < a.Tq ? a.lse_in[stat0 + row] : INFINITY;
-      dS[i] = row < a.Tq ? a.delta[stat0 + row] : 0.0f;
+  copy_tile<T, D, KEYS>(a.k, b, k0, a.Tk, h, sK);
+  copy_tile<T, D, KEYS>(a.v, b, k0, a.Tk, h, sV);
+  copy_tile<T, D, ROWS>(a.q, b, first * ROWS, a.Tq, h, sQ);
+  copy_tile<T, D, ROWS>(a.g, b, first * ROWS, a.Tq, h, sG);
+  cp_async_commit();
+  if (threadIdx.x < ROWS) {
+    const float2 st = row_stats(a, stat0, first * ROWS + threadIdx.x);
+    sL[0][threadIdx.x] = st.x;
+    sD[0][threadIdx.x] = st.y;
+  }
+  for (int qt = first; qt < nq; ++qt) {
+    const int it = qt - first, cur = it & 1, nxt = cur ^ 1;
+    const bool more = qt + 1 < nq;
+    float2 st = make_float2(0.0f, 0.0f);
+    if (more) {
+      const int n0 = (qt + 1) * ROWS;
+      copy_tile<T, D, ROWS>(a.q, b, n0, a.Tq, h, sQ + nxt * ROWS * LD);
+      copy_tile<T, D, ROWS>(a.g, b, n0, a.Tq, h, sG + nxt * ROWS * LD);
+      cp_async_commit();
+      if (threadIdx.x < ROWS) st = row_stats(a, stat0, n0 + threadIdx.x);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
     }
     __syncthreads();
-#pragma unroll 4
-    for (int i = 0; i < TILE; ++i) {
-      float x = row_dot<D>(kr, qS[i], part) * a.scale;
-      if (!valid || (a.causal && q0 + i < key)) x = kNeg;
-      const float p = expf(x - lS[i]);
-      axpy<D>(round_as<T>(p), gS[i], part, dv);
-      const float dp = row_dot<D>(vr, gS[i], part);
-      const float ds = p * (dp - dS[i]);
-      axpy<D>(round_as<T>(ds), qS[i], part, dk);
+    math(it, qt * ROWS, sQ + cur * ROWS * LD, sG + cur * ROWS * LD,
+         sL[cur], sD[cur]);
+    if (more && threadIdx.x < ROWS) {
+      sL[nxt][threadIdx.x] = st.x;
+      sD[nxt][threadIdx.x] = st.y;
+    }
+    __syncthreads();  // this stage is free for the copy issued next
+  }
+}
+
+// bf16: Sᵀ = K·Qᵀ and dPᵀ = V·dOᵀ on mma.sync (16 keys x ROWS q columns
+// a warp), Pᵀ = exp(Sᵀ − LSE[col]), dSᵀ = Pᵀ ∘ (dPᵀ − delta[col]); then
+// dV += Pᵀ·dO and dK += dSᵀ·Q with Pᵀ / dSᵀ rounded to bf16 in
+// registers as the A operand and dO / Q read by ldmatrix.trans. Element
+// e of n-tile j sits at key w0 + g + 8 * (e >> 1), q column q0 + 8 * j +
+// 2 * t4 + (e & 1). K and V stay resident as A fragments up to Dh 64;
+// at Dh 128 they are re-read from shared memory per q tile (resident,
+// they would take 64 of the 255 registers the dk / dv accumulators'
+// 128 leave).
+template <int D, int KEYS, int ROWS>
+__device__ __forceinline__ void dkv_mma(const Args& a, char* smem) {
+  constexpr int LD = row_ld<bf16, D>();
+  constexpr bool kResident = D <= 64;
+  __shared__ float sL[2][ROWS], sD[2][ROWS];
+  bf16* sK = reinterpret_cast<bf16*>(smem);
+  bf16* sV = sK + KEYS * LD;
+  bf16* sQ = sV + KEYS * LD;
+  bf16* sG = sQ + 2 * ROWS * LD;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int h = blockIdx.x, b = blockIdx.y, k0 = blockIdx.z * KEYS;
+  const int w0 = k0 + 16 * warp;  // this warp's first key
+  const bool kv[2] = {key_valid(a, b, w0 + g), key_valid(a, b, w0 + g + 8)};
+  const bool all_valid = __all_sync(kFull, kv[0] && kv[1]);
+  const bf16* wK = sK + 16 * warp * LD;
+  const bf16* wV = sV + 16 * warp * LD;
+
+  uint32_t kf[D / 16][4], vf[D / 16][4];
+  float dk[D / 8][4], dv[D / 8][4];
+#pragma unroll
+  for (int dt = 0; dt < D / 8; ++dt) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk[dt][e] = dv[dt][e] = 0.0f;
+  }
+
+  dkv_stream<bf16, D, KEYS, ROWS>(
+      a, b, h, k0, sK, sV, sQ, sG, sL, sD,
+      [&](int it, int q0, const bf16* tQ, const bf16* tG, const float* lse,
+          const float* dl) {
+        if constexpr (kResident) {
+          if (it == 0) {
+            load_rows_frags<D>(kf, wK, lane);
+            load_rows_frags<D>(vf, wV, lane);
+          }
+        }
+        if (a.causal && q0 + ROWS - 1 < w0) return;  // p = 0 throughout
+        float s[ROWS / 8][4], dp[ROWS / 8][4];
+        if constexpr (kResident) {
+          mma_abt<D, ROWS>(s, kf, tQ, lane);
+          mma_abt<D, ROWS>(dp, vf, tG, lane);
+        } else {
+          load_rows_frags<D>(kf, wK, lane);
+          mma_abt<D, ROWS>(s, kf, tQ, lane);
+          load_rows_frags<D>(kf, wV, lane);
+          mma_abt<D, ROWS>(dp, kf, tG, lane);
+        }
+        const bool edge = !all_valid || (a.causal && q0 < w0 + 15);
+#pragma unroll
+        for (int j = 0; j < ROWS / 8; ++j) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int c = 8 * j + 2 * t4 + (e & 1);
+            float x = s[j][e] * a.scale;
+            if (edge && (!kv[e >> 1] ||
+                         (a.causal && q0 + c < w0 + g + 8 * (e >> 1)))) {
+              x = kNeg;
+            }
+            const float p = __expf(x - lse[c]);
+            s[j][e] = p;
+            dp[j][e] = p * (dp[j][e] - dl[c]);  // dS, f32
+          }
+        }
+        mma_pb<D, ROWS>(dv, s, tG, lane);
+        mma_pb<D, ROWS>(dk, dp, tQ, lane);
+      });
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int key = w0 + g + 8 * r;
+    if (key >= a.Tk) continue;
+    const long long off = ((static_cast<long long>(b) * a.Tk + key) * a.H + h) * D;
+    bf16* ok = static_cast<bf16*>(a.out0) + off;
+    bf16* ov = static_cast<bf16*>(a.out1) + off;
+#pragma unroll
+    for (int dt = 0; dt < D / 8; ++dt) {
+      *reinterpret_cast<uint32_t*>(ok + 8 * dt + 2 * t4) = pack_bf16(
+          dk[dt][2 * r] * a.scale, dk[dt][2 * r + 1] * a.scale);
+      *reinterpret_cast<uint32_t*>(ov + 8 * dt + 2 * t4) =
+          pack_bf16(dv[dt][2 * r], dv[dt][2 * r + 1]);
     }
   }
-  if (live) {
-    store_slice<T, D>(static_cast<T*>(a.out0), b, key, h, a.H, a.Tk, part,
-                      dk, a.scale);
-    store_slice<T, D>(static_cast<T*>(a.out1), b, key, h, a.H, a.Tk, part,
-                      dv, 1.0f);
+}
+
+// f32: thread (ty, tx) owns keys 4ty .. 4ty+3 of the block (warp w keys
+// 16w .. 16w+15), q columns tx + 8j of each tile and, of Dh, the columns
+// 8*VW*c + VW*tx + e. Sᵀ and dPᵀ are 4 x ROWS/8 FFMA micro-tiles from the
+// shared K / V rows and q / dO tiles; p and dS pass through the warp's
+// rows of two shared tiles into the 4 x Dh/8 micro-tiles of dV and dK.
+template <int D, int KEYS, int ROWS>
+__device__ __forceinline__ void dkv_ffma(const Args& a, char* smem) {
+  constexpr int LD = row_ld<float, D>(), LP = ROWS + 4, J = ROWS / 8;
+  constexpr int VW = D >= 32 ? 4 : 2, NV = D / 8 / VW;
+  __shared__ float sL[2][ROWS], sD[2][ROWS];
+  float* sK = reinterpret_cast<float*>(smem);
+  float* sV = sK + KEYS * LD;
+  float* sQ = sV + KEYS * LD;
+  float* sG = sQ + 2 * ROWS * LD;
+  float* sP = sG + 2 * ROWS * LD;
+  float* sS = sP + KEYS * LP;
+  const int ty = threadIdx.x >> 3, tx = threadIdx.x & 7;
+  const int h = blockIdx.x, b = blockIdx.y, k0 = blockIdx.z * KEYS;
+  const int key0 = k0 + 4 * ty, w0 = k0 + 16 * (threadIdx.x >> 5);
+  bool kv[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) kv[i] = key_valid(a, b, key0 + i);
+  const bool all_valid = __all_sync(kFull, kv[0] && kv[1] && kv[2] && kv[3]);
+
+  float dk[4][D / 8], dv[4][D / 8];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+#pragma unroll
+    for (int c = 0; c < D / 8; ++c) dk[i][c] = dv[i][c] = 0.0f;
+  }
+
+  dkv_stream<float, D, KEYS, ROWS>(
+      a, b, h, k0, sK, sV, sQ, sG, sL, sD,
+      [&](int, int q0, const float* tQ, const float* tG, const float* lse,
+          const float* dl) {
+        if (a.causal && q0 + ROWS - 1 < w0) return;  // p = 0 throughout
+        float s[4][J], dp[4][J];
+        micro_abt<D, J>(s, sK + 4 * ty * LD, tQ + tx * LD);
+        micro_abt<D, J>(dp, sV + 4 * ty * LD, tG + tx * LD);
+        const bool edge = !all_valid || (a.causal && q0 < w0 + 15);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+#pragma unroll
+          for (int j = 0; j < J; ++j) {
+            const int c = tx + 8 * j;
+            float x = s[i][j] * a.scale;
+            if (edge && (!kv[i] || (a.causal && q0 + c < key0 + i))) x = kNeg;
+            const float p = expf(x - lse[c]);
+            sP[(4 * ty + i) * LP + c] = p;  // f32: no rounding
+            sS[(4 * ty + i) * LP + c] = p * (dp[i][j] - dl[c]);
+          }
+        }
+        __syncwarp();  // the warp's p and dS rows are written
+        micro_pb<D, ROWS>(dv, sP + 4 * ty * LP, tG, tx);
+        micro_pb<D, ROWS>(dk, sS + 4 * ty * LP, tQ, tx);
+      });
+
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int key = key0 + i;
+    if (key >= a.Tk) continue;
+    const long long off = ((static_cast<long long>(b) * a.Tk + key) * a.H + h) * D;
+    float* ok = static_cast<float*>(a.out0) + off;
+    float* ov = static_cast<float*>(a.out1) + off;
+#pragma unroll
+    for (int c = 0; c < NV; ++c) {
+      float vk[VW], vv[VW];
+#pragma unroll
+      for (int e = 0; e < VW; ++e) {
+        vk[e] = dk[i][VW * c + e] * a.scale;
+        vv[e] = dv[i][VW * c + e];
+      }
+      store_vec<VW>(ok + 8 * VW * c + VW * tx, vk);
+      store_vec<VW>(ov + 8 * VW * c + VW * tx, vv);
+    }
+  }
+}
+
+// One block of 2 * KEYS threads per (head, batch, key tile); the key
+// tile is blockIdx.z, the slowest axis, so under causal masking the
+// heaviest tiles (the first keys, which every later q tile sees) start
+// first.
+template <typename T, int D, int KEYS, int ROWS>
+__global__ void __launch_bounds__(2 * KEYS) flash_bwd_dkv_kernel(Args a) {
+  extern __shared__ __align__(16) char smem[];
+  if constexpr (std::is_same<T, bf16>::value) {
+    dkv_mma<D, KEYS, ROWS>(a, smem);
+  } else {
+    dkv_ffma<D, KEYS, ROWS>(a, smem);
   }
 }
 
@@ -1015,18 +1149,38 @@ int dispatch_rows(int which, const Args& a, int B, int D, int rows,
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// K3: the (Dh, TILE) pairs built: shared memory is 2 * TILE * Dh * 4
-// bytes of f32 tiles, inside the 48 KB static limit.
-template <typename T>
-int dispatch_dkv(const Args& a, int B, int D, int tile, cudaStream_t stream) {
-#define DMP_KCASE(DD, TT)                                                  \
-  if (D == DD && tile == TT) {                                             \
-    flash_bwd_dkv_kernel<T, DD, TT>                                        \
-        <<<dim3((a.Tk + TT - 1) / TT, a.H, B), dim3(4 * TT), 0, stream>>>(a); \
-    return static_cast<int>(cudaGetLastError());                           \
+template <typename T, int D, int KEYS, int ROWS>
+int launch_dkv(const Args& a, int B, cudaStream_t stream) {
+  static_assert(KEYS % 16 == 0 && ROWS % 16 == 0 && ROWS <= 2 * KEYS,
+                "K3 tile: 16-row mma steps; a thread per q row's stats");
+  constexpr int bytes = dkv_smem_bytes<T, D, KEYS, ROWS>();
+  const int key_tiles = (a.Tk + KEYS - 1) / KEYS;
+  if (B > 65535 || key_tiles > 65535) {
+    return static_cast<int>(cudaErrorInvalidValue);
   }
-  DMP_KCASE(16, 64) DMP_KCASE(32, 64) DMP_KCASE(64, 32) DMP_KCASE(64, 64)
-  DMP_KCASE(128, 32)
+  auto kernel = flash_bwd_dkv_kernel<T, D, KEYS, ROWS>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kernel<<<dim3(a.H, B, key_tiles), dim3(2 * KEYS), bytes, stream>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K3: the (Dh, KEYS, ROWS) tiles built, each for both dtypes;
+// ops/flash_attention.py's TILES lists the same. Dh 64 has the sweep's
+// keys {64, 128} x rows {32, 64}; Dh 128 only (64, 32): at (64, 64) the
+// f32 kernel needs 237 KB of shared memory.
+template <typename T>
+int dispatch_dkv(const Args& a, int B, int D, int keys, int rows,
+                 cudaStream_t stream) {
+#define DMP_KCASE(DD, KK, RR)                                              \
+  if (D == DD && keys == KK && rows == RR) {                               \
+    return launch_dkv<T, DD, KK, RR>(a, B, stream);                        \
+  }
+  DMP_KCASE(16, 64, 64) DMP_KCASE(32, 64, 64)
+  DMP_KCASE(64, 64, 32) DMP_KCASE(64, 64, 64)
+  DMP_KCASE(64, 128, 32) DMP_KCASE(64, 128, 64)
+  DMP_KCASE(128, 64, 32)
 #undef DMP_KCASE
   return static_cast<int>(cudaErrorInvalidValue);
 }
@@ -1052,7 +1206,7 @@ extern "C" {
 
 // Each launches on `stream` and returns a cudaError_t code (0 =
 // launched). `strides` holds (batch, seq, head) element strides per
-// (B, T, H, Dh) operand, in the order the operands are listed. K1 and K2
+// (B, T, H, Dh) operand, in the order the operands are listed. K1-K3
 // copy 16-byte chunks: every operand's base address and strides must be
 // multiples of 16 bytes (the wrapper checks). Outputs are contiguous
 // (B, T, H, Dh); lse/delta are contiguous (B, H, Tq) f32.
@@ -1096,7 +1250,7 @@ int dmp_flash_bwd_dkv(const void* q, const void* k, const void* v,
                       const void* g, const long long* strides,
                       const uint8_t* mask, const float* lse,
                       const float* delta, void* dk, void* dv, int B, int Tq,
-                      int Tk, int H, int D, int tile, int bf16_in,
+                      int Tk, int H, int D, int keys, int rows, int bf16_in,
                       float scale, int causal, cudaStream_t stream) {
   Args a{};
   a.q = operand(q, strides);
@@ -1110,8 +1264,8 @@ int dmp_flash_bwd_dkv(const void* q, const void* k, const void* v,
   a.out1 = dv;
   a.Tq = Tq; a.Tk = Tk; a.H = H; a.scale = scale; a.causal = causal;
   if (bad_shape(a, B)) return static_cast<int>(cudaErrorInvalidValue);
-  return bf16_in ? dispatch_dkv<bf16>(a, B, D, tile, stream)
-                 : dispatch_dkv<float>(a, B, D, tile, stream);
+  return bf16_in ? dispatch_dkv<bf16>(a, B, D, keys, rows, stream)
+                 : dispatch_dkv<float>(a, B, D, keys, rows, stream);
 }
 
 }  // extern "C"

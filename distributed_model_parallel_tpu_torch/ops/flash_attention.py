@@ -13,7 +13,7 @@ of the same function here:
 A wrapper given CPU tensors computes its plain version; given CUDA
 tensors it launches its kernel (and raises if the launch fails): there
 is no fallback. Each counts its kernel launches in `<wrapper>.launches`.
-K1 and K2 copy operand rows in 16-byte chunks and refuse an operand
+All three copy operand rows in 16-byte chunks and refuse an operand
 whose address or strides are not 16-byte aligned (`_check_aligned`);
 the views of a fused qkv projection split at head boundaries are.
 
@@ -56,15 +56,19 @@ HEAD_DIMS = (16, 32, 64, 128)
 # dtypes (csrc/flash_attention.cu's DMP_QCASE list). Dh 64 (GPT-2 small)
 # has the sweep's tiles: rows {64, 128} x keys {32, 64, 128} less (128,
 # 128), where the f32 K1 needs 242 KB of shared memory (227 KB is the
-# limit). K3 keeps its scalar design: its tile is its rows per block (4
-# threads a row), two TILE x Dh f32 tiles inside the 48 KB static limit.
+# limit). K3 takes (keys, rows): a block of keys/16 warps owns `keys`
+# keys and streams q / dO tiles of `rows` rows (DMP_KCASE); Dh 64 has
+# the sweep's keys {64, 128} x rows {32, 64}, Dh 128 only (64, 32)
+# (the f32 kernel needs 237 KB of shared memory at (64, 64)).
 _ROW_TILES = {16: ((64, 64),), 32: ((64, 64),),
               64: ((64, 32), (64, 64), (64, 128), (128, 32), (128, 64)),
               128: ((64, 32), (64, 64))}
 TILES = {
     "flash_fwd": _ROW_TILES,
     "flash_bwd_dq": _ROW_TILES,
-    "flash_bwd_dkv": {16: (64,), 32: (64,), 64: (32, 64), 128: (32,)},
+    "flash_bwd_dkv": {16: ((64, 64),), 32: ((64, 64),),
+                      64: ((64, 32), (64, 64), (128, 32), (128, 64)),
+                      128: ((64, 32),)},
 }
 # Each kernel's tile per dtype and head dim, from chip_smoke.py's sweep
 # at Dh 64 on one H100 80GB HBM3, 700 W (B 8, T 1024, H 12, causal;
@@ -73,7 +77,9 @@ TILES = {
 #   K1 f32  .572 .584 .794 .586 .607   bf16 .149 .135 .179 .163 .140
 #   K2 f32  .739 .913 .905 .822 .728   bf16 .151 .146 .171 .161 .190
 # (f32 fits 2 blocks an SM at 64x32 and 8 warps at 128x64; 128 keys
-# doubles the ring). K3: tile 64 (1.59 vs 1.82 ms at 32).
+# doubles the ring). K3, keys x rows = 64x32 / 64x64 / 128x32 / 128x64:
+#   K3 f32  .832 1.176 .862 .808          bf16 .192 .155 .199 .167
+# (f32 64x64 holds one block of 4 warps an SM: 136 KB of shared memory).
 _F32, _BF16 = torch.float32, torch.bfloat16
 DEFAULT_TILE = {
     "flash_fwd": {
@@ -84,8 +90,10 @@ DEFAULT_TILE = {
         _F32: {16: (64, 64), 32: (64, 64), 64: (128, 64), 128: (64, 32)},
         _BF16: {16: (64, 64), 32: (64, 64), 64: (64, 64), 128: (64, 32)},
     },
-    "flash_bwd_dkv": {dt: {16: 64, 32: 64, 64: 64, 128: 32}
-                      for dt in DTYPES},
+    "flash_bwd_dkv": {
+        _F32: {16: (64, 64), 32: (64, 64), 64: (128, 64), 128: (64, 32)},
+        _BF16: {16: (64, 64), 32: (64, 64), 64: (64, 64), 128: (64, 32)},
+    },
 }
 
 
@@ -170,12 +178,11 @@ def _library() -> ctypes.CDLL:
     lib = _cuda.load(_SOURCE)
     if not getattr(lib, "_dmp_bound", False):
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        # B Tq Tk H D, then (rows, keys) for K1/K2 or tile for K3, then
-        # bf16 scale causal stream
-        rows = [i, i, i, i, i, i, i, i, f, i, p]
-        tail = [i, i, i, i, i, i, i, f, i, p]
-        lib.dmp_flash_fwd.argtypes = [p] * 7 + rows
-        lib.dmp_flash_bwd_dq.argtypes = [p] * 9 + rows
+        # B Tq Tk H D, then the tile ((rows, keys) for K1/K2, (keys,
+        # rows) for K3), then bf16 scale causal stream
+        tail = [i, i, i, i, i, i, i, i, f, i, p]
+        lib.dmp_flash_fwd.argtypes = [p] * 7 + tail
+        lib.dmp_flash_bwd_dq.argtypes = [p] * 9 + tail
         lib.dmp_flash_bwd_dkv.argtypes = [p] * 10 + tail
         for fn in (lib.dmp_flash_fwd, lib.dmp_flash_bwd_dq,
                    lib.dmp_flash_bwd_dkv):
@@ -232,7 +239,7 @@ def _dh_contiguous(t: torch.Tensor) -> torch.Tensor:
 
 
 def _check_aligned(name: str, *ts) -> None:
-    """K1 and K2 copy operand rows in 16-byte chunks (cp.async): each
+    """The kernels copy operand rows in 16-byte chunks (cp.async): each
     operand's base address and its batch, sequence and head strides (on
     axes longer than 1) must be multiples of 16 bytes. Views of a fused
     qkv projection split at head boundaries are; anything else is
@@ -258,8 +265,8 @@ def _strides(*ts) -> ctypes.Array:
 
 def _tile(name: str, dtype, dh: int, tile):
     """`tile`, or the kernel's default for this dtype and head dim,
-    checked against what is built: (rows, keys) for K1/K2, an int for
-    K3."""
+    checked against what is built: (rows, keys) for K1/K2, (keys, rows)
+    for K3."""
     tile = DEFAULT_TILE[name][dtype][dh] if tile is None else tile
     if tile not in TILES[name][dh]:
         raise ValueError(f"{name}: tile {tile} is not built for Dh {dh} "
@@ -348,15 +355,18 @@ def flash_bwd_dq(q, k, v, g, lse, delta, mask=None, *, scale: float,
 
 
 def flash_bwd_dkv(q, k, v, g, lse, delta, mask=None, *, scale: float,
-                  causal: bool = False, tile: Optional[int] = None):
-    """K3: (dk, dv) (B, Tk, H, Dh) in k's and v's dtypes."""
+                  causal: bool = False,
+                  tile: Optional[Tuple[int, int]] = None):
+    """K3: (dk, dv) (B, Tk, H, Dh) in k's and v's dtypes. `tile` is
+    (keys, rows); operands must be 16-byte aligned (`_check_aligned`)."""
     if not _on_cuda("flash_bwd_dkv", q):
         return flash_bwd_dkv_plain(q, k, v, g, lse, delta, mask,
                                    scale=scale, causal=causal)
     _check("flash_bwd_dkv", q, k, v, g, mask, (lse, delta))
     q, k, v, g = (_dh_contiguous(t) for t in (q, k, v, g))
+    _check_aligned("flash_bwd_dkv", q, k, v, g)
     b, tq, h, dh = q.shape
-    tile = _tile("flash_bwd_dkv", q.dtype, dh, tile)
+    keys, rows = _tile("flash_bwd_dkv", q.dtype, dh, tile)
     lib = _library()
     with torch.cuda.device(q.device):
         dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
@@ -367,7 +377,8 @@ def flash_bwd_dkv(q, k, v, g, lse, delta, mask=None, *, scale: float,
             _strides(q, k, v, g),
             mask_c.data_ptr() if mask_c is not None else None,
             lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-            b, tq, k.shape[1], h, dh, tile, int(q.dtype == torch.bfloat16),
+            b, tq, k.shape[1], h, dh, keys, rows,
+            int(q.dtype == torch.bfloat16),
             scale, int(causal), torch.cuda.current_stream().cuda_stream,
         )
     _raise_on(rc, "flash_bwd_dkv", q, k)

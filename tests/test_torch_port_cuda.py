@@ -24,10 +24,17 @@ def cuda():
 @pytest.mark.parametrize("m,k,n", [
     (8, 768, 2304), (8, 768, 768), (8, 768, 3072), (8, 3072, 768),
     (3, 768, 768), (256, 768, 3072), (1, 4, 1), (9, 36, 33),
+    (1, 768, 768),     # M = 1
+    (8, 776, 40),      # K % 16 != 0: 4-byte words, and N % 16 != 0
+    (8, 3072, 37),     # N that no 16-column tile divides
+    (5, 20, 17),       # K shorter than the 8-way K split: empty ranks
+    (8, 6144, 64),     # PR 1's largest K
+    (2, 16384, 16),    # the kernel's largest K (dmp_int8_matmul_max_k)
 ])
 def test_int8_kernel_matches_plain(cuda, m, k, n):
-    """Identical activation codes and scales, outputs within 1e-6, one
-    launch counted per call."""
+    """Identical activation codes, scales and outputs (integer sums are
+    exact in any order, so the K split changes no bit), one launch
+    counted per call."""
     g = torch.Generator(device=cuda).manual_seed(m * 7 + k + n)
     x = torch.randn((m, k), generator=g, device=cuda)
     w = torch.randn((k, n), generator=g, device=cuda)
@@ -39,8 +46,7 @@ def test_int8_kernel_matches_plain(cuda, m, k, n):
     assert qm.int8_matmul.launches == before + 1
     rq, rs = qm.quantize_rows(x)
     assert torch.equal(q, rq) and torch.equal(s, rs)
-    torch.testing.assert_close(y, qm.int8_matmul_plain(x, wq_t, ws),
-                               rtol=1e-6, atol=1e-6)
+    assert torch.equal(y, qm.int8_matmul_plain(x, wq_t, ws))
     assert bool((y[:, 0] == 0).all())
 
 
@@ -73,7 +79,8 @@ FLASH_CASES = [  # (B, T, H, Dh, causal, mask kind)
     (1, 72, 2, 16, False, "random"),
     (1, 200, 2, 128, True, "all"),    # Dh 128, ragged causal T
     (2, 256, 2, 64, True, "tile"),    # keys 64-127 all masked
-]
+    (2, 80, 2, 64, True, "all"),      # key tile 64-127 past the last full
+]                                     # q tile (rows 0-63)
 
 
 def _flash_inputs(cuda, case, dtype):
@@ -124,6 +131,7 @@ def test_flash_kernels_match_plain(cuda, case, dtype):
     if case[5] == "row":  # no valid key: out 0, LSE +inf, zero grads
         assert bool((out[1] == 0).all()) and bool(torch.isinf(lse[1]).all())
         assert bool((dq[1] == 0).all())
+        assert bool((dk[1] == 0).all()) and bool((dv[1] == 0).all())
 
 
 def _kernel_vs_plain(q, k, v, do, mask, causal, scale, tiles):
@@ -212,7 +220,7 @@ def test_flash_attention_autograd_bf16_strided_split(cuda):
 
 @pytest.mark.cuda
 def test_flash_kernels_refuse_misaligned_operands(cuda):
-    """K1/K2 copy 16-byte chunks: a view 4 bytes off is refused, never
+    """K1-K3 copy 16-byte chunks: a view 4 bytes off is refused, never
     sent to the plain version."""
     n = 1 * 16 * 2 * 32
     q = torch.randn(n + 1, device=cuda)[1:].view(1, 16, 2, 32)
@@ -222,6 +230,8 @@ def test_flash_kernels_refuse_misaligned_operands(cuda):
     lse = torch.zeros((1, 2, 16), device=cuda)
     with pytest.raises(ValueError, match="16-byte aligned"):
         fa.flash_bwd_dq(ok, ok, ok, q, lse, lse, scale=0.2)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        fa.flash_bwd_dkv(ok, q, ok, ok, lse, lse, scale=0.2)
 
 
 @pytest.mark.cuda

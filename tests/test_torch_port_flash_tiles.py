@@ -1,7 +1,7 @@
 """The flash kernels' tile tables (`ops/flash_attention.py` TILES and
 DEFAULT_TILE) against the instantiations `csrc/flash_attention.cu`
-dispatches to, read from the source, and the 16-byte alignment rule of
-K1/K2's operands. No GPU and no jax needed: a tile listed but not built
+dispatches to, read from the source, their shared-memory fit, and the
+16-byte alignment rule of the kernels' operands. No GPU and no jax needed: a tile listed but not built
 would only fail at launch on the card."""
 
 import re
@@ -21,8 +21,8 @@ def _built():
     src = SOURCE.read_text()
     rows = {(int(d), (int(r), int(k))) for d, r, k in
             re.findall(r"DMP_QCASE\((\d+), (\d+), (\d+)\)", src)}
-    dkv = {(int(d), int(t)) for d, t in
-           re.findall(r"DMP_KCASE\((\d+), (\d+)\)", src)}
+    dkv = {(int(d), (int(k), int(r))) for d, k, r in
+           re.findall(r"DMP_KCASE\((\d+), (\d+), (\d+)\)", src)}
     return {"flash_fwd": rows, "flash_bwd_dq": rows, "flash_bwd_dkv": dkv}
 
 
@@ -56,6 +56,23 @@ def test_row_tiles_fit_in_shared_memory(dh):
             for resident in (1, 2):  # K1, K2
                 nbytes = (resident * rows + 4 * keys) * ld * esize + p_tile
                 assert nbytes + keys <= SMEM_LIMIT, (dh, rows, keys, esize)
+
+
+@pytest.mark.parametrize("dh", fa.HEAD_DIMS)
+def test_dkv_tiles_fit_in_shared_memory(dh):
+    """K3 shared memory (csrc `dkv_smem_bytes`): the block's K and V rows,
+    a 2-stage ring of q and dO tiles, rows padded by 16 bytes, for f32
+    the p and dS tiles (keys x (rows + 4)); beside it the static LSE and
+    delta stages (2 x rows f32 each). rows <= 2 * keys: one thread a q
+    row loads its stats."""
+    for keys, rows in fa.TILES["flash_bwd_dkv"][dh]:
+        assert keys % 16 == 0 and rows % 16 == 0 and rows <= 2 * keys
+        for esize in (4, 2):
+            ld = dh + 16 // esize
+            p_tiles = 2 * keys * (rows + 4) * 4 if esize == 4 else 0
+            nbytes = (2 * keys + 4 * rows) * ld * esize + p_tiles
+            assert nbytes + 2 * 2 * rows * 4 <= SMEM_LIMIT, (dh, keys, rows,
+                                                             esize)
 
 
 def test_alignment_rule():
