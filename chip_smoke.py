@@ -60,7 +60,28 @@ Phases; any failure exits non-zero (nothing is caught and passed over):
    one train step of a small GPT on the card against the CPU (loss and
    every gradient leaf), and at full width the kernels against the
    plain attention swapped in on the card.
-6. One `{"kernels": [...]}` JSON line (int8_matmul, flash_fwd,
+6. Data-parallel training: the port's DP CLI (`cli/data_parallel.py`
+   main) on MobileNetV2 (the CIFAR `CFG` widths, about 2.2 M
+   parameters), global batch 512, SyntheticTextures (50,000 train and
+   10,000 val images at CIFAR-10's shapes, made once for the three
+   runs), lr 0.4, `-j 8`, 30 train steps and the validation pass, as
+   `--engine ddp` f32, `--engine ddp --dtype bfloat16` and `--engine
+   gspmd` f32, on a world of one NCCL rank. cudnn.benchmark stays off
+   (the default). Per run one JSON line: synchronized ms/step (mean
+   over steps 6-30), images/s, the trainer's wall time and data wait
+   per batch, the native augment's host ms per batch, one profiled
+   step's device busy ms, idle share, kernels a step and top five
+   kernel families, the peak of `torch.cuda.max_memory_allocated`, the
+   first and last train loss. Checks: the process group is NCCL at
+   world 1 and the gradient all-reduce ran once a step; the native
+   augment built and made every train batch; losses finite and falling.
+   Then, f32 and bf16, the forward + backward device ms a step of each
+   layer kind at batch 512, each layer alone (depthwise convs, other
+   convs, the port's BN, cuDNN's fused BN as a yardstick), and one
+   tinycnn DDP step on the card against the CPU (loss and every
+   parameter, rtol 1e-5, TF32 off). No TPU kernel lies on this
+   path: convolutions are cuDNN's, the all-reduce NCCL's.
+7. One `{"kernels": [...]}` JSON line (int8_matmul, flash_fwd,
    flash_bwd_dq, flash_bwd_dkv), then the nvidia-smi line, then the
    last line `{"ok": true, "device": {...}}`. Each phase prints its
    seconds.
@@ -832,19 +853,24 @@ def lm_run(lm, engine_cls, fa, qm, name, layers, extra):
     return row
 
 
+def profiled_step(seen):
+    """`device_kernels` of one more train step of the engine, state,
+    batch and lr a recorded run last saw, under torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        seen["engine"].train_step(seen["state"], *seen["batch"], seen["lr"])
+        torch.cuda.synchronize()
+    return device_kernels(prof)
+
+
 def step_breakdown(seen, wall_ms):
     """One more train step under torch.profiler: device busy time, the
     idle share against the unprofiled step wall time, and each flash
     kernel's device ms within the step."""
-    from torch.profiler import ProfilerActivity, profile
-
-    eng, ts = seen["engine"], seen["state"]
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        eng.train_step(ts, *seen["batch"], seen["lr"])
-        torch.cuda.synchronize()
-    top = device_kernels(prof)
+    top = profiled_step(seen)
     busy = sum(t for t, _, _ in top)
     per_kernel = {dev_key: sum(t for t, _, key in top if dev_key in key)
                   for _, dev_key, _ in FLASH_KERNELS}
@@ -1001,6 +1027,281 @@ def flash_entry(name, replaces, lm_rows, errs, times):
     }
 
 
+DP_STEPS = 30
+DP_TIMED_FROM = 5  # steps 6-30 are timed
+DP_BATCH = 512
+DP_FLAGS = [
+    "--device", "cuda", "--model", "mobilenetv2", "--dataset-type",
+    "SyntheticTextures", "-b", str(DP_BATCH), "--val-batch-size", "1000",
+    "--lr", "0.4", "-j", "8", "--epochs", "1",
+    "--steps-per-epoch", str(DP_STEPS),
+]
+DP_RUNS = (  # (name, extra flags)
+    ("ddp_f32", ["--engine", "ddp"]),
+    ("ddp_bf16", ["--engine", "ddp", "--dtype", "bfloat16"]),
+    ("gspmd_f32", ["--engine", "gspmd"]),
+)
+# One tinycnn DDP step, card against CPU, f32 with TF32 off: rtol 1e-5
+# (the repo's f32 bar; cuDNN and the CPU sum in another order).
+DP_CARD_VS_CPU = 1e-5
+
+
+def kernel_family(name: str) -> str:
+    """A device kernel's name without its template and argument lists."""
+    import re
+
+    return re.sub(r"^void\s+", "", name).split("<")[0].split("(")[0]
+
+
+def dp_breakdown(seen, wall_ms):
+    """One more train step under torch.profiler: device busy ms, the idle
+    share against the synchronized step wall, kernels a step and the top
+    five kernel families by device time."""
+    kernels = profiled_step(seen)
+    busy_ms = sum(t for t, _, _ in kernels) / 1e3
+    families = {}
+    for t, n, name in kernels:
+        fam = families.setdefault(kernel_family(name), [0.0, 0])
+        fam[0] += t / 1e3
+        fam[1] += n
+    top = sorted(families.items(), key=lambda kv: -kv[1][0])[:5]
+    return {"device_busy_ms": busy_ms,
+            "device_idle_share": 1 - busy_ms / wall_ms,
+            "kernels_per_step": sum(n for _, n, _ in kernels),
+            "top_kernel_families": [
+                {"family": f[:80], "ms": ms, "launches": n}
+                for f, (ms, n) in top]}
+
+
+def dp_run(dp_cli, dp_mod, native, name, extra):
+    """One run of the DP CLI; each train step is timed (synchronized),
+    each native augment call timed on the host."""
+    import torch.distributed as dist
+
+    steps, seen, augment_ms = [], {}, []
+    train_step = dp_mod._DataParallel.train_step
+    augment = native.augment_normalize
+
+    def recorded(self, ts, images, labels, lr):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ts, m = train_step(self, ts, images, labels, lr)
+        torch.cuda.synchronize()
+        steps.append({"ms": (time.perf_counter() - t0) * 1e3,
+                      "loss": float(m["loss_sum"] / m["count"])})
+        seen.update(engine=self, state=ts, batch=(images, labels), lr=lr,
+                    backend=dist.get_backend(), world=dist.get_world_size(),
+                    grad_reductions=self.grad_reductions)
+        return ts, m
+
+    def timed_augment(*args, **kw):
+        t0 = time.perf_counter()
+        out = augment(*args, **kw)
+        augment_ms.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    torch.cuda.reset_peak_memory_stats()
+    buf = io.StringIO()
+    with patched(dp_mod._DataParallel, "train_step", recorded), \
+            patched(native, "augment_normalize", timed_augment), \
+            contextlib.redirect_stdout(buf):
+        out = dp_cli.main(DP_FLAGS + extra)
+    peak = torch.cuda.max_memory_allocated()
+    hist = out["history"][0]
+    losses = [s["loss"] for s in steps]
+    require(len(steps) == DP_STEPS and all(map(math.isfinite, losses))
+            and math.isfinite(hist["val"]["loss"]),
+            f"DP run {name}: {len(steps)} steps, losses {losses}")
+    require(sum(losses[-5:]) < sum(losses[:5]),
+            f"DP run {name}: the train loss did not fall: {losses}")
+    require(seen["backend"] == "nccl" and seen["world"] == 1,
+            f"DP run {name}: process group {seen['backend']} at world "
+            f"{seen['world']}, want nccl at 1")
+    require(seen["grad_reductions"] == DP_STEPS,
+            f"DP run {name}: {seen['grad_reductions']} gradient all-reduces "
+            f"in {DP_STEPS} steps")
+    require(native.available() and len(augment_ms) >= DP_STEPS,
+            f"DP run {name}: the native augment made {len(augment_ms)} "
+            f"batches for {DP_STEPS} steps")
+    timed = steps[DP_TIMED_FROM:]
+    ms = sum(s["ms"] for s in timed) / len(timed)
+    row = {"dp_run": name, "flags": extra, "ms_per_step": ms,
+           "images_per_s": DP_BATCH / ms * 1e3,
+           "trainer_batch_time_ms": hist["train"]["batch_time"] * 1e3,
+           "trainer_data_wait_ms": hist["train"]["data_time"] * 1e3,
+           "native_augment_ms_per_batch":
+               sum(augment_ms) / len(augment_ms),
+           "native_augment_batches": len(augment_ms),
+           "step_ms": [s["ms"] for s in steps],
+           "first_train_loss": losses[0], "last_train_loss": losses[-1],
+           "epoch_train_loss": hist["train"]["loss"],
+           "val_loss": hist["val"]["loss"], "val_acc1": hist["val"]["acc1"],
+           "max_memory_allocated_gib": peak / 2 ** 30,
+           "backend": seen["backend"],
+           "grad_allreduces": seen["grad_reductions"]}
+    row.update(dp_breakdown(seen, ms))
+    emit(row)
+    return row
+
+
+def dp_card_vs_cpu():
+    """One tinycnn DDP step (per-replica BN, 16 images of 8x8) on the
+    card, world 1 on NCCL, against the same step on the CPU with no
+    process group: loss and every parameter leaf."""
+    import numpy as np
+
+    from distributed_model_parallel_tpu_torch.models.tinycnn import tiny_cnn
+    from distributed_model_parallel_tpu_torch.parallel.data_parallel import (
+        DDPEngine,
+    )
+    from distributed_model_parallel_tpu_torch.runtime.mesh import Mesh
+    from distributed_model_parallel_tpu_torch.training.optim import (
+        SGD,
+        tree_leaves,
+    )
+
+    rng = np.random.RandomState(0)
+    images = rng.randn(16, 8, 8, 3).astype(np.float32)
+    labels = rng.randint(0, 10, 16)
+    res = {}
+    for dev, mesh in (("cuda", None), ("cpu", Mesh(1, None))):
+        eng = DDPEngine(tiny_cnn(10), SGD(), mesh=mesh, device=dev)
+        ts, m = eng.train_step(eng.init_state(0),
+                               *eng.shard_batch(images, labels), 0.1)
+        res[dev] = (m["loss_sum"] / m["count"],
+                    dict(zip(leaf_names(ts.params),
+                             tree_leaves(ts.params))))
+    loss = rel_diff(res["cuda"][0].cpu(), res["cpu"][0])
+    params = {n: rel_diff(res["cuda"][1][n].detach().cpu(),
+                          res["cpu"][1][n].detach())
+              for n in res["cpu"][1]}
+    readings = {"loss_rel": loss, "param_rel_max": max(params.values()),
+                "param_rel_worst_leaf": max(params, key=params.get),
+                "leaves": len(params)}
+    emit({"dp_card_vs_cpu": readings})
+    require(max(loss, readings["param_rel_max"]) <= DP_CARD_VS_CPU,
+            f"tinycnn DDP step on the card differs from the CPU's: "
+            f"{readings}")
+    return readings
+
+
+def dp_conv_shapes():
+    """(input NCHW shape, weight shape, stride, padding, groups) of every
+    convolution of MobileNetV2 at batch DP_BATCH, read off one CPU
+    forward at batch 1. Every one of them feeds a BN layer."""
+    import torch.nn.functional as F
+
+    from distributed_model_parallel_tpu_torch.models import layers as L
+    from distributed_model_parallel_tpu_torch.models.mobilenetv2 import (
+        mobilenet_v2,
+    )
+
+    shapes, conv = [], F.conv2d
+
+    def recording(x, w, stride=1, padding=0, groups=1):
+        shapes.append(((DP_BATCH, *x.shape[1:]), tuple(w.shape), stride,
+                       padding, groups))
+        return conv(x, w, stride=stride, padding=padding, groups=groups)
+
+    model = mobilenet_v2(10)
+    params, state = model.init(torch.Generator())
+    with patched(F, "conv2d", recording), torch.no_grad():
+        model.apply(params, state, torch.zeros(1, 32, 32, 3), L.Context())
+    return shapes
+
+
+def dp_layer_times(dtype, iters=3):
+    """Forward + backward device ms a step of MobileNetV2's layer kinds
+    at batch DP_BATCH, each layer alone on channels-last tensors with a
+    ones cotangent (torch.profiler device time of the kernels, summed
+    over the model's layers; host gaps between launches are not
+    counted): the depthwise 3x3 convs, the other convs, the port's BN
+    (the reference's arithmetic), and cuDNN's fused BN (`F.batch_norm`,
+    a yardstick the port never calls: Welford statistics, not the
+    reference's E[x²] - E[x]²)."""
+    import torch.nn.functional as F
+    from torch.profiler import ProfilerActivity, profile
+
+    from distributed_model_parallel_tpu_torch.models import layers as L
+
+    def timed(calls):
+        for fn, args in calls:
+            fn(*args)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                for fn, args in calls:
+                    fn(*args)
+            torch.cuda.synchronize()
+        return sum(t for t, _, _ in device_kernels(prof)) / iters / 1e3
+
+    def leaf(shape, leaf_dtype):
+        t = torch.randn(shape, device="cuda").to(leaf_dtype)
+        return t.contiguous(memory_format=torch.channels_last
+                            ).requires_grad_(True)
+
+    def conv_step(x, w, stride, padding, groups):
+        y = F.conv2d(x, w.to(x.dtype), stride=stride, padding=padding,
+                     groups=groups)
+        y.backward(torch.ones_like(y))
+
+    def port_bn_step(x, p, s):
+        y, _ = L.batchnorm2d(x.shape[1]).apply(p, s, x, L.Context(train=True))
+        y.backward(torch.ones_like(y))
+
+    def cudnn_bn_step(x, p, s):
+        y = F.batch_norm(x, s["mean"].clone(), s["var"].clone(), p["scale"],
+                         p["bias"], training=True)
+        y.backward(torch.ones_like(y))
+
+    calls = {"depthwise_conv_ms": [], "other_conv_ms": [],
+             "bn_port_ms": [], "bn_cudnn_fused_ms": []}
+    for in_shape, w_shape, stride, padding, groups in dp_conv_shapes():
+        x, w = leaf(in_shape, dtype), leaf(w_shape, torch.float32)
+        key = "depthwise_conv_ms" if groups > 1 else "other_conv_ms"
+        calls[key].append((conv_step, (x, w, stride, padding, groups)))
+        with torch.no_grad():
+            y = F.conv2d(x, w.to(dtype), stride=stride, padding=padding,
+                         groups=groups)
+        c = y.shape[1]
+        p = {"scale": torch.ones(c, device="cuda", requires_grad=True),
+             "bias": torch.zeros(c, device="cuda", requires_grad=True)}
+        st = {"mean": torch.zeros(c, device="cuda"),
+              "var": torch.ones(c, device="cuda")}
+        bn_args = (y.requires_grad_(True), p, st)
+        calls["bn_port_ms"].append((port_bn_step, bn_args))
+        calls["bn_cudnn_fused_ms"].append((cudnn_bn_step, bn_args))
+    return {key: timed(kind) for key, kind in calls.items()}
+
+
+def dp_phase():
+    """The data-parallel phase: the three DP CLI runs on one dataset made
+    once, then the card-vs-CPU step."""
+    from distributed_model_parallel_tpu_torch import native
+    from distributed_model_parallel_tpu_torch.cli import data_parallel
+    from distributed_model_parallel_tpu_torch.data import datasets
+    from distributed_model_parallel_tpu_torch.parallel import (
+        data_parallel as dp_mod,
+    )
+
+    t0 = time.perf_counter()
+    data = datasets.DatasetCollection("SyntheticTextures").init()
+    print(f"data-parallel: SyntheticTextures made in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    require(native.available(), "the native augment library did not build")
+    rows = []
+    with patched(datasets.DatasetCollection, "init", lambda self: data):
+        for name, extra in DP_RUNS:
+            rows.append(dp_run(data_parallel, dp_mod, native, name, extra))
+    for dtype in (torch.float32, torch.bfloat16):
+        emit({"dp_layer_times": str(dtype).split(".")[-1],
+              **dp_layer_times(dtype)})
+    dp_card_vs_cpu()
+    torch.distributed.destroy_process_group()
+    return rows
+
+
 def main() -> int:
     phase_t0 = time.perf_counter()
 
@@ -1144,7 +1445,14 @@ def main() -> int:
                          init_params, optim, lm_data)
     phase_done("training card vs CPU")
 
-    # ---- 6. kernels line, card line, last line -----------------------
+    # ---- 6. data-parallel MobileNetV2 training (a main path) ----------
+    reset_counts(fa, qm)
+    dp_phase()
+    require(not any(counts(fa).values()) and qm.int8_matmul.launches == 0,
+            "data-parallel training launched a K1-K4 kernel")
+    phase_done("data-parallel training")
+
+    # ---- 7. kernels line, card line, last line -----------------------
     decode = [r for r in shapes if r["M"] == SLOTS]
     step = {key: None if any(r[key] is None for r in decode)
             else LAYERS * sum(r[key] for r in decode)

@@ -1,17 +1,42 @@
-"""Shared CLI pieces for `cli/serve.py` and `cli/lm.py` (port of the
-serving and LM parts of `cli/common.py`).
+"""Shared CLI pieces for `cli/serve.py`, `cli/lm.py` and
+`cli/data_parallel.py` (port of `cli/common.py`).
 
-Both parsers carry the reference's whole flag surface, so a pasted
+The parsers carry the reference's whole flag surface, so a pasted
 launch line fails with an explanation instead of an argparse error;
 flags whose features belong to later port slices are refused loudly,
-naming the slice (`check_serving_args`, `check_lm_args`).
+naming the slice (`check_serving_args`, `check_lm_args`,
+`check_data_parallel_args`). The image side: `MODELS`, `build_model`,
+`stats_for`, `build_loaders` (per-rank loaders from the global batch)
+and `check_batch_divisibility`.
 """
 
 from __future__ import annotations
 
 import argparse
 import os
+from typing import Tuple
 
+import numpy as np
+
+from distributed_model_parallel_tpu_torch.data.datasets import (
+    CIFAR10_MEAN,
+    CIFAR10_STD,
+    IMAGENET_MEAN,
+    IMAGENET_STD,
+    LATER_TYPES,
+    DatasetCollection,
+)
+from distributed_model_parallel_tpu_torch.data.loader import Loader
+from distributed_model_parallel_tpu_torch.models.mobilenetv2 import (
+    mobilenet_v2,
+    mobilenet_v2_nobn,
+)
+from distributed_model_parallel_tpu_torch.models.resnet import (
+    resnet18,
+    resnet50,
+)
+from distributed_model_parallel_tpu_torch.models.tinycnn import tiny_cnn
+from distributed_model_parallel_tpu_torch.runtime import dist
 from distributed_model_parallel_tpu_torch.serving.engine import (
     BF16_SLICE,
     PAGED_SLICE,
@@ -23,7 +48,8 @@ from distributed_model_parallel_tpu_torch.serving.engine import (
 def add_grad_reduction_flags(parser: argparse.ArgumentParser) -> None:
     """The training engines' reducer flags, carried so a pasted launch
     line is refused with an explanation (`check_serving_args`: serving
-    runs no backward; `check_lm_args`: not ported yet)."""
+    runs no backward; `check_lm_args`, `check_data_parallel_args`: not
+    ported yet)."""
     parser.add_argument("--grad-reduction", default="monolithic",
                         choices=("monolithic", "bucketed", "overlapped"),
                         help="gradient-reduction flag; refused")
@@ -174,7 +200,8 @@ def compute_dtype_from_flag(name: str):
 
 def add_checkpoint_flags(parser: argparse.ArgumentParser) -> None:
     """The training CLIs' checkpoint flags, carried so a reference launch
-    line is refused with an explanation (`check_lm_args`)."""
+    line is refused with an explanation (`check_lm_args`,
+    `check_data_parallel_args`)."""
     parser.add_argument("--checkpoint-dir", default="./checkpoint",
                         help="not ported yet (checkpointing slice)")
     parser.add_argument("--checkpoint-format", default="legacy",
@@ -195,8 +222,8 @@ def add_auto_tune_flags(parser: argparse.ArgumentParser) -> None:
                         help="not ported yet (auto-tuning slice)")
 
 
-# Later port slices named by `check_lm_args`.
-LM_SLICES = {
+# Later port slices named by the `check_*_args` refusals.
+SLICES = {
     "plan": "the composed-parallel-plan slice",
     "tune": "the auto-tuning slice",
     "pipeline": "the pipeline slice",
@@ -208,6 +235,12 @@ LM_SLICES = {
     "checkpoint": "the checkpointing slice",
     "multistep": "the multi-step dispatch slice",
     "profile": "the profiler-capture slice",
+    "fsdp": "the FSDP slice",
+    "tp": "the tensor-parallel slice",
+    "device_cache": "the device-cache slice",
+    "finetune": "the torch-import slice",
+    "elastic": "the elastic-restart slice",
+    "transformer": "the transformer-classifier slice",
 }
 
 
@@ -215,7 +248,7 @@ def check_lm_args(args) -> None:
     """Startup-time validation of the LM CLI surface: every flag whose
     feature belongs to a later port slice is refused, naming the slice,
     before any engine or corpus is built."""
-    s = LM_SLICES
+    s = SLICES
     refusals = (
         ("--plan", args.plan, s["plan"]),
         ("--auto-tune / --auto-tune-out / --auto-tune-calibration",
@@ -254,6 +287,154 @@ def check_lm_args(args) -> None:
             )
 
 
+# ---------------------------------------------------------------- images
+
+MODELS = {
+    "mobilenetv2": mobilenet_v2,
+    "mobilenetv2_nobn": mobilenet_v2_nobn,
+    "resnet18": resnet18,
+    "resnet50": resnet50,
+    "tinycnn": tiny_cnn,
+}
+# Models of the reference's --model choices that later slices bring.
+LATER_MODELS = ("bert", "bert_tiny", "vit")
+
+
+def build_model(name: str, num_classes: int):
+    if name in LATER_MODELS:
+        raise SystemExit(
+            f"--model {name} is not ported to the PyTorch package yet: it "
+            f"belongs to {SLICES['transformer']} (ROADMAP.md)"
+        )
+    if name not in MODELS:
+        raise SystemExit(f"unknown model {name!r}; choose from "
+                         f"{sorted(MODELS)}")
+    return MODELS[name](num_classes)
+
+
+def stats_for(dataset_type: str) -> Tuple[np.ndarray, np.ndarray]:
+    if dataset_type in ("CIFAR10", "Synthetic", "SyntheticTextures"):
+        return CIFAR10_MEAN, CIFAR10_STD
+    return IMAGENET_MEAN, IMAGENET_STD
+
+
+def build_loaders(dataset_type: str, data_path: str, batch_size: int, *,
+                  val_batch_size=None, augment: bool = True, seed: int = 0,
+                  workers: int = 1, device_normalize: bool = False):
+    """(train_loader, val_loader, num_classes) for this rank. `batch_size`
+    and `val_batch_size` are GLOBAL batches (the reference's `-b 512` is
+    512 in all, and lr 0.4 is tuned to it); each rank's Loader draws
+    global / world samples a step from its own shard."""
+    procs = dist.process_count()
+    for label, b in (("", batch_size), ("val ", val_batch_size)):
+        if b is not None and b % procs:
+            raise SystemExit(f"global {label}batch size {b} must be "
+                             f"divisible by the process count {procs}")
+    train_ds, val_ds = DatasetCollection(dataset_type, data_path).init()
+    mean, std = stats_for(dataset_type)
+    rank = dict(process_index=dist.process_index(), process_count=procs,
+                workers=workers, device_normalize=device_normalize,
+                mean=mean, std=std)
+    train = Loader(train_ds, batch_size=batch_size // procs, shuffle=True,
+                   augment=augment, seed=seed, **rank)
+    val = Loader(val_ds, batch_size=(val_batch_size or batch_size) // procs,
+                 shuffle=False, augment=False, drop_last=False, **rank)
+    return train, val, train_ds.num_classes
+
+
+def check_batch_divisibility(global_batch: int, mesh, *,
+                             label: str = "batch") -> None:
+    """Fail at startup when the global batch does not split evenly over
+    the mesh's data ranks."""
+    if global_batch % mesh.data:
+        raise SystemExit(
+            f"{label} size {global_batch} must be divisible by the 'data' "
+            f"mesh axis ({mesh.data} ranks)"
+        )
+
+
+def add_common_tpu_flags(parser: argparse.ArgumentParser) -> None:
+    """The reference's shared training flags (its name kept): --model,
+    --dtype, --remat, --optimizer, --profile-dir, --steps-per-epoch,
+    --steps-per-dispatch, --log-file, --metrics-out."""
+    parser.add_argument("--model", default="mobilenetv2",
+                        choices=sorted((*MODELS, *LATER_MODELS)),
+                        help="model family (the reference trains "
+                             "MobileNetV2); bert, bert_tiny and vit are not "
+                             "ported yet")
+    parser.add_argument("--dtype", default="float32",
+                        choices=("float32", "bfloat16"),
+                        help="activation dtype (parameters stay f32)")
+    parser.add_argument("--remat", action="store_true",
+                        help="not ported yet (activation-rematerialization "
+                             "slice)")
+    parser.add_argument("--optimizer", default="sgd", choices=("sgd", "adamw"),
+                        help="sgd = the reference's SGD(momentum, wd); adamw "
+                             "= decoupled-decay AdamW")
+    parser.add_argument("--profile-dir", default=None,
+                        help="not ported yet (profiler-capture slice)")
+    parser.add_argument("--steps-per-epoch", default=0, type=int,
+                        help="truncate each epoch to N batches (0 = full "
+                             "epoch)")
+    parser.add_argument("--steps-per-dispatch", default=1, type=int,
+                        help="not ported yet (multi-step dispatch slice)")
+    parser.add_argument("--log-file", default=None,
+                        help="epoch log filename under ./log")
+    add_metrics_out_flag(parser)
+
+
+def check_data_parallel_args(args) -> None:
+    """Startup-time validation of the data-parallel CLI surface: every
+    flag whose feature belongs to a later port slice is refused, naming
+    the slice, before any dataset, process group or engine is built."""
+    s = SLICES
+    refusals = (
+        ("--engine fsdp", args.engine == "fsdp", s["fsdp"]),
+        ("--engine tp / --model-shards", args.engine == "tp"
+         or args.model_shards != 1, s["tp"]),
+        ("--collective-matmul", args.collective_matmul, s["cm"]),
+        ("--plan", args.plan, s["plan"]),
+        ("--grad-reduction / --bucket-mb / --dcn-slices / "
+         "--overlap-stages / --dcn-compression",
+         args.grad_reduction != "monolithic" or args.bucket_mb is not None
+         or args.dcn_slices != 1 or args.overlap_stages is not None
+         or args.dcn_compression != "none", s["reducer"]),
+        ("--device-cache", args.device_cache, s["device_cache"]),
+        ("--finetune", args.finetune, s["finetune"]),
+        ("--resume / --checkpoint-dir / --checkpoint-format / --async-save",
+         args.resume or args.checkpoint_dir != "./checkpoint"
+         or args.checkpoint_format != "legacy" or args.async_save,
+         s["checkpoint"]),
+        ("--max-restarts", args.max_restarts != 0, s["elastic"]),
+        ("--auto-tune / --auto-tune-out / --auto-tune-calibration",
+         args.auto_tune or args.auto_tune_out or args.auto_tune_calibration,
+         s["tune"]),
+        ("--remat", args.remat, s["remat"]),
+        ("--steps-per-dispatch > 1", args.steps_per_dispatch != 1,
+         s["multistep"]),
+        ("--profile-dir", args.profile_dir, s["profile"]),
+        (f"--model {args.model}", args.model in LATER_MODELS,
+         s["transformer"]),
+    )
+    for flag, bad, later in refusals:
+        if bad:
+            raise SystemExit(
+                f"{flag} is not ported to the PyTorch package yet: it "
+                f"belongs to {later} (ROADMAP.md) — drop the flag, or run "
+                "the JAX package's cli/data_parallel.py"
+            )
+    if args.dataset_type in LATER_TYPES:
+        raise SystemExit(
+            f"--dataset-type {args.dataset_type} is not ported to the "
+            f"PyTorch package yet: it belongs to "
+            f"{LATER_TYPES[args.dataset_type]} (ROADMAP.md)"
+        )
+    if args.sync_bn and args.engine != "ddp":
+        raise SystemExit("--sync-bn selects SyncBatchNorm under --engine "
+                         "ddp; --engine gspmd always normalizes over the "
+                         "global batch")
+
+
 def setup_metrics_out(path) -> None:
     """Validate + enable for `--metrics-out`, before anything runs."""
     if not path:
@@ -280,15 +461,22 @@ def export_metrics_out(path) -> None:
 
 
 __all__ = [
-    "LM_SLICES",
+    "MODELS",
+    "SLICES",
+    "add_common_tpu_flags",
     "add_auto_tune_flags",
     "add_checkpoint_flags",
     "add_grad_reduction_flags",
     "add_metrics_out_flag",
+    "build_loaders",
+    "build_model",
     "build_optimizer",
+    "check_batch_divisibility",
+    "check_data_parallel_args",
     "check_lm_args",
     "check_serving_args",
     "compute_dtype_from_flag",
     "export_metrics_out",
     "setup_metrics_out",
+    "stats_for",
 ]

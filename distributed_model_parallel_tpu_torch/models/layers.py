@@ -1,16 +1,35 @@
-"""Layer primitives the GPT path uses (port of `models/layers.py`).
+"""Layer primitives of the GPT path and the image models (port of
+`models/layers.py`).
 
 The reference's `Layer(init, apply)` pairs become plain functions on
 tensors over the same parameter dictionaries (`{"w", "b"}` linears
-stored (K, N), `{"scale", "bias"}` norms), so the parameter tree crosses
-between the packages unchanged (`models/convert.py`).
+stored (K, N), `{"scale", "bias"}` norms, `{"mean", "var"}` BN state),
+so the parameter tree crosses between the packages unchanged
+(`models/convert.py`). The GPT calls the functions directly; the image
+models compose `Layer` pairs with `named` / `sequential` / `residual`,
+whose trees carry the reference's keys ('0', '1', ..., 'body',
+'shortcut', 'conv1', ...).
+
+Image layout: the loader's batches are NHWC, as in the reference. The
+model turns one into an NCHW view with `permute(0, 3, 1, 2)` (channels-
+last strides, no copy) and every image layer works on that view, so the
+activations stay channels-last. Conv weights are stored in torch's
+(O, I/groups, kh, kw) shape, in channels-last memory; `models/
+convert.py` transposes the reference's HWIO at the boundary.
+
+Initialization is torch's default, U(±1/sqrt(fan_in)) for conv and
+linear weights and biases, drawn from a CPU `torch.Generator` so a seed
+gives the same weights on every device; it is never used for parity
+(parity carries the reference's weights across).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Optional
+import math
+from typing import Any, Callable, Optional, Sequence
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -33,6 +52,19 @@ class Context:
     # the next bits from it, so sibling layers get independent masks.
     # None => dropout is the identity, as with the reference's rng=None.
     generator: Optional[torch.Generator] = None
+    # Process group over which train-mode BatchNorm statistics are
+    # averaged (SyncBN; the reference's `bn_axis`). None => statistics
+    # of the local batch.
+    bn_group: Optional[Any] = None
+
+
+@dataclasses.dataclass(frozen=True)
+class Layer:
+    """init(generator) -> (params, state) on the CPU;
+    apply(params, state, x, ctx) -> (y, new_state)."""
+
+    init: Callable[[torch.Generator], tuple]
+    apply: Callable[[Any, Any, torch.Tensor, Context], tuple]
 
 
 def layernorm(params, x: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
@@ -73,4 +105,225 @@ def project(h, w, b, ctx: Context):
     return h @ w + b
 
 
-__all__ = ["Context", "dropout", "gelu", "layernorm", "project"]
+# ---------------------------------------------------------------------------
+# Conv / Linear / BatchNorm
+# ---------------------------------------------------------------------------
+
+
+def _uniform(gen: torch.Generator, shape, bound: float) -> torch.Tensor:
+    return torch.rand(shape, generator=gen) * (2 * bound) - bound
+
+
+def conv2d(in_ch: int, out_ch: int, kernel: int, *, stride: int = 1,
+           padding: int = 0, groups: int = 1, bias: bool = False) -> Layer:
+    """2-D convolution on the NCHW view; `groups=channels` gives the
+    depthwise conv of the MobileNetV2 block. The weight is (O, I/groups,
+    k, k) in channels-last memory, cast to the activation dtype per
+    use."""
+    wshape = (out_ch, in_ch // groups, kernel, kernel)
+    bound = 1.0 / math.sqrt((in_ch // groups) * kernel * kernel)
+
+    def init(gen):
+        params = {"w": _uniform(gen, wshape, bound).contiguous(
+            memory_format=torch.channels_last)}
+        if bias:
+            params["b"] = _uniform(gen, (out_ch,), bound)
+        return params, {}
+
+    def apply(params, state, x, ctx):
+        y = F.conv2d(x, params["w"].to(x.dtype), stride=stride,
+                     padding=padding, groups=groups)
+        if bias:
+            y = y + params["b"].to(y.dtype)[:, None, None]
+        return y, state
+
+    return Layer(init, apply)
+
+
+def linear(in_features: int, out_features: int, *, bias: bool = True) -> Layer:
+    """Dense layer, weight stored (K, N), torch-default init."""
+    bound = 1.0 / math.sqrt(in_features)
+
+    def init(gen):
+        params = {"w": _uniform(gen, (in_features, out_features), bound)}
+        if bias:
+            params["b"] = _uniform(gen, (out_features,), bound)
+        return params, {}
+
+    def apply(params, state, x, ctx):
+        y = x @ params["w"].to(x.dtype)
+        if bias:
+            y = y + params["b"].to(y.dtype)
+        return y, state
+
+    return Layer(init, apply)
+
+
+class _AllReduceSum(torch.autograd.Function):
+    """all_reduce(SUM) that autograd sees: the backward all-reduces the
+    cotangent (SUM), as torch's own SyncBatchNorm does. The backward of
+    rank r's sum is the sum over ranks of their cotangents, i.e. the
+    gradient of the SUM of every rank's loss with respect to rank r's
+    input."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        y = x.clone()
+        torch.distributed.all_reduce(y, group=group)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.contiguous().clone()
+        torch.distributed.all_reduce(g, group=ctx.group)
+        return g, None
+
+
+def batchnorm2d(num_features: int, *, momentum: float = 0.1,
+                eps: float = 1e-5) -> Layer:
+    """BatchNorm over (N, H, W) with explicit running-stat state, the
+    reference's arithmetic: in f32, var = E[x²] - E[x]² (biased, used to
+    normalize), running var updated with the unbiased var n/(n-1), where
+    n is the global element count under SyncBN (`ctx.bn_group`: mean and
+    mean_sq averaged over the group inside the differentiated function),
+    momentum 0.1, eps 1e-5, output cast back to the input dtype."""
+
+    def init(gen):
+        params = {"scale": torch.ones(num_features),
+                  "bias": torch.zeros(num_features)}
+        state = {"mean": torch.zeros(num_features),
+                 "var": torch.ones(num_features)}
+        return params, state
+
+    def apply(params, state, x, ctx):
+        c = (None, slice(None), None, None)  # broadcast over N, H, W
+        if ctx.train:
+            xf = x.float()
+            stats = torch.stack([xf.mean(dim=(0, 2, 3)),
+                                 xf.square().mean(dim=(0, 2, 3))])
+            n = x.shape[0] * x.shape[2] * x.shape[3]
+            if ctx.bn_group is not None:
+                world = torch.distributed.get_world_size(ctx.bn_group)
+                stats = _AllReduceSum.apply(stats, ctx.bn_group) / world
+                # Global element count; the reference divides two
+                # integer counts in f32.
+                n = n * world
+                bessel = float(np.float32(n) / np.float32(max(n - 1, 1)))
+            else:
+                bessel = n / max(n - 1, 1)
+            mean, mean_sq = stats[0], stats[1]
+            var = mean_sq - mean.square()
+            with torch.no_grad():
+                new_state = {
+                    "mean": (1 - momentum) * state["mean"] + momentum * mean,
+                    "var": (1 - momentum) * state["var"]
+                    + momentum * (var * bessel),
+                }
+        else:
+            xf = x.float()
+            mean, var = state["mean"], state["var"]
+            new_state = state
+        inv = torch.rsqrt(var + eps) * params["scale"]
+        y = (xf - mean[c]) * inv[c] + params["bias"][c]
+        return y.to(x.dtype), new_state
+
+    return Layer(init, apply)
+
+
+# ---------------------------------------------------------------------------
+# Stateless ops as layers
+# ---------------------------------------------------------------------------
+
+
+def _stateless(fn) -> Layer:
+    return Layer(init=lambda gen: ({}, {}),
+                 apply=lambda params, state, x, ctx: (fn(x), state))
+
+
+def relu() -> Layer:
+    return _stateless(F.relu)
+
+
+def avg_pool2d(window: int, stride: Optional[int] = None) -> Layer:
+    """Windowed mean, no padding (window 4 for the CIFAR heads)."""
+    stride = stride or window
+    return _stateless(lambda x: F.avg_pool2d(x, window, stride))
+
+
+def max_pool2d(window: int, stride: Optional[int] = None,
+               padding: int = 0) -> Layer:
+    stride = stride or window
+    return _stateless(lambda x: F.max_pool2d(x, window, stride, padding))
+
+
+def global_avg_pool() -> Layer:
+    return _stateless(lambda x: x.mean(dim=(2, 3)))
+
+
+def flatten() -> Layer:
+    """(N, C, H, W) view -> (N, H*W*C) in the reference's NHWC order."""
+    return _stateless(lambda x: x.permute(0, 2, 3, 1).reshape(x.shape[0], -1))
+
+
+def reshape_head(pool_window: int = 4) -> Layer:
+    """relu -> avgpool(window) -> flatten, the reference's `Reshape1`."""
+    return sequential(relu(), avg_pool2d(pool_window), flatten())
+
+
+# ---------------------------------------------------------------------------
+# Combinators
+# ---------------------------------------------------------------------------
+
+
+def named(pairs: Sequence[tuple]) -> Layer:
+    """Layers applied in order; params/state keyed by the given names."""
+
+    def init(gen):
+        params, state = {}, {}
+        for name, layer in pairs:
+            params[name], state[name] = layer.init(gen)
+        return params, state
+
+    def apply(params, state, x, ctx):
+        new_state = {}
+        for name, layer in pairs:
+            x, new_state[name] = layer.apply(params[name], state[name], x,
+                                             ctx)
+        return x, new_state
+
+    return Layer(init, apply)
+
+
+def sequential(*layers: Layer) -> Layer:
+    """`named` with the keys '0', '1', ..."""
+    return named([(str(i), layer) for i, layer in enumerate(layers)])
+
+
+def residual(body: Layer, shortcut: Optional[Layer] = None) -> Layer:
+    """out = body(x) + shortcut(x); shortcut=None means identity."""
+
+    def init(gen):
+        bp, bs = body.init(gen)
+        params, state = {"body": bp}, {"body": bs}
+        if shortcut is not None:
+            params["shortcut"], state["shortcut"] = shortcut.init(gen)
+        return params, state
+
+    def apply(params, state, x, ctx):
+        y, bs = body.apply(params["body"], state["body"], x, ctx)
+        new_state = {"body": bs}
+        if shortcut is not None:
+            sc, new_state["shortcut"] = shortcut.apply(
+                params["shortcut"], state["shortcut"], x, ctx)
+        else:
+            sc = x
+        return y + sc, new_state
+
+    return Layer(init, apply)
+
+
+__all__ = ["Context", "Layer", "avg_pool2d", "batchnorm2d", "conv2d",
+           "dropout", "flatten", "gelu", "global_avg_pool", "layernorm",
+           "linear", "max_pool2d", "named", "project", "relu",
+           "reshape_head", "residual", "sequential"]

@@ -1,23 +1,66 @@
-"""The training state and per-batch metric sums shared by the engines
-(port of `TrainState` and `_metrics` from `parallel/data_parallel.py`;
-the data-parallel engines themselves belong to the DDP slice).
+"""Data-parallel engines over `torch.distributed` (port of
+`parallel/data_parallel.py`): `DataParallelEngine` and `DDPEngine`, with
+the reference's `init_state` / `shard_batch` / `train_step` /
+`eval_step` API, plus `TrainState` and `_metrics`, which the LM engine
+shares.
+
+One process per rank (`runtime/dist.py`), each holding the whole model
+and its own slice of the global batch (the Loader's rank shard); the
+collectives run over the mesh's process group (`runtime/mesh.py`: NCCL
+on the card, gloo on the CPU). A step, per rank:
+
+* forward and backward of the LOCAL mean cross-entropy;
+* the gradients flattened into one buffer and all-reduced, SUM / world:
+  the reference's "monolithic" `lax.pmean` of the gradient tree;
+* per-replica BN (`DDPEngine(sync_bn=False)`, `nn.DataParallel`'s
+  semantics): each rank normalizes with its own batch statistics, and
+  the new running stats are averaged over the ranks before they are
+  kept, so every rank keeps the same state;
+* SyncBN (`sync_bn=True`): the batch statistics are averaged over the
+  ranks inside the differentiated function (`models/layers.
+  batchnorm2d`), so the step is the global-batch step;
+* the in-place optimizer update, identical on every rank;
+* the metric sums all-reduced (SUM).
+
+`DataParallelEngine` is the global-batch semantics: on one rank, the
+whole batch; over N ranks, the DDP step with SyncBN (the reference's
+`test_ddp_syncbn_matches_gspmd`). SyncBN's per-layer all-reduces are
+skipped on a world of one, where they are the identity; the gradient,
+state and metric all-reduces run whenever there is a process group, so
+one GPU runs the collective code of N. Features of later slices are
+refused with a ValueError naming the slice.
 """
 
 from __future__ import annotations
 
-from typing import Any, NamedTuple
+import dataclasses
+from typing import Any, NamedTuple, Optional
 
+import numpy as np
+import torch
+import torch.distributed as dist
+
+from distributed_model_parallel_tpu_torch.models import layers as L
+from distributed_model_parallel_tpu_torch.runtime.mesh import Mesh, make_mesh
 from distributed_model_parallel_tpu_torch.training.metrics import (
+    cross_entropy,
     topk_correct,
     valid_count,
 )
+from distributed_model_parallel_tpu_torch.training.optim import (
+    tree_leaves,
+    tree_map,
+)
+
+GRAD_REDUCTION_SLICE = "the gradient-reduction slice"
+EXPERT_SLICE = "the expert-parallel slice"
 
 
 class TrainState(NamedTuple):
-    """params, model_state (empty for the GPT), optimizer state, and the
-    step count. The step is a host int here (the reference keeps an int32
-    device scalar inside its jitted step): the port's engine reads it on
-    the host to seed the step's dropout generator."""
+    """params, model_state (BN running stats; empty for the GPT),
+    optimizer state, and the step count. The step is a host int here
+    (the reference keeps an int32 device scalar inside its jitted
+    step)."""
 
     params: Any
     model_state: Any
@@ -37,4 +80,179 @@ def _metrics(loss, logits, labels) -> dict:
     }
 
 
-__all__ = ["TrainState", "_metrics"]
+def _like(tree, leaves_in_order):
+    """A tree shaped like `tree` whose leaves come from the iterator, in
+    `tree_leaves` order."""
+    if isinstance(tree, dict):
+        return {k: _like(tree[k], leaves_in_order) for k in sorted(tree)}
+    return next(leaves_in_order)
+
+
+class _DataParallel:
+    """The step both engines run; `_sync_bn` picks the BN semantics."""
+
+    def _setup(self, sync_bn: bool) -> None:
+        if self.compute_dtype not in (None, torch.float32, torch.bfloat16):
+            raise ValueError(f"compute_dtype must be None, float32 or "
+                             f"bfloat16, got {self.compute_dtype}")
+        self.device = torch.device(self.device)
+        self.mesh = self.mesh or make_mesh()
+        self._sync_bn = sync_bn
+        self._bn_group = (self.mesh.group
+                          if sync_bn and self.mesh.data > 1 else None)
+        #: gradient all-reduces launched (one per train step with a
+        #: process group)
+        self.grad_reductions = 0
+
+    # ------------------------------------------------------------ state
+
+    def init_state(self, seed: int = 0) -> TrainState:
+        """Fresh parameters and BN state from `seed` (the same on every
+        rank, so no broadcast is needed)."""
+        params, model_state = self.model.init(
+            torch.Generator().manual_seed(seed))
+        return self.state_from_params(params, model_state)
+
+    def state_from_params(self, params, model_state) -> TrainState:
+        """A step-0 state around `params` and `model_state`, moved to the
+        engine's device; each parameter becomes a leaf that requires
+        grad. Layouts (channels-last conv weights) are kept."""
+        params = tree_map(
+            lambda t: t.detach().to(self.device, torch.float32)
+            .clone().requires_grad_(True), params)
+        model_state = tree_map(
+            lambda t: t.detach().to(self.device, torch.float32).clone(),
+            model_state)
+        return TrainState(params, model_state, self.optimizer.init(params), 0)
+
+    def shard_batch(self, images, labels):
+        """This rank's host batch (numpy) -> tensors on the device, through
+        pinned memory and an asynchronous copy on the card."""
+        return tuple(self._place(a) for a in (images, labels))
+
+    def _place(self, a) -> torch.Tensor:
+        t = torch.from_numpy(np.ascontiguousarray(a))
+        if self.device.type == "cuda":
+            t = t.pin_memory()
+        return t.to(self.device, non_blocking=True)
+
+    # ------------------------------------------------------- collectives
+
+    def _all_reduce(self, flat: torch.Tensor) -> torch.Tensor:
+        """SUM over the mesh's ranks, in place (the identity without a
+        process group)."""
+        if self.mesh.group is not None:
+            dist.all_reduce(flat, group=self.mesh.group)
+        return flat
+
+    def _mean_over_ranks(self, tensors):
+        """One flat buffer of `tensors`, all-reduced (SUM / world), split
+        back into their shapes."""
+        flat = torch.cat([t.reshape(-1) for t in tensors])
+        flat = self._all_reduce(flat) / self.mesh.data
+        return [piece.view(t.shape) for piece, t in
+                zip(flat.split([t.numel() for t in tensors]), tensors)]
+
+    def _sum_metrics(self, m: dict) -> dict:
+        keys = sorted(m)
+        flat = self._all_reduce(torch.stack([m[k].float() for k in keys]))
+        return dict(zip(keys, flat.unbind()))
+
+    # ------------------------------------------------------------- steps
+
+    def _input(self, images):
+        x = images
+        if self.input_transform is not None:
+            x = self.input_transform(x)
+        if self.compute_dtype is not None and x.is_floating_point():
+            x = x.to(self.compute_dtype)
+        return x
+
+    def train_step(self, ts: TrainState, images, labels, lr):
+        """One optimizer step; parameters, BN state and optimizer state
+        are updated in place. Returns (state, metric sums over every
+        rank)."""
+        ctx = L.Context(train=True, dtype=self.compute_dtype,
+                        bn_group=self._bn_group)
+        logits, new_state = self.model.apply(
+            ts.params, ts.model_state, self._input(images), ctx)
+        ce = cross_entropy(logits, labels)
+        leaves = list(tree_leaves(ts.params))
+        grads = torch.autograd.grad(ce, leaves)
+        if self.mesh.group is not None:
+            self.grad_reductions += 1
+        grads = _like(ts.params, iter(self._mean_over_ranks(grads)))
+        if not self._sync_bn:
+            # Per-replica stats averaged before they are kept.
+            new_state = _like(new_state, iter(self._mean_over_ranks(
+                list(tree_leaves(new_state)))))
+        params, opt_state = self.optimizer.update(
+            ts.params, ts.opt_state, grads, lr)
+        m = self._sum_metrics(_metrics(ce.detach(), logits.detach(), labels))
+        return TrainState(params, new_state, opt_state, ts.step + 1), m
+
+    @torch.no_grad()
+    def eval_step(self, ts: TrainState, images, labels) -> dict:
+        ctx = L.Context(train=False, dtype=self.compute_dtype)
+        logits, _ = self.model.apply(ts.params, ts.model_state,
+                                     self._input(images), ctx)
+        loss = cross_entropy(logits, labels)
+        return self._sum_metrics(_metrics(loss, logits, labels))
+
+
+@dataclasses.dataclass
+class DataParallelEngine(_DataParallel):
+    """Global-batch data parallelism: BN statistics over the whole
+    (global) batch. `mesh=None` takes this process's world
+    (`runtime/mesh.make_mesh`)."""
+
+    model: L.Layer
+    optimizer: Any  # SGD | AdamW (training/optim.py)
+    mesh: Optional[Mesh] = None
+    # Activations in this dtype (bf16), parameters f32 masters cast per
+    # use; None keeps the input dtype.
+    compute_dtype: Optional[torch.dtype] = None
+    # Applied to the batch on the device before the compute-dtype cast
+    # (`data/loader.device_normalizer` for uint8 batches).
+    input_transform: Any = None
+    device: Any = "cuda"
+
+    def __post_init__(self):
+        self._setup(sync_bn=True)
+
+
+@dataclasses.dataclass
+class DDPEngine(_DataParallel):
+    """Explicit-collective data parallelism: per-rank forward and
+    backward, one all-reduce of the flattened gradients. `sync_bn=False`
+    keeps per-replica BN; `sync_bn=True` is SyncBatchNorm."""
+
+    model: L.Layer
+    optimizer: Any
+    mesh: Optional[Mesh] = None
+    sync_bn: bool = False
+    compute_dtype: Optional[torch.dtype] = None  # see DataParallelEngine
+    input_transform: Any = None                  # see DataParallelEngine
+    grad_reduction: str = "monolithic"
+    dcn_compression: str = "none"
+    expert_dispatch: Optional[str] = None
+    device: Any = "cuda"
+
+    def __post_init__(self):
+        for knob, bad, later in (
+            (f"grad_reduction={self.grad_reduction!r}",
+             self.grad_reduction != "monolithic", GRAD_REDUCTION_SLICE),
+            (f"dcn_compression={self.dcn_compression!r}",
+             self.dcn_compression != "none", GRAD_REDUCTION_SLICE),
+            (f"expert_dispatch={self.expert_dispatch!r}",
+             self.expert_dispatch is not None, EXPERT_SLICE),
+        ):
+            if bad:
+                raise ValueError(
+                    f"DDPEngine {knob} is not ported to the PyTorch package "
+                    f"yet: it belongs to {later} (ROADMAP.md)"
+                )
+        self._setup(sync_bn=self.sync_bn)
+
+
+__all__ = ["DDPEngine", "DataParallelEngine", "TrainState", "_metrics"]

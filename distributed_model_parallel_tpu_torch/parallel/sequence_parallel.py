@@ -45,6 +45,7 @@ from distributed_model_parallel_tpu_torch.ops.ring_attention import (
 )
 from distributed_model_parallel_tpu_torch.parallel.data_parallel import (
     TrainState,
+    _like,
     _metrics,
 )
 from distributed_model_parallel_tpu_torch.training.metrics import (
@@ -200,14 +201,6 @@ class CausalLMSequenceParallelEngine:
     def eval_step(self, ts: TrainState, ids, targets) -> dict:
         ctx = L.Context(train=False, dtype=self.compute_dtype)
         return self.local_sums(self.forward(ts.params, ids, ctx), targets)
-
-
-def _like(tree, leaves_in_order):
-    """A tree shaped like `tree` whose leaves come from the iterator, in
-    `tree_leaves` order."""
-    if isinstance(tree, dict):
-        return {k: _like(tree[k], leaves_in_order) for k in sorted(tree)}
-    return next(leaves_in_order)
 
 
 __all__ = ["ATTENTION", "CausalLMSequenceParallelEngine"]

@@ -13,6 +13,10 @@ Timing: PyTorch launches kernels asynchronously, so the epoch wall
 clock closes on a value fetch of the summed metrics (`.item()`), which
 cannot return before every step that fed the sum has run.
 
+Ranks (`runtime/dist.py`): every rank runs the loop over its own
+loaders; the metric sums are the engine's, already summed over the
+ranks; only rank 0 prints and writes the epoch log.
+
 Left to later slices, and refused rather than skipped: checkpoint
 writing (`save_best` is False here; best_acc still records the best
 validation acc1) and `resume`, `steps_per_dispatch > 1`, `profile_dir`.
@@ -32,6 +36,7 @@ from distributed_model_parallel_tpu_torch.observability.metrics import (
 from distributed_model_parallel_tpu_torch.observability.trace import (
     get_tracer,
 )
+from distributed_model_parallel_tpu_torch.runtime.dist import is_primary
 from distributed_model_parallel_tpu_torch.training.optim import (
     cosine_warmup_schedule,
 )
@@ -260,7 +265,7 @@ class Trainer:
             f"time_load_perbatch {train.data_time:.4f}"
         )
         self._log_print(line)
-        if cfg.log_file:
+        if cfg.log_file and is_primary():
             os.makedirs(cfg.log_dir, exist_ok=True)
             with open(os.path.join(cfg.log_dir, cfg.log_file), "a") as f:
                 f.write(line + "\n")
@@ -270,7 +275,8 @@ class Trainer:
 
     @staticmethod
     def _log_print(msg: str) -> None:
-        print(msg, flush=True)
+        if is_primary():
+            print(msg, flush=True)
 
 
 __all__ = ["EpochStats", "Trainer", "TrainerConfig"]

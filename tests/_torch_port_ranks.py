@@ -1,0 +1,127 @@
+"""Rank processes for the port's multi-process tests
+(`tests/test_torch_port_ddp.py`).
+
+This module imports neither jax nor the JAX package: a spawned rank
+imports the module of its target, and so starts with torch and the port
+only. `spawn` starts `world` CPU ranks on gloo (one thread each, as the
+suite runs several workers at once), runs one of the functions below in
+every rank and returns their results, rank by rank. Every join has a
+timeout, and the process group has one, so a lost rank fails the test
+instead of hanging the suite.
+"""
+
+from __future__ import annotations
+
+import multiprocessing
+import os
+import pickle
+import traceback
+from pathlib import Path
+
+TIMEOUT_S = 120
+
+
+def spawn(world: int, fn: str, payload, tmp_path: Path) -> list:
+    from distributed_model_parallel_tpu_torch.runtime.dist import free_port
+
+    ctx = multiprocessing.get_context("spawn")
+    url = f"tcp://127.0.0.1:{free_port()}"
+    outs = [tmp_path / f"rank{r}.pkl" for r in range(world)]
+    procs = [ctx.Process(target=_rank_main,
+                         args=(r, world, url, fn, payload, str(outs[r])))
+             for r in range(world)]
+    for p in procs:
+        p.start()
+    try:
+        for p in procs:
+            p.join(TIMEOUT_S)
+    finally:
+        hung = [p for p in procs if p.is_alive()]
+        for p in hung:
+            p.kill()
+            p.join(10)
+    assert not hung, f"{len(hung)} rank(s) still running after {TIMEOUT_S} s"
+    for r, (p, o) in enumerate(zip(procs, outs)):
+        assert o.exists(), f"rank {r} exited with {p.exitcode}, no result"
+    results = [pickle.loads(o.read_bytes()) for o in outs]
+    for r, (ok, value) in enumerate(results):
+        assert ok, f"rank {r} failed:\n{value}"
+    assert [p.exitcode for p in procs] == [0] * world
+    return [value for _, value in results]
+
+
+def _rank_main(rank, world, url, fn, payload, out):
+    try:
+        import torch
+        import torch.distributed as dist
+
+        torch.set_num_threads(1)
+        os.environ.update(RANK=str(rank), WORLD_SIZE=str(world))
+        from distributed_model_parallel_tpu_torch.runtime.dist import (
+            initialize_backend,
+        )
+
+        initialize_backend("cpu", url)
+        try:
+            result = (True, globals()[fn](rank, world, payload))
+        finally:
+            dist.destroy_process_group()
+    except BaseException:  # noqa: BLE001 -- reported to the parent
+        result = (False, traceback.format_exc())
+    Path(out).write_bytes(pickle.dumps(result))
+
+
+def ddp_steps(rank, world, payload) -> dict:
+    """The port's engines on tinycnn from the given reference weights:
+    for each name in `payload["engines"]` ("ddp": per-replica BN,
+    "ddp_sync": SyncBN, "gspmd": DataParallelEngine), one SGD step per
+    global batch, this rank taking rows [rB/S, (r+1)B/S). Returns, per
+    engine, the per-step metric sums and the final params and BN state in
+    the reference layout."""
+    import torch.distributed as dist
+
+    from distributed_model_parallel_tpu_torch.models.convert import (
+        from_jax_params,
+        to_jax_params,
+    )
+    from distributed_model_parallel_tpu_torch.models.tinycnn import tiny_cnn
+    from distributed_model_parallel_tpu_torch.parallel.data_parallel import (
+        DataParallelEngine,
+        DDPEngine,
+    )
+    from distributed_model_parallel_tpu_torch.training.optim import SGD
+
+    model = tiny_cnn(10)
+    out = {}
+    for name in payload["engines"]:
+        if name == "gspmd":
+            eng = DataParallelEngine(model, SGD(), device="cpu")
+        else:
+            eng = DDPEngine(model, SGD(), sync_bn=name == "ddp_sync",
+                            device="cpu")
+        ts = eng.state_from_params(*from_jax_params(
+            payload["params"], model=model, state=payload["state"]))
+        sums = []
+        for images, labels in payload["batches"]:
+            b = len(labels) // world
+            rows = slice(rank * b, (rank + 1) * b)
+            ts, m = eng.train_step(ts, *eng.shard_batch(images[rows],
+                                                        labels[rows]),
+                                   payload["lr"])
+            sums.append({k: float(v) for k, v in m.items()})
+        params, state = to_jax_params(ts.params, model=model,
+                                      state=ts.model_state)
+        out[name] = {"sums": sums, "params": params, "state": state,
+                     "grad_reductions": eng.grad_reductions,
+                     "backend": dist.get_backend(eng.mesh.group)}
+    return out
+
+
+def cli_main(rank, world, payload) -> dict:
+    """`cli/data_parallel.main` in this rank, from its own directory
+    (the log goes under the working directory)."""
+    from distributed_model_parallel_tpu_torch.cli import data_parallel
+
+    os.chdir(payload["dirs"][rank])
+    out = data_parallel.main(payload["argv"])
+    return {"history": out["history"]}

@@ -1,15 +1,36 @@
 """The PyTorch port's CUDA kernels on the card, against their plain
-versions. Every test here needs a CUDA GPU and skips without one; the
-file imports neither jax nor the JAX package, so it runs on a GPU
-machine without JAX:
+versions, and the data-parallel step on the card against the CPU. Every
+test marked `cuda` needs a CUDA GPU and skips without one; the native
+augment's test runs wherever g++ is. The file imports neither jax nor
+the JAX package, so it runs on a GPU machine without JAX:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_port_cuda.py
 """
 
+import numpy as np
 import pytest
 import torch
+import torch.distributed as dist
 
+from distributed_model_parallel_tpu_torch import native
+from distributed_model_parallel_tpu_torch.data import loader as dl
+from distributed_model_parallel_tpu_torch.data.datasets import (
+    CIFAR10_MEAN,
+    CIFAR10_STD,
+)
+from distributed_model_parallel_tpu_torch.models.tinycnn import tiny_cnn
 from distributed_model_parallel_tpu_torch.ops import quant_matmul as qm
+from distributed_model_parallel_tpu_torch.parallel.data_parallel import (
+    DDPEngine,
+)
+from distributed_model_parallel_tpu_torch.runtime.dist import (
+    initialize_backend,
+)
+from distributed_model_parallel_tpu_torch.runtime.mesh import Mesh
+from distributed_model_parallel_tpu_torch.training.optim import (
+    SGD,
+    tree_leaves,
+)
 
 
 @pytest.fixture()
@@ -244,3 +265,50 @@ def test_flash_kernels_refuse_what_they_cannot_take(cuda):
         fa.flash_fwd(q, q.half(), q, scale=0.2)
     with pytest.raises(ValueError, match="different devices"):
         fa.flash_fwd(q, q.cpu(), q, scale=0.2)
+
+
+# ------------------------------------------- data-parallel trainer (slice 5)
+
+@pytest.mark.cuda
+def test_ddp_step_on_the_card_matches_the_cpu(cuda):
+    """A tinycnn DDPEngine step at world 1 on NCCL against the same step
+    on the CPU (no process group): loss and every parameter at rtol 1e-5
+    with TF32 off. 8x8 images keep ReLU inputs that lie within rounding
+    of zero unlikely (tests/test_torch_port_ddp.py)."""
+    torch.backends.cudnn.allow_tf32 = False
+    initialize_backend("cuda")
+    try:
+        assert dist.get_backend() == "nccl" and dist.get_world_size() == 1
+        rng = np.random.RandomState(0)
+        images = rng.randn(16, 8, 8, 3).astype(np.float32)
+        labels = rng.randint(0, 10, 16)
+        out = {}
+        for dev, mesh in (("cuda", None), ("cpu", Mesh(1, None))):
+            eng = DDPEngine(tiny_cnn(10), SGD(), mesh=mesh, device=dev)
+            ts, m = eng.train_step(eng.init_state(0),
+                                   *eng.shard_batch(images, labels), 0.1)
+            out[dev] = (m, [t.detach().cpu() for t in tree_leaves(ts.params)],
+                        eng.grad_reductions)
+    finally:
+        dist.destroy_process_group()
+    (mc, pc, nc), (mh, ph, nh) = out["cuda"], out["cpu"]
+    assert (nc, nh) == (1, 0)
+    torch.testing.assert_close(mc["loss_sum"].cpu(), mh["loss_sum"],
+                               rtol=1e-5, atol=0)
+    for a, b in zip(pc, ph):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-7)
+
+
+def test_native_augment_matches_its_numpy_twin():
+    """The port's own augment.cpp, built with g++ at first use into the
+    package's build directory, against the NumPy path, bit for bit."""
+    assert native.available()
+    rng = np.random.RandomState(1)
+    images = rng.randint(0, 256, (64, 32, 32, 3)).astype(np.uint8)
+    ys, xs, flips = dl._draw_augment(rng, 64, 4)
+    for workers in (1, 8):
+        got = native.augment_normalize(images, ys, xs, flips, 4, CIFAR10_MEAN,
+                                       CIFAR10_STD, workers=workers)
+        want = dl.normalize(dl._crop_flip_numpy(images, ys, xs, flips, 4),
+                            CIFAR10_MEAN, CIFAR10_STD)
+        assert np.array_equal(got, want)

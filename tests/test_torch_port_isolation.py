@@ -1,9 +1,10 @@
 """The PyTorch port stands alone: no file of
 `distributed_model_parallel_tpu_torch/` (nor `chip_smoke.py`) imports
 jax or the JAX package, every port module imports in a process where
-jax cannot be imported, and the port's serve CLI runs on the GPU by
-default, refuses to start without one unless `--device cpu` is given,
-and refuses the flags of later port slices by name.
+jax cannot be imported, and the port's serve and data-parallel CLIs
+run on the GPU by default, refuse to start without one unless
+`--device cpu` is given, and refuse the flags of later port slices by
+name.
 """
 
 import ast
@@ -136,3 +137,48 @@ def test_cli_serves_on_cpu_when_asked(capsys, tmp_path):
 def test_cli_refuses_out_of_slice_flags(flags):
     with pytest.raises(SystemExit, match="not ported.*slice"):
         serve.main(["--device", "cpu", *flags])
+
+
+def test_data_parallel_cli_defaults_to_cuda_and_refuses_without_a_gpu():
+    from distributed_model_parallel_tpu_torch.cli import data_parallel
+
+    assert data_parallel.build_parser().parse_args([]).device == "cuda"
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present; the refusal needs its absence")
+    with pytest.raises(SystemExit, match="--device cpu"):
+        data_parallel.main([])
+
+
+@pytest.mark.parametrize("flags,slice_", [
+    (["--engine", "fsdp"], "FSDP"),
+    (["--engine", "tp"], "tensor-parallel"),
+    (["--model-shards", "2"], "tensor-parallel"),
+    (["--collective-matmul"], "collective-matmul"),
+    (["--plan", "dp2"], "composed-parallel-plan"),
+    (["--grad-reduction", "bucketed"], "gradient-reduction"),
+    (["--bucket-mb", "4"], "gradient-reduction"),
+    (["--dcn-slices", "2"], "gradient-reduction"),
+    (["--overlap-stages", "2"], "gradient-reduction"),
+    (["--dcn-compression", "bf16"], "gradient-reduction"),
+    (["--device-cache"], "device-cache"),
+    (["--finetune", "net.pth"], "torch-import"),
+    (["--resume"], "checkpointing"),
+    (["--checkpoint-dir", "ck"], "checkpointing"),
+    (["--checkpoint-format", "sharded"], "checkpointing"),
+    (["--async-save"], "checkpointing"),
+    (["--max-restarts", "2"], "elastic-restart"),
+    (["--auto-tune", "search"], "auto-tuning"),
+    (["--auto-tune-out", "plan.json"], "auto-tuning"),
+    (["--remat"], "activation-rematerialization"),
+    (["--steps-per-dispatch", "4"], "multi-step dispatch"),
+    (["--profile-dir", "prof"], "profiler-capture"),
+    (["--model", "vit"], "transformer-classifier"),
+    (["--model", "bert_tiny"], "transformer-classifier"),
+    (["--dataset-type", "Imagenet"], "image-folder"),
+    (["--dataset-type", "SyntheticText"], "transformer-classifier"),
+])
+def test_data_parallel_cli_refuses_out_of_slice_flags(flags, slice_):
+    from distributed_model_parallel_tpu_torch.cli import data_parallel
+
+    with pytest.raises(SystemExit, match=f"not ported.*{slice_} slice"):
+        data_parallel.main(["--device", "cpu", *flags])
