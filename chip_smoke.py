@@ -81,10 +81,29 @@ Phases; any failure exits non-zero (nothing is caught and passed over):
    tinycnn DDP step on the card against the CPU (loss and every
    parameter, rtol 1e-5, TF32 off). No TPU kernel lies on this
    path: convolutions are cuDNN's, the all-reduce NCCL's.
-7. One `{"kernels": [...]}` JSON line (int8_matmul, flash_fwd,
-   flash_bwd_dq, flash_bwd_dkv), then the nvidia-smi line, then the
-   last line `{"ok": true, "device": {...}}`. Each phase prints its
-   seconds.
+7. Checkpoint and resume (every CLI run of phases 5-7 writes its
+   checkpoints under one temporary directory in the working directory,
+   deleted at the end):
+   (a) the f32 determinism probe: a MobileNetV2 DDP step at batch 512,
+   the same batches twice with cuDNN free to choose its algorithms and
+   twice with `cudnn.deterministic` (the CLIs' setting), per-step
+   losses, ms a step and the convolution kernels of each, then one step
+   under `torch.use_deterministic_algorithms(True, warn_only=True)`;
+   the deterministic runs must be equal. Then the DP CLI, MobileNetV2
+   f32, two epochs of 60 steps: `--engine ddp` twice and `--engine
+   gspmd` once (equal per-step losses), one epoch then `--resume` to
+   two (the straight run's losses and epoch-1 record), each epoch's
+   validation on 10,000 images, save / restore ms and file bytes.
+   (b) the LM CLI at GPT-2-small width, `ulysses_flash` f32, 2 + 2
+   steps across `--resume` against 4 straight: equal per-step losses,
+   exact K1-K3 launches, save / restore ms and bytes.
+   (c) `serve --checkpoint` on (b)'s directory, f32 and int8 (K4 48
+   times a decode step), and the first decode step's int8-vs-f32 logits
+   on those trained weights.
+8. One `{"kernels": [...]}` JSON line (int8_matmul, flash_fwd,
+   flash_bwd_dq, flash_bwd_dkv; `launches_slice6` counts phase 7's
+   runs), then the nvidia-smi line, then the last line `{"ok": true,
+   "device": {...}}`. Each phase prints its seconds.
 """
 
 from __future__ import annotations
@@ -94,8 +113,11 @@ import dataclasses
 import io
 import json
 import math
+import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 import torch
@@ -126,6 +148,8 @@ DEPTHS = (1, 2, 4, 8)  # cut depths for the int8-vs-f32 gap, beside LAYERS
 # On one H100 the gap read 2.457e-2 on the card and 2.398e-2 on the CPU,
 # and f32 rounding noise alone moved int8 logits by 1.62e-2 of max|logit|
 # between card and CPU; the ceiling is the card reading plus that move.
+# The gap is the reference's own: the JAX engine reads 2.2251e-2 against
+# the port's 2.2250e-2 on the same CPU-drawn weights (int8_gap_vs_jax.py).
 INT8_LOGIT_REL = 4.1e-2
 # f32 logits on the card against the port's CPU run at full width: read
 # 3.2e-6 (prefill) and 2.6e-6 (decode) on one H100; ten times that.
@@ -134,6 +158,19 @@ F32_CARD_VS_CPU = 3e-5
 # card and CPU int8 GEMM inputs read up to 5.3e-7 before the first
 # flipped code.
 F32_NOISE_REL = 2e-6
+
+
+# Checkpoints the CLI runs write (they save the best-val-acc model by
+# default) go under one temporary directory in the working directory,
+# deleted when the script ends.
+SCRATCH = []
+
+
+def scratch_dir(name: str) -> str:
+    if not SCRATCH:
+        SCRATCH.append(tempfile.mkdtemp(prefix="chip_smoke_ckpt_",
+                                        dir=os.getcwd()))
+    return os.path.join(SCRATCH[0], name)
 
 
 def require(cond, msg: str) -> None:
@@ -580,11 +617,11 @@ FLASH_CASES = (
 # dtypes: 1e-5 (worst reading 2.4e-6).
 FLASH_TOL = {torch.float32: dict(rtol=1e-4, atol=2e-5),
              torch.bfloat16: dict(rtol=2e-2, atol=2e-2)}
-LM_FLAGS = [
+LM_BASE = [
     "--device", "cuda", "--vocab-size", "50257", "--dim", "768",
     "--heads", "12", "--ffn-dim", "3072", "--seq-len", "1024", "-b", "8",
-    "--epochs", "1", "--steps-per-epoch", "4",
 ]
+LM_FLAGS = LM_BASE + ["--epochs", "1", "--steps-per-epoch", "4"]
 LM_RUNS = (  # (name, layers, extra flags)
     ("f32", 12, ["--attention", "ulysses_flash", "--dtype", "float32"]),
     ("bf16", 12, ["--attention", "ulysses_flash", "--dtype", "bfloat16"]),
@@ -807,29 +844,40 @@ def counts(fa) -> dict:
     return {name: getattr(fa, name).launches for name, _, _ in FLASH_KERNELS}
 
 
-def lm_run(lm, engine_cls, fa, qm, name, layers, extra):
-    """One training run through the port's LM CLI (`cli/lm.py` main);
-    each train step is timed (synchronized) and its loss recorded."""
+def recorded_run(main, flags, cls):
+    """`main(flags)`, its stdout captured, with `cls.train_step` timed
+    (synchronized) and each step's loss recorded: (result, steps, the
+    engine, state, batch and lr of the last step)."""
     steps, seen = [], {}
-    train_step = engine_cls.train_step
+    train_step = cls.train_step
 
-    def recorded(self, ts, ids, targets, lr):
+    def recorded(self, ts, *batch_lr):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        ts, m = train_step(self, ts, ids, targets, lr)
+        ts, m = train_step(self, ts, *batch_lr)
         torch.cuda.synchronize()
         steps.append({"ms": (time.perf_counter() - t0) * 1e3,
                       "loss": float(m["loss_sum"] / m["count"])})
-        seen.update(engine=self, state=ts, batch=(ids, targets), lr=lr)
+        seen.update(engine=self, state=ts, batch=batch_lr[:-1],
+                    lr=batch_lr[-1])
         return ts, m
 
-    flags = LM_FLAGS + ["--layers", str(layers)] + extra
+    with patched(cls, "train_step", recorded), \
+            contextlib.redirect_stdout(io.StringIO()):
+        out = main(flags)
+    return out, steps, seen
+
+
+def lm_run(lm, engine_cls, fa, qm, name, layers, extra):
+    """One training run through the port's LM CLI (`cli/lm.py` main);
+    each train step is timed (synchronized) and its loss recorded."""
+    directory = scratch_dir(f"lm_{name}")
     reset_counts(fa, qm)
-    buf = io.StringIO()
-    with patched(engine_cls, "train_step", recorded), \
-            contextlib.redirect_stdout(buf):
-        out = lm.main(flags)
+    out, steps, seen = recorded_run(
+        lm.main, LM_FLAGS + ["--layers", str(layers)] + extra + [
+            "--checkpoint-dir", directory], engine_cls)
     got = counts(fa)
+    shutil.rmtree(directory)  # its best-acc checkpoint is not needed
     want = {"flash_fwd": layers * (LM_STEPS + LM_VAL_BATCHES),
             "flash_bwd_dq": layers * LM_STEPS,
             "flash_bwd_dkv": layers * LM_STEPS}
@@ -1078,21 +1126,8 @@ def dp_run(dp_cli, dp_mod, native, name, extra):
     each native augment call timed on the host."""
     import torch.distributed as dist
 
-    steps, seen, augment_ms = [], {}, []
-    train_step = dp_mod._DataParallel.train_step
+    augment_ms = []
     augment = native.augment_normalize
-
-    def recorded(self, ts, images, labels, lr):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        ts, m = train_step(self, ts, images, labels, lr)
-        torch.cuda.synchronize()
-        steps.append({"ms": (time.perf_counter() - t0) * 1e3,
-                      "loss": float(m["loss_sum"] / m["count"])})
-        seen.update(engine=self, state=ts, batch=(images, labels), lr=lr,
-                    backend=dist.get_backend(), world=dist.get_world_size(),
-                    grad_reductions=self.grad_reductions)
-        return ts, m
 
     def timed_augment(*args, **kw):
         t0 = time.perf_counter()
@@ -1101,12 +1136,14 @@ def dp_run(dp_cli, dp_mod, native, name, extra):
         return out
 
     torch.cuda.reset_peak_memory_stats()
-    buf = io.StringIO()
-    with patched(dp_mod._DataParallel, "train_step", recorded), \
-            patched(native, "augment_normalize", timed_augment), \
-            contextlib.redirect_stdout(buf):
-        out = dp_cli.main(DP_FLAGS + extra)
+    with patched(native, "augment_normalize", timed_augment):
+        out, steps, seen = recorded_run(
+            dp_cli.main, DP_FLAGS + extra + [
+                "--checkpoint-dir", scratch_dir(f"dp_{name}")],
+            dp_mod._DataParallel)
     peak = torch.cuda.max_memory_allocated()
+    backend, world = dist.get_backend(), dist.get_world_size()
+    grad_reductions = seen["engine"].grad_reductions
     hist = out["history"][0]
     losses = [s["loss"] for s in steps]
     require(len(steps) == DP_STEPS and all(map(math.isfinite, losses))
@@ -1114,12 +1151,12 @@ def dp_run(dp_cli, dp_mod, native, name, extra):
             f"DP run {name}: {len(steps)} steps, losses {losses}")
     require(sum(losses[-5:]) < sum(losses[:5]),
             f"DP run {name}: the train loss did not fall: {losses}")
-    require(seen["backend"] == "nccl" and seen["world"] == 1,
-            f"DP run {name}: process group {seen['backend']} at world "
-            f"{seen['world']}, want nccl at 1")
-    require(seen["grad_reductions"] == DP_STEPS,
-            f"DP run {name}: {seen['grad_reductions']} gradient all-reduces "
-            f"in {DP_STEPS} steps")
+    require(backend == "nccl" and world == 1,
+            f"DP run {name}: process group {backend} at world {world}, "
+            "want nccl at 1")
+    require(grad_reductions == DP_STEPS,
+            f"DP run {name}: {grad_reductions} gradient all-reduces in "
+            f"{DP_STEPS} steps")
     require(native.available() and len(augment_ms) >= DP_STEPS,
             f"DP run {name}: the native augment made {len(augment_ms)} "
             f"batches for {DP_STEPS} steps")
@@ -1137,8 +1174,7 @@ def dp_run(dp_cli, dp_mod, native, name, extra):
            "epoch_train_loss": hist["train"]["loss"],
            "val_loss": hist["val"]["loss"], "val_acc1": hist["val"]["acc1"],
            "max_memory_allocated_gib": peak / 2 ** 30,
-           "backend": seen["backend"],
-           "grad_allreduces": seen["grad_reductions"]}
+           "backend": backend, "grad_allreduces": grad_reductions}
     row.update(dp_breakdown(seen, ms))
     emit(row)
     return row
@@ -1299,10 +1335,365 @@ def dp_phase():
               **dp_layer_times(dtype)})
     dp_card_vs_cpu()
     torch.distributed.destroy_process_group()
-    return rows
+    return rows, data
+
+
+# ---------------------------------------------------------------------
+# Checkpoint and resume (slice 6)
+
+CK_DP_STEPS = 60  # train steps an epoch of the phase-7 DP runs
+CK_DP_FLAGS = DP_FLAGS[:DP_FLAGS.index("--epochs")] + [
+    "--steps-per-epoch", str(CK_DP_STEPS)]
+CK_LM_FLAGS = LM_BASE + ["--layers", str(LAYERS), "--attention",
+                         "ulysses_flash", "--dtype", "float32",
+                         "--steps-per-epoch", "2"]
+CK_PROBE_STEPS = 12  # steps of each determinism probe run
+CK_PROBE_TIMED_FROM = 3  # steps 4-12 are timed
+# Kernel names a profiled DP step shows for its convolutions (cuDNN's
+# and the CUTLASS-style sm90 kernels it dispatches to).
+CONV_KERNEL_KEYS = ("conv", "wgrad", "dgrad", "fprop", "xmma", "implicit",
+                    "cudnn", "sm90_")
+
+
+@contextlib.contextmanager
+def checkpoint_timing(records):
+    """Time the Trainer's checkpoint I/O, synchronized: a save is the
+    device-to-host copy of the state (`train_state_to_jax`) plus the
+    file write (`save_checkpoint`); a restore is the file read
+    (`restore_checkpoint`) plus the host-to-device copy
+    (`train_state_from_jax`). Each record has the op, its ms and the
+    npz bytes."""
+    from distributed_model_parallel_tpu_torch.training import trainer
+
+    def timed(name, op):
+        fn = getattr(trainer, name)
+
+        def run(*args, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kw)
+            torch.cuda.synchronize()
+            rec = {"op": op, "part": name,
+                   "ms": (time.perf_counter() - t0) * 1e3}
+            if name == "save_checkpoint":
+                rec["bytes"] = os.path.getsize(out)
+            records.append(rec)
+            return out
+        return patched(trainer, name, run)
+
+    with timed("train_state_to_jax", "save"), \
+            timed("save_checkpoint", "save"), \
+            timed("restore_checkpoint", "restore"), \
+            timed("train_state_from_jax", "restore"):
+        yield
+
+
+def io_summary(records):
+    """Checkpoint I/O ms by part (each entry one call: a state's
+    device-to-host copy, one file's write, one file's read, the
+    host-to-device copy) and the largest file written. A save is one
+    copy and one write; an epoch that writes 'ckpt' and 'last' writes
+    one copy twice."""
+    out = {f"{part}_ms": [r["ms"] for r in records if r["part"] == part]
+           for part in ("train_state_to_jax", "save_checkpoint",
+                        "restore_checkpoint", "train_state_from_jax")}
+    out["file_bytes"] = max((r["bytes"] for r in records if "bytes" in r),
+                            default=None)
+    return out
+
+
+def epoch_numbers(history):
+    """An epoch record without its timings."""
+    return [{"epoch": h["epoch"], "best_acc": h["best_acc"],
+             **{f"{part}_{k}": v for part in ("train", "val")
+                for k, v in h[part].items() if not k.endswith("_time")}}
+            for h in history]
+
+
+def determinism_probe(data):
+    """C.1 on the card: a MobileNetV2 DDP f32 step at batch 512, the same
+    CK_PROBE_STEPS batches twice with cuDNN free to pick its algorithms
+    and twice with `cudnn.deterministic` (the CLIs' setting): per-step
+    losses, whether the runs' parameters are equal, synchronized ms a
+    step (steps 2 on), and the convolution kernels of one profiled step
+    in each mode; then one step under
+    `torch.use_deterministic_algorithms(True, warn_only=True)`, whose
+    warnings name any op with no deterministic implementation."""
+    import warnings
+
+    from distributed_model_parallel_tpu_torch.data.datasets import (
+        CIFAR10_MEAN,
+        CIFAR10_STD,
+    )
+    from distributed_model_parallel_tpu_torch.data.loader import Loader
+    from distributed_model_parallel_tpu_torch.models.mobilenetv2 import (
+        mobilenet_v2,
+    )
+    from distributed_model_parallel_tpu_torch.parallel.data_parallel import (
+        DDPEngine,
+    )
+    from distributed_model_parallel_tpu_torch.training.optim import (
+        SGD,
+        tree_leaves,
+    )
+
+    loader = Loader(data[0], DP_BATCH, augment=True, mean=CIFAR10_MEAN,
+                    std=CIFAR10_STD, workers=8)
+    batches = []
+    for batch in loader:
+        batches.append(batch)
+        if len(batches) == CK_PROBE_STEPS:
+            break
+
+    def run():
+        eng = DDPEngine(mobilenet_v2(10), SGD(), device="cuda")
+        ts = eng.init_state(0)
+        losses, ms = [], []
+        for images, labels in batches:
+            placed = eng.shard_batch(images, labels)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ts, m = eng.train_step(ts, *placed, 0.04)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            losses.append(float(m["loss_sum"] / m["count"]))
+        params = [t.detach().clone() for t in tree_leaves(ts.params)]
+        seen = {"engine": eng, "state": ts, "batch": placed, "lr": 0.04}
+        kernels = profiled_step(seen)
+        convs = sorted({kernel_family(name)[:90] for _, _, name in kernels
+                        if any(k in name.lower()
+                               for k in CONV_KERNEL_KEYS)})
+        busy = sum(t for t, _, _ in kernels) / 1e3
+        return losses, params, ms[CK_PROBE_TIMED_FROM:], (convs, busy), seen
+
+    def same(a, b):
+        return all(torch.equal(x, y) for x, y in zip(a, b))
+
+    # In turns (free, deterministic, deterministic, free), so that host
+    # noise spreads over both modes.
+    runs = {False: [], True: []}
+    try:
+        for det in (False, True, True, False):
+            torch.backends.cudnn.deterministic = det
+            runs[det].append(run())
+        modes = {}
+        for det, ((l1, p1, ms1, (convs, busy1), _),
+                  (l2, p2, ms2, (_, busy2), _)) in runs.items():
+            modes["deterministic" if det else "free"] = {
+                "losses": [l1, l2], "params_equal": same(p1, p2),
+                "losses_equal": l1 == l2,
+                "ms_per_step": sum(ms1 + ms2) / len(ms1 + ms2),
+                "device_busy_ms": [busy1, busy2],
+                "conv_kernels": convs}
+        seen = runs[True][1][4]
+        torch.backends.cudnn.deterministic = True
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.use_deterministic_algorithms(True, warn_only=True)
+            try:
+                seen["engine"].train_step(seen["state"], *seen["batch"],
+                                          seen["lr"])
+                torch.cuda.synchronize()
+            finally:
+                torch.use_deterministic_algorithms(False)
+    finally:
+        torch.backends.cudnn.deterministic = True
+    reading = {"steps": CK_PROBE_STEPS, **modes,
+               "nondeterministic_op_warnings": sorted(
+                   {str(w.message)[:200] for w in caught
+                    if "deterministic" in str(w.message)})}
+    emit({"c1_determinism_probe": reading})
+    d = modes["deterministic"]
+    require(d["losses_equal"] and d["params_equal"],
+            f"DDP f32 with cudnn.deterministic is not deterministic: {d}")
+    return reading
+
+
+def checkpoint_dp_phase(dp_cli, dp_mod, data):
+    """7(a): MobileNetV2 f32 through the DP CLI, two epochs of
+    CK_DP_STEPS steps. `--engine ddp` straight twice and `--engine gspmd`
+    straight once must give the same per-step losses (C.1: at world 1
+    the engines compute the same step); one epoch then `--resume` to two
+    must give the straight run's epoch-1 record and step losses."""
+    from distributed_model_parallel_tpu_torch.data import datasets
+
+    runs, io_records = {}, []
+    plan = (("ddp_a", ["--engine", "ddp", "--epochs", "2"], "ddp_a"),
+            ("ddp_b", ["--engine", "ddp", "--epochs", "2"], "ddp_b"),
+            ("gspmd", ["--engine", "gspmd", "--epochs", "2"], "gspmd"),
+            ("split_1", ["--engine", "ddp", "--epochs", "1"], "split"),
+            ("split_2", ["--engine", "ddp", "--epochs", "2", "--resume"],
+             "split"))
+    with patched(datasets.DatasetCollection, "init", lambda self: data), \
+            checkpoint_timing(io_records):
+        for name, extra, directory in plan:
+            out, steps, _ = recorded_run(
+                dp_cli.main, CK_DP_FLAGS + extra + [
+                    "--checkpoint-dir", scratch_dir(f"ck_dp_{directory}")],
+                dp_mod._DataParallel)
+            runs[name] = {"history": epoch_numbers(out["history"]),
+                          "losses": [st["loss"] for st in steps],
+                          "ms": [st["ms"] for st in steps]}
+    torch.distributed.destroy_process_group()
+    a, b, g = runs["ddp_a"], runs["ddp_b"], runs["gspmd"]
+    split_losses = runs["split_1"]["losses"] + runs["split_2"]["losses"]
+    reading = {
+        "steps_per_epoch": CK_DP_STEPS,
+        "ddp_twice_losses_equal": a["losses"] == b["losses"],
+        "ddp_twice_epochs_equal": a["history"] == b["history"],
+        "gspmd_vs_ddp_losses_equal": g["losses"] == a["losses"],
+        "gspmd_vs_ddp_max_abs_loss_diff": max(
+            abs(x - y) for x, y in zip(g["losses"], a["losses"])),
+        "resume_losses_equal": split_losses == a["losses"],
+        "resume_epoch1_equal": runs["split_2"]["history"]
+        == a["history"][1:],
+        "epochs": a["history"],
+        "ddp_ms_per_step": sum(a["ms"][5:]) / len(a["ms"][5:]),
+        "first_last_loss": [a["losses"][0], a["losses"][-1]],
+        **io_summary(io_records),
+    }
+    emit({"dp_checkpoint_resume": reading})
+    require(len(a["losses"]) == 2 * CK_DP_STEPS
+            and len(split_losses) == 2 * CK_DP_STEPS,
+            f"DP resume runs took {len(a['losses'])} / "
+            f"{len(split_losses)} steps")
+    require(reading["ddp_twice_losses_equal"]
+            and reading["ddp_twice_epochs_equal"],
+            "two ddp f32 runs with the same seeds differ (C.1)")
+    require(reading["gspmd_vs_ddp_losses_equal"],
+            "gspmd and ddp differ at world 1 (C.1): "
+            f"{reading['gspmd_vs_ddp_max_abs_loss_diff']}")
+    require(reading["resume_losses_equal"] and reading["resume_epoch1_equal"],
+            "DP one epoch + --resume differs from two epochs straight")
+    return reading
+
+
+def checkpoint_lm_phase(lm, engine_cls, fa, qm):
+    """7(b): the LM CLI at GPT-2-small width, `ulysses_flash` f32, two
+    epochs of 2 steps straight against one epoch then `--resume` to two:
+    equal per-step losses and epoch-1 record, and exact K1-K3 launches
+    in each run. The runs also write `last` every epoch
+    (`TrainerConfig.save_last`), so that they resume whatever the
+    validation accuracy of a random-weight epoch. Returns (reading, the
+    straight run's directory)."""
+    import functools
+
+    val_batches = LM_VAL_BATCHES
+    runs, io_records, launches = {}, [], {}
+    plan = (("straight", ["--epochs", "2"], "straight", 4, 2),
+            ("split_1", ["--epochs", "1"], "split", 2, 1),
+            ("split_2", ["--epochs", "2", "--resume"], "split", 2, 1))
+    with checkpoint_timing(io_records), patched(
+            lm, "TrainerConfig",
+            functools.partial(lm.TrainerConfig, save_last=True)):
+        for name, extra, directory, steps, epochs in plan:
+            reset_counts(fa, qm)
+            out, rec, _ = recorded_run(
+                lm.main, CK_LM_FLAGS + extra + [
+                    "--checkpoint-dir", scratch_dir(f"ck_lm_{directory}")],
+                engine_cls)
+            got = counts(fa)
+            want = {"flash_fwd": LAYERS * (steps + val_batches * epochs),
+                    "flash_bwd_dq": LAYERS * steps,
+                    "flash_bwd_dkv": LAYERS * steps}
+            require(got == want, f"LM resume run {name}: kernel launches "
+                    f"{got}, want {want}")
+            require(qm.int8_matmul.launches == 0,
+                    f"LM resume run {name} launched int8")
+            launches[name] = got
+            runs[name] = {"history": epoch_numbers(out["history"]),
+                          "losses": [st["loss"] for st in rec]}
+    straight = runs["straight"]
+    split_losses = runs["split_1"]["losses"] + runs["split_2"]["losses"]
+    reading = {
+        "losses": straight["losses"], "resumed_losses": split_losses,
+        "resume_losses_equal": split_losses == straight["losses"],
+        "resume_epoch1_equal": runs["split_2"]["history"]
+        == straight["history"][1:],
+        "launches": launches, **io_summary(io_records),
+    }
+    emit({"lm_checkpoint_resume": reading})
+    require(all(map(math.isfinite, straight["losses"]))
+            and len(straight["losses"]) == 4,
+            f"LM straight run losses {straight['losses']}")
+    require(reading["resume_losses_equal"] and reading["resume_epoch1_equal"],
+            "LM 2 + 2 steps across --resume differ from 4 straight")
+    return reading, scratch_dir("ck_lm_straight")
+
+
+def checkpoint_serve_phase(serve, engine_cls, cfg_cls, fa, qm, directory,
+                           random_gap):
+    """7(c): `serve --checkpoint` on 7(b)'s directory, f32 and int8 (K4
+    48 times a decode step), then the first decode step's int8-vs-f32
+    logits on those trained weights beside the random weights' gap."""
+    outs, launches = {}, {}
+    for mode in ("f32", "int8"):
+        reset_counts(fa, qm)
+        outs[mode] = serve_run(serve, SERVE_FLAGS + [
+            "--compute-dtype", mode, "--checkpoint", directory])
+        launches[mode] = qm.int8_matmul.launches
+        require(not any(counts(fa).values()),
+                "serving a checkpoint launched flash kernels")
+    steps = outs["int8"]["serving"]["decode_steps"]
+    require(launches["f32"] == 0 and steps > 0
+            and launches["int8"] == 4 * LAYERS * steps,
+            f"serve --checkpoint int8 launched the kernel "
+            f"{launches['int8']} times over {steps} decode steps")
+    for mode, out in outs.items():
+        s = out["serving"]
+        require(s["checkpoint"] == directory and s["requests"] == 16
+                and s["generated_tokens"] == 16 * 32,
+                f"serve --checkpoint {mode}: {s['requests']} requests, "
+                f"{s['generated_tokens']} tokens")
+    args = serve.build_parser().parse_args(SERVE_FLAGS)
+    cfg = cfg_cls(vocab_size=50257, dim=768, num_layers=LAYERS,
+                  num_heads=12, ffn_dim=3072, max_position=1024,
+                  dropout_rate=0.0, pad_token_id=0)
+    prompts = [r.prompt for r in serve.synthetic_trace(args)[:SLOTS]]
+    with contextlib.redirect_stdout(io.StringIO()):
+        host = serve.load_checkpoint_params(
+            directory, serve.newest_checkpoint_name(directory), cfg, 0,
+            "cuda")
+    kw = dict(num_slots=SLOTS, max_len=1024, prefill_len=128)
+    engines = {mode: engine_cls(cfg, compute_dtype=mode, device="cuda", **kw)
+               for mode in ("f32", "int8")}
+    params = {mode: eng.place_params(host) for mode, eng in engines.items()}
+    pre, _ = first_step(engines["f32"], params["f32"], prompts,
+                        torch.zeros(SLOTS, dtype=torch.int64))
+    tokens = pre.argmax(-1)
+    f32 = first_step(engines["f32"], params["f32"], prompts, tokens)[1]
+    i8 = first_step(engines["int8"], params["int8"], prompts, tokens)[1]
+    pairs = [(x, y) for ra, rb in zip(outs["f32"]["requests"],
+                                      outs["int8"]["requests"])
+             for x, y in zip(ra["tokens"], rb["tokens"])]
+    reading = {"int8_launches": launches["int8"], "decode_steps": steps,
+               "launches_per_step": launches["int8"] / steps,
+               "int8_vs_f32_trained": int8_vs_f32(i8, f32),
+               "int8_vs_f32_random_weights_rel": random_gap,
+               "greedy_token_agreement_int8_vs_f32":
+                   sum(x == y for x, y in pairs) / len(pairs),
+               "tokens_per_s": {m: o["serving"]["tokens_per_s"]
+                                for m, o in outs.items()}}
+    emit({"serve_checkpoint": reading})
+    require(bool(torch.isfinite(i8).all()) and bool(torch.isfinite(f32).all())
+            and reading["int8_vs_f32_trained"]["rel"] <= INT8_LOGIT_REL,
+            f"int8 first-step logits on trained weights: "
+            f"{reading['int8_vs_f32_trained']}")
+    return reading
 
 
 def main() -> int:
+    # cuBLAS reads this when it first starts: the determinism probe's
+    # torch.use_deterministic_algorithms needs it (phase 7).
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    try:
+        return smoke()
+    finally:
+        for directory in SCRATCH:
+            shutil.rmtree(directory, ignore_errors=True)
+
+
+def smoke() -> int:
     phase_t0 = time.perf_counter()
 
     def phase_done(name: str) -> None:
@@ -1447,12 +1838,36 @@ def main() -> int:
 
     # ---- 6. data-parallel MobileNetV2 training (a main path) ----------
     reset_counts(fa, qm)
-    dp_phase()
+    _, dp_data = dp_phase()
     require(not any(counts(fa).values()) and qm.int8_matmul.launches == 0,
             "data-parallel training launched a K1-K4 kernel")
     phase_done("data-parallel training")
 
-    # ---- 7. kernels line, card line, last line -----------------------
+    # ---- 7. checkpoint and resume (the slice-6 paths) -----------------
+    from distributed_model_parallel_tpu_torch.cli import data_parallel
+    from distributed_model_parallel_tpu_torch.parallel import (
+        data_parallel as dp_mod,
+    )
+
+    determinism_probe(dp_data)
+    reset_counts(fa, qm)
+    checkpoint_dp_phase(data_parallel, dp_mod, dp_data)
+    require(not any(counts(fa).values()) and qm.int8_matmul.launches == 0,
+            "data-parallel resume launched a K1-K4 kernel")
+    del dp_data
+    phase_done("checkpoint and resume: data-parallel")
+    lm_resume, lm_dir = checkpoint_lm_phase(
+        lm, CausalLMSequenceParallelEngine, fa, qm)
+    phase_done("checkpoint and resume: LM")
+    serve_ckpt = checkpoint_serve_phase(
+        serve, ServingEngine, GPTConfig, fa, qm, lm_dir,
+        readings["int8_vs_f32_card"]["rel"])
+    phase_done("checkpoint and resume: serve --checkpoint")
+    slice6 = {name: sum(r[name] for r in lm_resume["launches"].values())
+              for name, _, _ in FLASH_KERNELS}
+    slice6["int8_matmul"] = serve_ckpt["int8_launches"]
+
+    # ---- 8. kernels line, card line, last line -----------------------
     decode = [r for r in shapes if r["M"] == SLOTS]
     step = {key: None if any(r[key] is None for r in decode)
             else LAYERS * sum(r[key] for r in decode)
@@ -1466,6 +1881,8 @@ def main() -> int:
         "replaces": "distributed_model_parallel_tpu/ops/quant_matmul.py:190",
         "design": INT8_DESIGN,
         "launches": launches,
+        # serve --checkpoint int8 (phase 7), counted apart
+        "launches_slice6": slice6["int8_matmul"],
         "max_abs_err": max_err,
         # Times of one decode step's 48 launches (12 layers x the four
         # projection shapes at M = 8), each shape timed in phase 3.
@@ -1484,7 +1901,8 @@ def main() -> int:
         # same codes: the integer product alone, not K4's function.
         "int_mm_device_ms": step["int_mm_device_ms"],
         "per_shape": shapes,
-    }] + [flash_entry(name, replaces, lm_rows, flash_errs, flash_times)
+    }] + [dict(flash_entry(name, replaces, lm_rows, flash_errs,
+                           flash_times), launches_slice6=slice6[name])
           for name, _, replaces in FLASH_KERNELS]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -29,5 +29,9 @@ Ported so far:
   `cli/data_parallel.py` -> `parallel/data_parallel.py::
   DataParallelEngine` / `DDPEngine` -> `models/mobilenetv2.py`, with
   rank-sharded loaders and the native augment (`native/augment.cpp`);
-  no TPU kernel lies on this path.
+  no TPU kernel lies on this path;
+* slice 6, checkpoint and resume on those CLIs — `training/
+  checkpoint.py` (the JAX package's legacy format, via `models/
+  convert.py`'s train-state conversion), `--resume`, `serve
+  --checkpoint`, and `--finetune` through `models/torch_import.py`.
 """

@@ -7,7 +7,8 @@ flags whose features belong to later port slices are refused loudly,
 naming the slice (`check_serving_args`, `check_lm_args`,
 `check_data_parallel_args`). The image side: `MODELS`, `build_model`,
 `stats_for`, `build_loaders` (per-rank loaders from the global batch)
-and `check_batch_divisibility`.
+and `check_batch_divisibility`. `set_device_numerics` is the one place
+the CLIs fix the card's f32 arithmetic.
 """
 
 from __future__ import annotations
@@ -73,6 +74,21 @@ def add_metrics_out_flag(parser: argparse.ArgumentParser) -> None:
     )
 
 
+def set_device_numerics() -> None:
+    """What every CLI sets where it picks its device, so that an f32 run
+    on the card is the f32 path the tests hold: no TF32 in matmuls or
+    cuDNN convolutions (torch leaves cuDNN's on by default), and cuDNN's
+    deterministic algorithms, without autotuning (its f32 weight- and
+    data-gradient algorithms otherwise sum in a different order from run
+    to run). The flags are process-wide and settable on a CPU build."""
+    import torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+
+
 def _refuse(flag: str, later: str) -> SystemExit:
     return SystemExit(
         f"{flag} is not ported to the PyTorch package yet: it belongs to "
@@ -117,8 +133,6 @@ def check_serving_args(args) -> None:
             "cross-slice hop; serving has no 'dcn' fabric — drop the flag"
         )
     # --- features of later port slices --------------------------------
-    if args.checkpoint:
-        raise _refuse("--checkpoint", "the checkpointing slice")
     if args.layout != "replicated":
         raise _refuse(f"--layout {args.layout}", TP_SP_SLICE)
     if args.model_shards != 1 or args.seq_shards != 1:
@@ -199,16 +213,19 @@ def compute_dtype_from_flag(name: str):
 
 
 def add_checkpoint_flags(parser: argparse.ArgumentParser) -> None:
-    """The training CLIs' checkpoint flags, carried so a reference launch
-    line is refused with an explanation (`check_lm_args`,
-    `check_data_parallel_args`)."""
+    """The training CLIs' checkpoint flags. The sharded format and
+    --async-save are carried so a reference launch line is refused with
+    an explanation (`check_lm_args`, `check_data_parallel_args`)."""
     parser.add_argument("--checkpoint-dir", default="./checkpoint",
-                        help="not ported yet (checkpointing slice)")
+                        help="where the best-acc 'ckpt' (and 'last') "
+                             "snapshots are written and --resume reads")
     parser.add_argument("--checkpoint-format", default="legacy",
                         choices=("legacy", "sharded"),
-                        help="not ported yet (checkpointing slice)")
+                        help="legacy = one .npz + .json sidecar (the JAX "
+                             "package's format); sharded is not ported "
+                             "yet (sharded-checkpoint slice)")
     parser.add_argument("--async-save", action="store_true",
-                        help="not ported yet (checkpointing slice)")
+                        help="not ported yet (sharded-checkpoint slice)")
 
 
 def add_auto_tune_flags(parser: argparse.ArgumentParser) -> None:
@@ -232,13 +249,12 @@ SLICES = {
     "cm": "the collective-matmul slice",
     "reducer": "the gradient-reduction slice",
     "remat": "the activation-rematerialization slice",
-    "checkpoint": "the checkpointing slice",
+    "sharded": "the sharded-checkpoint slice",
     "multistep": "the multi-step dispatch slice",
     "profile": "the profiler-capture slice",
     "fsdp": "the FSDP slice",
     "tp": "the tensor-parallel slice",
     "device_cache": "the device-cache slice",
-    "finetune": "the torch-import slice",
     "elastic": "the elastic-restart slice",
     "transformer": "the transformer-classifier slice",
 }
@@ -270,10 +286,9 @@ def check_lm_args(args) -> None:
          or args.dcn_slices != 1 or args.overlap_stages is not None
          or args.dcn_compression != "none", s["reducer"]),
         ("--remat", args.remat, s["remat"]),
-        ("--resume / --checkpoint-dir / --checkpoint-format / --async-save",
-         args.resume or args.checkpoint_dir != "./checkpoint"
-         or args.checkpoint_format != "legacy" or args.async_save,
-         s["checkpoint"]),
+        ("--checkpoint-format sharded / --async-save",
+         args.checkpoint_format != "legacy" or args.async_save,
+         s["sharded"]),
         ("--steps-per-dispatch > 1", args.steps_per_dispatch != 1,
          s["multistep"]),
         ("--profile-dir", args.profile_dir, s["profile"]),
@@ -400,11 +415,9 @@ def check_data_parallel_args(args) -> None:
          or args.dcn_slices != 1 or args.overlap_stages is not None
          or args.dcn_compression != "none", s["reducer"]),
         ("--device-cache", args.device_cache, s["device_cache"]),
-        ("--finetune", args.finetune, s["finetune"]),
-        ("--resume / --checkpoint-dir / --checkpoint-format / --async-save",
-         args.resume or args.checkpoint_dir != "./checkpoint"
-         or args.checkpoint_format != "legacy" or args.async_save,
-         s["checkpoint"]),
+        ("--checkpoint-format sharded / --async-save",
+         args.checkpoint_format != "legacy" or args.async_save,
+         s["sharded"]),
         ("--max-restarts", args.max_restarts != 0, s["elastic"]),
         ("--auto-tune / --auto-tune-out / --auto-tune-calibration",
          args.auto_tune or args.auto_tune_out or args.auto_tune_calibration,
@@ -429,6 +442,18 @@ def check_data_parallel_args(args) -> None:
             f"PyTorch package yet: it belongs to "
             f"{LATER_TYPES[args.dataset_type]} (ROADMAP.md)"
         )
+    if args.finetune:
+        # Before any dataset or process group is built.
+        if args.resume:
+            raise SystemExit(
+                "--finetune conflicts with --resume: resume restores the "
+                "full training state; drop one of the flags")
+        if args.model != "mobilenetv2":
+            raise SystemExit(
+                "--finetune supports the BN MobileNetV2 ('mobilenetv2'); "
+                f"got --model {args.model}")
+        if not os.path.exists(args.finetune):
+            raise SystemExit(f"--finetune: no such file {args.finetune!r}")
     if args.sync_bn and args.engine != "ddp":
         raise SystemExit("--sync-bn selects SyncBatchNorm under --engine "
                          "ddp; --engine gspmd always normalizes over the "
@@ -477,6 +502,7 @@ __all__ = [
     "check_serving_args",
     "compute_dtype_from_flag",
     "export_metrics_out",
+    "set_device_numerics",
     "setup_metrics_out",
     "stats_for",
 ]

@@ -12,7 +12,11 @@ One process per GPU over `torch.distributed` (NCCL; gloo on the CPU):
       --device cpu --model tinycnn --dataset-type Synthetic  # 2 gloo ranks
 
 `-b` is the GLOBAL batch, divided by the world; each rank's loader
-draws from its own shard. `--engine gspmd` (the default) is the
+draws from its own shard. The best-val-acc model is saved to
+`--checkpoint-dir` (`ckpt.npz` + `ckpt.json`, the JAX package's
+format) and `--resume` continues from it; `--finetune CKPT` starts
+MobileNetV2 from a reference-format torch checkpoint
+(`models/torch_import.py`). `--engine gspmd` (the default) is the
 global-batch step (BN over the whole batch); `--engine ddp` is per-rank
 BN, or SyncBN with `--sync-bn`. `--device` (cuda, the default, or cpu)
 is the port's addition. The parser keeps the reference's whole flag
@@ -38,6 +42,7 @@ from distributed_model_parallel_tpu_torch.cli.common import (
     check_data_parallel_args,
     compute_dtype_from_flag,
     export_metrics_out,
+    set_device_numerics,
     setup_metrics_out,
     stats_for,
 )
@@ -71,9 +76,12 @@ def build_parser() -> argparse.ArgumentParser:
                         "for one rank)")
     p.add_argument("--lr", default=0.4, type=float, help="learning rate")
     p.add_argument("--resume", "-r", action="store_true",
-                   help="not ported yet (checkpointing slice)")
+                   help="resume from the newest checkpoint in "
+                        "--checkpoint-dir")
     p.add_argument("--finetune", default=None, metavar="CKPT",
-                   help="not ported yet (torch-import slice)")
+                   help="start MobileNetV2 from a reference-format torch "
+                        "checkpoint (.pth/.pt, or .npz); a head of "
+                        "another class count is left fresh")
     p.add_argument("-b", "--batch-size", default=512, type=int,
                    help="global batch size (reference: 512)")
     p.add_argument("--val-batch-size", default=1000, type=int)
@@ -126,6 +134,7 @@ def main(argv=None) -> dict:
         )
     setup_metrics_out(args.metrics_out)
     device = initialize_backend(args.device, args.dist_url)
+    set_device_numerics()
     mesh = make_mesh(MeshSpec(data=-1))
     check_batch_divisibility(args.batch_size, mesh)
     check_batch_divisibility(args.val_batch_size, mesh, label="val batch")
@@ -146,18 +155,33 @@ def main(argv=None) -> dict:
         engine = DataParallelEngine(model, build_optimizer(args), **common)
     if is_primary():
         print(f"==> {args.engine} on {mesh.data} rank(s) of {device.type} "
-              f"({torch.distributed.get_backend()}); no checkpoints are "
-              "written: checkpoint saving and --resume come with the "
-              "checkpointing slice (ROADMAP.md)", flush=True)
+              f"({torch.distributed.get_backend()}); checkpoints in "
+              f"{args.checkpoint_dir}", flush=True)
     cfg = TrainerConfig(
         epochs=args.epochs,
         base_lr=args.lr,
         t_max=90,
         warmup_period=10,
         log_file=args.log_file or f"data_para_{args.batch_size}.txt",
+        checkpoint_dir=args.checkpoint_dir,
+        resume=args.resume,
         steps_per_epoch=args.steps_per_epoch,
     )
-    out = Trainer(engine, train, val, cfg, seed=0).fit()
+    trainer = Trainer(engine, train, val, cfg, seed=0)
+    if args.finetune:
+        from distributed_model_parallel_tpu_torch.models.torch_import import (
+            load_torch_checkpoint,
+            mobilenetv2_from_torch_state_dict,
+        )
+
+        params, model_state = mobilenetv2_from_torch_state_dict(
+            trainer.state.params, trainer.state.model_state,
+            load_torch_checkpoint(args.finetune))
+        trainer.state = engine.state_from_params(params, model_state)
+        if is_primary():
+            print(f"==> Transplanted torch weights from {args.finetune}",
+                  flush=True)
+    out = trainer.fit()
     if is_primary():
         export_metrics_out(args.metrics_out)
     return out

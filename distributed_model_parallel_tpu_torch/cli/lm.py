@@ -14,9 +14,12 @@ The parser keeps the reference's flag surface and adds `--device`
 (cuda, the default, or cpu). `--attention ulysses_flash` and
 `ring_flash` run the flash-attention kernels. Flags whose features
 belong to later port slices (pipeline, sequence shards, MoE, collective
-matmul, gradient reducers, remat, checkpoints, multi-step dispatch,
-profiling, plans and the tuner) are refused with the slice named
-(`cli/common.check_lm_args`).
+matmul, gradient reducers, remat, the sharded checkpoint format,
+multi-step dispatch, profiling, plans and the tuner) are refused with
+the slice named (`cli/common.check_lm_args`). The best-val-acc model is
+saved to `--checkpoint-dir` with the model's `gpt_config` in its
+sidecar (what `cli/serve.py --checkpoint` checks), and `--resume`
+continues from it.
 """
 
 from __future__ import annotations
@@ -34,6 +37,7 @@ from distributed_model_parallel_tpu_torch.cli.common import (
     check_lm_args,
     compute_dtype_from_flag,
     export_metrics_out,
+    set_device_numerics,
     setup_metrics_out,
 )
 from distributed_model_parallel_tpu_torch.data.lm import (
@@ -122,7 +126,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--profile-dir", default=None,
                    help="not ported yet (profiler-capture slice)")
     p.add_argument("--resume", "-r", action="store_true",
-                   help="not ported yet (checkpointing slice)")
+                   help="resume from the newest checkpoint in "
+                        "--checkpoint-dir")
     add_metrics_out_flag(p)
     return p
 
@@ -146,6 +151,7 @@ def main(argv=None) -> dict:
         dropout_rate=args.dropout,
         pad_token_id=0,
     )
+    set_device_numerics()
     engine = CausalLMSequenceParallelEngine(
         cfg, build_optimizer(args), attention=args.attention,
         compute_dtype=compute_dtype_from_flag(args.dtype),
@@ -167,15 +173,27 @@ def main(argv=None) -> dict:
     floor = chain_entropy(args.vocab_size, seed=args.corpus_seed)
     print(f"corpus loss floor (chain conditional entropy): "
           f"{floor:.4f} nats/token")
-    print("==> no checkpoints are written: checkpoint saving and --resume "
-          "come with the checkpointing slice (ROADMAP.md)", flush=True)
     tcfg = TrainerConfig(
         epochs=args.epochs,
         base_lr=args.lr,
         t_max=max(args.epochs - args.epochs // 10, 1),
         warmup_period=max(args.epochs // 10, 1),
         log_file=args.log_file or f"lm_{args.batch_size}.txt",
+        checkpoint_dir=args.checkpoint_dir,
+        resume=args.resume,
         steps_per_epoch=args.steps_per_epoch,
+        # Recorded in the checkpoint sidecar so that `cli/serve.py
+        # --checkpoint` fails fast, naming the field, when the serve
+        # flags disagree with the trained model.
+        checkpoint_extra={"gpt_config": {
+            "vocab_size": cfg.vocab_size,
+            "dim": cfg.dim,
+            "num_layers": cfg.num_layers,
+            "num_heads": cfg.num_heads,
+            "ffn_dim": cfg.ffn_dim,
+            "max_position": cfg.max_position,
+            "num_experts": cfg.num_experts,
+        }},
     )
     trainer = Trainer(engine, train, val, tcfg, seed=0)
     out = trainer.fit()

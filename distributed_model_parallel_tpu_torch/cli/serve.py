@@ -12,9 +12,13 @@ JSON on stdout — the reference's flags, report and trace.
       --device cpu --dim 64 --layers 2 --heads 4
 
 `--device` picks where the model runs: cuda (the default; refused when
-no GPU is present) or cpu. Flags whose features belong to later port
-slices (tp/sp layouts, paged cache, speculative decoding, bf16,
-checkpoints) are refused with the slice named (`cli/common.py`).
+no GPU is present) or cpu. `--checkpoint DIR` serves a trained model:
+the `params` of the newest snapshot in DIR (`last` or `ckpt`, as a
+resumed training run would pick), written by either package's
+training CLIs; the sidecar's recorded `gpt_config` must match the
+serve flags. Flags whose features belong to later port slices (tp/sp
+layouts, paged cache, speculative decoding, bf16) are refused with the
+slice named (`cli/common.py`).
 """
 
 from __future__ import annotations
@@ -31,13 +35,26 @@ from distributed_model_parallel_tpu_torch.cli.common import (
     add_metrics_out_flag,
     check_serving_args,
     export_metrics_out,
+    set_device_numerics,
     setup_metrics_out,
 )
-from distributed_model_parallel_tpu_torch.models.gpt import GPTConfig
+from distributed_model_parallel_tpu_torch.models.convert import (
+    from_jax_params,
+    params_spec,
+)
+from distributed_model_parallel_tpu_torch.models.gpt import (
+    GPTConfig,
+    init_params,
+)
 from distributed_model_parallel_tpu_torch.serving.engine import (
     ServingEngine,
 )
 from distributed_model_parallel_tpu_torch.serving.scheduler import Request
+from distributed_model_parallel_tpu_torch.training.checkpoint import (
+    checkpoint_metadata,
+    newest_checkpoint_name,
+    restore_subtree,
+)
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -49,7 +66,9 @@ def build_parser() -> argparse.ArgumentParser:
                    help="where the model runs (default cuda; cpu for "
                         "small runs without a GPU)")
     p.add_argument("--checkpoint", default=None, metavar="DIR",
-                   help="not ported yet (checkpointing slice)")
+                   help="serve the params of the newest checkpoint in DIR "
+                        "(a training CLI's --checkpoint-dir) instead of "
+                        "random weights")
     p.add_argument("--vocab-size", default=256, type=int)
     p.add_argument("--dim", default=128, type=int)
     p.add_argument("--layers", default=4, type=int)
@@ -158,6 +177,62 @@ def synthetic_arrivals(args) -> np.ndarray:
     return np.repeat(events, args.arrival_burst)[:args.num_requests]
 
 
+# GPTConfig fields recorded by the lm CLI (checkpoint_extra) -> the serve
+# flag that sets each, for mismatch messages a user can act on. The
+# position table is --max-len long at serve time.
+_GPT_CONFIG_FLAGS = {
+    "vocab_size": "--vocab-size",
+    "dim": "--dim",
+    "num_layers": "--layers",
+    "num_heads": "--heads",
+    "ffn_dim": "--ffn-dim",
+    "max_position": "--max-len",
+}
+
+
+def _checkpoint_guard(directory: str, name: str, cfg) -> None:
+    """Fail before any engine is built, naming the field and its flag,
+    when the checkpoint's recorded model config disagrees with the serve
+    flags; refuse Mixture-of-Experts checkpoints. A checkpoint with no
+    recorded config falls through to the shape check at load time."""
+    try:
+        meta = checkpoint_metadata(directory, name)
+    except FileNotFoundError as e:
+        raise SystemExit(str(e))
+    recorded = meta.get("gpt_config")
+    if not recorded:
+        return
+    if int(recorded.get("num_experts", 0)) > 0:
+        raise SystemExit(
+            f"--checkpoint {directory}: the checkpoint is a "
+            f"Mixture-of-Experts LM (num_experts="
+            f"{recorded['num_experts']}); the serving engine builds dense "
+            "decoder blocks and cannot serve it")
+    for field, flag in _GPT_CONFIG_FLAGS.items():
+        if field in recorded and int(recorded[field]) != int(
+                getattr(cfg, field)):
+            raise SystemExit(
+                f"--checkpoint {directory}: the checkpoint was trained "
+                f"with {field}={recorded[field]} but the serve flags give "
+                f"{field}={getattr(cfg, field)} — adjust {flag} to match "
+                "the trained model")
+
+
+def load_checkpoint_params(directory: str, name: str, cfg, seed: int,
+                           device) -> dict:
+    """The `params` subtree of checkpoint `name` in `directory`, in the
+    port's layout on the host; a missing or misshapen leaf exits naming
+    it."""
+    template = params_spec(init_params(cfg, seed, device=device))
+    try:
+        raw, meta = restore_subtree(directory, template, name=name)
+    except (FileNotFoundError, KeyError, ValueError) as e:
+        raise SystemExit(f"--checkpoint {directory}: {e}")
+    print(f"==> serving checkpoint {directory} ({name}, epoch "
+          f"{meta.get('epoch')}, format {meta.get('format')})", flush=True)
+    return from_jax_params(raw)
+
+
 def main(argv=None) -> dict:
     args = build_parser().parse_args(argv)
     check_serving_args(args)
@@ -194,6 +269,13 @@ def main(argv=None) -> dict:
         dropout_rate=0.0,
         pad_token_id=0,
     )
+    ckpt_name = None
+    if args.checkpoint:
+        # The resume rule of the Trainer: serve what a resumed training
+        # run would load.
+        ckpt_name = newest_checkpoint_name(args.checkpoint)
+        _checkpoint_guard(args.checkpoint, ckpt_name, cfg)
+    set_device_numerics()
     engine = ServingEngine(
         cfg,
         num_slots=args.num_slots,
@@ -202,7 +284,11 @@ def main(argv=None) -> dict:
         compute_dtype=args.compute_dtype,
         device=args.device,
     )
-    params = engine.init_params(args.seed)
+    if args.checkpoint:
+        params = engine.place_params(load_checkpoint_params(
+            args.checkpoint, ckpt_name, cfg, args.seed, engine.device))
+    else:
+        params = engine.init_params(args.seed)
     requests = synthetic_trace(args)
     if args.trace_out:
         from distributed_model_parallel_tpu_torch.observability import trace

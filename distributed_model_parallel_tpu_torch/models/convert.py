@@ -19,11 +19,19 @@ Two families:
 
 A tree whose keys or shapes differ from the expected layout is refused
 with the path of the first difference.
+
+Whole training states cross the same way (`train_state_to_jax`,
+`train_state_from_jax`): the JAX package's canonical `TrainState` tree,
+`{"params", "model_state", "opt_state": {"momentum"} or {"mu", "nu",
+"count"}, "step"}`, with conv leaves (parameters and their moments) in
+HWIO, floating leaves f32, the AdamW count and `step` int32 scalars.
+That is the tree `training/checkpoint.py` writes, so the port's file
+holds the key set, shapes and dtypes the JAX package's holds.
 """
 
 from __future__ import annotations
 
-from typing import Mapping
+from typing import Any, Mapping, NamedTuple
 
 import numpy as np
 import torch
@@ -143,4 +151,102 @@ def to_jax_params(params, *, model=None, state=None):
     return out, _map(state, _to_jax_leaf)
 
 
-__all__ = ["from_jax_params", "to_jax_params"]
+# ------------------------------------------------------------ train states
+
+
+class ShapeDtype(NamedTuple):
+    """A leaf's shape and numpy dtype, without its data (a restore
+    template)."""
+
+    shape: tuple
+    dtype: Any
+
+
+def _canonical_leaf(t) -> np.ndarray:
+    """A state leaf (tensor, or the host int step) in the JAX layout:
+    floating leaves f32 (4-D ones HWIO), integer leaves int32."""
+    if not isinstance(t, torch.Tensor):
+        return np.asarray(t, np.int32)
+    if t.is_floating_point():
+        return _to_jax_leaf(t)
+    return t.detach().to("cpu", torch.int32).numpy()
+
+
+def _spec_leaf(t) -> ShapeDtype:
+    if not isinstance(t, torch.Tensor):
+        return ShapeDtype((), np.dtype(np.int32))
+    shape = tuple(t.shape)
+    if t.dim() == 4:
+        o, i, kh, kw = shape
+        shape = (kh, kw, i, o)
+    return ShapeDtype(shape, np.dtype(np.float32 if t.is_floating_point()
+                                      else np.int32))
+
+
+def _canonical(ts, leaf) -> dict:
+    opt = ts.opt_state
+    return {"params": _map(ts.params, leaf),
+            "model_state": _map(ts.model_state, leaf),
+            "opt_state": {f: _map(getattr(opt, f), leaf)
+                          for f in opt._fields},
+            "step": leaf(ts.step)}
+
+
+def params_spec(params) -> dict:
+    """A port parameter tree's shapes and dtypes in the JAX layout
+    (`ShapeDtype` leaves): a restore template without the data."""
+    return _map(params, _spec_leaf)
+
+
+def train_state_to_jax(ts) -> dict:
+    """The port's `TrainState` -> the JAX package's canonical tree, as
+    numpy arrays (module docstring)."""
+    return _canonical(ts, _canonical_leaf)
+
+
+def train_state_spec(ts) -> dict:
+    """`train_state_to_jax(ts)`'s shapes and dtypes (`ShapeDtype`
+    leaves), without copying any data."""
+    return _canonical(ts, _spec_leaf)
+
+
+def _from_canonical(tree, like, path: str):
+    if isinstance(like, Mapping):
+        _check_keys(tree, tuple(like), path)
+        return {k: _from_canonical(tree[k], like[k], f"{path}/{k}")
+                for k in like}
+    a = np.asarray(tree)
+    if not isinstance(like, torch.Tensor):  # the host step
+        return int(a)
+    src = torch.from_numpy(np.array(a, copy=True))
+    if like.dim() == 4:  # HWIO -> OIHW
+        src = src.permute(3, 2, 0, 1)
+    if tuple(src.shape) != tuple(like.shape):
+        raise ValueError(f"{path}: shape {tuple(a.shape)} does not fit the "
+                         f"port's {tuple(like.shape)}")
+    out = torch.empty_like(like, requires_grad=False)  # like's layout
+    out.copy_(src)
+    return out
+
+
+def train_state_from_jax(tree, like):
+    """A canonical tree (numpy, JAX layout) -> a `TrainState` of the
+    type, devices, dtypes and memory formats of `like` (the port's state,
+    e.g. a fresh `engine.init_state()`); parameters require grad."""
+    params = _map(_from_canonical(tree["params"], like.params, "params"),
+                  lambda t: t.requires_grad_(True))
+    opt = like.opt_state
+    opt_state = type(opt)(*(
+        _from_canonical(tree["opt_state"][f], getattr(opt, f),
+                        f"opt_state/{f}") for f in opt._fields))
+    return type(like)(
+        params,
+        _from_canonical(tree["model_state"], like.model_state,
+                        "model_state"),
+        opt_state,
+        _from_canonical(tree["step"], like.step, "step"),
+    )
+
+
+__all__ = ["ShapeDtype", "from_jax_params", "params_spec", "to_jax_params",
+           "train_state_from_jax", "train_state_spec", "train_state_to_jax"]

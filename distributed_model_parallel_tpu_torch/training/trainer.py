@@ -15,11 +15,19 @@ cannot return before every step that fed the sum has run.
 
 Ranks (`runtime/dist.py`): every rank runs the loop over its own
 loaders; the metric sums are the engine's, already summed over the
-ranks; only rank 0 prints and writes the epoch log.
+ranks; only rank 0 prints and writes the epoch log and the checkpoints.
 
-Left to later slices, and refused rather than skipped: checkpoint
-writing (`save_best` is False here; best_acc still records the best
-validation acc1) and `resume`, `steps_per_dispatch > 1`, `profile_dir`.
+Checkpoints (`training/checkpoint.py`, the JAX package's legacy format):
+`save_best` writes `ckpt` after each epoch whose validation acc1 beats
+the best so far, `save_last` writes `last` after every epoch (its `acc`
+is the best so far), and `resume` restores the newer of the two by
+recorded epoch and continues from the epoch after it. A save is timed
+by the `checkpoint_blocked` span and the `train_checkpoint_blocked_s`
+histogram.
+
+Left to later slices, and refused rather than skipped: the sharded
+checkpoint format and `async_save`, `steps_per_dispatch > 1`,
+`profile_dir`.
 """
 
 from __future__ import annotations
@@ -30,6 +38,11 @@ import os
 import time
 from typing import Any, Iterable, Optional
 
+from distributed_model_parallel_tpu_torch.models.convert import (
+    train_state_from_jax,
+    train_state_spec,
+    train_state_to_jax,
+)
 from distributed_model_parallel_tpu_torch.observability.metrics import (
     get_metrics,
 )
@@ -37,11 +50,16 @@ from distributed_model_parallel_tpu_torch.observability.trace import (
     get_tracer,
 )
 from distributed_model_parallel_tpu_torch.runtime.dist import is_primary
+from distributed_model_parallel_tpu_torch.training.checkpoint import (
+    SHARDED_SLICE,
+    newest_checkpoint_name,
+    restore_checkpoint,
+    save_checkpoint,
+)
 from distributed_model_parallel_tpu_torch.training.optim import (
     cosine_warmup_schedule,
 )
 
-CHECKPOINT_SLICE = "the checkpointing slice"
 MULTISTEP_SLICE = "the multi-step dispatch slice"
 PROFILE_SLICE = "the profiler-capture slice"
 
@@ -63,10 +81,10 @@ class EpochStats:
 
 @dataclasses.dataclass
 class TrainerConfig:
-    """Trainer hyperparameters, the reference's fields. The checkpoint,
-    dispatch-grouping and profiler fields exist so a configuration
-    crosses between the packages; their non-default values are refused
-    until their slices land."""
+    """Trainer hyperparameters, the reference's fields. The sharded
+    checkpoint, dispatch-grouping and profiler fields exist so a
+    configuration crosses between the packages; their non-default values
+    are refused until their slices land."""
 
     epochs: int = 100
     base_lr: float = 0.1
@@ -75,12 +93,21 @@ class TrainerConfig:
     print_freq: int = 30
     log_dir: str = "./log"
     log_file: Optional[str] = None      # txt epoch log (e.g. "512.txt")
-    save_best: bool = False
+    checkpoint_dir: str = "./checkpoint"
+    save_best: bool = True
     resume: bool = False
     # Truncate each training epoch to N batches (0 = full epoch).
     steps_per_epoch: int = 0
     steps_per_dispatch: int = 1
     profile_dir: Optional[str] = None
+    # Also write a 'last' checkpoint at the end of every epoch; resume
+    # prefers it over the best-acc 'ckpt' when it is newer.
+    save_last: bool = False
+    checkpoint_format: str = "legacy"
+    async_save: bool = False
+    # JSON-able fields added to the checkpoint sidecar (the LM CLI
+    # records its GPTConfig, which `cli/serve.py --checkpoint` checks).
+    checkpoint_extra: Optional[dict] = None
 
 
 def _refused(knob: str, later: str) -> ValueError:
@@ -101,8 +128,9 @@ class Trainer:
                  val_loader: Optional[Iterable], config: TrainerConfig,
                  seed: int = 0):
         for knob, bad, later in (
-            ("save_best", config.save_best, CHECKPOINT_SLICE),
-            ("resume", config.resume, CHECKPOINT_SLICE),
+            ("checkpoint_format", config.checkpoint_format != "legacy",
+             SHARDED_SLICE),
+            ("async_save", config.async_save, SHARDED_SLICE),
             ("steps_per_dispatch", config.steps_per_dispatch != 1,
              MULTISTEP_SLICE),
             ("profile_dir", config.profile_dir is not None, PROFILE_SLICE),
@@ -118,7 +146,30 @@ class Trainer:
         )
         self.state = engine.init_state(seed)
         self.best_acc = 0.0
+        self.start_epoch = 0
+        if config.resume:
+            self._resume()
         self.history: list = []
+
+    def _resume(self) -> None:
+        """Restore the newer of 'last' and 'ckpt' (rank 0 reads, the
+        others receive it) and continue from the epoch after it."""
+        cfg = self.config
+        name = newest_checkpoint_name(cfg.checkpoint_dir)
+        tree, self.best_acc, last_epoch = restore_checkpoint(
+            cfg.checkpoint_dir, train_state_spec(self.state), name=name)
+        self.state = train_state_from_jax(tree, self.state)
+        self.start_epoch = last_epoch + 1
+        self._log_print(f"==> Resumed from checkpoint: epoch {last_epoch}, "
+                        f"best acc {self.best_acc:.3f}")
+        if self.start_epoch >= cfg.epochs:
+            # As in the JAX package (and unlike the reference, which
+            # trains `epochs` further epochs): fit() runs
+            # range(start_epoch, epochs), so say that it will do nothing.
+            self._log_print(
+                f"==> WARNING: checkpoint is at epoch {last_epoch} but "
+                f"--epochs is {cfg.epochs}; fit() will train 0 epochs. "
+                "Raise --epochs to continue training.")
 
     # ------------------------------------------------------------- loops
 
@@ -220,17 +271,48 @@ class Trainer:
         return self._finalize(sums, n_batches, wall, data_time)
 
     def fit(self) -> dict:
-        """Train, validate and log each epoch."""
+        """Train, validate, checkpoint and log each epoch from
+        `start_epoch`."""
         cfg = self.config
-        for epoch in range(cfg.epochs):
+        for epoch in range(self.start_epoch, cfg.epochs):
             train_stats = self.train_epoch(epoch)
             val_stats = (self.validate(epoch) if self.val_loader is not None
                          else EpochStats())
-            if self.val_loader is not None:
-                self.best_acc = max(self.best_acc, val_stats.acc1)
+            is_best = (cfg.save_best and self.val_loader is not None
+                       and val_stats.acc1 > self.best_acc)
+            if is_best or cfg.save_last:
+                # Once an epoch; rank 0 alone writes.
+                payload = (train_state_to_jax(self.state) if is_primary()
+                           else None)
+            if is_best:
+                self.best_acc = val_stats.acc1
+                self._log_print("Saving..")
+                self._write_checkpoint(payload, "ckpt", epoch)
+            if cfg.save_last:
+                # acc is the best so far: this epoch's would let a resume
+                # lower best_acc and a worse model overwrite 'ckpt'.
+                self._write_checkpoint(payload, "last", epoch)
             self._append_epoch_log(epoch, train_stats, val_stats)
         return {"best_acc": self.best_acc, "epochs": cfg.epochs,
                 "history": self.history}
+
+    def _write_checkpoint(self, payload, name: str, epoch: int) -> None:
+        """One save, timed by the `checkpoint_blocked` span and the
+        `train_checkpoint_blocked_s` histogram: how long it holds the
+        epoch loop."""
+        cfg = self.config
+        tracer = get_tracer()
+        mx = get_metrics()
+        t0 = tracer.now() if mx.enabled else None
+        try:
+            with tracer.span("checkpoint_blocked", snapshot=name,
+                             epoch=epoch, format=cfg.checkpoint_format):
+                save_checkpoint(cfg.checkpoint_dir, payload,
+                                acc=self.best_acc, epoch=epoch, name=name,
+                                extra=cfg.checkpoint_extra)
+        finally:
+            if t0 is not None:
+                mx.observe("train_checkpoint_blocked_s", tracer.now() - t0)
 
     # ----------------------------------------------------------- helpers
 

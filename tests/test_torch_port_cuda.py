@@ -299,6 +299,29 @@ def test_ddp_step_on_the_card_matches_the_cpu(cuda):
         torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-7)
 
 
+@pytest.mark.cuda
+def test_serve_cli_on_the_card_runs_full_f32(cuda, monkeypatch, capsys):
+    """Where a CLI picks the card it turns TF32 off in matmuls and cuDNN
+    and selects cuDNN's deterministic algorithms, so a `--dtype float32`
+    run is the f32 path the tests hold."""
+    from distributed_model_parallel_tpu_torch.cli import serve
+
+    for obj, name, value in ((torch.backends.cuda.matmul, "allow_tf32",
+                              True),
+                             (torch.backends.cudnn, "allow_tf32", True),
+                             (torch.backends.cudnn, "deterministic", False)):
+        monkeypatch.setattr(obj, name, value)
+    out = serve.main(["--device", "cuda", "--vocab-size", "50", "--dim",
+                      "32", "--layers", "2", "--heads", "4", "--num-slots",
+                      "2", "--max-len", "32", "--prefill-len", "8",
+                      "--prompt-len-max", "8", "--num-requests", "2",
+                      "--max-new-tokens", "2"])
+    assert out["serving"]["generated_tokens"] == 4
+    assert not torch.backends.cuda.matmul.allow_tf32
+    assert not torch.backends.cudnn.allow_tf32
+    assert torch.backends.cudnn.deterministic
+
+
 def test_native_augment_matches_its_numpy_twin():
     """The port's own augment.cpp, built with g++ at first use into the
     package's build directory, against the NumPy path, bit for bit."""

@@ -302,7 +302,9 @@ def test_cli_trains_with_a_falling_loss(tmp_path, monkeypatch, capsys):
     assert out["history"][-1]["val"]["count"] == 512
     log = (tmp_path / "log" / "data_para_64.txt").read_text()
     assert log.count("epoch") == 2
-    assert "checkpointing slice" in capsys.readouterr().out
+    # the best-val-acc model is saved by default
+    assert (tmp_path / "checkpoint" / "ckpt.npz").exists()
+    assert "checkpoints in ./checkpoint" in capsys.readouterr().out
 
 
 def test_cli_two_gloo_ranks_log_on_rank_zero_only(tmp_path):

@@ -8,6 +8,7 @@ name.
 """
 
 import ast
+import importlib
 import json
 import subprocess
 import sys
@@ -132,11 +133,45 @@ def test_cli_serves_on_cpu_when_asked(capsys, tmp_path):
     ["--speculative-k", "2"],
     ["--compute-dtype", "bf16"],
     ["--dtype", "bfloat16"],
-    ["--checkpoint", "ckpt"],
+    ["--speculative-draft", "ckpt"],
 ])
 def test_cli_refuses_out_of_slice_flags(flags):
     with pytest.raises(SystemExit, match="not ported.*slice"):
         serve.main(["--device", "cpu", *flags])
+
+
+class _Prologue(Exception):
+    """Raised where a CLI, its device picked, builds its first object."""
+
+
+@pytest.mark.parametrize("cli,first", [
+    ("serve", "ServingEngine"),
+    ("lm", "CausalLMSequenceParallelEngine"),
+    ("data_parallel", "build_loaders"),
+])
+def test_clis_turn_tf32_off_and_cudnn_deterministic(cli, first,
+                                                     monkeypatch):
+    """After each CLI's prologue the card's f32 arithmetic is the f32
+    path the tests hold: no TF32 in matmuls or cuDNN, cuDNN's
+    deterministic algorithms, no autotuning (the flags are process-wide
+    and settable on a CPU build)."""
+    mod = importlib.import_module(
+        f"distributed_model_parallel_tpu_torch.cli.{cli}")
+
+    def stop(*args, **kwargs):
+        raise _Prologue
+
+    monkeypatch.setattr(mod, first, stop)
+    flags = ((torch.backends.cuda.matmul, "allow_tf32", True),
+             (torch.backends.cudnn, "allow_tf32", True),
+             (torch.backends.cudnn, "deterministic", False),
+             (torch.backends.cudnn, "benchmark", True))
+    for obj, name, value in flags:
+        monkeypatch.setattr(obj, name, value)
+    with pytest.raises(_Prologue):
+        mod.main(["--device", "cpu"])
+    assert [getattr(obj, name) for obj, name, _ in flags] == [
+        False, False, True, False]
 
 
 def test_data_parallel_cli_defaults_to_cuda_and_refuses_without_a_gpu():
@@ -161,11 +196,8 @@ def test_data_parallel_cli_defaults_to_cuda_and_refuses_without_a_gpu():
     (["--overlap-stages", "2"], "gradient-reduction"),
     (["--dcn-compression", "bf16"], "gradient-reduction"),
     (["--device-cache"], "device-cache"),
-    (["--finetune", "net.pth"], "torch-import"),
-    (["--resume"], "checkpointing"),
-    (["--checkpoint-dir", "ck"], "checkpointing"),
-    (["--checkpoint-format", "sharded"], "checkpointing"),
-    (["--async-save"], "checkpointing"),
+    (["--checkpoint-format", "sharded"], "sharded-checkpoint"),
+    (["--async-save"], "sharded-checkpoint"),
     (["--max-restarts", "2"], "elastic-restart"),
     (["--auto-tune", "search"], "auto-tuning"),
     (["--auto-tune-out", "plan.json"], "auto-tuning"),

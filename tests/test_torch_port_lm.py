@@ -18,6 +18,8 @@ Tolerances:
   operations in the same order; pow/sqrt may differ by an ulp).
 """
 
+import json
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -293,7 +295,10 @@ def test_cli_trains_on_cpu_and_the_loss_falls(tmp_path, monkeypatch, capsys):
     # 512 val tokens = 16 windows = 4 batches of 4 x 31 targets
     assert out["history"][-1]["val"]["count"] == 4 * 4 * 31
     assert (tmp_path / "log" / "lm_4.txt").read_text().count("epoch") == 3
-    assert "checkpointing slice" in capsys.readouterr().out
+    # the best-val-acc model, saved by default, with the model's config
+    meta = json.loads((tmp_path / "checkpoint" / "ckpt.json").read_text())
+    assert meta["gpt_config"]["dim"] == 32 and meta["epoch"] >= 0
+    assert "Saving.." in capsys.readouterr().out
 
 
 def test_cli_defaults_to_cuda_and_refuses_without_a_gpu():
@@ -317,8 +322,8 @@ def test_cli_defaults_to_cuda_and_refuses_without_a_gpu():
     (["--dcn-slices", "2"], "gradient-reduction"),
     (["--dcn-compression", "int8"], "gradient-reduction"),
     (["--remat"], "activation-rematerialization"),
-    (["--resume"], "checkpointing"),
-    (["--checkpoint-format", "sharded"], "checkpointing"),
+    (["--checkpoint-format", "sharded"], "sharded-checkpoint"),
+    (["--async-save"], "sharded-checkpoint"),
     (["--steps-per-dispatch", "2"], "multi-step dispatch"),
     (["--profile-dir", "prof"], "profiler-capture"),
 ])
