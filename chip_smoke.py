@@ -90,7 +90,7 @@ Phases; any failure exits non-zero (nothing is caught and passed over):
    losses, ms a step and the convolution kernels of each, then one step
    under `torch.use_deterministic_algorithms(True, warn_only=True)`;
    the deterministic runs must be equal. Then the DP CLI, MobileNetV2
-   f32, two epochs of 60 steps: `--engine ddp` twice and `--engine
+   f32, two epochs of 30 steps: `--engine ddp` twice and `--engine
    gspmd` once (equal per-step losses), one epoch then `--resume` to
    two (the straight run's losses and epoch-1 record), each epoch's
    validation on 10,000 images, save / restore ms and file bytes.
@@ -100,10 +100,31 @@ Phases; any failure exits non-zero (nothing is caught and passed over):
    (c) `serve --checkpoint` on (b)'s directory, f32 and int8 (K4 48
    times a decode step), and the first decode step's int8-vs-f32 logits
    on those trained weights.
-8. One `{"kernels": [...]}` JSON line (int8_matmul, flash_fwd,
+8. Pipeline model parallelism (slice 7): the port's pipeline CLI
+   (`cli/model_parallel.py` main) on MobileNetV2 at batch 512, lr 0.4,
+   `-j 8`, on phase 6's SyntheticTextures, `--world-size 4` (four
+   stages on the one card, so they run one after another: no bubble
+   can show), 30 steps and the validation pass each: the reference
+   split at `--microbatches 1` (the reference's schedule) and at 8 with
+   gpipe and 1f1b in f32 and bf16, and interleaved (V 2, the default
+   8-chunk split) at 8. Per run one JSON line (ms/step over steps 6-30,
+   images/s, device busy / idle share and kernels a step from one
+   profiled step, top five kernel families, peak memory, per-step
+   losses, val acc1). Checks: losses finite and falling; NCCL at world
+   1 with the gradient all-reduce; 1f1b's peak memory below gpipe's at
+   M 8; one f32 step of 1f1b and of interleaved within PP_STEP_REL of
+   gpipe's (every parameter and BN buffer; bit-equality printed), and
+   the M 1 step within it of the DataParallelEngine's at world 1; one
+   tinycnn pipeline step (S 2, M 2) on the card against the CPU. Then
+   the LM CLI at GPT-2-small width with `--pipeline-stages 4
+   --microbatches 4`, gpipe f32 and 1f1b bf16, 4 steps and 1 val batch
+   (ms a step, tokens/s, peak memory, per-step loss); K1-K4 must launch
+   0 times in the whole phase (the stages attend dense, as in JAX).
+9. One `{"kernels": [...]}` JSON line (int8_matmul, flash_fwd,
    flash_bwd_dq, flash_bwd_dkv; `launches_slice6` counts phase 7's
-   runs), then the nvidia-smi line, then the last line `{"ok": true,
-   "device": {...}}`. Each phase prints its seconds.
+   runs, `launches_slice7` phase 8's), then the nvidia-smi line, then
+   the last line `{"ok": true, "device": {...}}`. Each phase prints its
+   seconds.
 """
 
 from __future__ import annotations
@@ -1341,7 +1362,10 @@ def dp_phase():
 # ---------------------------------------------------------------------
 # Checkpoint and resume (slice 6)
 
-CK_DP_STEPS = 60  # train steps an epoch of the phase-7 DP runs
+# Train steps an epoch of the phase-7 DP runs (60 until the pipeline
+# phase was added; cut in depth to keep the whole run near its earlier
+# length).
+CK_DP_STEPS = 30
 CK_DP_FLAGS = DP_FLAGS[:DP_FLAGS.index("--epochs")] + [
     "--steps-per-epoch", str(CK_DP_STEPS)]
 CK_LM_FLAGS = LM_BASE + ["--layers", str(LAYERS), "--attention",
@@ -1682,6 +1706,298 @@ def checkpoint_serve_phase(serve, engine_cls, cfg_cls, fa, qm, directory,
     return reading
 
 
+# ---------------------------------------------------------------------
+# Pipeline model parallelism (slice 7)
+
+PP_STEPS = 30
+PP_TIMED_FROM = 5  # steps 6-30 are timed
+PP_FLAGS = [
+    "./data", "--device", "cuda", "--model", "mobilenetv2", "-type",
+    "SyntheticTextures", "-b", str(DP_BATCH), "--lr", "0.4", "-j", "8",
+    "--epochs", "1", "--steps-per-epoch", str(PP_STEPS), "--world-size", "4",
+]
+PP_REF = ["--reference-split", "--microbatches"]
+PP_RUNS = (  # (name, extra flags)
+    ("reference_m1_f32", PP_REF + ["1"]),
+    ("gpipe_m8_f32", PP_REF + ["8"]),
+    ("gpipe_m8_bf16", PP_REF + ["8", "--dtype", "bfloat16"]),
+    ("1f1b_m8_f32", PP_REF + ["8", "--pipeline-schedule", "1f1b"]),
+    ("1f1b_m8_bf16", PP_REF + ["8", "--pipeline-schedule", "1f1b",
+                               "--dtype", "bfloat16"]),
+    ("interleaved_v2_m8_f32", ["--microbatches", "8", "--pipeline-schedule",
+                               "interleaved", "--virtual-stages", "2"]),
+)
+# One f32 step from the same weights and batch, as max|d|/max|ref| over
+# every parameter and BN buffer: 1f1b and interleaved against gpipe, the
+# M = 1 pipeline against the DP engine, the card against the CPU. The
+# repo's f32 bar; only the order of the sums over microbatches (or
+# cuDNN's against the CPU's) differs.
+PP_STEP_REL = 1e-5
+PP_LM_FLAGS = LM_BASE + [
+    "--layers", str(LAYERS), "--epochs", "1", "--steps-per-epoch",
+    str(LM_STEPS), "--pipeline-stages", "4", "--microbatches", "4"]
+PP_LM_RUNS = (  # (name, extra flags)
+    ("gpipe_f32", ["--dtype", "float32"]),
+    ("1f1b_bf16", ["--pipeline-schedule", "1f1b", "--dtype", "bfloat16"]),
+)
+
+
+def pp_run(mp_cli, pp_mod, name, extra):
+    """One run of the pipeline CLI (`cli/model_parallel.py` main) from
+    its own directory (its log and best-val-acc checkpoint go there);
+    each train step timed (synchronized)."""
+    import torch.distributed as dist
+
+    directory = scratch_dir(f"pp_{name}")
+    os.makedirs(directory)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    with contextlib.chdir(directory):
+        out, steps, seen = recorded_run(mp_cli.main, PP_FLAGS + extra,
+                                        pp_mod.PipelineEngine)
+    peak = torch.cuda.max_memory_allocated()
+    hist = out["history"][0]
+    losses = [st["loss"] for st in steps]
+    require(len(steps) == PP_STEPS and all(map(math.isfinite, losses))
+            and math.isfinite(hist["val"]["loss"]),
+            f"pipeline run {name}: {len(steps)} steps, losses {losses}")
+    require(sum(losses[-5:]) < sum(losses[:5]),
+            f"pipeline run {name}: the train loss did not fall: {losses}")
+    eng = seen["engine"]
+    require(dist.get_backend() == "nccl" and eng.grad_reductions > 0
+            and all(d.type == "cuda" for d in eng.devices),
+            f"pipeline run {name}: {dist.get_backend()}, devices "
+            f"{eng.devices}")
+    timed = steps[PP_TIMED_FROM:]
+    ms = sum(st["ms"] for st in timed) / len(timed)
+    row = {"pp_run": name, "flags": extra, "ms_per_step": ms,
+           "images_per_s": DP_BATCH / ms * 1e3,
+           "step_ms": [st["ms"] for st in steps], "step_loss": losses,
+           "first_train_loss": losses[0], "last_train_loss": losses[-1],
+           "val_loss": hist["val"]["loss"], "val_acc1": hist["val"]["acc1"],
+           "max_memory_allocated_gib": peak / 2 ** 30,
+           "peak_above_start_gib": (peak - base) / 2 ** 30,
+           "devices": sorted({str(d) for d in eng.devices}),
+           "chunks": eng.num_chunks, "microbatches": eng.num_microbatches}
+    row.update(dp_breakdown(seen, ms))
+    emit(row)
+    return row
+
+
+def pp_compare(got, want) -> dict:
+    """max|d|/max|ref| over every parameter and BN buffer of two
+    pipeline states (per-chunk trees), the worst leaf, and whether each
+    part is equal to the bit."""
+    from distributed_model_parallel_tpu_torch.training.optim import (
+        tree_leaves,
+    )
+
+    out = {}
+    for part in ("params", "model_state"):
+        a = list(tree_leaves(getattr(got, part)))
+        b = list(tree_leaves(getattr(want, part)))
+        rels = [rel_diff(x.detach(), y.detach()) for x, y in zip(a, b)]
+        out[part] = {"max_rel": max(rels), "worst_leaf": rels.index(
+            max(rels)), "bit_equal": all(torch.equal(x, y)
+                                         for x, y in zip(a, b))}
+    return out
+
+
+def pp_step_checks():
+    """One f32 step of MobileNetV2 at batch 512 on the card from the same
+    weights (seed 0) and batch: 1f1b against gpipe (reference split, M =
+    8), interleaved (S = 4, V = 2) against gpipe over the same 8 chunks
+    (S = 8), and the M = 1 pipeline against the DataParallelEngine at
+    world 1 (the reference's MP and DP computing the same update)."""
+    import numpy as np
+
+    from distributed_model_parallel_tpu_torch.models import mobilenetv2
+    from distributed_model_parallel_tpu_torch.parallel.data_parallel import (
+        DataParallelEngine,
+        TrainState,
+    )
+    from distributed_model_parallel_tpu_torch.parallel.pipeline import (
+        PipelineEngine,
+    )
+    from distributed_model_parallel_tpu_torch.runtime.mesh import Mesh
+    from distributed_model_parallel_tpu_torch.training.optim import SGD
+
+    cuda = torch.device("cuda")
+    rng = np.random.RandomState(0)
+    images = rng.randn(DP_BATCH, 32, 32, 3).astype(np.float32)
+    labels = rng.randint(0, 10, DP_BATCH)
+
+    def step(chunks, stages, m, schedule="gpipe", v=1):
+        split = ([3, 9, 15] if chunks == 4 else None)
+        eng = PipelineEngine(
+            mobilenetv2.split_stages(chunks, 10, boundaries=split), SGD(),
+            Mesh(1, None, stages, (cuda,)), num_microbatches=m,
+            schedule=schedule, virtual_stages=v)
+        ts, _ = eng.train_step(eng.init_state(0),
+                               *eng.shard_batch(images, labels), 0.4)
+        return ts
+
+    gpipe = step(4, 4, 8)
+    reading = {"1f1b_vs_gpipe": pp_compare(step(4, 4, 8, "1f1b"), gpipe)}
+    del gpipe
+    reading["interleaved_vs_gpipe"] = pp_compare(
+        step(8, 4, 8, "interleaved", 2), step(8, 8, 8))
+    dp = DataParallelEngine(mobilenetv2.mobilenet_v2(10), SGD(),
+                            mesh=Mesh(1, None), device=cuda)
+    dts, _ = dp.train_step(dp.init_state(0),
+                           *dp.shard_batch(images, labels), 0.4)
+    split = dict(boundaries=[3, 9, 15])
+    as_chunks = TrainState(
+        tuple(mobilenetv2.partition_pytree(dts.params, 4, **split)),
+        tuple(mobilenetv2.partition_pytree(dts.model_state, 4, **split)),
+        None, 1)
+    reading["m1_vs_data_parallel"] = pp_compare(step(4, 4, 1), as_chunks)
+    emit({"pp_step_checks": reading})
+    for name, r in reading.items():
+        worst = max(r["params"]["max_rel"], r["model_state"]["max_rel"])
+        require(worst <= PP_STEP_REL,
+                f"pipeline step check {name}: {worst} > {PP_STEP_REL}: {r}")
+    return reading
+
+
+def pp_card_vs_cpu():
+    """One tinycnn pipeline step (S = 2, M = 2, gpipe and 1f1b, 16 images
+    of 8x8) on the card against the same step on the CPU: the loss and
+    every parameter and BN buffer."""
+    import numpy as np
+
+    from distributed_model_parallel_tpu_torch.models.tinycnn import (
+        split_stages,
+    )
+    from distributed_model_parallel_tpu_torch.parallel.pipeline import (
+        PipelineEngine,
+    )
+    from distributed_model_parallel_tpu_torch.runtime.mesh import Mesh
+    from distributed_model_parallel_tpu_torch.training.optim import (
+        SGD,
+        tree_map,
+    )
+
+    rng = np.random.RandomState(0)
+    images = rng.randn(16, 8, 8, 3).astype(np.float32)
+    labels = rng.randint(0, 10, 16)
+    readings = {}
+    for schedule in ("gpipe", "1f1b"):
+        res = {}
+        for dev in ("cuda", "cpu"):
+            eng = PipelineEngine(split_stages(2, 10), SGD(),
+                                 Mesh(1, None, 2, (torch.device(dev),)),
+                                 num_microbatches=2, schedule=schedule)
+            ts, m = eng.train_step(eng.init_state(0),
+                                   *eng.shard_batch(images, labels), 0.1)
+            res[dev] = ts, (m["loss_sum"] / m["count"]).cpu()
+        card = res["cuda"][0]
+        cmp = pp_compare(card._replace(
+            params=tree_map(lambda t: t.detach().cpu(), card.params),
+            model_state=tree_map(lambda t: t.cpu(), card.model_state)),
+            res["cpu"][0])
+        readings[schedule] = {"loss_rel": rel_diff(res["cuda"][1],
+                                                   res["cpu"][1]), **cmp}
+    emit({"pp_card_vs_cpu": readings})
+    for schedule, r in readings.items():
+        worst = max(r["loss_rel"], r["params"]["max_rel"],
+                    r["model_state"]["max_rel"])
+        require(worst <= PP_STEP_REL,
+                f"tinycnn pipeline ({schedule}) on the card differs from "
+                f"the CPU's: {r}")
+    return readings
+
+
+def pp_lm_run(lm, fa, qm, name, extra):
+    """One LM CLI run with `--pipeline-stages 4 --microbatches 4` at
+    GPT-2-small width: ms a step, tokens/s, peak memory, per-step loss;
+    no flash kernel may launch (the stages attend dense, as in JAX)."""
+    from distributed_model_parallel_tpu_torch.parallel.pipeline import (
+        LMPipelineEngine,
+    )
+
+    reset_counts(fa, qm)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out, steps, seen = recorded_run(
+        lm.main, PP_LM_FLAGS + extra + [
+            "--checkpoint-dir", scratch_dir(f"pp_lm_{name}")],
+        LMPipelineEngine)
+    peak = torch.cuda.max_memory_allocated()
+    got = counts(fa)
+    require(not any(got.values()) and qm.int8_matmul.launches == 0,
+            f"pipeline LM run {name} launched {got}, int8 "
+            f"{qm.int8_matmul.launches}")
+    hist = out["history"][0]
+    losses = [st["loss"] for st in steps]
+    require(len(steps) == LM_STEPS and all(map(math.isfinite, losses))
+            and math.isfinite(hist["val"]["loss"]),
+            f"pipeline LM run {name}: {len(steps)} steps, losses {losses}")
+    warm = steps[1:]
+    ms = sum(st["ms"] for st in warm) / len(warm)
+    row = {"pp_lm_run": name, "flags": extra, "launches": got,
+           "step_ms": [st["ms"] for st in steps], "step_loss": losses,
+           "ms_per_step": ms, "tokens_per_s": LM_TOKENS / ms * 1e3,
+           "train_loss": hist["train"]["loss"],
+           "val_loss": hist["val"]["loss"],
+           "max_memory_allocated_gib": peak / 2 ** 30,
+           "peak_above_start_gib": (peak - base) / 2 ** 30}
+    row.update(dp_breakdown(seen, ms))
+    emit(row)
+    return row
+
+
+def pipeline_phase(data, lm, fa, qm):
+    """8: the pipeline CLI runs on one dataset made in phase 6, the step
+    checks, the card-vs-CPU step and the LM pipeline runs; every flash
+    and int8 launch of the phase is counted (slice 7's launches)."""
+    import torch.distributed as dist
+
+    from distributed_model_parallel_tpu_torch.cli import model_parallel
+    from distributed_model_parallel_tpu_torch.data import datasets
+    from distributed_model_parallel_tpu_torch.parallel import (
+        pipeline as pp_mod,
+    )
+
+    reset_counts(fa, qm)
+    rows = {}
+    with patched(datasets.DatasetCollection, "init", lambda self: data):
+        for name, extra in PP_RUNS:
+            rows[name] = pp_run(model_parallel, pp_mod, name, extra)
+    if dist.is_initialized():
+        dist.destroy_process_group()
+    gp, ob = rows["gpipe_m8_f32"], rows["1f1b_m8_f32"]
+    emit({"pp_memory_m8_f32": {
+        "gpipe_peak_gib": gp["max_memory_allocated_gib"],
+        "1f1b_peak_gib": ob["max_memory_allocated_gib"],
+        "gpipe_above_start_gib": gp["peak_above_start_gib"],
+        "1f1b_above_start_gib": ob["peak_above_start_gib"]}})
+    require(ob["peak_above_start_gib"] < gp["peak_above_start_gib"],
+            "1f1b's peak memory is not below gpipe's at M = 8")
+    # The f32 runs' per-step losses side by side: 1f1b and interleaved
+    # sum the microbatch gradients in one order, gpipe (autograd) in
+    # another; where they part, and by how much at each step after.
+    il = rows["interleaved_v2_m8_f32"]["step_loss"]
+    parts = {}
+    for name in ("1f1b_m8_f32", "interleaved_v2_m8_f32"):
+        diffs = [abs(x - y) for x, y in zip(rows[name]["step_loss"],
+                                            gp["step_loss"])]
+        parts[name] = {"first_differing_step": next(
+            (i + 1 for i, d in enumerate(diffs) if d), None),
+            "abs_loss_diff_by_step": diffs}
+    emit({"pp_trajectories_f32_vs_gpipe": parts,
+          "interleaved_equals_1f1b": il == ob["step_loss"]})
+    pp_step_checks()
+    pp_card_vs_cpu()
+    lm_rows = [pp_lm_run(lm, fa, qm, *run) for run in PP_LM_RUNS]
+    launches = dict(counts(fa), int8_matmul=qm.int8_matmul.launches)
+    require(not any(launches.values()),
+            f"the pipeline phase launched a K1-K4 kernel: {launches}")
+    return rows, lm_rows, launches
+
+
 def main() -> int:
     # cuBLAS reads this when it first starts: the determinism probe's
     # torch.use_deterministic_algorithms needs it (phase 7).
@@ -1854,7 +2170,6 @@ def smoke() -> int:
     checkpoint_dp_phase(data_parallel, dp_mod, dp_data)
     require(not any(counts(fa).values()) and qm.int8_matmul.launches == 0,
             "data-parallel resume launched a K1-K4 kernel")
-    del dp_data
     phase_done("checkpoint and resume: data-parallel")
     lm_resume, lm_dir = checkpoint_lm_phase(
         lm, CausalLMSequenceParallelEngine, fa, qm)
@@ -1867,7 +2182,12 @@ def smoke() -> int:
               for name, _, _ in FLASH_KERNELS}
     slice6["int8_matmul"] = serve_ckpt["int8_launches"]
 
-    # ---- 8. kernels line, card line, last line -----------------------
+    # ---- 8. pipeline model parallelism (the slice-7 paths) -------------
+    _, _, slice7 = pipeline_phase(dp_data, lm, fa, qm)
+    del dp_data
+    phase_done("pipeline model parallelism")
+
+    # ---- 9. kernels line, card line, last line -----------------------
     decode = [r for r in shapes if r["M"] == SLOTS]
     step = {key: None if any(r[key] is None for r in decode)
             else LAYERS * sum(r[key] for r in decode)
@@ -1883,6 +2203,8 @@ def smoke() -> int:
         "launches": launches,
         # serve --checkpoint int8 (phase 7), counted apart
         "launches_slice6": slice6["int8_matmul"],
+        # the pipeline phase (phase 8): none on the pipeline paths
+        "launches_slice7": slice7["int8_matmul"],
         "max_abs_err": max_err,
         # Times of one decode step's 48 launches (12 layers x the four
         # projection shapes at M = 8), each shape timed in phase 3.
@@ -1902,7 +2224,8 @@ def smoke() -> int:
         "int_mm_device_ms": step["int_mm_device_ms"],
         "per_shape": shapes,
     }] + [dict(flash_entry(name, replaces, lm_rows, flash_errs,
-                           flash_times), launches_slice6=slice6[name])
+                           flash_times), launches_slice6=slice6[name],
+               launches_slice7=slice7[name])
           for name, _, replaces in FLASH_KERNELS]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

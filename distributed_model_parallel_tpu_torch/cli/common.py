@@ -1,14 +1,17 @@
-"""Shared CLI pieces for `cli/serve.py`, `cli/lm.py` and
-`cli/data_parallel.py` (port of `cli/common.py`).
+"""Shared CLI pieces for `cli/serve.py`, `cli/lm.py`,
+`cli/data_parallel.py` and `cli/model_parallel.py` (port of
+`cli/common.py`).
 
 The parsers carry the reference's whole flag surface, so a pasted
 launch line fails with an explanation instead of an argparse error;
 flags whose features belong to later port slices are refused loudly,
 naming the slice (`check_serving_args`, `check_lm_args`,
-`check_data_parallel_args`). The image side: `MODELS`, `build_model`,
+`check_data_parallel_args`, `check_model_parallel_args`). The image
+side: `MODELS`, `build_model`, `STAGE_BUILDERS` (the pipeline splits),
 `stats_for`, `build_loaders` (per-rank loaders from the global batch)
-and `check_batch_divisibility`. `set_device_numerics` is the one place
-the CLIs fix the card's f32 arithmetic.
+and `check_batch_divisibility`; `check_pipeline_schedule_args` is shared
+by both pipeline CLIs. `set_device_numerics` is the one place the CLIs
+fix the card's f32 arithmetic.
 """
 
 from __future__ import annotations
@@ -28,15 +31,11 @@ from distributed_model_parallel_tpu_torch.data.datasets import (
     DatasetCollection,
 )
 from distributed_model_parallel_tpu_torch.data.loader import Loader
-from distributed_model_parallel_tpu_torch.models.mobilenetv2 import (
-    mobilenet_v2,
-    mobilenet_v2_nobn,
+from distributed_model_parallel_tpu_torch.models import (
+    mobilenetv2,
+    resnet,
+    tinycnn,
 )
-from distributed_model_parallel_tpu_torch.models.resnet import (
-    resnet18,
-    resnet50,
-)
-from distributed_model_parallel_tpu_torch.models.tinycnn import tiny_cnn
 from distributed_model_parallel_tpu_torch.runtime import dist
 from distributed_model_parallel_tpu_torch.serving.engine import (
     BF16_SLICE,
@@ -243,7 +242,6 @@ def add_auto_tune_flags(parser: argparse.ArgumentParser) -> None:
 SLICES = {
     "plan": "the composed-parallel-plan slice",
     "tune": "the auto-tuning slice",
-    "pipeline": "the pipeline slice",
     "seq": "the sequence-parallel slice",
     "moe": "the expert-parallel slice",
     "cm": "the collective-matmul slice",
@@ -270,10 +268,6 @@ def check_lm_args(args) -> None:
         ("--auto-tune / --auto-tune-out / --auto-tune-calibration",
          args.auto_tune or args.auto_tune_out or args.auto_tune_calibration,
          s["tune"]),
-        ("--pipeline-stages > 1", args.pipeline_stages != 1, s["pipeline"]),
-        ("--microbatches / --pipeline-schedule / --virtual-stages",
-         args.microbatches != 1 or args.pipeline_schedule != "gpipe"
-         or args.virtual_stages != 1, s["pipeline"]),
         ("--seq-shards > 1", args.seq_shards != 1, s["seq"]),
         ("--moe-experts > 0", args.moe_experts != 0, s["moe"]),
         ("--moe-every / --moe-dispatch / --moe-overlap / --expert-shards",
@@ -300,19 +294,115 @@ def check_lm_args(args) -> None:
                 f"belongs to {later} (ROADMAP.md) — drop the flag, or run "
                 "the JAX package's cli/lm.py"
             )
+    check_lm_pipeline_args(args)
+
+
+def check_lm_pipeline_args(args) -> None:
+    """The LM CLI's pipeline flags (the JAX CLI's checks): stages exclude
+    sequence shards and collective matmul, attend dense (no
+    --attention), and the schedule knobs need --pipeline-stages > 1."""
+    stages = args.pipeline_stages
+    for flag, bad, why in (
+        ("--collective-matmul", args.collective_matmul,
+         "it decomposes the sequence-parallel engine's FFN collectives; "
+         "stages compute dense locally"),
+        ("--attention", args.attention != "ring",
+         "it selects the sequence-parallel distribution; stages attend "
+         "locally, dense causal"),
+    ):
+        if stages > 1 and bad:
+            raise SystemExit(f"{flag} has no effect under --pipeline-stages "
+                             f"({why}); drop the flag")
+    if args.microbatches < 1:
+        raise SystemExit(
+            f"--microbatches must be >= 1, got {args.microbatches}")
+    if stages < 1:
+        raise SystemExit(
+            f"--pipeline-stages must be >= 1, got {stages}")
+    if stages == 1:
+        for flag, bad in (
+            ("--microbatches", args.microbatches != 1),
+            ("--pipeline-schedule", args.pipeline_schedule != "gpipe"),
+            ("--virtual-stages", args.virtual_stages != 1),
+        ):
+            if bad:
+                raise SystemExit(
+                    f"{flag} is a pipeline-schedule knob; it has no effect "
+                    "without --pipeline-stages > 1")
+        return
+    check_pipeline_schedule_args(args.pipeline_schedule, args.virtual_stages,
+                                 args.microbatches, stages)
+    chunks = stages * args.virtual_stages
+    if chunks > args.layers:
+        raise SystemExit(
+            f"--pipeline-stages {stages} x --virtual-stages "
+            f"{args.virtual_stages} = {chunks} chunks exceeds --layers "
+            f"{args.layers}: a chunk needs at least one decoder block")
+
+
+def check_pipeline_schedule_args(schedule: str, virtual_stages: int,
+                                 microbatches: int, num_stages: int) -> None:
+    """The (schedule, V, M, S) surface of both pipeline CLIs, checked
+    before any loader or mesh is built: --virtual-stages is an
+    interleaved-only knob, interleaving needs >= 2 stages, and V > 1
+    needs --microbatches divisible by the stage count (Megatron's
+    round-robin microbatch groups; the schedule builder enforces the
+    same)."""
+    if virtual_stages < 1:
+        raise SystemExit(
+            f"--virtual-stages must be >= 1, got {virtual_stages}")
+    if virtual_stages > 1 and schedule != "interleaved":
+        raise SystemExit(
+            "--virtual-stages > 1 requires --pipeline-schedule "
+            "interleaved (gpipe/1f1b run exactly one model chunk per "
+            "device, so the flag would silently do nothing)")
+    if schedule == "interleaved":
+        if num_stages < 2:
+            raise SystemExit(
+                "--pipeline-schedule interleaved needs >= 2 pipeline "
+                "stages (a one-device pipeline has no bubble to divide)")
+        if virtual_stages > 1 and microbatches % num_stages:
+            raise SystemExit(
+                f"interleaved schedule needs --microbatches divisible "
+                f"by the stage count (got M={microbatches}, "
+                f"S={num_stages}) — Megatron's round-robin microbatch "
+                f"groups")
 
 
 # ---------------------------------------------------------------- images
 
 MODELS = {
-    "mobilenetv2": mobilenet_v2,
-    "mobilenetv2_nobn": mobilenet_v2_nobn,
-    "resnet18": resnet18,
-    "resnet50": resnet50,
-    "tinycnn": tiny_cnn,
+    "mobilenetv2": mobilenetv2.mobilenet_v2,
+    "mobilenetv2_nobn": mobilenetv2.mobilenet_v2_nobn,
+    "resnet18": resnet.resnet18,
+    "resnet50": resnet.resnet50,
+    "tinycnn": tinycnn.tiny_cnn,
 }
 # Models of the reference's --model choices that later slices bring.
 LATER_MODELS = ("bert", "bert_tiny", "vit")
+
+
+def _later_transformer(num_stages, num_classes, boundaries):
+    raise SystemExit(
+        "the bert pipeline stages are not ported to the PyTorch package "
+        f"yet: they belong to {SLICES['transformer']} (ROADMAP.md)")
+
+
+# Pipeline stage builders: name -> fn(num_stages, num_classes,
+# boundaries) -> [Layer]. `num_stages` counts chunks: the interleaved
+# schedule passes S·V and the engine deals them round-robin.
+STAGE_BUILDERS = {
+    "mobilenetv2": lambda n, c, b: mobilenetv2.split_stages(
+        n, c, boundaries=b),
+    "mobilenetv2_nobn": lambda n, c, b: mobilenetv2.split_stages(
+        n, c, batchnorm=False, boundaries=b),
+    "resnet18": lambda n, c, b: resnet.split_stages(
+        18, n, c, cifar=True, boundaries=b),
+    "resnet50": lambda n, c, b: resnet.split_stages(50, n, c, boundaries=b),
+    "tinycnn": lambda n, c, b: tinycnn.split_stages(n, c, boundaries=b),
+    "bert": _later_transformer,
+    "bert_tiny": _later_transformer,
+}
 
 
 def build_model(name: str, num_classes: int):
@@ -358,13 +448,21 @@ def build_loaders(dataset_type: str, data_path: str, batch_size: int, *,
 
 
 def check_batch_divisibility(global_batch: int, mesh, *,
+                             microbatches: int = 1,
                              label: str = "batch") -> None:
     """Fail at startup when the global batch does not split evenly over
-    the mesh's data ranks."""
+    the mesh's data ranks, or a rank's share into `microbatches` equal
+    pipeline microbatches."""
     if global_batch % mesh.data:
         raise SystemExit(
             f"{label} size {global_batch} must be divisible by the 'data' "
             f"mesh axis ({mesh.data} ranks)"
+        )
+    local = global_batch // mesh.data
+    if local % microbatches:
+        raise SystemExit(
+            f"{label} size {global_batch} gives {local} samples per 'data' "
+            f"shard, not divisible by --microbatches {microbatches}"
         )
 
 
@@ -460,6 +558,73 @@ def check_data_parallel_args(args) -> None:
                          "global batch")
 
 
+def check_model_parallel_args(args) -> None:
+    """Startup-time validation of the pipeline CLI surface: the flags of
+    later port slices are refused by name, then the schedule knobs and
+    the stage builder are checked, before any dataset, process group or
+    engine is built."""
+    s = SLICES
+    for flag, bad, later in (
+        ("--remat", args.remat, s["remat"]),
+        ("--steps-per-dispatch > 1", args.steps_per_dispatch != 1,
+         s["multistep"]),
+        ("--profile-dir", args.profile_dir, s["profile"]),
+        (f"--model {args.model}", args.model in ("bert", "bert_tiny"),
+         s["transformer"]),
+    ):
+        if bad:
+            raise SystemExit(
+                f"{flag} is not ported to the PyTorch package yet: it "
+                f"belongs to {later} (ROADMAP.md) — drop the flag, or run "
+                "the JAX package's cli/model_parallel.py"
+            )
+    if args.dataset_type in LATER_TYPES:
+        raise SystemExit(
+            f"--dataset-type {args.dataset_type} is not ported to the "
+            f"PyTorch package yet: it belongs to "
+            f"{LATER_TYPES[args.dataset_type]} (ROADMAP.md)"
+        )
+    if args.world_size < 1:
+        raise SystemExit(f"--world-size (pipeline stages) must be >= 1, "
+                         f"got {args.world_size}")
+    if args.microbatches < 1:
+        raise SystemExit(
+            f"--microbatches must be >= 1, got {args.microbatches}")
+    check_pipeline_schedule_args(args.pipeline_schedule, args.virtual_stages,
+                                 args.microbatches, args.world_size)
+    if args.model not in STAGE_BUILDERS:
+        raise SystemExit(
+            f"model {args.model!r} has no pipeline stage builder; "
+            f"pipeline-splittable models: {sorted(STAGE_BUILDERS)}. "
+            "(Every model trains under the data-parallel CLI.)"
+        )
+    if args.reference_split:
+        if args.virtual_stages != 1:
+            raise SystemExit(
+                "--reference-split fixes the ws=4 one-chunk-per-rank "
+                "boundaries [3, 9, 15]; it cannot be combined with "
+                "--virtual-stages > 1 (which needs a 4*V-way split)")
+        if args.world_size != 4 or not args.model.startswith("mobilenetv2"):
+            raise SystemExit(
+                "--reference-split needs --world-size 4 and MobileNetV2")
+
+
+def build_stages(model: str, num_stages: int, num_classes: int,
+                 reference_split: bool, virtual_stages: int = 1):
+    """[Layer] chunks for the pipeline engine: `num_stages` stages x
+    `virtual_stages` chunks each; `reference_split` takes the
+    reference's ws=4 boundaries [3, 9, 15]."""
+    boundaries = [3, 9, 15] if reference_split else None
+    chunks = num_stages * virtual_stages
+    try:
+        return STAGE_BUILDERS[model](chunks, num_classes, boundaries)
+    except ValueError as e:
+        raise SystemExit(
+            f"model {model!r} cannot split into {chunks} chunks "
+            f"(--world-size {num_stages} x --virtual-stages "
+            f"{virtual_stages}): {e}") from e
+
+
 def setup_metrics_out(path) -> None:
     """Validate + enable for `--metrics-out`, before anything runs."""
     if not path:
@@ -488,6 +653,7 @@ def export_metrics_out(path) -> None:
 __all__ = [
     "MODELS",
     "SLICES",
+    "STAGE_BUILDERS",
     "add_common_tpu_flags",
     "add_auto_tune_flags",
     "add_checkpoint_flags",
@@ -496,9 +662,13 @@ __all__ = [
     "build_loaders",
     "build_model",
     "build_optimizer",
+    "build_stages",
     "check_batch_divisibility",
     "check_data_parallel_args",
     "check_lm_args",
+    "check_lm_pipeline_args",
+    "check_model_parallel_args",
+    "check_pipeline_schedule_args",
     "check_serving_args",
     "compute_dtype_from_flag",
     "export_metrics_out",

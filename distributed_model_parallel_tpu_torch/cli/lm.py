@@ -2,21 +2,28 @@
 
 GPT next-token pretraining on the deterministic Markov-chain corpus
 (`data/lm.py`; its entropy rate is printed as the loss floor), through
-`CausalLMSequenceParallelEngine` and the `Trainer` epoch protocol, on
-one device:
+the `Trainer` epoch protocol: on one device with
+`CausalLMSequenceParallelEngine`, or split into pipeline stages with
+`LMPipelineEngine` (`--pipeline-stages S`, `--microbatches`,
+`--pipeline-schedule gpipe|1f1b|interleaved`, `--virtual-stages`; the
+stages attend dense and causal, so `--attention` is refused there, as in
+the JAX CLI):
 
   python -m distributed_model_parallel_tpu_torch.cli.lm \\
       --attention ulysses_flash               # on the GPU (default)
   python -m distributed_model_parallel_tpu_torch.cli.lm --device cpu \\
       --dim 32 --layers 2 --heads 4 --seq-len 32 -b 4 --epochs 2
+  python -m distributed_model_parallel_tpu_torch.cli.lm --device cpu \\
+      --dim 32 --layers 4 --heads 4 --seq-len 32 -b 4 --epochs 2 \\
+      --pipeline-stages 2 --microbatches 2 --pipeline-schedule 1f1b
 
 The parser keeps the reference's flag surface and adds `--device`
 (cuda, the default, or cpu). `--attention ulysses_flash` and
 `ring_flash` run the flash-attention kernels. Flags whose features
-belong to later port slices (pipeline, sequence shards, MoE, collective
-matmul, gradient reducers, remat, the sharded checkpoint format,
-multi-step dispatch, profiling, plans and the tuner) are refused with
-the slice named (`cli/common.check_lm_args`). The best-val-acc model is
+belong to later port slices (sequence shards, MoE, collective matmul,
+gradient reducers, remat, the sharded checkpoint format, multi-step
+dispatch, profiling, plans and the tuner) are refused with the slice
+named (`cli/common.check_lm_args`). The best-val-acc model is
 saved to `--checkpoint-dir` with the model's `gpt_config` in its
 sidecar (what `cli/serve.py --checkpoint` checks), and `--resume`
 continues from it.
@@ -34,6 +41,7 @@ from distributed_model_parallel_tpu_torch.cli.common import (
     add_grad_reduction_flags,
     add_metrics_out_flag,
     build_optimizer,
+    check_batch_divisibility,
     check_lm_args,
     compute_dtype_from_flag,
     export_metrics_out,
@@ -45,9 +53,20 @@ from distributed_model_parallel_tpu_torch.data.lm import (
     chain_entropy,
     synthetic_corpus,
 )
-from distributed_model_parallel_tpu_torch.models.gpt import GPTConfig
+from distributed_model_parallel_tpu_torch.models.gpt import (
+    GPTConfig,
+    split_stages,
+)
+from distributed_model_parallel_tpu_torch.parallel.pipeline import (
+    LMPipelineEngine,
+)
 from distributed_model_parallel_tpu_torch.parallel.sequence_parallel import (
     CausalLMSequenceParallelEngine,
+)
+from distributed_model_parallel_tpu_torch.runtime.mesh import (
+    MeshSpec,
+    local_devices,
+    make_mesh,
 )
 from distributed_model_parallel_tpu_torch.training.trainer import (
     Trainer,
@@ -82,14 +101,19 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--seq-shards", default=1, type=int,
                    help="not ported yet (sequence-parallel slice)")
     p.add_argument("--pipeline-stages", default=1, type=int,
-                   help="not ported yet (pipeline slice)")
+                   help="split the decoder into S pipeline stages "
+                        "(LMPipelineEngine); stage s on the process's "
+                        "device s mod the device count")
     p.add_argument("--microbatches", default=1, type=int,
-                   help="not ported yet (pipeline slice)")
+                   help="pipeline microbatches in flight")
     p.add_argument("--pipeline-schedule", default="gpipe",
                    choices=("gpipe", "1f1b", "interleaved"),
-                   help="not ported yet (pipeline slice)")
+                   help="gpipe = fill-drain; 1f1b = one-forward-one-"
+                        "backward (O(S) live activations); interleaved = "
+                        "Megatron's virtual pipeline (--virtual-stages)")
     p.add_argument("--virtual-stages", default=1, type=int,
-                   help="not ported yet (pipeline slice)")
+                   help="model chunks per stage (interleaved schedule); "
+                        "needs --microbatches divisible by the stages")
     p.add_argument("--attention", default="ring",
                    choices=("ring", "ring_flash", "ulysses",
                             "ulysses_flash"),
@@ -152,11 +176,26 @@ def main(argv=None) -> dict:
         pad_token_id=0,
     )
     set_device_numerics()
-    engine = CausalLMSequenceParallelEngine(
-        cfg, build_optimizer(args), attention=args.attention,
-        compute_dtype=compute_dtype_from_flag(args.dtype),
-        device=args.device,
-    )
+    cdt = compute_dtype_from_flag(args.dtype)
+    if args.pipeline_stages > 1:
+        # One process drives every stage (runtime/mesh.py).
+        mesh = make_mesh(MeshSpec(data=1, stage=args.pipeline_stages),
+                         devices=local_devices(args.device))
+        check_batch_divisibility(args.batch_size, mesh,
+                                 microbatches=args.microbatches)
+        engine = LMPipelineEngine(
+            split_stages(args.pipeline_stages * args.virtual_stages, cfg),
+            build_optimizer(args), mesh,
+            num_microbatches=args.microbatches, compute_dtype=cdt,
+            schedule=args.pipeline_schedule,
+            virtual_stages=args.virtual_stages,
+            pad_token_id=cfg.pad_token_id,
+        )
+    else:
+        engine = CausalLMSequenceParallelEngine(
+            cfg, build_optimizer(args), attention=args.attention,
+            compute_dtype=cdt, device=args.device,
+        )
     corpus = synthetic_corpus(
         args.vocab_size, args.corpus_tokens, seed=args.corpus_seed
     )

@@ -26,7 +26,9 @@ Whole training states cross the same way (`train_state_to_jax`,
 "count"}, "step"}`, with conv leaves (parameters and their moments) in
 HWIO, floating leaves f32, the AdamW count and `step` int32 scalars.
 That is the tree `training/checkpoint.py` writes, so the port's file
-holds the key set, shapes and dtypes the JAX package's holds.
+holds the key set, shapes and dtypes the JAX package's holds. A pipeline
+engine's state (`parallel/pipeline.py`) holds per-stage tuples of these
+trees, and they stay tuples, as in the JAX engine's canonical form.
 """
 
 from __future__ import annotations
@@ -92,6 +94,8 @@ def _check_against(tree, spec, path: str, to_port: bool) -> None:
 def _map(tree, fn):
     if isinstance(tree, Mapping):
         return {k: _map(v, fn) for k, v in tree.items()}
+    if type(tree) is tuple:
+        return tuple(_map(v, fn) for v in tree)
     return fn(tree)
 
 
@@ -215,6 +219,12 @@ def _from_canonical(tree, like, path: str):
         _check_keys(tree, tuple(like), path)
         return {k: _from_canonical(tree[k], like[k], f"{path}/{k}")
                 for k in like}
+    if type(like) is tuple:
+        if len(tree) != len(like):
+            raise ValueError(f"{path}: {len(tree)} stages, the engine has "
+                             f"{len(like)}")
+        return tuple(_from_canonical(t, lk, f"{path}/{i}")
+                     for i, (t, lk) in enumerate(zip(tree, like)))
     a = np.asarray(tree)
     if not isinstance(like, torch.Tensor):  # the host step
         return int(a)

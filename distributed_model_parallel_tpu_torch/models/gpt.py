@@ -12,6 +12,11 @@ tensors:
 
 with linear weights stored (K, N). `models/convert.py` moves a tree
 between the packages. ids (B, T) int -> logits (B, T, vocab) f32.
+
+The pipeline engine takes the same model as `Layer` stages
+(`split_stages`): the stem (ids -> (hidden, mask)), one `Layer` per
+decoder block, and a head that flattens the logits to (B*T, vocab);
+each block runs the same `_block` body as `decoder_blocks`.
 """
 
 from __future__ import annotations
@@ -24,6 +29,7 @@ import numpy as np
 import torch
 
 from distributed_model_parallel_tpu_torch.models import layers as L
+from distributed_model_parallel_tpu_torch.models import staging
 from distributed_model_parallel_tpu_torch.models.transformer import (
     AttentionFn,
     encoder_layer,
@@ -63,17 +69,20 @@ class GPTConfig:
     moe_capacity_factor: float = 1.25
 
 
-def init_params(cfg: GPTConfig, seed: int = 0, device="cpu") -> dict:
-    """Fresh parameters from `seed` (0.02-scaled normals for embeddings,
-    head and projection weights; zero biases; unit LayerNorm scales),
-    drawn on `device` by a `torch.Generator`. The reference's init draws
-    from jax.random, so the numbers differ; parity runs carry one tree
-    across with `models/convert.py`."""
-    device = torch.device(device)
-    g = torch.Generator(device=device).manual_seed(seed)
+def _normal(g: torch.Generator, *shape) -> torch.Tensor:
+    return 0.02 * torch.randn(shape, generator=g, device=g.device)
+
+
+def _init_stem(cfg: GPTConfig, g: torch.Generator) -> dict:
+    return {"word": _normal(g, cfg.vocab_size, cfg.dim),
+            "position": _normal(g, cfg.max_position, cfg.dim)}
+
+
+def _init_block(cfg: GPTConfig, g: torch.Generator) -> dict:
+    device = g.device
 
     def normal(*shape):
-        return 0.02 * torch.randn(shape, generator=g, device=device)
+        return _normal(g, *shape)
 
     def linear(d_in, d_out):
         return {"w": normal(d_in, d_out),
@@ -83,22 +92,28 @@ def init_params(cfg: GPTConfig, seed: int = 0, device="cpu") -> dict:
         return {"scale": torch.ones(cfg.dim, device=device),
                 "bias": torch.zeros(cfg.dim, device=device)}
 
-    blocks = {}
-    for i in range(cfg.num_layers):
-        blocks[str(i)] = {
-            "attn": {"qkv": linear(cfg.dim, 3 * cfg.dim),
+    return {"attn": {"qkv": linear(cfg.dim, 3 * cfg.dim),
                      "out": linear(cfg.dim, cfg.dim)},
             "ln1": norm(),
             "ffn": {"in": linear(cfg.dim, cfg.ffn_dim),
                     "out": linear(cfg.ffn_dim, cfg.dim)},
-            "ln2": norm(),
-        }
-    return {
-        "stem": {"word": normal(cfg.vocab_size, cfg.dim),
-                 "position": normal(cfg.max_position, cfg.dim)},
-        "blocks": blocks,
-        "head": {"w": normal(cfg.dim, cfg.vocab_size)},
-    }
+            "ln2": norm()}
+
+
+def _init_head(cfg: GPTConfig, g: torch.Generator) -> dict:
+    return {"w": _normal(g, cfg.dim, cfg.vocab_size)}
+
+
+def init_params(cfg: GPTConfig, seed: int = 0, device="cpu") -> dict:
+    """Fresh parameters from `seed` (0.02-scaled normals for embeddings,
+    head and projection weights; zero biases; unit LayerNorm scales),
+    drawn on `device` by a `torch.Generator`. The reference's init draws
+    from jax.random, so the numbers differ; parity runs carry one tree
+    across with `models/convert.py`."""
+    g = torch.Generator(device=torch.device(device)).manual_seed(seed)
+    blocks = {str(i): _init_block(cfg, g) for i in range(cfg.num_layers)}
+    return {"stem": _init_stem(cfg, g), "blocks": blocks,
+            "head": _init_head(cfg, g)}
 
 
 def stem_apply(params, ids: torch.Tensor, cfg: GPTConfig, ctx: L.Context,
@@ -123,24 +138,87 @@ def head_apply(params, h: torch.Tensor) -> torch.Tensor:
     return h.float() @ params["w"]
 
 
+def _attention(cfg: GPTConfig, attention_fn: Optional[AttentionFn]):
+    if cfg.num_experts > 0:
+        raise NotImplementedError(
+            "MoE decoder blocks (num_experts > 0) are not ported yet "
+            "(expert-parallel slice)"
+        )
+    return attention_fn or partial(dot_product_attention, causal=True)
+
+
+def _block(params, x, cfg: GPTConfig, ctx: L.Context, attn):
+    """One post-LN decoder block over (hidden, mask)."""
+    return encoder_layer(params, x, ctx, num_heads=cfg.num_heads,
+                         dropout_rate=cfg.dropout_rate, eps=EPS,
+                         attention_fn=attn)
+
+
 def decoder_blocks(params, x, cfg: GPTConfig, ctx: L.Context,
                    attention_fn: Optional[AttentionFn] = None):
     """Run the block stack `params` ({"0": ..., "1": ...}) over
     (hidden, mask); the default core is causal dense attention. Blocks
     apply in order, so a stateful `attention_fn` (the cache recorders)
     sees layer 0, 1, ... in turn."""
-    if cfg.num_experts > 0:
-        raise NotImplementedError(
-            "MoE decoder blocks (num_experts > 0) are not ported yet "
-            "(expert-parallel slice)"
-        )
-    attn = attention_fn or partial(dot_product_attention, causal=True)
+    attn = _attention(cfg, attention_fn)
     for i in range(cfg.num_layers):
-        x = encoder_layer(
-            params[str(i)], x, ctx, num_heads=cfg.num_heads,
-            dropout_rate=cfg.dropout_rate, eps=EPS, attention_fn=attn,
-        )
+        x = _block(params[str(i)], x, cfg, ctx, attn)
     return x
+
+
+def _lm_stem(cfg: GPTConfig) -> L.Layer:
+    """Token + position embeddings, dropout: ids -> (hidden, mask)."""
+
+    def init(gen):
+        return _init_stem(cfg, gen), {}
+
+    def apply(params, state, ids, ctx):
+        return stem_apply(params, ids, cfg, ctx), state
+
+    return L.Layer(init, apply)
+
+
+def decoder_block_layers(cfg: GPTConfig,
+                         attention_fn: Optional[AttentionFn] = None):
+    """The decoder blocks as a list of `Layer`s over (hidden, mask), for
+    the pipeline stages; the same block body as `decoder_blocks`."""
+    attn = _attention(cfg, attention_fn)
+
+    def init(gen):
+        return _init_block(cfg, gen), {}
+
+    def apply(params, state, x, ctx):
+        return _block(params, x, cfg, ctx, attn), state
+
+    return [L.Layer(init, apply) for _ in range(cfg.num_layers)]
+
+
+def _lm_head_flat(cfg: GPTConfig) -> L.Layer:
+    """The untied head for pipeline stages: the `head_apply` logits
+    flattened (B, T, vocab) -> (B*T, vocab), the pipeline engine's
+    (rows, classes) last-stage contract; targets are flattened the same
+    way (`lm_targets(ids).reshape(-1)`)."""
+
+    def init(gen):
+        return _init_head(cfg, gen), {}
+
+    def apply(params, state, x, ctx):
+        logits = head_apply(params, x[0])
+        b, t, v = logits.shape
+        return logits.reshape(b * t, v), state
+
+    return L.Layer(init, apply)
+
+
+def split_stages(num_stages: int, cfg: GPTConfig, *, boundaries=None,
+                 attention_fn: Optional[AttentionFn] = None):
+    """Pipeline stages of the decoder LM (`models/staging.py`): the stem
+    on stage 0, the blocks spread, the flattening head on the last. The
+    wire carries the (hidden, mask) pair between stages."""
+    blocks = decoder_block_layers(cfg, attention_fn)
+    cuts = staging.split_points(num_stages, boundaries, len(blocks))
+    return staging.assemble_stages(blocks, _lm_stem(cfg), _lm_head_flat(cfg),
+                                   cuts)
 
 
 def gpt_lm(params, ids: torch.Tensor, cfg: GPTConfig,
@@ -190,6 +268,7 @@ def lm_loss_fn(cfg: GPTConfig):
 __all__ = [
     "EPS",
     "GPTConfig",
+    "decoder_block_layers",
     "decoder_blocks",
     "gpt_lm",
     "head_apply",
@@ -197,5 +276,6 @@ __all__ = [
     "lm_loss",
     "lm_loss_fn",
     "lm_targets",
+    "split_stages",
     "stem_apply",
 ]

@@ -1,17 +1,16 @@
 """MobileNetV2, CIFAR variant (port of `models/mobilenetv2.py`): the
 reference's 17-block `CFG` (stride 1 in the stem and in stage 2, pool
 window 4), about 2.2 M parameters at 10 classes, and the no-BN variant,
-which keeps the BN inside the projection shortcut as the reference does.
-The pipeline splits (`split_stages`, `partition_pytree`) belong to the
-pipeline slice.
+which keeps the BN inside the projection shortcut as the reference does;
+and the pipeline split (`split_stages`, `partition_pytree`).
 """
 
 from __future__ import annotations
 
-from typing import List
+from typing import List, Sequence
 
 from distributed_model_parallel_tpu_torch.models import layers as L
-from distributed_model_parallel_tpu_torch.models.staging import staged_model
+from distributed_model_parallel_tpu_torch.models import staging
 
 # (expansion, out_planes, num_blocks, stride)
 CFG = [
@@ -82,12 +81,36 @@ def _head(num_classes: int, batchnorm: bool) -> L.Layer:
 
 
 def mobilenet_v2(num_classes: int = 10, *, batchnorm: bool = True) -> L.Layer:
-    return staged_model(_stem(batchnorm), _make_blocks(batchnorm=batchnorm),
-                        _head(num_classes, batchnorm))
+    return staging.staged_model(_stem(batchnorm),
+                                _make_blocks(batchnorm=batchnorm),
+                                _head(num_classes, batchnorm))
 
 
 def mobilenet_v2_nobn(num_classes: int = 10) -> L.Layer:
     return mobilenet_v2(num_classes, batchnorm=False)
 
 
-__all__ = ["CFG", "mobilenet_v2", "mobilenet_v2_nobn"]
+def split_stages(num_stages: int, num_classes: int = 10, *,
+                 batchnorm: bool = True,
+                 boundaries: Sequence[int] | None = None) -> List[L.Layer]:
+    """Pipeline stages (`models/staging.py`): the 17 blocks as evenly as
+    possible, the stem on stage 0 and the head on the last;
+    `boundaries=[3, 9, 15]` is the reference's ws=4 split
+    (`model_parallel.py:102-104,129,143-144`). Stage 0 takes the NHWC
+    batch."""
+    blocks = _make_blocks(batchnorm=batchnorm)
+    cuts = staging.split_points(num_stages, boundaries, len(blocks))
+    return staging.assemble_stages(
+        blocks, staging.nhwc_input(_stem(batchnorm)),
+        _head(num_classes, batchnorm), cuts)
+
+
+def partition_pytree(tree, num_stages: int, *,
+                     boundaries: Sequence[int] | None = None) -> List[dict]:
+    """A whole-model params or state tree -> the `split_stages` trees."""
+    cuts = staging.split_points(num_stages, boundaries, 17)
+    return staging.partition_tree(tree, cuts)
+
+
+__all__ = ["CFG", "mobilenet_v2", "mobilenet_v2_nobn", "partition_pytree",
+           "split_stages"]

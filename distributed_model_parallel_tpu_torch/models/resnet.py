@@ -1,15 +1,15 @@
 """ResNet family (port of `models/resnet.py`): BasicBlock for 18/34,
 Bottleneck (expansion 4) for 50/101/152, torchvision's definitions,
-with the CIFAR stem (3x3 stride 1, no maxpool) for `cifar=True`. The
-pipeline splits belong to the pipeline slice.
+with the CIFAR stem (3x3 stride 1, no maxpool) for `cifar=True`; and
+the pipeline split (`split_stages`, `partition_pytree`).
 """
 
 from __future__ import annotations
 
-from typing import List
+from typing import List, Sequence
 
 from distributed_model_parallel_tpu_torch.models import layers as L
-from distributed_model_parallel_tpu_torch.models.staging import staged_model
+from distributed_model_parallel_tpu_torch.models import staging
 
 
 def _basic_block(in_planes: int, planes: int, stride: int) -> L.Layer:
@@ -102,7 +102,8 @@ def resnet(depth: int, num_classes: int = 1000, *,
     """ResNet-{18,34,50,101,152}; `cifar=True` swaps in the 3x3 stride-1
     stem with no maxpool."""
     blocks, feat = _make_blocks(depth)
-    return staged_model(_stem(cifar), blocks, _head(feat, num_classes))
+    return staging.staged_model(_stem(cifar), blocks,
+                                _head(feat, num_classes))
 
 
 def resnet18(num_classes: int = 10, *, cifar: bool = True) -> L.Layer:
@@ -113,4 +114,25 @@ def resnet50(num_classes: int = 1000, *, cifar: bool = False) -> L.Layer:
     return resnet(50, num_classes, cifar=cifar)
 
 
-__all__ = ["resnet", "resnet18", "resnet50"]
+def split_stages(depth: int, num_stages: int, num_classes: int = 1000, *,
+                 cifar: bool = False,
+                 boundaries: Sequence[int] | None = None) -> List[L.Layer]:
+    """Pipeline stages (`models/staging.py`), the stem on stage 0 and the
+    head on the last. Stage 0 takes the NHWC batch."""
+    blocks, feat = _make_blocks(depth)
+    cuts = staging.split_points(num_stages, boundaries, len(blocks))
+    return staging.assemble_stages(
+        blocks, staging.nhwc_input(_stem(cifar)), _head(feat, num_classes),
+        cuts)
+
+
+def partition_pytree(tree, depth: int, num_stages: int, *,
+                     boundaries: Sequence[int] | None = None) -> List[dict]:
+    """A whole-model params or state tree -> the `split_stages` trees."""
+    _, counts = _SPECS[depth]
+    cuts = staging.split_points(num_stages, boundaries, sum(counts))
+    return staging.partition_tree(tree, cuts)
+
+
+__all__ = ["partition_pytree", "resnet", "resnet18", "resnet50",
+           "split_stages"]

@@ -80,11 +80,22 @@ def _metrics(loss, logits, labels) -> dict:
     }
 
 
+def place(a, device: torch.device) -> torch.Tensor:
+    """A host array -> a tensor on `device`, through pinned memory and an
+    asynchronous copy on the card."""
+    t = torch.from_numpy(np.ascontiguousarray(a))
+    if device.type == "cuda":
+        t = t.pin_memory()
+    return t.to(device, non_blocking=True)
+
+
 def _like(tree, leaves_in_order):
     """A tree shaped like `tree` whose leaves come from the iterator, in
     `tree_leaves` order."""
     if isinstance(tree, dict):
         return {k: _like(tree[k], leaves_in_order) for k in sorted(tree)}
+    if type(tree) is tuple:
+        return tuple(_like(t, leaves_in_order) for t in tree)
     return next(leaves_in_order)
 
 
@@ -131,10 +142,7 @@ class _DataParallel:
         return tuple(self._place(a) for a in (images, labels))
 
     def _place(self, a) -> torch.Tensor:
-        t = torch.from_numpy(np.ascontiguousarray(a))
-        if self.device.type == "cuda":
-            t = t.pin_memory()
-        return t.to(self.device, non_blocking=True)
+        return place(a, self.device)
 
     # ------------------------------------------------------- collectives
 
@@ -255,4 +263,5 @@ class DDPEngine(_DataParallel):
         self._setup(sync_bn=self.sync_bn)
 
 
-__all__ = ["DDPEngine", "DataParallelEngine", "TrainState", "_metrics"]
+__all__ = ["DDPEngine", "DataParallelEngine", "TrainState", "_metrics",
+           "place"]

@@ -50,11 +50,14 @@ SHARDED_SLICE = "the sharded-checkpoint slice"
 
 
 def flatten_tree(tree, prefix: str = "") -> dict:
-    """Nested dict -> {"a/b/c": leaf}, the JAX package's path keys."""
-    if isinstance(tree, dict):
+    """Nested dicts and tuples -> {"a/0/c": leaf}, the JAX package's path
+    keys (a tuple's index is its key: the pipeline's per-stage tuples)."""
+    if isinstance(tree, dict) or type(tree) is tuple:
+        items = (sorted(tree.items()) if isinstance(tree, dict)
+                 else enumerate(tree))
         out = {}
-        for k in sorted(tree):
-            out.update(flatten_tree(tree[k], f"{prefix}{k}/"))
+        for k, v in items:
+            out.update(flatten_tree(v, f"{prefix}{k}/"))
         return out
     return {prefix[:-1]: tree}
 
@@ -63,6 +66,9 @@ def _unflatten_like(template, leaves: dict, prefix: str = ""):
     if isinstance(template, dict):
         return {k: _unflatten_like(v, leaves, f"{prefix}{k}/")
                 for k, v in template.items()}
+    if type(template) is tuple:
+        return tuple(_unflatten_like(v, leaves, f"{prefix}{i}/")
+                     for i, v in enumerate(template))
     return leaves[prefix[:-1]]
 
 

@@ -20,11 +20,15 @@ import torch
 
 
 def tree_leaves(tree) -> Iterator[torch.Tensor]:
-    """Leaves of a nested-dict tree, in key order (sorted, so two trees
-    of the same structure line up leaf for leaf)."""
+    """Leaves of a tree of dicts and tuples (the pipeline's per-stage
+    tuples), dicts in key order (sorted, so two trees of the same
+    structure line up leaf for leaf)."""
     if isinstance(tree, dict):
         for k in sorted(tree):
             yield from tree_leaves(tree[k])
+    elif type(tree) is tuple:
+        for t in tree:
+            yield from tree_leaves(t)
     else:
         yield tree
 
@@ -34,6 +38,9 @@ def tree_map(fn, tree, *rest):
     if isinstance(tree, dict):
         return {k: tree_map(fn, tree[k], *(r[k] for r in rest))
                 for k in tree}
+    if type(tree) is tuple:
+        return tuple(tree_map(fn, t, *(r[i] for r in rest))
+                     for i, t in enumerate(tree))
     return fn(tree, *rest)
 
 
@@ -101,7 +108,10 @@ class AdamW:
                               tree_leaves(opt_state.nu), tree_leaves(grads)):
             m.mul_(b1).add_(g * (1.0 - b1))
             v.mul_(b2).add_(g.square() * (1.0 - b2))
-            upd = (m / c1) / ((v / c2).sqrt() + eps) + wd * p
+            # The count lives on the first leaf's device; pipeline stages
+            # may sit on others.
+            c1p, c2p = c1.to(p.device), c2.to(p.device)
+            upd = (m / c1p) / ((v / c2p).sqrt() + eps) + wd * p
             p.sub_(lr * upd)
         return params, opt_state
 

@@ -1,5 +1,5 @@
 """Rank processes for the port's multi-process tests
-(`tests/test_torch_port_ddp.py`).
+(`tests/test_torch_port_ddp.py`, `tests/test_torch_port_pipeline.py`).
 
 This module imports neither jax nor the JAX package: a spawned rank
 imports the module of its target, and so starts with torch and the port
@@ -125,3 +125,47 @@ def cli_main(rank, world, payload) -> dict:
     os.chdir(payload["dirs"][rank])
     out = data_parallel.main(payload["argv"])
     return {"history": out["history"]}
+
+
+def pipeline_steps(rank, world, payload) -> dict:
+    """The port's PipelineEngine on tinycnn at stage 2 over `world` data
+    ranks, from the given per-chunk reference weights: one SGD step on
+    this rank's rows [rB/S, (r+1)B/S) of the global batch. Returns the
+    metric sums and the per-chunk params and BN state in the reference
+    layout."""
+    import torch.distributed as dist
+
+    from distributed_model_parallel_tpu_torch.models.convert import (
+        from_jax_params,
+        to_jax_params,
+    )
+    from distributed_model_parallel_tpu_torch.models.tinycnn import (
+        split_stages,
+    )
+    from distributed_model_parallel_tpu_torch.parallel.pipeline import (
+        PipelineEngine,
+    )
+    from distributed_model_parallel_tpu_torch.runtime.mesh import (
+        MeshSpec,
+        make_mesh,
+    )
+    from distributed_model_parallel_tpu_torch.training.optim import SGD
+
+    stages = split_stages(2, 10)
+    mesh = make_mesh(MeshSpec(data=world, stage=2), devices=["cpu"])
+    eng = PipelineEngine(stages, SGD(), mesh, sync_bn=payload["sync_bn"],
+                         num_microbatches=payload["num_microbatches"])
+    params, state = zip(*(from_jax_params(p, model=st, state=s)
+                          for st, p, s in zip(stages, *payload["start"])))
+    ts = eng.state_from_params(params, state)
+    b = len(payload["labels"]) // world
+    rows = slice(rank * b, (rank + 1) * b)
+    ts, m = eng.train_step(ts, *eng.shard_batch(payload["images"][rows],
+                                                payload["labels"][rows]),
+                           payload["lr"])
+    out = [to_jax_params(p, model=st, state=s)
+           for st, p, s in zip(stages, ts.params, ts.model_state)]
+    return {"sums": {k: float(v) for k, v in m.items()},
+            "trees": (tuple(p for p, _ in out), tuple(s for _, s in out)),
+            "grad_reductions": eng.grad_reductions,
+            "backend": dist.get_backend(mesh.group)}

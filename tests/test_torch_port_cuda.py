@@ -1,8 +1,9 @@
 """The PyTorch port's CUDA kernels on the card, against their plain
-versions, and the data-parallel step on the card against the CPU. Every
-test marked `cuda` needs a CUDA GPU and skips without one; the native
-augment's test runs wherever g++ is. The file imports neither jax nor
-the JAX package, so it runs on a GPU machine without JAX:
+versions, and the data-parallel and pipeline steps on the card against
+the CPU. Every test marked `cuda` needs a CUDA GPU and skips without
+one; the native augment's test runs wherever g++ is. The file imports
+neither jax nor the JAX package, so it runs on a GPU machine without
+JAX:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_port_cuda.py
 """
@@ -320,6 +321,69 @@ def test_serve_cli_on_the_card_runs_full_f32(cuda, monkeypatch, capsys):
     assert not torch.backends.cuda.matmul.allow_tf32
     assert not torch.backends.cudnn.allow_tf32
     assert torch.backends.cudnn.deterministic
+
+
+def _pipeline_step(stages, device, schedule, batch, cls=None, **kw):
+    from distributed_model_parallel_tpu_torch.parallel.pipeline import (
+        PipelineEngine,
+    )
+
+    eng = (cls or PipelineEngine)(stages, SGD(), Mesh(1, None, 2, (device,)),
+                                  num_microbatches=2, schedule=schedule, **kw)
+    ts, m = eng.train_step(eng.init_state(0), *eng.shard_batch(*batch), 0.1)
+    return (m["loss_sum"] / m["count"]).cpu(), [
+        t.detach().cpu() for t in tree_leaves((ts.params, ts.model_state))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("schedule", ["gpipe", "1f1b", "interleaved"])
+def test_pipeline_step_on_the_card_matches_the_cpu(cuda, schedule,
+                                                   monkeypatch):
+    """One tinycnn pipeline step (S = 2, M = 2; interleaved V = 2) on the
+    card against the CPU, TF32 off: the loss and every parameter and BN
+    buffer, rtol 1e-5 (cuDNN and the CPU sum in another order)."""
+    from distributed_model_parallel_tpu_torch.models.tinycnn import (
+        split_stages,
+    )
+
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+
+    v = 2 if schedule == "interleaved" else 1
+    rng = np.random.RandomState(0)
+    batch = (rng.randn(16, 8, 8, 3).astype(np.float32),
+             rng.randint(0, 10, 16))
+    got, want = (_pipeline_step(split_stages(2 * v, 10), dev, schedule,
+                                batch, virtual_stages=v)
+                 for dev in (cuda, torch.device("cpu")))
+    torch.testing.assert_close(got[0], want[0], rtol=1e-5, atol=1e-6)
+    for a, b in zip(got[1], want[1], strict=True):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("schedule", ["gpipe", "1f1b"])
+def test_lm_pipeline_step_on_the_card_matches_the_cpu(cuda, schedule):
+    """One LMPipelineEngine step of a small GPT (S = 2, M = 2) on the
+    card against the CPU, f32: the loss and every parameter."""
+    from distributed_model_parallel_tpu_torch.models.gpt import (
+        GPTConfig,
+        split_stages,
+    )
+    from distributed_model_parallel_tpu_torch.parallel.pipeline import (
+        LMPipelineEngine,
+    )
+
+    cfg = GPTConfig(vocab_size=64, dim=32, num_layers=4, num_heads=4,
+                    ffn_dim=64, max_position=16, dropout_rate=0.0,
+                    pad_token_id=0)
+    ids = np.random.RandomState(1).randint(0, 64, (4, 16))
+    got, want = (_pipeline_step(split_stages(2, cfg), dev, schedule,
+                                (ids, ids), cls=LMPipelineEngine,
+                                pad_token_id=0)
+                 for dev in (cuda, torch.device("cpu")))
+    torch.testing.assert_close(got[0], want[0], rtol=1e-5, atol=1e-6)
+    for a, b in zip(got[1], want[1], strict=True):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-6)
 
 
 def test_native_augment_matches_its_numpy_twin():

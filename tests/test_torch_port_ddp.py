@@ -275,7 +275,6 @@ def test_ddp_engine_refuses_later_slices(knob, value, slice_):
 
 @pytest.mark.parametrize("spec,match", [
     (MeshSpec(model=2), "tensor-parallel slice"),
-    (MeshSpec(stage=2), "pipeline slice"),
     (MeshSpec(seq=2), "sequence-parallel slice"),
     (MeshSpec(expert=2), "expert-parallel slice"),
     (MeshSpec(dcn=2), "gradient-reduction slice"),

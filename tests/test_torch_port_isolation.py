@@ -1,6 +1,7 @@
 """The PyTorch port stands alone: no file of
-`distributed_model_parallel_tpu_torch/` (nor `chip_smoke.py`) imports
-jax or the JAX package, every port module imports in a process where
+`distributed_model_parallel_tpu_torch/` (nor `chip_smoke.py`, nor
+`pp_host_probe.py`) imports jax or the JAX package, every port module
+imports in a process where
 jax cannot be imported, and the port's serve and data-parallel CLIs
 run on the GPU by default, refuse to start without one unless
 `--device cpu` is given, and refuse the flags of later port slices by
@@ -49,7 +50,8 @@ def _imports(path: Path):
 
 
 def test_no_file_of_the_port_imports_jax_or_the_jax_package():
-    files = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
+    files = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py",
+                                          REPO / "pp_host_probe.py"]
     assert len(files) > 10
     bad = [
         f"{f.relative_to(REPO)}:{line} imports {name}"

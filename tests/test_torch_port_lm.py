@@ -312,8 +312,6 @@ def test_cli_defaults_to_cuda_and_refuses_without_a_gpu():
 @pytest.mark.parametrize("flags,slice_", [
     (["--plan", "pp2xdp2"], "composed-parallel-plan"),
     (["--auto-tune", "search"], "auto-tuning"),
-    (["--pipeline-stages", "2"], "pipeline"),
-    (["--microbatches", "2"], "pipeline"),
     (["--seq-shards", "2"], "sequence-parallel"),
     (["--moe-experts", "4"], "expert-parallel"),
     (["--moe-dispatch", "hierarchical"], "expert-parallel"),
