@@ -120,9 +120,28 @@ Phases; any failure exits non-zero (nothing is caught and passed over):
    --microbatches 4`, gpipe f32 and 1f1b bf16, 4 steps and 1 val batch
    (ms a step, tokens/s, peak memory, per-step loss); K1-K4 must launch
    0 times in the whole phase (the stages attend dense, as in JAX).
-9. One `{"kernels": [...]}` JSON line (int8_matmul, flash_fwd,
+9. Serving features (slice 8), at phase 4's width and flags: (a)
+   `--page-size 16 --prefill-chunk 64` f32 through the serve CLI, whose
+   tokens must equal phase 4's contiguous f32 run's request by request
+   (tokens/s, decode and TTFT p50/p99, peak pages, KV bytes against the
+   contiguous stripes), and one paged and one contiguous decode step's
+   device busy time, idle share and kernels a step; (b)
+   `ServingEngine.run` on 16 requests sharing a 96-token prefix (16-32
+   token tails), with and without `prefix_cache`: equal tokens, hit
+   rate, pages reused, TTFT; (c) speculative int8 at k = 4 through the
+   serve CLI, with phase 7's LM checkpoint as target and draft (the
+   full-accept path: accept rate above 0.9) and with a fresh 2-layer
+   draft (the rollback path): tokens equal to a plain paged int8 run of
+   the same target, K4 launched 48 x (target decode + verify steps) + 4
+   x draft layers x draft decode steps; (d) `--compute-dtype bf16`,
+   contiguous and paged (tokens/s, decode p50, token agreement with
+   f32), and the first decode step's bf16-vs-f32 logit gap on the card
+   and on the CPU under BF16_LOGIT_REL. K1-K3 must launch 0 times in
+   the phase.
+10. One `{"kernels": [...]}` JSON line (int8_matmul, flash_fwd,
    flash_bwd_dq, flash_bwd_dkv; `launches_slice6` counts phase 7's
-   runs, `launches_slice7` phase 8's), then the nvidia-smi line, then
+   runs, `launches_slice7` phase 8's, `launches_slice8` phase 9's),
+   then the nvidia-smi line, then
    the last line `{"ok": true, "device": {...}}`. Each phase prints its
    seconds.
 """
@@ -151,6 +170,11 @@ DECODE_SHAPES = (  # (name, K, N) of one GPT-2-small decoder block
 )
 EXTRA_SHAPES = ((3, 768, 768), (256, 768, 3072))
 SLOTS = 8
+SPEC_K = 4
+# The speculative verify step's K4 shapes: num_slots x (k+1) rows, at
+# k = 4 (M = 40) for the four projections, and at k = 2 (M = 24).
+VERIFY_SHAPES = tuple((SLOTS * (SPEC_K + 1), k, n)
+                      for _, k, n in DECODE_SHAPES) + ((SLOTS * 3, 768, 768),)
 SERVE_FLAGS = [
     "--device", "cuda", "--vocab-size", "50257", "--dim", "768",
     "--layers", "12", "--heads", "12", "--ffn-dim", "3072",
@@ -508,27 +532,33 @@ def device_kernels(prof):
 
 
 def decode_breakdown(eng, p, tokens, active, prompts, steps=10):
-    """Where one decode step's time goes at full width, all slots
-    active: host wall time per step (synchronized), device busy time per
-    step and the int8 kernel's part of it (torch.profiler), and the
-    number of device kernels per step."""
-    from torch.profiler import ProfilerActivity, profile
-
+    """Where one contiguous decode step's time goes at full width, all
+    slots active (`timed_breakdown`)."""
     cache = eng.init_cache()
     for slot, prompt in enumerate(prompts):
         ids, length = eng.pad_prompt(prompt)
         cache, _ = eng.prefill(p, cache, ids, length, slot)
-    eng.decode_step(p, cache, tokens, active)
+    return timed_breakdown(
+        lambda: eng.decode_step(p, cache, tokens, active), steps)
+
+
+def timed_breakdown(step, steps=10):
+    """Host wall time per `step()` (synchronized), device busy time per
+    step and the int8 kernel's part of it (torch.profiler), and the
+    number of device kernels per step."""
+    from torch.profiler import ProfilerActivity, profile
+
+    step()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for _ in range(steps):
-        eng.decode_step(p, cache, tokens, active)
+        step()
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3 / steps
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         for _ in range(steps):
-            eng.decode_step(p, cache, tokens, active)
+            step()
         torch.cuda.synchronize()
     by_kernel = device_kernels(prof)
     busy = sum(t for t, _, _ in by_kernel)
@@ -1998,6 +2028,313 @@ def pipeline_phase(data, lm, fa, qm):
     return rows, lm_rows, launches
 
 
+# ---------------------------------------------------------------------
+# Serving features (slice 8): paged cache, chunked prefill, prefix cache,
+# speculative decoding, bf16 decode
+
+PAGED_FLAGS = ["--page-size", "16", "--prefill-chunk", "64"]
+PREFIX_LEN = 96
+# Ceiling on the first decode step's bf16-vs-f32 logit gap (max|bf16 -
+# f32| / max|f32|) at full width, on the card and on the CPU. It is set
+# from this script's CPU reading, as INT8_LOGIT_REL is from its int8
+# readings: on one H100 the gap read 1.155e-2 on the CPU and 1.083e-2 on
+# the card; the ceiling is the CPU reading rounded up.
+BF16_LOGIT_REL = 1.2e-2
+
+
+def serve_summary(out) -> dict:
+    s = out["serving"]
+    keys = ("tokens_per_s", "decode_p50_ms", "decode_p99_ms",
+            "prefill_p50_ms", "ttft_p99_ms", "decode_steps",
+            "engine_iterations", "mean_iter_occupancy", "generated_tokens")
+    row = {k: s[k] for k in keys}
+    for section in ("paged", "prefix_cache", "speculative"):
+        if isinstance(s.get(section), dict):
+            row[section] = s[section]
+    return row
+
+
+def by_rid(out) -> dict:
+    return {r["rid"]: r["tokens"] for r in out["requests"]}
+
+
+@contextlib.contextmanager
+def paged_step_counts(engine_cls):
+    """Count the paged decode and verify steps of the target (the engine
+    with speculative_k) and of the draft (the one without), and the
+    draft's depth."""
+    seen = {"target_decode": 0, "verify": 0, "draft_decode": 0,
+            "draft_layers": set()}
+    decode, verify = engine_cls.paged_decode_step, \
+        engine_cls.paged_verify_step
+
+    def counted_decode(self, *args):
+        if self.speculative_k:
+            seen["target_decode"] += 1
+        else:
+            seen["draft_decode"] += 1
+            seen["draft_layers"].add(self.cfg.num_layers)
+        return decode(self, *args)
+
+    def counted_verify(self, *args):
+        seen["verify"] += 1
+        return verify(self, *args)
+
+    with patched(engine_cls, "paged_decode_step", counted_decode), \
+            patched(engine_cls, "paged_verify_step", counted_verify):
+        yield seen
+
+
+def paged_decode_breakdown(eng, p, tokens, prompts, steps=10):
+    """`timed_breakdown` of one paged decode step at full width, all
+    slots active: monolithic paged prefill of `prompts`, pages for every
+    position the timed steps write, then steps that each upload the
+    positions, tokens and active mask, as the serving loop does."""
+    import numpy as np
+
+    host, cache = eng.new_host(), eng.init_cache()
+    positions = np.zeros(eng.num_slots, np.int64)
+    for slot, prompt in enumerate(prompts):
+        host.ensure_pages(slot, len(prompt) + 2 * steps + 2)
+        ids, length = eng.pad_prompt(prompt)
+        cache, _ = eng.paged_prefill_step(p, cache, host.device_row(slot),
+                                          ids, length)
+        positions[slot] = length
+    active = np.ones(eng.num_slots, bool)
+    table = host.device_table()
+
+    def step():
+        eng.paged_decode_step(p, cache, table,
+                              *eng.step_inputs(positions, tokens, active))
+        positions[:] += 1
+
+    return timed_breakdown(step, steps)
+
+
+def prefix_requests(request_cls, vocab: int):
+    """16 requests sharing a PREFIX_LEN-token prefix, each with its own
+    16-32-token tail, 32 new tokens each (greedy)."""
+    import numpy as np
+
+    rng = np.random.RandomState(8)
+    prefix = rng.randint(1, vocab, size=PREFIX_LEN)
+    return [request_cls(i, np.concatenate(
+        [prefix, rng.randint(1, vocab, size=int(rng.randint(16, 33)))]),
+        max_new_tokens=32) for i in range(16)]
+
+
+def serve_setup(serve, cfg_cls):
+    """SERVE_FLAGS as (config, engine kwargs without the device, device,
+    the first num_slots prompts of the trace)."""
+    args = serve.build_parser().parse_args(SERVE_FLAGS)
+    cfg = cfg_cls(vocab_size=args.vocab_size, dim=args.dim,
+                  num_layers=args.layers, num_heads=args.heads,
+                  ffn_dim=args.ffn_dim, max_position=args.max_len,
+                  dropout_rate=0.0, pad_token_id=0)
+    kw = dict(num_slots=args.num_slots, max_len=args.max_len,
+              prefill_len=args.prefill_len)
+    prompts = [r.prompt for r in serve.synthetic_trace(args)]
+    return cfg, kw, args.device, prompts[:args.num_slots]
+
+
+def bf16_first_step_gap(serve, engine_cls, cfg_cls):
+    """The first decode step at full width (SERVE_FLAGS' first 8 prompts,
+    each slot fed its prompt's last token), f32 and bf16, on the card and
+    on the CPU with the same weights: max|bf16 - f32| / max|f32|."""
+    cfg, kw, device, prompts = serve_setup(serve, cfg_cls)
+    tokens = torch.tensor([int(p[-1]) for p in prompts])
+    host = None
+    logits = {}
+    for dev in (device, "cpu"):
+        for mode in ("f32", "bf16"):
+            eng = engine_cls(cfg, compute_dtype=mode, device=dev, **kw)
+            if host is None:
+                host = tree_to(eng.init_params(0), "cpu")
+            logits[mode, dev] = first_step(eng, eng.place_params(host),
+                                           prompts, tokens)[1]
+    return {"card" if dev != "cpu" else dev:
+            int8_vs_f32(logits["bf16", dev], logits["f32", dev])
+            for dev in (device, "cpu")}
+
+
+def verify_rows_vs_decode(engine_cls, cfg, kw, prompts, mode):
+    """One verify step of every slot's (k+1)-token span against k+1
+    paged decode steps feeding the same tokens from the same pool: the
+    largest logit difference, whether the rows are bit-equal and pick the
+    same argmax, and the smallest top-2 logit gap among the rows (how
+    close an argmax flip is). Under f32, also each decode projection's
+    f32 GEMM at M = slots x (k+1) against the same rows at M = slots."""
+    import numpy as np
+
+    eng = engine_cls(cfg, page_size=16, prefill_chunk=64, compute_dtype=mode,
+                     speculative_k=SPEC_K, **kw)
+    p = eng.init_params(0)
+    host, cache = eng.new_host(), eng.init_cache()
+    n = len(prompts)
+    positions = np.array([len(x) for x in prompts], np.int64)
+    for slot, prompt in enumerate(prompts):
+        host.ensure_pages(slot, len(prompt) + SPEC_K + 1)
+        ids, length = eng.pad_prompt(prompt)
+        cache, _ = eng.paged_prefill_step(p, cache, host.device_row(slot),
+                                          ids, length)
+    span = np.stack([x[-SPEC_K - 1:] for x in prompts]).astype(np.int64)
+    active = np.ones(n, bool)
+    before = {k: v.clone() for k, v in cache.items()}
+    table = host.device_table()
+    _, vlog = eng.paged_verify_step(
+        p, cache, table, *eng.step_inputs(positions, span, active))
+    rows = [eng.paged_decode_step(
+        p, before, table, *eng.step_inputs(positions + j, span[:, j],
+                                           active))[1]
+        for j in range(SPEC_K + 1)]
+    dlog = torch.stack(rows, dim=1)
+    top2 = dlog.topk(2, dim=-1).values
+    reading = {"max_abs": float((vlog - dlog).abs().max()),
+               "bit_equal": bool(torch.equal(vlog, dlog)),
+               "argmax_equal": bool(torch.equal(vlog.argmax(-1),
+                                                dlog.argmax(-1))),
+               "min_top2_gap": float((top2[..., 0] - top2[..., 1]).min())}
+    if mode == "f32":
+        x = torch.randn((n * (SPEC_K + 1), cfg.ffn_dim), device=eng.device)
+        gemms = {}
+        for name, _, _ in DECODE_SHAPES:
+            group, proj = name.split(".")
+            w = p["blocks"]["0"][group][proj]["w"]
+            k = w.shape[0]
+            big, small = x[:, :k] @ w, x[:n, :k].contiguous() @ w
+            gemms[name] = float((big[:n] - small).abs().max())
+        reading["f32_gemm_rows_m40_vs_m8_max_abs"] = gemms
+    return reading
+
+
+def serving_features_phase(serve, engine_cls, cfg_cls, fa, qm, ckpt_dir,
+                           contiguous_f32):
+    """9: the slice-8 serving features at GPT-2-small width through
+    `cli.serve` (and `ServingEngine.run` for the prefix cache), every K1-K4
+    launch of the phase counted (slice 8's launches). `contiguous_f32`
+    is phase 4's contiguous f32 run of the same flags; `ckpt_dir` a
+    GPT-2-small-width checkpoint (phase 7's LM run)."""
+    from distributed_model_parallel_tpu_torch.serving.scheduler import (
+        Request,
+    )
+
+    reset_counts(fa, qm)
+    rows = {}
+    # (a) paged f32 against phase 4's contiguous f32 run.
+    paged = serve_run(serve, SERVE_FLAGS + PAGED_FLAGS)
+    require(by_rid(paged) == by_rid(contiguous_f32),
+            "paged f32 tokens differ from the contiguous f32 run's")
+    require(qm.int8_matmul.launches == 0, "the paged f32 run launched K4")
+    rows["paged_f32"] = serve_summary(paged)
+    rows["contiguous_f32"] = serve_summary(contiguous_f32)
+    cfg, kw, device, prompts = serve_setup(serve, cfg_cls)
+    kw["device"] = device
+    tokens = [int(p[-1]) for p in prompts]
+    ceng = engine_cls(cfg, **kw)
+    cp = ceng.init_params(0)
+    peng = engine_cls(cfg, page_size=16, prefill_chunk=64, **kw)
+    pp = peng.place_params(cp)
+    rows["decode_step_breakdown"] = {
+        "contiguous_f32": decode_breakdown(
+            ceng, cp, torch.tensor(tokens, device=device),
+            torch.ones(len(prompts), dtype=torch.bool, device=device),
+            prompts),
+        "paged_f32": paged_decode_breakdown(peng, pp, tokens, prompts)}
+    emit({"serve_paged": rows})
+
+    # (b) prefix cache, through ServingEngine.run.
+    prefix = {}
+    for name, on in (("prefix_cache", True), ("no_prefix_cache", False)):
+        eng = engine_cls(cfg, page_size=16, prefill_chunk=64,
+                         prefix_cache=on, **kw)
+        sched = eng.run(eng.place_params(cp),
+                        prefix_requests(Request, cfg.vocab_size))
+        prefix[name] = {"tokens": {f.rid: f.tokens for f in sched.finished},
+                        "report": sched.latency_report()}
+    on, off = prefix["prefix_cache"], prefix["no_prefix_cache"]
+    require(on["tokens"] == off["tokens"] and len(on["tokens"]) == 16,
+            "the prefix-cached run's tokens differ from the uncached run's")
+    pc = on["report"]["prefix_cache"]
+    reading = {"prefix_cache": pc,
+               "shared_pages_reused": pc["tokens_reused"] // 16,
+               "cow_copies": on["report"]["paged"]["cow_copies"],
+               **{f"{name}_{k}": prefix[name]["report"][k]
+                  for name in prefix for k in ("prefill_p50_ms",
+                                               "ttft_p99_ms",
+                                               "tokens_per_s")}}
+    emit({"serve_prefix_cache": reading})
+    require(pc["hits"] > 0, f"the prefix cache never hit: {pc}")
+
+    # (c) speculative decoding, k = 4. First the verify step's rows
+    # against decode steps (int8 must be bit-equal: K4's rows are exact
+    # at any M), then through the CLI: the checkpoint as its own draft (the
+    # full-accept path) and a fresh 2-layer draft (the rollback path),
+    # each against a plain paged int8 run of the same target.
+    rows_vs_decode = {mode: verify_rows_vs_decode(engine_cls, cfg, kw,
+                                                  prompts, mode)
+                      for mode in ("int8", "f32")}
+    emit({"verify_rows_vs_decode_steps": rows_vs_decode})
+    require(rows_vs_decode["int8"]["bit_equal"], "int8 verify rows differ "
+            f"from decode steps: {rows_vs_decode['int8']}")
+    spec_flags = PAGED_FLAGS + ["--compute-dtype", "int8"]
+    spec = {}
+    for name, target, draft in (
+            ("checkpoint_draft", ["--checkpoint", ckpt_dir],
+             ["--speculative-draft", ckpt_dir]),
+            ("fresh_2_layer_draft", [],
+             ["--speculative-draft-layers", "2"])):
+        plain = serve_run(serve, SERVE_FLAGS + spec_flags + target)
+        before = qm.int8_matmul.launches
+        with paged_step_counts(engine_cls) as seen:
+            out = serve_run(serve, SERVE_FLAGS + spec_flags + target + [
+                "--speculative-k", str(SPEC_K)] + draft)
+        launches = qm.int8_matmul.launches - before
+        layers = seen.pop("draft_layers")
+        require(len(layers) == 1, f"draft depths {layers}")
+        draft_layers = layers.pop()
+        want = (4 * cfg.num_layers * (seen["target_decode"]
+                                      + seen["verify"])
+                + 4 * draft_layers * seen["draft_decode"])
+        rep = out["serving"]["speculative"]
+        spec[name] = {**serve_summary(out), "steps": seen,
+                      "draft_layers": draft_layers, "k4_launches": launches,
+                      "k4_launches_want": want,
+                      "plain_paged_int8": serve_summary(plain),
+                      "tokens_equal_plain": by_rid(out) == by_rid(plain)}
+        require(by_rid(out) == by_rid(plain), f"speculative {name} tokens "
+                "differ from the plain paged int8 run's")
+        require(launches == want and seen["verify"] > 0,
+                f"speculative {name}: K4 launched {launches} times, want "
+                f"{want} ({seen}, draft layers {draft_layers})")
+        if name == "checkpoint_draft":
+            require(rep["accept_rate"] > 0.9,
+                    f"checkpoint as its own draft accepts {rep}")
+    emit({"serve_speculative_int8": spec})
+
+    # (d) bf16, contiguous and paged, and the first-step gap to f32.
+    bf16 = {}
+    for name, extra in (("contiguous", []), ("paged", PAGED_FLAGS)):
+        out = serve_run(serve, SERVE_FLAGS + extra + ["--compute-dtype",
+                                                      "bf16"])
+        got, ref = by_rid(out), by_rid(contiguous_f32)
+        pairs = [(a, b) for rid in ref for a, b in zip(got[rid], ref[rid])]
+        bf16[name] = {**serve_summary(out),
+                      "greedy_token_agreement_bf16_vs_f32":
+                          sum(a == b for a, b in pairs) / len(pairs)}
+    gap = bf16_first_step_gap(serve, engine_cls, cfg_cls)
+    bf16["first_step_bf16_vs_f32"] = gap
+    emit({"serve_bf16": bf16})
+    for dev, reading in gap.items():
+        rel = reading["rel"]
+        require(math.isfinite(rel) and rel <= BF16_LOGIT_REL,
+                f"bf16 first-step logits on the {dev} off by {rel:.3e} of "
+                f"max|logit| (ceiling {BF16_LOGIT_REL})")
+    launches = dict(counts(fa), int8_matmul=qm.int8_matmul.launches)
+    require(not any(counts(fa).values()),
+            f"the serving-features phase launched K1-K3: {launches}")
+    return launches
+
+
 def main() -> int:
     # cuBLAS reads this when it first starts: the determinism probe's
     # torch.use_deterministic_algorithms needs it (phase 7).
@@ -2092,7 +2429,7 @@ def smoke() -> int:
         r["projection"] = name
         shapes.append(r)
         emit({"int8_matmul_shape": r})
-    for i, (m, k, n) in enumerate(EXTRA_SHAPES):
+    for i, (m, k, n) in enumerate(EXTRA_SHAPES + VERIFY_SHAPES):
         r = check_shape(qm, m, k, n, seed=10 + i)
         shapes.append(r)
         emit({"int8_matmul_shape": r})
@@ -2187,7 +2524,12 @@ def smoke() -> int:
     del dp_data
     phase_done("pipeline model parallelism")
 
-    # ---- 9. kernels line, card line, last line -----------------------
+    # ---- 9. serving features (the slice-8 paths) ----------------------
+    slice8 = serving_features_phase(serve, ServingEngine, GPTConfig, fa, qm,
+                                    lm_dir, out_f32)
+    phase_done("serving features")
+
+    # ---- 10. kernels line, card line, last line ----------------------
     decode = [r for r in shapes if r["M"] == SLOTS]
     step = {key: None if any(r[key] is None for r in decode)
             else LAYERS * sum(r[key] for r in decode)
@@ -2205,6 +2547,9 @@ def smoke() -> int:
         "launches_slice6": slice6["int8_matmul"],
         # the pipeline phase (phase 8): none on the pipeline paths
         "launches_slice7": slice7["int8_matmul"],
+        # the serving-features phase (phase 9): paged and speculative
+        # int8 decode and verify steps
+        "launches_slice8": slice8["int8_matmul"],
         "max_abs_err": max_err,
         # Times of one decode step's 48 launches (12 layers x the four
         # projection shapes at M = 8), each shape timed in phase 3.
@@ -2225,7 +2570,7 @@ def smoke() -> int:
         "per_shape": shapes,
     }] + [dict(flash_entry(name, replaces, lm_rows, flash_errs,
                            flash_times), launches_slice6=slice6[name],
-               launches_slice7=slice7[name])
+               launches_slice7=slice7[name], launches_slice8=slice8[name])
           for name, _, replaces in FLASH_KERNELS]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -38,9 +38,6 @@ from distributed_model_parallel_tpu_torch.models import (
 )
 from distributed_model_parallel_tpu_torch.runtime import dist
 from distributed_model_parallel_tpu_torch.serving.engine import (
-    BF16_SLICE,
-    PAGED_SLICE,
-    SPECULATIVE_SLICE,
     TP_SP_SLICE,
 )
 
@@ -131,34 +128,54 @@ def check_serving_args(args) -> None:
             "--dcn-compression compresses the training engines' "
             "cross-slice hop; serving has no 'dcn' fabric — drop the flag"
         )
-    # --- features of later port slices --------------------------------
+    # --- features of a later port slice -------------------------------
     if args.layout != "replicated":
         raise _refuse(f"--layout {args.layout}", TP_SP_SLICE)
     if args.model_shards != 1 or args.seq_shards != 1:
         raise _refuse("--model-shards / --seq-shards", TP_SP_SLICE)
     if args.collective_matmul:
         raise _refuse("--collective-matmul", TP_SP_SLICE)
-    for value, flag in ((args.page_size, "--page-size"),
-                        (args.kv_pages, "--kv-pages"),
-                        (args.prefill_chunk, "--prefill-chunk"),
-                        (args.prefix_cache, "--prefix-cache")):
-        if value:
-            raise _refuse(flag, PAGED_SLICE)
-    for value, flag in ((args.speculative_k, "--speculative-k"),
-                        (args.speculative_draft, "--speculative-draft"),
-                        (args.speculative_draft_layers,
-                         "--speculative-draft-layers")):
-        if value:
-            raise _refuse(flag, SPECULATIVE_SLICE)
     if args.compute_dtype != "f32" and args.dtype != "float32":
         raise SystemExit(
             "--dtype and --compute-dtype both set the decode "
             "arithmetic; --dtype bfloat16 is the legacy spelling of "
             "--compute-dtype bf16 — pass only --compute-dtype"
         )
-    if args.compute_dtype == "bf16" or args.dtype == "bfloat16":
-        raise _refuse("bf16 decode (--compute-dtype bf16 / --dtype "
-                      "bfloat16)", BF16_SLICE)
+    # --- paged-cache knobs (serving/kv_cache.py) ---------------------
+    if args.page_size < 0:
+        raise SystemExit(f"--page-size must be >= 0, got {args.page_size}")
+    if args.page_size:
+        if args.max_len % args.page_size:
+            raise SystemExit(
+                f"--page-size {args.page_size} must divide --max-len "
+                f"{args.max_len} (the block table covers whole pages)"
+            )
+    else:
+        for val, flag in ((args.kv_pages, "--kv-pages"),
+                          (args.prefill_chunk, "--prefill-chunk")):
+            if val:
+                raise SystemExit(
+                    f"{flag} configures the block-paged KV cache; set "
+                    "--page-size as well (0 = contiguous slots)"
+                )
+        if args.prefix_cache:
+            raise SystemExit(
+                "--prefix-cache shares pool PAGES between slots; it "
+                "requires --page-size (the contiguous layout has no "
+                "sharable unit)"
+            )
+    if args.kv_pages < 0:
+        raise SystemExit(f"--kv-pages must be >= 0, got {args.kv_pages}")
+    if args.prefill_chunk < 0:
+        raise SystemExit(
+            f"--prefill-chunk must be >= 0, got {args.prefill_chunk}"
+        )
+    if args.prefix_cache and not args.prefill_chunk:
+        raise SystemExit(
+            "--prefix-cache needs --prefill-chunk: a partial prefix hit "
+            "resumes ingestion mid-prompt, which only the chunked path "
+            "can do"
+        )
     # --- sampling knobs ----------------------------------------------
     if args.temperature < 0:
         raise SystemExit(
@@ -174,6 +191,48 @@ def check_serving_args(args) -> None:
             "greedy default (--temperature 0) they would silently do "
             "nothing — set --temperature > 0"
         )
+    # --- speculative decoding (serving/speculative.py) ---------------
+    spec_k = args.speculative_k
+    if spec_k < 0 or spec_k > 8:
+        raise SystemExit(
+            f"--speculative-k must be in [0, 8] (0 = off; past ~8 the "
+            f"verify step's wasted work dominates), got {spec_k}"
+        )
+    if spec_k:
+        if not args.page_size:
+            raise SystemExit(
+                "--speculative-k rolls rejected draft suffixes back by "
+                "TRUNCATING THE BLOCK TABLE; it requires --page-size "
+                "(the contiguous layout has no page-granular rollback)"
+            )
+        if spec_k + 1 >= args.max_len:
+            raise SystemExit(
+                f"--speculative-k {spec_k} writes k+1 positions per "
+                f"verify round; --max-len {args.max_len} cannot hold "
+                "one round past the prompt"
+            )
+        if args.speculative_draft_layers < 0:
+            raise SystemExit(
+                f"--speculative-draft-layers must be >= 0 (0 = "
+                f"max(1, --layers // 2)), got "
+                f"{args.speculative_draft_layers}"
+            )
+        if args.speculative_draft and args.speculative_draft_layers:
+            raise SystemExit(
+                "--speculative-draft-layers sizes a FRESH-INIT draft; "
+                "--speculative-draft supplies the draft's dims from its "
+                "recorded config — drop one of the flags"
+            )
+    else:
+        for val, flag in (
+                (args.speculative_draft, "--speculative-draft"),
+                (args.speculative_draft_layers,
+                 "--speculative-draft-layers")):
+            if val:
+                raise SystemExit(
+                    f"{flag} configures the draft model for speculative "
+                    "decoding; set --speculative-k >= 1 as well (0 = off)"
+                )
     # --- synthetic arrivals (Poisson offered load) -------------------
     if args.arrival_rate < 0:
         raise SystemExit(
@@ -189,6 +248,15 @@ def check_serving_args(args) -> None:
             "--arrival-burst groups Poisson arrival events into bursts; "
             "set --arrival-rate > 0 as well"
         )
+
+
+def serve_compute_dtype(args) -> str:
+    """--compute-dtype (preferred) / legacy --dtype -> the ServingEngine
+    compute_dtype string (`check_serving_args` has rejected setting
+    both)."""
+    if args.compute_dtype != "f32":
+        return args.compute_dtype
+    return "bf16" if args.dtype == "bfloat16" else "f32"
 
 
 def build_optimizer(args):

@@ -16,14 +16,25 @@ no GPU is present) or cpu. `--checkpoint DIR` serves a trained model:
 the `params` of the newest snapshot in DIR (`last` or `ckpt`, as a
 resumed training run would pick), written by either package's
 training CLIs; the sidecar's recorded `gpt_config` must match the
-serve flags. Flags whose features belong to later port slices (tp/sp
-layouts, paged cache, speculative decoding, bf16) are refused with the
-slice named (`cli/common.py`).
+serve flags.
+
+  --page-size 16 --prefill-chunk 64 [--prefix-cache] [--kv-pages N]
+      the block-paged cache, chunked prefill (prompts up to
+      --max-len - 1) and the prefix cache;
+  --speculative-k 4 --page-size 16 [--speculative-draft DIR |
+      --speculative-draft-layers 2]
+      speculative decoding with a checkpointed or a fresh-init draft;
+  --compute-dtype bf16|int8
+      bf16 activations and cache, or int8 decode projections.
+
+The tp/sp layouts, collective matmul and the mesh flags are refused
+with their slice named (`cli/common.py`).
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
 
@@ -35,6 +46,7 @@ from distributed_model_parallel_tpu_torch.cli.common import (
     add_metrics_out_flag,
     check_serving_args,
     export_metrics_out,
+    serve_compute_dtype,
     set_device_numerics,
     setup_metrics_out,
 )
@@ -60,7 +72,8 @@ from distributed_model_parallel_tpu_torch.training.checkpoint import (
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         description="offline autoregressive serving (continuous "
-                    "batching over a contiguous KV cache) on PyTorch"
+                    "batching over a contiguous or block-paged KV cache) "
+                    "on PyTorch"
     )
     p.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
                    help="where the model runs (default cuda; cpu for "
@@ -77,8 +90,8 @@ def build_parser() -> argparse.ArgumentParser:
                    help="default 4*dim")
     p.add_argument("--dtype", default="float32",
                    choices=("float32", "bfloat16"),
-                   help="legacy activation-dtype spelling; bfloat16 is "
-                        "not ported yet")
+                   help="legacy spelling of --compute-dtype: bfloat16 "
+                        "= --compute-dtype bf16")
     p.add_argument("--compute-dtype", default="f32",
                    choices=("f32", "bf16", "int8"),
                    help="decode projection GEMM arithmetic "
@@ -87,7 +100,9 @@ def build_parser() -> argparse.ArgumentParser:
                         "weight scales and per-token activation scales, "
                         "accumulating in int32 (the CUDA int8 kernel on "
                         "the GPU); activations, cache, prefill and head "
-                        "stay f32. bf16 is not ported yet")
+                        "stay f32. bf16 runs activations and cache in "
+                        "bf16 and every block projection as a bf16 "
+                        "matmul")
     p.add_argument("--layout", default="replicated",
                    choices=("replicated", "tp", "sp"),
                    help="cache/param layout; only replicated is ported")
@@ -104,19 +119,34 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--prefill-len", default=64, type=int,
                    help="padded prompt length")
     p.add_argument("--page-size", default=0, type=int,
-                   help="not ported yet (paged-cache slice)")
+                   help="block-paged KV cache: pool pages of this many "
+                        "positions reached through a per-slot block "
+                        "table, so allocation follows live tokens; must "
+                        "divide --max-len (0 = contiguous slots)")
     p.add_argument("--kv-pages", default=0, type=int,
-                   help="not ported yet (paged-cache slice)")
+                   help="page-pool size in pages (needs --page-size; 0 = "
+                        "num_slots * max_len / page_size)")
     p.add_argument("--prefill-chunk", default=0, type=int,
-                   help="not ported yet (paged-cache slice)")
+                   help="chunked prefill: ingest prompts this many tokens "
+                        "per engine iteration beside the decode step "
+                        "(needs --page-size; lifts the --prefill-len "
+                        "prompt cap; 0 = monolithic prefill)")
     p.add_argument("--prefix-cache", action="store_true",
-                   help="not ported yet (paged-cache slice)")
+                   help="share immutable prompt pages between slots, "
+                        "keyed on the token prefix, with copy-on-write "
+                        "(needs --page-size and --prefill-chunk)")
     p.add_argument("--speculative-k", default=0, type=int,
-                   help="not ported yet (speculative-decoding slice)")
+                   help="draft tokens proposed per verify round (0 = off; "
+                        "needs --page-size)")
     p.add_argument("--speculative-draft", default=None, metavar="DIR",
-                   help="not ported yet (speculative-decoding slice)")
+                   help="draft model checkpoint: newest snapshot in DIR, "
+                        "dims from its recorded config (vocab must match "
+                        "the target's, max_position must cover "
+                        "--max-len). Omit for a fresh-init draft sized by "
+                        "--speculative-draft-layers")
     p.add_argument("--speculative-draft-layers", default=0, type=int,
-                   help="not ported yet (speculative-decoding slice)")
+                   help="layers of the fresh-init draft (0 = max(1, "
+                        "--layers // 2); other dims mirror the target)")
     p.add_argument("--arrival-rate", default=0.0, type=float,
                    help="Poisson arrival-EVENT rate in events/s for the "
                         "synthetic trace (0 = every request arrives at "
@@ -219,18 +249,77 @@ def _checkpoint_guard(directory: str, name: str, cfg) -> None:
 
 
 def load_checkpoint_params(directory: str, name: str, cfg, seed: int,
-                           device) -> dict:
+                           device, flag: str = "--checkpoint") -> dict:
     """The `params` subtree of checkpoint `name` in `directory`, in the
     port's layout on the host; a missing or misshapen leaf exits naming
-    it."""
+    it and `flag`."""
     template = params_spec(init_params(cfg, seed, device=device))
     try:
         raw, meta = restore_subtree(directory, template, name=name)
     except (FileNotFoundError, KeyError, ValueError) as e:
-        raise SystemExit(f"--checkpoint {directory}: {e}")
-    print(f"==> serving checkpoint {directory} ({name}, epoch "
-          f"{meta.get('epoch')}, format {meta.get('format')})", flush=True)
+        raise SystemExit(f"{flag} {directory}: {e}")
+    role = "serving" if flag == "--checkpoint" else "speculative draft"
+    print(f"==> {role} checkpoint {directory} ({name}, epoch "
+          f"{meta.get('epoch')}, format {meta.get('format')}, "
+          f"{cfg.num_layers} layers)", flush=True)
     return from_jax_params(raw)
+
+
+def _draft_config(args, target_cfg):
+    """(draft GPTConfig, checkpoint name or None) for speculative
+    decoding. With --speculative-draft the dims come from the
+    checkpoint's recorded gpt_config (a draft is a different model, so
+    no serve flag describes it), checked against the target (same
+    vocabulary, position table covering --max-len) before any engine is
+    built. Without one, the draft is a fresh-init twin of the target
+    with fewer layers."""
+    if not args.speculative_draft:
+        layers = args.speculative_draft_layers or max(1, args.layers // 2)
+        return dataclasses.replace(target_cfg, num_layers=layers), None
+    directory = args.speculative_draft
+    name = newest_checkpoint_name(directory)
+    try:
+        meta = checkpoint_metadata(directory, name)
+    except FileNotFoundError as e:
+        raise SystemExit(str(e))
+    recorded = meta.get("gpt_config")
+    if not recorded:
+        raise SystemExit(
+            f"--speculative-draft {directory}: the checkpoint has no "
+            "recorded gpt_config, so the draft's dims are unknowable "
+            "from flags — re-save it with a current trainer"
+        )
+    if int(recorded.get("num_experts", 0)) > 0:
+        raise SystemExit(
+            f"--speculative-draft {directory}: the draft is a "
+            f"Mixture-of-Experts LM (num_experts="
+            f"{recorded['num_experts']}); the serving engine builds dense "
+            "decoder blocks and cannot serve it"
+        )
+    if int(recorded["vocab_size"]) != target_cfg.vocab_size:
+        raise SystemExit(
+            f"--speculative-draft {directory}: draft vocab_size "
+            f"{recorded['vocab_size']} != target vocab_size "
+            f"{target_cfg.vocab_size} — speculative acceptance compares "
+            "the two models' distributions over the SAME vocabulary"
+        )
+    if int(recorded["max_position"]) < args.max_len:
+        raise SystemExit(
+            f"--speculative-draft {directory}: draft max_position "
+            f"{recorded['max_position']} < --max-len {args.max_len} — the "
+            "draft cache mirrors the target's positions, so its position "
+            "table must cover them"
+        )
+    return GPTConfig(
+        vocab_size=int(recorded["vocab_size"]),
+        dim=int(recorded["dim"]),
+        num_layers=int(recorded["num_layers"]),
+        num_heads=int(recorded["num_heads"]),
+        ffn_dim=int(recorded["ffn_dim"]),
+        max_position=int(recorded["max_position"]),
+        dropout_rate=0.0,
+        pad_token_id=0,
+    ), name
 
 
 def main(argv=None) -> dict:
@@ -254,10 +343,16 @@ def main(argv=None) -> dict:
             f"--prompt-len-min/max must satisfy 1 <= min <= max, got "
             f"[{args.prompt_len_min}, {args.prompt_len_max}]"
         )
-    if args.prompt_len_max > args.prefill_len:
+    # Chunked prefill ingests in place, so only the cache caps prompt
+    # length; monolithic prefill pads to --prefill-len.
+    prompt_cap = (
+        args.max_len - 1 if args.prefill_chunk else args.prefill_len
+    )
+    if args.prompt_len_max > prompt_cap:
         raise SystemExit(
             f"--prompt-len-max {args.prompt_len_max} exceeds "
-            f"--prefill-len {args.prefill_len}"
+            + (f"--max-len - 1 = {prompt_cap}" if args.prefill_chunk
+               else f"--prefill-len {prompt_cap}")
         )
     cfg = GPTConfig(
         vocab_size=args.vocab_size,
@@ -275,15 +370,36 @@ def main(argv=None) -> dict:
         # run would load.
         ckpt_name = newest_checkpoint_name(args.checkpoint)
         _checkpoint_guard(args.checkpoint, ckpt_name, cfg)
+    draft_cfg = draft_ckpt = None
+    if args.speculative_k:
+        draft_cfg, draft_ckpt = _draft_config(args, cfg)
     set_device_numerics()
-    engine = ServingEngine(
-        cfg,
+    paged = dict(
         num_slots=args.num_slots,
         max_len=args.max_len,
         prefill_len=args.prefill_len,
-        compute_dtype=args.compute_dtype,
+        compute_dtype=serve_compute_dtype(args),
+        page_size=args.page_size or None,
+        num_pages=args.kv_pages or None,
+        prefill_chunk=args.prefill_chunk or None,
         device=args.device,
     )
+    engine = ServingEngine(cfg, prefix_cache=args.prefix_cache,
+                           speculative_k=args.speculative_k, **paged)
+    draft_engine = draft_params = None
+    if args.speculative_k:
+        # The draft mirrors the target's cache knobs except
+        # prefix_cache: prefix pages are a target-side shortcut, the
+        # draft always ingests prompts itself.
+        draft_engine = ServingEngine(draft_cfg, **paged)
+        if draft_ckpt is not None:
+            draft_params = draft_engine.place_params(load_checkpoint_params(
+                args.speculative_draft, draft_ckpt, draft_cfg, args.seed,
+                draft_engine.device, flag="--speculative-draft"))
+        else:
+            # A fresh-init draft keeps the whole speculative path
+            # runnable with no checkpoint on disk.
+            draft_params = draft_engine.init_params(args.seed + 1)
     if args.checkpoint:
         params = engine.place_params(load_checkpoint_params(
             args.checkpoint, ckpt_name, cfg, args.seed, engine.device))
@@ -304,7 +420,8 @@ def main(argv=None) -> dict:
             temperature=args.temperature, top_k=args.top_k,
             top_p=args.top_p, seed=args.seed,
         )
-    sched = engine.run(params, requests, sampling=sampling)
+    sched = engine.run(params, requests, sampling=sampling,
+                       draft=draft_engine, draft_params=draft_params)
     report = sched.latency_report()
     if args.arrival_rate:
         # Offered load vs achieved goodput; span = last arrival + one
@@ -354,12 +471,12 @@ def main(argv=None) -> dict:
             "num_slots": args.num_slots,
             "max_len": args.max_len,
             "prefill_len": args.prefill_len,
-            "page_size": None,
-            "prefill_chunk": None,
-            "prefix_cache": False,
+            "page_size": args.page_size or None,
+            "prefill_chunk": args.prefill_chunk or None,
+            "prefix_cache": args.prefix_cache,
             "temperature": args.temperature,
-            "speculative_k": None,
-            "speculative_draft": None,
+            "speculative_k": args.speculative_k or None,
+            "speculative_draft": args.speculative_draft,
             **report,
         },
         "requests": per_request,

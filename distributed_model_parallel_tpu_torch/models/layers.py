@@ -56,6 +56,12 @@ class Context:
     # averaged (SyncBN; the reference's `bn_axis`). None => statistics
     # of the local batch.
     bn_group: Optional[Any] = None
+    # LayerNorm of a (B, T, dim) stream one position t at a time, each
+    # (B, dim) slice in a call of its own (serving's speculative verify
+    # step): the card's reduction kernels pick their thread layout, and
+    # so a row's summation order, by the number of rows, and this keeps
+    # every row's statistics those of a (B, 1, dim) decode step.
+    norm_per_position: bool = False
 
 
 @dataclasses.dataclass(frozen=True)
@@ -67,8 +73,14 @@ class Layer:
     apply: Callable[[Any, Any, torch.Tensor, Context], tuple]
 
 
-def layernorm(params, x: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
-    """LayerNorm over the last axis, computed in f32 (GPT passes 1e-5)."""
+def layernorm(params, x: torch.Tensor, eps: float = 1e-12, *,
+              per_position: bool = False) -> torch.Tensor:
+    """LayerNorm over the last axis, computed in f32 (GPT passes 1e-5).
+    `per_position`: x is (B, T, dim) and each position is normalized in
+    its own call (`Context.norm_per_position`)."""
+    if per_position and x.dim() == 3 and x.shape[1] > 1:
+        return torch.cat([layernorm(params, x[:, t:t + 1].contiguous(), eps)
+                          for t in range(x.shape[1])], dim=1)
     xf = x.float()
     mean = xf.mean(dim=-1, keepdim=True)
     var = (xf - mean).square().mean(dim=-1, keepdim=True)

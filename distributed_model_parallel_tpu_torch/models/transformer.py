@@ -64,10 +64,12 @@ def encoder_layer(
         params["attn"], (h, mask), ctx, num_heads=num_heads,
         dropout_rate=dropout_rate, attention_fn=attention_fn,
     )
-    h = L.layernorm(params["ln1"], h + a, eps)
+    h = L.layernorm(params["ln1"], h + a, eps,
+                    per_position=ctx.norm_per_position)
     f, _ = feed_forward(params["ffn"], (h, mask), ctx,
                         dropout_rate=dropout_rate)
-    h = L.layernorm(params["ln2"], h + f, eps)
+    h = L.layernorm(params["ln2"], h + f, eps,
+                    per_position=ctx.norm_per_position)
     return h, mask
 
 

@@ -18,7 +18,9 @@ Scale layout, the reference's int8 contract, unchanged:
        | + __dp4a int32 dot + dequantize, one | the same arithmetic in
        | launch)                              | torch
   f32  | `x @ w`                              | the same
-  bf16 | refused: it comes with the bf16 serving slice (ROADMAP.md)
+  bf16 | `torch.matmul` on bf16 operands (the | the same
+       | reference computes bf16 as a plain   |
+       | XLA dot, outside any kernel)         |
 
 The kernel keeps the quantized weight transposed, `wq_t (N, K)`, so
 each output column's K axis is contiguous; `prepare_weight` produces it.
@@ -56,15 +58,21 @@ def check_compute_dtype(name: str) -> str:
 
 
 def normalize_compute_dtype(value) -> str:
-    """Engine-surface normalization: None (= f32) or one of
-    COMPUTE_DTYPES."""
+    """Engine-surface normalization: None (= f32), one of
+    COMPUTE_DTYPES, or a dtype object (`torch.bfloat16` -> "bf16",
+    `torch.float32` -> "f32"), as the reference accepts its dtypes."""
     if value is None:
         return "f32"
-    if not isinstance(value, str):
-        raise ValueError(
-            f"compute_dtype must be one of {COMPUTE_DTYPES}, got {value!r}"
-        )
-    return check_compute_dtype(value)
+    if isinstance(value, str):
+        return check_compute_dtype(value)
+    if value == torch.bfloat16:
+        return "bf16"
+    if value == torch.float32:
+        return "f32"
+    raise ValueError(
+        f"compute_dtype must be one of {COMPUTE_DTYPES} or a dtype "
+        f"(torch.bfloat16 / torch.float32), got {value!r}"
+    )
 
 
 # ------------------------------------------------------------ quantize
@@ -250,17 +258,15 @@ def quant_matmul(
 ) -> torch.Tensor:
     """x (..., K) @ w (K, N) in `mode` arithmetic.
 
-    "f32" is the identity dot; "int8" quantizes per the module contract
-    and returns f32. "bf16" is refused until the bf16 serving slice.
-    `prepared` is `prepare_weight(w)` when the caller cached it."""
+    "f32" is the identity dot; "bf16" casts both operands and returns
+    bf16 (downstream layers follow x.dtype); "int8" quantizes per the
+    module contract and returns f32. `prepared` is `prepare_weight(w)`
+    when the caller cached it."""
     check_compute_dtype(mode)
     if mode == "f32":
         return x @ w
     if mode == "bf16":
-        raise ValueError(
-            "quant_matmul: bf16 compute is not ported to the PyTorch "
-            "package yet: it belongs to the bf16 serving slice (ROADMAP.md)"
-        )
+        return x.to(torch.bfloat16) @ w.to(torch.bfloat16)
     lead = x.shape[:-1]
     x2 = x.reshape(-1, x.shape[-1]).float().contiguous()
     wq_t, wscale = prepared if prepared is not None else prepare_weight(w)

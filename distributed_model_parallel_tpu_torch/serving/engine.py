@@ -1,5 +1,6 @@
 """ServingEngine: prefill/decode split with continuous batching over the
-contiguous KV cache (port of `serving/engine.py`, replicated layout).
+contiguous or the block-paged KV cache (port of `serving/engine.py`,
+replicated layout).
 
 One decode step advances EVERY cache slot one token, whatever position
 each slot sits at (the mixed-position batch of continuous batching).
@@ -7,16 +8,36 @@ The host loop (`run`) admits waiting requests into free slots
 (prefill), runs one decode step for the active set, and evicts finished
 sequences.
 
-Parameters are the dense `models/gpt.py` tree, the reference's `gpt_lm`
-tree carried over by `models/convert.py`. Under `compute_dtype="int8"`
-the decode steps thread the `QuantMatmul` policy into the blocks, so
-each decoder block's four projections run the int8 GEMM kernel
-(`csrc/int8_matmul.cu` on the GPU); prefill and the vocabulary head
-stay f32, and activations and cache stay f32, exactly as in the
-reference. Each weight is quantized once, in `place_params`.
+Two cache layouts, logit-identical:
 
-Knobs the reference has that belong to later port slices are accepted
-as fields and refused with a ValueError naming the slice.
+  contiguous (page_size None) — every slot owns a `max_len` stripe;
+      `prefill` / `decode_step`.
+  paged (page_size set) — K/V in a page pool reached through host block
+      tables (`serving/kv_cache.PagedCacheHost`); `paged_prefill_step`,
+      `chunk_prefill_step` (prefill_chunk: prompts ingested a chunk per
+      iteration beside the decode step), `paged_decode_step`,
+      `paged_verify_step` (speculative_k: the target scores k+1
+      positions per slot in one step, `serving/speculative.py`), and
+      the prefix cache (prefix_cache: shared prompt pages with
+      copy-on-write).
+
+Parameters are the dense `models/gpt.py` tree, the reference's `gpt_lm`
+tree carried over by `models/convert.py`. `compute_dtype`:
+
+  f32  — everything f32.
+  bf16 — activations and cache in bf16, every block projection a
+         `torch.matmul` of bf16 operands (the reference's bf16 path is a
+         plain XLA dot); LayerNorm and attention compute in f32 and
+         round back, the vocabulary head is f32.
+  int8 — the decode and verify steps thread the `QuantMatmul` policy
+         into the blocks, so each decoder block's four projections run
+         the int8 GEMM kernel (`csrc/int8_matmul.cu` on the GPU);
+         prefill (monolithic and chunked) and the head stay f32, and
+         activations and cache stay f32, exactly as in the reference.
+
+Each weight is quantized (int8) or cast (bf16) once, in `place_params`.
+The tp/sp layouts, collective matmul and a device mesh belong to a later
+port slice and are refused with a ValueError naming it.
 """
 
 from __future__ import annotations
@@ -50,13 +71,22 @@ from distributed_model_parallel_tpu_torch.ops.quant_matmul import (
 )
 from distributed_model_parallel_tpu_torch.serving.decode import (
     CacheAttention,
+    PagedCacheAttention,
+    PagedChunkAttention,
+    PagedVerifyAttention,
     PrefillRecorder,
+    chunk_stem,
     decode_stem,
     prefill_stem,
+    verify_stem,
 )
 from distributed_model_parallel_tpu_torch.serving.kv_cache import (
     KVCacheSpec,
+    PagedCacheHost,
+    PagedKVCacheSpec,
+    copy_page,
     init_cache,
+    init_paged_cache,
 )
 from distributed_model_parallel_tpu_torch.serving.sampling import (
     SamplingConfig,
@@ -67,20 +97,20 @@ from distributed_model_parallel_tpu_torch.serving.scheduler import (
     Scheduler,
 )
 
-# Later port slices (ROADMAP.md), named by the refusals below.
+# The later port slice (ROADMAP.md) named by the refusals below.
 TP_SP_SLICE = "the tp/sp serving-layout slice"
-PAGED_SLICE = "the paged-cache serving slice (paging, chunked prefill, " \
-    "prefix cache)"
-SPECULATIVE_SLICE = "the speculative-decoding slice"
-BF16_SLICE = "the bf16 serving slice"
 
 
 def _not_ported(knob: str, later: str) -> ValueError:
     return ValueError(
         f"{knob} is not ported to the PyTorch package yet: it belongs to "
-        f"{later} (ROADMAP.md). This slice serves the replicated layout "
-        "with a contiguous cache, monolithic prefill and f32/int8 decode."
+        f"{later} (ROADMAP.md). The port serves the replicated layout on "
+        "one device."
     )
+
+
+def _to_device(array: np.ndarray, dtype, device) -> torch.Tensor:
+    return torch.from_numpy(np.asarray(array).astype(dtype)).to(device)
 
 
 @dataclasses.dataclass
@@ -94,13 +124,20 @@ class ServingEngine:
     max_len: Optional[int] = None  # cache positions; <= cfg.max_position
     prefill_len: Optional[int] = None  # padded prompt length; <= max_len
     collective_matmul: bool = False
-    # "f32" (default) or "int8" (decode projections through the int8
-    # GEMM; activations, cache, prefill and head stay f32).
+    # "f32" (default), "bf16" or "int8", or a dtype object (module doc).
     compute_dtype: Any = None
+    # Paged pool: positions per page (None = contiguous slots), pool
+    # size in pages (None = num_slots * ceil(max_len / page_size)).
     page_size: Optional[int] = None
     num_pages: Optional[int] = None
+    # Chunked prefill: tokens ingested per engine iteration (None =
+    # monolithic prefill). Requires page_size.
     prefill_chunk: Optional[int] = None
+    # Prefix caching of prompt pages. Requires page_size and
+    # prefill_chunk.
     prefix_cache: bool = False
+    # Draft tokens per speculative round (0 = off); requires page_size,
+    # and `run` takes the draft engine and its params.
     speculative_k: int = 0
     # Where parameters, cache and compute live: the GPU unless the
     # caller asks for the CPU (the tests do).
@@ -114,18 +151,6 @@ class ServingEngine:
             raise _not_ported(f"layout={self.layout!r}", TP_SP_SLICE)
         if self.collective_matmul:
             raise _not_ported("collective_matmul", TP_SP_SLICE)
-        for value, knob in ((self.page_size, "page_size"),
-                            (self.num_pages, "num_pages"),
-                            (self.prefill_chunk, "prefill_chunk"),
-                            (self.prefix_cache or None, "prefix_cache")):
-            if value is not None:
-                raise _not_ported(knob, PAGED_SLICE)
-        if self.speculative_k:
-            raise _not_ported("speculative_k", SPECULATIVE_SLICE)
-        if self.compute_dtype in ("bf16", torch.bfloat16):
-            raise _not_ported(f"compute_dtype={self.compute_dtype!r}",
-                              BF16_SLICE)
-        self.compute_mode = normalize_compute_dtype(self.compute_dtype)
         self.device = torch.device(self.device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(
@@ -148,19 +173,94 @@ class ServingEngine:
             raise ValueError(
                 f"dim {cfg.dim} not divisible by heads {cfg.num_heads}"
             )
+        self.compute_mode = normalize_compute_dtype(self.compute_dtype)
+        # Activation and cache dtype. int8 keeps both f32: quantization
+        # lives inside the projection GEMMs, never at rest.
+        self._act_dtype = (
+            torch.bfloat16 if self.compute_mode == "bf16" else None
+        )
+        cache_dtype = self._act_dtype or torch.float32
+        head_dim = cfg.dim // cfg.num_heads
         self.spec = KVCacheSpec(
             num_layers=cfg.num_layers, num_slots=self.num_slots,
             max_len=self.max_len, num_heads=cfg.num_heads,
-            head_dim=cfg.dim // cfg.num_heads,
+            head_dim=head_dim, dtype=cache_dtype,
         )
         self.spec.validate(self.layout)
-        # The decode-step projection policy; threaded ONLY into decode
-        # (prefill stays f32 — the decode hot floor is the target).
+        self.paged_spec = None
+        if self.page_size is None:
+            for flag, name in ((self.prefill_chunk, "prefill_chunk"),
+                               (self.num_pages, "num_pages")):
+                if flag is not None:
+                    raise ValueError(
+                        f"{name} configures the paged KV layout; set "
+                        "page_size as well (None = contiguous slots)"
+                    )
+            if self.prefix_cache:
+                raise ValueError(
+                    "prefix_cache shares POOL PAGES between slots; it "
+                    "requires page_size (the contiguous layout has no "
+                    "sharable unit)"
+                )
+        else:
+            pages_per_slot = -(-self.max_len // self.page_size)
+            self.paged_spec = PagedKVCacheSpec(
+                num_layers=cfg.num_layers, num_slots=self.num_slots,
+                max_len=self.max_len, page_size=self.page_size,
+                num_pages=(
+                    self.num_pages if self.num_pages is not None
+                    else self.num_slots * pages_per_slot
+                ),
+                num_heads=cfg.num_heads, head_dim=head_dim,
+                dtype=cache_dtype,
+            )
+            self.paged_spec.validate(self.layout)
+            if self.prefill_chunk is not None and self.prefill_chunk < 1:
+                raise ValueError(
+                    f"prefill_chunk must be >= 1, got {self.prefill_chunk}"
+                )
+            if self.prefix_cache and self.prefill_chunk is None:
+                raise ValueError(
+                    "prefix_cache needs chunked prefill (prefill_chunk): "
+                    "a partial prefix hit resumes ingestion mid-prompt, "
+                    "which only the chunked path can do"
+                )
+        if self.speculative_k:
+            if not 1 <= self.speculative_k <= 8:
+                raise ValueError(
+                    f"speculative_k must be in [1, 8], got "
+                    f"{self.speculative_k} (the verify step scores k+1 "
+                    "positions; past ~8 the acceptance tail pays for "
+                    "nothing)"
+                )
+            if self.page_size is None:
+                raise ValueError(
+                    "speculative_k rolls rejected draft tokens back by "
+                    "TRUNCATING THE BLOCK TABLE (freeing pages, never "
+                    "copying KV); it requires the paged layout — set "
+                    "page_size"
+                )
+            if self.speculative_k + 1 >= self.max_len:
+                raise ValueError(
+                    f"speculative_k {self.speculative_k} leaves no room: "
+                    f"a verify round writes k+1 positions into a "
+                    f"max_len={self.max_len} cache"
+                )
+        # The decode/verify projection policy; prefill stays f32 (the
+        # decode hot floor is the target).
         self._decode_mm = (
             QuantMatmul() if self.compute_mode == "int8" else None
         )
-        self._ctx = L.Context(train=False)
-        self._decode_ctx = L.Context(train=False, matmul=self._decode_mm)
+        self._ctx = L.Context(train=False, dtype=self._act_dtype)
+        self._decode_ctx = L.Context(train=False, dtype=self._act_dtype,
+                                     matmul=self._decode_mm)
+        # The verify step's rows reduce as decode rows do (LayerNorm per
+        # position here, attention and head per position in
+        # `paged_verify_step`), so accepted rows are the decode steps'
+        # logits bit for bit wherever the projections are row-exact
+        # (int8; f32 and bf16 GEMMs round by shape on the card).
+        self._verify_ctx = dataclasses.replace(self._decode_ctx,
+                                               norm_per_position=True)
 
     # ------------------------------------------------------------ state
 
@@ -172,68 +272,182 @@ class ServingEngine:
         )
 
     def place_params(self, params) -> dict:
-        """Move a `gpt_lm` parameter tree to this engine's device (f32)
-        and, under int8, quantize every decode projection weight once
-        (the weight scales are static per weight)."""
+        """Move a `gpt_lm` parameter tree to this engine's device (f32).
+        Under int8, quantize every decode projection weight once (the
+        weight scales are static per weight); under bf16, cast every
+        block projection's weight and bias to bf16 once (the cast the
+        reference makes at each projection), leaving the embeddings,
+        LayerNorms and head f32."""
         def place(tree):
             if isinstance(tree, dict):
                 return {k: place(v) for k, v in tree.items()}
             return tree.to(self.device, torch.float32)
 
         params = place(params)
-        if self._decode_mm is not None:
-            for block in params["blocks"].values():
-                for group, names in (("attn", ("qkv", "out")),
-                                     ("ffn", ("in", "out"))):
-                    for name in names:
-                        self._decode_mm.prepare(block[group][name]["w"])
+        for block in params["blocks"].values():
+            for group, names in (("attn", ("qkv", "out")),
+                                 ("ffn", ("in", "out"))):
+                for name in names:
+                    lin = block[group][name]
+                    if self._decode_mm is not None:
+                        self._decode_mm.prepare(lin["w"])
+                    if self._act_dtype is not None:
+                        for key in ("w", "b"):
+                            lin[key] = lin[key].to(self._act_dtype)
         return params
 
     def init_cache(self) -> dict:
+        if self.paged_spec is not None:
+            return init_paged_cache(self.paged_spec, self.device)
         return init_cache(self.spec, self.device)
 
+    def new_host(self) -> PagedCacheHost:
+        """Fresh host half of the paged cache (block tables, page pool,
+        prefix map); one per `run` or test harness."""
+        if self.paged_spec is None:
+            raise ValueError(
+                "new_host() is the paged layout's bookkeeping; set "
+                "page_size"
+            )
+        return PagedCacheHost(
+            self.paged_spec, prefix_cache=self.prefix_cache,
+            copy_fn=copy_page, device=self.device,
+        )
+
+    @property
+    def _slot_stripe_bytes(self) -> int:
+        """Contiguous-equivalent bytes one live slot would pin (the
+        scheduler's SlotAllocator accounting seam)."""
+        return self.spec.slot_stripe_bytes
+
     # ------------------------------------------------------------ steps
+
+    def _prefill_pass(self, params, ids, length: int):
+        """The padded prompt (1, prefill_len) through the blocks: (next
+        logits (vocab,) f32, per-layer K and V stacks (L, prefill_len,
+        H, Dh))."""
+        mask = torch.arange(self.prefill_len,
+                            device=self.device)[None, :] < length
+        h = prefill_stem(params["stem"], ids, self._act_dtype)
+        rec = PrefillRecorder(partial(dot_product_attention, causal=True))
+        h, _ = decoder_blocks(params["blocks"], (h, mask), self.cfg,
+                              self._ctx, rec)
+        # Only the last real position's logits are read, so only that
+        # row goes through the vocabulary head.
+        next_logits = head_apply(params["head"], h[:, length - 1])[0]
+        return (next_logits, torch.stack([k[0] for k in rec.ks]),
+                torch.stack([v[0] for v in rec.vs]))
 
     @torch.no_grad()
     def prefill(self, params, cache, ids, length: int, slot: int):
         """One padded prompt (1, prefill_len) of `length` real tokens
-        into `slot`: writes the slot's cache stripe in place and returns
-        (cache, next-token logits (vocab,) f32)."""
-        cfg = self.cfg
+        into `slot` of the contiguous cache: writes the slot's stripe in
+        place and returns (cache, next-token logits (vocab,) f32)."""
         p_len = self.prefill_len
-        mask = torch.arange(p_len, device=self.device)[None, :] < length
-        h = prefill_stem(params["stem"], ids)
-        rec = PrefillRecorder(partial(dot_product_attention, causal=True))
-        h, _ = decoder_blocks(params["blocks"], (h, mask), cfg, self._ctx,
-                              rec)
-        # Only the last real position's logits are read, so only that
-        # row goes through the vocabulary head.
-        next_logits = head_apply(params["head"], h[:, length - 1])[0]
-        cache["k"][:, slot, :p_len] = torch.stack([k[0] for k in rec.ks])
-        cache["v"][:, slot, :p_len] = torch.stack([v[0] for v in rec.vs])
-        cache["k"][:, slot, p_len:] = 0
-        cache["v"][:, slot, p_len:] = 0
+        next_logits, ks, vs = self._prefill_pass(params, ids, length)
+        for name, stack in (("k", ks), ("v", vs)):
+            cache[name][:, slot, :p_len] = stack.to(cache[name].dtype)
+            cache[name][:, slot, p_len:] = 0
         cache["lengths"][slot] = length
         return cache, next_logits
 
     @torch.no_grad()
     def decode_step(self, params, cache, tokens, active):
-        """One token for every slot, each at its own position: tokens
-        (slots,) int64, active (slots,) bool on the device. Updates the
-        cache in place and returns (cache, logits (slots, vocab) f32)."""
-        cfg = self.cfg
+        """One token for every slot of the contiguous cache, each at its
+        own position: tokens (slots,) int64, active (slots,) bool on the
+        device. Updates the cache in place and returns (cache, logits
+        (slots, vocab) f32)."""
         positions = cache["lengths"]
         rec = CacheAttention(cache["k"], cache["v"], positions, active)
-        h = decode_stem(
-            params["stem"], tokens, positions.clamp(0, cfg.max_position - 1)
-        )
+        logits = self._decode_pass(params, rec, tokens, positions)
+        cache["lengths"] = torch.where(active, positions + 1, positions)
+        return cache, logits
+
+    def _decode_pass(self, params, rec, tokens, positions):
+        cfg = self.cfg
+        h = decode_stem(params["stem"], tokens,
+                        positions.clamp(0, cfg.max_position - 1),
+                        self._act_dtype)
         mask = torch.ones((self.num_slots, 1), dtype=torch.bool,
                           device=self.device)
         h, _ = decoder_blocks(params["blocks"], (h, mask), cfg,
                               self._decode_ctx, rec)
-        logits = head_apply(params["head"], h)[:, 0, :]
-        cache["lengths"] = torch.where(active, positions + 1, positions)
-        return cache, logits
+        return head_apply(params["head"], h)[:, 0, :]
+
+    @torch.no_grad()
+    def paged_prefill_step(self, params, cache, bt_row, ids, length: int):
+        """Monolithic prefill of one padded prompt into the pages of one
+        slot's block-table row `bt_row` (pages_per_slot,): the padded
+        K/V lands page by page, unallocated entries write nothing.
+        Returns (cache, next-token logits (vocab,) f32)."""
+        next_logits, ks, vs = self._prefill_pass(params, ids, length)
+        self._scatter_slot_pages(cache, ks, vs, bt_row)
+        return cache, next_logits
+
+    def _scatter_slot_pages(self, cache, ks, vs, bt_row) -> None:
+        """(L, prefill_len, H, Dh) prompt K and V -> the slot's pool
+        pages, in place; `-1` entries go to the sink page."""
+        spec = self.paged_spec
+        n_pages, page = spec.pages_per_slot, spec.page_size
+        dst = torch.where(bt_row >= 0, bt_row, spec.num_pages)
+        for name, stack in (("k", ks), ("v", vs)):
+            buf = cache[name]
+            padded = stack.new_zeros(
+                (stack.shape[0], n_pages * page, *stack.shape[2:]))
+            padded[:, : stack.shape[1]] = stack
+            buf[:, dst] = padded.reshape(
+                stack.shape[0], n_pages, page, *stack.shape[2:]
+            ).to(buf.dtype)
+
+    @torch.no_grad()
+    def chunk_prefill_step(self, params, cache, bt_row, ids, start: int,
+                           n_valid: int):
+        """Ingest one chunk (1, prefill_chunk) of a prompt, `n_valid`
+        real tokens at global positions [start, start + n_valid), into
+        the slot's pages: the chunk attends over the cached prefix plus
+        itself. Returns (cache, logits (vocab,) f32 of the chunk's last
+        real token)."""
+        rec = PagedChunkAttention(cache["k"], cache["v"], bt_row, start,
+                                  self.paged_spec.page_size)
+        h = chunk_stem(params["stem"], ids, start, self._act_dtype)
+        mask = torch.arange(ids.shape[1],
+                            device=self.device)[None, :] < n_valid
+        h, _ = decoder_blocks(params["blocks"], (h, mask), self.cfg,
+                              self._ctx, rec)
+        return cache, head_apply(params["head"], h[:, n_valid - 1])[0]
+
+    @torch.no_grad()
+    def paged_decode_step(self, params, cache, bt, positions, tokens,
+                          active):
+        """One token for every slot of the paged cache: bt (slots,
+        pages_per_slot), positions and tokens (slots,) int64, active
+        (slots,) bool, all on the device. Writes the pool in place and
+        returns (cache, logits (slots, vocab) f32)."""
+        rec = PagedCacheAttention(cache["k"], cache["v"], bt, positions,
+                                  active, self.paged_spec.page_size)
+        return cache, self._decode_pass(params, rec, tokens, positions)
+
+    @torch.no_grad()
+    def paged_verify_step(self, params, cache, bt, positions,
+                          tokens_chunk, active):
+        """Speculative verify: every slot's (k+1)-token span
+        `tokens_chunk` (slots, k+1) scored at positions pos..pos+k in one
+        step, under the decode projection policy (one int8 GEMM launch a
+        projection, M = slots * (k+1)). Writes the spans into the pool
+        and returns (cache, logits (slots, k+1, vocab) f32)."""
+        rec = PagedVerifyAttention(cache["k"], cache["v"], bt, positions,
+                                   active, self.paged_spec.page_size)
+        h = verify_stem(params["stem"], tokens_chunk, positions,
+                        self._act_dtype)
+        mask = torch.ones(tokens_chunk.shape, dtype=torch.bool,
+                          device=self.device)
+        h, _ = decoder_blocks(params["blocks"], (h, mask), self.cfg,
+                              self._verify_ctx, rec)
+        # The head per position, at the decode step's (slots, 1, dim)
+        # shape: rows equal to a decode step's (`PagedVerifyAttention`).
+        return cache, torch.cat([
+            head_apply(params["head"], h[:, j:j + 1].contiguous())
+            for j in range(h.shape[1])], dim=1)
 
     # ---------------------------------------------------------- serving
 
@@ -250,6 +464,14 @@ class ServingEngine:
         ids[0, : prompt.size] = prompt
         return torch.from_numpy(ids).to(self.device), int(prompt.size)
 
+    def chunk_ids(self, prompt: np.ndarray, start: int):
+        """(ids (1, prefill_chunk) int64 on the device, n_valid) of the
+        chunk of `prompt` that starts at `start`."""
+        n = min(self.prefill_chunk, int(prompt.size) - start)
+        ids = np.zeros((1, self.prefill_chunk), np.int64)
+        ids[0, :n] = prompt[start:start + n]
+        return torch.from_numpy(ids).to(self.device), n
+
     def _pick(self, sampler: Optional[SlotSampler], logits_row,
               slot: int) -> int:
         """Next token id: greedy argmax or the per-slot sampling lane."""
@@ -258,19 +480,54 @@ class ServingEngine:
             return int(row.argmax())
         return sampler.pick(row, slot)
 
+    def _check_prompts(self, requests: Sequence[Request],
+                       chunked: bool) -> None:
+        # Chunked ingestion walks the prompt in place, so only the cache
+        # (room for >= 1 generated token) caps prompt length.
+        cap = (self.max_len - 1) if chunked else self.prefill_len
+        for r in requests:
+            if r.prompt.size > cap:
+                raise ValueError(
+                    f"request {r.rid!r}: prompt length {r.prompt.size} "
+                    f"exceeds "
+                    + (f"max_len - 1 = {cap}" if chunked
+                       else f"prefill_len {cap}")
+                )
+
     def run(self, params, requests: Sequence[Request],
             sampling: Optional[SamplingConfig] = None, *,
-            draft=None, draft_params=None) -> Scheduler:
+            draft: Optional["ServingEngine"] = None,
+            draft_params=None) -> Scheduler:
         """Offline continuous batching: drive the request set to
         completion (greedy by default; a SamplingConfig samples with
         per-slot PRNG lanes) and return the Scheduler with its
-        `finished` records and `latency_report()`."""
-        if draft is not None or draft_params is not None:
-            raise _not_ported("draft/draft_params", SPECULATIVE_SLICE)
+        `finished` records and `latency_report()`. With `speculative_k`
+        set, pass the draft engine and its params: the loop moves to
+        `serving/speculative.run_speculative`."""
         sampler = (
             SlotSampler(sampling, self.num_slots)
             if sampling is not None and not sampling.greedy else None
         )
+        if self.speculative_k:
+            if draft is None or draft_params is None:
+                raise ValueError(
+                    "speculative_k > 0 needs a proposer: pass "
+                    "run(..., draft=<draft ServingEngine>, "
+                    "draft_params=<its params>)"
+                )
+            from distributed_model_parallel_tpu_torch.serving.speculative \
+                import run_speculative
+
+            return run_speculative(
+                self, params, requests, sampler, draft, draft_params
+            )
+        if draft is not None or draft_params is not None:
+            raise ValueError(
+                "draft/draft_params drive speculative decoding; set "
+                "speculative_k > 0 on the target engine as well"
+            )
+        if self.paged_spec is not None:
+            return self._run_paged(params, requests, sampler)
         return self._run_contiguous(params, requests, sampler)
 
     def _run_contiguous(self, params, requests: Sequence[Request],
@@ -279,14 +536,10 @@ class ServingEngine:
         mx = get_metrics()
         sched = Scheduler(
             self.num_slots, self.max_len,
-            bytes_per_slot=self.spec.slot_stripe_bytes,
+            bytes_per_slot=self._slot_stripe_bytes,
         )
+        self._check_prompts(requests, chunked=False)
         for r in requests:
-            if r.prompt.size > self.prefill_len:
-                raise ValueError(
-                    f"request {r.rid!r}: prompt length {r.prompt.size} "
-                    f"exceeds prefill_len {self.prefill_len}"
-                )
             sched.submit(r)
         cache = self.init_cache()
         tokens = np.zeros((self.num_slots,), np.int64)
@@ -345,5 +598,212 @@ class ServingEngine:
                     active[slot] = False
         return sched
 
+    # ----------------------------------------------------- paged loop
 
-__all__ = ["ServingEngine"]
+    def step_inputs(self, positions, tokens, active):
+        """Host (slots,) arrays -> the paged steps' device tensors."""
+        return (_to_device(positions, np.int64, self.device),
+                _to_device(tokens, np.int64, self.device),
+                _to_device(active, bool, self.device))
+
+    def paged_stats(self, host: PagedCacheHost) -> dict:
+        return {
+            "page_size": self.paged_spec.page_size,
+            "num_pages": self.paged_spec.num_pages,
+            "pages_in_use_peak": host.pages_in_use_peak,
+            "kv_cache_bytes_peak": (
+                host.pages_in_use_peak * self.paged_spec.page_bytes
+            ),
+            "contiguous_bytes": self.num_slots * self._slot_stripe_bytes,
+            "cow_copies": host.cow_copies,
+        }
+
+    @staticmethod
+    def prefix_stats(host: PagedCacheHost, requests) -> Optional[dict]:
+        if host.prefix is None:
+            return None
+        total_prompt = sum(int(r.prompt.size) for r in requests)
+        return {
+            "hits": host.prefix.hits,
+            "misses": host.prefix.misses,
+            "tokens_reused": host.prefix.tokens_reused,
+            "prefix_hit_pct": round(
+                100.0 * host.prefix.tokens_reused / max(total_prompt, 1), 2
+            ),
+        }
+
+    def _run_paged(self, params, requests: Sequence[Request],
+                   sampler: Optional[SlotSampler]) -> Scheduler:
+        """Continuous batching over the PAGE POOL: page-budgeted
+        admission, optional chunked prefill (one `prefill_chunk`-token
+        ingest per ingesting slot per engine iteration, sharing the
+        iteration with the decode step, so a long prompt never stalls
+        the batch), optional prefix caching (a cached prompt skips its
+        prefill; its last partial page copies on the first divergent
+        write)."""
+        tracer = get_tracer()
+        mx = get_metrics()
+        host = self.new_host()
+        sched = Scheduler(
+            self.num_slots, self.max_len,
+            bytes_per_slot=self._slot_stripe_bytes,
+        )
+        chunked = bool(self.prefill_chunk)
+        self._check_prompts(requests, chunked)
+        for r in requests:
+            sched.submit(r)
+        cache = self.init_cache()
+        positions = np.zeros((self.num_slots,), np.int64)
+        tokens = np.zeros((self.num_slots,), np.int64)
+        active = np.zeros((self.num_slots,), bool)
+        # slot -> [prompt, next ingest position, accumulated seconds]
+        ingest: dict = {}
+
+        def evict(slot):
+            sched.finish(slot)
+            active[slot] = False
+            host.release(slot)
+
+        while sched.has_work() or ingest:
+            useful = 0
+            # ---- admission: free slots AND page headroom -----------
+            # The headroom check budgets the WHOLE sequence (prompt +
+            # max_new_tokens, capped by the cache) against the pool
+            # minus every admitted slot's outstanding commitment, so an
+            # admitted request always allocates to completion; one the
+            # pool cannot hold yet waits.
+            while sched.can_admit():
+                nxt = sched.waiting[0][1]
+                budget = min(
+                    int(nxt.prompt.size) + int(nxt.max_new_tokens),
+                    self.max_len,
+                )
+                if not host.can_hold(budget):
+                    break
+                seq = sched.admit()
+                host.reserve(seq.slot, budget)
+                prompt = seq.request.prompt
+                covered = host.attach_prefix(seq.slot, prompt)
+                if mx.enabled and host.prefix is not None:
+                    mx.inc("serve_prefix_hits_total", 1 if covered else 0)
+                if not chunked:
+                    host.ensure_pages(seq.slot, int(prompt.size))
+                    ids, length = self.pad_prompt(prompt)
+                    t0 = tracer.now()
+                    with tracer.span("prefill", rid=repr(seq.request.rid),
+                                     slot=seq.slot):
+                        cache, nl = self.paged_prefill_step(
+                            params, cache, host.device_row(seq.slot), ids,
+                            length,
+                        )
+                        tok = self._pick(sampler, nl.cpu().numpy(),
+                                         seq.slot)
+                    seq.t_first_token = tracer.now()
+                    sched.record_iteration(1)
+                    if mx.enabled:
+                        mx.observe("serve_prefill_s",
+                                   seq.t_first_token - t0)
+                        mx.inc("serve_tokens_total", 1)
+                    seq.generated.append(tok)
+                    tokens[seq.slot] = tok
+                    positions[seq.slot] = prompt.size
+                    active[seq.slot] = True
+                    if seq.done(self.max_len):
+                        evict(seq.slot)
+                elif covered >= prompt.size - 1:
+                    # Full prefix hit: every needed position is cached,
+                    # so prefill is skipped and the last prompt token is
+                    # decoded at its own position; its write page copies
+                    # first if shared, in the ensure_writable pass below.
+                    positions[seq.slot] = prompt.size - 1
+                    tokens[seq.slot] = int(prompt[-1])
+                    active[seq.slot] = True
+                else:
+                    ingest[seq.slot] = [prompt, covered, 0.0]
+            # ---- ingestion: one chunk per ingesting slot -----------
+            for slot in sorted(ingest):
+                prompt, start, acc = ingest[slot]
+                seq = sched.active[slot]
+                ids, n = self.chunk_ids(prompt, start)
+                host.ensure_pages(slot, start + n)
+                t0 = tracer.now()
+                with tracer.span("prefill_chunk", rid=repr(seq.request.rid),
+                                 slot=slot, start=start):
+                    cache, nl = self.chunk_prefill_step(
+                        params, cache, host.device_row(slot), ids, start, n
+                    )
+                    done_ingest = start + n >= prompt.size
+                    if done_ingest:
+                        tok = self._pick(sampler, nl.cpu().numpy(), slot)
+                dt = tracer.now() - t0
+                useful += 1
+                if done_ingest:
+                    seq.t_first_token = tracer.now()
+                    if mx.enabled:
+                        mx.observe("serve_prefill_s", acc + dt)
+                        mx.inc("serve_tokens_total", 1)
+                    seq.generated.append(tok)
+                    tokens[slot] = tok
+                    positions[slot] = prompt.size
+                    active[slot] = True
+                    host.register_prefix(slot, prompt)
+                    del ingest[slot]
+                    if seq.done(self.max_len):
+                        evict(slot)
+                else:
+                    ingest[slot][1] = start + n
+                    ingest[slot][2] = acc + dt
+            # ---- one decode step for the active set ----------------
+            n_active = int(active.sum())
+            if n_active:
+                for slot in np.nonzero(active)[0]:
+                    cache = host.ensure_writable(
+                        cache, int(slot), int(positions[slot])
+                    )
+                t0 = tracer.now()
+                with tracer.span("decode_step", active=n_active):
+                    cache, logits = self.paged_decode_step(
+                        params, cache, host.device_table(),
+                        *self.step_inputs(positions, tokens, active),
+                    )
+                    logits_np = logits.cpu().numpy()
+                dt = tracer.now() - t0
+                sched.record_decode_step(n_active)
+                tracer.counter("batch_occupancy", n_active)
+                if mx.enabled:
+                    mx.observe("serve_decode_step_s", dt)
+                useful += n_active
+                for slot, seq in list(sched.active.items()):
+                    if slot in ingest or not active[slot]:
+                        continue
+                    tok = self._pick(sampler, logits_np[slot], slot)
+                    if not seq.generated:
+                        # A full prefix hit's first token comes from
+                        # this decode step: its whole prefill was the
+                        # cache lookup.
+                        seq.t_first_token = tracer.now()
+                    else:
+                        seq.token_times.append(dt)
+                    seq.generated.append(tok)
+                    tokens[slot] = tok
+                    positions[slot] += 1
+                    if seq.done(self.max_len):
+                        evict(slot)
+            if mx.enabled:
+                mx.gauge("serve_kv_pages_in_use", host.pool.pages_in_use)
+            if useful:
+                sched.record_iteration(useful)
+            elif not ingest and not sched.active and sched.waiting:
+                raise RuntimeError(
+                    "page pool cannot hold the next waiting prompt "
+                    f"({int(sched.waiting[0][1].prompt.size)} tokens, "
+                    f"{host.pool.free_pages} free pages of "
+                    f"{self.paged_spec.page_size}) — size the pool "
+                    "larger (num_pages / --kv-pages)"
+                )
+        sched.paged_stats = self.paged_stats(host)
+        sched.prefix_stats = self.prefix_stats(host, requests)
+        return sched
+
+
+__all__ = ["ServingEngine", "TP_SP_SLICE"]

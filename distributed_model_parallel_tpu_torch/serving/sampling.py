@@ -12,8 +12,9 @@ fetched, in numpy, so the port draws exactly what the reference draws:
 
 Filter order: logits / T, keep the top-k, then the top-p nucleus (the
 most probable token always survives), renormalize, draw. The
-speculative-decoding surface (`dist`, `uniform`, `sample_dist`) belongs
-to a later port slice.
+speculative-decoding surface (`dist`, `uniform`, `sample_dist`) draws
+from the same lanes, so a slot's draws depend only on how many numbers
+IT drew.
 """
 
 from __future__ import annotations
@@ -92,6 +93,54 @@ class SlotSampler:
         draw = self._lanes[slot].random()
         idx = int(np.searchsorted(np.cumsum(probs), draw, side="right"))
         return int(order[min(idx, len(order) - 1)])
+
+    # ------------------------------------------- speculative surface
+    # The lossless rejection rule (serving/speculative.py) needs the
+    # full filtered distributions of both models and raw lane uniforms:
+    # `dist` is `pick`'s filter pipeline factored out, and `uniform` /
+    # `sample_dist` consume the SAME per-slot Philox lane.
+
+    def dist(self, logits: np.ndarray) -> np.ndarray:
+        """The filtered, renormalized distribution `pick` samples from,
+        as a dense vocab-length float64 vector (zero outside the kept
+        set). Pure: never touches a lane."""
+        cfg = self.cfg
+        if cfg.greedy:
+            raise ValueError(
+                "greedy decoding (temperature 0) has no sampling "
+                "distribution — the speculative greedy path compares "
+                "argmaxes instead"
+            )
+        z = np.asarray(logits, np.float64) / cfg.temperature
+        order = np.argsort(z)[::-1]
+        if cfg.top_k:
+            order = order[: cfg.top_k]
+        zk = z[order]
+        probs = np.exp(zk - zk.max())
+        probs /= probs.sum()
+        if cfg.top_p < 1:
+            keep = int(np.searchsorted(
+                np.cumsum(probs), cfg.top_p, side="left"
+            )) + 1
+            order = order[:keep]
+            probs = probs[:keep] / probs[:keep].sum()
+        out = np.zeros(np.asarray(logits).shape[-1], np.float64)
+        out[order] = probs
+        return out
+
+    def uniform(self, slot: int) -> float:
+        """One U[0,1) draw from the slot's lane (the accept/reject
+        coin)."""
+        return float(self._lanes[slot].random())
+
+    def sample_dist(self, dist: np.ndarray, slot: int) -> int:
+        """Inverse-CDF draw from a dense distribution on the slot's lane
+        (the residual draw after a rejection, the bonus draw after a
+        full accept)."""
+        cdf = np.cumsum(np.asarray(dist, np.float64))
+        u = self._lanes[slot].random() * cdf[-1]
+        idx = int(np.searchsorted(cdf, u, side="right"))
+        return int(min(idx, len(cdf) - 1))
 
 
 __all__ = ["SamplingConfig", "SlotSampler"]

@@ -3,8 +3,11 @@
 Iteration-level scheduling: each engine iteration admits waiting
 requests into free cache slots (prefill), runs ONE decode step for the
 whole mixed-position batch, and evicts finished sequences, whose slots
-recycle at once. Host-side and framework-free, like the reference; the
-speculative-decoding and paged-pool statistics belong to later slices.
+recycle at once. Host-side and framework-free, like the reference. The
+paged loops attach page-pool and prefix-cache statistics
+(`paged_stats`, `prefix_stats`), and the speculative loop records each
+verify round (`record_verify_step`, `record_accept_len`, `spec_k`);
+`latency_report` adds a section for each.
 """
 
 from __future__ import annotations
@@ -101,6 +104,14 @@ class Scheduler:
         # monolithic prefill is an iteration in which ONE slot worked).
         self.step_occupancy: List[int] = []
         self.iter_occupancy: List[int] = []
+        # Attached by the paged engine loop: page-pool accounting and
+        # prefix-cache hit stats.
+        self.paged_stats: Optional[dict] = None
+        self.prefix_stats: Optional[dict] = None
+        # Attached by the speculative loop: each slot's emitted-token
+        # count of every verify round (1..k+1) and the draft length k.
+        self.spec_accept_lens: List[int] = []
+        self.spec_k: Optional[int] = None
 
     def submit(self, request: Request) -> None:
         if request.prompt.size >= self.max_len:
@@ -167,6 +178,27 @@ class Scheduler:
             mx.gauge("serve_batch_occupancy", int(n_active))
             mx.inc("serve_tokens_total", int(n_active))
 
+    def record_verify_step(self, n_active: int, n_tokens: int) -> None:
+        """One speculative verify step: `n_active` slots verified a
+        draft block and emitted `n_tokens` tokens between them. The
+        occupancy sample stays per STEP (a verify step occupies a slot
+        as a decode step does); the token counter advances by the
+        tokens emitted."""
+        self.step_occupancy.append(int(n_active))
+        mx = get_metrics()
+        if mx.enabled:
+            mx.gauge("serve_batch_occupancy", int(n_active))
+            mx.inc("serve_tokens_total", int(n_tokens))
+
+    def record_accept_len(self, n_emitted: int) -> None:
+        """One slot's emitted-token count for one verify round (accepted
+        draft prefix + the correction or bonus token)."""
+        self.spec_accept_lens.append(int(n_emitted))
+        mx = get_metrics()
+        if mx.enabled:
+            mx.observe("serve_spec_accept_len", float(n_emitted))
+            mx.inc("serve_spec_tokens_total", int(n_emitted))
+
     def record_iteration(self, n_useful: int) -> None:
         """One engine iteration's useful-slot count."""
         self.iter_occupancy.append(int(n_useful))
@@ -193,7 +225,7 @@ class Scheduler:
         if mx.enabled and goodput is not None:
             mx.gauge("serve_goodput", goodput)
         iters = np.asarray(self.iter_occupancy, np.float64)
-        return {
+        out = {
             "requests": len(fins),
             "generated_tokens": n_tokens,
             "tokens_per_s": (
@@ -214,6 +246,27 @@ class Scheduler:
             ),
             "goodput": goodput,
         }
+        if self.paged_stats is not None:
+            out["paged"] = dict(self.paged_stats)
+        if self.prefix_stats is not None:
+            out["prefix_cache"] = dict(self.prefix_stats)
+        if self.spec_accept_lens:
+            lens = np.asarray(self.spec_accept_lens, np.float64)
+            k = self.spec_k or 0
+            # Emitted = accepted drafts + one guaranteed correction or
+            # bonus token per round; accept_rate strips that token
+            # before dividing by the k drafts offered.
+            drafted = lens.size * max(k, 1)
+            out["speculative"] = {
+                "k": k,
+                "verify_rounds": int(lens.size),
+                "mean_accept_len": round(float(lens.mean()), 3),
+                "accept_rate": round(
+                    float((lens - 1.0).sum()) / drafted, 4
+                ),
+                "spec_tokens": int(lens.sum()),
+            }
+        return out
 
 
 def _pct(xs, q: float):

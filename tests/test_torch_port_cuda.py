@@ -323,6 +323,122 @@ def test_serve_cli_on_the_card_runs_full_f32(cuda, monkeypatch, capsys):
     assert torch.backends.cudnn.deterministic
 
 
+# ------------------------------------------ paged serving on the card
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n", [
+    (40, 768, 2304), (40, 768, 768), (40, 768, 3072), (40, 3072, 768),
+    (24, 768, 768), (24, 3072, 768),
+])
+def test_int8_kernel_matches_plain_at_verify_shapes(cuda, m, k, n):
+    """The speculative verify step's rows through K4: num_slots x (k+1)
+    = 8 x 5 and 8 x 3. Integer sums are exact and each row quantizes on
+    its own, so the outputs are bit-identical, as at M = 8."""
+    g = torch.Generator(device=cuda).manual_seed(m + k + n)
+    x = torch.randn((m, k), generator=g, device=cuda)
+    wq_t, ws = qm.prepare_weight(
+        0.02 * torch.randn((k, n), generator=g, device=cuda))
+    y, q, s = qm.int8_matmul(x, wq_t, ws, return_codes=True)
+    rq, rs = qm.quantize_rows(x)
+    assert torch.equal(q, rq) and torch.equal(s, rs)
+    assert torch.equal(y, qm.int8_matmul_plain(x, wq_t, ws))
+    # Row r of an M-row call equals the same row alone.
+    assert torch.equal(y[5:6], qm.int8_matmul(x[5:6].contiguous(), wq_t,
+                                              ws))
+
+
+def _small_serving(device, mode, **kw):
+    from distributed_model_parallel_tpu_torch.models.gpt import (
+        GPTConfig,
+        init_params,
+    )
+    from distributed_model_parallel_tpu_torch.serving.engine import (
+        ServingEngine,
+    )
+
+    cfg = GPTConfig(vocab_size=97, dim=64, num_layers=2, num_heads=4,
+                    ffn_dim=256, max_position=32, dropout_rate=0.0,
+                    pad_token_id=0)
+    eng = ServingEngine(cfg, num_slots=4, max_len=32, prefill_len=16,
+                        compute_dtype=mode, device=device, **kw)
+    return eng, eng.place_params(init_params(cfg, 0, device="cpu"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode,tol", [("f32", 1e-4), ("int8", 5e-3)])
+def test_paged_decode_on_the_card_matches_the_cpu(cuda, mode, tol):
+    """Chunked paged prefill and six paged decode steps of a ragged
+    batch on the card against the CPU (plain versions): every logit row
+    within the small-model bars of chip_smoke.py."""
+    runs, fed = {}, []  # the CPU run picks every token both runs feed
+    for dev in ("cpu", "cuda"):
+        eng, p = _small_serving(dev, mode, page_size=4, prefill_chunk=3)
+        host, cache = eng.new_host(), eng.init_cache()
+        g = np.random.RandomState(1)
+        positions = np.zeros(4, np.int64)
+        rows = []
+        for slot, n in enumerate((3, 7, 5, 12)):
+            prompt = g.randint(1, 97, size=n).astype(np.int32)
+            for start in range(0, n, 3):
+                ids, valid = eng.chunk_ids(prompt, start)
+                host.ensure_pages(slot, start + valid)
+                cache, nl = eng.chunk_prefill_step(
+                    p, cache, host.device_row(slot), ids, start, valid)
+            rows.append(nl.cpu())
+            positions[slot] = n
+        active = np.ones(4, bool)
+        for step in range(6):
+            if dev == "cpu":
+                fed.append(torch.stack(rows[:4]).argmax(-1).numpy()
+                           if step == 0 else rows[-1].argmax(-1).numpy())
+            for slot in range(4):
+                host.ensure_writable(cache, slot, int(positions[slot]))
+            _, logits = eng.paged_decode_step(
+                p, cache, host.device_table(),
+                *eng.step_inputs(positions, fed[step], active))
+            rows.append(logits.cpu())
+            positions += 1
+        runs[dev] = rows
+    for got, want in zip(runs["cuda"], runs["cpu"]):
+        torch.testing.assert_close(got, want, rtol=0, atol=tol)
+
+
+@pytest.mark.cuda
+def test_speculative_int8_on_the_card_equals_plain_int8(cuda):
+    """Speculative int8 decoding (k = 4, a fresh 1-layer draft) on the
+    card gives the plain paged int8 run's tokens; K4 runs once per
+    projection of every target decode or verify step and draft decode
+    step."""
+    import dataclasses
+
+    from distributed_model_parallel_tpu_torch.serving.engine import (
+        ServingEngine,
+    )
+    from distributed_model_parallel_tpu_torch.serving.scheduler import (
+        Request,
+    )
+
+    kw = dict(page_size=4, prefill_chunk=4)
+    target, p = _small_serving("cuda", "int8", speculative_k=4, **kw)
+    plain, _ = _small_serving("cuda", "int8", **kw)
+    draft = ServingEngine(dataclasses.replace(target.cfg, num_layers=1),
+                          num_slots=4, max_len=32, prefill_len=16,
+                          compute_dtype="int8", device="cuda", **kw)
+    dp = draft.init_params(1)
+
+    def requests():
+        return [Request(i, np.random.RandomState(i).randint(
+            1, 97, size=n).astype(np.int32), max_new_tokens=8)
+            for i, n in enumerate((5, 9, 3, 12, 7, 4))]
+
+    base = qm.int8_matmul.launches
+    sched = target.run(p, requests(), draft=draft, draft_params=dp)
+    spec_launches = qm.int8_matmul.launches - base
+    want = {f.rid: f.tokens for f in plain.run(p, requests()).finished}
+    assert {f.rid: f.tokens for f in sched.finished} == want
+    assert spec_launches > 0 and spec_launches % 4 == 0
+
+
 def _pipeline_step(stages, device, schedule, batch, cls=None, **kw):
     from distributed_model_parallel_tpu_torch.parallel.pipeline import (
         PipelineEngine,

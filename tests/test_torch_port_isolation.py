@@ -76,6 +76,7 @@ def test_every_port_module_imports_without_jax():
         "names = [m.name for m in pkgutil.walk_packages(pkg.__path__,"
         " pkg.__name__ + '.')]\n"
         "for n in names: importlib.import_module(n)\n"
+        "assert pkg.__name__ + '.serving.speculative' in names\n"
         "import distributed_model_parallel_tpu_torch.cli.serve\n"
         "print(len(names))\n"
     )
@@ -125,6 +126,10 @@ def test_cli_serves_on_cpu_when_asked(capsys, tmp_path):
     assert [r["generated"] for r in out["requests"]] == [4, 4, 4]
 
 
+class _Built(Exception):
+    """Raised where the serve CLI builds its engine."""
+
+
 @pytest.mark.parametrize("flags", [
     ["--layout", "tp", "--model-shards", "2"],
     ["--layout", "sp", "--seq-shards", "2"],
@@ -137,9 +142,43 @@ def test_cli_serves_on_cpu_when_asked(capsys, tmp_path):
     ["--dtype", "bfloat16"],
     ["--speculative-draft", "ckpt"],
 ])
-def test_cli_refuses_out_of_slice_flags(flags):
-    with pytest.raises(SystemExit, match="not ported.*slice"):
+def test_cli_refuses_out_of_slice_flags(flags, monkeypatch):
+    """The tp/sp flags stay refused, naming their slice. The paged,
+    speculative and bf16 flags (refused before the paged-serving slice)
+    now pass the reference CLI's own checks: where the reference's
+    `check_serving_args` accepts a flag the port builds its engine with
+    it; where it refuses one (a paged knob without --page-size, a draft
+    without --speculative-k) the port's message is the reference's
+    (tests/test_torch_port_serving_paged.py compares the two packages'
+    checks on more flag sets)."""
+    if flags[0] in ("--layout", "--collective-matmul"):
+        with pytest.raises(SystemExit, match="not ported.*tp/sp.*slice"):
+            serve.main(["--device", "cpu", *flags])
+        return
+    built = {}
+
+    def build(cfg, **kw):
+        built.update(kw)
+        raise _Built
+
+    monkeypatch.setattr(serve, "ServingEngine", build)
+    try:
         serve.main(["--device", "cpu", *flags])
+    except _Built:
+        pass
+    except SystemExit as e:
+        built["refused"] = str(e)
+    want = {
+        "--page-size": ("page_size", 16),
+        "--compute-dtype": ("compute_dtype", "bf16"),
+        "--dtype": ("compute_dtype", "bf16"),
+    }.get(flags[0])
+    if want is not None:
+        assert built[want[0]] == want[1]
+    else:
+        assert "set --page-size" in built["refused"] or \
+            "requires --page-size" in built["refused"] or \
+            "set --speculative-k" in built["refused"]
 
 
 class _Prologue(Exception):

@@ -54,7 +54,12 @@ def test_surface_matches_reference():
         assert tqm.check_compute_dtype(mode) == mode
         assert tqm.normalize_compute_dtype(mode) == mode
     assert tqm.normalize_compute_dtype(None) == "f32"
-    for bad in ("fp8", torch.float16, torch.bfloat16, object()):
+    # Dtype objects map as the reference's do.
+    assert tqm.normalize_compute_dtype(torch.bfloat16) == \
+        jqm.normalize_compute_dtype(jnp.bfloat16) == "bf16"
+    assert tqm.normalize_compute_dtype(torch.float32) == \
+        jqm.normalize_compute_dtype(jnp.float32) == "f32"
+    for bad in ("fp8", torch.float16, object()):
         with pytest.raises(ValueError, match="compute_dtype"):
             tqm.normalize_compute_dtype(bad)
 
@@ -101,8 +106,10 @@ def test_rank3_input_and_zero_column():
 
 
 def test_f32_and_bf16_modes_match_reference():
-    """f32 matches the reference; bf16 keeps its COMPUTE_DTYPES entry but
-    is refused, naming the later slice that brings its arithmetic."""
+    """f32 matches the reference; bf16 is a product of bf16 operands
+    returned in bf16 on both sides, held at the reference's bf16 serving
+    bar (tests/test_serving.py: rtol 1e-2, atol 2e-3): the two round
+    their bf16 outputs after summing in another order."""
     x, w = _xw(4, 8, 32, 48)
     tx, tw = torch.from_numpy(x), torch.from_numpy(w)
     np.testing.assert_allclose(
@@ -110,8 +117,13 @@ def test_f32_and_bf16_modes_match_reference():
         np.asarray(jqm.quant_matmul(jnp.asarray(x), jnp.asarray(w), "f32")),
         rtol=RTOL, atol=ATOL,
     )
-    with pytest.raises(ValueError, match="bf16 serving slice"):
-        tqm.quant_matmul(tx, tw, "bf16")
+    got = tqm.quant_matmul(tx, tw, "bf16")
+    ref = jqm.quant_matmul(jnp.asarray(x), jnp.asarray(w), "bf16")
+    assert got.dtype == torch.bfloat16 and str(ref.dtype) == "bfloat16"
+    np.testing.assert_allclose(
+        got.float().numpy(), np.asarray(ref.astype(jnp.float32)),
+        rtol=1e-2, atol=2e-3,
+    )
 
 
 def test_cached_weight_quantization_equals_per_call():

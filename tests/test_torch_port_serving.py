@@ -274,6 +274,13 @@ def test_sampler_lanes_match_reference_bit_for_bit():
             assert ts.pick(row, i % 3) == js.pick(row, i % 3)
 
 
+# The tp/sp layouts, collective matmul and a mesh stay refused, naming
+# their slice; the paged, speculative and bf16 knobs (refused before the
+# paged-serving slice) now behave as the reference's: accepted, or
+# refused with the reference's own message.
+KNOB_SLICE = 4
+
+
 @pytest.mark.parametrize("knob", [
     dict(layout="tp"), dict(layout="sp"), dict(mesh=object()),
     dict(collective_matmul=True), dict(page_size=8), dict(num_pages=4),
@@ -282,14 +289,37 @@ def test_sampler_lanes_match_reference_bit_for_bit():
     dict(compute_dtype=torch.bfloat16),
 ])
 def test_out_of_slice_knobs_raise(knob):
-    with pytest.raises(ValueError, match="not ported.*slice"):
-        ServingEngine(GPTConfig(**CFG_KW), device="cpu",
-                      **dict(ENGINE_KW, **knob))
+    kw = dict(ENGINE_KW, **knob)
+    if list(knob) in (["layout"], ["mesh"], ["collective_matmul"]):
+        with pytest.raises(ValueError, match="not ported.*tp/sp"):
+            ServingEngine(GPTConfig(**CFG_KW), device="cpu", **kw)
+        return
+    jkw = {k: (jnp.bfloat16 if v is torch.bfloat16 else v)
+           for k, v in kw.items()}
+    try:
+        jeng = JaxEngine(JaxGPTConfig(**CFG_KW), **jkw)
+    except ValueError as e:
+        with pytest.raises(ValueError) as got:
+            ServingEngine(GPTConfig(**CFG_KW), device="cpu", **kw)
+        assert str(got.value) == str(e)
+        return
+    teng = ServingEngine(GPTConfig(**CFG_KW), device="cpu", **kw)
+    assert teng.compute_mode == jeng.compute_mode
+    assert (teng.paged_spec is None) == (jeng.paged_spec is None)
+    if teng.paged_spec is not None:
+        assert teng.paged_spec.num_pages == jeng.paged_spec.num_pages
+        assert teng.paged_spec.pages_per_slot == \
+            jeng.paged_spec.pages_per_slot
+    want = torch.bfloat16 if teng.compute_mode == "bf16" else torch.float32
+    assert teng.spec.dtype == want
+    assert teng.init_cache()["k"].dtype == want
 
 
 def test_speculative_run_and_cuda_without_gpu_refused(jax_params):
     eng = ServingEngine(GPTConfig(**CFG_KW), device="cpu", **ENGINE_KW)
-    with pytest.raises(ValueError, match="speculative"):
+    # A draft without speculative_k is refused as the reference refuses
+    # it.
+    with pytest.raises(ValueError, match="set speculative_k > 0"):
         eng.run({}, [], draft=eng)
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):
