@@ -104,10 +104,13 @@ Phases; any failure exits non-zero (nothing is caught and passed over):
    (`cli/model_parallel.py` main) on MobileNetV2 at batch 512, lr 0.4,
    `-j 8`, on phase 6's SyntheticTextures, `--world-size 4` (four
    stages on the one card, so they run one after another: no bubble
-   can show), 30 steps and the validation pass each: the reference
+   can show), 12 steps and a validation pass over the first 2,560 of
+   the 10,000 validation images each (30 steps and all 10,000 until
+   phase 10 was added; cut in depth to keep the whole run near 700 s):
+   the reference
    split at `--microbatches 1` (the reference's schedule) and at 8 with
    gpipe and 1f1b in f32 and bf16, and interleaved (V 2, the default
-   8-chunk split) at 8. Per run one JSON line (ms/step over steps 6-30,
+   8-chunk split) at 8. Per run one JSON line (ms/step over steps 6-12,
    images/s, device busy / idle share and kernels a step from one
    profiled step, top five kernel families, peak memory, per-step
    losses, val acc1). Checks: losses finite and falling; NCCL at world
@@ -138,10 +141,43 @@ Phases; any failure exits non-zero (nothing is caught and passed over):
    f32), and the first decode step's bf16-vs-f32 logit gap on the card
    and on the CPU under BF16_LOGIT_REL. K1-K3 must launch 0 times in
    the phase.
-10. One `{"kernels": [...]}` JSON line (int8_matmul, flash_fwd,
+10. Slice 9 (the training knobs and the transformer classifiers):
+   (a) the LM CLI at phase 5's width and flags with `--remat`, 8 steps,
+   f32 and bf16: per-step losses against phase 5's runs without remat
+   (1e-5 f32, S9_REMAT_REL bf16; bit-equality printed), peak memory
+   below theirs, K1 = 2 x 12 a step (the recompute) and K2 = K3 = 12;
+   (b) the same runs with `--steps-per-dispatch 4 --profile-dir
+   --metrics-out x.prom` (the step captured in a CUDA graph and
+   replayed) against them, and MobileNetV2 DDP bf16 (phase 6's flags,
+   30 steps) with and without it: each dispatch's metric sums equal the
+   step-by-step run's summed in the same groups and order, and every
+   final parameter and BN statistic, bit for bit; the wrappers' counts
+   and the all-reduces the host issues are exact (under the graph: the
+   warmup step and the capture; a replay runs no Python), and the
+   replays' K1-K3 launches, counted by kernel name in a profile of one
+   4-step dispatch and in the `--profile-dir` trace, equal four eager
+   steps'; per run ms a step, and from one profiled 4-step pass its
+   own wall ms, device busy, idle share, kernels and host CUDA API calls
+   a step (timed after the run), peak memory, capture seconds; the
+   trace of the MobileNetV2 run must hold three steady-state steps'
+   kernels and each `.prom` file parse as Prometheus text with the
+   `train_step_s` summary; (c) the DP CLI on `--model vit` (SyntheticTextures, batch
+   512, AdamW) gspmd f32, ddp f32, ddp bf16, and `--model bert`
+   (BERT_BASE, SyntheticText, batch 512, AdamW, dropout 0.1) f32 with
+   and without `--remat` (remat's peak memory must be the lower): ms a
+   step, samples/s, busy / idle, kernels a step, peak memory, losses
+   (finite and falling), val acc1; (d) the pipeline CLI on bert_tiny,
+   4 stages, M 4, gpipe and 1f1b (losses falling), and one bert_tiny
+   step through 4 stages against the DataParallelEngine's within
+   PP_STEP_REL; (e) one ViT, one bert_tiny and one 2-layer BERT_BASE-
+   width DDP step (dropout 0) on the card against the CPU within
+   DP_CARD_VS_CPU. K4 must launch 0 times.
+11. One `{"kernels": [...]}` JSON line (int8_matmul, flash_fwd,
    flash_bwd_dq, flash_bwd_dkv; `launches_slice6` counts phase 7's
-   runs, `launches_slice7` phase 8's, `launches_slice8` phase 9's),
-   then the nvidia-smi line, then
+   runs, `launches_slice7` phase 8's, `launches_slice8` phase 9's,
+   `launches_slice9` phase 10's as the wrappers count them and
+   `replays_slice9_traced` the launches that phase 10's profiles of
+   4-step graph dispatches show), then the nvidia-smi line, then
    the last line `{"ok": true, "device": {...}}`. Each phase prints its
    seconds.
 """
@@ -924,9 +960,13 @@ def lm_run(lm, engine_cls, fa, qm, name, layers, extra):
     each train step is timed (synchronized) and its loss recorded."""
     directory = scratch_dir(f"lm_{name}")
     reset_counts(fa, qm)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
     out, steps, seen = recorded_run(
         lm.main, LM_FLAGS + ["--layers", str(layers)] + extra + [
             "--checkpoint-dir", directory], engine_cls)
+    peak = torch.cuda.max_memory_allocated() - base
     got = counts(fa)
     shutil.rmtree(directory)  # its best-acc checkpoint is not needed
     want = {"flash_fwd": layers * (LM_STEPS + LM_VAL_BATCHES),
@@ -946,7 +986,8 @@ def lm_run(lm, engine_cls, fa, qm, name, layers, extra):
            "step_loss": [s["loss"] for s in steps],
            "ms_per_step": ms, "tokens_per_s": LM_TOKENS / ms * 1e3,
            "train_loss": hist["train"]["loss"],
-           "val_loss": hist["val"]["loss"], "loss_floor": out["loss_floor"]}
+           "val_loss": hist["val"]["loss"], "loss_floor": out["loss_floor"],
+           "peak_above_start_bytes": peak}
     row.update(step_breakdown(seen, ms))
     emit(row)
     return row
@@ -1739,8 +1780,9 @@ def checkpoint_serve_phase(serve, engine_cls, cfg_cls, fa, qm, directory,
 # ---------------------------------------------------------------------
 # Pipeline model parallelism (slice 7)
 
-PP_STEPS = 30
-PP_TIMED_FROM = 5  # steps 6-30 are timed
+PP_STEPS = 12  # 30 before phase 10 (slice 9) was added
+PP_TIMED_FROM = 5  # steps 6-12 are timed
+PP_VAL_IMAGES = 2560  # of phase 6's 10,000 (5 batches of 512)
 PP_FLAGS = [
     "./data", "--device", "cuda", "--model", "mobilenetv2", "-type",
     "SyntheticTextures", "-b", str(DP_BATCH), "--lr", "0.4", "-j", "8",
@@ -1993,6 +2035,10 @@ def pipeline_phase(data, lm, fa, qm):
 
     reset_counts(fa, qm)
     rows = {}
+    val = data[1]
+    data = (data[0], datasets.ArrayDataset(val.images[:PP_VAL_IMAGES],
+                                           val.labels[:PP_VAL_IMAGES],
+                                           val.num_classes))
     with patched(datasets.DatasetCollection, "init", lambda self: data):
         for name, extra in PP_RUNS:
             rows[name] = pp_run(model_parallel, pp_mod, name, extra)
@@ -2335,6 +2381,583 @@ def serving_features_phase(serve, engine_cls, cfg_cls, fa, qm, ckpt_dir,
     return launches
 
 
+# ---------------------------------------------------------------------
+# Slice 9: --remat, --steps-per-dispatch (CUDA graphs), --profile-dir,
+# --metrics-out, and the ViT and BERT classifiers
+
+S9_LM_STEPS = 8  # the default corpus gives 8 batches of 8 x 1024
+S9_K = 4  # --steps-per-dispatch
+S9_LM = LM_BASE + ["--layers", str(LAYERS), "--attention", "ulysses_flash",
+                   "--epochs", "1", "--steps-per-epoch", str(S9_LM_STEPS)]
+S9_OBS = ["--profile-dir", "prof", "--metrics-out", "m.prom"]
+# bf16 per-step losses, remat against no remat: the bf16 bar of
+# tests/test_torch_port_lm.py (5e-2) is for bf16 against f32; both runs
+# here are bf16, so they are held at the f32 bar's neighbour, 1e-3, with
+# bit-equality printed.
+S9_REMAT_REL = {"float32": 1e-5, "bfloat16": 1e-3}
+S9_VIT = DP_FLAGS[:DP_FLAGS.index("--lr")] + [
+    "--model", "vit", "--optimizer", "adamw", "--lr", "1e-2", "--wd", "0.05",
+    "-j", "8", "--epochs", "1", "--steps-per-epoch", str(DP_STEPS)]
+S9_VIT_RUNS = (("vit_gspmd_f32", ["--engine", "gspmd"]),
+               ("vit_ddp_f32", ["--engine", "ddp"]),
+               ("vit_ddp_bf16", ["--engine", "ddp", "--dtype", "bfloat16"]))
+# SyntheticText: 4,096 examples, 8 batches of 512 an epoch. BERT_BASE
+# runs 2 epochs (16 steps, ~0.5 s each), bert_tiny 4 (32 steps: its loss
+# leaves chance after ~10).
+S9_BERT = [
+    "--device", "cuda", "--model", "bert", "-type", "SyntheticText",
+    "-b", str(DP_BATCH), "--val-batch-size", "1024", "--optimizer", "adamw",
+    "--lr", "1e-3", "--epochs", "2"]
+S9_BERT_TINY_PP = [
+    "./data", "--device", "cuda", "--model", "bert_tiny", "-type",
+    "SyntheticText", "-b", str(DP_BATCH), "--optimizer", "adamw",
+    "--lr", "1e-2", "--epochs", "4", "--world-size", "4",
+    "--microbatches", "4"]
+
+
+@contextlib.contextmanager
+def s9_recording(engine_cls):
+    """Record, in order, the metric sums of every train dispatch: an
+    eager step's as (1, sums), a graph dispatch's as (its batch count,
+    summed sums; the warmup step it runs inside is not recorded apart);
+    and the Trainer a CLI builds."""
+    from distributed_model_parallel_tpu_torch.training import multistep
+    from distributed_model_parallel_tpu_torch.training import trainer as tr
+
+    box = {"steps": [], "in_graph": False}
+    step, run, fit = (engine_cls.train_step, multistep.StepGraph.run,
+                      tr.Trainer.fit)
+
+    def recorded(self, ts, *batch_lr):
+        ts, m = step(self, ts, *batch_lr)
+        if not box["in_graph"]:
+            box["steps"].append((1, m))
+        return ts, m
+
+    def dispatched(self, state, batches, *args, **kw):
+        box["in_graph"] = True
+        try:
+            sums = run(self, state, batches, *args, **kw)
+        finally:
+            box["in_graph"] = False
+        if self.train:
+            box["steps"].append((len(batches), sums))
+        return sums
+
+    def grab(self):
+        box["trainer"] = self
+        return fit(self)
+
+    with patched(engine_cls, "train_step", recorded), \
+            patched(multistep.StepGraph, "run", dispatched), \
+            patched(tr.Trainer, "fit", grab):
+        yield box
+
+
+def s9_run(main, flags, engine_cls, directory):
+    """`main(flags)` from `directory`, unsynchronized: (result, each
+    dispatch's (steps, metric sums as floats), the Trainer, peak memory
+    above the start in bytes, wall seconds, stdout)."""
+    from distributed_model_parallel_tpu_torch.observability import metrics
+
+    metrics.set_metrics(None)  # each run exports its own samples
+    os.makedirs(directory, exist_ok=True)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with s9_recording(engine_cls) as box, contextlib.chdir(directory), \
+            contextlib.redirect_stdout(out):
+        result = main(flags)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() - base
+    steps = [(n, {k: float(v) for k, v in m.items()})
+             for n, m in box["steps"]]
+    return result, steps, box["trainer"], peak, wall, out.getvalue()
+
+
+def s9_grouped_equal(eager, graph) -> bool:
+    """Whether a graph run's dispatches (`s9_run`) equal the step-by-step
+    run's steps summed in the same groups, bit for bit: in f32, in the
+    order a dispatch adds them (`StepGraph.run`); every step covered."""
+    import numpy as np
+
+    i = 0
+    for n, sums in graph:
+        part = [m for _, m in eager[i:i + n]]
+        if len(part) < n or set(sums) != set(part[0]):
+            return False
+        for key, got in sums.items():
+            acc = np.float32(part[0][key])
+            for m in part[1:]:
+                acc = np.float32(acc + np.float32(m[key]))
+            if float(acc) != got:
+                return False
+        i += n
+    return i == len(eager)
+
+
+def s9_timing(trainer, k: int, names=(), reps: int = 2) -> dict:
+    """Four train steps of a finished run's Trainer from its own loader:
+    as four `train_step` calls (k = 1) or one dispatch of the captured
+    graph (k = 4), synchronized, `reps` times after one warm pass (ms a
+    step); then one more pass under torch.profiler, timed itself: its
+    wall ms a step, device busy ms and the idle share of that same
+    window (the profiler's host cost included; busy sums the kernels of
+    every stream), kernels and host CUDA API calls a step, and the
+    launches of each device kernel whose name holds one of `names`."""
+    from torch.profiler import ProfilerActivity, profile
+
+    eng = trainer.engine
+    it = iter(trainer.train_loader)
+    batches = [eng.shard_batch(*next(it)) for _ in range(S9_K)]
+    lr = trainer.lr_fn(0)
+
+    def once():
+        if k > 1:
+            trainer.state, _ = trainer._multi(trainer.state, batches, lr)
+        else:
+            for b in batches:
+                trainer.state, _ = eng.train_step(trainer.state, *b, lr)
+
+    once()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        once()
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / (reps * S9_K)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        time.sleep(0.1)  # the profiler settles; not in the timed window
+        t0 = time.perf_counter()
+        once()
+        torch.cuda.synchronize()
+        profiled_ms = (time.perf_counter() - t0) * 1e3 / S9_K
+    kernels = device_kernels(prof)
+    busy = sum(t for t, _, _ in kernels) / 1e3 / S9_K
+    calls = sum(e.count for e in prof.key_averages()
+                if e.key.startswith("cuda"))
+    return {"ms_per_step": ms, "profiled_ms_per_step": profiled_ms,
+            "device_busy_ms": busy,
+            "device_idle_share": 1 - busy / profiled_ms,
+            "kernels_per_step": sum(n for _, n, _ in kernels) / S9_K,
+            "host_cuda_calls_per_step": calls / S9_K,
+            "launches": {name: sum(n for _, n, key in kernels if name in key)
+                         for name in names}}
+
+
+def s9_same(a, b) -> dict:
+    """Bit-equality and max|d|/max|ref| of two states' parameters and
+    model state (any tree shapes)."""
+    from distributed_model_parallel_tpu_torch.training.optim import (
+        tree_leaves,
+    )
+
+    la = list(tree_leaves((a.params, a.model_state)))
+    lb = list(tree_leaves((b.params, b.model_state)))
+    require(len(la) == len(lb) > 0, f"{len(la)} / {len(lb)} state leaves")
+    return {"bit_equal": all(torch.equal(x, y) for x, y in zip(la, lb)),
+            "max_rel": max(rel_diff(x.detach(), y.detach())
+                           for x, y in zip(la, lb))}
+
+
+def s9_trace_kernels(path: str, names=()) -> tuple:
+    """(device kernels in a Chrome trace, {name: those whose name holds
+    it})."""
+    with open(path) as f:
+        events = [e for e in json.load(f)["traceEvents"]
+                  if e.get("cat") == "kernel"]
+    return len(events), {name: sum(1 for e in events
+                                   if name in e.get("name", ""))
+                         for name in names}
+
+
+def s9_prom(path: str) -> dict:
+    """Parse a Prometheus text file: every sample line `name{labels}
+    value`; returns {name: [values]}."""
+    import re
+
+    samples = {}
+    sample = re.compile(r'^([a-zA-Z_:][a-zA-Z0-9_:]*)(\{[^}]*\})? '
+                        r'(NaN|[-+]?[0-9.eE+-]+)$')
+    with open(path) as f:
+        for line in f.read().splitlines():
+            if not line or line.startswith("#"):
+                continue
+            m = sample.match(line)
+            require(m is not None, f"{path}: not Prometheus text: {line!r}")
+            samples.setdefault(m.group(1), []).append(float(m.group(3)))
+    return samples
+
+
+def s9_lm(lm, fa, qm, lm_rows) -> tuple:
+    """(a) and (b) on the LM path at GPT-2-small width, f32 and bf16:
+    remat against phase 5's runs; remat + steps per dispatch 4 (+ trace
+    and metrics) against remat step by step. Returns the K1-K3 launches
+    the wrappers counted in these runs, and those that the profiles of
+    one 4-step graph dispatch showed."""
+    import numpy as np
+
+    from distributed_model_parallel_tpu_torch.parallel.sequence_parallel \
+        import CausalLMSequenceParallelEngine as LMEngine
+
+    launches = {name: 0 for name, _, _ in FLASH_KERNELS}
+    replays = {name: 0 for name, _, _ in FLASH_KERNELS}
+    kernel_names = [kname for _, kname, _ in FLASH_KERNELS]
+    # K1 twice a block under remat (the recompute), K2 and K3 once
+    per_step = {"flash_fwd_kernel": 2 * LAYERS,
+                "flash_bwd_dq_kernel": LAYERS, "flash_bwd_dkv_kernel": LAYERS}
+    for dtype, base in (("float32", lm_rows[0]), ("bfloat16", lm_rows[1])):
+        d = scratch_dir(f"s9_lm_{dtype}")
+        flags = S9_LM + ["--dtype", dtype, "--remat", "--checkpoint-dir",
+                         os.path.join(d, "ck")]
+        runs = {}
+        for k in (1, S9_K):
+            reset_counts(fa, qm)
+            extra = [] if k == 1 else ["--steps-per-dispatch", str(k)] + S9_OBS
+            runs[k] = s9_run(lm.main, flags + extra, LMEngine,
+                             os.path.join(d, f"k{k}"))
+            got = counts(fa)
+            for name in launches:
+                launches[name] += got[name]
+            # The launches the host issues: every step of the k = 1 run;
+            # under the graph the warmup step and the capture (one
+            # capture, checked below), the replays none. Validation
+            # (LM_VAL_BATCHES, fewer than k) runs eagerly in both.
+            host_steps = S9_LM_STEPS if k == 1 else 2
+            want = {"flash_fwd": LAYERS * (2 * host_steps + LM_VAL_BATCHES),
+                    "flash_bwd_dq": LAYERS * host_steps,
+                    "flash_bwd_dkv": LAYERS * host_steps}
+            require(got == want, f"LM remat k={k} {dtype}: launches {got}, "
+                    f"want {want}")
+            require(qm.int8_matmul.launches == 0, "the LM launched K4")
+        (_, s1, tr1, peak1, wall1, _), (_, s4, tr4, peak4, wall4, _) = \
+            runs[1], runs[S9_K]
+        # f32 division, as phase 5's losses are divided on the card
+        loss1 = [float(np.float32(m["loss_sum"]) / np.float32(m["count"]))
+                 for _, m in s1]
+        require(len(s1) == S9_LM_STEPS and [n for n, _ in s4] == [S9_K] * (S9_LM_STEPS // S9_K)
+                and all(map(math.isfinite, loss1)),
+                f"LM {dtype}: dispatches {len(s1)} / {[n for n, _ in s4]}, "
+                f"losses {loss1}")
+        rel = max(abs(a - b) / abs(b) for a, b in
+                  zip(loss1, base["step_loss"]))
+        require(rel <= S9_REMAT_REL[dtype],
+                f"LM {dtype}: remat losses {loss1[:4]} vs no remat "
+                f"{base['step_loss']}: {rel}")
+        require(peak1 < base["peak_above_start_bytes"],
+                f"LM {dtype}: remat peak {peak1} not below "
+                f"{base['peak_above_start_bytes']}")
+        same = s9_same(tr4.state, tr1.state)
+        require(s9_grouped_equal(s1, s4) and same["bit_equal"],
+                f"LM {dtype}: the graph run differs from step by step: "
+                f"{same}, {s4} vs {s1}")
+        graph = tr4._multi.graph
+        require(graph.captures == 1 and graph.replays == S9_LM_STEPS - 1,
+                f"LM {dtype}: {graph.captures} captures, {graph.replays} "
+                "replays")
+        prof_files = os.listdir(os.path.join(d, f"k{S9_K}", "prof"))
+        trace_path = os.path.join(d, f"k{S9_K}", "prof", prof_files[0])
+        # The trace holds the first dispatch (the epoch is too short for
+        # step 10): its warmup step and three replays.
+        trace_n, trace_named = s9_trace_kernels(trace_path, kernel_names)
+        timing = {"eager": s9_timing(tr1, 1, kernel_names),
+                  "graph": s9_timing(tr4, S9_K, kernel_names)}
+        # Four eager steps' launches, as the wrappers counted them in the
+        # k = 1 run (exactly, above). The eager pass's own profile is
+        # printed, not held: its traces have come back a few kernel
+        # records short (4,321.5 kernels a step over 4 steps).
+        want = {kname: S9_K * n for kname, n in per_step.items()}
+        require(timing["graph"]["launches"] == trace_named == want,
+                f"LM {dtype}: traced K1-K3 launches of 4 steps: graph "
+                f"replays {timing['graph']['launches']}, --profile-dir "
+                f"trace {trace_named}; want {want} (eager pass: "
+                f"{timing['eager']['launches']})")
+        for name, kname, _ in FLASH_KERNELS:
+            replays[name] += timing["graph"]["launches"][kname]
+        prom = s9_prom(os.path.join(d, f"k{S9_K}", "m.prom"))
+        require(len(prom.get("train_step_s", [])) == 3
+                and prom["train_step_s_count"] == [S9_LM_STEPS / S9_K],
+                f"LM {dtype}: m.prom train_step_s {prom}")
+        row = {"s9_lm": dtype, "remat": True,
+               "step_loss_remat": loss1,
+               "step_loss_no_remat_phase5": base["step_loss"],
+               "loss_rel_remat_vs_no_remat": rel,
+               "loss_bit_equal_remat_vs_no_remat":
+                   loss1[:len(base["step_loss"])] == base["step_loss"],
+               "peak_above_start_gib": {
+                   "no_remat": base["peak_above_start_bytes"] / 2 ** 30,
+                   "remat": peak1 / 2 ** 30,
+                   "remat_graph": peak4 / 2 ** 30},
+               "graph_vs_eager": same, "graph_capture_s": graph.capture_s,
+               "wall_s": {"eager": wall1, "graph": wall4},
+               "trace_file_kernels": trace_n,
+               "trace_file_flash_launches": trace_named,
+               "prom_samples": len(prom), **timing}
+        emit(row)
+        del runs, tr1, tr4
+    return launches, replays
+
+
+def s9_dispatch_dp(dp_cli, dp_mod, data) -> dict:
+    """(b) MobileNetV2 DDP bf16, 30 steps: --steps-per-dispatch 4 (7
+    groups and a tail of 2; its validation in groups of 4) against step
+    by step, with the trace of three steady-state steps and the
+    Prometheus file."""
+    from distributed_model_parallel_tpu_torch.data import datasets
+
+    flags = DP_FLAGS + ["--engine", "ddp", "--dtype", "bfloat16"]
+    runs = {}
+    with patched(datasets.DatasetCollection, "init", lambda self: data):
+        for k in (1, S9_K):
+            d = scratch_dir(f"s9_dp_k{k}")
+            extra = [] if k == 1 else ["--steps-per-dispatch", str(k)] + S9_OBS
+            runs[k] = s9_run(dp_cli.main, flags + extra + [
+                "--checkpoint-dir", os.path.join(d, "ck")],
+                dp_mod._DataParallel, d)
+    (_, s1, tr1, peak1, wall1, _), (_, s4, tr4, peak4, wall4, _) = \
+        runs[1], runs[S9_K]
+    same = s9_same(tr4.state, tr1.state)
+    losses = [m["loss_sum"] / m["count"] for _, m in s1]
+    require(len(s1) == DP_STEPS and s9_grouped_equal(s1, s4)
+            and same["bit_equal"],
+            f"MobileNetV2 graph run differs from step by step: {same}")
+    graph = tr4._multi.graph
+    train_replays = graph.replays
+    # The host issues the all-reduce for every eager step (the k = 1
+    # run; the warmup step and the tail of the graph run) and once for
+    # the capture, which the replays repeat without Python.
+    issued = {"eager": tr1.engine.grad_reductions,
+              "graph": tr4.engine.grad_reductions}
+    require(issued["eager"] == DP_STEPS
+            and issued["graph"] == DP_STEPS - train_replays + graph.captures,
+            f"MobileNetV2: gradient all-reduces issued {issued} "
+            f"({train_replays} replays, {graph.captures} captures)")
+    d4 = scratch_dir(f"s9_dp_k{S9_K}")
+    prof_dir = os.path.join(d4, "prof")
+    trace_kernels, _ = s9_trace_kernels(
+        os.path.join(prof_dir, os.listdir(prof_dir)[0]))
+    prom = s9_prom(os.path.join(d4, "m.prom"))
+    # NCCL kernels in each profiled pass, printed (`launches`; at world
+    # 1 the all-reduce has launched none)
+    eager, graphed = (s9_timing(tr1, 1, ("nccl",)),
+                      s9_timing(tr4, S9_K, ("nccl",)))
+    require(trace_kernels >= 3 * eager["kernels_per_step"],
+            f"the trace holds {trace_kernels} kernels, fewer than three "
+            f"steps of {eager['kernels_per_step']}")
+    require("train_step_s" in prom and len(prom["train_step_s"]) == 3,
+            f"m.prom: {sorted(prom)}")
+    row = {"s9_dispatch_dp": "mobilenetv2_ddp_bf16", "steps": DP_STEPS,
+           "k": S9_K, "graph_vs_eager": same,
+           "dispatch_sums_equal": True,
+           "first_loss": losses[0], "last_loss": losses[-1],
+           "graph_captures": graph.captures, "graph_replays": train_replays,
+           "grad_allreduces_issued": issued,
+           "graph_capture_s": graph.capture_s,
+           "eval_graph_replays": tr4._multi_eval.graph.replays,
+           "peak_above_start_gib": {"eager": peak1 / 2 ** 30,
+                                    "graph": peak4 / 2 ** 30},
+           "wall_s": {"eager": wall1, "graph": wall4},
+           "trace_file_kernels": trace_kernels,
+           "prom_train_step_s": prom["train_step_s"],
+           "eager": eager, "graph": graphed}
+    emit(row)
+    return row
+
+
+def s9_classifier_run(dp_cli, dp_mod, name, flags) -> dict:
+    """(c) one DP CLI run of a transformer classifier, each step timed
+    (synchronized): ms a step, samples/s, busy / idle, kernels a step,
+    peak memory, first and last loss, val acc1; the loss must be finite
+    and fall."""
+    d = scratch_dir(f"s9_{name}")
+    os.makedirs(d, exist_ok=True)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    with contextlib.chdir(d):
+        out, steps, seen = recorded_run(dp_cli.main, flags + [
+            "--checkpoint-dir", os.path.join(d, "ck")], dp_mod._DataParallel)
+    peak = torch.cuda.max_memory_allocated() - base
+    losses = [st["loss"] for st in steps]
+    hist = out["history"]
+    require(all(map(math.isfinite, losses)) and len(losses) >= 10,
+            f"{name}: losses {losses}")
+    require(sum(losses[-5:]) < sum(losses[:5]),
+            f"{name}: the train loss did not fall: {losses}")
+    timed = steps[DP_TIMED_FROM:]
+    ms = sum(st["ms"] for st in timed) / len(timed)
+    row = {"s9_classifier": name, "flags": flags[2:], "steps": len(steps),
+           "ms_per_step": ms, "samples_per_s": DP_BATCH / ms * 1e3,
+           "first_loss": losses[0], "last_loss": losses[-1],
+           "step_loss": losses,
+           "val_acc1": [h["val"]["acc1"] for h in hist],
+           "peak_above_start_gib": peak / 2 ** 30}
+    row.update(dp_breakdown(seen, ms))
+    emit(row)
+    return row
+
+
+def s9_transformer_checks() -> dict:
+    """(d) one bert_tiny step (dropout 0) through 4 pipeline stages at M
+    4, gpipe and 1f1b, against the DataParallelEngine's step on the whole
+    model; (e) one ViT step (2 layers, dim 64) and one bert_tiny DDP step
+    (dropout 0) and one 2-layer BERT_BASE-width DDP step (dropout 0) on
+    the card against the CPU. TF32 off."""
+    import numpy as np
+
+    from distributed_model_parallel_tpu_torch.cli.common import (
+        _bert_tiny_cfg,
+    )
+    from distributed_model_parallel_tpu_torch.models import bert, vit
+    from distributed_model_parallel_tpu_torch.parallel.data_parallel import (
+        DataParallelEngine,
+        DDPEngine,
+        TrainState,
+    )
+    from distributed_model_parallel_tpu_torch.parallel.pipeline import (
+        PipelineEngine,
+    )
+    from distributed_model_parallel_tpu_torch.runtime.mesh import Mesh
+    from distributed_model_parallel_tpu_torch.training.optim import SGD
+
+    cuda = torch.device("cuda")
+    cfg = dataclasses.replace(_bert_tiny_cfg(), dropout_rate=0.0)
+    rng = np.random.RandomState(0)
+    ids = rng.randint(1, cfg.vocab_size, size=(DP_BATCH, 64)).astype(
+        np.int32)
+    labels = rng.randint(0, 4, DP_BATCH)
+    model = bert.bert_for_classification(4, cfg)
+    dp = DataParallelEngine(model, SGD(), mesh=Mesh(1, None), device=cuda)
+    whole, state = model.init(torch.Generator().manual_seed(0))
+    dts, _ = dp.train_step(dp.state_from_params(whole, state),
+                           *dp.shard_batch(ids, labels), 0.05)
+    as_chunks = TrainState(tuple(bert.partition_pytree(dts.params, 4, cfg)),
+                           ((),) * 4, None, 1)
+    reading = {}
+    for schedule in ("gpipe", "1f1b"):
+        stages = bert.split_stages(4, 4, cfg)
+        eng = PipelineEngine(stages, SGD(), Mesh(1, None, 4, (cuda,)),
+                             num_microbatches=4, schedule=schedule)
+        ts = eng.state_from_params(
+            bert.partition_pytree(whole, 4, cfg),
+            tuple(st.init(torch.Generator())[1] for st in stages))
+        ts, _ = eng.train_step(ts, *eng.shard_batch(ids, labels), 0.05)
+        reading[f"bert_tiny_{schedule}_m4_vs_dp"] = s9_same(
+            ts._replace(model_state=((),) * 4), as_chunks)
+
+    def card_vs_cpu(make, x, y):
+        res = {}
+        for dev in ("cuda", "cpu"):
+            eng = DDPEngine(make(), SGD(), mesh=Mesh(1, None), device=dev)
+            ts, m = eng.train_step(eng.init_state(0),
+                                   *eng.shard_batch(x, y), 0.05)
+            res[dev] = (m["loss_sum"] / m["count"], ts)
+        loss = rel_diff(res["cuda"][0].cpu(), res["cpu"][0])
+        cpu_ts = res["cpu"][1]
+        card = TrainState(
+            *(tree_to(t, "cpu") for t in (res["cuda"][1].params,
+                                          res["cuda"][1].model_state)),
+            None, 1)
+        return {"loss_rel": loss, **s9_same(card, cpu_ts)}
+
+    images = rng.randn(16, 32, 32, 3).astype(np.float32)
+    vcfg = vit.ViTConfig(image_size=32, patch_size=4, dim=64, num_layers=2,
+                         num_heads=4, mlp_dim=128)
+    reading["vit_card_vs_cpu"] = card_vs_cpu(
+        lambda: vit.vit(10, vcfg), images, rng.randint(0, 10, 16))
+    reading["bert_tiny_card_vs_cpu"] = card_vs_cpu(
+        lambda: bert.bert_for_classification(4, cfg), ids[:16], labels[:16])
+    # BERT_BASE's widths (vocab 30522, 768, 12 heads, 3072) at 2 layers:
+    # phase (c) holds the full model to falling losses only.
+    base2 = dataclasses.replace(bert.BERT_BASE, num_layers=2,
+                                dropout_rate=0.0)
+    reading["bert_base_2layer_card_vs_cpu"] = card_vs_cpu(
+        lambda: bert.bert_for_classification(4, base2),
+        rng.randint(1, base2.vocab_size, size=(16, 64)).astype(np.int32),
+        labels[:16])
+    emit({"s9_transformer_checks": reading})
+    for name, r in reading.items():
+        bar = PP_STEP_REL if "_vs_dp" in name else DP_CARD_VS_CPU
+        worst = max(r["max_rel"], r.get("loss_rel", 0.0))
+        require(worst <= bar, f"{name}: {worst} > {bar}: {r}")
+    return reading
+
+
+def s9_bert_tiny_pipeline(mp_cli, pp_mod) -> list:
+    """(d) the pipeline CLI on bert_tiny, 4 stages on the card, M 4,
+    gpipe and 1f1b, on SyntheticText: ms a step, losses (finite and
+    falling), val acc1."""
+    rows = []
+    for schedule in ("gpipe", "1f1b"):
+        d = scratch_dir(f"s9_pp_{schedule}")
+        os.makedirs(d)
+        with contextlib.chdir(d):
+            out, steps, seen = recorded_run(
+                mp_cli.main, S9_BERT_TINY_PP + ["--pipeline-schedule",
+                                                schedule], pp_mod.PipelineEngine)
+        losses = [st["loss"] for st in steps]
+        require(all(map(math.isfinite, losses))
+                and sum(losses[-5:]) < sum(losses[:5]),
+                f"bert_tiny pipeline {schedule}: losses {losses}")
+        timed = steps[DP_TIMED_FROM:]
+        ms = sum(st["ms"] for st in timed) / len(timed)
+        row = {"s9_pp_bert_tiny": schedule, "steps": len(steps),
+               "ms_per_step": ms, "samples_per_s": DP_BATCH / ms * 1e3,
+               "first_loss": losses[0], "last_loss": losses[-1],
+               "step_loss": losses,
+               "val_acc1": [h["val"]["acc1"] for h in out["history"]],
+               "devices": sorted({str(x) for x in seen["engine"].devices})}
+        emit(row)
+        rows.append(row)
+    return rows
+
+
+def slice9_phase(lm, fa, qm, lm_rows, dp_data) -> dict:
+    """Phase 10 (module docstring). Returns the K1-K3 launches of the
+    phase's main paths (the wrappers' counts) and those of its profiled
+    4-step graph dispatches (counted in the traces)."""
+    from distributed_model_parallel_tpu_torch.cli import (
+        data_parallel,
+        model_parallel,
+    )
+    from distributed_model_parallel_tpu_torch.data import datasets
+    from distributed_model_parallel_tpu_torch.parallel import (
+        data_parallel as dp_mod,
+    )
+    from distributed_model_parallel_tpu_torch.parallel import (
+        pipeline as pp_mod,
+    )
+
+    t0 = time.perf_counter()
+    launches, replays = s9_lm(lm, fa, qm, lm_rows)
+    print(f"phase 10 (a, b) LM: {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    reset_counts(fa, qm)
+    s9_dispatch_dp(data_parallel, dp_mod, dp_data)
+    with patched(datasets.DatasetCollection, "init", lambda self: dp_data):
+        for name, extra in S9_VIT_RUNS:
+            s9_classifier_run(data_parallel, dp_mod, name, S9_VIT + extra)
+    peaks = {}
+    for name, extra in (("bert_base_f32", []),
+                        ("bert_base_f32_remat", ["--remat"])):
+        row = s9_classifier_run(data_parallel, dp_mod, name, S9_BERT + extra)
+        peaks[name] = row["peak_above_start_gib"]
+    require(peaks["bert_base_f32_remat"] < peaks["bert_base_f32"],
+            f"BERT remat peak {peaks['bert_base_f32_remat']} GiB not below "
+            f"{peaks['bert_base_f32']}")
+    s9_bert_tiny_pipeline(model_parallel, pp_mod)
+    s9_transformer_checks()
+    got = counts(fa)
+    require(not any(got.values()) and qm.int8_matmul.launches == 0,
+            f"the DP / pipeline runs of phase 10 launched K1-K4: {got}")
+    torch.distributed.destroy_process_group()
+    return launches, replays
+
+
 def main() -> int:
     # cuBLAS reads this when it first starts: the determinism probe's
     # torch.use_deterministic_algorithms needs it (phase 7).
@@ -2521,7 +3144,6 @@ def smoke() -> int:
 
     # ---- 8. pipeline model parallelism (the slice-7 paths) -------------
     _, _, slice7 = pipeline_phase(dp_data, lm, fa, qm)
-    del dp_data
     phase_done("pipeline model parallelism")
 
     # ---- 9. serving features (the slice-8 paths) ----------------------
@@ -2529,7 +3151,13 @@ def smoke() -> int:
                                     lm_dir, out_f32)
     phase_done("serving features")
 
-    # ---- 10. kernels line, card line, last line ----------------------
+    # ---- 10. remat, CUDA graphs, trace / metrics, ViT and BERT --------
+    reset_counts(fa, qm)
+    slice9, replays9 = slice9_phase(lm, fa, qm, lm_rows, dp_data)
+    del dp_data
+    phase_done("remat, steps per dispatch, classifiers")
+
+    # ---- 11. kernels line, card line, last line ----------------------
     decode = [r for r in shapes if r["M"] == SLOTS]
     step = {key: None if any(r[key] is None for r in decode)
             else LAYERS * sum(r[key] for r in decode)
@@ -2550,6 +3178,9 @@ def smoke() -> int:
         # the serving-features phase (phase 9): paged and speculative
         # int8 decode and verify steps
         "launches_slice8": slice8["int8_matmul"],
+        # phase 10: the LM, DP, pipeline and classifier runs of slice 9
+        "launches_slice9": 0,
+        "replays_slice9_traced": 0,
         "max_abs_err": max_err,
         # Times of one decode step's 48 launches (12 layers x the four
         # projection shapes at M = 8), each shape timed in phase 3.
@@ -2570,7 +3201,9 @@ def smoke() -> int:
         "per_shape": shapes,
     }] + [dict(flash_entry(name, replaces, lm_rows, flash_errs,
                            flash_times), launches_slice6=slice6[name],
-               launches_slice7=slice7[name], launches_slice8=slice8[name])
+               launches_slice7=slice7[name], launches_slice8=slice8[name],
+               launches_slice9=slice9[name],
+               replays_slice9_traced=replays9[name])
           for name, _, replaces in FLASH_KERNELS]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

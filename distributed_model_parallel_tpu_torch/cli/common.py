@@ -8,7 +8,8 @@ flags whose features belong to later port slices are refused loudly,
 naming the slice (`check_serving_args`, `check_lm_args`,
 `check_data_parallel_args`, `check_model_parallel_args`). The image
 side: `MODELS`, `build_model`, `STAGE_BUILDERS` (the pipeline splits),
-`stats_for`, `build_loaders` (per-rank loaders from the global batch)
+`stats_for`, `build_loaders` (per-rank loaders from the global batch;
+token-id datasets ship raw)
 and `check_batch_divisibility`; `check_pipeline_schedule_args` is shared
 by both pipeline CLIs. `set_device_numerics` is the one place the CLIs
 fix the card's f32 arithmetic.
@@ -32,9 +33,11 @@ from distributed_model_parallel_tpu_torch.data.datasets import (
 )
 from distributed_model_parallel_tpu_torch.data.loader import Loader
 from distributed_model_parallel_tpu_torch.models import (
+    bert,
     mobilenetv2,
     resnet,
     tinycnn,
+    vit,
 )
 from distributed_model_parallel_tpu_torch.runtime import dist
 from distributed_model_parallel_tpu_torch.serving.engine import (
@@ -65,8 +68,9 @@ def add_metrics_out_flag(parser: argparse.ArgumentParser) -> None:
     parser.add_argument(
         "--metrics-out", default=None, metavar="PATH",
         help="enable the metrics registry (observability/metrics.py) "
-             "and write its JSON export here at exit. Fails fast if "
-             "PATH's directory does not exist.",
+             "and write its export here at exit: Prometheus text when "
+             "PATH ends in .prom, JSON otherwise. Fails fast if PATH's "
+             "directory does not exist.",
     )
 
 
@@ -314,15 +318,11 @@ SLICES = {
     "moe": "the expert-parallel slice",
     "cm": "the collective-matmul slice",
     "reducer": "the gradient-reduction slice",
-    "remat": "the activation-rematerialization slice",
     "sharded": "the sharded-checkpoint slice",
-    "multistep": "the multi-step dispatch slice",
-    "profile": "the profiler-capture slice",
     "fsdp": "the FSDP slice",
     "tp": "the tensor-parallel slice",
     "device_cache": "the device-cache slice",
     "elastic": "the elastic-restart slice",
-    "transformer": "the transformer-classifier slice",
 }
 
 
@@ -347,13 +347,9 @@ def check_lm_args(args) -> None:
          args.grad_reduction != "monolithic" or args.bucket_mb is not None
          or args.dcn_slices != 1 or args.overlap_stages is not None
          or args.dcn_compression != "none", s["reducer"]),
-        ("--remat", args.remat, s["remat"]),
         ("--checkpoint-format sharded / --async-save",
          args.checkpoint_format != "legacy" or args.async_save,
          s["sharded"]),
-        ("--steps-per-dispatch > 1", args.steps_per_dispatch != 1,
-         s["multistep"]),
-        ("--profile-dir", args.profile_dir, s["profile"]),
     )
     for flag, bad, later in refusals:
         if bad:
@@ -439,21 +435,36 @@ def check_pipeline_schedule_args(schedule: str, virtual_stages: int,
 
 # ---------------------------------------------------------------- images
 
+def _bert_tiny_cfg():
+    """The reference's bert_tiny: sized for the SyntheticText task (vocab
+    512, seq 64); 'bert' is BERT_BASE."""
+    return bert.BertConfig(vocab_size=512, hidden_size=128, num_layers=4,
+                           num_heads=4, intermediate_size=256,
+                           max_position=128)
+
+
+def _bert_model(num_classes: int, cfg=None, *, remat: bool = False):
+    return bert.bert_for_classification(num_classes, cfg or bert.BERT_BASE,
+                                        remat=remat)
+
+
+def _bert_stages(num_stages, num_classes, boundaries, cfg=None):
+    return bert.split_stages(num_stages, num_classes, cfg or bert.BERT_BASE,
+                             boundaries=boundaries)
+
+
 MODELS = {
     "mobilenetv2": mobilenetv2.mobilenet_v2,
     "mobilenetv2_nobn": mobilenetv2.mobilenet_v2_nobn,
     "resnet18": resnet.resnet18,
     "resnet50": resnet.resnet50,
     "tinycnn": tinycnn.tiny_cnn,
+    "vit": vit.vit_cifar,  # CIFAR-scale ViT (32² inputs, 4x4 patches)
+    # Token-id classifiers (pair with --dataset-type SyntheticText):
+    "bert": _bert_model,
+    "bert_tiny": lambda c, *, remat=False: _bert_model(
+        c, _bert_tiny_cfg(), remat=remat),
 }
-# Models of the reference's --model choices that later slices bring.
-LATER_MODELS = ("bert", "bert_tiny", "vit")
-
-
-def _later_transformer(num_stages, num_classes, boundaries):
-    raise SystemExit(
-        "the bert pipeline stages are not ported to the PyTorch package "
-        f"yet: they belong to {SLICES['transformer']} (ROADMAP.md)")
 
 
 # Pipeline stage builders: name -> fn(num_stages, num_classes,
@@ -468,21 +479,17 @@ STAGE_BUILDERS = {
         18, n, c, cifar=True, boundaries=b),
     "resnet50": lambda n, c, b: resnet.split_stages(50, n, c, boundaries=b),
     "tinycnn": lambda n, c, b: tinycnn.split_stages(n, c, boundaries=b),
-    "bert": _later_transformer,
-    "bert_tiny": _later_transformer,
+    # Transformer pipelines: the wire carries the (hidden, mask) pair.
+    "bert": _bert_stages,
+    "bert_tiny": lambda n, c, b: _bert_stages(n, c, b, _bert_tiny_cfg()),
 }
 
 
-def build_model(name: str, num_classes: int):
-    if name in LATER_MODELS:
-        raise SystemExit(
-            f"--model {name} is not ported to the PyTorch package yet: it "
-            f"belongs to {SLICES['transformer']} (ROADMAP.md)"
-        )
+def build_model(name: str, num_classes: int, *, remat: bool = False):
     if name not in MODELS:
         raise SystemExit(f"unknown model {name!r}; choose from "
                          f"{sorted(MODELS)}")
-    return MODELS[name](num_classes)
+    return MODELS[name](num_classes, remat=remat)
 
 
 def stats_for(dataset_type: str) -> Tuple[np.ndarray, np.ndarray]:
@@ -505,9 +512,13 @@ def build_loaders(dataset_type: str, data_path: str, batch_size: int, *,
                              f"divisible by the process count {procs}")
     train_ds, val_ds = DatasetCollection(dataset_type, data_path).init()
     mean, std = stats_for(dataset_type)
+    raw = train_ds.kind == "text"
+    if raw:  # token ids: no crop / flip, no normalize
+        mean = std = None
+        augment = False
     rank = dict(process_index=dist.process_index(), process_count=procs,
                 workers=workers, device_normalize=device_normalize,
-                mean=mean, std=std)
+                mean=mean, std=std, raw=raw)
     train = Loader(train_ds, batch_size=batch_size // procs, shuffle=True,
                    augment=augment, seed=seed, **rank)
     val = Loader(val_ds, batch_size=(val_batch_size or batch_size) // procs,
@@ -534,31 +545,50 @@ def check_batch_divisibility(global_batch: int, mesh, *,
         )
 
 
+def add_remat_flag(parser: argparse.ArgumentParser) -> None:
+    parser.add_argument("--remat", action="store_true",
+                        help="rematerialize activations in the backward "
+                             "pass (torch.utils.checkpoint per block, per "
+                             "pipeline chunk): less memory, one more "
+                             "forward")
+
+
+def add_dispatch_flags(parser: argparse.ArgumentParser) -> None:
+    """--steps-per-dispatch and --profile-dir, shared by the training
+    CLIs."""
+    parser.add_argument("--steps-per-dispatch", default=1, type=int,
+                        help="train steps per host dispatch: on the card "
+                             "the step is captured in a CUDA graph and "
+                             "replayed N times (same trajectory as step "
+                             "by step); 1 = off")
+    parser.add_argument("--profile-dir", default=None,
+                        help="write a torch.profiler trace (Chrome JSON) "
+                             "of three steady-state train steps (whole "
+                             "dispatch groups: one group of N steps when "
+                             "--steps-per-dispatch N >= 3) into this "
+                             "directory")
+
+
 def add_common_tpu_flags(parser: argparse.ArgumentParser) -> None:
     """The reference's shared training flags (its name kept): --model,
     --dtype, --remat, --optimizer, --profile-dir, --steps-per-epoch,
     --steps-per-dispatch, --log-file, --metrics-out."""
     parser.add_argument("--model", default="mobilenetv2",
-                        choices=sorted((*MODELS, *LATER_MODELS)),
+                        choices=sorted(MODELS),
                         help="model family (the reference trains "
-                             "MobileNetV2); bert, bert_tiny and vit are not "
-                             "ported yet")
+                             "MobileNetV2); bert and bert_tiny take "
+                             "--dataset-type SyntheticText")
     parser.add_argument("--dtype", default="float32",
                         choices=("float32", "bfloat16"),
                         help="activation dtype (parameters stay f32)")
-    parser.add_argument("--remat", action="store_true",
-                        help="not ported yet (activation-rematerialization "
-                             "slice)")
+    add_remat_flag(parser)
     parser.add_argument("--optimizer", default="sgd", choices=("sgd", "adamw"),
                         help="sgd = the reference's SGD(momentum, wd); adamw "
                              "= decoupled-decay AdamW")
-    parser.add_argument("--profile-dir", default=None,
-                        help="not ported yet (profiler-capture slice)")
     parser.add_argument("--steps-per-epoch", default=0, type=int,
                         help="truncate each epoch to N batches (0 = full "
                              "epoch)")
-    parser.add_argument("--steps-per-dispatch", default=1, type=int,
-                        help="not ported yet (multi-step dispatch slice)")
+    add_dispatch_flags(parser)
     parser.add_argument("--log-file", default=None,
                         help="epoch log filename under ./log")
     add_metrics_out_flag(parser)
@@ -588,12 +618,6 @@ def check_data_parallel_args(args) -> None:
         ("--auto-tune / --auto-tune-out / --auto-tune-calibration",
          args.auto_tune or args.auto_tune_out or args.auto_tune_calibration,
          s["tune"]),
-        ("--remat", args.remat, s["remat"]),
-        ("--steps-per-dispatch > 1", args.steps_per_dispatch != 1,
-         s["multistep"]),
-        ("--profile-dir", args.profile_dir, s["profile"]),
-        (f"--model {args.model}", args.model in LATER_MODELS,
-         s["transformer"]),
     )
     for flag, bad, later in refusals:
         if bad:
@@ -607,6 +631,13 @@ def check_data_parallel_args(args) -> None:
             f"--dataset-type {args.dataset_type} is not ported to the "
             f"PyTorch package yet: it belongs to "
             f"{LATER_TYPES[args.dataset_type]} (ROADMAP.md)"
+        )
+    if args.dataset_type == "SyntheticText" and args.device_normalize:
+        # The reference's check (with --device-cache, refused above).
+        raise SystemExit(
+            "--device-cache/--device-normalize apply the image "
+            "normalize pipeline; token-id datasets ship raw (and are "
+            "small on the wire already)"
         )
     if args.finetune:
         # Before any dataset or process group is built.
@@ -631,21 +662,6 @@ def check_model_parallel_args(args) -> None:
     later port slices are refused by name, then the schedule knobs and
     the stage builder are checked, before any dataset, process group or
     engine is built."""
-    s = SLICES
-    for flag, bad, later in (
-        ("--remat", args.remat, s["remat"]),
-        ("--steps-per-dispatch > 1", args.steps_per_dispatch != 1,
-         s["multistep"]),
-        ("--profile-dir", args.profile_dir, s["profile"]),
-        (f"--model {args.model}", args.model in ("bert", "bert_tiny"),
-         s["transformer"]),
-    ):
-        if bad:
-            raise SystemExit(
-                f"{flag} is not ported to the PyTorch package yet: it "
-                f"belongs to {later} (ROADMAP.md) — drop the flag, or run "
-                "the JAX package's cli/model_parallel.py"
-            )
     if args.dataset_type in LATER_TYPES:
         raise SystemExit(
             f"--dataset-type {args.dataset_type} is not ported to the "
@@ -693,6 +709,21 @@ def build_stages(model: str, num_stages: int, num_classes: int,
             f"{virtual_stages}): {e}") from e
 
 
+def refuse_uncapturable(engine, steps_per_dispatch: int) -> None:
+    """--steps-per-dispatch > 1 on an engine whose step spans more than
+    one device (a pipeline over several cards): exit naming ROADMAP.md
+    §A.7, before any data is loaded."""
+    if steps_per_dispatch > 1:
+        from distributed_model_parallel_tpu_torch.training.multistep import (
+            check_capturable,
+        )
+
+        try:
+            check_capturable(engine)
+        except ValueError as e:
+            raise SystemExit(f"--steps-per-dispatch: {e}") from e
+
+
 def setup_metrics_out(path) -> None:
     """Validate + enable for `--metrics-out`, before anything runs."""
     if not path:
@@ -724,6 +755,8 @@ __all__ = [
     "STAGE_BUILDERS",
     "add_common_tpu_flags",
     "add_auto_tune_flags",
+    "add_dispatch_flags",
+    "add_remat_flag",
     "add_checkpoint_flags",
     "add_grad_reduction_flags",
     "add_metrics_out_flag",
@@ -740,6 +773,7 @@ __all__ = [
     "check_serving_args",
     "compute_dtype_from_flag",
     "export_metrics_out",
+    "refuse_uncapturable",
     "set_device_numerics",
     "setup_metrics_out",
     "stats_for",

@@ -19,9 +19,15 @@ MobileNetV2 from a reference-format torch checkpoint
 (`models/torch_import.py`). `--engine gspmd` (the default) is the
 global-batch step (BN over the whole batch); `--engine ddp` is per-rank
 BN, or SyncBN with `--sync-bn`. `--device` (cuda, the default, or cpu)
-is the port's addition. The parser keeps the reference's whole flag
-surface; flags whose features belong to later port slices are refused
-with the slice named (`cli/common.check_data_parallel_args`).
+is the port's addition. `--model vit` (CIFAR-scale ViT) trains on the
+image datasets, `--model bert|bert_tiny` on `-type SyntheticText` (token
+ids, shipped raw); `--remat` checkpoints each block, `--steps-per-
+dispatch N` replays a CUDA graph of the train (and eval) step N times a
+dispatch on the card, `--profile-dir` writes a torch.profiler trace and
+`--metrics-out x.prom` Prometheus text (JSON for any other name). The
+parser keeps the reference's whole flag surface; flags whose features
+belong to later port slices are refused with the slice named
+(`cli/common.check_data_parallel_args`).
 """
 
 from __future__ import annotations
@@ -89,7 +95,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("-type", "--dataset-type", default="CIFAR10",
                    dest="dataset_type",
                    help="CIFAR10 (from --data, or synthetic data of its "
-                        "shapes when absent), Synthetic, SyntheticTextures")
+                        "shapes when absent), Synthetic, SyntheticTextures, "
+                        "SyntheticText (token ids, for bert / bert_tiny)")
     p.add_argument("--data", default="./data", help="dataset path")
     p.add_argument("--wd", "--weight-decay", default=1e-4, type=float,
                    dest="weight_decay")
@@ -147,7 +154,7 @@ def main(argv=None) -> dict:
            if args.device_normalize else None)
     common = dict(mesh=mesh, compute_dtype=compute_dtype_from_flag(args.dtype),
                   input_transform=itf, device=device)
-    model = build_model(args.model, num_classes)
+    model = build_model(args.model, num_classes, remat=args.remat)
     if args.engine == "ddp":
         engine = DDPEngine(model, build_optimizer(args), sync_bn=args.sync_bn,
                            **common)
@@ -166,6 +173,8 @@ def main(argv=None) -> dict:
         checkpoint_dir=args.checkpoint_dir,
         resume=args.resume,
         steps_per_epoch=args.steps_per_epoch,
+        steps_per_dispatch=args.steps_per_dispatch,
+        profile_dir=args.profile_dir,
     )
     trainer = Trainer(engine, train, val, cfg, seed=0)
     if args.finetune:

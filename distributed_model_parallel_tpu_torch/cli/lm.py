@@ -19,11 +19,14 @@ the JAX CLI):
 
 The parser keeps the reference's flag surface and adds `--device`
 (cuda, the default, or cpu). `--attention ulysses_flash` and
-`ring_flash` run the flash-attention kernels. Flags whose features
-belong to later port slices (sequence shards, MoE, collective matmul,
-gradient reducers, remat, the sharded checkpoint format, multi-step
-dispatch, profiling, plans and the tuner) are refused with the slice
-named (`cli/common.check_lm_args`). The best-val-acc model is
+`ring_flash` run the flash-attention kernels. `--remat` checkpoints
+each decoder block (the flash forward runs again in the backward pass),
+`--steps-per-dispatch N` replays a CUDA graph of the train step N times
+a dispatch on the card, `--profile-dir` writes a torch.profiler trace.
+Flags whose features belong to later port slices (sequence shards, MoE,
+collective matmul, gradient reducers, the sharded checkpoint format,
+plans and the tuner) are refused with the slice named
+(`cli/common.check_lm_args`). The best-val-acc model is
 saved to `--checkpoint-dir` with the model's `gpt_config` in its
 sidecar (what `cli/serve.py --checkpoint` checks), and `--resume`
 continues from it.
@@ -38,6 +41,8 @@ import torch
 from distributed_model_parallel_tpu_torch.cli.common import (
     add_auto_tune_flags,
     add_checkpoint_flags,
+    add_dispatch_flags,
+    add_remat_flag,
     add_grad_reduction_flags,
     add_metrics_out_flag,
     build_optimizer,
@@ -45,6 +50,7 @@ from distributed_model_parallel_tpu_torch.cli.common import (
     check_lm_args,
     compute_dtype_from_flag,
     export_metrics_out,
+    refuse_uncapturable,
     set_device_numerics,
     setup_metrics_out,
 )
@@ -140,15 +146,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--dtype", default="float32",
                    choices=("float32", "bfloat16"),
                    help="activation dtype (parameters stay f32)")
-    p.add_argument("--remat", action="store_true",
-                   help="not ported yet (activation-rematerialization "
-                        "slice)")
+    add_remat_flag(p)
     p.add_argument("--steps-per-epoch", default=0, type=int)
-    p.add_argument("--steps-per-dispatch", default=1, type=int,
-                   help="not ported yet (multi-step dispatch slice)")
+    add_dispatch_flags(p)
     p.add_argument("--log-file", default=None)
-    p.add_argument("--profile-dir", default=None,
-                   help="not ported yet (profiler-capture slice)")
     p.add_argument("--resume", "-r", action="store_true",
                    help="resume from the newest checkpoint in "
                         "--checkpoint-dir")
@@ -187,15 +188,16 @@ def main(argv=None) -> dict:
             split_stages(args.pipeline_stages * args.virtual_stages, cfg),
             build_optimizer(args), mesh,
             num_microbatches=args.microbatches, compute_dtype=cdt,
-            schedule=args.pipeline_schedule,
+            remat=args.remat, schedule=args.pipeline_schedule,
             virtual_stages=args.virtual_stages,
             pad_token_id=cfg.pad_token_id,
         )
     else:
         engine = CausalLMSequenceParallelEngine(
             cfg, build_optimizer(args), attention=args.attention,
-            compute_dtype=cdt, device=args.device,
+            compute_dtype=cdt, remat=args.remat, device=args.device,
         )
+    refuse_uncapturable(engine, args.steps_per_dispatch)
     corpus = synthetic_corpus(
         args.vocab_size, args.corpus_tokens, seed=args.corpus_seed
     )
@@ -221,6 +223,8 @@ def main(argv=None) -> dict:
         checkpoint_dir=args.checkpoint_dir,
         resume=args.resume,
         steps_per_epoch=args.steps_per_epoch,
+        steps_per_dispatch=args.steps_per_dispatch,
+        profile_dir=args.profile_dir,
         # Recorded in the checkpoint sidecar so that `cli/serve.py
         # --checkpoint` fails fast, naming the field, when the serve
         # flags disagree with the trained model.

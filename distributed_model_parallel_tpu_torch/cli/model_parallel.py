@@ -21,7 +21,12 @@ it). Under `torchrun` each rank is a data replica of the whole pipeline
 JAX package's additions (`--microbatches`, `--pipeline-schedule`,
 `--virtual-stages`, `--reference-split`, `--stage-local-params`) and the
 shared training flags are kept; `--device` (cuda, the default, or cpu)
-is the port's addition. Flags of later port slices are refused with the
+is the port's addition. `--remat` checkpoints each chunk,
+`--steps-per-dispatch N` replays a CUDA graph of the step N times a
+dispatch while the stages share one device (more than one device is
+refused, ROADMAP.md §A.7), `--profile-dir` writes a torch.profiler
+trace. `--model bert|bert_tiny` pipelines the BERT classifier on
+`-type SyntheticText`. Flags of later port slices are refused with the
 slice named (`cli/common.check_model_parallel_args`).
 """
 
@@ -40,6 +45,7 @@ from distributed_model_parallel_tpu_torch.cli.common import (
     check_model_parallel_args,
     compute_dtype_from_flag,
     export_metrics_out,
+    refuse_uncapturable,
     set_device_numerics,
     setup_metrics_out,
 )
@@ -141,9 +147,11 @@ def main(argv=None) -> dict:
         num_microbatches=args.microbatches,
         compute_dtype=compute_dtype_from_flag(args.dtype),
         stage_local_params=args.stage_local_params,
+        remat=args.remat,
         schedule=args.pipeline_schedule,
         virtual_stages=args.virtual_stages,
     )
+    refuse_uncapturable(engine, args.steps_per_dispatch)
     if is_primary():
         print(f"==> pipeline {args.pipeline_schedule}: {args.world_size} "
               f"stage(s) x {args.virtual_stages} chunk(s), "
@@ -158,6 +166,8 @@ def main(argv=None) -> dict:
         warmup_period=10,
         log_file=args.log_file or f"{args.batch_size}.txt",
         steps_per_epoch=args.steps_per_epoch,
+        steps_per_dispatch=args.steps_per_dispatch,
+        profile_dir=args.profile_dir,
     )
     out = Trainer(engine, train, val, cfg, seed=0).fit()
     if is_primary():

@@ -1,15 +1,16 @@
-"""Image datasets (numpy-only port of `data/datasets.py`).
+"""Datasets (numpy-only port of `data/datasets.py`).
 
-Datasets yield NumPy arrays (NHWC uint8 images, int64 labels); placing
-them on the device is the engine's job. Bit-identical to the reference:
-the same RandomState draws in the same order, the same float64
-temporaries, cast where the reference casts.
+Datasets yield NumPy arrays (NHWC uint8 images or int32 token ids,
+int64 labels); placing them on the device is the engine's job.
+Bit-identical to the reference: the same RandomState draws in the same
+order, the same float64 temporaries, cast where the reference casts.
 
 Types of `DatasetCollection`: 'CIFAR10' (the python-version batches
 from disk, or class-structured synthetic data of CIFAR-10's shapes and
-sizes when the files are absent), 'Synthetic' and 'SyntheticTextures'.
-'Imagenet', 'Place365', 'CUB200' and 'SyntheticText' are refused by
-name: they belong to later slices.
+sizes when the files are absent), 'Synthetic', 'SyntheticTextures' and
+'SyntheticText' (token-id classification for the transformer
+classifiers). 'Imagenet', 'Place365' and 'CUB200' are refused by name:
+they belong to a later slice.
 """
 
 from __future__ import annotations
@@ -32,17 +33,19 @@ LATER_TYPES = {
     "Imagenet": "the image-folder slice",
     "Place365": "the image-folder slice",
     "CUB200": "the image-folder slice",
-    "SyntheticText": "the transformer-classifier slice",
 }
 
 
 @dataclasses.dataclass
 class ArrayDataset:
-    """In-memory dataset: images NHWC uint8, labels int64."""
+    """In-memory dataset: images NHWC uint8 (or, for `kind='text'`,
+    (N, T) token ids, which the Loader passes through raw), labels
+    int64."""
 
     images: np.ndarray
     labels: np.ndarray
     num_classes: int
+    kind: str = "image"  # 'image' | 'text': drives the Loader's mode
 
     def __len__(self) -> int:
         return len(self.labels)
@@ -114,6 +117,35 @@ def synthetic_textures(num_examples: int = 2048, image_size: int = 32,
                         num_classes)
 
 
+def synthetic_text(num_examples: int = 2048, seq_len: int = 64,
+                   num_classes: int = 4, vocab_size: int = 512,
+                   seed: int = 0) -> ArrayDataset:
+    """Text classification: each class is its own first-order Markov
+    chain over tokens [1, vocab) (0 stays the pad id: BERT's attention
+    mask is `ids != 0`), so a model can classify by transition
+    statistics. The per-class chains come from a fixed rng independent
+    of `seed`, so train and val splits share one task."""
+    v = vocab_size - 1  # usable tokens 1..vocab-1
+    class_rng = np.random.RandomState(4321)
+    trans = class_rng.dirichlet(
+        np.full(v, 0.05), size=(num_classes, v)
+    )  # (C, v, v) rows sum to 1
+    rng = np.random.RandomState(seed)
+    labels = rng.randint(0, num_classes, size=(num_examples,))
+    ids = np.empty((num_examples, seq_len), np.int32)
+    ids[:, 0] = rng.randint(0, v, size=num_examples)
+    # One step for every sequence at a time: inverse-CDF sampling
+    # against each row's class-specific transition row.
+    cdf = np.cumsum(trans, axis=-1)  # (C, v, v)
+    for t in range(1, seq_len):
+        u = rng.rand(num_examples, 1)
+        row_cdf = cdf[labels, ids[:, t - 1]]  # (N, v)
+        # A float cumsum row can top out below 1.0; clip the index.
+        ids[:, t] = np.minimum((u > row_cdf).sum(axis=1), v - 1)
+    return ArrayDataset(ids + 1, labels.astype(np.int64), num_classes,
+                        kind="text")
+
+
 def _load_cifar10_batches(root: str) -> Optional[Tuple[np.ndarray, ...]]:
     """The python-version CIFAR-10 batches (cifar-10-batches-py, or its
     tar.gz) under `root`, or None. Reads the disk only."""
@@ -166,6 +198,9 @@ class DatasetCollection:
         if t == "Synthetic":
             return (synthetic(2048, 32, 10, seed=1),
                     synthetic(512, 32, 10, seed=2))
+        if t == "SyntheticText":
+            return (synthetic_text(4096, 64, 4, seed=1),
+                    synthetic_text(1024, 64, 4, seed=2))
         if t == "SyntheticTextures":
             return (synthetic_textures(50_000, 32, 10, seed=1),
                     synthetic_textures(10_000, 32, 10, seed=2))
@@ -179,4 +214,4 @@ class DatasetCollection:
 
 __all__ = ["ArrayDataset", "CIFAR10_MEAN", "CIFAR10_STD", "DatasetCollection",
            "IMAGENET_MEAN", "IMAGENET_STD", "LATER_TYPES", "cifar10",
-           "synthetic", "synthetic_textures"]
+           "synthetic", "synthetic_text", "synthetic_textures"]

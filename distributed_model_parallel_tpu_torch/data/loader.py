@@ -89,7 +89,8 @@ class Loader:
     (masked out by the metrics). `batch_size` is this rank's batch.
     Augmentation draws are keyed by (seed, epoch, rank, batch index), so
     batches are identical for every `workers` / `prefetch` setting and
-    for both backends (`use_native=None` picks native when it builds)."""
+    for both backends (`use_native=None` picks native when it builds).
+    `raw=True` ships token-id batches as the dataset holds them."""
 
     dataset: ArrayDataset
     batch_size: int
@@ -107,6 +108,10 @@ class Loader:
     # Yield augmented uint8 batches; the engine normalizes on the device
     # (`input_transform = device_normalizer(mean, std)`).
     device_normalize: bool = False
+    # Yield gathered batches untouched (no augment, no normalize, no
+    # dtype cast): non-image data (token ids), where /255 would be
+    # nonsense. Ragged-final-batch padding still applies.
+    raw: bool = False
 
     def __post_init__(self):
         if self.batch_size < 1:
@@ -154,7 +159,9 @@ class Loader:
             ((self.seed + self._epoch) * 1009 + self.process_index) * 7919
             + b
         )
-        if self.device_normalize:
+        if self.raw:
+            pass  # token ids: ship exactly what the dataset holds
+        elif self.device_normalize:
             # Ship the augmented uint8 bytes; the same keyed draws as a
             # host-normalize run of the same (seed, epoch, rank, batch).
             if self.augment:

@@ -9,8 +9,9 @@ inverse, for round trips.
 Two families:
 * the GPT (`gpt_lm`), the default: every leaf keeps its layout (linear
   weights stay (K, N));
-* the image models (`models/tinycnn.py`, `mobilenetv2.py`,
-  `resnet.py`), selected by passing the port's `model`: its tree gives
+* every `Layer` model (`models/tinycnn.py`, `mobilenetv2.py`,
+  `resnet.py`, `vit.py`, `bert.py`), selected by passing the port's
+  `model`: its tree gives
   the keys and shapes to check against, and the BN running stats travel
   as a second tree, `state`, beside `params`. One leaf changes layout
   here: a conv weight, the reference's (kh, kw, I/groups, O) HWIO,

@@ -155,14 +155,25 @@ def _block(params, x, cfg: GPTConfig, ctx: L.Context, attn):
 
 
 def decoder_blocks(params, x, cfg: GPTConfig, ctx: L.Context,
-                   attention_fn: Optional[AttentionFn] = None):
+                   attention_fn: Optional[AttentionFn] = None, *,
+                   remat: bool = False):
     """Run the block stack `params` ({"0": ..., "1": ...}) over
     (hidden, mask); the default core is causal dense attention. Blocks
     apply in order, so a stateful `attention_fn` (the cache recorders)
-    sees layer 0, 1, ... in turn."""
+    sees layer 0, 1, ... in turn; block i draws its dropout bits as the
+    reference's child i of the stack. `remat=True` checkpoints each
+    block (`layers.remat`: its forward, the attention kernel included,
+    runs again in the backward pass)."""
     attn = _attention(cfg, attention_fn)
     for i in range(cfg.num_layers):
-        x = _block(params[str(i)], x, cfg, ctx, attn)
+        if remat and torch.is_grad_enabled():
+            from torch.utils.checkpoint import checkpoint
+
+            x = checkpoint(_block, params[str(i)], x, cfg, ctx.child(i),
+                           attn, use_reentrant=False,
+                           preserve_rng_state=False)
+        else:
+            x = _block(params[str(i)], x, cfg, ctx.child(i), attn)
     return x
 
 
@@ -227,8 +238,9 @@ def gpt_lm(params, ids: torch.Tensor, cfg: GPTConfig,
     """Full-sequence forward: ids (B, T) -> logits (B, T, vocab) f32 (the
     recompute oracle the cached decode is held against)."""
     ctx = ctx or L.Context()
-    x = stem_apply(params["stem"], ids, cfg, ctx)
-    h, _ = decoder_blocks(params["blocks"], x, cfg, ctx, attention_fn)
+    x = stem_apply(params["stem"], ids, cfg, ctx.child(0))
+    h, _ = decoder_blocks(params["blocks"], x, cfg, ctx.child(1),
+                          attention_fn)
     return head_apply(params["head"], h)
 
 

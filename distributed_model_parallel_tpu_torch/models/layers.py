@@ -46,12 +46,16 @@ class Context:
     # Projection policy (`ops/quant_matmul.QuantMatmul`) consumed by
     # `project`; None => every projection is a plain dot.
     matmul: Optional[Any] = None
-    # Random bits for train-mode dropout: a torch.Generator on the
-    # activations' device, seeded per step by the engine (the reference
-    # folds the step into a PRNG key instead). Each dropout call draws
-    # the next bits from it, so sibling layers get independent masks.
-    # None => dropout is the identity, as with the reference's rng=None.
-    generator: Optional[torch.Generator] = None
+    # Dropout key (the reference's `rng`): a 32-bit value, a Python int
+    # or an int64 0-dim tensor on the activations' device, that the
+    # engine folds from the step (`fold_in`). A tensor key is what a
+    # captured step carries: its step lives on the device, so a graph
+    # replay draws the bits of the step it replays. None => dropout is
+    # the identity, as with the reference's rng=None.
+    rng: Optional[Any] = None
+    # Child indices folded into `rng` by the combinators (`child`), kept
+    # on the host and folded once per dropout call.
+    rng_path: tuple = ()
     # Process group over which train-mode BatchNorm statistics are
     # averaged (SyncBN; the reference's `bn_axis`). None => statistics
     # of the local batch.
@@ -62,6 +66,56 @@ class Context:
     # so a row's summation order, by the number of rows, and this keeps
     # every row's statistics those of a (B, 1, dim) decode step.
     norm_per_position: bool = False
+
+    def child(self, i: int) -> "Context":
+        """Context for the i-th child of a combinator (the reference's
+        `child`): sibling stochastic layers draw independent masks."""
+        if self.rng is None:
+            return self
+        return dataclasses.replace(self, rng_path=self.rng_path + (i,))
+
+
+# ---------------------------------------------------------------------------
+# Dropout bits
+# ---------------------------------------------------------------------------
+#
+# The reference draws dropout masks from jax.random keys folded from the
+# step; those bits cannot be matched (parity runs use rate 0). The port's
+# bits are a counter-based hash instead: each element's bit is a function
+# of (key, the call's child path, its flat index) only, computed with
+# int64 tensor arithmetic that is exact on every device. So a block
+# recomputed under `remat`, and a step replayed from a CUDA graph, draw
+# the masks of the original forward bit for bit, and the card draws the
+# CPU's masks. 32-bit values; every product stays below 2**59.
+
+_M32 = 0xFFFFFFFF
+_MUL = 0x45D9F3B
+
+
+def _mix32(x):
+    """A 32-bit integer hash (two multiply-xorshift rounds), on a Python
+    int or an int64 tensor holding values in [0, 2**32)."""
+    x = (((x >> 16) ^ x) * _MUL) & _M32
+    x = (((x >> 16) ^ x) * _MUL) & _M32
+    return (x >> 16) ^ x
+
+
+def fold_in(key, data):
+    """A new key from `key` and `data` (ints, or int64 tensors on one
+    device): the counterpart of `jax.random.fold_in`."""
+    return _mix32(key ^ _mix32((data + 0x9E3779B9) & _M32))
+
+
+def root_key(seed: int = 0) -> int:
+    """The key of `seed` (the reference's `PRNGKey(seed)`)."""
+    return _mix32(seed & _M32)
+
+
+def _call_key(ctx: "Context"):
+    h = 0
+    for i in ctx.rng_path:  # host ints: no device work
+        h = fold_in(h, i)
+    return fold_in(ctx.rng, h)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -97,13 +151,17 @@ def gelu(x: torch.Tensor) -> torch.Tensor:
 def dropout(x: torch.Tensor, rate: float, ctx: Context) -> torch.Tensor:
     """Inverted dropout: in training, zero each element with probability
     `rate` and scale the kept ones by 1/(1 - rate). The identity in eval,
-    for rate 0, and without a generator. The bits come from
-    `ctx.generator` and cannot match jax.random's; parity runs use
-    rate 0."""
-    if not ctx.train or rate == 0.0 or ctx.generator is None:
+    for rate 0, and without a key. An element is kept when the hash of
+    (`ctx`'s key and child path, its flat index) falls below
+    (1 - rate) * 2**32: the same bits on every device, in a recompute and
+    in a graph replay; they cannot match jax.random's, so parity runs
+    use rate 0."""
+    if not ctx.train or rate == 0.0 or ctx.rng is None:
         return x
-    keep = torch.rand(x.shape, generator=ctx.generator,
-                      device=x.device) < (1.0 - rate)
+    key = _call_key(ctx)
+    idx = torch.arange(x.numel(), dtype=torch.int64, device=x.device)
+    bits = _mix32(idx ^ (key.to(x.device) if torch.is_tensor(key) else key))
+    keep = (bits < int(round((1.0 - rate) * 2.0 ** 32))).view(x.shape)
     return torch.where(keep, x / (1.0 - rate), torch.zeros_like(x))
 
 
@@ -299,9 +357,9 @@ def named(pairs: Sequence[tuple]) -> Layer:
 
     def apply(params, state, x, ctx):
         new_state = {}
-        for name, layer in pairs:
+        for i, (name, layer) in enumerate(pairs):
             x, new_state[name] = layer.apply(params[name], state[name], x,
-                                             ctx)
+                                             ctx.child(i))
         return x, new_state
 
     return Layer(init, apply)
@@ -323,11 +381,11 @@ def residual(body: Layer, shortcut: Optional[Layer] = None) -> Layer:
         return params, state
 
     def apply(params, state, x, ctx):
-        y, bs = body.apply(params["body"], state["body"], x, ctx)
+        y, bs = body.apply(params["body"], state["body"], x, ctx.child(0))
         new_state = {"body": bs}
         if shortcut is not None:
             sc, new_state["shortcut"] = shortcut.apply(
-                params["shortcut"], state["shortcut"], x, ctx)
+                params["shortcut"], state["shortcut"], x, ctx.child(1))
         else:
             sc = x
         return y + sc, new_state
@@ -335,7 +393,27 @@ def residual(body: Layer, shortcut: Optional[Layer] = None) -> Layer:
     return Layer(init, apply)
 
 
+def remat(layer: Layer) -> Layer:
+    """Gradient rematerialization (the reference's `L.remat`,
+    `jax.checkpoint`): under autograd, `torch.utils.checkpoint` keeps
+    only the layer's inputs and re-runs its forward in the backward pass.
+    The recompute sees the same parameter, state and input tensors and
+    the same dropout key, so it draws the same masks; its outputs are
+    thrown away, so the BN running statistics the layer returns are
+    those of the first forward, updated once. Without autograd (eval,
+    the pipeline's forward ticks) the layer runs as it is."""
+    from torch.utils.checkpoint import checkpoint
+
+    def apply(params, state, x, ctx):
+        if not torch.is_grad_enabled():
+            return layer.apply(params, state, x, ctx)
+        return checkpoint(layer.apply, params, state, x, ctx,
+                          use_reentrant=False, preserve_rng_state=False)
+
+    return Layer(layer.init, apply)
+
+
 __all__ = ["Context", "Layer", "avg_pool2d", "batchnorm2d", "conv2d",
-           "dropout", "flatten", "gelu", "global_avg_pool", "layernorm",
-           "linear", "max_pool2d", "named", "project", "relu",
-           "reshape_head", "residual", "sequential"]
+           "dropout", "flatten", "fold_in", "gelu", "global_avg_pool",
+           "layernorm", "linear", "max_pool2d", "named", "project", "relu",
+           "remat", "reshape_head", "residual", "root_key", "sequential"]

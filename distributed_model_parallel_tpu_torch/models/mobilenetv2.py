@@ -80,14 +80,20 @@ def _head(num_classes: int, batchnorm: bool) -> L.Layer:
     ])
 
 
-def mobilenet_v2(num_classes: int = 10, *, batchnorm: bool = True) -> L.Layer:
-    return staging.staged_model(_stem(batchnorm),
-                                _make_blocks(batchnorm=batchnorm),
+def mobilenet_v2(num_classes: int = 10, *, batchnorm: bool = True,
+                 remat: bool = False) -> L.Layer:
+    """The whole network; `remat=True` checkpoints each inverted-residual
+    block (`layers.remat`)."""
+    blocks = _make_blocks(batchnorm=batchnorm)
+    if remat:
+        blocks = [L.remat(b) for b in blocks]
+    return staging.staged_model(_stem(batchnorm), blocks,
                                 _head(num_classes, batchnorm))
 
 
-def mobilenet_v2_nobn(num_classes: int = 10) -> L.Layer:
-    return mobilenet_v2(num_classes, batchnorm=False)
+def mobilenet_v2_nobn(num_classes: int = 10, *,
+                      remat: bool = False) -> L.Layer:
+    return mobilenet_v2(num_classes, batchnorm=False, remat=remat)
 
 
 def split_stages(num_stages: int, num_classes: int = 10, *,

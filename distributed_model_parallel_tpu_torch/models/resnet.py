@@ -98,20 +98,25 @@ def _head(feat: int, num_classes: int) -> L.Layer:
 
 
 def resnet(depth: int, num_classes: int = 1000, *,
-           cifar: bool = False) -> L.Layer:
+           cifar: bool = False, remat: bool = False) -> L.Layer:
     """ResNet-{18,34,50,101,152}; `cifar=True` swaps in the 3x3 stride-1
-    stem with no maxpool."""
+    stem with no maxpool; `remat=True` checkpoints each residual block
+    (`layers.remat`)."""
     blocks, feat = _make_blocks(depth)
+    if remat:
+        blocks = [L.remat(b) for b in blocks]
     return staging.staged_model(_stem(cifar), blocks,
                                 _head(feat, num_classes))
 
 
-def resnet18(num_classes: int = 10, *, cifar: bool = True) -> L.Layer:
-    return resnet(18, num_classes, cifar=cifar)
+def resnet18(num_classes: int = 10, *, cifar: bool = True,
+             remat: bool = False) -> L.Layer:
+    return resnet(18, num_classes, cifar=cifar, remat=remat)
 
 
-def resnet50(num_classes: int = 1000, *, cifar: bool = False) -> L.Layer:
-    return resnet(50, num_classes, cifar=cifar)
+def resnet50(num_classes: int = 1000, *, cifar: bool = False,
+             remat: bool = False) -> L.Layer:
+    return resnet(50, num_classes, cifar=cifar, remat=remat)
 
 
 def split_stages(depth: int, num_stages: int, num_classes: int = 1000, *,

@@ -130,13 +130,16 @@ def nhwc_input(layer: L.Layer) -> L.Layer:
 
 
 def staged_model(stem: L.Layer, blocks: Sequence[L.Layer],
-                 head: L.Layer) -> L.Layer:
-    """`named([stem, blocks, head])` over an NHWC batch."""
-    return nhwc_input(L.named([
+                 head: L.Layer, *, nhwc: bool = True) -> L.Layer:
+    """`named([stem, blocks, head])`, over an NHWC batch (the image
+    families) or, with `nhwc=False`, over the input as it is (token ids:
+    BERT)."""
+    model = L.named([
         ("stem", stem),
         ("blocks", L.sequential(*blocks)),
         ("head", head),
-    ]))
+    ])
+    return nhwc_input(model) if nhwc else model
 
 
 __all__ = ["assemble_stages", "chunk_owner", "logical_of_row",

@@ -36,9 +36,11 @@ def _head(num_classes: int) -> L.Layer:
     return L.sequential(L.global_avg_pool(), L.linear(WIDTH, num_classes))
 
 
-def tiny_cnn(num_classes: int = 10) -> L.Layer:
-    return staging.staged_model(
-        _stem(), [_block(i) for i in range(N_BLOCKS)], _head(num_classes))
+def tiny_cnn(num_classes: int = 10, *, remat: bool = False) -> L.Layer:
+    blocks = [_block(i) for i in range(N_BLOCKS)]
+    if remat:
+        blocks = [L.remat(b) for b in blocks]
+    return staging.staged_model(_stem(), blocks, _head(num_classes))
 
 
 def split_stages(num_stages: int, num_classes: int = 10, *,

@@ -1,10 +1,19 @@
-"""Post-LN transformer block (port of `models/transformer.py`).
+"""Transformer encoder building blocks (port of `models/transformer.py`).
 
 Blocks operate on a `(hidden, mask)` pair exactly as the reference's
-do; the attention core is the `attention_fn(q, k, v, mask)` seam, so
-the serving recorders (`serving/decode.py`) drive the same block code
-the full-sequence model runs. Every projection routes through
-`layers.project`, where the int8 decode policy plugs in.
+do, the mask a (B, T) bool of valid keys (or None); the attention core
+is the `attention_fn(q, k, v, mask)` seam, so the serving recorders
+(`serving/decode.py`) drive the same block code the full-sequence model
+runs. Every projection routes through `layers.project`, where the int8
+decode policy plugs in.
+
+Two surfaces over one body: the functions `multi_head_attention`,
+`feed_forward` and `encoder_layer` take a block's parameters directly
+(the GPT and the serving recorders call them), and
+`encoder_layer_block` wraps the post-LN block as a `Layer` with the
+reference's init (`_linear_params`: 0.02-scaled normal weights, zero
+biases), which BERT stacks. Attention is the plain
+`ops/attention.dot_product_attention` by default, as in the reference.
 """
 
 from __future__ import annotations
@@ -19,6 +28,29 @@ from distributed_model_parallel_tpu_torch.ops.attention import (
 )
 
 AttentionFn = Callable[..., torch.Tensor]
+
+
+def _linear_params(gen: torch.Generator, d_in: int, d_out: int,
+                   scale: float = 0.02) -> dict:
+    """{"w": scale * N(0, 1) of (d_in, d_out), "b": zeros}, drawn on the
+    CPU from `gen` (the reference draws from jax.random: parity carries
+    weights across with `models/convert.py`)."""
+    return {"w": scale * torch.randn((d_in, d_out), generator=gen),
+            "b": torch.zeros(d_out)}
+
+
+def norm_params(dim: int) -> dict:
+    return {"scale": torch.ones(dim), "bias": torch.zeros(dim)}
+
+
+def attention_params(gen: torch.Generator, dim: int) -> dict:
+    return {"qkv": _linear_params(gen, dim, 3 * dim),
+            "out": _linear_params(gen, dim, dim)}
+
+
+def ffn_params(gen: torch.Generator, dim: int, hidden_dim: int) -> dict:
+    return {"in": _linear_params(gen, dim, hidden_dim),
+            "out": _linear_params(gen, hidden_dim, dim)}
 
 
 def multi_head_attention(
@@ -58,24 +90,55 @@ def encoder_layer(
     dropout_rate: float = 0.0, eps: float = 1e-12,
     attention_fn: AttentionFn = dot_product_attention,
 ):
-    """Post-LN block: LN(h + Attn(h)); LN(h + FFN(h))."""
+    """Post-LN block: LN(h + Attn(h)); LN(h + FFN(h)). The attention and
+    the FFN draw their dropout bits as the reference's children 0 and
+    1."""
     h, mask = x
     a, _ = multi_head_attention(
-        params["attn"], (h, mask), ctx, num_heads=num_heads,
+        params["attn"], (h, mask), ctx.child(0), num_heads=num_heads,
         dropout_rate=dropout_rate, attention_fn=attention_fn,
     )
     h = L.layernorm(params["ln1"], h + a, eps,
                     per_position=ctx.norm_per_position)
-    f, _ = feed_forward(params["ffn"], (h, mask), ctx,
+    f, _ = feed_forward(params["ffn"], (h, mask), ctx.child(1),
                         dropout_rate=dropout_rate)
     h = L.layernorm(params["ln2"], h + f, eps,
                     per_position=ctx.norm_per_position)
     return h, mask
 
 
+def encoder_layer_block(
+    dim: int, num_heads: int, hidden_dim: int, *,
+    dropout_rate: float = 0.0, eps: float = 1e-12,
+    attention_fn: AttentionFn = dot_product_attention,
+) -> L.Layer:
+    """The post-LN `encoder_layer` as a `Layer` over (hidden, mask), with
+    the reference's parameter tree {attn, ln1, ffn, ln2} and init (the
+    reference's `encoder_layer` constructor)."""
+    if dim % num_heads:
+        raise ValueError(f"dim {dim} not divisible by num_heads {num_heads}")
+
+    def init(gen):
+        return {"attn": attention_params(gen, dim),
+                "ln1": norm_params(dim),
+                "ffn": ffn_params(gen, dim, hidden_dim),
+                "ln2": norm_params(dim)}, {}
+
+    def apply(params, state, x, ctx):
+        return encoder_layer(params, x, ctx, num_heads=num_heads,
+                             dropout_rate=dropout_rate, eps=eps,
+                             attention_fn=attention_fn), state
+
+    return L.Layer(init, apply)
+
+
 __all__ = [
     "AttentionFn",
+    "attention_params",
     "encoder_layer",
+    "encoder_layer_block",
     "feed_forward",
+    "ffn_params",
     "multi_head_attention",
+    "norm_params",
 ]

@@ -58,9 +58,11 @@ EXPERT_SLICE = "the expert-parallel slice"
 
 class TrainState(NamedTuple):
     """params, model_state (BN running stats; empty for the GPT),
-    optimizer state, and the step count. The step is a host int here
-    (the reference keeps an int32 device scalar inside its jitted
-    step)."""
+    optimizer state, and the step count. The step is a host int between
+    steps (the reference keeps an int32 device scalar inside its jitted
+    step); a captured step (`training/multistep.py`) is handed an int64
+    device scalar in its place, so the dropout key it folds lives on the
+    device and each replay draws its own step's bits."""
 
     params: Any
     model_state: Any
@@ -87,6 +89,24 @@ def place(a, device: torch.device) -> torch.Tensor:
     if device.type == "cuda":
         t = t.pin_memory()
     return t.to(device, non_blocking=True)
+
+
+def step_key(step, rank: int = 0):
+    """The dropout key of a train step on one data rank: the step (host
+    int or device scalar) and the rank folded into the root key, as the
+    reference's engines fold `ts.step` and the replica index into
+    `PRNGKey(0)`."""
+    return L.fold_in(L.fold_in(L.root_key(0), step), rank)
+
+
+@torch.no_grad()
+def write_back(old_tree, new_tree) -> None:
+    """Copy a step's new BN statistics into the state's own tensors, so
+    the state a step holds is updated in place (a captured step replays
+    into the same memory)."""
+    for old, new in zip(tree_leaves(old_tree), tree_leaves(new_tree)):
+        if old is not new:
+            old.copy_(new)
 
 
 def _like(tree, leaves_in_order):
@@ -176,12 +196,19 @@ class _DataParallel:
             x = x.to(self.compute_dtype)
         return x
 
+    def _rank(self) -> int:
+        return (0 if self.mesh.group is None
+                else dist.get_rank(self.mesh.group))
+
     def train_step(self, ts: TrainState, images, labels, lr):
         """One optimizer step; parameters, BN state and optimizer state
-        are updated in place. Returns (state, metric sums over every
-        rank)."""
+        are updated in place. `lr` is a float or an f32 device scalar.
+        Dropout draws from the key of (step, rank). Returns (state,
+        metric sums over every rank). No host read of a device value:
+        the step can be captured in a CUDA graph."""
         ctx = L.Context(train=True, dtype=self.compute_dtype,
-                        bn_group=self._bn_group)
+                        bn_group=self._bn_group,
+                        rng=step_key(ts.step, self._rank()))
         logits, new_state = self.model.apply(
             ts.params, ts.model_state, self._input(images), ctx)
         ce = cross_entropy(logits, labels)
@@ -190,14 +217,17 @@ class _DataParallel:
         if self.mesh.group is not None:
             self.grad_reductions += 1
         grads = _like(ts.params, iter(self._mean_over_ranks(grads)))
-        if not self._sync_bn:
+        state_leaves = list(tree_leaves(new_state))
+        if not self._sync_bn and state_leaves:
             # Per-replica stats averaged before they are kept.
             new_state = _like(new_state, iter(self._mean_over_ranks(
-                list(tree_leaves(new_state)))))
+                state_leaves)))
+        write_back(ts.model_state, new_state)
         params, opt_state = self.optimizer.update(
             ts.params, ts.opt_state, grads, lr)
         m = self._sum_metrics(_metrics(ce.detach(), logits.detach(), labels))
-        return TrainState(params, new_state, opt_state, ts.step + 1), m
+        return TrainState(params, ts.model_state, opt_state,
+                          ts.step + 1), m
 
     @torch.no_grad()
     def eval_step(self, ts: TrainState, images, labels) -> dict:
@@ -264,4 +294,4 @@ class DDPEngine(_DataParallel):
 
 
 __all__ = ["DDPEngine", "DataParallelEngine", "TrainState", "_metrics",
-           "place"]
+           "place", "step_key", "write_back"]

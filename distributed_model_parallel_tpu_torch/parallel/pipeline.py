@@ -38,10 +38,10 @@ A step, as in the JAX engine:
   deep per chunk, and updates the chunk's BN statistics; a backward
   tick re-runs the chunk under autograd on that input (exact: train
   mode normalizes with batch statistics, and the dropout bits are keyed
-  by (step, chunk, microbatch)), seeds it with the cotangent from
-  downstream or with the loss gradient on the last chunk, adds the
-  parameter gradient to the chunk's sum and sends the input cotangent
-  upstream. Outputs sent at one tick arrive at the next, as the JAX
+  by (step, data rank, chunk, microbatch)), seeds it with the
+  cotangent from downstream or with the loss gradient on the last
+  chunk, adds the parameter gradient to the chunk's sum and sends the
+  input cotangent upstream. Outputs sent at one tick arrive at the next, as the JAX
   `ppermute`s do. The recomputation's BN statistics are discarded.
 
 Gradients and BN statistics of the three schedules agree within
@@ -50,9 +50,13 @@ order. `stage_local_params` is accepted for the JAX engine's API: here
 each chunk's parameters, BN statistics and optimizer buffers always live
 on their stage's device, so the flag changes nothing. The state's
 params, BN statistics and optimizer buffers are per-chunk tuples in
-logical order, the JAX engine's canonical form (`to_canonical`).
-Rematerialization belongs to a later slice and is refused, as are MoE
-layers (the JAX engine refuses them too).
+logical order, the JAX engine's canonical form (`to_canonical`); a step
+writes the new BN statistics back into the state's own tensors, so a
+step whose stages share one device can be captured in a CUDA graph
+(`training/multistep.py`). `remat=True` checkpoints each chunk, as the
+JAX engine's `remat_layer` does: a chunk's forward under autograd keeps
+only its input and runs again in the backward pass. MoE layers are
+refused (the JAX engine refuses them too).
 """
 
 from __future__ import annotations
@@ -76,6 +80,8 @@ from distributed_model_parallel_tpu_torch.parallel.data_parallel import (
     _like,
     _metrics,
     place,
+    step_key,
+    write_back,
 )
 from distributed_model_parallel_tpu_torch.runtime.mesh import Mesh
 from distributed_model_parallel_tpu_torch.training.metrics import (
@@ -86,9 +92,6 @@ from distributed_model_parallel_tpu_torch.training.optim import (
     tree_leaves,
     tree_map,
 )
-
-REMAT_SLICE = "the activation-rematerialization slice"
-
 
 # ---------------------------------------------------------------------------
 # 1F1B (PipeDream-flush) tick schedule — built on the host at setup time.
@@ -527,11 +530,6 @@ class PipelineEngine:
                 "virtual_stages > 1 requires schedule='interleaved' "
                 "(gpipe/1f1b run exactly one chunk per device)"
             )
-        if self.remat:
-            raise ValueError(
-                "remat is not ported to the PyTorch package yet: it "
-                f"belongs to {REMAT_SLICE} (ROADMAP.md)"
-            )
         if self.compute_dtype not in (None, torch.float32, torch.bfloat16):
             raise ValueError(f"compute_dtype must be None, float32 or "
                              f"bfloat16, got {self.compute_dtype}")
@@ -551,7 +549,9 @@ class PipelineEngine:
         self._bn_group = (self.mesh.group
                           if self.sync_bn and self.mesh.data > 1 else None)
         self._io_cache: dict = {}
-        self._generators: dict = {}  # one per device, reseeded per item
+        # What runs each chunk: the chunk, or its checkpointed twin.
+        self._exec = [L.remat(st) if self.remat else st
+                      for st in self.stages]
         #: gradient all-reduces launched (one per train step with a
         #: process group)
         self.grad_reductions = 0
@@ -670,22 +670,12 @@ class PipelineEngine:
             self._io_cache[key] = _StageIO(ins, wire)
         return self._io_cache[key]
 
-    def _ctx(self, train: bool, step: int, l: int, m: int) -> L.Context:
+    def _ctx(self, train: bool, key, l: int, m: int) -> L.Context:
         """Dropout bits keyed by (step, data rank, chunk, microbatch): the
-        same at a forward tick and at its backward tick's recompute (the
-        items run one at a time, so one generator a device serves
-        them)."""
-        gen = None
-        if train:
-            rank = (0 if self.mesh.group is None
-                    else dist.get_rank(self.mesh.group))
-            dev = self.devices[l]
-            if dev not in self._generators:
-                self._generators[dev] = torch.Generator(device=dev)
-            gen = self._generators[dev].manual_seed(
-                ((step * 8191 + rank) * 8191 + l) * 8191 + m)
+        step's key with the chunk and microbatch as its child path, the
+        same at a forward tick and at its backward tick's recompute."""
         return L.Context(train=train, dtype=self.compute_dtype,
-                         generator=gen,
+                         rng=key if train else None, rng_path=(l, m),
                          bn_group=self._bn_group if train else None)
 
     def _run(self, rows, ts: TrainState, mbs, labels_mbs, io: _StageIO, *,
@@ -703,11 +693,14 @@ class PipelineEngine:
         state = list(ts.model_state)
         logits = [None] * len(mbs)
         grads = [None] * C
+        rank = (0 if self.mesh.group is None
+                else dist.get_rank(self.mesh.group))
+        key = step_key(ts.step, rank) if train else None
         for row in rows:
             sends = []
             for s, kind, m, v in row:
                 l = v * S + s
-                ctx = self._ctx(train, ts.step, l, m)
+                ctx = self._ctx(train, key, l, m)
                 slot = v * R + m % R
                 wire_in = None
                 if l > 0:
@@ -718,7 +711,7 @@ class PipelineEngine:
                     with torch.set_grad_enabled(train and not ticks):
                         x = mbs[m] if l == 0 else _unwire(wire_in,
                                                           io.ins[l])
-                        y, state[l] = self.stages[l].apply(
+                        y, state[l] = self._exec[l].apply(
                             ts.params[l], state[l], x, ctx)
                         y = [t.to(io.wire) for t in _leaves(y)]
                     if l == C - 1:
@@ -759,7 +752,7 @@ class PipelineEngine:
                 leaves_in = [t.detach().requires_grad_(d.is_floating_point)
                              for t, d in zip(wire_in, io.ins[l])]
                 x = _unwire(leaves_in, io.ins[l])
-            y, _ = self.stages[l].apply(ts.params[l], state[l], x, ctx)
+            y, _ = self._exec[l].apply(ts.params[l], state[l], x, ctx)
             y = [t.to(io.wire) for t in _leaves(y)]
             if l == self.num_chunks - 1:
                 lbl = labels_mbs[m]
@@ -830,10 +823,11 @@ class PipelineEngine:
         if not self.sync_bn:
             new_state = _like(new_state, iter(self._mean_over_data(
                 list(tree_leaves(new_state)))))
+        write_back(ts.model_state, new_state)
         params, opt_state = self.optimizer.update(
             ts.params, ts.opt_state, grads, lr)
         m = _metrics(loss.detach(), logits.detach(), labels)
-        return (TrainState(params, new_state, opt_state, ts.step + 1),
+        return (TrainState(params, ts.model_state, opt_state, ts.step + 1),
                 self._sum_metrics(m))
 
     @torch.no_grad()

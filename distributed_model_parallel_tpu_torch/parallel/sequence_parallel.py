@@ -11,7 +11,12 @@ The reference's step semantics are kept:
   one shard and one replica the reference's psum over ('seq', data) is
   the identity;
 * `optimizer.update` (in place here), metrics returned as sums;
-* `compute_dtype` bf16 runs bf16 activations on f32 parameters.
+* `compute_dtype` bf16 runs bf16 activations on f32 parameters;
+* `remat=True` checkpoints each decoder block (`models/gpt.py
+  decoder_blocks`): its forward, the flash kernel K1 included, runs
+  again in the backward pass;
+* dropout draws from the key of the step (`step_key`), so a recompute
+  and a graph replay draw the masks of the original forward.
 
 The attention core comes from `ATTENTION`, the reference's registry:
 `ulysses_flash` and `ring_flash` run the flash kernels
@@ -47,6 +52,7 @@ from distributed_model_parallel_tpu_torch.parallel.data_parallel import (
     TrainState,
     _like,
     _metrics,
+    step_key,
 )
 from distributed_model_parallel_tpu_torch.training.metrics import (
     cross_entropy,
@@ -59,7 +65,6 @@ from distributed_model_parallel_tpu_torch.training.optim import (
 # Later port slices (ROADMAP.md), named by the refusals below.
 CM_SLICE = "the collective-matmul slice"
 GRAD_REDUCTION_SLICE = "the gradient-reduction slice"
-REMAT_SLICE = "the activation-rematerialization slice"
 MOE_SLICE = "the expert-parallel slice"
 
 
@@ -114,8 +119,6 @@ class CausalLMSequenceParallelEngine:
         if self.dcn_compression != "none":
             raise _not_ported(f"dcn_compression={self.dcn_compression!r}",
                               GRAD_REDUCTION_SLICE)
-        if self.remat:
-            raise _not_ported("remat", REMAT_SLICE)
         if getattr(self.cfg, "num_experts", 0) > 0:
             raise _not_ported("GPTConfig.num_experts > 0", MOE_SLICE)
         if self.compute_dtype not in (None, torch.float32, torch.bfloat16):
@@ -161,10 +164,10 @@ class CausalLMSequenceParallelEngine:
         """ids (B, T) -> logits (B, T, vocab) f32. The position slice
         starts at this shard's offset, 0 at one shard."""
         t = ids.shape[1]
-        x = stem_apply(params["stem"], ids, self.cfg, ctx,
+        x = stem_apply(params["stem"], ids, self.cfg, ctx.child(0),
                        positions=params["stem"]["position"][:t])
-        h, _ = decoder_blocks(params["blocks"], x, self.cfg, ctx,
-                              self._attn)
+        h, _ = decoder_blocks(params["blocks"], x, self.cfg, ctx.child(1),
+                              self._attn, remat=self.remat)
         return head_apply(params["head"], h)
 
     @staticmethod
@@ -178,9 +181,9 @@ class CausalLMSequenceParallelEngine:
     def grads(self, ts: TrainState, ids, targets):
         """(metric sums, gradient tree) of one training step: the
         gradient of the local loss SUM, divided by max(valid tokens, 1).
-        Dropout draws from a generator seeded with the step."""
-        gen = torch.Generator(device=self.device).manual_seed(ts.step)
-        ctx = L.Context(train=True, dtype=self.compute_dtype, generator=gen)
+        Dropout draws from the key of the step."""
+        ctx = L.Context(train=True, dtype=self.compute_dtype,
+                        rng=step_key(ts.step))
         m = self.local_sums(self.forward(ts.params, ids, ctx), targets)
         grads = torch.autograd.grad(m["loss_sum"],
                                     list(tree_leaves(ts.params)))

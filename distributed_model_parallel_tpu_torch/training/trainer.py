@@ -25,9 +25,20 @@ recorded epoch and continues from the epoch after it. A save is timed
 by the `checkpoint_blocked` span and the `train_checkpoint_blocked_s`
 histogram.
 
-Left to later slices, and refused rather than skipped: the sharded
-checkpoint format and `async_save`, `steps_per_dispatch > 1`,
-`profile_dir`.
+Dispatch groups (`training/multistep.py`): with `steps_per_dispatch` k
+> 1 the loop pulls k batches a group and runs them in one dispatch (a
+CUDA graph replayed k times on the card, k eager steps on the CPU);
+an epoch shorter than k clamps k to its length, with a message, and a
+short tail group runs step by step. `validate` groups its batches the
+same way. `profile_dir` captures a `torch.profiler` trace (Chrome JSON,
+CPU and, on the card, CUDA activity) of the whole dispatch groups that
+cover three steps, from the first group that starts at or past step 10
+(or from the first group, when the epoch is too short): three steps at
+k = 1, one group of k steps when k >= 3. It writes the trace into the
+directory and prints its path.
+
+Left to a later slice, and refused rather than skipped: the sharded
+checkpoint format and `async_save`.
 """
 
 from __future__ import annotations
@@ -37,6 +48,8 @@ import json
 import os
 import time
 from typing import Any, Iterable, Optional
+
+import torch
 
 from distributed_model_parallel_tpu_torch.models.convert import (
     train_state_from_jax,
@@ -56,12 +69,15 @@ from distributed_model_parallel_tpu_torch.training.checkpoint import (
     restore_checkpoint,
     save_checkpoint,
 )
+from distributed_model_parallel_tpu_torch.training.multistep import (
+    add_sums,
+    compile_multi_eval,
+    compile_multi_step,
+    group_batches,
+)
 from distributed_model_parallel_tpu_torch.training.optim import (
     cosine_warmup_schedule,
 )
-
-MULTISTEP_SLICE = "the multi-step dispatch slice"
-PROFILE_SLICE = "the profiler-capture slice"
 
 
 @dataclasses.dataclass
@@ -82,9 +98,9 @@ class EpochStats:
 @dataclasses.dataclass
 class TrainerConfig:
     """Trainer hyperparameters, the reference's fields. The sharded
-    checkpoint, dispatch-grouping and profiler fields exist so a
-    configuration crosses between the packages; their non-default values
-    are refused until their slices land."""
+    checkpoint fields exist so a configuration crosses between the
+    packages; their non-default values are refused until their slice
+    lands."""
 
     epochs: int = 100
     base_lr: float = 0.1
@@ -98,7 +114,10 @@ class TrainerConfig:
     resume: bool = False
     # Truncate each training epoch to N batches (0 = full epoch).
     steps_per_epoch: int = 0
+    # Train steps per dispatch (`training/multistep.py`); 1 = off.
     steps_per_dispatch: int = 1
+    # Write a torch.profiler trace of the dispatch groups covering three
+    # steady-state steps here (one group of k steps when k >= 3).
     profile_dir: Optional[str] = None
     # Also write a 'last' checkpoint at the end of every epoch; resume
     # prefers it over the best-acc 'ckpt' when it is newer.
@@ -117,10 +136,6 @@ def _refused(knob: str, later: str) -> ValueError:
     )
 
 
-def _add(sums: Optional[dict], m: dict) -> dict:
-    return dict(m) if sums is None else {k: sums[k] + m[k] for k in sums}
-
-
 class Trainer:
     """Drives an engine through the reference's epoch protocol."""
 
@@ -131,9 +146,6 @@ class Trainer:
             ("checkpoint_format", config.checkpoint_format != "legacy",
              SHARDED_SLICE),
             ("async_save", config.async_save, SHARDED_SLICE),
-            ("steps_per_dispatch", config.steps_per_dispatch != 1,
-             MULTISTEP_SLICE),
-            ("profile_dir", config.profile_dir is not None, PROFILE_SLICE),
         ):
             if bad:
                 raise _refused(knob, later)
@@ -150,6 +162,15 @@ class Trainer:
         if config.resume:
             self._resume()
         self.history: list = []
+        self._profiled = False
+        k = max(1, config.steps_per_dispatch)
+        # Built now so that an engine that cannot be captured is refused
+        # before the first epoch; rebuilt when an epoch clamps k.
+        self._multi = compile_multi_step(engine, k)
+        self._multi_eval = compile_multi_eval(engine, k)
+        self._multi.k = self._multi_eval.k = k
+        #: the path of the profiler trace, once written
+        self.profile_path: Optional[str] = None
 
     def _resume(self) -> None:
         """Restore the newer of 'last' and 'ckpt' (rank 0 reads, the
@@ -173,6 +194,35 @@ class Trainer:
 
     # ------------------------------------------------------------- loops
 
+    def _group_fn(self, k: int):
+        if getattr(self._multi, "k", None) != k:
+            self._multi = compile_multi_step(self.engine, k)
+            self._multi.k = k
+        return self._multi
+
+    @staticmethod
+    def _start_profile():
+        activities = [torch.profiler.ProfilerActivity.CPU]
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()  # the trace starts on an idle card
+            activities.append(torch.profiler.ProfilerActivity.CUDA)
+        prof = torch.profiler.profile(activities=activities)
+        prof.start()
+        return prof
+
+    def _stop_profile(self, prof, epoch: int) -> None:
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
+        prof.stop()
+        self._profiled = True
+        if is_primary():
+            os.makedirs(self.config.profile_dir, exist_ok=True)
+            path = os.path.join(self.config.profile_dir,
+                                f"trace_epoch{epoch}.json")
+            prof.export_chrome_trace(path)
+            self.profile_path = path
+            self._log_print(f"==> wrote profiler trace to {path}")
+
     def train_epoch(self, epoch: int) -> EpochStats:
         cfg = self.config
         tracer = get_tracer()
@@ -186,56 +236,97 @@ class Trainer:
         if cfg.steps_per_epoch:
             n_avail = (min(n_avail, cfg.steps_per_epoch)
                        if n_avail else cfg.steps_per_epoch)
+        k = max(1, cfg.steps_per_dispatch)
+        if n_avail is not None and k > n_avail:
+            # A group larger than the epoch would never fill, and every
+            # epoch would run step by step: clamp so that one grouped
+            # dispatch runs per epoch.
+            if not getattr(self, "_warned_k_clamp", False):
+                self._log_print(
+                    f"==> steps_per_dispatch {k} exceeds the "
+                    f"{n_avail}-batch epoch; clamping to {n_avail}")
+                self._warned_k_clamp = True
+            k = max(1, n_avail)
+        # Profile the whole groups that cover three steps (one group when
+        # k >= 3), from the first group that starts at or past
+        # step 10 (past the warmup and the graph capture); an epoch too
+        # short for that profiles its first dispatch, so the trace is
+        # never empty.
+        profile_at = None
+        if cfg.profile_dir and not self._profiled:
+            profile_at = 10 if (n_avail is None or n_avail > 12) else 0
+            if profile_at and k > 1:
+                ga = ((profile_at + k - 1) // k) * k
+                profile_at = ga if (n_avail is None or ga < n_avail) else 0
+        prof = None
         sums = None
         n_batches = 0
         data_time = 0.0
 
-        def fetch(n_done: int):
-            """The next batch on the device, or None when the epoch (or
-            its steps_per_epoch budget) is done."""
+        def fetch_group(n_done: int) -> list:
+            """The next group (up to k batches) on the device; [] when
+            the epoch (or its steps_per_epoch budget) is done."""
             nonlocal data_time
-            if cfg.steps_per_epoch and n_done >= cfg.steps_per_epoch:
-                return None
-            with tracer.span("fetch", want=1):
+            want = k
+            if cfg.steps_per_epoch:
+                want = min(k, cfg.steps_per_epoch - n_done)
+                if want <= 0:
+                    return []
+            with tracer.span("fetch", want=want):
                 t0 = time.perf_counter()
                 tm0 = tracer.now() if mx.enabled else 0.0
-                batch = next(it, None)
+                host_batches = group_batches(it, want)
                 data_time += time.perf_counter() - t0
-                if batch is None:
-                    return None
-                if mx.enabled:
-                    mx.observe("train_fetch_s", tracer.now() - tm0)
-                return self.engine.shard_batch(*batch)
+                if mx.enabled and host_batches:
+                    mx.observe("train_fetch_s",
+                               (tracer.now() - tm0) / len(host_batches))
+                return [self.engine.shard_batch(*b) for b in host_batches]
 
         epoch_start = time.perf_counter()
         t_boundary = tracer.now() if mx.enabled else None
         printable = None
-        placed = fetch(0)
-        while placed is not None:
-            with tracer.span("step", n=1):
-                self.state, metrics = self.engine.train_step(
-                    self.state, *placed, lr)
+        placed = fetch_group(0)
+        while placed:
+            if profile_at is not None and prof is None \
+                    and n_batches >= profile_at:
+                prof = self._start_profile()
+            with tracer.span("step", n=len(placed)):
+                if len(placed) == k and k > 1:
+                    self.state, metrics = self._group_fn(k)(
+                        self.state, placed, lr)
+                else:  # k = 1, or the epoch's short tail
+                    metrics = None
+                    for b in placed:
+                        self.state, m_i = self.engine.train_step(
+                            self.state, *b, lr)
+                        metrics = add_sums(metrics, m_i)
             prev = n_batches
-            n_batches += 1
-            # The next batch's host load and copy overlap the step the
+            n_group = len(placed)
+            n_batches += n_group
+            # The next group's host load and copy overlap the steps the
             # device is still running.
-            placed = fetch(n_batches)
-            sums = _add(sums, metrics)
+            placed = fetch_group(n_batches)
+            if prof is not None and n_batches >= profile_at + 3:
+                self._stop_profile(prof, epoch)
+                prof, profile_at = None, None
+            sums = add_sums(sums, metrics)
             if mx.enabled:
                 t_now = tracer.now()
                 if t_boundary is not None:
-                    mx.observe("train_step_s", t_now - t_boundary)
-                mx.inc("train_batches_total", 1)
+                    mx.observe("train_step_s",
+                               (t_now - t_boundary) / n_group)
+                mx.inc("train_batches_total", n_group)
                 t_boundary = t_now
             if cfg.print_freq and (
                 n_batches // cfg.print_freq > prev // cfg.print_freq
             ):
-                # Print the PREVIOUS step's metrics: a newer step already
-                # runs behind them, so reading them does not stall on it.
+                # Print the PREVIOUS group's metrics: a newer dispatch
+                # already runs behind them, so reading them does not
+                # stall on it.
                 snap_n, snap = (printable if printable is not None
                                 else (n_batches, metrics))
                 with tracer.span("sync"):
-                    m = {k: float(v) for k, v in snap.items()}
+                    m = {key: float(v) for key, v in snap.items()}
                 self._log_print(
                     f"Epoch: [{epoch}]"
                     f"[{snap_n}/{n_avail if n_avail is not None else '?'}]"
@@ -246,27 +337,44 @@ class Trainer:
             printable = (n_batches, metrics)
         if sums is not None:
             with tracer.span("sync", epoch=epoch):
-                sums = {k: float(v) for k, v in sums.items()}
+                sums = {key: float(v) for key, v in sums.items()}
+        if prof is not None:  # the epoch ended inside the capture window
+            self._stop_profile(prof, epoch)
         wall = time.perf_counter() - epoch_start
         return self._finalize(sums, n_batches, wall, data_time)
 
     def validate(self, epoch: int) -> EpochStats:
+        """Validation in groups of steps_per_dispatch batches (clamped to
+        the loader's length), a short tail batch by batch."""
         sums = None
         n_batches = 0
         data_time = 0.0
+        k = max(1, self.config.steps_per_dispatch)
+        if hasattr(self.val_loader, "__len__"):
+            k = max(1, min(k, len(self.val_loader)))
+        if getattr(self._multi_eval, "k", None) != k:
+            self._multi_eval = compile_multi_eval(self.engine, k)
+            self._multi_eval.k = k
         epoch_start = time.perf_counter()
         it = iter(self.val_loader)
         while True:
             t0 = time.perf_counter()
-            batch = next(it, None)
+            host_batches = group_batches(it, k)
             data_time += time.perf_counter() - t0
-            if batch is None:
+            if not host_batches:
                 break
-            placed = self.engine.shard_batch(*batch)
-            sums = _add(sums, self.engine.eval_step(self.state, *placed))
-            n_batches += 1
+            placed = [self.engine.shard_batch(*b) for b in host_batches]
+            if len(placed) == k and k > 1:
+                metrics = self._multi_eval(self.state, placed)
+            else:
+                metrics = None
+                for b in placed:
+                    metrics = add_sums(metrics,
+                                   self.engine.eval_step(self.state, *b))
+            sums = add_sums(sums, metrics)
+            n_batches += len(placed)
         if sums is not None:
-            sums = {k: float(v) for k, v in sums.items()}
+            sums = {key: float(v) for key, v in sums.items()}
         wall = time.perf_counter() - epoch_start
         return self._finalize(sums, n_batches, wall, data_time)
 

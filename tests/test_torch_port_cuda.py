@@ -502,6 +502,239 @@ def test_lm_pipeline_step_on_the_card_matches_the_cpu(cuda, schedule):
         torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-6)
 
 
+def _traced(fn, names):
+    """`fn()` under torch.profiler: (its result, {name: launches of the
+    device kernels whose name holds it})."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    kernels = [(e.key, e.count) for e in prof.key_averages()
+               if getattr(e, "device_type", None) == DeviceType.CUDA]
+    return out, {n: sum(c for key, c in kernels if n in key) for n in names}
+
+
+def _sums_and_params(eng, ts, groups, lr, k, names=()):
+    """Each group through `compile_multi_step(eng, k)`: (the float metric
+    sums per group, the parameters and model state after, as CPU
+    tensors, the launches of the device kernels named in `names` that a
+    profile of the last group shows, when there is more than one)."""
+    from distributed_model_parallel_tpu_torch.training.multistep import (
+        compile_multi_step,
+    )
+
+    multi = compile_multi_step(eng, k)
+    sums, traced = [], None
+    for i, group in enumerate(groups):
+        def dispatch(ts=ts, group=group):
+            return multi(ts, [eng.shard_batch(*b) for b in group], lr)
+
+        if i and i == len(groups) - 1:
+            (ts, m), traced = _traced(dispatch, names)
+        else:
+            ts, m = dispatch()
+        sums.append({key: float(v) for key, v in m.items()})
+    leaves = [t.detach().cpu() for t in tree_leaves(
+        (ts.params, ts.model_state))]
+    return sums, leaves, multi.graph, traced
+
+
+def _graph_vs_eager(make, groups, lr, k, names=()):
+    """(graph run, eager run) from one start: `make()` builds a fresh
+    (engine, state); the eager run dispatches the same groups step by
+    step (k = 1 passes through) but sums each group's metrics as a
+    dispatch does. Each run's last group (when there are several) is
+    profiled and its launches of the kernels named in `names` counted."""
+    from distributed_model_parallel_tpu_torch.training.multistep import (
+        compile_multi_step,
+    )
+
+    eng, ts = make()
+    got = _sums_and_params(eng, ts, groups, lr, k, names)
+    eng0, ts0 = make()
+    one = compile_multi_step(eng0, 1)
+    sums, traced = [], None
+    for i, group in enumerate(groups):
+        def steps(ts0=ts0, group=group):
+            acc = None
+            for b in group:
+                ts0, m = one(ts0, [eng0.shard_batch(*b)], lr)
+                acc = m if acc is None else {key: acc[key] + m[key]
+                                             for key in acc}
+            return ts0, acc
+
+        if i and i == len(groups) - 1:
+            (ts0, acc), traced = _traced(steps, names)
+        else:
+            ts0, acc = steps()
+        sums.append({key: float(v) for key, v in acc.items()})
+    leaves = [t.detach().cpu() for t in tree_leaves(
+        (ts0.params, ts0.model_state))]
+    return got, (sums, leaves, traced), (eng, eng0)
+
+
+@pytest.mark.cuda
+def test_graph_dispatch_equals_eager_steps_ddp_bf16(cuda):
+    """Two 4-step dispatches of a tinycnn DDP bf16 step at world 1 on NCCL
+    (the first: one eager warmup step, the capture, three replays; the
+    second: four replays) equal eight eager steps bit for bit, metric
+    sums and every parameter and BN statistic. The host issues the
+    gradient all-reduce for the warmup step and the capture only (a
+    replay runs no Python); a profile of the four replays shows the
+    NCCL kernels of four eager steps."""
+    from distributed_model_parallel_tpu_torch.cli.common import (
+        set_device_numerics,
+    )
+
+    set_device_numerics()
+    initialize_backend("cuda")
+    try:
+        rng = np.random.RandomState(0)
+        batches = [(rng.randn(16, 8, 8, 3).astype(np.float32),
+                    rng.randint(0, 10, 16)) for _ in range(8)]
+
+        def make():
+            eng = DDPEngine(tiny_cnn(10), SGD(), device="cuda",
+                            compute_dtype=torch.bfloat16)
+            return eng, eng.init_state(0)
+
+        (gs, gl, graph, gt), (es, el, et), (eng, eng0) = _graph_vs_eager(
+            make, [batches[:4], batches[4:]], 0.1, 4, names=("nccl",))
+    finally:
+        dist.destroy_process_group()
+    assert graph.captures == 1 and graph.replays == 7
+    assert gs == es
+    assert eng.grad_reductions == 1 + graph.captures
+    assert eng0.grad_reductions == 8
+    assert gt == et
+    for a, b in zip(gl, el):
+        assert torch.equal(a, b)
+
+
+def _small_gpt(dropout=0.0):
+    from distributed_model_parallel_tpu_torch.models.gpt import GPTConfig
+
+    return GPTConfig(vocab_size=97, dim=64, num_layers=2, num_heads=4,
+                     ffn_dim=256, max_position=64, dropout_rate=dropout,
+                     pad_token_id=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("remat", [False, True])
+def test_graph_dispatch_equals_eager_steps_lm_flash(cuda, remat):
+    """A 2-layer GPT with the flash kernels K1-K3 (f32, dropout 0.1):
+    two 4-step dispatches equal eight eager steps bit for bit; under
+    remat as well, and remat equals no remat. The wrappers count the
+    launches the host issues (the graph run's warmup step and capture,
+    every eager step); a profile of the four replays shows each kernel
+    as often as one of four eager steps."""
+    from distributed_model_parallel_tpu_torch.data.lm import (
+        synthetic_corpus,
+    )
+    from distributed_model_parallel_tpu_torch.ops import flash_attention as fa
+    from distributed_model_parallel_tpu_torch.parallel.sequence_parallel \
+        import CausalLMSequenceParallelEngine
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    corpus = synthetic_corpus(97, 8 * 4 * 64 + 1, seed=3)
+    batches = [(corpus[i * 256:(i + 1) * 256].reshape(4, 64),)
+               for i in range(8)]
+    names = ("flash_fwd_kernel", "flash_bwd_dq_kernel",
+             "flash_bwd_dkv_kernel")
+    runs = {}
+    for r in (remat, False):
+        def make(r=r):
+            eng = CausalLMSequenceParallelEngine(
+                _small_gpt(0.1), SGD(), attention="ulysses_flash",
+                remat=r, device="cuda")
+            return eng, eng.init_state(0)
+
+        before = fa.flash_fwd.launches
+        (gs, gl, graph, gt), (es, el, et), _ = _graph_vs_eager(
+            make, [batches[:4], batches[4:]], 0.05, 4, names=names)
+        runs[r] = (gs, gl, fa.flash_fwd.launches - before)
+        assert graph.replays == 7 and gs == es
+        for a, b in zip(gl, el):
+            assert torch.equal(a, b)
+        # 2 layers x 4 steps; K1 twice a layer under remat
+        per = 2 * 4 * (2 if r else 1)
+        assert gt == et == {"flash_fwd_kernel": per,
+                            "flash_bwd_dq_kernel": 2 * 4,
+                            "flash_bwd_dkv_kernel": 2 * 4}
+    # K1 through the wrapper: 2 layers, twice each under remat, for the
+    # graph run's warmup step and capture and the eager run's 8 steps
+    assert runs[remat][2] == 2 * (2 + 8) * (2 if remat else 1)
+    assert runs[remat][0] == runs[False][0]
+    for a, b in zip(runs[remat][1], runs[False][1]):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_bert_dropout_under_graph_and_remat_equals_eager(cuda):
+    """A 2-layer BERT with dropout 0.1 (the dropout bits are a hash of the
+    device step): a 4-step graph dispatch equals four eager steps, and
+    remat equals no remat, bit for bit; dropout is live (the loss
+    differs from dropout 0's)."""
+    from distributed_model_parallel_tpu_torch.models import bert
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rng = np.random.RandomState(0)
+    batches = [(rng.randint(1, 64, size=(8, 16)).astype(np.int32),
+                rng.randint(0, 3, size=8)) for _ in range(4)]
+    out = {}
+    for rate, remat in ((0.1, False), (0.1, True), (0.0, False)):
+        cfg = bert.BertConfig(vocab_size=64, hidden_size=32, num_layers=2,
+                              num_heads=4, intermediate_size=64,
+                              max_position=16, dropout_rate=rate)
+
+        def make(cfg=cfg, remat=remat):
+            eng = DDPEngine(bert.bert_for_classification(3, cfg,
+                                                         remat=remat),
+                            SGD(), mesh=Mesh(1, None), device="cuda")
+            return eng, eng.init_state(0)
+
+        (gs, gl, _, _), (es, el, _), _ = _graph_vs_eager(
+            make, [batches], 0.05, 4)
+        assert gs == es
+        for a, b in zip(gl, el):
+            assert torch.equal(a, b)
+        out[rate, remat] = (gs, gl)
+    assert out[0.1, True][0] == out[0.1, False][0]
+    for a, b in zip(out[0.1, True][1], out[0.1, False][1]):
+        assert torch.equal(a, b)
+    assert out[0.1, False][0] != out[0.0, False][0]
+
+
+@pytest.mark.cuda
+def test_vit_step_on_the_card_matches_the_cpu(cuda):
+    """One ViT DDP step (2 layers, dim 64, 32x32 images) on the card
+    against the CPU: loss and every parameter at rtol 1e-5, TF32 off."""
+    from distributed_model_parallel_tpu_torch.models import vit
+
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = vit.ViTConfig(image_size=32, patch_size=4, dim=64, num_layers=2,
+                        num_heads=4, mlp_dim=128)
+    rng = np.random.RandomState(0)
+    images = rng.randn(16, 32, 32, 3).astype(np.float32)
+    labels = rng.randint(0, 10, 16)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        eng = DDPEngine(vit.vit(10, cfg), SGD(), mesh=Mesh(1, None),
+                        device=dev)
+        ts, m = eng.train_step(eng.init_state(0),
+                               *eng.shard_batch(images, labels), 0.05)
+        out[dev] = (m, [t.detach().cpu() for t in tree_leaves(ts.params)])
+    (mc, pc), (mh, ph) = out["cuda"], out["cpu"]
+    torch.testing.assert_close(mc["loss_sum"].cpu(), mh["loss_sum"],
+                               rtol=1e-5, atol=0)
+    for a, b in zip(pc, ph):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-7)
+
+
 def test_native_augment_matches_its_numpy_twin():
     """The port's own augment.cpp, built with g++ at first use into the
     package's build directory, against the NumPy path, bit for bit."""

@@ -88,10 +88,16 @@ def test_collection_types(monkeypatch):
         ("synthetic_textures", (10_000, 32, 10), {"seed": 2}),
     ]
     for t, later in (("Imagenet", "image-folder"), ("CUB200", "image-folder"),
-                     ("Place365", "image-folder"),
-                     ("SyntheticText", "transformer-classifier")):
+                     ("Place365", "image-folder")):
         with pytest.raises(ValueError, match=f"not ported.*{later} slice"):
             tds.DatasetCollection(t).init()
+    # SyntheticText, refused before the transformer-classifier slice, is
+    # the reference's pair of splits.
+    for got, want in zip(tds.DatasetCollection("SyntheticText").init(),
+                         jds.DatasetCollection("SyntheticText").init()):
+        np.testing.assert_array_equal(got.images, want.images)
+        np.testing.assert_array_equal(got.labels, want.labels)
+        assert (got.num_classes, got.kind) == (want.num_classes, "text")
     with pytest.raises(ValueError, match="unknown dataset type"):
         tds.DatasetCollection("MNIST").init()
 

@@ -77,6 +77,9 @@ def test_every_port_module_imports_without_jax():
         " pkg.__name__ + '.')]\n"
         "for n in names: importlib.import_module(n)\n"
         "assert pkg.__name__ + '.serving.speculative' in names\n"
+        "for m in ('training.multistep', 'models.vit', 'models.bert',\n"
+        "          'observability.metrics'):\n"
+        "    assert pkg.__name__ + '.' + m in names, m\n"
         "import distributed_model_parallel_tpu_torch.cli.serve\n"
         "print(len(names))\n"
     )
@@ -250,8 +253,47 @@ def test_data_parallel_cli_defaults_to_cuda_and_refuses_without_a_gpu():
     (["--dataset-type", "Imagenet"], "image-folder"),
     (["--dataset-type", "SyntheticText"], "transformer-classifier"),
 ])
-def test_data_parallel_cli_refuses_out_of_slice_flags(flags, slice_):
+def test_data_parallel_cli_refuses_out_of_slice_flags(flags, slice_,
+                                                     monkeypatch):
+    """Flags of later slices exit naming the slice. --remat,
+    --steps-per-dispatch, --profile-dir, --model vit / bert_tiny and
+    --dataset-type SyntheticText, refused before the transformer-
+    classifier and training-knob slice, now build what the JAX CLI
+    builds: the model with remat, the trainer's dispatch group and
+    profiler directory, the ViT and BERT classifiers, raw token-id
+    loaders."""
     from distributed_model_parallel_tpu_torch.cli import data_parallel
 
-    with pytest.raises(SystemExit, match=f"not ported.*{slice_} slice"):
-        data_parallel.main(["--device", "cpu", *flags])
+    if slice_ not in ("activation-rematerialization", "multi-step dispatch",
+                      "profiler-capture", "transformer-classifier"):
+        with pytest.raises(SystemExit, match=f"not ported.*{slice_} slice"):
+            data_parallel.main(["--device", "cpu", *flags])
+        return
+    seen = {}
+
+    class Stop(Exception):
+        pass
+
+    def build_model(name, num_classes, **kw):
+        seen.update(model=name, classes=num_classes, **kw)
+        return build(name, num_classes, **kw)
+
+    def trainer(engine, train, val, cfg, **kw):
+        seen.update(cfg=cfg, train=train)
+        raise Stop
+
+    build = data_parallel.build_model
+    monkeypatch.setattr(data_parallel, "build_model", build_model)
+    monkeypatch.setattr(data_parallel, "Trainer", trainer)
+    with pytest.raises(Stop):
+        data_parallel.main(["--device", "cpu", "-b", "64", *flags])
+    cfg = seen["cfg"]
+    assert seen["remat"] is (flags[0] == "--remat")
+    assert cfg.steps_per_dispatch == (4 if flags[0] ==
+                                      "--steps-per-dispatch" else 1)
+    assert cfg.profile_dir == ("prof" if flags[0] == "--profile-dir"
+                               else None)
+    if flags[0] == "--model":
+        assert seen["model"] == flags[1]
+    if flags[-1] == "SyntheticText":
+        assert seen["train"].raw and seen["classes"] == 4

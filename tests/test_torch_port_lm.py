@@ -165,19 +165,27 @@ def test_cosine_warmup_schedule_matches_jax():
 
 
 def test_train_mode_dropout_keep_rate_and_scaling():
+    """Dropout bits are a hash of (key, child path, flat index): the
+    keep rate and scaling of inverted dropout, the same mask for the
+    same key whether the key is a host int or a device scalar, other
+    masks for another key or another child."""
     x = torch.ones(400, 500)
-    g = torch.Generator().manual_seed(0)
-    y = L.dropout(x, 0.25, L.Context(train=True, generator=g))
+    key = L.fold_in(L.root_key(0), 3)
+    y = L.dropout(x, 0.25, L.Context(train=True, rng=key))
     kept = y != 0
     # 200,000 Bernoulli(0.75) draws: 5 sigma is 0.0048.
     assert abs(float(kept.float().mean()) - 0.75) < 5e-3
     assert bool((y[kept] == 1.0 / 0.75).all())
     y2 = L.dropout(x, 0.25, L.Context(
-        train=True, generator=torch.Generator().manual_seed(0)))
-    assert torch.equal(y, y2)  # same seed, same mask
+        train=True, rng=L.fold_in(L.root_key(0), torch.tensor(3))))
+    assert torch.equal(y, y2)  # same key (a tensor here), same mask
+    for other in (L.Context(train=True, rng=L.fold_in(L.root_key(0), 4)),
+                  L.Context(train=True, rng=key).child(1)):
+        z = L.dropout(x, 0.25, other)
+        assert abs(float(((z != 0) == kept).float().mean()) - 0.625) < 5e-3
     assert L.dropout(x, 0.25, L.Context(train=False)) is x
-    assert L.dropout(x, 0.25, L.Context(train=True)) is x  # no generator
-    assert L.dropout(x, 0.0, L.Context(train=True, generator=g)) is x
+    assert L.dropout(x, 0.25, L.Context(train=True)) is x  # no key
+    assert L.dropout(x, 0.0, L.Context(train=True, rng=key)) is x
 
 
 # -------------------------------------------------------------- engine
@@ -268,10 +276,19 @@ def test_engine_bf16_step_matches_jax_at_the_bf16_bar():
     ("remat", True, "activation-rematerialization slice"),
 ])
 def test_engine_refuses_later_slices(knob, value, slice_):
-    with pytest.raises(ValueError, match=slice_):
-        CausalLMSequenceParallelEngine(
+    """Knobs of later slices are refused, naming the slice; remat, whose
+    slice is ported, builds an engine that checkpoints its blocks
+    (tests/test_torch_port_remat.py holds its steps)."""
+    if knob == "remat":
+        eng = CausalLMSequenceParallelEngine(
             tgpt.GPTConfig(**CFG_KW), toptim.SGD(), device="cpu",
             **{knob: value})
+        assert eng.remat is True
+    else:
+        with pytest.raises(ValueError, match=slice_):
+            CausalLMSequenceParallelEngine(
+                tgpt.GPTConfig(**CFG_KW), toptim.SGD(), device="cpu",
+                **{knob: value})
     with pytest.raises(ValueError, match="expert-parallel slice"):
         CausalLMSequenceParallelEngine(
             tgpt.GPTConfig(**dict(CFG_KW, num_experts=4)), toptim.SGD(),
@@ -325,6 +342,32 @@ def test_cli_defaults_to_cuda_and_refuses_without_a_gpu():
     (["--steps-per-dispatch", "2"], "multi-step dispatch"),
     (["--profile-dir", "prof"], "profiler-capture"),
 ])
-def test_cli_refuses_flags_of_later_slices(flags, slice_):
-    with pytest.raises(SystemExit, match=f"not ported.*{slice_} slice"):
+def test_cli_refuses_flags_of_later_slices(flags, slice_, monkeypatch):
+    """Flags of later slices exit naming the slice. --remat,
+    --steps-per-dispatch and --profile-dir, refused before their slice
+    was ported, now reach the engine and the trainer as in the JAX CLI
+    (tests/test_torch_port_remat.py, test_torch_port_multistep.py and
+    test_torch_port_metrics.py hold what they do)."""
+    if slice_ not in ("activation-rematerialization", "multi-step dispatch",
+                      "profiler-capture"):
+        with pytest.raises(SystemExit, match=f"not ported.*{slice_} slice"):
+            lm_cli.main(["--device", "cpu", *flags])
+        return
+    seen = {}
+
+    class Stop(Exception):
+        pass
+
+    def trainer(engine, train, val, cfg, **kw):
+        seen.update(engine=engine, cfg=cfg)
+        raise Stop
+
+    monkeypatch.setattr(lm_cli, "Trainer", trainer)
+    with pytest.raises(Stop):
         lm_cli.main(["--device", "cpu", *flags])
+    cfg = seen["cfg"]
+    assert seen["engine"].remat is (flags[0] == "--remat")
+    assert cfg.steps_per_dispatch == (2 if flags[0] ==
+                                      "--steps-per-dispatch" else 1)
+    assert cfg.profile_dir == ("prof" if flags[0] == "--profile-dir"
+                               else None)

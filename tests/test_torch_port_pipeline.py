@@ -272,11 +272,15 @@ def test_engine_refusals():
         (dict(schedule="zigzag"), "schedule must be"),
         (dict(virtual_stages=2), "requires schedule='interleaved'"),
         (dict(virtual_stages=0), "must be >= 1"),
-        (dict(remat=True), "not ported.*activation-rematerialization"),
         (dict(schedule="interleaved", virtual_stages=2), "needs 4"),
     ):
         with pytest.raises(ValueError, match=match):
             PipelineEngine(stages, SGD(), mesh, **kw)
+    # remat, refused before its slice, now checkpoints every chunk
+    # (tests/test_torch_port_remat.py holds its steps).
+    eng = PipelineEngine(stages, SGD(), mesh, remat=True)
+    assert [e.init for e in eng._exec] == [st.init for st in stages]
+    assert all(e.apply is not st.apply for e, st in zip(eng._exec, stages))
     with pytest.raises(ValueError, match="divisible by num_microbatches"):
         eng = PipelineEngine(stages, SGD(), mesh, num_microbatches=3)
         eng.train_step(eng.init_state(0), *eng.shard_batch(*_batch()), LR)

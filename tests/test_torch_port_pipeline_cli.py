@@ -295,11 +295,41 @@ def test_model_parallel_cli_defaults_to_cuda_and_refuses_without_a_gpu():
     (["--world-size", "5"], "cannot split into 5 chunks"),
 ])
 def test_model_parallel_cli_refusals(flags, match, tmp_path, monkeypatch):
+    """Bad pipeline flags exit with the JAX CLI's messages. --remat,
+    --steps-per-dispatch, --profile-dir, --model bert / bert_tiny and
+    -type SyntheticText, refused before their slice was ported, now
+    build what the JAX CLI builds (the engine with remat, the trainer's
+    dispatch group and profiler directory, the BERT stages, raw token-id
+    loaders)."""
     monkeypatch.chdir(tmp_path)
     base = ["./data", "--device", "cpu", "--model", "tinycnn", "-type",
             "Synthetic", "-b", "64", "--world-size", "2"]
-    with pytest.raises(SystemExit, match=match):
+    if "not ported" not in match or "image-folder" in match:
+        with pytest.raises(SystemExit, match=match):
+            mp_cli.main(base + flags)
+        return
+    seen = {}
+
+    class Stop(Exception):
+        pass
+
+    def trainer(engine, train, val, cfg, **kw):
+        seen.update(engine=engine, cfg=cfg, train=train)
+        raise Stop
+
+    monkeypatch.setattr(mp_cli, "Trainer", trainer)
+    with pytest.raises(Stop):
         mp_cli.main(base + flags)
+    eng, cfg = seen["engine"], seen["cfg"]
+    assert eng.remat is (flags[0] == "--remat")
+    assert cfg.steps_per_dispatch == (2 if flags[0] ==
+                                      "--steps-per-dispatch" else 1)
+    assert cfg.profile_dir == ("p" if flags[0] == "--profile-dir" else None)
+    if flags[0] == "--model":  # embeddings on stage 0, the head last
+        p0, p1 = eng.init_state(0).params
+        assert "word" in p0["0"] and "classifier" in p1[str(len(p1) - 1)]
+    if flags[-1] == "SyntheticText":
+        assert seen["train"].raw
 
 
 @pytest.mark.parametrize("flags,match", [
