@@ -104,13 +104,14 @@ Phases; any failure exits non-zero (nothing is caught and passed over):
    (`cli/model_parallel.py` main) on MobileNetV2 at batch 512, lr 0.4,
    `-j 8`, on phase 6's SyntheticTextures, `--world-size 4` (four
    stages on the one card, so they run one after another: no bubble
-   can show), 12 steps and a validation pass over the first 2,560 of
+   can show), 10 steps and a validation pass over the first 2,560 of
    the 10,000 validation images each (30 steps and all 10,000 until
-   phase 10 was added; cut in depth to keep the whole run near 700 s):
+   phase 10 was added, 12 steps until phase 11; cut in depth to keep
+   the whole run near 800 s):
    the reference
    split at `--microbatches 1` (the reference's schedule) and at 8 with
    gpipe and 1f1b in f32 and bf16, and interleaved (V 2, the default
-   8-chunk split) at 8. Per run one JSON line (ms/step over steps 6-12,
+   8-chunk split) at 8. Per run one JSON line (ms/step over steps 6-10,
    images/s, device busy / idle share and kernels a step from one
    profiled step, top five kernel families, peak memory, per-step
    losses, val acc1). Checks: losses finite and falling; NCCL at world
@@ -172,12 +173,34 @@ Phases; any failure exits non-zero (nothing is caught and passed over):
    PP_STEP_REL; (e) one ViT, one bert_tiny and one 2-layer BERT_BASE-
    width DDP step (dropout 0) on the card against the CPU within
    DP_CARD_VS_CPU. K4 must launch 0 times.
-11. One `{"kernels": [...]}` JSON line (int8_matmul, flash_fwd,
+11. Slice 10 (gradient reduction; DDP's bucketed Reducer and the
+   stagewise overlapped backward), at world 1 on NCCL: (a) the DP CLI
+   on MobileNetV2 `--engine ddp` at phase 6's flags, 12 steps and
+   validation on 2,560 images, f32 and bf16, `--grad-reduction
+   monolithic`, `bucketed --bucket-mb 1` and `overlapped --bucket-mb 1`
+   (4 segments); (b) the LM CLI at phase 5's width (12 layers,
+   `ulysses_flash`, 4 steps and 1 val batch), f32 and bf16, monolithic,
+   bucketed (25 MB) and overlapped, K1-K3 launches exact. Per run one
+   JSON line: ms a step, per-step losses, collectives issued a step, and
+   from one profiled step device busy, idle share, kernels a step, NCCL
+   kernels (none at world 1) and peak memory; in f32, bucketed and
+   overlapped losses and final parameters must equal monolithic's bit
+   for bit (bf16 printed). (c) MobileNetV2 DDP bf16 overlapped 1 MB with
+   and without `--steps-per-dispatch 4`: dispatch sums and final state
+   bit-equal, collectives issued exact, ms a step and idle share of
+   each. (d) tinycnn and bert_tiny DDP steps, bucketed and overlapped,
+   card against CPU within DP_CARD_VS_CPU. (e) the int8 and bf16 wire
+   codecs on MobileNetV2's real gradient bucket: card codes and scales
+   equal the CPU's. The hierarchical and compressed paths need two
+   ranks: a printed line says so, and nothing here fakes them. K4 must
+   launch 0 times.
+12. One `{"kernels": [...]}` JSON line (int8_matmul, flash_fwd,
    flash_bwd_dq, flash_bwd_dkv; `launches_slice6` counts phase 7's
    runs, `launches_slice7` phase 8's, `launches_slice8` phase 9's,
-   `launches_slice9` phase 10's as the wrappers count them and
+   `launches_slice9` phase 10's as the wrappers count them,
    `replays_slice9_traced` the launches that phase 10's profiles of
-   4-step graph dispatches show), then the nvidia-smi line, then
+   4-step graph dispatches show, `launches_slice10` phase 11's), then
+   the nvidia-smi line, then
    the last line `{"ok": true, "device": {...}}`. Each phase prints its
    seconds.
 """
@@ -1043,9 +1066,13 @@ def training_card_vs_cpu(fa, engine_cls, cfg_cls, init_params, optim, lm):
     host = init_params(small, 0, device="cpu")
     ids = lm.synthetic_corpus(97, 4 * 64, seed=3).reshape(4, 64)
     res = {}
+    from distributed_model_parallel_tpu_torch.runtime.mesh import Mesh
+
     for dev in ("cuda", "cpu"):
+        # the CPU engine without the LM CLI's NCCL group
         eng = engine_cls(small, optim.SGD(), attention="ulysses_flash",
-                         device=dev)
+                         device=dev,
+                         mesh=Mesh(1, None) if dev == "cpu" else None)
         ts = eng.state_from_params(host)
         m, g = eng.grads(ts, *eng.shard_batch(ids))
         res[dev] = (m["loss_sum"] / m["count"],
@@ -1780,8 +1807,9 @@ def checkpoint_serve_phase(serve, engine_cls, cfg_cls, fa, qm, directory,
 # ---------------------------------------------------------------------
 # Pipeline model parallelism (slice 7)
 
-PP_STEPS = 12  # 30 before phase 10 (slice 9) was added
-PP_TIMED_FROM = 5  # steps 6-12 are timed
+# 30 before phase 10 (slice 9) was added, 12 before phase 11 (slice 10)
+PP_STEPS = 10
+PP_TIMED_FROM = 5  # steps 6-10 are timed
 PP_VAL_IMAGES = 2560  # of phase 6's 10,000 (5 batches of 512)
 PP_FLAGS = [
     "./data", "--device", "cuda", "--model", "mobilenetv2", "-type",
@@ -2958,6 +2986,357 @@ def slice9_phase(lm, fa, qm, lm_rows, dp_data) -> dict:
     return launches, replays
 
 
+# ---------------------------------------------------------------------
+# Gradient reduction (slice 10)
+
+S10_STEPS = 12
+S10_VAL_IMAGES = 2560  # of phase 6's 10,000, as phase 8 validates
+S10_DP_FLAGS = DP_FLAGS[:DP_FLAGS.index("--steps-per-epoch")] + [
+    "--steps-per-epoch", str(S10_STEPS), "--engine", "ddp"]
+# (mode, extra flags): MobileNetV2's 9.2 MB of f32 gradients are one
+# bucket at the default 25 MB, so the DP runs cut 1 MB buckets; the LM's
+# ~497 MB are ~20 buckets at 25 MB. Overlapped is auto: 4 segments.
+S10_DP_MODES = (("monolithic", []),
+                ("bucketed", ["--grad-reduction", "bucketed",
+                              "--bucket-mb", "1"]),
+                ("overlapped", ["--grad-reduction", "overlapped",
+                                "--bucket-mb", "1"]))
+S10_LM_MODES = (("monolithic", []),
+                ("bucketed", ["--grad-reduction", "bucketed"]),
+                ("overlapped", ["--grad-reduction", "overlapped"]))
+S10_NOT_ON_ONE_CARD = (
+    "--dcn-slices 2 (the hierarchical reduce-scatter / cross-slice "
+    "all-reduce / all-gather) and --dcn-compression bf16|int8 need two "
+    "or more data ranks, and NCCL puts one rank on a GPU: they run on "
+    "gloo CPU ranks in tests/test_torch_port_grad_reduction.py and "
+    "tests/test_torch_port_wire_codec.py, not here; neither does the "
+    "overlap of bucket traffic with the backward show at world 1, where "
+    "NCCL launches no kernel")
+
+
+def s10_profile(seen, wall_ms):
+    """One more train step under torch.profiler: device busy ms, the idle
+    share against the synchronized step wall, kernels a step, NCCL
+    kernels and the flash kernels' device ms."""
+    kernels = profiled_step(seen)
+    busy_ms = sum(t for t, _, _ in kernels) / 1e3
+    return {"device_busy_ms": busy_ms,
+            "device_idle_share": 1 - busy_ms / wall_ms,
+            "kernels_per_step": sum(n for _, n, _ in kernels),
+            "nccl_kernels_per_step": sum(n for _, n, key in kernels
+                                         if "nccl" in key.lower()),
+            "flash_kernel_device_ms": {
+                dev_key: sum(t for t, _, key in kernels
+                             if dev_key in key) / 1e3
+                for _, dev_key, _ in FLASH_KERNELS}}
+
+
+def s10_run(main, flags, cls, name, steps):
+    """One CLI run, each train step timed (synchronized) and its loss
+    recorded: (row, the final parameters before the profiled step, the
+    wrappers' counts). ms a step over steps 2.. (LM) or 6.. (DP)."""
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out, rec, seen = recorded_run(main, flags, cls)
+    peak = torch.cuda.max_memory_allocated() - base
+    from distributed_model_parallel_tpu_torch.training.optim import (
+        tree_leaves,
+    )
+
+    params = [t.detach().clone() for t in tree_leaves(seen["state"].params)]
+    losses = [s["loss"] for s in rec]
+    hist = out["history"][0]
+    require(len(rec) == steps and all(map(math.isfinite, losses))
+            and math.isfinite(hist["val"]["loss"]),
+            f"slice-10 run {name}: {len(rec)} steps, losses {losses}")
+    timed = rec[DP_TIMED_FROM:] if steps > DP_TIMED_FROM else rec[1:]
+    ms = sum(s["ms"] for s in timed) / len(timed)
+    eng = seen["engine"]
+    row = {"s10_run": name, "ms_per_step": ms,
+           "median_ms_per_step": sorted(s["ms"] for s in timed)[
+               len(timed) // 2],
+           "step_ms": [s["ms"] for s in rec], "step_loss": losses,
+           "val_loss": hist["val"]["loss"],
+           "collectives_per_step": eng.grad_reductions / steps,
+           "peak_above_start_gib": peak / 2 ** 30}
+    return row, params, seen
+
+
+def s10_modes(name, runs, f32):
+    """Bucketed and overlapped against monolithic: per-step losses and
+    final parameters bit-equal (required in f32, printed in bf16)."""
+    (_, mono), rest = runs[0], runs[1:]
+    same = {}
+    for mode, (row, params) in rest:
+        eq_loss = row["step_loss"] == mono[0]["step_loss"]
+        eq_params = all(torch.equal(a, b) for a, b in zip(params, mono[1]))
+        same[mode] = {"losses_bit_equal": eq_loss,
+                      "params_bit_equal": eq_params}
+        if f32:
+            require(eq_loss and eq_params,
+                    f"{name} {mode}: not bit-equal to monolithic at world "
+                    f"1 ({same[mode]})")
+    emit({"s10_modes_vs_monolithic": name, **same})
+
+
+def s10_dp(dp_cli, dp_mod, data):
+    """(a) MobileNetV2 DDP, f32 and bf16, monolithic / bucketed 1 MB /
+    overlapped 1 MB through the DP CLI, 12 steps each."""
+    import torch.distributed as dist
+
+    from distributed_model_parallel_tpu_torch.data import datasets
+
+    val = data[1]
+    data = (data[0], datasets.ArrayDataset(val.images[:S10_VAL_IMAGES],
+                                           val.labels[:S10_VAL_IMAGES],
+                                           val.num_classes))
+    for dtype in ("float32", "bfloat16"):
+        runs = []
+        for mode, extra in S10_DP_MODES:
+            name = f"dp_{mode}_{dtype}"
+            with patched(datasets.DatasetCollection, "init",
+                         lambda self: data):
+                row, params, seen = s10_run(
+                    dp_cli.main, S10_DP_FLAGS + ["--dtype", dtype] + extra
+                    + ["--checkpoint-dir", scratch_dir(f"s10_{name}")],
+                    dp_mod._DataParallel, name, S10_STEPS)
+            require(dist.get_backend() == "nccl"
+                    and dist.get_world_size() == 1,
+                    f"{name}: not NCCL at world 1")
+            row.update(s10_profile(seen, row["ms_per_step"]))
+            del row["flash_kernel_device_ms"]
+            emit(row)
+            runs.append((mode, (row, params)))
+        s10_modes(f"mobilenetv2_{dtype}", runs, dtype == "float32")
+
+
+def s10_lm(lm, fa, qm):
+    """(b) The LM CLI at GPT-2-small width, ulysses_flash, f32 and bf16,
+    monolithic / bucketed / overlapped, 4 steps and 1 val batch each;
+    returns the K1-K3 launches the wrappers counted over the six runs."""
+    from distributed_model_parallel_tpu_torch.parallel.sequence_parallel \
+        import CausalLMSequenceParallelEngine
+
+    total = dict.fromkeys(counts(fa), 0)
+    want = {"flash_fwd": LAYERS * (LM_STEPS + LM_VAL_BATCHES),
+            "flash_bwd_dq": LAYERS * LM_STEPS,
+            "flash_bwd_dkv": LAYERS * LM_STEPS}
+    for dtype in ("float32", "bfloat16"):
+        runs = []
+        for mode, extra in S10_LM_MODES:
+            name = f"lm_{mode}_{dtype}"
+            directory = scratch_dir(f"s10_{name}")
+            reset_counts(fa, qm)
+            row, params, seen = s10_run(
+                lm.main, LM_FLAGS + ["--layers", str(LAYERS), "--attention",
+                                     "ulysses_flash", "--dtype", dtype]
+                + extra + ["--checkpoint-dir", directory],
+                CausalLMSequenceParallelEngine, name, LM_STEPS)
+            got = counts(fa)
+            shutil.rmtree(directory)
+            require(got == want and qm.int8_matmul.launches == 0,
+                    f"{name}: launches {got} / int8 "
+                    f"{qm.int8_matmul.launches}, want {want} / 0")
+            for key in total:
+                total[key] += got[key]
+            row["launches"] = got
+            row["tokens_per_s"] = LM_TOKENS / row["ms_per_step"] * 1e3
+            row.update(s10_profile(seen, row["ms_per_step"]))
+            emit(row)
+            runs.append((mode, (row, params)))
+            del seen
+        s10_modes(f"lm_{dtype}", runs, dtype == "float32")
+        del runs
+    return total
+
+
+def s10_dispatch(dp_cli, dp_mod, data):
+    """(c) MobileNetV2 DDP bf16, overlapped 1 MB, 12 steps: step by step
+    and `--steps-per-dispatch 4` (the overlapped step captured in a CUDA
+    graph, its collectives issued from the reducer's stream): dispatch
+    sums and final state bit-equal, ms a step and idle share of each."""
+    from distributed_model_parallel_tpu_torch.data import datasets
+
+    flags = S10_DP_FLAGS + ["--dtype", "bfloat16", "--grad-reduction",
+                            "overlapped", "--bucket-mb", "1"]
+    val = data[1]
+    data = (data[0], datasets.ArrayDataset(val.images[:S10_VAL_IMAGES],
+                                           val.labels[:S10_VAL_IMAGES],
+                                           val.num_classes))
+    runs = {}
+    with patched(datasets.DatasetCollection, "init", lambda self: data):
+        for k in (1, S9_K):
+            d = scratch_dir(f"s10_dispatch_k{k}")
+            extra = [] if k == 1 else ["--steps-per-dispatch", str(k)]
+            runs[k] = s9_run(dp_cli.main, flags + extra + [
+                "--checkpoint-dir", os.path.join(d, "ck")],
+                dp_mod._DataParallel, d)
+    (_, s1, tr1, peak1, _, _), (_, s4, tr4, peak4, _, _) = \
+        runs[1], runs[S9_K]
+    same = s9_same(tr4.state, tr1.state)
+    require(len(s1) == S10_STEPS and s9_grouped_equal(s1, s4)
+            and same["bit_equal"],
+            f"overlapped graph run differs from step by step: {same}")
+    graph = tr4._multi.graph
+    per_step = tr1.engine.grad_reductions / S10_STEPS
+    issued = {"eager": tr1.engine.grad_reductions,
+              "graph": tr4.engine.grad_reductions}
+    require(per_step == int(per_step) and issued["graph"] == per_step * (
+        S10_STEPS - graph.replays + graph.captures),
+        f"collectives issued {issued} ({graph.replays} replays, "
+        f"{graph.captures} captures)")
+    row = {"s10_dispatch": "mobilenetv2_ddp_bf16_overlapped", "k": S9_K,
+           "steps": S10_STEPS, "graph_vs_eager": same,
+           "dispatch_sums_equal": True, "collectives_issued": issued,
+           "graph_captures": graph.captures, "graph_replays": graph.replays,
+           "graph_capture_s": graph.capture_s,
+           "peak_above_start_gib": {"eager": peak1 / 2 ** 30,
+                                    "graph": peak4 / 2 ** 30},
+           "eager": s9_timing(tr1, 1, ("nccl",)),
+           "graph": s9_timing(tr4, S9_K, ("nccl",))}
+    emit(row)
+    return row
+
+
+def s10_card_vs_cpu():
+    """(d) One tinycnn and one bert_tiny DDP step, bucketed and
+    overlapped, at world 1 on NCCL against the CPU with no process
+    group: loss and every parameter within DP_CARD_VS_CPU."""
+    import numpy as np
+
+    from distributed_model_parallel_tpu_torch.cli.common import MODELS
+    from distributed_model_parallel_tpu_torch.parallel.data_parallel import (
+        DDPEngine,
+    )
+    from distributed_model_parallel_tpu_torch.runtime.mesh import Mesh
+    from distributed_model_parallel_tpu_torch.training.optim import (
+        SGD,
+        tree_leaves,
+    )
+
+    rng = np.random.RandomState(0)
+    inputs = {"tinycnn": (rng.randn(16, 8, 8, 3).astype(np.float32),
+                          rng.randint(0, 10, 16), 10),
+              "bert_tiny": (rng.randint(1, 512, (16, 64)),
+                            rng.randint(0, 4, 16), 4)}
+    readings = {}
+    for name, (x, y, classes) in inputs.items():
+        for mode in ("bucketed", "overlapped"):
+            res = {}
+            for dev, mesh in (("cuda", None), ("cpu", Mesh(1, None))):
+                eng = DDPEngine(MODELS[name](classes), SGD(), mesh=mesh,
+                                device=dev, grad_reduction=mode,
+                                bucket_mb=0.05)
+                ts, m = eng.train_step(eng.init_state(0),
+                                       *eng.shard_batch(x, y), 0.05)
+                res[dev] = (m["loss_sum"] / m["count"],
+                            list(tree_leaves(ts.params)),
+                            eng.grad_reductions)
+            params = max(rel_diff(a.detach().cpu(), b.detach())
+                         for a, b in zip(res["cuda"][1], res["cpu"][1]))
+            readings[f"{name}_{mode}"] = {
+                "loss_rel": rel_diff(res["cuda"][0].cpu(), res["cpu"][0]),
+                "param_rel_max": params,
+                "collectives": {"cuda": res["cuda"][2], "cpu": res["cpu"][2]}}
+    emit({"s10_card_vs_cpu": readings})
+    for key, r in readings.items():
+        require(max(r["loss_rel"], r["param_rel_max"]) <= DP_CARD_VS_CPU
+                and r["collectives"]["cuda"] > 0
+                and r["collectives"]["cpu"] == 0,
+                f"{key} on the card differs from the CPU's: {r}")
+    return readings
+
+
+def s10_codec():
+    """(e) The int8 and bf16 wire codecs on one real gradient bucket
+    (MobileNetV2, the one 25 MB bucket of its gradients after one DDP
+    step at batch 64) on the card and on the CPU: codes and scales
+    equal (torch.equal). Printed beside: how many int8 codes a scale
+    taken as absmax x (1/127) would change (the trap a true division
+    avoids)."""
+    import numpy as np
+
+    from distributed_model_parallel_tpu_torch.models import layers as L
+    from distributed_model_parallel_tpu_torch.models.mobilenetv2 import (
+        mobilenet_v2,
+    )
+    from distributed_model_parallel_tpu_torch.ops import wire_codec
+    from distributed_model_parallel_tpu_torch.ops.grad_reduction import (
+        plan_buckets,
+    )
+    from distributed_model_parallel_tpu_torch.parallel.data_parallel import (
+        DDPEngine,
+    )
+    from distributed_model_parallel_tpu_torch.runtime.mesh import Mesh
+    from distributed_model_parallel_tpu_torch.training.metrics import (
+        cross_entropy,
+    )
+    from distributed_model_parallel_tpu_torch.training.optim import (
+        SGD,
+        tree_leaves,
+    )
+
+    rng = np.random.RandomState(4)
+    batches = [(rng.randn(64, 32, 32, 3).astype(np.float32),
+                rng.randint(0, 10, 64)) for _ in range(2)]
+    eng = DDPEngine(mobilenet_v2(10), SGD(), mesh=Mesh(1, None),
+                    device="cuda")
+    ts, _ = eng.train_step(eng.init_state(0), *eng.shard_batch(
+        *batches[0]), 0.1)
+    x, y = eng.shard_batch(*batches[1])
+    logits, _ = eng.model.apply(ts.params, ts.model_state, x,
+                                L.Context(train=True))
+    leaves = list(tree_leaves(ts.params))
+    grads = torch.autograd.grad(cross_entropy(logits, y), leaves)
+    (bucket,) = plan_buckets(grads)
+    flat = torch.cat([grads[s.index].reshape(-1) for s in bucket.slots])
+    out = {"elements": flat.numel()}
+    for wire in ("int8", "bf16"):
+        pg, sg = wire_codec.wire_encode(wire, flat)
+        pc, sc = wire_codec.wire_encode(wire, flat.cpu())
+        out[wire] = {"codes_equal": torch.equal(pg.cpu(), pc),
+                     "scale_equal": None if sg is None
+                     else torch.equal(sg.cpu(), sc)}
+        if wire == "int8":
+            recip = flat.abs().amax() * (1 / 127)
+            out[wire]["scale"] = float(sg)
+            out[wire]["codes_a_reciprocal_scale_changes"] = int(
+                (torch.clamp(torch.round(flat / recip), -127, 127)
+                 .to(torch.int8) != pg).sum())
+        require(out[wire]["codes_equal"]
+                and out[wire]["scale_equal"] in (True, None),
+                f"{wire} codec on the card differs from the CPU's: {out}")
+    emit({"s10_codec_card_vs_cpu": out})
+    return out
+
+
+def slice10_phase(lm, fa, qm, dp_data) -> dict:
+    """Phase 11 (module docstring). Returns the K1-K4 launches of the
+    phase's main paths, as the wrappers count them."""
+    from distributed_model_parallel_tpu_torch.cli import data_parallel
+    from distributed_model_parallel_tpu_torch.parallel import (
+        data_parallel as dp_mod,
+    )
+
+    emit({"slice10_not_run_on_one_card": S10_NOT_ON_ONE_CARD})
+    t0 = time.perf_counter()
+    reset_counts(fa, qm)
+    s10_dp(data_parallel, dp_mod, dp_data)
+    require(not any(counts(fa).values()) and qm.int8_matmul.launches == 0,
+            f"the DP runs of phase 11 launched K1-K4: {counts(fa)}")
+    print(f"phase 11 (a) DP: {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    launches = s10_lm(lm, fa, qm)
+    launches["int8_matmul"] = 0
+    print(f"phase 11 (b) LM: {time.perf_counter() - t0:.1f} s", flush=True)
+    s10_dispatch(data_parallel, dp_mod, dp_data)
+    s10_card_vs_cpu()
+    s10_codec()
+    torch.distributed.destroy_process_group()
+    return launches
+
+
 def main() -> int:
     # cuBLAS reads this when it first starts: the determinism probe's
     # torch.use_deterministic_algorithms needs it (phase 7).
@@ -3154,10 +3533,14 @@ def smoke() -> int:
     # ---- 10. remat, CUDA graphs, trace / metrics, ViT and BERT --------
     reset_counts(fa, qm)
     slice9, replays9 = slice9_phase(lm, fa, qm, lm_rows, dp_data)
-    del dp_data
     phase_done("remat, steps per dispatch, classifiers")
 
-    # ---- 11. kernels line, card line, last line ----------------------
+    # ---- 11. gradient reduction (slice 10) ---------------------------
+    slice10 = slice10_phase(lm, fa, qm, dp_data)
+    del dp_data
+    phase_done("gradient reduction")
+
+    # ---- 12. kernels line, card line, last line ----------------------
     decode = [r for r in shapes if r["M"] == SLOTS]
     step = {key: None if any(r[key] is None for r in decode)
             else LAYERS * sum(r[key] for r in decode)
@@ -3181,6 +3564,8 @@ def smoke() -> int:
         # phase 10: the LM, DP, pipeline and classifier runs of slice 9
         "launches_slice9": 0,
         "replays_slice9_traced": 0,
+        # phase 11: the gradient-reduction runs (none on this path)
+        "launches_slice10": slice10["int8_matmul"],
         "max_abs_err": max_err,
         # Times of one decode step's 48 launches (12 layers x the four
         # projection shapes at M = 8), each shape timed in phase 3.
@@ -3203,7 +3588,8 @@ def smoke() -> int:
                            flash_times), launches_slice6=slice6[name],
                launches_slice7=slice7[name], launches_slice8=slice8[name],
                launches_slice9=slice9[name],
-               replays_slice9_traced=replays9[name])
+               replays_slice9_traced=replays9[name],
+               launches_slice10=slice10[name])
           for name, _, replaces in FLASH_KERNELS]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -46,22 +46,136 @@ from distributed_model_parallel_tpu_torch.serving.engine import (
 
 
 def add_grad_reduction_flags(parser: argparse.ArgumentParser) -> None:
-    """The training engines' reducer flags, carried so a pasted launch
-    line is refused with an explanation (`check_serving_args`: serving
-    runs no backward; `check_lm_args`, `check_data_parallel_args`: not
-    ported yet)."""
-    parser.add_argument("--grad-reduction", default="monolithic",
-                        choices=("monolithic", "bucketed", "overlapped"),
-                        help="gradient-reduction flag; refused")
-    parser.add_argument("--bucket-mb", default=None, type=float,
-                        help="gradient-reduction flag; refused")
-    parser.add_argument("--dcn-slices", default=1, type=int,
-                        help="gradient-reduction flag; refused")
-    parser.add_argument("--overlap-stages", default=None, type=int,
-                        help="gradient-reduction flag; refused")
-    parser.add_argument("--dcn-compression", default="none",
-                        choices=("none", "bf16", "int8"),
-                        help="gradient-reduction flag; refused")
+    """The bucketed-reducer surface of the data_parallel and lm CLIs
+    (`ops/grad_reduction.py`); serving carries it to refuse it
+    (`check_serving_args`)."""
+    parser.add_argument(
+        "--grad-reduction", default="monolithic",
+        choices=("monolithic", "bucketed", "overlapped"),
+        help="gradient reduction: monolithic = one all-reduce of the "
+             "whole flattened gradient; bucketed = DDP-Reducer-style "
+             "~--bucket-mb flat buckets in reverse parameter order, each "
+             "a reduce-scatter/all-gather pair, hierarchical over a "
+             "--dcn-slices factored data axis (same math); overlapped = "
+             "the buckets issued from a stagewise backward (the model is "
+             "cut into --overlap-stages segments, late layers "
+             "differentiate first and their buckets launch while earlier "
+             "segments still run: the Reducer's autograd-hook overlap; "
+             "same math)",
+    )
+    # None = "flag not passed": check_grad_reduction_args rejects an
+    # explicit --bucket-mb outside bucketed/overlapped (any value,
+    # including 25) and resolves the default itself.
+    parser.add_argument(
+        "--bucket-mb", default=None, type=float,
+        help="flat-buffer bucket size in MB under --grad-reduction "
+             "bucketed / overlapped (the Reducer's bucket_cap_mb; "
+             "default 25)",
+    )
+    parser.add_argument(
+        "--dcn-slices", default=1, type=int,
+        help="cross-slice (DCN) factor of the data axis: the ranks form "
+             "--dcn-slices slices of consecutive ranks, so the bucketed "
+             "reduction reduce-scatters inside a slice and all-reduces "
+             "only the 1/N shard across slices",
+    )
+    # None sentinel, like --bucket-mb.
+    parser.add_argument(
+        "--overlap-stages", default=None, type=int,
+        help="backward segment count under --grad-reduction overlapped "
+             "(pipeline-style split points; default: min(4, model "
+             "blocks))",
+    )
+    parser.add_argument(
+        "--dcn-compression", default="none",
+        choices=("none", "bf16", "int8"),
+        help="compress the cross-slice 'dcn' hop of the bucket "
+             "reduction to this wire dtype (ops/wire_codec.py: bf16 = "
+             "cast codec, 1/2 the bytes; int8 = absmax-scale codec + f32 "
+             "scale sidecar, 1/4 the bytes; int8 never sums in int8). "
+             "Master weights, intra-slice collectives and all math stay "
+             "full precision; requires --dcn-slices >= 2",
+    )
+
+
+def check_grad_reduction_args(args) -> None:
+    """Startup-time validation of the shared reducer flags, before any
+    dataset or process group is built. Resolves the `--bucket-mb` and
+    `--overlap-stages` None sentinels to 25 and 0 (auto)."""
+    if args.bucket_mb is not None:
+        if args.bucket_mb <= 0:
+            raise SystemExit(
+                f"--bucket-mb must be > 0, got {args.bucket_mb}"
+            )
+        if args.grad_reduction not in ("bucketed", "overlapped"):
+            raise SystemExit(
+                "--bucket-mb sizes the bucketed reducer's flat "
+                "buffers; it only applies under --grad-reduction "
+                "bucketed / overlapped"
+            )
+    else:
+        args.bucket_mb = 25.0
+    if args.overlap_stages is not None:
+        if args.grad_reduction != "overlapped":
+            raise SystemExit(
+                "--overlap-stages cuts the stagewise backward; it only "
+                "applies under --grad-reduction overlapped"
+            )
+        if args.overlap_stages < 2:
+            raise SystemExit(
+                "--overlap-stages must be >= 2 (one segment is the "
+                f"monolithic backward), got {args.overlap_stages}"
+            )
+    else:
+        args.overlap_stages = 0  # engine auto: min(4, model blocks)
+    if args.dcn_slices < 1:
+        raise SystemExit(
+            f"--dcn-slices must be >= 1, got {args.dcn_slices}"
+        )
+    if args.dcn_compression != "none" and args.dcn_slices < 2:
+        raise SystemExit(
+            "--dcn-compression compresses the cross-slice 'dcn' hop, "
+            "and this run has no 'dcn' axis to cross — factor the data "
+            "axis with --dcn-slices >= 2 (or drop --dcn-compression)"
+        )
+
+
+def check_overlapped_model(name: str, overlap_stages: int = 0) -> None:
+    """Fail fast, before any dataset or process group is built, when
+    `--grad-reduction overlapped` names a model that cannot be cut into
+    >= 2 backward segments, or `--overlap-stages` asks for more segments
+    than it has blocks. Builds the model's structure only (no init)."""
+    if name not in MODELS:
+        return  # build_model raises the unknown-model error
+    probe = MODELS[name](10)
+    parts = getattr(probe, "parts", None)
+    n_blocks = len(parts.blocks) if parts is not None else 0
+    if n_blocks < 2:
+        raise SystemExit(
+            "--grad-reduction overlapped splits the backward into >= 2 "
+            f"segments; --model {name} exposes {n_blocks} block(s) "
+            "(models/staging.staged_model anatomy)"
+        )
+    if overlap_stages > n_blocks:
+        raise SystemExit(
+            f"--overlap-stages {overlap_stages} exceeds the "
+            f"{n_blocks} blocks --model {name} exposes; each backward "
+            "segment needs at least one block"
+        )
+
+
+def reducer_mesh(dcn_slices: int, **axes):
+    """`make_mesh(MeshSpec(data=-1, dcn=dcn_slices, ...))` for the
+    training CLIs, a bad factorization exiting with the mesh's reason."""
+    from distributed_model_parallel_tpu_torch.runtime.mesh import (
+        MeshSpec,
+        make_mesh,
+    )
+
+    try:
+        return make_mesh(MeshSpec(data=-1, dcn=dcn_slices, **axes))
+    except ValueError as e:
+        raise SystemExit(f"--dcn-slices {dcn_slices}: {e}") from e
 
 
 def add_metrics_out_flag(parser: argparse.ArgumentParser) -> None:
@@ -317,7 +431,6 @@ SLICES = {
     "seq": "the sequence-parallel slice",
     "moe": "the expert-parallel slice",
     "cm": "the collective-matmul slice",
-    "reducer": "the gradient-reduction slice",
     "sharded": "the sharded-checkpoint slice",
     "fsdp": "the FSDP slice",
     "tp": "the tensor-parallel slice",
@@ -342,11 +455,6 @@ def check_lm_args(args) -> None:
          args.moe_every != 2 or args.moe_dispatch != "gspmd"
          or args.moe_overlap or args.expert_shards != 1, s["moe"]),
         ("--collective-matmul", args.collective_matmul, s["cm"]),
-        ("--grad-reduction / --bucket-mb / --dcn-slices / "
-         "--overlap-stages / --dcn-compression",
-         args.grad_reduction != "monolithic" or args.bucket_mb is not None
-         or args.dcn_slices != 1 or args.overlap_stages is not None
-         or args.dcn_compression != "none", s["reducer"]),
         ("--checkpoint-format sharded / --async-save",
          args.checkpoint_format != "legacy" or args.async_save,
          s["sharded"]),
@@ -357,6 +465,32 @@ def check_lm_args(args) -> None:
                 f"{flag} is not ported to the PyTorch package yet: it "
                 f"belongs to {later} (ROADMAP.md) — drop the flag, or run "
                 "the JAX package's cli/lm.py"
+            )
+    check_grad_reduction_args(args)
+    if args.pipeline_stages > 1 and (
+        args.grad_reduction != "monolithic"
+        or args.dcn_slices != 1
+        or args.dcn_compression != "none"
+    ):
+        raise SystemExit(
+            "--grad-reduction bucketed/overlapped / --dcn-slices / "
+            "--dcn-compression address the sequence-parallel engine's "
+            "data-axis gradient collective; the pipeline engine "
+            "reduces over 'stage' wires — drop the flags or "
+            "--pipeline-stages"
+        )
+    if args.grad_reduction == "overlapped":
+        if args.layers < 2:
+            raise SystemExit(
+                "--grad-reduction overlapped splits the decoder stack "
+                f"into >= 2 backward segments; --layers {args.layers} "
+                "leaves nothing to overlap"
+            )
+        if args.overlap_stages > args.layers:
+            raise SystemExit(
+                f"--overlap-stages {args.overlap_stages} exceeds "
+                f"--layers {args.layers}: a backward segment needs at "
+                "least one decoder block"
             )
     check_lm_pipeline_args(args)
 
@@ -605,11 +739,6 @@ def check_data_parallel_args(args) -> None:
          or args.model_shards != 1, s["tp"]),
         ("--collective-matmul", args.collective_matmul, s["cm"]),
         ("--plan", args.plan, s["plan"]),
-        ("--grad-reduction / --bucket-mb / --dcn-slices / "
-         "--overlap-stages / --dcn-compression",
-         args.grad_reduction != "monolithic" or args.bucket_mb is not None
-         or args.dcn_slices != 1 or args.overlap_stages is not None
-         or args.dcn_compression != "none", s["reducer"]),
         ("--device-cache", args.device_cache, s["device_cache"]),
         ("--checkpoint-format sharded / --async-save",
          args.checkpoint_format != "legacy" or args.async_save,
@@ -626,6 +755,26 @@ def check_data_parallel_args(args) -> None:
                 f"belongs to {later} (ROADMAP.md) — drop the flag, or run "
                 "the JAX package's cli/data_parallel.py"
             )
+    check_grad_reduction_args(args)
+    # --engine fsdp, which the reference admits here too, is refused
+    # above by its slice.
+    if args.grad_reduction != "monolithic" and args.engine != "ddp":
+        raise SystemExit(
+            f"--grad-reduction {args.grad_reduction} replaces the "
+            "explicit gradient collective of the shard_map engines "
+            f"(ddp, fsdp); the declarative --engine {args.engine} step "
+            "has no explicit reduction site to bucket or overlap"
+        )
+    if args.dcn_compression != "none" and args.engine != "ddp":
+        raise SystemExit(
+            "--dcn-compression compresses the explicit cross-slice "
+            "gradient hop of the shard_map engines (ddp, fsdp); the "
+            f"declarative --engine {args.engine} step has no explicit "
+            "'dcn' hop to compress — switch to --engine ddp/fsdp or "
+            "drop the flag"
+        )
+    if args.grad_reduction == "overlapped":
+        check_overlapped_model(args.model, args.overlap_stages)
     if args.dataset_type in LATER_TYPES:
         raise SystemExit(
             f"--dataset-type {args.dataset_type} is not ported to the "
@@ -765,6 +914,8 @@ __all__ = [
     "build_optimizer",
     "build_stages",
     "check_batch_divisibility",
+    "check_grad_reduction_args",
+    "check_overlapped_model",
     "check_data_parallel_args",
     "check_lm_args",
     "check_lm_pipeline_args",
@@ -773,6 +924,7 @@ __all__ = [
     "check_serving_args",
     "compute_dtype_from_flag",
     "export_metrics_out",
+    "reducer_mesh",
     "refuse_uncapturable",
     "set_device_numerics",
     "setup_metrics_out",

@@ -24,8 +24,12 @@ image datasets, `--model bert|bert_tiny` on `-type SyntheticText` (token
 ids, shipped raw); `--remat` checkpoints each block, `--steps-per-
 dispatch N` replays a CUDA graph of the train (and eval) step N times a
 dispatch on the card, `--profile-dir` writes a torch.profiler trace and
-`--metrics-out x.prom` Prometheus text (JSON for any other name). The
-parser keeps the reference's whole flag surface; flags whose features
+`--metrics-out x.prom` Prometheus text (JSON for any other name).
+`--engine ddp --grad-reduction bucketed|overlapped` reduces the
+gradients through DDP's bucketed Reducer (`--bucket-mb`, `--overlap-
+stages`); `--dcn-slices K` factors the ranks into K slices and makes the
+reduction hierarchical, `--dcn-compression bf16|int8` compresses its
+cross-slice hop. The parser keeps the reference's whole flag surface; flags whose features
 belong to later port slices are refused with the slice named
 (`cli/common.check_data_parallel_args`).
 """
@@ -48,6 +52,7 @@ from distributed_model_parallel_tpu_torch.cli.common import (
     check_data_parallel_args,
     compute_dtype_from_flag,
     export_metrics_out,
+    reducer_mesh,
     set_device_numerics,
     setup_metrics_out,
     stats_for,
@@ -60,10 +65,6 @@ from distributed_model_parallel_tpu_torch.parallel.data_parallel import (
 from distributed_model_parallel_tpu_torch.runtime.dist import (
     initialize_backend,
     is_primary,
-)
-from distributed_model_parallel_tpu_torch.runtime.mesh import (
-    MeshSpec,
-    make_mesh,
 )
 from distributed_model_parallel_tpu_torch.training.trainer import (
     Trainer,
@@ -142,7 +143,7 @@ def main(argv=None) -> dict:
     setup_metrics_out(args.metrics_out)
     device = initialize_backend(args.device, args.dist_url)
     set_device_numerics()
-    mesh = make_mesh(MeshSpec(data=-1))
+    mesh = reducer_mesh(args.dcn_slices)
     check_batch_divisibility(args.batch_size, mesh)
     check_batch_divisibility(args.val_batch_size, mesh, label="val batch")
     train, val, num_classes = build_loaders(
@@ -157,13 +158,21 @@ def main(argv=None) -> dict:
     model = build_model(args.model, num_classes, remat=args.remat)
     if args.engine == "ddp":
         engine = DDPEngine(model, build_optimizer(args), sync_bn=args.sync_bn,
-                           **common)
+                           grad_reduction=args.grad_reduction,
+                           bucket_mb=args.bucket_mb,
+                           overlap_stages=args.overlap_stages,
+                           dcn_compression=args.dcn_compression, **common)
     else:
         engine = DataParallelEngine(model, build_optimizer(args), **common)
     if is_primary():
         print(f"==> {args.engine} on {mesh.data} rank(s) of {device.type} "
               f"({torch.distributed.get_backend()}); checkpoints in "
               f"{args.checkpoint_dir}", flush=True)
+        if args.grad_reduction != "monolithic" or mesh.dcn > 1:
+            print(f"==> grad reduction {args.grad_reduction} "
+                  f"(bucket {args.bucket_mb} MB) over {mesh.dcn} slice(s) "
+                  f"x {mesh.ici}, dcn wire {args.dcn_compression}",
+                  flush=True)
     cfg = TrainerConfig(
         epochs=args.epochs,
         base_lr=args.lr,

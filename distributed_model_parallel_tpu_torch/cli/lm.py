@@ -2,8 +2,11 @@
 
 GPT next-token pretraining on the deterministic Markov-chain corpus
 (`data/lm.py`; its entropy rate is printed as the loss floor), through
-the `Trainer` epoch protocol: on one device with
-`CausalLMSequenceParallelEngine`, or split into pipeline stages with
+the `Trainer` epoch protocol: with `CausalLMSequenceParallelEngine`
+over data ranks (`torch.distributed`, one process per GPU as on the DP
+CLI: `-b` is the global batch, divided by the world; under `torchrun`
+each rank takes its rows), or split into pipeline stages, in one
+process, with
 `LMPipelineEngine` (`--pipeline-stages S`, `--microbatches`,
 `--pipeline-schedule gpipe|1f1b|interleaved`, `--virtual-stages`; the
 stages attend dense and causal, so `--attention` is refused there, as in
@@ -23,8 +26,11 @@ The parser keeps the reference's flag surface and adds `--device`
 each decoder block (the flash forward runs again in the backward pass),
 `--steps-per-dispatch N` replays a CUDA graph of the train step N times
 a dispatch on the card, `--profile-dir` writes a torch.profiler trace.
-Flags whose features belong to later port slices (sequence shards, MoE,
-collective matmul, gradient reducers, the sharded checkpoint format,
+`--grad-reduction bucketed|overlapped`, `--bucket-mb`,
+`--overlap-stages`, `--dcn-slices` and `--dcn-compression` select the
+data-axis gradient reduction (`ops/grad_reduction.py`), with the JAX
+CLI's checks. Flags whose features belong to later port slices
+(sequence shards, MoE, collective matmul, the sharded checkpoint format,
 plans and the tuner) are refused with the slice named
 (`cli/common.check_lm_args`). The best-val-acc model is
 saved to `--checkpoint-dir` with the model's `gpt_config` in its
@@ -50,6 +56,7 @@ from distributed_model_parallel_tpu_torch.cli.common import (
     check_lm_args,
     compute_dtype_from_flag,
     export_metrics_out,
+    reducer_mesh,
     refuse_uncapturable,
     set_device_numerics,
     setup_metrics_out,
@@ -68,6 +75,10 @@ from distributed_model_parallel_tpu_torch.parallel.pipeline import (
 )
 from distributed_model_parallel_tpu_torch.parallel.sequence_parallel import (
     CausalLMSequenceParallelEngine,
+)
+from distributed_model_parallel_tpu_torch.runtime.dist import (
+    initialize_backend,
+    is_primary,
 )
 from distributed_model_parallel_tpu_torch.runtime.mesh import (
     MeshSpec,
@@ -193,9 +204,15 @@ def main(argv=None) -> dict:
             pad_token_id=cfg.pad_token_id,
         )
     else:
+        device = initialize_backend(args.device, None)
+        mesh = reducer_mesh(args.dcn_slices)
+        check_batch_divisibility(args.batch_size, mesh)
         engine = CausalLMSequenceParallelEngine(
             cfg, build_optimizer(args), attention=args.attention,
-            compute_dtype=cdt, remat=args.remat, device=args.device,
+            compute_dtype=cdt, remat=args.remat, device=device, mesh=mesh,
+            grad_reduction=args.grad_reduction, bucket_mb=args.bucket_mb,
+            overlap_stages=args.overlap_stages,
+            dcn_compression=args.dcn_compression,
         )
     refuse_uncapturable(engine, args.steps_per_dispatch)
     corpus = synthetic_corpus(
@@ -212,8 +229,9 @@ def main(argv=None) -> dict:
     val = LMLoader(val_corpus, args.batch_size, args.seq_len,
                    shuffle=False, seed=args.corpus_seed)
     floor = chain_entropy(args.vocab_size, seed=args.corpus_seed)
-    print(f"corpus loss floor (chain conditional entropy): "
-          f"{floor:.4f} nats/token")
+    if is_primary():
+        print(f"corpus loss floor (chain conditional entropy): "
+              f"{floor:.4f} nats/token")
     tcfg = TrainerConfig(
         epochs=args.epochs,
         base_lr=args.lr,
@@ -241,7 +259,8 @@ def main(argv=None) -> dict:
     trainer = Trainer(engine, train, val, tcfg, seed=0)
     out = trainer.fit()
     out["loss_floor"] = floor
-    export_metrics_out(args.metrics_out)
+    if is_primary():
+        export_metrics_out(args.metrics_out)
     return out
 
 

@@ -166,15 +166,21 @@ def decoder_blocks(params, x, cfg: GPTConfig, ctx: L.Context,
     runs again in the backward pass)."""
     attn = _attention(cfg, attention_fn)
     for i in range(cfg.num_layers):
-        if remat and torch.is_grad_enabled():
-            from torch.utils.checkpoint import checkpoint
-
-            x = checkpoint(_block, params[str(i)], x, cfg, ctx.child(i),
-                           attn, use_reentrant=False,
-                           preserve_rng_state=False)
-        else:
-            x = _block(params[str(i)], x, cfg, ctx.child(i), attn)
+        x = block_apply(params[str(i)], x, cfg, ctx.child(i), attn,
+                        remat=remat)
     return x
+
+
+def block_apply(params, x, cfg: GPTConfig, ctx: L.Context, attn, *,
+                remat: bool = False):
+    """One decoder block over (hidden, mask), under
+    `torch.utils.checkpoint` when `remat` and autograd is on."""
+    if remat and torch.is_grad_enabled():
+        from torch.utils.checkpoint import checkpoint
+
+        return checkpoint(_block, params, x, cfg, ctx, attn,
+                          use_reentrant=False, preserve_rng_state=False)
+    return _block(params, x, cfg, ctx, attn)
 
 
 def _lm_stem(cfg: GPTConfig) -> L.Layer:
@@ -280,6 +286,7 @@ def lm_loss_fn(cfg: GPTConfig):
 __all__ = [
     "EPS",
     "GPTConfig",
+    "block_apply",
     "decoder_block_layers",
     "decoder_blocks",
     "gpt_lm",

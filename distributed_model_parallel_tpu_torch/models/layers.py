@@ -125,6 +125,11 @@ class Layer:
 
     init: Callable[[torch.Generator], tuple]
     apply: Callable[[Any, Any, torch.Tensor, Context], tuple]
+    # The stem / blocks / head anatomy (`models/staging.StageParts`) that
+    # `staging.staged_model` attaches, which the stagewise backward
+    # (`grad_reduction="overlapped"`) cuts into segments; None for other
+    # layers. Composition and apply never read it.
+    parts: Optional[Any] = None
 
 
 def layernorm(params, x: torch.Tensor, eps: float = 1e-12, *,

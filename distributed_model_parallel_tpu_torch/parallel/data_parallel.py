@@ -11,7 +11,15 @@ on the card, gloo on the CPU). A step, per rank:
 
 * forward and backward of the LOCAL mean cross-entropy;
 * the gradients flattened into one buffer and all-reduced, SUM / world:
-  the reference's "monolithic" `lax.pmean` of the gradient tree;
+  the reference's "monolithic" `lax.pmean` of the gradient tree. Under
+  `DDPEngine(grad_reduction="bucketed")` the mean goes through the
+  bucketed Reducer instead (`ops/grad_reduction.py`: ~`bucket_mb` flat
+  buckets in reverse order, each reduce-scattered and all-gathered over
+  the slice, hierarchically over a `MeshSpec(dcn=K)` mesh, the
+  cross-slice hop optionally compressed); under "overlapped" the same
+  buckets are issued from a stagewise backward
+  (`models/staging.stagewise_value_and_grad`), each segment's as soon
+  as its gradients exist, and waited for before the update;
 * per-replica BN (`DDPEngine(sync_bn=False)`, `nn.DataParallel`'s
   semantics): each rank normalizes with its own batch statistics, and
   the new running stats are averaged over the ranks before they are
@@ -28,7 +36,9 @@ whole batch; over N ranks, the DDP step with SyncBN (the reference's
 skipped on a world of one, where they are the identity; the gradient,
 state and metric all-reduces run whenever there is a process group, so
 one GPU runs the collective code of N. Features of later slices are
-refused with a ValueError naming the slice.
+refused with a ValueError naming the slice. The dropout key folds the
+rank, which on a factored mesh is the reference's dcn-major replica
+index (`ops/grad_reduction.data_replica_index`).
 """
 
 from __future__ import annotations
@@ -41,6 +51,14 @@ import torch
 import torch.distributed as dist
 
 from distributed_model_parallel_tpu_torch.models import layers as L
+from distributed_model_parallel_tpu_torch.models import staging
+from distributed_model_parallel_tpu_torch.ops.grad_reduction import (
+    MONOLITHIC_BUCKET_MB,
+    Reducer,
+)
+from distributed_model_parallel_tpu_torch.ops.wire_codec import (
+    check_compression,
+)
 from distributed_model_parallel_tpu_torch.runtime.mesh import Mesh, make_mesh
 from distributed_model_parallel_tpu_torch.training.metrics import (
     cross_entropy,
@@ -51,8 +69,11 @@ from distributed_model_parallel_tpu_torch.training.optim import (
     tree_leaves,
     tree_map,
 )
+from distributed_model_parallel_tpu_torch.training.optim import (
+    tree_like as _like,
+)
 
-GRAD_REDUCTION_SLICE = "the gradient-reduction slice"
+GRAD_REDUCTIONS = ("monolithic", "bucketed", "overlapped")
 EXPERT_SLICE = "the expert-parallel slice"
 
 
@@ -109,20 +130,12 @@ def write_back(old_tree, new_tree) -> None:
             old.copy_(new)
 
 
-def _like(tree, leaves_in_order):
-    """A tree shaped like `tree` whose leaves come from the iterator, in
-    `tree_leaves` order."""
-    if isinstance(tree, dict):
-        return {k: _like(tree[k], leaves_in_order) for k in sorted(tree)}
-    if type(tree) is tuple:
-        return tuple(_like(t, leaves_in_order) for t in tree)
-    return next(leaves_in_order)
-
-
 class _DataParallel:
     """The step both engines run; `_sync_bn` picks the BN semantics."""
 
-    def _setup(self, sync_bn: bool) -> None:
+    def _setup(self, sync_bn: bool, grad_reduction: str = "monolithic",
+               bucket_mb: float = 25.0, overlap_stages: int = 0,
+               dcn_compression: str = "none") -> None:
         if self.compute_dtype not in (None, torch.float32, torch.bfloat16):
             raise ValueError(f"compute_dtype must be None, float32 or "
                              f"bfloat16, got {self.compute_dtype}")
@@ -131,9 +144,25 @@ class _DataParallel:
         self._sync_bn = sync_bn
         self._bn_group = (self.mesh.group
                           if sync_bn and self.mesh.data > 1 else None)
-        #: gradient all-reduces launched (one per train step with a
-        #: process group)
+        #: gradient collectives issued: one all-reduce a step
+        #: (monolithic, with a process group), or the Reducer's count
         self.grad_reductions = 0
+        self._grad_reduction = grad_reduction
+        self._reducer = None
+        if grad_reduction != "monolithic" or dcn_compression != "none":
+            # Monolithic + compression: one flat bucket per dtype through
+            # the hierarchical path, so the 'dcn' hop has a seam.
+            self._reducer = Reducer(
+                self.mesh.ici_group, self.mesh.dcn_group,
+                bucket_mb=(bucket_mb if grad_reduction != "monolithic"
+                           else MONOLITHIC_BUCKET_MB),
+                dcn_compression=dcn_compression)
+        if grad_reduction == "overlapped":
+            parts = self.model.parts
+            n_stages = staging.resolve_overlap_stages(
+                parts, overlap_stages, type(self).__name__)
+            self._cuts = staging.split_points(n_stages, None,
+                                              len(parts.blocks))
 
     # ------------------------------------------------------------ state
 
@@ -200,6 +229,32 @@ class _DataParallel:
         return (0 if self.mesh.group is None
                 else dist.get_rank(self.mesh.group))
 
+    def _reduced(self, pending):
+        self.grad_reductions += pending.collectives
+        return pending.wait()
+
+    def _overlapped_grads(self, ts: TrainState, x, labels, ctx):
+        """The stagewise backward, each stage's buckets issued from the
+        hook; returns (logits, ce, mean gradients, new BN state)."""
+        cuts = self._cuts
+        pending = []
+
+        def loss_head(logits):
+            ce = cross_entropy(logits, labels)
+            return ce, logits.detach()
+
+        def reduce_stage(k, stage_grads):
+            pending.append(self._reducer.issue(stage_grads, mean=True))
+
+        ce, logits, _, stage_states = staging.stagewise_value_and_grad(
+            staging.stage_apply_fns(self.model.parts, cuts, ctx), loss_head,
+            staging.partition_tree(ts.params, cuts),
+            staging.partition_tree(ts.model_state, cuts), x,
+            on_stage_grads=reduce_stage)
+        stage_grads = [self._reduced(p) for p in reversed(pending)]
+        return (logits, ce, staging.unpartition_tree(stage_grads, cuts),
+                staging.unpartition_tree(stage_states, cuts))
+
     def train_step(self, ts: TrainState, images, labels, lr):
         """One optimizer step; parameters, BN state and optimizer state
         are updated in place. `lr` is a float or an f32 device scalar.
@@ -209,14 +264,22 @@ class _DataParallel:
         ctx = L.Context(train=True, dtype=self.compute_dtype,
                         bn_group=self._bn_group,
                         rng=step_key(ts.step, self._rank()))
-        logits, new_state = self.model.apply(
-            ts.params, ts.model_state, self._input(images), ctx)
-        ce = cross_entropy(logits, labels)
-        leaves = list(tree_leaves(ts.params))
-        grads = torch.autograd.grad(ce, leaves)
-        if self.mesh.group is not None:
-            self.grad_reductions += 1
-        grads = _like(ts.params, iter(self._mean_over_ranks(grads)))
+        x = self._input(images)
+        if self._grad_reduction == "overlapped":
+            logits, ce, grads, new_state = self._overlapped_grads(
+                ts, x, labels, ctx)
+        else:
+            logits, new_state = self.model.apply(
+                ts.params, ts.model_state, x, ctx)
+            ce = cross_entropy(logits, labels)
+            grads = torch.autograd.grad(ce, list(tree_leaves(ts.params)))
+            if self._reducer is not None:
+                grads = self._reduced(self._reducer.issue(
+                    _like(ts.params, iter(grads)), mean=True))
+            else:
+                if self.mesh.group is not None:
+                    self.grad_reductions += 1
+                grads = _like(ts.params, iter(self._mean_over_ranks(grads)))
         state_leaves = list(tree_leaves(new_state))
         if not self._sync_bn and state_leaves:
             # Per-replica stats averaged before they are kept.
@@ -262,8 +325,19 @@ class DataParallelEngine(_DataParallel):
 @dataclasses.dataclass
 class DDPEngine(_DataParallel):
     """Explicit-collective data parallelism: per-rank forward and
-    backward, one all-reduce of the flattened gradients. `sync_bn=False`
-    keeps per-replica BN; `sync_bn=True` is SyncBatchNorm."""
+    backward, then the gradient mean over the ranks. `sync_bn=False`
+    keeps per-replica BN; `sync_bn=True` is SyncBatchNorm.
+
+    `grad_reduction`: "monolithic" is one all-reduce of the flattened
+    gradients; "bucketed" is DDP's Reducer (`ops/grad_reduction.py`,
+    `bucket_mb` MiB buckets, hierarchical over a `MeshSpec(dcn=K)`
+    mesh); "overlapped" issues those buckets from a stagewise backward
+    cut into `overlap_stages` segments (0 = min(4, the model's blocks)),
+    late layers first. The same mean in all three, held against the
+    reference engine in `tests/test_torch_port_grad_reduction.py`. `dcn_compression` ("none" | "bf16" |
+    "int8", `ops/wire_codec.py`) compresses the cross-slice hop and
+    needs a factored mesh; under "monolithic" it routes the reduction
+    through one flat bucket per dtype."""
 
     model: L.Layer
     optimizer: Any
@@ -272,26 +346,29 @@ class DDPEngine(_DataParallel):
     compute_dtype: Optional[torch.dtype] = None  # see DataParallelEngine
     input_transform: Any = None                  # see DataParallelEngine
     grad_reduction: str = "monolithic"
+    bucket_mb: float = 25.0
+    overlap_stages: int = 0
     dcn_compression: str = "none"
     expert_dispatch: Optional[str] = None
     device: Any = "cuda"
 
     def __post_init__(self):
-        for knob, bad, later in (
-            (f"grad_reduction={self.grad_reduction!r}",
-             self.grad_reduction != "monolithic", GRAD_REDUCTION_SLICE),
-            (f"dcn_compression={self.dcn_compression!r}",
-             self.dcn_compression != "none", GRAD_REDUCTION_SLICE),
-            (f"expert_dispatch={self.expert_dispatch!r}",
-             self.expert_dispatch is not None, EXPERT_SLICE),
-        ):
-            if bad:
-                raise ValueError(
-                    f"DDPEngine {knob} is not ported to the PyTorch package "
-                    f"yet: it belongs to {later} (ROADMAP.md)"
-                )
-        self._setup(sync_bn=self.sync_bn)
+        if self.grad_reduction not in GRAD_REDUCTIONS:
+            raise ValueError(
+                "grad_reduction must be 'monolithic', 'bucketed' or "
+                f"'overlapped', got {self.grad_reduction!r}"
+            )
+        check_compression(self.dcn_compression)
+        if self.expert_dispatch is not None:
+            raise ValueError(
+                f"DDPEngine expert_dispatch={self.expert_dispatch!r} is not "
+                f"ported to the PyTorch package yet: it belongs to "
+                f"{EXPERT_SLICE} (ROADMAP.md)"
+            )
+        self._setup(self.sync_bn, self.grad_reduction, self.bucket_mb,
+                    self.overlap_stages, self.dcn_compression)
 
 
-__all__ = ["DDPEngine", "DataParallelEngine", "TrainState", "_metrics",
+__all__ = ["DDPEngine", "DataParallelEngine", "GRAD_REDUCTIONS",
+           "TrainState", "_metrics",
            "place", "step_key", "write_back"]

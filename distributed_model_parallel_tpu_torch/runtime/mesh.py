@@ -1,12 +1,19 @@
 """The data and stage axes of the mesh (the part of `runtime/mesh.py` the
-data-parallel and pipeline trainers need).
+data-parallel, LM and pipeline trainers need).
 
 The reference's mesh names device axes and runs one SPMD program over
 them. Here the two axes the ported engines use are:
 
 * `data`: how many ranks share the batch and the process group their
   collectives run over. `MeshSpec(data=-1)` resolves to the world size
-  of `torch.distributed`;
+  of `torch.distributed`. `MeshSpec(dcn=K)` factors it over two fabrics,
+  as the reference's ('dcn', 'ici') mesh does: K slices of data / K
+  ranks each, slice-major (rank = dcn_index * ici + ici_index). The mesh
+  then carries, beside `group` (the whole data axis), `ici_group` (this
+  rank's slice) and `dcn_group` (the rank at this rank's ici_index in
+  every slice), so the bucketed reducer (`ops/grad_reduction.py`) can
+  reduce-scatter inside a slice and all-reduce only the 1/ici shard
+  across slices;
 * `stage`: the pipeline's stages, driven by ONE process (as the JAX
   engine's one controller drives every stage through its tick tables).
   The axis is a list of this process's devices; stage s runs on
@@ -27,7 +34,6 @@ import torch.distributed as dist
 
 # Later port slices (ROADMAP.md), named by the refusals below.
 AXIS_SLICES = {
-    "dcn": "the gradient-reduction slice",
     "model": "the tensor-parallel slice",
     "seq": "the sequence-parallel slice",
     "expert": "the expert-parallel slice",
@@ -37,7 +43,8 @@ AXIS_SLICES = {
 @dataclasses.dataclass(frozen=True)
 class MeshSpec:
     """Logical mesh shape, the reference's fields; -1 on `data` means
-    every rank."""
+    every rank. `dcn` is the cross-slice factor of the data axis (1 =
+    one fabric); it must divide the resolved data size."""
 
     data: int = -1
     stage: int = 1
@@ -60,6 +67,11 @@ class MeshSpec:
         if self.data not in (-1, world):
             raise ValueError(f"MeshSpec(data={self.data}) needs {self.data} "
                              f"ranks; the world has {world}")
+        if self.dcn < 1:
+            raise ValueError(f"dcn must be >= 1, got {self.dcn}")
+        if world % self.dcn:
+            raise ValueError(
+                f"dcn={self.dcn} must divide the data axis ({world})")
         return world
 
 
@@ -68,12 +80,26 @@ class Mesh:
     """`data` ranks share each batch; their collectives run over
     `group`. `group=None` is one process with no process group (data 1),
     where every collective is the identity. `stage` pipeline stages run
-    in this process, stage s on `devices[s % len(devices)]`."""
+    in this process, stage s on `devices[s % len(devices)]`. With
+    `dcn` > 1 the data axis is `dcn` slices of `ici` ranks: `ici_group`
+    is this rank's slice and `dcn_group` its peers across slices; with
+    `dcn` = 1, `ici_group` is `group` and `dcn_group` is None."""
 
     data: int
     group: Optional[Any]
     stage: int = 1
     devices: Tuple[torch.device, ...] = (torch.device("cpu"),)
+    dcn: int = 1
+    ici_group: Optional[Any] = None
+    dcn_group: Optional[Any] = None
+
+    def __post_init__(self):
+        if self.dcn == 1 and self.ici_group is None:
+            object.__setattr__(self, "ici_group", self.group)
+
+    @property
+    def ici(self) -> int:
+        return self.data // self.dcn
 
     def stage_device(self, s: int) -> torch.device:
         return self.devices[s % len(self.devices)]
@@ -94,13 +120,52 @@ def make_mesh(spec: Optional[MeshSpec] = None,
               devices: Optional[Sequence[Any]] = None) -> Mesh:
     """The mesh of this process: the data axis is the default process
     group when `torch.distributed` is initialized, else one process; the
-    stage axis runs on `devices` (default: the CPU)."""
+    stage axis runs on `devices` (default: the CPU). With `spec.dcn` > 1
+    every rank creates every slice's and every cross-slice group, in the
+    same order (`dist.new_group` is collective over the world), and
+    keeps the two it belongs to."""
     spec = spec or MeshSpec()
     devices = tuple(torch.device(d) for d in (devices or ["cpu"]))
     if not dist.is_initialized():
         return Mesh(spec.resolve(1), None, spec.stage, devices)
-    return Mesh(spec.resolve(dist.get_world_size()), dist.group.WORLD,
-                spec.stage, devices)
+    world = spec.resolve(dist.get_world_size())
+    if spec.dcn == 1:
+        return Mesh(world, dist.group.WORLD, spec.stage, devices)
+    ici = world // spec.dcn
+    rank = dist.get_rank()
+    ici_group = dcn_group = None
+    for d in range(spec.dcn):
+        g = dist.new_group(list(range(d * ici, (d + 1) * ici)))
+        if rank // ici == d:
+            ici_group = g
+    for j in range(ici):
+        g = dist.new_group([d * ici + j for d in range(spec.dcn)])
+        if rank % ici == j:
+            dcn_group = g
+    return Mesh(world, dist.group.WORLD, spec.stage, devices, spec.dcn,
+                ici_group, dcn_group)
 
 
-__all__ = ["AXIS_SLICES", "Mesh", "MeshSpec", "local_devices", "make_mesh"]
+def data_axis_names(mesh: Mesh) -> Tuple[str, ...]:
+    """The reference's names of the data axes: ('dcn', 'ici') on a
+    factored mesh, ('data',) otherwise."""
+    return ("dcn", "ici") if mesh.dcn > 1 else ("data",)
+
+
+def data_axis_size(mesh: Mesh) -> int:
+    """Total data-parallel ways (the product over the data axes)."""
+    return mesh.data
+
+
+def data_hierarchy_axes(mesh: Mesh):
+    """(group, ici_group, dcn_group) for gradient-reduction wiring: the
+    whole data axis for fused collectives, the intra-slice group the
+    bucket halves run over, and the cross-slice group for the 1/ici
+    shard (None on a one-fabric mesh). The reference returns axis names;
+    here the axes are process groups."""
+    return mesh.group, mesh.ici_group, mesh.dcn_group
+
+
+__all__ = ["AXIS_SLICES", "Mesh", "MeshSpec", "data_axis_names",
+           "data_axis_size", "data_hierarchy_axes", "local_devices",
+           "make_mesh"]

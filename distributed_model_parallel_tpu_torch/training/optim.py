@@ -33,6 +33,16 @@ def tree_leaves(tree) -> Iterator[torch.Tensor]:
         yield tree
 
 
+def tree_like(tree, leaves_in_order):
+    """A tree shaped like `tree` whose leaves come from the iterator, in
+    `tree_leaves` order (the inverse of `tree_leaves`)."""
+    if isinstance(tree, dict):
+        return {k: tree_like(tree[k], leaves_in_order) for k in sorted(tree)}
+    if type(tree) is tuple:
+        return tuple(tree_like(t, leaves_in_order) for t in tree)
+    return next(leaves_in_order)
+
+
 def tree_map(fn, tree, *rest):
     """`fn` over the leaves of `tree` (and of same-shaped `rest`)."""
     if isinstance(tree, dict):
@@ -133,4 +143,4 @@ def cosine_warmup_schedule(
 
 
 __all__ = ["SGD", "AdamW", "AdamWState", "SGDState",
-           "cosine_warmup_schedule", "tree_leaves", "tree_map"]
+           "cosine_warmup_schedule", "tree_leaves", "tree_like", "tree_map"]

@@ -169,3 +169,143 @@ def pipeline_steps(rank, world, payload) -> dict:
             "trees": (tuple(p for p, _ in out), tuple(s for _, s in out)),
             "grad_reductions": eng.grad_reductions,
             "backend": dist.get_backend(mesh.group)}
+
+
+def reducer_ops(rank, world, payload) -> dict:
+    """The gradient-reduction primitives on this rank's inputs
+    (`payload[name][rank]`, numpy): `ring_reduce_scatter` /
+    `ring_all_gather` over the world, `compressed_dcn_psum` with every
+    wire over a mesh of `world` slices of one rank, and `bucketed_pmean`
+    of a mixed-dtype tree (the names in `payload["bf16"]` cast to bf16)
+    for each (dcn, wire) in `payload["tree_cases"]`. Results as f32
+    numpy."""
+    import numpy as np
+    import torch
+
+    from distributed_model_parallel_tpu_torch.ops.grad_reduction import (
+        bucketed_pmean,
+        compressed_dcn_psum,
+        data_replica_index,
+        ring_all_gather,
+        ring_reduce_scatter,
+    )
+    from distributed_model_parallel_tpu_torch.runtime.mesh import (
+        MeshSpec,
+        make_mesh,
+    )
+
+    meshes = {d: make_mesh(MeshSpec(dcn=d)) for d in payload["meshes"]}
+    flat = torch.from_numpy(payload["flat"][rank])
+    out = {
+        "rs": ring_reduce_scatter(flat, meshes[1].group).numpy(),
+        "ag": ring_all_gather(torch.from_numpy(payload["shard"][rank]),
+                              meshes[1].group).numpy(),
+        "replica": {d: data_replica_index(m.ici_group, m.dcn_group)
+                    for d, m in meshes.items()},
+    }
+    if world in meshes:
+        for wire in ("none", "bf16", "int8"):
+            out["dcn", wire] = compressed_dcn_psum(
+                flat, meshes[world].dcn_group, wire).numpy()
+    tree = {k: torch.from_numpy(np.asarray(v[rank]))
+            for k, v in payload["tree"].items()}
+    tree = {k: v.to(torch.bfloat16) if k in payload["bf16"] else v
+            for k, v in tree.items()}
+    for dcn, wire in payload["tree_cases"]:
+        got = bucketed_pmean(tree, meshes[dcn].ici_group,
+                             meshes[dcn].dcn_group, bucket_mb=0.0005,
+                             dcn_compression=wire)
+        out["tree", dcn, wire] = {k: v.float().numpy()
+                                  for k, v in got.items()}
+    return out
+
+
+def reducer_engines(rank, world, payload) -> dict:
+    """DDPEngine (tinycnn, `payload["ddp"]` configs) and the LM engine
+    (`payload["lm"]` configs) from the reference weights, each config a
+    (grad_reduction, dcn, wire) triple on `make_mesh(MeshSpec(dcn=dcn))`:
+    SGD steps on this rank's rows of each global batch. Returns, per
+    config, the per-step metric sums, the final parameters (and BN
+    state) in the reference layout and the collectives issued."""
+    from distributed_model_parallel_tpu_torch.models.convert import (
+        from_jax_params,
+        to_jax_params,
+    )
+    from distributed_model_parallel_tpu_torch.models.gpt import GPTConfig
+    from distributed_model_parallel_tpu_torch.models.tinycnn import tiny_cnn
+    from distributed_model_parallel_tpu_torch.parallel.data_parallel import (
+        DDPEngine,
+    )
+    from distributed_model_parallel_tpu_torch.parallel.sequence_parallel import (
+        CausalLMSequenceParallelEngine,
+    )
+    from distributed_model_parallel_tpu_torch.runtime.mesh import (
+        MeshSpec,
+        make_mesh,
+    )
+    from distributed_model_parallel_tpu_torch.training.optim import SGD
+
+    meshes = {}
+
+    def mesh(dcn):
+        if dcn not in meshes:
+            meshes[dcn] = make_mesh(MeshSpec(dcn=dcn))
+        return meshes[dcn]
+
+    out = {}
+    model = tiny_cnn(10)
+    for gr, dcn, wire in payload.get("ddp", ()):
+        eng = DDPEngine(model, SGD(), mesh=mesh(dcn), device="cpu",
+                        grad_reduction=gr, bucket_mb=0.002,
+                        dcn_compression=wire)
+        ts = eng.state_from_params(*from_jax_params(
+            payload["params"], model=model, state=payload["state"]))
+        sums = []
+        for images, labels in payload["batches"]:
+            b = len(labels) // world
+            rows = slice(rank * b, (rank + 1) * b)
+            ts, m = eng.train_step(ts, *eng.shard_batch(images[rows],
+                                                        labels[rows]),
+                                   payload["lr"])
+            sums.append({k: float(v) for k, v in m.items()})
+        params, state = to_jax_params(ts.params, model=model,
+                                      state=ts.model_state)
+        out["ddp", gr, dcn, wire] = {
+            "sums": sums, "params": params, "state": state,
+            "collectives": eng.grad_reductions}
+    for gr, dcn, wire in payload.get("lm", ()):
+        eng = CausalLMSequenceParallelEngine(
+            GPTConfig(**payload["gpt"]), SGD(0.9, 1e-2), device="cpu",
+            mesh=mesh(dcn), grad_reduction=gr, bucket_mb=0.02,
+            dcn_compression=wire)
+        ts = eng.state_from_params(from_jax_params(payload["gpt_params"]))
+        sums = []
+        for _ in range(payload["lm_steps"]):
+            ts, m = eng.train_step(ts, *eng.shard_batch(payload["ids"]),
+                                   payload["lm_lr"])
+            sums.append({k: float(v) for k, v in m.items()})
+        out["lm", gr, dcn, wire] = {
+            "sums": sums, "params": to_jax_params(ts.params),
+            "collectives": eng.grad_reductions}
+    return out
+
+
+def reducer_suite(rank, world, payload) -> dict:
+    """`reducer_ops` and `reducer_engines` in one spawn, plus each
+    factored mesh's groups as global ranks."""
+    import torch.distributed as dist
+
+    from distributed_model_parallel_tpu_torch.runtime.mesh import (
+        MeshSpec,
+        make_mesh,
+    )
+
+    out = {}
+    for d in payload["ops"]["meshes"]:
+        mesh = make_mesh(MeshSpec(dcn=d))
+        out["groups", d] = tuple(
+            None if g is None else dist.get_process_group_ranks(g)
+            for g in (mesh.ici_group, mesh.dcn_group))
+    out.update(reducer_ops(rank, world, payload["ops"]))
+    out.update(reducer_engines(rank, world, payload["engines"]))
+    return out

@@ -748,3 +748,114 @@ def test_native_augment_matches_its_numpy_twin():
         want = dl.normalize(dl._crop_flip_numpy(images, ys, xs, flips, 4),
                             CIFAR10_MEAN, CIFAR10_STD)
         assert np.array_equal(got, want)
+
+
+# --------------------------------------- gradient reduction (slice 10)
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [None, torch.bfloat16])
+def test_reducer_modes_equal_monolithic_at_world_one_ddp(cuda, dtype):
+    """tinycnn DDP at world 1 on NCCL: bucketed and overlapped (small
+    buckets, 4 segments) equal monolithic bit for bit over two 4-step
+    groups, eager and graph-dispatched (the bucket collectives issued
+    from the reducer's stream inside the capture); the host issues two
+    collectives a bucket for the warmup step and the capture only."""
+    from distributed_model_parallel_tpu_torch.cli.common import (
+        set_device_numerics,
+    )
+
+    set_device_numerics()
+    initialize_backend("cuda")
+    try:
+        rng = np.random.RandomState(1)
+        batches = [(rng.randn(16, 8, 8, 3).astype(np.float32),
+                    rng.randint(0, 10, 16)) for _ in range(8)]
+        runs = {}
+        for mode in ("monolithic", "bucketed", "overlapped"):
+            def make(mode=mode):
+                eng = DDPEngine(tiny_cnn(10), SGD(), device="cuda",
+                                compute_dtype=dtype, grad_reduction=mode,
+                                bucket_mb=0.002)
+                return eng, eng.init_state(0)
+
+            runs[mode] = _graph_vs_eager(make, [batches[:4], batches[4:]],
+                                         0.1, 4)
+    finally:
+        dist.destroy_process_group()
+    (gs0, gl0, _, _), (es0, el0, _), _ = runs["monolithic"]
+    for mode, ((gs, gl, graph, _), (es, el, _), (eng, eng0)) in runs.items():
+        assert gs == es == gs0 == es0, mode
+        for a, b, c in zip(gl, el, gl0):
+            assert torch.equal(a, b) and torch.equal(a, c), mode
+        per_step = eng0.grad_reductions // 8
+        assert eng0.grad_reductions == 8 * per_step
+        assert eng.grad_reductions == per_step * (1 + graph.captures)
+        if mode != "monolithic":
+            assert per_step > 2
+
+
+@pytest.mark.cuda
+def test_reducer_modes_equal_monolithic_at_world_one_lm(cuda):
+    """A 3-layer GPT with the flash kernels K1-K3 (f32, dropout 0.1) at
+    world 1 on NCCL: bucketed and overlapped equal monolithic bit for
+    bit, eager and graph-dispatched."""
+    from distributed_model_parallel_tpu_torch.data.lm import (
+        synthetic_corpus,
+    )
+    from distributed_model_parallel_tpu_torch.models.gpt import GPTConfig
+    from distributed_model_parallel_tpu_torch.parallel.sequence_parallel \
+        import CausalLMSequenceParallelEngine
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = GPTConfig(vocab_size=97, dim=64, num_layers=3, num_heads=4,
+                    ffn_dim=256, max_position=64, dropout_rate=0.1,
+                    pad_token_id=0)
+    corpus = synthetic_corpus(97, 8 * 4 * 64 + 1, seed=3)
+    batches = [(corpus[i * 256:(i + 1) * 256].reshape(4, 64),)
+               for i in range(8)]
+    initialize_backend("cuda")
+    try:
+        runs = {}
+        for mode in ("monolithic", "bucketed", "overlapped"):
+            def make(mode=mode):
+                eng = CausalLMSequenceParallelEngine(
+                    cfg, SGD(), attention="ulysses_flash", device="cuda",
+                    grad_reduction=mode, bucket_mb=0.05)
+                return eng, eng.init_state(0)
+
+            runs[mode] = _graph_vs_eager(make, [batches[:4], batches[4:]],
+                                         0.05, 4)
+    finally:
+        dist.destroy_process_group()
+    (gs0, gl0, _, _), _, _ = runs["monolithic"]
+    for mode, ((gs, gl, graph, _), (es, el, _), _) in runs.items():
+        assert graph.replays == 7 and gs == es == gs0, mode
+        for a, b, c in zip(gl, el, gl0):
+            assert torch.equal(a, b) and torch.equal(a, c), mode
+
+
+@pytest.mark.cuda
+def test_wire_codec_on_the_card_equals_the_cpu(cuda):
+    """int8 and bf16 codes, scales and decodes on the card equal the
+    CPU's (the scale a true division by 127: torch divides a CUDA tensor
+    by a Python scalar as a multiplication by its reciprocal), on random
+    chunks of many magnitudes, all-zero, denormal and bf16 chunks."""
+    from distributed_model_parallel_tpu_torch.ops import wire_codec as wc
+
+    rng = np.random.RandomState(2)
+    chunks = [(rng.randn(4099) * 10.0 ** e).astype(np.float32)
+              for e in range(-6, 4)]
+    chunks += [np.zeros(64, np.float32),
+               np.array([1e-38, -1e-39, 3e-39, 0.0], np.float32)]
+    for x in chunks:
+        for dtype in (torch.float32, torch.bfloat16):
+            host = torch.from_numpy(x).to(dtype)
+            for wire in ("int8", "bf16"):
+                pc, sc = wc.wire_encode(wire, host)
+                pg, sg = wc.wire_encode(wire, host.to(cuda))
+                assert torch.equal(pg.cpu(), pc)
+                if sc is not None:
+                    assert torch.equal(sg.cpu(), sc)
+                assert torch.equal(
+                    wc.wire_decode(wire, pg, sg, dtype).cpu(),
+                    wc.wire_decode(wire, pc, sc, dtype))

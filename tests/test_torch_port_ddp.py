@@ -268,9 +268,20 @@ def test_device_normalize_transform_matches_host_normalize(weights):
     ("expert_dispatch", "hierarchical", "expert-parallel"),
 ])
 def test_ddp_engine_refuses_later_slices(knob, value, slice_):
-    with pytest.raises(ValueError, match=f"not ported.*{slice_} slice"):
-        DDPEngine(tiny_cnn(10), SGD(), mesh=ONE_PROCESS, device="cpu",
-                  **{knob: value})
+    """Knobs of later slices are refused, naming the slice. The
+    reducer's knobs, refused before the gradient-reduction slice was
+    ported, now behave as the reference's: a bucketed engine builds on
+    any mesh, a compressed wire needs a 'dcn' axis (its message)."""
+    kw = dict(mesh=ONE_PROCESS, device="cpu")
+    if slice_ != "gradient-reduction":
+        with pytest.raises(ValueError, match=f"not ported.*{slice_} slice"):
+            DDPEngine(tiny_cnn(10), SGD(), **kw, **{knob: value})
+    elif knob == "grad_reduction":
+        eng = DDPEngine(tiny_cnn(10), SGD(), **kw, **{knob: value})
+        assert eng.grad_reduction == value and eng._reducer is not None
+    else:
+        with pytest.raises(ValueError, match="carries no 'dcn' axis"):
+            DDPEngine(tiny_cnn(10), SGD(), **kw, **{knob: value})
 
 
 @pytest.mark.parametrize("spec,match", [
@@ -281,8 +292,17 @@ def test_ddp_engine_refuses_later_slices(knob, value, slice_):
     (MeshSpec(data=2), "needs 2 ranks"),
 ])
 def test_mesh_spec_refuses_other_axes(spec, match):
-    with pytest.raises(ValueError, match=match):
-        spec.resolve(1)
+    """Axes of later slices are refused by name; the dcn factor, ported
+    with the gradient-reduction slice, must divide the data axis (the
+    reference's check)."""
+    if match == "gradient-reduction slice":
+        with pytest.raises(ValueError,
+                           match=r"dcn=2 must divide the data axis \(1\)"):
+            spec.resolve(1)
+        assert spec.resolve(4) == 4
+    else:
+        with pytest.raises(ValueError, match=match):
+            spec.resolve(1)
     assert MeshSpec(data=-1).resolve(4) == 4
 
 

@@ -78,7 +78,8 @@ def test_every_port_module_imports_without_jax():
         "for n in names: importlib.import_module(n)\n"
         "assert pkg.__name__ + '.serving.speculative' in names\n"
         "for m in ('training.multistep', 'models.vit', 'models.bert',\n"
-        "          'observability.metrics'):\n"
+        "          'observability.metrics', 'ops.grad_reduction',\n"
+        "          'ops.wire_codec'):\n"
         "    assert pkg.__name__ + '.' + m in names, m\n"
         "import distributed_model_parallel_tpu_torch.cli.serve\n"
         "print(len(names))\n"
@@ -228,6 +229,15 @@ def test_data_parallel_cli_defaults_to_cuda_and_refuses_without_a_gpu():
         data_parallel.main([])
 
 
+REDUCER_EXITS = {
+    "--grad-reduction": "no explicit reduction site to bucket or overlap",
+    "--bucket-mb": "only applies under --grad-reduction bucketed",
+    "--dcn-slices": r"dcn=2 must divide the data axis \(1\)",
+    "--overlap-stages": "only applies under --grad-reduction overlapped",
+    "--dcn-compression": "--dcn-slices >= 2",
+}
+
+
 @pytest.mark.parametrize("flags,slice_", [
     (["--engine", "fsdp"], "FSDP"),
     (["--engine", "tp"], "tensor-parallel"),
@@ -264,6 +274,14 @@ def test_data_parallel_cli_refuses_out_of_slice_flags(flags, slice_,
     loaders."""
     from distributed_model_parallel_tpu_torch.cli import data_parallel
 
+    if slice_ == "gradient-reduction":
+        # Ported: the flags pass the reference CLI's checks, and these
+        # lines fail them (gspmd has no reduction site; --bucket-mb and
+        # --overlap-stages need their mode; one rank has no second slice;
+        # compression needs one).
+        with pytest.raises(SystemExit, match=REDUCER_EXITS[flags[0]]):
+            data_parallel.main(["--device", "cpu", *flags])
+        return
     if slice_ not in ("activation-rematerialization", "multi-step dispatch",
                       "profiler-capture", "transformer-classifier"):
         with pytest.raises(SystemExit, match=f"not ported.*{slice_} slice"):

@@ -278,8 +278,20 @@ def test_engine_bf16_step_matches_jax_at_the_bf16_bar():
 def test_engine_refuses_later_slices(knob, value, slice_):
     """Knobs of later slices are refused, naming the slice; remat, whose
     slice is ported, builds an engine that checkpoints its blocks
-    (tests/test_torch_port_remat.py holds its steps)."""
-    if knob == "remat":
+    (tests/test_torch_port_remat.py holds its steps). The reducer's
+    knobs are ported too: bucketed builds, a compressed wire needs a
+    'dcn' axis (the reference's message)."""
+    if knob == "grad_reduction":
+        eng = CausalLMSequenceParallelEngine(
+            tgpt.GPTConfig(**CFG_KW), toptim.SGD(), device="cpu",
+            **{knob: value})
+        assert eng.grad_reduction == value
+    elif knob == "dcn_compression":
+        with pytest.raises(ValueError, match="carries no 'dcn' axis"):
+            CausalLMSequenceParallelEngine(
+                tgpt.GPTConfig(**CFG_KW), toptim.SGD(), device="cpu",
+                **{knob: value})
+    elif knob == "remat":
         eng = CausalLMSequenceParallelEngine(
             tgpt.GPTConfig(**CFG_KW), toptim.SGD(), device="cpu",
             **{knob: value})
@@ -348,8 +360,16 @@ def test_cli_refuses_flags_of_later_slices(flags, slice_, monkeypatch):
     was ported, now reach the engine and the trainer as in the JAX CLI
     (tests/test_torch_port_remat.py, test_torch_port_multistep.py and
     test_torch_port_metrics.py hold what they do)."""
+    if flags[0] in ("--dcn-slices", "--dcn-compression"):
+        # Ported with the gradient-reduction slice: one rank has no
+        # second slice, and a compressed wire needs one.
+        with pytest.raises(SystemExit, match=(
+                r"dcn=2 must divide the data axis \(1\)"
+                if flags[0] == "--dcn-slices" else "--dcn-slices >= 2")):
+            lm_cli.main(["--device", "cpu", *flags])
+        return
     if slice_ not in ("activation-rematerialization", "multi-step dispatch",
-                      "profiler-capture"):
+                      "profiler-capture", "gradient-reduction"):
         with pytest.raises(SystemExit, match=f"not ported.*{slice_} slice"):
             lm_cli.main(["--device", "cpu", *flags])
         return
@@ -367,6 +387,8 @@ def test_cli_refuses_flags_of_later_slices(flags, slice_, monkeypatch):
         lm_cli.main(["--device", "cpu", *flags])
     cfg = seen["cfg"]
     assert seen["engine"].remat is (flags[0] == "--remat")
+    assert seen["engine"].grad_reduction == (
+        flags[1] if flags[0] == "--grad-reduction" else "monolithic")
     assert cfg.steps_per_dispatch == (2 if flags[0] ==
                                       "--steps-per-dispatch" else 1)
     assert cfg.profile_dir == ("prof" if flags[0] == "--profile-dir"

@@ -305,7 +305,11 @@ def test_mesh_admits_the_stage_axis():
         MeshSpec(stage=0).resolve(1)
     for axis, slice_ in (("model", "tensor-parallel"),
                          ("seq", "sequence-parallel"),
-                         ("expert", "expert-parallel"),
-                         ("dcn", "gradient-reduction")):
+                         ("expert", "expert-parallel")):
         with pytest.raises(ValueError, match=f"{slice_} slice"):
             MeshSpec(stage=2, **{axis: 2}).resolve(1)
+    # the dcn factor is ported (gradient-reduction slice); it must divide
+    # the data axis
+    with pytest.raises(ValueError, match="must divide the data axis"):
+        MeshSpec(stage=2, dcn=2).resolve(1)
+    assert MeshSpec(stage=2, dcn=2).resolve(2) == 2
