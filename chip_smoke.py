@@ -194,12 +194,38 @@ Phases; any failure exits non-zero (nothing is caught and passed over):
    equal the CPU's. The hierarchical and compressed paths need two
    ranks: a printed line says so, and nothing here fakes them. K4 must
    launch 0 times.
-12. One `{"kernels": [...]}` JSON line (int8_matmul, flash_fwd,
+12. Slice 11 (tensor parallelism, the device-resident dataset cache,
+   the image-folder datasets), on phase 11's SyntheticTextures (val cut
+   to 2,560): (a) the DP CLI at world 1 on NCCL, `--model bert`
+   (BERT_BASE, SyntheticText, batch 512, AdamW lr 1e-3, dropout 0.1, 2
+   epochs of 6 steps) and `--model vit` (VIT_CIFAR, batch 512, 12
+   steps), f32 and bf16, under `--engine tp --model-shards 1` and under
+   `--engine gspmd`: per run ms a step, samples/s, busy / idle, kernels
+   a step, peak memory; f32 losses and final parameters bit-equal
+   between the two engines; BERT f32 tp with `--steps-per-dispatch 4`
+   bit-equal to its eager run. (b) TP at M 2: two processes on the one
+   card over gloo (NCCL puts one rank on a GPU), 3 SGD steps of
+   bert_tiny and of a 2-layer BERT_BASE-width model against the M 1
+   engine on the card (losses and gathered parameters within
+   S11_M2_TOL), qkv shards (768, 1152), per-rank parameter bytes, and
+   times labelled host-staged gloo (not a TP time); if gloo refuses CUDA
+   tensors a line says so. (c) MobileNetV2 DDP at phase 11's flags, f32
+   and bf16, with and without `--device-cache`: ms a step, data wait a
+   batch, host-to-device bytes a step, busy / idle, the cache's bytes on
+   the card; the initial state's eval logits on one val batch through
+   the cache and the host loader within S11_LOGIT_REL; bf16
+   `--device-cache --steps-per-dispatch 4` bit-equal to eager, with the
+   crops differing from step to step. (d) With PIL, a 10-class tree of
+   64x64 PNGs and `--dataset-type Imagenet --model resnet18`, 4 steps
+   (finite losses); without PIL a line says so. (e) K1-K4 launch 0
+   times in the phase.
+13. One `{"kernels": [...]}` JSON line (int8_matmul, flash_fwd,
    flash_bwd_dq, flash_bwd_dkv; `launches_slice6` counts phase 7's
    runs, `launches_slice7` phase 8's, `launches_slice8` phase 9's,
    `launches_slice9` phase 10's as the wrappers count them,
    `replays_slice9_traced` the launches that phase 10's profiles of
-   4-step graph dispatches show, `launches_slice10` phase 11's), then
+   4-step graph dispatches show, `launches_slice10` phase 11's,
+   `launches_slice11` phase 12's), then
    the nvidia-smi line, then
    the last line `{"ok": true, "device": {...}}`. Each phase prints its
    seconds.
@@ -3337,6 +3363,511 @@ def slice10_phase(lm, fa, qm, dp_data) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------
+# Slice 11: tensor parallelism, the device-resident dataset cache and the
+# image-folder datasets
+
+S11_STEPS = 12
+# Where phase 12 runs (its flags say it too): what its functions build
+# themselves goes here.
+S11_DEVICE = "cuda"
+S11_BERT = [  # SyntheticText: 8 batches of 512 an epoch, so 2 x 6 steps
+    "--device", "cuda", "--model", "bert", "-type", "SyntheticText",
+    "-b", str(DP_BATCH), "--val-batch-size", "1024", "--optimizer", "adamw",
+    "--lr", "1e-3", "--epochs", "2", "--steps-per-epoch",
+    str(S11_STEPS // 2)]
+S11_VIT = DP_FLAGS[:DP_FLAGS.index("--lr")] + [
+    "--model", "vit", "--optimizer", "adamw", "--lr", "1e-2", "--wd", "0.05",
+    "-j", "8", "--epochs", "1", "--steps-per-epoch", str(S11_STEPS)]
+S11_ENGINES = (("tp", ["--engine", "tp", "--model-shards", "1"]),
+               ("gspmd", ["--engine", "gspmd"]))
+# TP at M 2 over gloo, both ranks on the one card, against M 1 on it,
+# elementwise at the port's f32 bar (tests/test_torch_port_pipeline.py);
+# the row-parallel products add in another order. SGD (momentum 0.9, wd
+# 1e-4, lr 0.05): AdamW's normalized update carries rounding-level
+# differences of the start past this bar within 3 steps (bert_tiny), SGD
+# keeps them under it.
+S11_M2_STEPS = 3
+S11_M2_LR = 0.05
+S11_M2_TOL = dict(rtol=1e-5, atol=1e-6)
+S11_CACHE_FLAGS = S10_DP_FLAGS  # MobileNetV2 DDP, 12 steps, batch 512
+# The initial state's eval logits, device cache against host loader:
+# f32 rounding, relative to max |logit|.
+S11_LOGIT_REL = 1e-5
+S11_TREE = (10, 32, 8, 64)  # classes, train / val images a class, side
+S11_IMAGE_FLAGS = [
+    "--device", "cuda", "--model", "resnet18", "-type", "Imagenet",
+    "-b", "32", "--val-batch-size", "80", "--epochs", "1",
+    "--steps-per-epoch", "4", "--lr", "0.1"]
+
+
+def s11_cut_val(data):
+    """Phase 6's SyntheticTextures with the val split cut to 2,560."""
+    from distributed_model_parallel_tpu_torch.data import datasets
+
+    val = data[1]
+    return (data[0], datasets.ArrayDataset(val.images[:S10_VAL_IMAGES],
+                                           val.labels[:S10_VAL_IMAGES],
+                                           val.num_classes))
+
+
+def s11_tp_runs(dp_cli, dp_mod, data) -> list:
+    """(a) BERT_BASE and VIT_CIFAR through the DP CLI at world 1 on NCCL,
+    f32 and bf16, `--engine tp --model-shards 1` and `--engine gspmd`,
+    12 steps and validation each; in f32 the two engines' per-step losses
+    and final parameters must be bit-equal (every collective is the
+    identity at M 1 and the dropout keys coincide). Then BERT f32 under
+    tp with `--steps-per-dispatch 4`: bit-equal to the eager run."""
+    from distributed_model_parallel_tpu_torch.data import datasets
+
+    rows = []
+    for model, flags in (("bert", S11_BERT), ("vit", S11_VIT)):
+        for dtype in ("float32", "bfloat16"):
+            runs = {}
+            for engine, extra in S11_ENGINES:
+                name = f"{model}_{engine}_{dtype}"
+                with patched(datasets.DatasetCollection, "init",
+                             lambda self: data) if model == "vit" \
+                        else contextlib.nullcontext():
+                    row, params, seen = s10_run(
+                        dp_cli.main, flags + ["--dtype", dtype] + extra
+                        + ["--checkpoint-dir", scratch_dir(f"s11_{name}")],
+                        dp_mod._DataParallel, name, S11_STEPS)
+                row = {"s11_tp_run": name, **{
+                    k: v for k, v in row.items() if k != "s10_run"}}
+                row["samples_per_s"] = DP_BATCH / row["ms_per_step"] * 1e3
+                row.update(s10_profile(seen, row["ms_per_step"]))
+                del row["flash_kernel_device_ms"]
+                emit(row)
+                rows.append(row)
+                runs[engine] = (row, params)
+                del seen
+            (tp, tp_p), (gs, gs_p) = runs["tp"], runs["gspmd"]
+            same = {"losses_bit_equal": tp["step_loss"] == gs["step_loss"],
+                    "params_bit_equal": all(
+                        torch.equal(a, b) for a, b in zip(tp_p, gs_p)),
+                    "params_max_rel": max(rel_diff(a, b)
+                                          for a, b in zip(tp_p, gs_p))}
+            emit({"s11_tp_vs_gspmd": f"{model}_{dtype}", **same})
+            if dtype == "float32":
+                require(same["losses_bit_equal"] and same["params_bit_equal"],
+                        f"{model} f32: tp at M 1 differs from gspmd: {same}")
+    d1, d4 = scratch_dir("s11_bert_k1"), scratch_dir(f"s11_bert_k{S9_K}")
+    tp = S11_BERT + S11_ENGINES[0][1]
+    (_, s1, tr1, _, _, _), (_, s4, tr4, _, _, _) = (
+        s9_run(dp_cli.main, tp + ["--checkpoint-dir", "ck"],
+               dp_mod._DataParallel, d1),
+        s9_run(dp_cli.main, tp + ["--steps-per-dispatch", str(S9_K),
+                                  "--checkpoint-dir", "ck"],
+               dp_mod._DataParallel, d4))
+    same = s9_same(tr4.state, tr1.state)
+    graph = tr4._multi.graph
+    row = {"s11_tp_dispatch": "bert_f32", "k": S9_K, "graph_vs_eager": same,
+           "dispatch_sums_equal": s9_grouped_equal(s1, s4),
+           "graph_captures": graph.captures, "graph_replays": graph.replays,
+           "eager": s9_timing(tr1, 1), "graph": s9_timing(tr4, S9_K)}
+    emit(row)
+    require(len(s1) == S11_STEPS and row["dispatch_sums_equal"]
+            and same["bit_equal"] and graph.replays > 0,
+            f"BERT tp graph run differs from step by step: {row}")
+    return rows
+
+
+def s11_gloo_rank(rank, port, out, cases, device):
+    """One rank of (b): a gloo world of 2 on the one card, TP at M 2. For
+    each case, S11_M2_STEPS SGD steps of TensorParallelEngine on the given
+    batches; writes the per-step losses and ms (host-staged gloo), the
+    gathered canonical parameters (rank 0), the qkv shard's shape and
+    this rank's parameter bytes. A gloo that refuses CUDA tensors is
+    reported, not faked."""
+    import pickle
+
+    import torch.distributed as dist
+
+    from distributed_model_parallel_tpu_torch.models import bert
+    from distributed_model_parallel_tpu_torch.parallel import (
+        tensor_parallel as tp,
+    )
+    from distributed_model_parallel_tpu_torch.runtime.mesh import (
+        MeshSpec,
+        make_mesh,
+    )
+    from distributed_model_parallel_tpu_torch.training.optim import SGD
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    if device == "cuda":
+        torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                            rank=rank, world_size=2)
+    result = {}
+    try:
+        probe = torch.ones(4, device=device)
+        try:
+            dist.all_reduce(probe)
+        except RuntimeError as e:  # the issue's "gloo refuses CUDA" case
+            result["gloo_cuda_refused"] = str(e)[:300]
+        if "gloo_cuda_refused" not in result:
+            mesh = make_mesh(MeshSpec(data=-1, model=2))
+            for name, cfg, ids, labels in cases:
+                eng = tp.TensorParallelEngine(
+                    bert.bert_for_classification(4, cfg), SGD(), mesh,
+                    device=device)
+                ts = eng.init_state(0)
+                losses, ms = [], []
+                for _ in range(S11_M2_STEPS):
+                    x = eng.shard_batch(ids, labels)
+                    t0 = time.perf_counter()
+                    ts, m = eng.train_step(ts, *x, S11_M2_LR)
+                    # the float() read waits for the step
+                    losses.append(float(m["loss_sum"] / m["count"]))
+                    ms.append((time.perf_counter() - t0) * 1e3)
+                canon = eng.to_canonical(ts)
+                result[name] = {
+                    "losses": losses, "host_staged_gloo_ms": ms,
+                    "qkv_shard": tuple(ts.params["blocks"]["0"]["attn"][
+                        "qkv"]["w"].shape),
+                    "param_bytes": s11_param_bytes(ts),
+                    "params": canon["params"] if rank == 0 else None}
+    finally:
+        dist.destroy_process_group()
+        with open(out, "wb") as f:
+            pickle.dump(result, f)
+
+
+def s11_param_bytes(ts) -> int:
+    """Bytes of a state's parameters (this rank's shards)."""
+    from distributed_model_parallel_tpu_torch.training.optim import (
+        tree_leaves,
+    )
+
+    return sum(t.numel() * t.element_size() for t in tree_leaves(ts.params))
+
+
+def s11_m2_cases():
+    import numpy as np
+
+    from distributed_model_parallel_tpu_torch.cli.common import (
+        _bert_tiny_cfg,
+    )
+    from distributed_model_parallel_tpu_torch.models import bert
+
+    rng = np.random.RandomState(5)
+    cases = []
+    for name, cfg in (("bert_tiny", _bert_tiny_cfg()),
+                      ("bert_base_width_2layer",
+                       dataclasses.replace(bert.BERT_BASE, num_layers=2))):
+        ids = rng.randint(1, min(cfg.vocab_size, 512), size=(64, 64))
+        cases.append((name, cfg, ids.astype(np.int32),
+                      rng.randint(0, 4, 64)))
+    return cases
+
+
+def s11_tp_m2() -> dict:
+    """(b) TP at M 2 on the card: two processes over gloo (NCCL cannot
+    put two ranks on one GPU), each holding its shards on the card, 3
+    SGD steps of bert_tiny and of a 2-layer BERT_BASE-width model
+    (dropout 0.1), against the M 1 engine on the card in this process:
+    losses and the gathered parameters within S11_M2_TOL; the qkv shard
+    (768, 1152) at BERT_BASE width. The ms print labelled as host-staged
+    gloo times: not a TP time."""
+    import multiprocessing
+    import pickle
+
+    import numpy as np
+
+    from distributed_model_parallel_tpu_torch.models import bert
+    from distributed_model_parallel_tpu_torch.models.convert import (
+        train_state_to_jax,
+    )
+    from distributed_model_parallel_tpu_torch.parallel import (
+        tensor_parallel as tp,
+    )
+    from distributed_model_parallel_tpu_torch.runtime.dist import free_port
+    from distributed_model_parallel_tpu_torch.runtime.mesh import Mesh
+    from distributed_model_parallel_tpu_torch.training.checkpoint import (
+        flatten_tree,
+    )
+    from distributed_model_parallel_tpu_torch.training.optim import SGD
+
+    cases = s11_m2_cases()
+    torch.cuda.empty_cache()  # the two ranks share this process's card
+    ctx = multiprocessing.get_context("spawn")
+    port = free_port()
+    outs = [scratch_dir(f"s11_m2_rank{r}.pkl") for r in range(2)]
+    os.makedirs(os.path.dirname(outs[0]), exist_ok=True)
+    procs = [ctx.Process(target=s11_gloo_rank,
+                         args=(r, port, outs[r], cases, S11_DEVICE))
+             for r in range(2)]
+    t0 = time.perf_counter()
+    for p in procs:
+        p.start()
+    for p in procs:
+        p.join(600)
+    hung = [p for p in procs if p.is_alive()]
+    for p in hung:
+        p.kill()
+        p.join(10)
+    require(not hung and all(p.exitcode == 0 for p in procs),
+            f"TP M 2 ranks: exit codes {[p.exitcode for p in procs]}")
+    got = []
+    for path in outs:
+        with open(path, "rb") as f:
+            got.append(pickle.load(f))
+    wall = time.perf_counter() - t0
+    if "gloo_cuda_refused" in got[0]:
+        emit({"s11_tp_m2": "not run: gloo refused CUDA tensors on this "
+              "machine", "error": got[0]["gloo_cuda_refused"]})
+        return {"gloo_cuda": False}
+    row = {"s11_tp_m2": "gloo, 2 processes on one card", "gloo_cuda": True,
+           "wall_s": wall}
+    for name, cfg, ids, labels in cases:
+        eng = tp.TensorParallelEngine(bert.bert_for_classification(4, cfg),
+                                      SGD(), Mesh(1, None),
+                                      device=S11_DEVICE)
+        ts = eng.init_state(0)
+        losses = []
+        for _ in range(S11_M2_STEPS):
+            ts, m = eng.train_step(ts, *eng.shard_batch(ids, labels),
+                                   S11_M2_LR)
+            losses.append(float(m["loss_sum"] / m["count"]))
+        want = train_state_to_jax(ts)["params"]
+        gw, ww = flatten_tree(got[0][name]["params"]), flatten_tree(want)
+        params_close = all(np.allclose(gw[k], ww[k], **S11_M2_TOL)
+                           for k in ww)
+        worst = max(ww, key=lambda k: float(np.abs(gw[k] - ww[k]).max()))
+        loss_rel = max(abs(a - b) / abs(b)
+                       for r in got for a, b in zip(r[name]["losses"],
+                                                    losses))
+        row[name] = {
+            "m1_losses": losses,
+            "m2_losses": [r[name]["losses"] for r in got],
+            "loss_max_rel": loss_rel, "params_within_bar": params_close,
+            "bar": S11_M2_TOL, "param_max_abs_diff": {
+                worst: float(np.abs(gw[worst] - ww[worst]).max())},
+            "qkv_shard": [r[name]["qkv_shard"] for r in got],
+            "per_rank_param_bytes": [r[name]["param_bytes"] for r in got],
+            "m1_param_bytes": s11_param_bytes(ts),
+            "host_staged_gloo_ms_per_step": [
+                r[name]["host_staged_gloo_ms"] for r in got]}
+        require(loss_rel <= S11_M2_TOL["rtol"] and params_close,
+                f"TP M 2 {name} differs from M 1: {row[name]}")
+        if cfg.hidden_size == 768:
+            require(all(tuple(s) == (768, 1152)
+                        for s in row[name]["qkv_shard"]),
+                    f"qkv shards {row[name]['qkv_shard']}")
+    emit(row)
+    return row
+
+
+def s11_run(main, flags, cls, name, steps):
+    """`s10_run` plus the trainer's data wait a batch (ms)."""
+    from distributed_model_parallel_tpu_torch.training import trainer as tr
+
+    waits = []
+    train_epoch = tr.Trainer.train_epoch
+
+    def epoch(self, e):
+        stats = train_epoch(self, e)
+        waits.append(stats.data_time * 1e3)
+        return stats
+
+    with patched(tr.Trainer, "train_epoch", epoch):
+        row, params, seen = s10_run(main, flags, cls, name, steps)
+    row["trainer_data_wait_ms"] = sum(waits) / len(waits)
+    return row, params, seen
+
+
+def s11_cache_runs(dp_cli, dp_mod, data) -> dict:
+    """(c) MobileNetV2 DDP at phase 11's flags, f32 and bf16, with and
+    without `--device-cache`: ms a step, the trainer's data wait a batch,
+    the host-to-device bytes a step (what `shard_batch` places), busy /
+    idle, the cache's bytes on the card; the initial state's eval logits
+    on one val batch through the cache and through the host loader; then
+    bf16 `--device-cache --steps-per-dispatch 4` against its eager run,
+    bit for bit (the crops are keyed by the step: a graph that froze the
+    captured step's crops would differ)."""
+    import numpy as np
+
+    from distributed_model_parallel_tpu_torch.cli.common import (
+        build_index_loaders,
+        build_loaders,
+    )
+    from distributed_model_parallel_tpu_torch.data import datasets
+    from distributed_model_parallel_tpu_torch.models import layers as L
+    from distributed_model_parallel_tpu_torch.models.mobilenetv2 import (
+        mobilenet_v2,
+    )
+    from distributed_model_parallel_tpu_torch.runtime.mesh import Mesh
+    from distributed_model_parallel_tpu_torch.training.optim import SGD
+
+    placed = []
+    shard = dp_mod._DataParallel.shard_batch
+
+    def counted(self, inputs, labels):
+        placed.append((inputs.nbytes, labels.nbytes))
+        return shard(self, inputs, labels)
+
+    rows = {}
+    with patched(datasets.DatasetCollection, "init", lambda self: data):
+        with patched(dp_mod._DataParallel, "shard_batch", counted):
+            for dtype in ("float32", "bfloat16"):
+                for cached in (False, True):
+                    name = (f"mobilenetv2_{dtype}_"
+                            f"{'cache' if cached else 'host'}")
+                    placed.clear()
+                    row, _, seen = s11_run(
+                        dp_cli.main, S11_CACHE_FLAGS + ["--dtype", dtype]
+                        + (["--device-cache"] if cached else [])
+                        + ["--checkpoint-dir", scratch_dir(f"s11_{name}")],
+                        dp_mod._DataParallel, name, S10_STEPS)
+                    tf = seen["engine"].input_transform
+                    row = {"s11_cache_run": name,
+                           **{k: v for k, v in row.items()
+                              if k != "s10_run"}}
+                    row["h2d_input_bytes_per_step"] = placed[0][0]
+                    row["h2d_label_bytes_per_step"] = placed[0][1]
+                    row["device_cache_bytes"] = (tf.cache.nbytes if cached
+                                                 else 0)
+                    row.update(s10_profile(seen, row["ms_per_step"]))
+                    del row["flash_kernel_device_ms"]
+                    emit(row)
+                    rows[name] = row
+                    del seen, tf
+        want = sum(split.images.nbytes for split in data)
+        require(rows["mobilenetv2_float32_cache"]["device_cache_bytes"]
+                == want, f"the cache's bytes on the card, want {want}")
+        # The initial state's eval logits on the first val batch.
+        host_val = build_loaders("SyntheticTextures", "", DP_BATCH,
+                                 val_batch_size=DP_BATCH)[1]
+        _, idx_val, _, tf = build_index_loaders(
+            "SyntheticTextures", "", DP_BATCH, S11_DEVICE,
+            val_batch_size=DP_BATCH)
+    model = mobilenet_v2(10)
+    eng = dp_mod.DDPEngine(model, SGD(), mesh=Mesh(1, None),
+                           device=S11_DEVICE)
+    ts = eng.init_state(0)
+    (hx, hy), (ix, iy) = next(iter(host_val)), next(iter(idx_val))
+    with torch.no_grad():
+        x_host = eng.shard_batch(hx, hy)[0]
+        x_cache = tf(eng.shard_batch(ix, iy)[0], step=0, train=False)
+        logits = [model.apply(ts.params, ts.model_state, x,
+                              L.Context(train=False))[0]
+                  for x in (x_host, x_cache)]
+    reading = {"pixels_bit_equal": bool(torch.equal(x_host, x_cache)),
+               "logit_max_rel": rel_diff(logits[1], logits[0]),
+               "bar": S11_LOGIT_REL,
+               "labels_equal": bool(np.array_equal(hy, iy))}
+    emit({"s11_cache_vs_host_eval_logits": reading})
+    require(reading["labels_equal"]
+            and reading["logit_max_rel"] <= S11_LOGIT_REL,
+            f"device cache eval logits differ from the host's: {reading}")
+    del tf, eng, ts
+    flags = S11_CACHE_FLAGS + ["--dtype", "bfloat16", "--device-cache"]
+    runs = {}
+    with patched(datasets.DatasetCollection, "init", lambda self: data):
+        for k in (1, S9_K):
+            d = scratch_dir(f"s11_cache_k{k}")
+            extra = [] if k == 1 else ["--steps-per-dispatch", str(k)]
+            runs[k] = s9_run(dp_cli.main, flags + extra + [
+                "--checkpoint-dir", os.path.join(d, "ck")],
+                dp_mod._DataParallel, d)
+    (_, s1, tr1, _, _, _), (_, s4, tr4, _, _, _) = runs[1], runs[S9_K]
+    same = s9_same(tr4.state, tr1.state)
+    graph = tr4._multi.graph
+    cache = tr1.engine.input_transform.cache
+    idx = torch.arange(DP_BATCH, device=S11_DEVICE, dtype=torch.int32)
+    draws = [torch.cat([d.long() for d in cache.augment_draws(idx, s)])
+             for s in range(S9_K)]
+    row = {"s11_cache_dispatch": "mobilenetv2_ddp_bf16_cache", "k": S9_K,
+           "graph_vs_eager": same,
+           "dispatch_sums_equal": s9_grouped_equal(s1, s4),
+           "graph_captures": graph.captures, "graph_replays": graph.replays,
+           "crops_differ_step_to_step": all(
+               not torch.equal(draws[s], draws[s + 1])
+               for s in range(S9_K - 1)),
+           "eager": s9_timing(tr1, 1), "graph": s9_timing(tr4, S9_K)}
+    emit(row)
+    require(len(s1) == S10_STEPS and row["dispatch_sums_equal"]
+            and same["bit_equal"] and graph.replays > 0
+            and row["crops_differ_step_to_step"],
+            f"device-cache graph run differs from step by step: {row}")
+    return rows
+
+
+def s11_image_folder(dp_cli, dp_mod) -> dict:
+    """(d) With PIL: a 10-class tree of 64x64 PNGs (32 train and 8 val a
+    class) and `--dataset-type Imagenet --model resnet18` for 4 steps on
+    the card (images resized to 224, finite losses). Without PIL a line
+    says so."""
+    try:
+        from PIL import Image
+    except ImportError as e:
+        row = {"s11_image_folder": "not run: PIL is not importable on "
+               "this machine", "error": str(e)}
+        emit(row)
+        return row
+    import numpy as np
+
+    classes, n_train, n_val, side = S11_TREE
+    root = scratch_dir("s11_tree")
+    rng = np.random.RandomState(7)
+    for split, n in (("train", n_train), ("val", n_val)):
+        for c in range(classes):
+            d = os.path.join(root, "data", split, f"class{c:02d}")
+            os.makedirs(d)
+            for i in range(n):
+                Image.fromarray(rng.randint(
+                    0, 256, (side, side, 3)).astype(np.uint8)).save(
+                    os.path.join(d, f"{i}.png"))
+    with contextlib.chdir(root):
+        out, steps, seen = recorded_run(dp_cli.main, S11_IMAGE_FLAGS + [
+            "--data", "data", "--checkpoint-dir", "ck"],
+            dp_mod._DataParallel)
+    losses = [s["loss"] for s in steps]
+    hist = out["history"][0]
+    row = {"s11_image_folder": "Imagenet tree, resnet18", "steps": len(steps),
+           "step_loss": losses, "step_ms": [s["ms"] for s in steps],
+           "val_loss": hist["val"]["loss"], "val_count": hist["val"]["count"],
+           "input_shape": list(seen["batch"][0].shape)}
+    emit(row)
+    require(len(steps) == 4 and all(map(math.isfinite, losses))
+            and math.isfinite(hist["val"]["loss"])
+            and row["input_shape"][1:] == [224, 224, 3],
+            f"image-folder run: {row}")
+    return row
+
+
+def slice11_phase(fa, qm, dp_data) -> dict:
+    """Phase 12 (module docstring). Returns the K1-K4 launches of the
+    phase's main paths (none lies on them)."""
+    from distributed_model_parallel_tpu_torch.cli import data_parallel
+    from distributed_model_parallel_tpu_torch.parallel import (
+        data_parallel as dp_mod,
+    )
+
+    data = s11_cut_val(dp_data)
+    reset_counts(fa, qm)
+    t0 = time.perf_counter()
+    s11_tp_runs(data_parallel, dp_mod, data)
+    print(f"phase 12 (a) TP at M 1: {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    t0 = time.perf_counter()
+    s11_tp_m2()
+    print(f"phase 12 (b) TP at M 2 over gloo: "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    s11_cache_runs(data_parallel, dp_mod, data)
+    print(f"phase 12 (c) device cache: {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    s11_image_folder(data_parallel, dp_mod)
+    got = dict(counts(fa), int8_matmul=qm.int8_matmul.launches)
+    emit({"s11_k1_k4_launches": got})
+    require(not any(got.values()),
+            f"the runs of phase 12 launched K1-K4: {got}")
+    torch.distributed.destroy_process_group()
+    return got
+
+
 def main() -> int:
     # cuBLAS reads this when it first starts: the determinism probe's
     # torch.use_deterministic_algorithms needs it (phase 7).
@@ -3537,10 +4068,14 @@ def smoke() -> int:
 
     # ---- 11. gradient reduction (slice 10) ---------------------------
     slice10 = slice10_phase(lm, fa, qm, dp_data)
-    del dp_data
     phase_done("gradient reduction")
 
-    # ---- 12. kernels line, card line, last line ----------------------
+    # ---- 12. tensor parallelism, device cache, image folders ---------
+    slice11 = slice11_phase(fa, qm, dp_data)
+    del dp_data
+    phase_done("tensor parallelism, device cache, image folders")
+
+    # ---- 13. kernels line, card line, last line ----------------------
     decode = [r for r in shapes if r["M"] == SLOTS]
     step = {key: None if any(r[key] is None for r in decode)
             else LAYERS * sum(r[key] for r in decode)
@@ -3566,6 +4101,9 @@ def smoke() -> int:
         "replays_slice9_traced": 0,
         # phase 11: the gradient-reduction runs (none on this path)
         "launches_slice10": slice10["int8_matmul"],
+        # phase 12: tensor parallelism, the device cache and the image
+        # folders (none on this path)
+        "launches_slice11": slice11["int8_matmul"],
         "max_abs_err": max_err,
         # Times of one decode step's 48 launches (12 layers x the four
         # projection shapes at M = 8), each shape timed in phase 3.
@@ -3589,7 +4127,8 @@ def smoke() -> int:
                launches_slice7=slice7[name], launches_slice8=slice8[name],
                launches_slice9=slice9[name],
                replays_slice9_traced=replays9[name],
-               launches_slice10=slice10[name])
+               launches_slice10=slice10[name],
+               launches_slice11=slice11[name])
           for name, _, replaces in FLASH_KERNELS]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -9,8 +9,8 @@ naming the slice (`check_serving_args`, `check_lm_args`,
 `check_data_parallel_args`, `check_model_parallel_args`). The image
 side: `MODELS`, `build_model`, `STAGE_BUILDERS` (the pipeline splits),
 `stats_for`, `build_loaders` (per-rank loaders from the global batch;
-token-id datasets ship raw)
-and `check_batch_divisibility`; `check_pipeline_schedule_args` is shared
+token-id datasets ship raw), `build_index_loaders` (its `--device-cache`
+twin) and `check_batch_divisibility`; `check_pipeline_schedule_args` is shared
 by both pipeline CLIs. `set_device_numerics` is the one place the CLIs
 fix the card's f32 arithmetic.
 """
@@ -28,7 +28,6 @@ from distributed_model_parallel_tpu_torch.data.datasets import (
     CIFAR10_STD,
     IMAGENET_MEAN,
     IMAGENET_STD,
-    LATER_TYPES,
     DatasetCollection,
 )
 from distributed_model_parallel_tpu_torch.data.loader import Loader
@@ -433,8 +432,6 @@ SLICES = {
     "cm": "the collective-matmul slice",
     "sharded": "the sharded-checkpoint slice",
     "fsdp": "the FSDP slice",
-    "tp": "the tensor-parallel slice",
-    "device_cache": "the device-cache slice",
     "elastic": "the elastic-restart slice",
 }
 
@@ -632,25 +629,36 @@ def stats_for(dataset_type: str) -> Tuple[np.ndarray, np.ndarray]:
     return IMAGENET_MEAN, IMAGENET_STD
 
 
-def build_loaders(dataset_type: str, data_path: str, batch_size: int, *,
-                  val_batch_size=None, augment: bool = True, seed: int = 0,
-                  workers: int = 1, device_normalize: bool = False):
-    """(train_loader, val_loader, num_classes) for this rank. `batch_size`
-    and `val_batch_size` are GLOBAL batches (the reference's `-b 512` is
-    512 in all, and lr 0.4 is tuned to it); each rank's Loader draws
-    global / world samples a step from its own shard."""
-    procs = dist.process_count()
+def _shard_of(batch_size: int, val_batch_size, shard) -> Tuple[int, int]:
+    """(index, count) of this rank's shard of every batch: `shard`, or
+    the process's rank and world; each global batch must divide."""
+    index, procs = shard or (dist.process_index(), dist.process_count())
     for label, b in (("", batch_size), ("val ", val_batch_size)):
         if b is not None and b % procs:
             raise SystemExit(f"global {label}batch size {b} must be "
                              f"divisible by the process count {procs}")
+    return index, procs
+
+
+def build_loaders(dataset_type: str, data_path: str, batch_size: int, *,
+                  val_batch_size=None, augment: bool = True, seed: int = 0,
+                  workers: int = 1, device_normalize: bool = False,
+                  shard=None):
+    """(train_loader, val_loader, num_classes) for this rank. `batch_size`
+    and `val_batch_size` are GLOBAL batches (the reference's `-b 512` is
+    512 in all, and lr 0.4 is tuned to it); each rank's Loader draws
+    global / count samples a step from shard `index` of `shard = (index,
+    count)`: by default the process's rank and world, under tensor
+    parallelism the data index and the data ranks (the model ranks of a
+    data index read the same rows)."""
+    index, procs = _shard_of(batch_size, val_batch_size, shard)
     train_ds, val_ds = DatasetCollection(dataset_type, data_path).init()
     mean, std = stats_for(dataset_type)
-    raw = train_ds.kind == "text"
+    raw = getattr(train_ds, "kind", "image") == "text"
     if raw:  # token ids: no crop / flip, no normalize
         mean = std = None
         augment = False
-    rank = dict(process_index=dist.process_index(), process_count=procs,
+    rank = dict(process_index=index, process_count=procs,
                 workers=workers, device_normalize=device_normalize,
                 mean=mean, std=std, raw=raw)
     train = Loader(train_ds, batch_size=batch_size // procs, shuffle=True,
@@ -658,6 +666,37 @@ def build_loaders(dataset_type: str, data_path: str, batch_size: int, *,
     val = Loader(val_ds, batch_size=(val_batch_size or batch_size) // procs,
                  shuffle=False, augment=False, drop_last=False, **rank)
     return train, val, train_ds.num_classes
+
+
+def build_index_loaders(dataset_type: str, data_path: str, batch_size: int,
+                        device, *, val_batch_size=None, augment: bool = True,
+                        seed: int = 0, shard=None):
+    """The `--device-cache` twin of `build_loaders`: the same per-rank
+    batch division and datasets, but the loaders yield INDEX vectors and
+    the train and val images upload to `device` once
+    (`data/device_cache.combined_cache`). Returns (train_loader,
+    val_loader, num_classes, input_transform)."""
+    from distributed_model_parallel_tpu_torch.data.device_cache import (
+        IndexLoader,
+        combined_cache,
+    )
+
+    index, procs = _shard_of(batch_size, val_batch_size, shard)
+    train_ds, val_ds = DatasetCollection(dataset_type, data_path).init()
+    mean, std = stats_for(dataset_type)
+    try:
+        transform, val_off = combined_cache(
+            train_ds, val_ds, device, augment=augment, mean=mean, std=std)
+    except ValueError as e:
+        raise SystemExit(f"--device-cache: {e}") from e
+    rank = dict(process_index=index, process_count=procs)
+    train = IndexLoader(train_ds, batch_size=batch_size // procs,
+                        shuffle=True, seed=seed, **rank)
+    val = IndexLoader(val_ds,
+                      batch_size=(val_batch_size or batch_size) // procs,
+                      shuffle=False, drop_last=False, index_offset=val_off,
+                      **rank)
+    return train, val, train_ds.num_classes, transform
 
 
 def check_batch_divisibility(global_batch: int, mesh, *,
@@ -735,11 +774,8 @@ def check_data_parallel_args(args) -> None:
     s = SLICES
     refusals = (
         ("--engine fsdp", args.engine == "fsdp", s["fsdp"]),
-        ("--engine tp / --model-shards", args.engine == "tp"
-         or args.model_shards != 1, s["tp"]),
         ("--collective-matmul", args.collective_matmul, s["cm"]),
         ("--plan", args.plan, s["plan"]),
-        ("--device-cache", args.device_cache, s["device_cache"]),
         ("--checkpoint-format sharded / --async-save",
          args.checkpoint_format != "legacy" or args.async_save,
          s["sharded"]),
@@ -775,19 +811,18 @@ def check_data_parallel_args(args) -> None:
         )
     if args.grad_reduction == "overlapped":
         check_overlapped_model(args.model, args.overlap_stages)
-    if args.dataset_type in LATER_TYPES:
-        raise SystemExit(
-            f"--dataset-type {args.dataset_type} is not ported to the "
-            f"PyTorch package yet: it belongs to "
-            f"{LATER_TYPES[args.dataset_type]} (ROADMAP.md)"
-        )
-    if args.dataset_type == "SyntheticText" and args.device_normalize:
-        # The reference's check (with --device-cache, refused above).
+    check_tensor_parallel_args(args)
+    if args.dataset_type == "SyntheticText" and (
+            args.device_cache or args.device_normalize):
         raise SystemExit(
             "--device-cache/--device-normalize apply the image "
             "normalize pipeline; token-id datasets ship raw (and are "
             "small on the wire already)"
         )
+    if args.device_cache and args.device_normalize:
+        raise SystemExit(
+            "--device-cache already normalizes on device; drop "
+            "--device-normalize")
     if args.finetune:
         # Before any dataset or process group is built.
         if args.resume:
@@ -806,17 +841,55 @@ def check_data_parallel_args(args) -> None:
                          "global batch")
 
 
+# The models `--engine tp` shards: the Megatron rules match their
+# projection paths (the reference's TRANSFORMER_MODELS).
+TRANSFORMER_MODELS = ("bert", "bert_tiny", "vit")
+
+
+def model_widths(name: str) -> Tuple[int, int]:
+    """(attention heads, FFN width) of a TRANSFORMER_MODELS entry."""
+    if name == "vit":
+        return vit.VIT_CIFAR.num_heads, vit.VIT_CIFAR.mlp_dim
+    cfg = _bert_tiny_cfg() if name == "bert_tiny" else bert.BERT_BASE
+    return cfg.num_heads, cfg.intermediate_size
+
+
+def check_tensor_parallel_args(args) -> None:
+    """The reference CLI's `--engine tp` checks, plus the port's own:
+    --model-shards divides the model's heads and FFN width."""
+    if args.engine == "tp" and args.dcn_slices != 1:
+        raise SystemExit(
+            "--dcn-slices factors the data axis for the hierarchical "
+            "reducer; combine it with --engine gspmd/ddp/fsdp, not tp")
+    if args.engine != "tp":
+        if args.model_shards != 1:
+            raise SystemExit(
+                "--model-shards sizes the 'model' mesh axis and only "
+                "applies under --engine tp")
+        return
+    if args.model not in TRANSFORMER_MODELS:
+        raise SystemExit(
+            "--engine tp shards the Megatron projection layers; "
+            f"--model {args.model} has none, so every weight would "
+            "silently replicate across the 'model' axis (redundant "
+            f"compute). Choose one of {', '.join(TRANSFORMER_MODELS)}.")
+    if args.model_shards < 1:
+        raise SystemExit(
+            f"--model-shards must be >= 1, got {args.model_shards}")
+    from distributed_model_parallel_tpu_torch.parallel.tensor_parallel \
+        import check_divisibility
+
+    try:
+        check_divisibility(*model_widths(args.model), args.model_shards)
+    except ValueError as e:
+        raise SystemExit(f"--model {args.model}: {e}") from e
+
+
 def check_model_parallel_args(args) -> None:
     """Startup-time validation of the pipeline CLI surface: the flags of
     later port slices are refused by name, then the schedule knobs and
     the stage builder are checked, before any dataset, process group or
     engine is built."""
-    if args.dataset_type in LATER_TYPES:
-        raise SystemExit(
-            f"--dataset-type {args.dataset_type} is not ported to the "
-            f"PyTorch package yet: it belongs to "
-            f"{LATER_TYPES[args.dataset_type]} (ROADMAP.md)"
-        )
     if args.world_size < 1:
         raise SystemExit(f"--world-size (pipeline stages) must be >= 1, "
                          f"got {args.world_size}")
@@ -909,6 +982,7 @@ __all__ = [
     "add_checkpoint_flags",
     "add_grad_reduction_flags",
     "add_metrics_out_flag",
+    "build_index_loaders",
     "build_loaders",
     "build_model",
     "build_optimizer",
@@ -922,6 +996,7 @@ __all__ = [
     "check_model_parallel_args",
     "check_pipeline_schedule_args",
     "check_serving_args",
+    "check_tensor_parallel_args",
     "compute_dtype_from_flag",
     "export_metrics_out",
     "reducer_mesh",
@@ -929,4 +1004,5 @@ __all__ = [
     "set_device_numerics",
     "setup_metrics_out",
     "stats_for",
+    "TRANSFORMER_MODELS",
 ]

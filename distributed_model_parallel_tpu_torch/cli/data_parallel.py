@@ -29,9 +29,15 @@ dispatch on the card, `--profile-dir` writes a torch.profiler trace and
 gradients through DDP's bucketed Reducer (`--bucket-mb`, `--overlap-
 stages`); `--dcn-slices K` factors the ranks into K slices and makes the
 reduction hierarchical, `--dcn-compression bf16|int8` compresses its
-cross-slice hop. The parser keeps the reference's whole flag surface; flags whose features
-belong to later port slices are refused with the slice named
-(`cli/common.check_data_parallel_args`).
+cross-slice hop. `--engine tp --model-shards M` (bert, bert_tiny, vit)
+is Megatron tensor parallelism over M consecutive ranks
+(`parallel/tensor_parallel.py`), the world being world / M data ranks;
+`--device-cache` uploads the train and val images to the device once
+and ships only index vectors (`data/device_cache.py`), under every
+engine; `-type Imagenet|Place365|CUB200` reads an image tree under
+`--data`. The parser keeps the reference's whole flag surface; flags
+whose features belong to later port slices are refused with the slice
+named (`cli/common.check_data_parallel_args`).
 """
 
 from __future__ import annotations
@@ -45,6 +51,7 @@ from distributed_model_parallel_tpu_torch.cli.common import (
     add_checkpoint_flags,
     add_common_tpu_flags,
     add_grad_reduction_flags,
+    build_index_loaders,
     build_loaders,
     build_model,
     build_optimizer,
@@ -62,9 +69,16 @@ from distributed_model_parallel_tpu_torch.parallel.data_parallel import (
     DataParallelEngine,
     DDPEngine,
 )
+from distributed_model_parallel_tpu_torch.parallel.tensor_parallel import (
+    TensorParallelEngine,
+)
 from distributed_model_parallel_tpu_torch.runtime.dist import (
     initialize_backend,
     is_primary,
+)
+from distributed_model_parallel_tpu_torch.runtime.mesh import (
+    MeshSpec,
+    make_mesh,
 )
 from distributed_model_parallel_tpu_torch.training.trainer import (
     Trainer,
@@ -108,10 +122,15 @@ def build_parser() -> argparse.ArgumentParser:
                    choices=("gspmd", "ddp", "fsdp", "tp"),
                    help="gspmd: global-batch BN (nn.DataParallel with "
                         "SyncBN semantics); ddp: explicit gradient "
-                        "all-reduce, per-rank BN or --sync-bn; fsdp, tp: "
-                        "not ported yet")
+                        "all-reduce, per-rank BN or --sync-bn; tp: "
+                        "Megatron tensor parallelism over --model-shards "
+                        "ranks (bert, bert_tiny, vit); fsdp: not ported "
+                        "yet")
     p.add_argument("--model-shards", default=1, type=int,
-                   help="not ported yet (tensor-parallel slice)")
+                   help="'model' mesh axis size under --engine tp: each "
+                        "group of this many consecutive ranks shards the "
+                        "Megatron projections (must divide the heads and "
+                        "the FFN width)")
     p.add_argument("--collective-matmul", action="store_true",
                    help="not ported yet (collective-matmul slice)")
     p.add_argument("--plan", default=None, metavar="SPEC",
@@ -127,7 +146,10 @@ def build_parser() -> argparse.ArgumentParser:
                    help="ship uint8 batches and normalize on the device "
                         "(4x fewer host-to-device bytes; same math)")
     p.add_argument("--device-cache", action="store_true",
-                   help="not ported yet (device-cache slice)")
+                   help="upload the train and val images to the device "
+                        "once; each step ships only its index vector and "
+                        "the gather, crop/flip and normalize run on the "
+                        "device")
     add_common_tpu_flags(p)
     return p
 
@@ -143,20 +165,35 @@ def main(argv=None) -> dict:
     setup_metrics_out(args.metrics_out)
     device = initialize_backend(args.device, args.dist_url)
     set_device_numerics()
-    mesh = reducer_mesh(args.dcn_slices)
+    if args.engine == "tp":
+        try:
+            mesh = make_mesh(MeshSpec(data=-1, model=args.model_shards))
+        except ValueError as e:
+            raise SystemExit(f"--model-shards {args.model_shards}: {e}") \
+                from e
+    else:
+        mesh = reducer_mesh(args.dcn_slices)
     check_batch_divisibility(args.batch_size, mesh)
     check_batch_divisibility(args.val_batch_size, mesh, label="val batch")
-    train, val, num_classes = build_loaders(
-        args.dataset_type, args.data, args.batch_size,
-        val_batch_size=args.val_batch_size, workers=args.workers,
-        device_normalize=args.device_normalize,
-    )
-    itf = (device_normalizer(*stats_for(args.dataset_type))
-           if args.device_normalize else None)
+    # Each data rank's shard (the model ranks of a data index share it).
+    shard = (mesh.data_index, mesh.data)
+    if args.device_cache:
+        train, val, num_classes, itf = build_index_loaders(
+            args.dataset_type, args.data, args.batch_size, device,
+            val_batch_size=args.val_batch_size, shard=shard)
+    else:
+        train, val, num_classes = build_loaders(
+            args.dataset_type, args.data, args.batch_size,
+            val_batch_size=args.val_batch_size, workers=args.workers,
+            device_normalize=args.device_normalize, shard=shard)
+        itf = (device_normalizer(*stats_for(args.dataset_type))
+               if args.device_normalize else None)
     common = dict(mesh=mesh, compute_dtype=compute_dtype_from_flag(args.dtype),
                   input_transform=itf, device=device)
     model = build_model(args.model, num_classes, remat=args.remat)
-    if args.engine == "ddp":
+    if args.engine == "tp":
+        engine = TensorParallelEngine(model, build_optimizer(args), **common)
+    elif args.engine == "ddp":
         engine = DDPEngine(model, build_optimizer(args), sync_bn=args.sync_bn,
                            grad_reduction=args.grad_reduction,
                            bucket_mb=args.bucket_mb,
@@ -168,6 +205,12 @@ def main(argv=None) -> dict:
         print(f"==> {args.engine} on {mesh.data} rank(s) of {device.type} "
               f"({torch.distributed.get_backend()}); checkpoints in "
               f"{args.checkpoint_dir}", flush=True)
+        if args.engine == "tp":
+            print(f"==> tensor parallel: {mesh.data} data x {mesh.model} "
+                  "model rank(s)", flush=True)
+        if args.device_cache:
+            print(f"==> device cache: {itf.cache.nbytes} bytes of images "
+                  f"on {device}", flush=True)
         if args.grad_reduction != "monolithic" or mesh.dcn > 1:
             print(f"==> grad reduction {args.grad_reduction} "
                   f"(bucket {args.bucket_mb} MB) over {mesh.dcn} slice(s) "

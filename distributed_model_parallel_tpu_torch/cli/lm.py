@@ -5,12 +5,14 @@ GPT next-token pretraining on the deterministic Markov-chain corpus
 the `Trainer` epoch protocol: with `CausalLMSequenceParallelEngine`
 over data ranks (`torch.distributed`, one process per GPU as on the DP
 CLI: `-b` is the global batch, divided by the world; under `torchrun`
-each rank takes its rows), or split into pipeline stages, in one
-process, with
-`LMPipelineEngine` (`--pipeline-stages S`, `--microbatches`,
-`--pipeline-schedule gpipe|1f1b|interleaved`, `--virtual-stages`; the
-stages attend dense and causal, so `--attention` is refused there, as in
-the JAX CLI):
+each rank takes its rows), or split into pipeline stages, every stage
+driven by each rank's one process, with `LMPipelineEngine`
+(`--pipeline-stages S`, `--microbatches`, `--pipeline-schedule
+gpipe|1f1b|interleaved`, `--virtual-stages`; the stages attend dense and
+causal, so `--attention` is refused there, as in the JAX CLI), whose
+data axis spans the ranks in the same way (`MeshSpec(data=-1,
+stage=S)`: each rank takes its rows of `-b`, the gradients are averaged
+over the ranks, and rank 0 alone prints and writes):
 
   python -m distributed_model_parallel_tpu_torch.cli.lm \\
       --attention ulysses_flash               # on the GPU (default)
@@ -190,9 +192,12 @@ def main(argv=None) -> dict:
     set_device_numerics()
     cdt = compute_dtype_from_flag(args.dtype)
     if args.pipeline_stages > 1:
-        # One process drives every stage (runtime/mesh.py).
-        mesh = make_mesh(MeshSpec(data=1, stage=args.pipeline_stages),
-                         devices=local_devices(args.device))
+        # One process drives every stage (runtime/mesh.py); the data
+        # axis spans the ranks, as in the reference's MeshSpec(data=-1,
+        # stage=S).
+        device = initialize_backend(args.device, None)
+        mesh = make_mesh(MeshSpec(data=-1, stage=args.pipeline_stages),
+                         devices=local_devices(device.type))
         check_batch_divisibility(args.batch_size, mesh,
                                  microbatches=args.microbatches)
         engine = LMPipelineEngine(

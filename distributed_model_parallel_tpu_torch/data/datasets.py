@@ -7,10 +7,12 @@ order, the same float64 temporaries, cast where the reference casts.
 
 Types of `DatasetCollection`: 'CIFAR10' (the python-version batches
 from disk, or class-structured synthetic data of CIFAR-10's shapes and
-sizes when the files are absent), 'Synthetic', 'SyntheticTextures' and
+sizes when the files are absent), 'Synthetic', 'SyntheticTextures',
 'SyntheticText' (token-id classification for the transformer
-classifiers). 'Imagenet', 'Place365' and 'CUB200' are refused by name:
-they belong to a later slice.
+classifiers), 'Imagenet' and 'Place365' (ImageFolder trees,
+`image_folder`: `LazyImageFolder` splits that decode per batch) and
+'CUB200' (its metadata tables, `cub200`). The image trees decode with
+PIL, imported where a file is opened, never when this module is.
 """
 
 from __future__ import annotations
@@ -28,14 +30,6 @@ CIFAR10_STD = np.array([0.2023, 0.1994, 0.2010], np.float32)
 IMAGENET_MEAN = np.array([0.485, 0.456, 0.406], np.float32)
 IMAGENET_STD = np.array([0.229, 0.224, 0.225], np.float32)
 
-# Dataset types of later port slices (ROADMAP.md).
-LATER_TYPES = {
-    "Imagenet": "the image-folder slice",
-    "Place365": "the image-folder slice",
-    "CUB200": "the image-folder slice",
-}
-
-
 @dataclasses.dataclass
 class ArrayDataset:
     """In-memory dataset: images NHWC uint8 (or, for `kind='text'`,
@@ -52,6 +46,34 @@ class ArrayDataset:
 
     def gather(self, idx) -> Tuple[np.ndarray, np.ndarray]:
         return self.images[idx], self.labels[idx]
+
+
+@dataclasses.dataclass
+class LazyImageFolder:
+    """A disk-backed ImageFolder split: paths and labels, decoding only the
+    rows a batch asks for (`gather`), each image converted to RGB and
+    resized to `image_size` square, so the Loader's prefetch thread
+    overlaps the decode with the device step."""
+
+    paths: list
+    labels: np.ndarray
+    num_classes: int
+    image_size: int = 224
+
+    def __len__(self) -> int:
+        return len(self.labels)
+
+    def gather(self, idx) -> Tuple[np.ndarray, np.ndarray]:
+        from PIL import Image  # lazy: only image trees need PIL
+
+        images = np.empty(
+            (len(idx), self.image_size, self.image_size, 3), np.uint8)
+        for row, i in enumerate(np.asarray(idx)):
+            with Image.open(self.paths[i]) as im:
+                images[row] = np.asarray(
+                    im.convert("RGB").resize(
+                        (self.image_size, self.image_size)), np.uint8)
+        return images, self.labels[idx]
 
 
 def synthetic(num_examples: int = 2048, image_size: int = 32,
@@ -182,14 +204,84 @@ def cifar10(root: str = "./data", *, fallback_synthetic: bool = True):
     return ArrayDataset(xtr, ytr, 10), ArrayDataset(xte, yte, 10)
 
 
+# The extensions an ImageFolder tree's files may have (torchvision's
+# ImageFolder filter): a stray .DS_Store or checksum file is skipped.
+_IMG_EXTS = {
+    ".jpg", ".jpeg", ".png", ".bmp", ".gif", ".webp", ".ppm", ".pgm",
+    ".tif", ".tiff",
+}
+
+
+def image_folder(root: str, split_dirs=("train", "val"),
+                 image_size: int = 224, *, lazy: bool = True):
+    """An ImageFolder tree ('Imagenet' / 'Place365'): one split per
+    directory of `split_dirs` under `root`, one class per sorted
+    subdirectory, its files in sorted order. `lazy=True` gives
+    `LazyImageFolder` splits that decode per batch; `lazy=False` decodes
+    every image into an in-memory `ArrayDataset`."""
+    out = []
+    for split in split_dirs:
+        base = os.path.join(root, split)
+        classes = sorted(d for d in os.listdir(base)
+                         if os.path.isdir(os.path.join(base, d)))
+        paths, labels = [], []
+        for label, c in enumerate(classes):
+            cdir = os.path.join(base, c)
+            for fname in sorted(os.listdir(cdir)):
+                if os.path.splitext(fname)[1].lower() not in _IMG_EXTS:
+                    continue
+                paths.append(os.path.join(cdir, fname))
+                labels.append(label)
+        ds = LazyImageFolder(paths, np.asarray(labels, np.int64),
+                             len(classes), image_size)
+        if not lazy:
+            images, lab = ds.gather(np.arange(len(ds)))
+            ds = ArrayDataset(images, lab, ds.num_classes)
+        out.append(ds)
+    return tuple(out)
+
+
+def cub200(root: str, image_size: int = 224):
+    """CUB-200-2011 from its `images.txt`, `train_test_split.txt` and
+    `image_class_labels.txt` tables (the join the reference does with
+    pandas, without pandas): (train, val) `ArrayDataset`s of 200
+    classes, labels 0-based, images decoded and resized."""
+    from PIL import Image  # lazy: only image trees need PIL
+
+    def read_table(name):
+        with open(os.path.join(root, name)) as f:
+            return [line.split() for line in f.read().splitlines() if line]
+
+    paths = {int(i): p for i, p in read_table("images.txt")}
+    is_train = {int(i): v == "1"
+                for i, v in read_table("train_test_split.txt")}
+    label = {int(i): int(c) - 1
+             for i, c in read_table("image_class_labels.txt")}
+    splits = {True: ([], []), False: ([], [])}
+    for i, rel in sorted(paths.items()):
+        with Image.open(os.path.join(root, "images", rel)) as im:
+            arr = np.asarray(im.convert("RGB").resize(
+                (image_size, image_size)), np.uint8)
+        imgs, labs = splits[is_train[i]]
+        imgs.append(arr)
+        labs.append(label[i])
+    return tuple(ArrayDataset(np.stack(splits[k][0]),
+                              np.asarray(splits[k][1], np.int64), 200)
+                 for k in (True, False))
+
+
 class DatasetCollection:
     """String-keyed factory, the reference's shape:
-    `DatasetCollection(type, path).init() -> (train, val)`. (The
-    reference's compose transforms come with the image-folder slice.)"""
+    `DatasetCollection(type, path).init() -> (train, val)`; `image_size`
+    is the side the image trees are resized to. (The reference's compose
+    transforms are not ported: the Loader's own augment and normalize
+    run.)"""
 
-    def __init__(self, dataset_type: str, dataset_path: str = "./data"):
+    def __init__(self, dataset_type: str, dataset_path: str = "./data",
+                 image_size: int = 224):
         self.dataset_type = dataset_type
         self.dataset_path = dataset_path
+        self.image_size = image_size
 
     def init(self):
         t = self.dataset_type
@@ -204,14 +296,15 @@ class DatasetCollection:
         if t == "SyntheticTextures":
             return (synthetic_textures(50_000, 32, 10, seed=1),
                     synthetic_textures(10_000, 32, 10, seed=2))
-        if t in LATER_TYPES:
-            raise ValueError(
-                f"dataset type {t!r} is not ported to the PyTorch package "
-                f"yet: it belongs to {LATER_TYPES[t]} (ROADMAP.md)"
-            )
+        if t in ("Imagenet", "Place365"):
+            return image_folder(self.dataset_path,
+                                image_size=self.image_size)
+        if t == "CUB200":
+            return cub200(self.dataset_path, image_size=self.image_size)
         raise ValueError(f"unknown dataset type {t!r}")
 
 
 __all__ = ["ArrayDataset", "CIFAR10_MEAN", "CIFAR10_STD", "DatasetCollection",
-           "IMAGENET_MEAN", "IMAGENET_STD", "LATER_TYPES", "cifar10",
-           "synthetic", "synthetic_text", "synthetic_textures"]
+           "IMAGENET_MEAN", "IMAGENET_STD", "LazyImageFolder", "cifar10",
+           "cub200", "image_folder", "synthetic", "synthetic_text",
+           "synthetic_textures"]

@@ -66,6 +66,10 @@ class Context:
     # so a row's summation order, by the number of rows, and this keeps
     # every row's statistics those of a (B, 1, dim) decode step.
     norm_per_position: bool = False
+    # Process group of the tensor-parallel 'model' axis: `project` wraps
+    # 'column' and 'row' projections in Megatron's f and g collectives
+    # over it (`parallel/tensor_parallel.py`). None => no model axis.
+    model_group: Optional[Any] = None
 
     def child(self, i: int) -> "Context":
         """Context for the i-th child of a combinator (the reference's
@@ -170,13 +174,74 @@ def dropout(x: torch.Tensor, rate: float, ctx: Context) -> torch.Tensor:
     return torch.where(keep, x / (1.0 - rate), torch.zeros_like(x))
 
 
-def project(h, w, b, ctx: Context):
+class _CopyToModelParallel(torch.autograd.Function):
+    """Megatron's f: the identity forward, the gradient all-reduced (SUM)
+    over the model group backward. It enters a column-parallel
+    projection, whose input is replicated and whose weight is a column
+    shard: each rank's input gradient is a partial sum."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.contiguous().clone()
+        torch.distributed.all_reduce(g, group=ctx.group)
+        return g, None
+
+
+class _ReduceFromModelParallel(torch.autograd.Function):
+    """Megatron's g: the output all-reduced (SUM) over the model group
+    forward, the identity backward. It closes a row-parallel projection,
+    whose per-rank products are partial sums."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        y = x.contiguous().clone()
+        torch.distributed.all_reduce(y, group=group)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def _model_parallel(group) -> bool:
+    return (group is not None
+            and torch.distributed.get_world_size(group) > 1)
+
+
+def copy_to_model_parallel(x: torch.Tensor, group) -> torch.Tensor:
+    """f over `group`; the identity without a group of two or more."""
+    return _CopyToModelParallel.apply(x, group) if _model_parallel(
+        group) else x
+
+
+def reduce_from_model_parallel(x: torch.Tensor, group) -> torch.Tensor:
+    """g over `group`; the identity without a group of two or more."""
+    return _ReduceFromModelParallel.apply(x, group) if _model_parallel(
+        group) else x
+
+
+def project(h, w, b, ctx: Context, *, role: Optional[str] = None):
     """Dense projection `h @ w + b`, or `ctx.matmul(h, w, b)` when a
-    projection policy is threaded."""
+    projection policy is threaded. `role` is the reference's Megatron
+    role: under a model group (`ctx.model_group`), a "column" projection
+    (qkv, ffn-in; `w` a column shard) runs on f(h), and a "row"
+    projection (attn-out, ffn-out; `w` a row shard) is g(h @ w) + b, the
+    bias added once, after the all-reduce. Without one both are
+    `h @ w + b`."""
     w = w.to(h.dtype)
     b = b.to(h.dtype)
     if ctx.matmul is not None:
         return ctx.matmul(h, w, b)
+    group = ctx.model_group
+    if role == "column":
+        h = copy_to_model_parallel(h, group)
+    elif role == "row":
+        return reduce_from_model_parallel(h @ w, group) + b
     return h @ w + b
 
 
@@ -419,6 +484,7 @@ def remat(layer: Layer) -> Layer:
 
 
 __all__ = ["Context", "Layer", "avg_pool2d", "batchnorm2d", "conv2d",
-           "dropout", "flatten", "fold_in", "gelu", "global_avg_pool",
-           "layernorm", "linear", "max_pool2d", "named", "project", "relu",
+           "copy_to_model_parallel", "dropout", "flatten", "fold_in",
+           "gelu", "global_avg_pool", "layernorm", "linear", "max_pool2d",
+           "named", "project", "reduce_from_model_parallel", "relu",
            "remat", "reshape_head", "residual", "root_key", "sequential"]

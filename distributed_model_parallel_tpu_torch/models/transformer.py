@@ -5,7 +5,11 @@ do, the mask a (B, T) bool of valid keys (or None); the attention core
 is the `attention_fn(q, k, v, mask)` seam, so the serving recorders
 (`serving/decode.py`) drive the same block code the full-sequence model
 runs. Every projection routes through `layers.project`, where the int8
-decode policy plugs in.
+decode policy plugs in, with its Megatron role ("column" for qkv and
+ffn-in, "row" for attn-out and ffn-out): under a tensor-parallel model
+group (`Context.model_group`) the block runs on its rank's shard
+(`parallel/tensor_parallel.py`), its local heads counted from the qkv
+shard's width.
 
 Two surfaces over one body: the functions `multi_head_attention`,
 `feed_forward` and `encoder_layer` take a block's parameters directly
@@ -59,29 +63,41 @@ def multi_head_attention(
     attention_fn: AttentionFn = dot_product_attention,
 ):
     """Self-attention over (hidden, mask): fused QKV projection, per-head
-    attention via `attention_fn`, output projection."""
+    attention via `attention_fn`, output projection. `params` may be a
+    tensor-parallel shard ([q | k | v] columns of this rank's heads, the
+    matching rows of the output projection): the heads are counted from
+    the qkv width."""
     h, mask = x
     b, t, dim = h.shape
     if dim % num_heads:
         raise ValueError(f"dim {dim} not divisible by num_heads {num_heads}")
     dh = dim // num_heads
-    qkv = L.project(h, params["qkv"]["w"], params["qkv"]["b"], ctx)
-    q, k, v = torch.split(qkv, dim, dim=-1)
-    q = q.reshape(b, t, num_heads, dh)
-    k = k.reshape(b, t, num_heads, dh)
-    v = v.reshape(b, t, num_heads, dh)
+    local = params["qkv"]["w"].shape[1] // 3
+    if local % dh:
+        raise ValueError(
+            f"a qkv shard of {local} columns per projection does not hold "
+            f"whole heads of {dh}: {num_heads} heads must split evenly "
+            "over the model shards")
+    heads = local // dh
+    qkv = L.project(h, params["qkv"]["w"], params["qkv"]["b"], ctx,
+                    role="column")
+    q, k, v = torch.split(qkv, local, dim=-1)
+    q = q.reshape(b, t, heads, dh)
+    k = k.reshape(b, t, heads, dh)
+    v = v.reshape(b, t, heads, dh)
     o = attention_fn(q, k, v, mask)
-    o = L.project(
-        o.reshape(b, t, dim), params["out"]["w"], params["out"]["b"], ctx
-    )
+    o = L.project(o.reshape(b, t, local), params["out"]["w"],
+                  params["out"]["b"], ctx, role="row")
     return L.dropout(o, dropout_rate, ctx), mask
 
 
 def feed_forward(params, x, ctx: L.Context, *, dropout_rate: float = 0.0):
     """Position-wise FFN (dense -> exact gelu -> dense) on (hidden, mask)."""
     h, mask = x
-    y = L.gelu(L.project(h, params["in"]["w"], params["in"]["b"], ctx))
-    y = L.project(y, params["out"]["w"], params["out"]["b"], ctx)
+    y = L.gelu(L.project(h, params["in"]["w"], params["in"]["b"], ctx,
+                         role="column"))
+    y = L.project(y, params["out"]["w"], params["out"]["b"], ctx,
+                  role="row")
     return L.dropout(y, dropout_rate, ctx), mask
 
 

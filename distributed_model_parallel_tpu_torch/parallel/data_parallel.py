@@ -112,6 +112,20 @@ def place(a, device: torch.device) -> torch.Tensor:
     return t.to(device, non_blocking=True)
 
 
+def apply_input_transform(tf, x, step, train: bool):
+    """The engine's `input_transform` on a placed batch, before the
+    compute-dtype cast: a transform with `wants_ctx = True` (the device
+    cache's gather and augmentation, `data/device_cache.py`) is called
+    as `tf(x, step=step, train=train)`, where `step` is the state's step
+    (a host int, or the device scalar a captured step advances); a plain
+    one (`data/loader.device_normalizer`) as `tf(x)`."""
+    if tf is None:
+        return x
+    if getattr(tf, "wants_ctx", False):
+        return tf(x, step=step, train=train)
+    return tf(x)
+
+
 def step_key(step, rank: int = 0):
     """The dropout key of a train step on one data rank: the step (host
     int or device scalar) and the rank folded into the root key, as the
@@ -144,6 +158,9 @@ class _DataParallel:
         self._sync_bn = sync_bn
         self._bn_group = (self.mesh.group
                           if sync_bn and self.mesh.data > 1 else None)
+        #: the tensor-parallel model group the layers' f and g run over
+        #: (`TensorParallelEngine`); None for the data-parallel engines
+        self._model_group = None
         #: gradient collectives issued: one all-reduce a step
         #: (monolithic, with a process group), or the Reducer's count
         self.grad_reductions = 0
@@ -217,10 +234,14 @@ class _DataParallel:
 
     # ------------------------------------------------------------- steps
 
-    def _input(self, images):
-        x = images
-        if self.input_transform is not None:
-            x = self.input_transform(x)
+    def loss_and_metrics(self, logits, labels):
+        """The differentiated loss of one batch (the local mean
+        cross-entropy) and its metric sums, the reference's hook."""
+        ce = cross_entropy(logits, labels)
+        return ce, _metrics(ce.detach(), logits.detach(), labels)
+
+    def _input(self, images, step, train: bool):
+        x = apply_input_transform(self.input_transform, images, step, train)
         if self.compute_dtype is not None and x.is_floating_point():
             x = x.to(self.compute_dtype)
         return x
@@ -263,15 +284,17 @@ class _DataParallel:
         the step can be captured in a CUDA graph."""
         ctx = L.Context(train=True, dtype=self.compute_dtype,
                         bn_group=self._bn_group,
+                        model_group=self._model_group,
                         rng=step_key(ts.step, self._rank()))
-        x = self._input(images)
+        x = self._input(images, ts.step, True)
         if self._grad_reduction == "overlapped":
             logits, ce, grads, new_state = self._overlapped_grads(
                 ts, x, labels, ctx)
+            m = _metrics(ce.detach(), logits, labels)
         else:
             logits, new_state = self.model.apply(
                 ts.params, ts.model_state, x, ctx)
-            ce = cross_entropy(logits, labels)
+            ce, m = self.loss_and_metrics(logits, labels)
             grads = torch.autograd.grad(ce, list(tree_leaves(ts.params)))
             if self._reducer is not None:
                 grads = self._reduced(self._reducer.issue(
@@ -288,17 +311,17 @@ class _DataParallel:
         write_back(ts.model_state, new_state)
         params, opt_state = self.optimizer.update(
             ts.params, ts.opt_state, grads, lr)
-        m = self._sum_metrics(_metrics(ce.detach(), logits.detach(), labels))
         return TrainState(params, ts.model_state, opt_state,
-                          ts.step + 1), m
+                          ts.step + 1), self._sum_metrics(m)
 
     @torch.no_grad()
     def eval_step(self, ts: TrainState, images, labels) -> dict:
-        ctx = L.Context(train=False, dtype=self.compute_dtype)
+        ctx = L.Context(train=False, dtype=self.compute_dtype,
+                        model_group=self._model_group)
         logits, _ = self.model.apply(ts.params, ts.model_state,
-                                     self._input(images), ctx)
-        loss = cross_entropy(logits, labels)
-        return self._sum_metrics(_metrics(loss, logits, labels))
+                                     self._input(images, ts.step, False),
+                                     ctx)
+        return self._sum_metrics(self.loss_and_metrics(logits, labels)[1])
 
 
 @dataclasses.dataclass
@@ -314,7 +337,8 @@ class DataParallelEngine(_DataParallel):
     # use; None keeps the input dtype.
     compute_dtype: Optional[torch.dtype] = None
     # Applied to the batch on the device before the compute-dtype cast
-    # (`data/loader.device_normalizer` for uint8 batches).
+    # (`data/loader.device_normalizer` for uint8 batches, or the device
+    # cache's index transform: `apply_input_transform`).
     input_transform: Any = None
     device: Any = "cuda"
 
@@ -370,5 +394,5 @@ class DDPEngine(_DataParallel):
 
 
 __all__ = ["DDPEngine", "DataParallelEngine", "GRAD_REDUCTIONS",
-           "TrainState", "_metrics",
+           "TrainState", "_metrics", "apply_input_transform",
            "place", "step_key", "write_back"]

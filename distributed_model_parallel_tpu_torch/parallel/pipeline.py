@@ -852,8 +852,10 @@ def _paths(tree, prefix: str = ""):
 @dataclasses.dataclass
 class LMPipelineEngine(PipelineEngine):
     """`PipelineEngine` for decoder-LM stages (`models/gpt.py
-    split_stages`): `shard_batch` builds the flattened next-token targets
-    on the host (`lm_targets(ids).reshape(-1)`: the last position and pad
+    split_stages`): `shard_batch` takes this data rank's rows of the
+    GLOBAL batch (the LM loader's, as the sequence-parallel engine's
+    `shard_batch` does) and builds their flattened next-token targets on
+    the host (`lm_targets(ids).reshape(-1)`: the last position and pad
     targets are -1), so the loader's `(ids, ids)` batches drive it, and
     the loss is normalized by the valid target count, as the dense LM
     loss is."""
@@ -861,6 +863,14 @@ class LMPipelineEngine(PipelineEngine):
     pad_token_id: Any = None
 
     def shard_batch(self, ids, labels=None):
+        d = self.mesh.data
+        if ids.shape[0] % d:
+            raise ValueError(
+                f"batch size {ids.shape[0]} must be divisible by the "
+                f"'data' mesh axis ({d} ranks)")
+        rows = ids.shape[0] // d
+        r = self.mesh.data_index
+        ids = np.asarray(ids)[r * rows:(r + 1) * rows]
         targets = lm_targets(ids, self.pad_token_id).reshape(-1)
         return (place(np.asarray(ids), self.devices[0]).long(),
                 place(targets, self.devices[-1]).long())

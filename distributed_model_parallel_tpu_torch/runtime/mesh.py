@@ -1,5 +1,6 @@
-"""The data and stage axes of the mesh (the part of `runtime/mesh.py` the
-data-parallel, LM and pipeline trainers need).
+"""The data, model and stage axes of the mesh (the part of
+`runtime/mesh.py` the data-parallel, tensor-parallel, LM and pipeline
+trainers need).
 
 The reference's mesh names device axes and runs one SPMD program over
 them. Here the two axes the ported engines use are:
@@ -14,6 +15,15 @@ them. Here the two axes the ported engines use are:
   every slice), so the bucketed reducer (`ops/grad_reduction.py`) can
   reduce-scatter inside a slice and all-reduce only the 1/ici shard
   across slices;
+* `model`: the tensor-parallel axis (`parallel/tensor_parallel.py`).
+  `MeshSpec(data=-1, model=M)` over a world of W ranks is W / M data
+  ranks of M model ranks each, laid out data-major with `model`
+  innermost, as the reference's `make_mesh` orders its axes: rank =
+  data_index * M + model_index, so a model group is M consecutive
+  ranks (on one host, NVLink peers). The mesh then carries
+  `model_group` (the M ranks of this data index) and `data_group` (the
+  D ranks of this model index), and `group` is `data_group`: the data
+  axis every engine reduces its gradients over;
 * `stage`: the pipeline's stages, driven by ONE process (as the JAX
   engine's one controller drives every stage through its tick tables).
   The axis is a list of this process's devices; stage s runs on
@@ -34,7 +44,6 @@ import torch.distributed as dist
 
 # Later port slices (ROADMAP.md), named by the refusals below.
 AXIS_SLICES = {
-    "model": "the tensor-parallel slice",
     "seq": "the sequence-parallel slice",
     "expert": "the expert-parallel slice",
 }
@@ -44,7 +53,9 @@ AXIS_SLICES = {
 class MeshSpec:
     """Logical mesh shape, the reference's fields; -1 on `data` means
     every rank. `dcn` is the cross-slice factor of the data axis (1 =
-    one fabric); it must divide the resolved data size."""
+    one fabric); it must divide the resolved data size. `model` is the
+    tensor-parallel factor; it must divide the world, and excludes
+    `dcn` > 1."""
 
     data: int = -1
     stage: int = 1
@@ -54,7 +65,8 @@ class MeshSpec:
     dcn: int = 1
 
     def resolve(self, world: int) -> int:
-        """The data-axis size for a world of `world` ranks."""
+        """The data-axis size for a world of `world` ranks: world /
+        model."""
         for axis, later in AXIS_SLICES.items():
             if getattr(self, axis) != 1:
                 raise ValueError(
@@ -64,15 +76,26 @@ class MeshSpec:
                 )
         if self.stage < 1:
             raise ValueError(f"MeshSpec(stage={self.stage}) must be >= 1")
-        if self.data not in (-1, world):
-            raise ValueError(f"MeshSpec(data={self.data}) needs {self.data} "
-                             f"ranks; the world has {world}")
+        if self.model < 1:
+            raise ValueError(f"MeshSpec(model={self.model}) must be >= 1")
+        if world % self.model:
+            raise ValueError(f"MeshSpec(model={self.model}) must divide the "
+                             f"world ({world} ranks)")
+        data = world // self.model
+        if self.data not in (-1, data):
+            raise ValueError(
+                f"MeshSpec(data={self.data}, model={self.model}) needs "
+                f"{self.data * self.model} ranks; the world has {world}")
         if self.dcn < 1:
             raise ValueError(f"dcn must be >= 1, got {self.dcn}")
-        if world % self.dcn:
+        if self.dcn > 1 and self.model > 1:
             raise ValueError(
-                f"dcn={self.dcn} must divide the data axis ({world})")
-        return world
+                "dcn > 1 factors the data axis for the hierarchical "
+                "reducer; it does not combine with model > 1")
+        if data % self.dcn:
+            raise ValueError(
+                f"dcn={self.dcn} must divide the data axis ({data})")
+        return data
 
 
 @dataclasses.dataclass(frozen=True)
@@ -83,7 +106,10 @@ class Mesh:
     in this process, stage s on `devices[s % len(devices)]`. With
     `dcn` > 1 the data axis is `dcn` slices of `ici` ranks: `ici_group`
     is this rank's slice and `dcn_group` its peers across slices; with
-    `dcn` = 1, `ici_group` is `group` and `dcn_group` is None."""
+    `dcn` = 1, `ici_group` is `group` and `dcn_group` is None. With
+    `model` > 1 each data index holds `model` ranks: `model_group` is
+    this rank's (None when `model` is 1), `data_group` the ranks that
+    share its `model_index`, and `group` is `data_group`."""
 
     data: int
     group: Optional[Any]
@@ -92,10 +118,19 @@ class Mesh:
     dcn: int = 1
     ici_group: Optional[Any] = None
     dcn_group: Optional[Any] = None
+    model: int = 1
+    model_group: Optional[Any] = None
+    data_index: int = 0
+    model_index: int = 0
 
     def __post_init__(self):
         if self.dcn == 1 and self.ici_group is None:
             object.__setattr__(self, "ici_group", self.group)
+
+    @property
+    def data_group(self):
+        """The data axis's process group (`group`)."""
+        return self.group
 
     @property
     def ici(self) -> int:
@@ -129,10 +164,13 @@ def make_mesh(spec: Optional[MeshSpec] = None,
     if not dist.is_initialized():
         return Mesh(spec.resolve(1), None, spec.stage, devices)
     world = spec.resolve(dist.get_world_size())
-    if spec.dcn == 1:
-        return Mesh(world, dist.group.WORLD, spec.stage, devices)
-    ici = world // spec.dcn
+    if spec.model > 1:
+        return _model_mesh(world, spec, devices)
     rank = dist.get_rank()
+    if spec.dcn == 1:
+        return Mesh(world, dist.group.WORLD, spec.stage, devices,
+                    data_index=rank)
+    ici = world // spec.dcn
     ici_group = dcn_group = None
     for d in range(spec.dcn):
         g = dist.new_group(list(range(d * ici, (d + 1) * ici)))
@@ -143,7 +181,28 @@ def make_mesh(spec: Optional[MeshSpec] = None,
         if rank % ici == j:
             dcn_group = g
     return Mesh(world, dist.group.WORLD, spec.stage, devices, spec.dcn,
-                ici_group, dcn_group)
+                ici_group, dcn_group, data_index=rank)
+
+
+def _model_mesh(data: int, spec: MeshSpec, devices) -> Mesh:
+    """A (data, model) mesh, rank = data_index * model + model_index:
+    every rank creates every model group and then every data group, in
+    the same order (`dist.new_group` is collective over the world), and
+    keeps the two it belongs to."""
+    m = spec.model
+    rank = dist.get_rank()
+    model_group = data_group = None
+    for d in range(data):
+        g = dist.new_group(list(range(d * m, (d + 1) * m)))
+        if rank // m == d:
+            model_group = g
+    for j in range(m):
+        g = dist.new_group([d * m + j for d in range(data)])
+        if rank % m == j:
+            data_group = g
+    return Mesh(data, data_group, spec.stage, devices, model=m,
+                model_group=model_group, data_index=rank // m,
+                model_index=rank % m)
 
 
 def data_axis_names(mesh: Mesh) -> Tuple[str, ...]:

@@ -149,7 +149,9 @@ def _broadcast_leaves(leaves: dict, template: dict) -> dict:
     out = {}
     for path, leaf in flatten_tree(template).items():
         if path in leaves:
-            t = torch.from_numpy(np.ascontiguousarray(leaves[path]))
+            # ascontiguousarray lifts a 0-d leaf (AdamW's count) to 1-d
+            t = torch.from_numpy(np.ascontiguousarray(leaves[path]).reshape(
+                tuple(leaf.shape)))
         else:
             t = torch.from_numpy(np.zeros(tuple(leaf.shape), leaf.dtype))
         t = t.to(dev)

@@ -59,7 +59,23 @@ def _check_k(k: int) -> None:
 
 
 def check_capturable(engine: Any) -> None:
-    """Refuse an engine whose step spans more than one device."""
+    """Refuse an engine whose step spans more than one device, or whose
+    step on the card runs collectives over a gloo group (NCCL's
+    collectives can be captured in a CUDA graph; gloo's run on the host
+    and cannot)."""
+    mesh = getattr(engine, "mesh", None)
+    device = getattr(engine, "device", None)
+    if mesh is not None and device is not None \
+            and torch.device(device).type == "cuda":
+        for name in ("group", "model_group"):
+            group = getattr(mesh, name, None)
+            if group is not None and \
+                    torch.distributed.get_backend(group) == "gloo":
+                raise ValueError(
+                    "steps_per_dispatch > 1 captures the step in one CUDA "
+                    f"graph; this engine's {name} runs on gloo, whose "
+                    "collectives a CUDA graph cannot capture — use NCCL "
+                    "(one rank a GPU) or steps_per_dispatch 1")
     devices = getattr(engine, "devices", None)
     if devices is not None and len(set(map(str, devices))) > 1:
         raise ValueError(

@@ -17,7 +17,10 @@ Ranks (`runtime/dist.py`): every rank runs the loop over its own
 loaders; the metric sums are the engine's, already summed over the
 ranks; only rank 0 prints and writes the epoch log and the checkpoints.
 
-Checkpoints (`training/checkpoint.py`, the JAX package's legacy format):
+Checkpoints (`training/checkpoint.py`, the JAX package's legacy format;
+an engine that shards its state, `collective_checkpoint = True`, gathers
+it through `to_canonical` on every rank and re-slices a restore through
+`from_canonical`):
 `save_best` writes `ckpt` after each epoch whose validation acc1 beats
 the best so far, `save_last` writes `last` after every epoch (its `acc`
 is the best so far), and `resume` restores the newer of the two by
@@ -176,10 +179,14 @@ class Trainer:
         """Restore the newer of 'last' and 'ckpt' (rank 0 reads, the
         others receive it) and continue from the epoch after it."""
         cfg = self.config
+        eng = self.engine
         name = newest_checkpoint_name(cfg.checkpoint_dir)
+        sharded = getattr(eng, "collective_checkpoint", False)
         tree, self.best_acc, last_epoch = restore_checkpoint(
-            cfg.checkpoint_dir, train_state_spec(self.state), name=name)
-        self.state = train_state_from_jax(tree, self.state)
+            cfg.checkpoint_dir, eng.canonical_spec(self.state) if sharded
+            else train_state_spec(self.state), name=name)
+        self.state = (eng.from_canonical(tree, self.state) if sharded
+                      else train_state_from_jax(tree, self.state))
         self.start_epoch = last_epoch + 1
         self._log_print(f"==> Resumed from checkpoint: epoch {last_epoch}, "
                         f"best acc {self.best_acc:.3f}")
@@ -390,8 +397,7 @@ class Trainer:
                        and val_stats.acc1 > self.best_acc)
             if is_best or cfg.save_last:
                 # Once an epoch; rank 0 alone writes.
-                payload = (train_state_to_jax(self.state) if is_primary()
-                           else None)
+                payload = self._canonical_payload()
             if is_best:
                 self.best_acc = val_stats.acc1
                 self._log_print("Saving..")
@@ -403,6 +409,15 @@ class Trainer:
             self._append_epoch_log(epoch, train_stats, val_stats)
         return {"best_acc": self.best_acc, "epochs": cfg.epochs,
                 "history": self.history}
+
+    def _canonical_payload(self):
+        """The canonical tree rank 0 writes (None on the other ranks). An
+        engine that shards its state (`collective_checkpoint`: tensor
+        parallelism) gathers it on every rank, collectively."""
+        if getattr(self.engine, "collective_checkpoint", False):
+            tree = self.engine.to_canonical(self.state)
+            return tree if is_primary() else None
+        return train_state_to_jax(self.state) if is_primary() else None
 
     def _write_checkpoint(self, payload, name: str, epoch: int) -> None:
         """One save, timed by the `checkpoint_blocked` span and the

@@ -1,5 +1,6 @@
 """Rank processes for the port's multi-process tests
-(`tests/test_torch_port_ddp.py`, `tests/test_torch_port_pipeline.py`).
+(`tests/test_torch_port_ddp.py`, `tests/test_torch_port_pipeline.py`,
+`tests/test_torch_port_tensor_parallel.py` and others).
 
 This module imports neither jax nor the JAX package: a spawned rank
 imports the module of its target, and so starts with torch and the port
@@ -308,4 +309,198 @@ def reducer_suite(rank, world, payload) -> dict:
             for g in (mesh.ici_group, mesh.dcn_group))
     out.update(reducer_ops(rank, world, payload["ops"]))
     out.update(reducer_engines(rank, world, payload["engines"]))
+    return out
+
+
+def _tp_optimizer(name: str):
+    from distributed_model_parallel_tpu_torch.training.optim import (
+        SGD,
+        AdamW,
+    )
+
+    return AdamW() if name == "adamw" else SGD()
+
+
+def tp_suite(rank, world, payload) -> dict:
+    """TensorParallelEngine runs on a tiny BERT (`payload["bert"]`), one
+    per entry of `payload["runs"]`: `model` ranks a model group (the
+    world's data ranks being world / model), `opt` "sgd" or "adamw",
+    `dropout` the config's rate, and the start: the reference weights
+    `payload["params"]`, or a canonical tree (`resume`, restored through
+    a checkpoint file that rank 0 writes and every rank reads); `steps`
+    SGD or AdamW steps at `lr` on the batches from index `first`, each
+    on this data index's rows of the global batch. `ddp=True`
+    runs DDPEngine over the mesh's data group instead (per model
+    index). Returns per run: the per-step metric sums, the final
+    canonical tree (gathered; `save_after` adds the one after that many
+    steps), this rank's block-0 qkv shard and its optimizer moment, and
+    its replicated leaves."""
+    import torch
+
+    from distributed_model_parallel_tpu_torch.models.bert import (
+        BertConfig,
+        bert_for_classification,
+    )
+    from distributed_model_parallel_tpu_torch.models.convert import (
+        from_jax_params,
+        train_state_to_jax,
+    )
+    from distributed_model_parallel_tpu_torch.parallel.data_parallel import (
+        DDPEngine,
+    )
+    from distributed_model_parallel_tpu_torch.parallel.tensor_parallel import (
+        TensorParallelEngine,
+    )
+    from distributed_model_parallel_tpu_torch.runtime.mesh import (
+        Mesh,
+        MeshSpec,
+        make_mesh,
+    )
+    from distributed_model_parallel_tpu_torch.training import checkpoint
+    from distributed_model_parallel_tpu_torch.training.checkpoint import (
+        flatten_tree,
+    )
+
+    out = {}
+    for run in payload["runs"]:
+        cfg = BertConfig(**{**payload["bert"],
+                            "dropout_rate": run.get("dropout", 0.0)})
+        model = bert_for_classification(payload["classes"], cfg)
+        mesh = make_mesh(MeshSpec(data=-1, model=run["model"]))
+        opt = _tp_optimizer(run["opt"])
+        if run.get("ddp"):
+            eng = DDPEngine(model, opt, mesh=Mesh(
+                mesh.data, mesh.data_group, data_index=mesh.data_index),
+                device="cpu")
+        else:
+            eng = TensorParallelEngine(model, opt, mesh, device="cpu")
+        state = model.init(torch.Generator().manual_seed(0))[1]
+        if "resume" in run:
+            directory = os.path.join(payload["dir"], run["name"])
+            checkpoint.save_checkpoint(directory, run["resume"], acc=1.0,
+                                       epoch=0)
+            like = eng.init_state(1)
+            tree, _, _ = checkpoint.restore_checkpoint(
+                directory, eng.canonical_spec(like))
+            ts = eng.from_canonical(tree, like)
+        else:
+            ts = eng.state_from_params(
+                from_jax_params(payload["params"], model=model), state)
+        sums, saved = [], None
+        d = mesh.data
+        first = run.get("first", 0)
+        batches = payload["batches"][first:first + run["steps"]]
+        for i, (ids, labels) in enumerate(batches):
+            b = len(labels) // d
+            rows = slice(mesh.data_index * b, (mesh.data_index + 1) * b)
+            ts, m = eng.train_step(ts, *eng.shard_batch(ids[rows],
+                                                        labels[rows]),
+                                   run["lr"])
+            sums.append({k: float(v) for k, v in m.items()})
+            if run.get("save_after") == i + 1:
+                saved = eng.to_canonical(ts)
+        canon = (train_state_to_jax(ts) if run.get("ddp")
+                 else eng.to_canonical(ts))
+        flat = flatten_tree(ts.params)
+        qkv = "blocks/0/attn/qkv/w"
+        moment = (ts.opt_state.momentum if hasattr(ts.opt_state, "momentum")
+                  else ts.opt_state.mu)
+        out[run["name"]] = {
+            "sums": sums, "canonical": canon, "saved": saved,
+            "index": (mesh.data_index, mesh.model_index),
+            "qkv": flat[qkv].detach().numpy().copy(),
+            "qkv_moment": flatten_tree(moment)[qkv].numpy().copy(),
+            "replicated": {k: v.detach().numpy().copy()
+                           for k, v in flat.items()
+                           if not any(s in k for s in ("attn/", "ffn/in",
+                                                       "ffn/out/w"))},
+            "backend": dist_backend(mesh.model_group),
+        }
+    return out
+
+
+def dist_backend(group):
+    import torch.distributed as dist
+
+    return None if group is None else dist.get_backend(group)
+
+
+def lm_pipeline_suite(rank, world, payload) -> dict:
+    """LMPipelineEngine at stage 2 over a (data=world) mesh from the
+    reference's per-chunk weights: each step on the GLOBAL ids (the
+    engine takes this rank's rows); returns the rows it took, the
+    per-step metric sums and the final per-chunk params (the start is
+    `payload["start"]`, per-chunk params and state). Then, when
+    `payload["cli"]` is given, `cli/lm.main` with those flags from this
+    rank's directory."""
+    from distributed_model_parallel_tpu_torch.models import gpt
+    from distributed_model_parallel_tpu_torch.models.convert import (
+        from_jax_params,
+        to_jax_params,
+    )
+    from distributed_model_parallel_tpu_torch.parallel.pipeline import (
+        LMPipelineEngine,
+    )
+    from distributed_model_parallel_tpu_torch.runtime.mesh import (
+        MeshSpec,
+        make_mesh,
+    )
+    from distributed_model_parallel_tpu_torch.training.optim import SGD
+
+    stages = gpt.split_stages(2, gpt.GPTConfig(**payload["gpt"]))
+    mesh = make_mesh(MeshSpec(data=-1, stage=2), devices=["cpu"])
+    eng = LMPipelineEngine(stages, SGD(), mesh, num_microbatches=2,
+                           pad_token_id=0)
+    params, state = zip(*(from_jax_params(p, model=st, state=s)
+                          for st, p, s in zip(stages, *payload["start"])))
+    ts = eng.state_from_params(params, state)
+    sums, rows = [], []
+    for ids in payload["batches"]:
+        placed = eng.shard_batch(ids, ids)
+        rows.append(placed[0].numpy().copy())
+        ts, m = eng.train_step(ts, *placed, payload["lr"])
+        sums.append({k: float(v) for k, v in m.items()})
+    out = {"rows": rows, "sums": sums,
+           "params": [to_jax_params(p, model=st)
+                      for st, p in zip(stages, ts.params)],
+           "data": (mesh.data, mesh.data_index)}
+    if payload.get("cli"):
+        from distributed_model_parallel_tpu_torch.cli import lm
+
+        os.chdir(payload["dirs"][rank])
+        out["history"] = lm.main(payload["cli"])["history"]
+    return out
+
+
+def val_cut(init, n: int):
+    """`DatasetCollection.init` with its val split cut to the first n rows
+    (the CLI tests' validation passes stay short)."""
+    from distributed_model_parallel_tpu_torch.data import datasets
+
+    def cut(self):
+        train, val = init(self)
+        return train, datasets.ArrayDataset(
+            val.images[:n], val.labels[:n], val.num_classes, val.kind)
+
+    return cut
+
+
+def cli_suite(rank, world, payload) -> dict:
+    """Each (module, argv, directory index) of `payload["runs"]`:
+    `cli/<module>.main(argv)` in this rank, from
+    `payload["dirs"][index][rank]`; returns each run's history. With
+    `payload["val"]` the val splits are cut to that many rows."""
+    import importlib
+
+    if payload.get("val"):
+        from distributed_model_parallel_tpu_torch.data import datasets
+
+        datasets.DatasetCollection.init = val_cut(
+            datasets.DatasetCollection.init, payload["val"])
+    out = []
+    for module, argv, where in payload["runs"]:
+        main = importlib.import_module(
+            f"distributed_model_parallel_tpu_torch.cli.{module}").main
+        os.chdir(payload["dirs"][where][rank])
+        out.append(main(argv)["history"])
     return out

@@ -859,3 +859,141 @@ def test_wire_codec_on_the_card_equals_the_cpu(cuda):
                 assert torch.equal(
                     wc.wire_decode(wire, pg, sg, dtype).cpu(),
                     wc.wire_decode(wire, pc, sc, dtype))
+
+
+# ------------------------------------------- slice 11: TP, device cache
+
+def _tp_bert():
+    from distributed_model_parallel_tpu_torch.models.bert import (
+        BertConfig,
+        bert_for_classification,
+    )
+
+    return bert_for_classification(4, BertConfig(
+        vocab_size=97, hidden_size=32, num_layers=2, num_heads=4,
+        intermediate_size=64, max_position=16, dropout_rate=0.0))
+
+
+@pytest.mark.cuda
+def test_tp_step_on_the_card_matches_the_cpu(cuda):
+    """A TensorParallelEngine step at model 1 on NCCL (world 1) against
+    the same step on the CPU (no process group): loss and every
+    parameter at rtol 1e-5 with TF32 off."""
+    from distributed_model_parallel_tpu_torch.parallel.tensor_parallel \
+        import TensorParallelEngine
+    from distributed_model_parallel_tpu_torch.runtime.mesh import (
+        MeshSpec,
+        make_mesh,
+    )
+
+    initialize_backend("cuda")
+    try:
+        rng = np.random.RandomState(0)
+        ids = rng.randint(1, 97, (16, 12))
+        labels = rng.randint(0, 4, 16)
+        out = {}
+        for dev, mesh in (("cuda", make_mesh(MeshSpec(data=-1, model=1))),
+                          ("cpu", Mesh(1, None))):
+            eng = TensorParallelEngine(_tp_bert(), SGD(), mesh, device=dev)
+            ts, m = eng.train_step(eng.init_state(0),
+                                   *eng.shard_batch(ids, labels), 0.05)
+            out[dev] = (m, [t.detach().cpu() for t in tree_leaves(ts.params)])
+    finally:
+        dist.destroy_process_group()
+    (mc, pc), (mh, ph) = out["cuda"], out["cpu"]
+    torch.testing.assert_close(mc["loss_sum"].cpu(), mh["loss_sum"],
+                               rtol=1e-5, atol=0)
+    for a, b in zip(pc, ph):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-7)
+
+
+def _cache_images(n=64):
+    return np.random.RandomState(3).randint(0, 256, (n, 8, 8, 3)).astype(
+        np.uint8)
+
+
+@pytest.mark.cuda
+def test_device_cache_bits_on_the_card_equal_the_cpu(cuda):
+    """The cache's crops, flips and normalized pixels on the card equal
+    the CPU's bit for bit, for a host-int step and a device-scalar one."""
+    from distributed_model_parallel_tpu_torch.data.device_cache import (
+        DeviceDatasetCache,
+    )
+
+    images = _cache_images()
+    idx = np.random.RandomState(4).permutation(64)[:32].astype(np.int32)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        cache = DeviceDatasetCache(images, dev, augment=True,
+                                   mean=CIFAR10_MEAN, std=CIFAR10_STD)
+        i = torch.from_numpy(idx).to(dev)
+        out[dev] = [t.cpu() for step in (5, torch.tensor(6, device=dev))
+                    for t in (*cache.augment_draws(i, step),
+                              cache.transform()(i, step=step, train=True))]
+    for a, b in zip(out["cuda"], out["cpu"]):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_graph_replayed_device_cache_step_equals_eager(cuda):
+    """A tinycnn DDP step on index batches through the device cache
+    (augment on), two 4-step graph dispatches at world 1 on NCCL: the
+    metric sums and every parameter equal eight eager steps bit for bit,
+    and each replay draws its own step's crops (a probe inside the
+    transform keeps each step's augmented batch; they equal the eager
+    transform at that step and differ from step to step)."""
+    from distributed_model_parallel_tpu_torch.cli.common import (
+        set_device_numerics,
+    )
+    from distributed_model_parallel_tpu_torch.data.device_cache import (
+        DeviceDatasetCache,
+    )
+    from distributed_model_parallel_tpu_torch.training.multistep import (
+        compile_multi_step,
+    )
+
+    set_device_numerics()
+    initialize_backend("cuda")
+    try:
+        rng = np.random.RandomState(0)
+        batches = [((8 * s + np.arange(16, dtype=np.int32)) % 64,
+                    rng.randint(0, 10, 16)) for s in range(8)]
+        cache = DeviceDatasetCache(_cache_images(), "cuda", augment=True,
+                                   mean=CIFAR10_MEAN, std=CIFAR10_STD)
+        tf = cache.transform()
+
+        def make():
+            eng = DDPEngine(tiny_cnn(10), SGD(), device="cuda",
+                            input_transform=tf)
+            return eng, eng.init_state(0)
+
+        (gs, gl, graph, _), (es, el, _), _ = _graph_vs_eager(
+            make, [batches[:4], batches[4:]], 0.1, 4)
+        assert graph.captures == 1 and graph.replays == 7
+        assert gs == es
+        for a, b in zip(gl, el):
+            assert torch.equal(a, b)
+        # The probe: one 4-step dispatch, each step's batch kept.
+        seen = torch.zeros((4, 16, 8, 8, 3), device=cuda)
+
+        def probe(indices, *, step=None, train=False):
+            out = tf(indices, step=step, train=train)
+            if train:
+                at = torch.as_tensor(step, device=cuda).reshape(1) % 4
+                seen.index_copy_(0, at, out[None])
+            return out
+
+        probe.wants_ctx = True
+        eng = DDPEngine(tiny_cnn(10), SGD(), device="cuda",
+                        input_transform=probe)
+        multi = compile_multi_step(eng, 4)
+        multi(eng.init_state(0), [eng.shard_batch(*b) for b in
+                                  [batches[0]] * 4], 0.1)
+        torch.cuda.synchronize()
+        idx = eng.shard_batch(*batches[0])[0]
+        for s in range(4):
+            assert torch.equal(seen[s], tf(idx, step=s, train=True))
+            if s:
+                assert not torch.equal(seen[s], seen[s - 1])
+    finally:
+        dist.destroy_process_group()

@@ -70,8 +70,8 @@ def test_cifar10_reads_the_python_batches(tmp_path):
 
 def test_collection_types(monkeypatch):
     """Synthetic equals the reference's; CIFAR10 without files and
-    SyntheticTextures make the reference's sizes and seeds; the types of
-    later slices are refused by name."""
+    SyntheticTextures make the reference's sizes and seeds; the image-
+    folder types read the disk."""
     for got, want in zip(tds.DatasetCollection("Synthetic").init(),
                          jds.DatasetCollection("Synthetic").init()):
         _same_dataset(got, want)
@@ -87,10 +87,12 @@ def test_collection_types(monkeypatch):
         ("synthetic_textures", (50_000, 32, 10), {"seed": 1}),
         ("synthetic_textures", (10_000, 32, 10), {"seed": 2}),
     ]
+    # The image-folder types, refused before their slice was ported, now
+    # read their trees under the path (tests/test_torch_port_datasets_disk.py).
     for t, later in (("Imagenet", "image-folder"), ("CUB200", "image-folder"),
                      ("Place365", "image-folder")):
-        with pytest.raises(ValueError, match=f"not ported.*{later} slice"):
-            tds.DatasetCollection(t).init()
+        with pytest.raises(FileNotFoundError, match="/nonexistent"):
+            tds.DatasetCollection(t, "/nonexistent").init()
     # SyntheticText, refused before the transformer-classifier slice, is
     # the reference's pair of splits.
     for got, want in zip(tds.DatasetCollection("SyntheticText").init(),

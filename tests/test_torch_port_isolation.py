@@ -79,7 +79,8 @@ def test_every_port_module_imports_without_jax():
         "assert pkg.__name__ + '.serving.speculative' in names\n"
         "for m in ('training.multistep', 'models.vit', 'models.bert',\n"
         "          'observability.metrics', 'ops.grad_reduction',\n"
-        "          'ops.wire_codec'):\n"
+        "          'ops.wire_codec', 'parallel.tensor_parallel',\n"
+        "          'data.device_cache'):\n"
         "    assert pkg.__name__ + '.' + m in names, m\n"
         "import distributed_model_parallel_tpu_torch.cli.serve\n"
         "print(len(names))\n"
@@ -264,16 +265,33 @@ REDUCER_EXITS = {
     (["--dataset-type", "SyntheticText"], "transformer-classifier"),
 ])
 def test_data_parallel_cli_refuses_out_of_slice_flags(flags, slice_,
-                                                     monkeypatch):
+                                                     monkeypatch, tmp_path):
     """Flags of later slices exit naming the slice. --remat,
     --steps-per-dispatch, --profile-dir, --model vit / bert_tiny and
     --dataset-type SyntheticText, refused before the transformer-
     classifier and training-knob slice, now build what the JAX CLI
     builds: the model with remat, the trainer's dispatch group and
     profiler directory, the ViT and BERT classifiers, raw token-id
-    loaders."""
+    loaders. --engine tp, --model-shards, --device-cache and
+    --dataset-type Imagenet, refused before the tensor-parallel,
+    device-cache and image-folder slice, now meet the JAX CLI's checks,
+    build index loaders, and read the image tree."""
     from distributed_model_parallel_tpu_torch.cli import data_parallel
 
+    if slice_ in ("tensor-parallel", "image-folder"):
+        # Ported: the reference CLI's checks now apply (tp shards only the
+        # transformer models; --model-shards needs --engine tp), and an
+        # image-folder type reads its tree under --data.
+        exits = {"--engine": "--model mobilenetv2 has none",
+                 "--model-shards": "only applies under --engine tp"}
+        monkeypatch.chdir(tmp_path)
+        if flags[0] in exits:
+            with pytest.raises(SystemExit, match=exits[flags[0]]):
+                data_parallel.main(["--device", "cpu", *flags])
+        else:
+            with pytest.raises(FileNotFoundError, match="data/train"):
+                data_parallel.main(["--device", "cpu", *flags])
+        return
     if slice_ == "gradient-reduction":
         # Ported: the flags pass the reference CLI's checks, and these
         # lines fail them (gspmd has no reduction site; --bucket-mb and
@@ -283,7 +301,8 @@ def test_data_parallel_cli_refuses_out_of_slice_flags(flags, slice_,
             data_parallel.main(["--device", "cpu", *flags])
         return
     if slice_ not in ("activation-rematerialization", "multi-step dispatch",
-                      "profiler-capture", "transformer-classifier"):
+                      "profiler-capture", "transformer-classifier",
+                      "device-cache"):
         with pytest.raises(SystemExit, match=f"not ported.*{slice_} slice"):
             data_parallel.main(["--device", "cpu", *flags])
         return
@@ -297,7 +316,7 @@ def test_data_parallel_cli_refuses_out_of_slice_flags(flags, slice_,
         return build(name, num_classes, **kw)
 
     def trainer(engine, train, val, cfg, **kw):
-        seen.update(cfg=cfg, train=train)
+        seen.update(cfg=cfg, train=train, engine=engine)
         raise Stop
 
     build = data_parallel.build_model
@@ -315,3 +334,6 @@ def test_data_parallel_cli_refuses_out_of_slice_flags(flags, slice_,
         assert seen["model"] == flags[1]
     if flags[-1] == "SyntheticText":
         assert seen["train"].raw and seen["classes"] == 4
+    if flags[0] == "--device-cache":  # index loaders, on-device pixels
+        assert type(seen["train"]).__name__ == "IndexLoader"
+        assert seen["engine"].input_transform.wants_ctx

@@ -306,8 +306,13 @@ def test_mesh_admits_the_stage_axis():
     for axis, slice_ in (("model", "tensor-parallel"),
                          ("seq", "sequence-parallel"),
                          ("expert", "expert-parallel")):
-        with pytest.raises(ValueError, match=f"{slice_} slice"):
+        # the model axis is ported (tensor-parallel slice); it must
+        # divide the world
+        match = ("must divide the world" if axis == "model"
+                 else f"{slice_} slice")
+        with pytest.raises(ValueError, match=match):
             MeshSpec(stage=2, **{axis: 2}).resolve(1)
+    assert MeshSpec(stage=2, model=2).resolve(4) == 2
     # the dcn factor is ported (gradient-reduction slice); it must divide
     # the data axis
     with pytest.raises(ValueError, match="must divide the data axis"):
