@@ -64,11 +64,12 @@ Phases; any failure exits non-zero (nothing is caught and passed over):
    main) on MobileNetV2 (the CIFAR `CFG` widths, about 2.2 M
    parameters), global batch 512, SyntheticTextures (50,000 train and
    10,000 val images at CIFAR-10's shapes, made once for the three
-   runs), lr 0.4, `-j 8`, 30 train steps and the validation pass, as
+   runs), lr 0.4, `-j 8`, 16 train steps (30 until phase 13 was added)
+   and the validation pass, as
    `--engine ddp` f32, `--engine ddp --dtype bfloat16` and `--engine
    gspmd` f32, on a world of one NCCL rank. cudnn.benchmark stays off
    (the default). Per run one JSON line: synchronized ms/step (mean
-   over steps 6-30), images/s, the trainer's wall time and data wait
+   over steps 6-16), images/s, the trainer's wall time and data wait
    per batch, the native augment's host ms per batch, one profiled
    step's device busy ms, idle share, kernels a step and top five
    kernel families, the peak of `torch.cuda.max_memory_allocated`, the
@@ -90,7 +91,7 @@ Phases; any failure exits non-zero (nothing is caught and passed over):
    losses, ms a step and the convolution kernels of each, then one step
    under `torch.use_deterministic_algorithms(True, warn_only=True)`;
    the deterministic runs must be equal. Then the DP CLI, MobileNetV2
-   f32, two epochs of 30 steps: `--engine ddp` twice and `--engine
+   f32, two epochs of 12 steps (30 until phase 13 was added): `--engine ddp` twice and `--engine
    gspmd` once (equal per-step losses), one epoch then `--resume` to
    two (the straight run's losses and epoch-1 record), each epoch's
    validation on 10,000 images, save / restore ms and file bytes.
@@ -104,10 +105,11 @@ Phases; any failure exits non-zero (nothing is caught and passed over):
    (`cli/model_parallel.py` main) on MobileNetV2 at batch 512, lr 0.4,
    `-j 8`, on phase 6's SyntheticTextures, `--world-size 4` (four
    stages on the one card, so they run one after another: no bubble
-   can show), 10 steps and a validation pass over the first 2,560 of
+   can show), 6 steps and a validation pass over the first 1,024 of
    the 10,000 validation images each (30 steps and all 10,000 until
-   phase 10 was added, 12 steps until phase 11; cut in depth to keep
-   the whole run near 800 s):
+   phase 10 was added, 12 steps until phase 11, 10 steps and 2,560
+   images until phase 13; cut in depth to keep the whole run near
+   1,000 s):
    the reference
    split at `--microbatches 1` (the reference's schedule) and at 8 with
    gpipe and 1f1b in f32 and bf16, and interleaved (V 2, the default
@@ -150,7 +152,7 @@ Phases; any failure exits non-zero (nothing is caught and passed over):
    (b) the same runs with `--steps-per-dispatch 4 --profile-dir
    --metrics-out x.prom` (the step captured in a CUDA graph and
    replayed) against them, and MobileNetV2 DDP bf16 (phase 6's flags,
-   30 steps) with and without it: each dispatch's metric sums equal the
+   16 steps) with and without it: each dispatch's metric sums equal the
    step-by-step run's summed in the same groups and order, and every
    final parameter and BN statistic, bit for bit; the wrappers' counts
    and the all-reduces the host issues are exact (under the graph: the
@@ -198,8 +200,8 @@ Phases; any failure exits non-zero (nothing is caught and passed over):
    the image-folder datasets), on phase 11's SyntheticTextures (val cut
    to 2,560): (a) the DP CLI at world 1 on NCCL, `--model bert`
    (BERT_BASE, SyntheticText, batch 512, AdamW lr 1e-3, dropout 0.1, 2
-   epochs of 6 steps) and `--model vit` (VIT_CIFAR, batch 512, 12
-   steps), f32 and bf16, under `--engine tp --model-shards 1` and under
+   epochs of 4 steps) and `--model vit` (VIT_CIFAR, batch 512, 8
+   steps; 2 x 6 and 12 until phase 13 was added), f32 and bf16, under `--engine tp --model-shards 1` and under
    `--engine gspmd`: per run ms a step, samples/s, busy / idle, kernels
    a step, peak memory; f32 losses and final parameters bit-equal
    between the two engines; BERT f32 tp with `--steps-per-dispatch 4`
@@ -219,13 +221,45 @@ Phases; any failure exits non-zero (nothing is caught and passed over):
    64x64 PNGs and `--dataset-type Imagenet --model resnet18`, 4 steps
    (finite losses); without PIL a line says so. (e) K1-K4 launch 0
    times in the phase.
-13. One `{"kernels": [...]}` JSON line (int8_matmul, flash_fwd,
+13. Slice 12 (FSDP, the sharded checkpoint format, elastic restart):
+   (a) the DP CLI at world 1 on NCCL, `--engine fsdp` against `--engine
+   ddp` at the same flags, monolithic, bucketed and overlapped, on
+   BERT_BASE (phase 12's flags: batch 512, AdamW 1e-3, dropout 0.1, 2
+   epochs of 4 steps) in f32 and bf16 and on MobileNetV2 (phase 11's
+   flags at 8 steps, f32): per run ms a step, samples/s, busy / idle, kernels a
+   step, peak memory and the collectives issued a step (gradient ones
+   and FSDP's weight all-gathers); f32 losses and final parameters
+   bit-equal between the engines (bf16 printed); BERT f32 fsdp
+   bucketed with `--steps-per-dispatch 4` bit-equal to its eager run.
+   (b) FSDP at N 2: two processes on the one card over gloo (NCCL puts
+   one rank on a GPU), 3 SGD steps of a 2-layer BERT_BASE-width model
+   (dropout 0: the keys fold the data rank) against N 1 on the card
+   (losses and gathered parameters within S11_M2_TOL), once more on a
+   dcn 2 mesh with the int8 wire (losses within S12_M2_INT8_REL); the
+   per-rank bytes of parameters and AdamW moments against N 1; the ms
+   labelled host-staged gloo (not an FSDP time); the N 2 state saved
+   as a sharded checkpoint. (c) The DP CLI on MobileNetV2 (`--engine
+   ddp` and `fsdp`, 2 epochs of 4 steps, `--checkpoint-format sharded
+   --async-save`): one epoch then `--resume` equal to two straight (per-
+   step losses and the epoch-1 record), fsdp `--max-restarts 1` with a
+   failure injected at the start of epoch 1 equal to straight, the
+   time each save held the loop and each shard file's write, the
+   files; (b)'s N 2 file restored at N 1 on the card, bit-exact. (d)
+   The LM CLI at phase 7's flags (GPT-2-small width, `ulysses_flash`
+   f32) under `--checkpoint-format sharded --async-save`: 2 + 2 steps
+   across `--resume`, bit-equal to phase 7's 4 straight steps (the
+   same training, saved in the legacy format), K1-K3 launches exact;
+   the time each save held the loop against phase 7's legacy save
+   times of the same state. K4 must launch 0 times. Runs whose
+   checkpoints no check reads (phases 5, 6, 8, 10-12 and 13 (a)) save
+   none: the machine takes 45 GiB of disk writes a call.
+14. One `{"kernels": [...]}` JSON line (int8_matmul, flash_fwd,
    flash_bwd_dq, flash_bwd_dkv; `launches_slice6` counts phase 7's
    runs, `launches_slice7` phase 8's, `launches_slice8` phase 9's,
    `launches_slice9` phase 10's as the wrappers count them,
    `replays_slice9_traced` the launches that phase 10's profiles of
    4-step graph dispatches show, `launches_slice10` phase 11's,
-   `launches_slice11` phase 12's), then
+   `launches_slice11` phase 12's, `launches_slice12` phase 13's), then
    the nvidia-smi line, then
    the last line `{"ok": true, "device": {...}}`. Each phase prints its
    seconds.
@@ -446,6 +480,65 @@ def patched(obj, name, value):
         yield
     finally:
         setattr(obj, name, saved)
+
+
+@contextlib.contextmanager
+def bert_made_once():
+    """SyntheticText and BERT_BASE's initial weights made once for the
+    CLI runs inside: each run would make the same ones again from seed
+    0 (0.9 and 1.2 s on the card's host, PR 12). The model's init returns
+    copies of the first init's trees for the same class count and seed."""
+    from distributed_model_parallel_tpu_torch.cli import common
+    from distributed_model_parallel_tpu_torch.data import datasets
+    from distributed_model_parallel_tpu_torch.training.optim import tree_map
+
+    text = datasets.DatasetCollection("SyntheticText").init()
+    make_data = datasets.DatasetCollection.init
+    make_bert = common.MODELS["bert"]
+    weights = {}
+
+    def data(self):
+        return text if self.dataset_type == "SyntheticText" \
+            else make_data(self)
+
+    def bert(num_classes, *, remat=False):
+        model = make_bert(num_classes, remat=remat)
+
+        def init(gen):
+            key = (num_classes, gen.initial_seed())
+            if key not in weights:
+                weights[key] = model.init(gen)
+            return tree_map(torch.clone, weights[key])
+
+        return dataclasses.replace(model, init=init)
+
+    common.MODELS["bert"] = bert
+    try:
+        with patched(datasets.DatasetCollection, "init", data):
+            yield
+    finally:
+        common.MODELS["bert"] = make_bert
+
+
+@contextlib.contextmanager
+def without_saves():
+    """The training CLIs' trainers with no best-acc save: the runs whose
+    checkpoints no check reads write none (the card's machine takes
+    45 GiB of disk writes a call; a BERT_BASE + AdamW save is 1.3 GB,
+    a GPT-2-small one 1.96 GB). Phases 7, 9 and 13 (c, d) save."""
+    import functools
+
+    from distributed_model_parallel_tpu_torch.cli import (
+        data_parallel,
+        lm,
+        model_parallel,
+    )
+
+    with contextlib.ExitStack() as stack:
+        for mod in (data_parallel, lm, model_parallel):
+            stack.enter_context(patched(mod, "TrainerConfig", functools.partial(
+                mod.TrainerConfig, save_best=False)))
+        yield
 
 
 def plain_gemm(qm):
@@ -1017,7 +1110,8 @@ def lm_run(lm, engine_cls, fa, qm, name, layers, extra):
             "--checkpoint-dir", directory], engine_cls)
     peak = torch.cuda.max_memory_allocated() - base
     got = counts(fa)
-    shutil.rmtree(directory)  # its best-acc checkpoint is not needed
+    # its best-acc checkpoint, where one was saved, is not needed
+    shutil.rmtree(directory, ignore_errors=True)
     want = {"flash_fwd": layers * (LM_STEPS + LM_VAL_BATCHES),
             "flash_bwd_dq": layers * LM_STEPS,
             "flash_bwd_dkv": layers * LM_STEPS}
@@ -1042,14 +1136,20 @@ def lm_run(lm, engine_cls, fa, qm, name, layers, extra):
     return row
 
 
-def profiled_step(seen):
+def profiled_step(seen, cpu: bool = True):
     """`device_kernels` of one more train step of the engine, state,
-    batch and lr a recorded run last saw, under torch.profiler."""
+    batch and lr a recorded run last saw, under torch.profiler. With
+    `cpu=False` only the CUDA activity is recorded: the same kernels but
+    NCCL's (on the card, PR 12), in a fraction of the seconds (a BERT_BASE
+    step 1.9 against 3.5 s, a pipeline step at M 8 ~20 s with the CPU
+    ops); for the world-1 paths whose all-reduce launches no kernel."""
     from torch.profiler import ProfilerActivity, profile
 
+    activities = [ProfilerActivity.CUDA]
+    if cpu:
+        activities.insert(0, ProfilerActivity.CPU)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=activities) as prof:
         seen["engine"].train_step(seen["state"], *seen["batch"], seen["lr"])
         torch.cuda.synchronize()
     return device_kernels(prof)
@@ -1059,7 +1159,7 @@ def step_breakdown(seen, wall_ms):
     """One more train step under torch.profiler: device busy time, the
     idle share against the unprofiled step wall time, and each flash
     kernel's device ms within the step."""
-    top = profiled_step(seen)
+    top = profiled_step(seen, cpu=False)
     busy = sum(t for t, _, _ in top)
     per_kernel = {dev_key: sum(t for t, _, key in top if dev_key in key)
                   for _, dev_key, _ in FLASH_KERNELS}
@@ -1220,8 +1320,8 @@ def flash_entry(name, replaces, lm_rows, errs, times):
     }
 
 
-DP_STEPS = 30
-DP_TIMED_FROM = 5  # steps 6-30 are timed
+DP_STEPS = 16
+DP_TIMED_FROM = 5  # steps 6-16 are timed
 DP_BATCH = 512
 DP_FLAGS = [
     "--device", "cuda", "--model", "mobilenetv2", "--dataset-type",
@@ -1250,7 +1350,7 @@ def dp_breakdown(seen, wall_ms):
     """One more train step under torch.profiler: device busy ms, the idle
     share against the synchronized step wall, kernels a step and the top
     five kernel families by device time."""
-    kernels = profiled_step(seen)
+    kernels = profiled_step(seen, cpu=False)
     busy_ms = sum(t for t, _, _ in kernels) / 1e3
     families = {}
     for t, n, name in kernels:
@@ -1294,7 +1394,8 @@ def dp_run(dp_cli, dp_mod, native, name, extra):
     require(len(steps) == DP_STEPS and all(map(math.isfinite, losses))
             and math.isfinite(hist["val"]["loss"]),
             f"DP run {name}: {len(steps)} steps, losses {losses}")
-    require(sum(losses[-5:]) < sum(losses[:5]),
+    half = DP_STEPS // 2
+    require(sum(losses[-half:]) < sum(losses[:half]),
             f"DP run {name}: the train loss did not fall: {losses}")
     require(backend == "nccl" and world == 1,
             f"DP run {name}: process group {backend} at world {world}, "
@@ -1489,7 +1590,7 @@ def dp_phase():
 # Train steps an epoch of the phase-7 DP runs (60 until the pipeline
 # phase was added; cut in depth to keep the whole run near its earlier
 # length).
-CK_DP_STEPS = 30
+CK_DP_STEPS = 12
 CK_DP_FLAGS = DP_FLAGS[:DP_FLAGS.index("--epochs")] + [
     "--steps-per-epoch", str(CK_DP_STEPS)]
 CK_LM_FLAGS = LM_BASE + ["--layers", str(LAYERS), "--attention",
@@ -1758,6 +1859,7 @@ def checkpoint_lm_phase(lm, engine_cls, fa, qm):
         "resume_losses_equal": split_losses == straight["losses"],
         "resume_epoch1_equal": runs["split_2"]["history"]
         == straight["history"][1:],
+        "epochs": straight["history"],
         "launches": launches, **io_summary(io_records),
     }
     emit({"lm_checkpoint_resume": reading})
@@ -1834,9 +1936,9 @@ def checkpoint_serve_phase(serve, engine_cls, cfg_cls, fa, qm, directory,
 # Pipeline model parallelism (slice 7)
 
 # 30 before phase 10 (slice 9) was added, 12 before phase 11 (slice 10)
-PP_STEPS = 10
-PP_TIMED_FROM = 5  # steps 6-10 are timed
-PP_VAL_IMAGES = 2560  # of phase 6's 10,000 (5 batches of 512)
+PP_STEPS = 6
+PP_TIMED_FROM = 2  # steps 3-6 are timed
+PP_VAL_IMAGES = 1024  # of phase 6's 10,000 (2 batches of 512)
 PP_FLAGS = [
     "./data", "--device", "cuda", "--model", "mobilenetv2", "-type",
     "SyntheticTextures", "-b", str(DP_BATCH), "--lr", "0.4", "-j", "8",
@@ -1888,7 +1990,8 @@ def pp_run(mp_cli, pp_mod, name, extra):
     require(len(steps) == PP_STEPS and all(map(math.isfinite, losses))
             and math.isfinite(hist["val"]["loss"]),
             f"pipeline run {name}: {len(steps)} steps, losses {losses}")
-    require(sum(losses[-5:]) < sum(losses[:5]),
+    half = PP_STEPS // 2
+    require(sum(losses[-half:]) < sum(losses[:half]),
             f"pipeline run {name}: the train loss did not fall: {losses}")
     eng = seen["engine"]
     require(dist.get_backend() == "nccl" and eng.grad_reductions > 0
@@ -2757,8 +2860,8 @@ def s9_lm(lm, fa, qm, lm_rows) -> tuple:
 
 
 def s9_dispatch_dp(dp_cli, dp_mod, data) -> dict:
-    """(b) MobileNetV2 DDP bf16, 30 steps: --steps-per-dispatch 4 (7
-    groups and a tail of 2; its validation in groups of 4) against step
+    """(b) MobileNetV2 DDP bf16, DP_STEPS (16) steps: --steps-per-dispatch
+    4 (4 groups; its validation in groups of 4) against step
     by step, with the trace of three steady-state steps and the
     Prometheus file."""
     from distributed_model_parallel_tpu_torch.data import datasets
@@ -3160,7 +3263,7 @@ def s10_lm(lm, fa, qm):
                 + extra + ["--checkpoint-dir", directory],
                 CausalLMSequenceParallelEngine, name, LM_STEPS)
             got = counts(fa)
-            shutil.rmtree(directory)
+            shutil.rmtree(directory, ignore_errors=True)
             require(got == want and qm.int8_matmul.launches == 0,
                     f"{name}: launches {got} / int8 "
                     f"{qm.int8_matmul.launches}, want {want} / 0")
@@ -3367,11 +3470,11 @@ def slice10_phase(lm, fa, qm, dp_data) -> dict:
 # Slice 11: tensor parallelism, the device-resident dataset cache and the
 # image-folder datasets
 
-S11_STEPS = 12
+S11_STEPS = 8
 # Where phase 12 runs (its flags say it too): what its functions build
 # themselves goes here.
 S11_DEVICE = "cuda"
-S11_BERT = [  # SyntheticText: 8 batches of 512 an epoch, so 2 x 6 steps
+S11_BERT = [  # SyntheticText: 8 batches of 512 an epoch; 2 x 4 steps
     "--device", "cuda", "--model", "bert", "-type", "SyntheticText",
     "-b", str(DP_BATCH), "--val-batch-size", "1024", "--optimizer", "adamw",
     "--lr", "1e-3", "--epochs", "2", "--steps-per-epoch",
@@ -3868,6 +3971,521 @@ def slice11_phase(fa, qm, dp_data) -> dict:
     return got
 
 
+# ---------------------------------------------------------------------
+# Slice 12: FSDP, the sharded checkpoint format, elastic restart
+
+S12_STEPS = 8
+S12_BERT = S11_BERT  # BERT_BASE, batch 512, AdamW 1e-3, dropout 0.1, 2 x 4
+S12_BERT_MODES = (("monolithic", []),
+                  ("bucketed", ["--grad-reduction", "bucketed"]),
+                  ("overlapped", ["--grad-reduction", "overlapped"]))
+S12_DP = DP_FLAGS[:DP_FLAGS.index("--steps-per-epoch")] + [
+    "--steps-per-epoch", str(S12_STEPS)]  # MobileNetV2
+S12_DP_MODES = S10_DP_MODES
+S12_ENGINES = ("fsdp", "ddp")
+# (b): N 2 against N 1 at the f32 bar, SGD (S11_M2_*); the int8 wire's
+# budget (tests/test_torch_port_fsdp_dcn.py); dropout 0, as the dropout
+# keys fold the data rank and N 2 draws other masks than N 1.
+S12_M2_INT8_REL = 5e-2
+# (c): the sharded resumes, MobileNetV2, 2 epochs of 4 steps
+S12_CK_STEPS = 4
+S12_CK = DP_FLAGS[:DP_FLAGS.index("--epochs")] + [
+    "--steps-per-epoch", str(S12_CK_STEPS), "--checkpoint-format",
+    "sharded", "--async-save"]
+S12_LM = CK_LM_FLAGS + ["--checkpoint-format", "sharded", "--async-save"]
+
+
+def s12_fsdp_runs(dp_cli, dp_mod, data) -> list:
+    """(a) FSDP at world 1 on NCCL against DDP at the same flags: BERT_BASE
+    f32 and bf16 and MobileNetV2 f32, each mode; f32 losses and final
+    parameters bit-equal; then BERT f32 fsdp bucketed under
+    `--steps-per-dispatch 4`, bit-equal to its eager run."""
+    from distributed_model_parallel_tpu_torch.data import datasets
+
+    rows = []
+    plan = (("bert", S12_BERT, S12_BERT_MODES, ("float32", "bfloat16")),
+            ("mobilenetv2", S12_DP, S12_DP_MODES, ("float32",)))
+    for model, flags, modes, dtypes in plan:
+        for dtype in dtypes:
+            for mode, extra in modes:
+                runs = {}
+                for engine in S12_ENGINES:
+                    name = f"{model}_{engine}_{mode}_{dtype}"
+                    with patched(datasets.DatasetCollection, "init",
+                                 lambda self: data) if model != "bert" \
+                            else contextlib.nullcontext():
+                        row, params, seen = s10_run(
+                            dp_cli.main, flags + [
+                                "--dtype", dtype, "--engine", engine] + extra
+                            + ["--checkpoint-dir",
+                               scratch_dir(f"s12_{name}")],
+                            dp_mod._DataParallel, name, S12_STEPS)
+                    eng = seen["engine"]
+                    row = {"s12_run": name, **{
+                        k: v for k, v in row.items() if k != "s10_run"}}
+                    # the gradient collectives and FSDP's weight gathers
+                    row["collectives_per_step"] = (
+                        eng.grad_reductions
+                        + getattr(eng, "param_gathers", 0)) / S12_STEPS
+                    row["samples_per_s"] = DP_BATCH / row["ms_per_step"] * 1e3
+                    row.update(s10_profile(seen, row["ms_per_step"]))
+                    del row["flash_kernel_device_ms"]
+                    emit(row)
+                    rows.append(row)
+                    runs[engine] = (row, params)
+                    del seen, eng
+                (fs, fs_p), (dd, dd_p) = runs["fsdp"], runs["ddp"]
+                same = {"losses_bit_equal": fs["step_loss"] == dd["step_loss"],
+                        "params_bit_equal": all(
+                            torch.equal(a, b) for a, b in zip(fs_p, dd_p)),
+                        "params_max_rel": max(rel_diff(a, b)
+                                              for a, b in zip(fs_p, dd_p))}
+                emit({"s12_fsdp_vs_ddp": f"{model}_{mode}_{dtype}", **same})
+                if dtype == "float32":
+                    require(same["losses_bit_equal"]
+                            and same["params_bit_equal"],
+                            f"{model} {mode} f32: fsdp at world 1 differs "
+                            f"from ddp: {same}")
+    d1, d4 = scratch_dir("s12_bert_k1"), scratch_dir(f"s12_bert_k{S9_K}")
+    flags = S12_BERT + ["--engine", "fsdp", "--grad-reduction", "bucketed",
+                        "--checkpoint-dir", "ck"]
+    (_, s1, tr1, _, _, _), (_, s4, tr4, _, _, _) = (
+        s9_run(dp_cli.main, flags, dp_mod._DataParallel, d1),
+        s9_run(dp_cli.main, flags + ["--steps-per-dispatch", str(S9_K)],
+               dp_mod._DataParallel, d4))
+    same = s9_same(tr4.state, tr1.state)
+    graph = tr4._multi.graph
+    row = {"s12_fsdp_dispatch": "bert_f32_bucketed", "k": S9_K,
+           "graph_vs_eager": same,
+           "dispatch_sums_equal": s9_grouped_equal(s1, s4),
+           "graph_captures": graph.captures, "graph_replays": graph.replays}
+    emit(row)
+    require(len(s1) == S12_STEPS and row["dispatch_sums_equal"]
+            and same["bit_equal"] and graph.replays > 0,
+            f"BERT fsdp graph run differs from step by step: {row}")
+    return rows
+
+
+def s12_state_bytes(ts) -> int:
+    """Bytes of a state's parameters and optimizer tensors (this rank's
+    shards)."""
+    from distributed_model_parallel_tpu_torch.training.optim import (
+        tree_leaves,
+    )
+
+    return sum(t.numel() * t.element_size()
+               for t in tree_leaves((ts.params, tuple(ts.opt_state)))
+               if isinstance(t, torch.Tensor))
+
+
+def s12_m2_case():
+    """The 2-layer BERT_BASE-width model without dropout, and a seeded
+    global batch of 64 sequences of 64 tokens."""
+    import numpy as np
+
+    from distributed_model_parallel_tpu_torch.models import bert
+
+    cfg = dataclasses.replace(bert.BERT_BASE, num_layers=2, dropout_rate=0.0)
+    rng = np.random.RandomState(5)
+    return (cfg, rng.randint(1, 512, size=(64, 64)).astype(np.int32),
+            rng.randint(0, 4, 64).astype(np.int32))
+
+
+def s12_fsdp_steps(eng, ids, labels, rank: int, world: int):
+    """S11_M2_STEPS SGD steps on this rank's rows; (state, losses, ms)."""
+    ts = eng.init_state(0)
+    b = len(labels) // world
+    x = eng.shard_batch(ids[rank * b:(rank + 1) * b],
+                        labels[rank * b:(rank + 1) * b])
+    losses, ms = [], []
+    for _ in range(S11_M2_STEPS):
+        t0 = time.perf_counter()
+        ts, m = eng.train_step(ts, *x, S11_M2_LR)
+        losses.append(float(m["loss_sum"] / m["count"]))  # waits
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return ts, losses, ms
+
+
+def s12_gloo_rank(rank, port, out, directory, device):
+    """One rank of (b): a gloo world of 2 on the one card. FSDP SGD steps
+    on `MeshSpec(data=2)`, saved as a sharded checkpoint into
+    `directory`; then on `MeshSpec(dcn=2)` with the int8 wire; and the
+    AdamW state's bytes on this rank. Writes the losses, host-staged ms,
+    the gathered canonical parameters (rank 0) and the bytes."""
+    import pickle
+
+    import torch.distributed as dist
+
+    from distributed_model_parallel_tpu_torch import checkpointing
+    from distributed_model_parallel_tpu_torch.models import bert
+    from distributed_model_parallel_tpu_torch.parallel.fsdp import (
+        FSDPEngine,
+    )
+    from distributed_model_parallel_tpu_torch.runtime.mesh import (
+        MeshSpec,
+        make_mesh,
+    )
+    from distributed_model_parallel_tpu_torch.training.optim import (
+        SGD,
+        AdamW,
+    )
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    if device == "cuda":
+        torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                            rank=rank, world_size=2)
+    result = {}
+    try:
+        cfg, ids, labels = s12_m2_case()
+        model = bert.bert_for_classification(4, cfg)
+        eng = FSDPEngine(model, SGD(), make_mesh(MeshSpec()), device=device)
+        ts, losses, ms = s12_fsdp_steps(eng, ids, labels, rank, 2)
+        checkpointing.save_sharded(directory, eng.to_canonical_sharded(ts),
+                                   acc=0.0, epoch=0)
+        dist.barrier()
+        canon = eng.to_canonical(ts)
+        result["mono"] = {"losses": losses, "host_staged_gloo_ms": ms,
+                          "params": canon["params"] if rank == 0 else None,
+                          "param_gathers": eng.param_gathers}
+        eng = FSDPEngine(model, SGD(), make_mesh(MeshSpec(dcn=2)),
+                         device=device, dcn_compression="int8")
+        _, losses, ms = s12_fsdp_steps(eng, ids, labels, rank, 2)
+        result["int8"] = {"losses": losses, "host_staged_gloo_ms": ms}
+        eng = FSDPEngine(model, AdamW(), make_mesh(MeshSpec()),
+                         device=device)
+        result["adamw_state_bytes"] = s12_state_bytes(eng.init_state(0))
+    finally:
+        dist.destroy_process_group()
+        with open(out, "wb") as f:
+            pickle.dump(result, f)
+
+
+def s12_fsdp_m2() -> dict:
+    """(b) FSDP at N 2 as two gloo processes on the one card (NCCL puts
+    one rank on a GPU), against N 1 on the card in this process: losses
+    and gathered parameters within S11_M2_TOL; with the int8 wire on a
+    dcn 2 mesh within S12_M2_INT8_REL; per-rank parameter + AdamW bytes
+    against N 1. The ms are host-staged gloo, not FSDP times. Returns
+    the directory of the N 2 sharded checkpoint and rank 0's gathered
+    parameters."""
+    import multiprocessing
+    import pickle
+
+    import numpy as np
+
+    from distributed_model_parallel_tpu_torch.models import bert
+    from distributed_model_parallel_tpu_torch.models.convert import (
+        train_state_to_jax,
+    )
+    from distributed_model_parallel_tpu_torch.parallel.fsdp import (
+        FSDPEngine,
+    )
+    from distributed_model_parallel_tpu_torch.runtime.dist import free_port
+    from distributed_model_parallel_tpu_torch.runtime.mesh import Mesh
+    from distributed_model_parallel_tpu_torch.training.checkpoint import (
+        flatten_tree,
+    )
+    from distributed_model_parallel_tpu_torch.training.optim import (
+        SGD,
+        AdamW,
+    )
+
+    torch.cuda.empty_cache()  # the two ranks share this process's card
+    directory = scratch_dir("s12_m2_sharded")
+    ctx = multiprocessing.get_context("spawn")
+    port = free_port()
+    outs = [scratch_dir(f"s12_m2_rank{r}.pkl") for r in range(2)]
+    procs = [ctx.Process(target=s12_gloo_rank,
+                         args=(r, port, outs[r], directory, S11_DEVICE))
+             for r in range(2)]
+    t0 = time.perf_counter()
+    for p in procs:
+        p.start()
+    for p in procs:
+        p.join(600)
+    hung = [p for p in procs if p.is_alive()]
+    for p in hung:
+        p.kill()
+        p.join(10)
+    require(not hung and all(p.exitcode == 0 for p in procs),
+            f"FSDP N 2 ranks: exit codes {[p.exitcode for p in procs]}")
+    got = []
+    for path in outs:
+        with open(path, "rb") as f:
+            got.append(pickle.load(f))
+    wall = time.perf_counter() - t0
+    cfg, ids, labels = s12_m2_case()
+    model = bert.bert_for_classification(4, cfg)
+    eng = FSDPEngine(model, SGD(), Mesh(1, None), device=S11_DEVICE)
+    ts, losses, ms = s12_fsdp_steps(eng, ids, labels, 0, 1)
+    want = train_state_to_jax(ts)["params"]
+    gw, ww = flatten_tree(got[0]["mono"]["params"]), flatten_tree(want)
+    params_close = all(np.allclose(gw[k], ww[k], **S11_M2_TOL) for k in ww)
+    worst = max(ww, key=lambda k: float(np.abs(gw[k] - ww[k]).max()))
+    rel = {run: max(abs(a - b) / abs(b) for r in got
+                    for a, b in zip(r[run]["losses"], losses))
+           for run in ("mono", "int8")}
+    n1_bytes = s12_state_bytes(FSDPEngine(model, AdamW(), Mesh(1, None),
+                                          device=S11_DEVICE).init_state(0))
+    row = {"s12_fsdp_m2": "gloo, 2 processes on one card", "wall_s": wall,
+           "model": "BERT_BASE width, 2 layers, dropout 0, SGD",
+           "n1_losses": losses, "n1_ms": ms,
+           "n2_losses": [r["mono"]["losses"] for r in got],
+           "loss_max_rel": rel["mono"], "params_within_bar": params_close,
+           "bar": S11_M2_TOL, "param_max_abs_diff": {
+               worst: float(np.abs(gw[worst] - ww[worst]).max())},
+           "int8_dcn2_losses": [r["int8"]["losses"] for r in got],
+           "int8_loss_max_rel": rel["int8"],
+           "param_gathers_per_step": got[0]["mono"]["param_gathers"]
+           / S11_M2_STEPS,
+           "per_rank_param_adamw_bytes": [r["adamw_state_bytes"]
+                                          for r in got],
+           "n1_param_adamw_bytes": n1_bytes,
+           "per_rank_over_n1": got[0]["adamw_state_bytes"] / n1_bytes,
+           "host_staged_gloo_ms_per_step": [
+               r["mono"]["host_staged_gloo_ms"] for r in got],
+           "int8_host_staged_gloo_ms_per_step": [
+               r["int8"]["host_staged_gloo_ms"] for r in got]}
+    emit(row)
+    require(rel["mono"] <= S11_M2_TOL["rtol"] and params_close,
+            f"FSDP N 2 differs from N 1: {row}")
+    require(rel["int8"] <= S12_M2_INT8_REL,
+            f"FSDP N 2 int8 wire outside its budget: {row}")
+    return directory, got[0]["mono"]["params"]
+
+
+@contextlib.contextmanager
+def s12_save_timing(records):
+    """Each save's time in the epoch loop (`checkpoint_blocked`, the
+    snapshot under --async-save) and each shard file's write on the
+    writer thread, in ms."""
+    from distributed_model_parallel_tpu_torch.checkpointing import (
+        writer as writer_mod,
+    )
+    from distributed_model_parallel_tpu_torch.training import trainer
+
+    write_checkpoint = trainer.Trainer._write_checkpoint
+    write_shard = writer_mod._write_shard
+
+    def blocked(self, payload, name, epoch):
+        t0 = time.perf_counter()
+        write_checkpoint(self, payload, name, epoch)
+        records.append({"part": "blocked",
+                        "ms": (time.perf_counter() - t0) * 1e3})
+
+    def shard(path, arrays):
+        t0 = time.perf_counter()
+        write_shard(path, arrays)
+        records.append({"part": "shard_write", "bytes":
+                        os.path.getsize(path),
+                        "ms": (time.perf_counter() - t0) * 1e3})
+
+    with patched(trainer.Trainer, "_write_checkpoint", blocked), \
+            patched(writer_mod, "_write_shard", shard):
+        yield
+
+
+def s12_io(records, directory) -> dict:
+    files = sorted(os.listdir(directory))
+    return {"blocked_ms": [r["ms"] for r in records
+                           if r["part"] == "blocked"],
+            "shard_write_ms": [r["ms"] for r in records
+                               if r["part"] == "shard_write"],
+            "shard_bytes": max((r["bytes"] for r in records
+                                if "bytes" in r), default=None),
+            "files": files}
+
+
+def s12_fail_once(epoch: int):
+    """Trainer.train_epoch failing once at the start of `epoch`."""
+    from distributed_model_parallel_tpu_torch.training import trainer
+
+    train_epoch = trainer.Trainer.train_epoch
+    failed = []
+
+    def failing(self, e):
+        if e == epoch and not failed:
+            failed.append(e)
+            raise RuntimeError(f"injected failure in epoch {e}")
+        return train_epoch(self, e)
+
+    return patched(trainer.Trainer, "train_epoch", failing)
+
+
+def s12_sharded_dp(dp_cli, dp_mod, data, m2_dir, m2_params) -> dict:
+    """(c) MobileNetV2 ddp and fsdp through the DP CLI, sharded format
+    with --async-save: two epochs straight against one then --resume,
+    per-step losses and the epoch-1 record equal; fsdp --max-restarts 1
+    with a failure injected at epoch 1 equal to straight; (b)'s N 2 file
+    restored at N 1 on the card, bit-exact."""
+    import numpy as np
+
+    from distributed_model_parallel_tpu_torch import checkpointing
+    from distributed_model_parallel_tpu_torch.data import datasets
+    from distributed_model_parallel_tpu_torch.models import bert
+    from distributed_model_parallel_tpu_torch.parallel.fsdp import (
+        FSDPEngine,
+    )
+    from distributed_model_parallel_tpu_torch.runtime.mesh import Mesh
+    from distributed_model_parallel_tpu_torch.training.checkpoint import (
+        flatten_tree,
+    )
+    from distributed_model_parallel_tpu_torch.training.optim import SGD
+
+    readings = {}
+    for engine in S12_ENGINES:
+        runs, records = {}, []
+        plan = [("straight", ["--epochs", "2"], "straight", None),
+                ("split_1", ["--epochs", "1"], "split", None),
+                ("split_2", ["--epochs", "2", "--resume"], "split", None)]
+        if engine == "fsdp":
+            plan.append(("restart", ["--epochs", "2", "--max-restarts",
+                                     "1"], "restart", 1))
+        with patched(datasets.DatasetCollection, "init",
+                     lambda self: data), s12_save_timing(records):
+            for name, extra, where, fail in plan:
+                with s12_fail_once(fail) if fail is not None \
+                        else contextlib.nullcontext():
+                    out, steps, _ = recorded_run(
+                        dp_cli.main, S12_CK + ["--engine", engine] + extra
+                        + ["--checkpoint-dir",
+                           scratch_dir(f"s12_ck_{engine}_{where}")],
+                        dp_mod._DataParallel)
+                runs[name] = {"history": epoch_numbers(out["history"]),
+                              "losses": [s["loss"] for s in steps],
+                              "elastic": out.get("elastic")}
+        straight = runs["straight"]
+        split = runs["split_1"]["losses"] + runs["split_2"]["losses"]
+        r = {"resume_losses_equal": split == straight["losses"],
+             "resume_epoch1_equal": runs["split_2"]["history"]
+             == straight["history"][1:],
+             **s12_io(records, scratch_dir(f"s12_ck_{engine}_straight"))}
+        if engine == "fsdp":
+            rs = runs["restart"]
+            r["restart_losses_equal"] = rs["losses"] == straight["losses"]
+            r["restart_epoch1_equal"] = rs["history"] == \
+                straight["history"][1:]
+            r["elastic"] = rs["elastic"]
+        emit({"s12_sharded_resume": f"mobilenetv2_{engine}", **r})
+        require(len(straight["losses"]) == 2 * S12_CK_STEPS
+                and r["resume_losses_equal"] and r["resume_epoch1_equal"],
+                f"{engine}: one epoch + --resume differs from two straight")
+        if engine == "fsdp":
+            require(r["restart_losses_equal"] and r["restart_epoch1_equal"]
+                    and r["elastic"]["attempts"] == 2,
+                    f"fsdp --max-restarts 1 differs from straight: {r}")
+        readings[engine] = r
+    torch.distributed.destroy_process_group()
+    cfg, _, _ = s12_m2_case()
+    eng = FSDPEngine(bert.bert_for_classification(4, cfg), SGD(),
+                     Mesh(1, None), device=S11_DEVICE)
+    like = eng.init_state(1)
+    t0 = time.perf_counter()
+    tree, _, _ = checkpointing.restore_checkpoint(m2_dir,
+                                                  eng.canonical_spec(like))
+    ts = eng.from_canonical(tree, like)
+    torch.cuda.synchronize()
+    restore_ms = (time.perf_counter() - t0) * 1e3
+    got = flatten_tree(eng.to_canonical(ts)["params"])
+    want = flatten_tree(m2_params)
+    exact = all(np.array_equal(got[k], want[k]) for k in want)
+    m = checkpointing.load_manifest(m2_dir)
+    row = {"s12_reshard_n2_to_n1": exact, "restore_ms": restore_ms,
+           "saved_topology": checkpointing.saved_topology(m2_dir),
+           "files": m.shards}
+    emit(row)
+    require(exact and m.mesh_axes["data"] == 2,
+            f"the N 2 sharded file restored at N 1 differs: {row}")
+    readings["reshard"] = row
+    return readings
+
+
+def s12_lm(lm, engine_cls, fa, qm, legacy) -> dict:
+    """(d) The LM CLI at GPT-2-small width (phase 7's flags) under
+    `--checkpoint-format sharded --async-save`: 2 + 2 steps across
+    --resume, bit-equal to phase 7's 4 straight steps of the same
+    training (`legacy`, its reading); exact K1-K3 launches; the time
+    each save held the loop against phase 7's legacy saves of the same
+    state in this run."""
+    import functools
+
+    runs, records, launches = {}, [], {}
+    plan = (("split_1", ["--epochs", "1"]),
+            ("split_2", ["--epochs", "2", "--resume"]))
+    with s12_save_timing(records), patched(
+            lm, "TrainerConfig",
+            functools.partial(lm.TrainerConfig, save_last=True)):
+        for name, extra in plan:
+            reset_counts(fa, qm)
+            out, rec, _ = recorded_run(
+                lm.main, S12_LM + extra + [
+                    "--checkpoint-dir", scratch_dir("s12_lm")], engine_cls)
+            got = counts(fa)
+            want = {"flash_fwd": LAYERS * (2 + LM_VAL_BATCHES),
+                    "flash_bwd_dq": LAYERS * 2, "flash_bwd_dkv": LAYERS * 2}
+            require(got == want, f"LM sharded run {name}: kernel launches "
+                    f"{got}, want {want}")
+            require(qm.int8_matmul.launches == 0,
+                    f"LM sharded run {name} launched int8")
+            launches[name] = got
+            runs[name] = {"history": epoch_numbers(out["history"]),
+                          "losses": [s["loss"] for s in rec]}
+    split = runs["split_1"]["losses"] + runs["split_2"]["losses"]
+    reading = {
+        "straight_losses_phase7": legacy["losses"], "resumed_losses": split,
+        "resume_losses_equal": split == legacy["losses"],
+        "resume_epoch1_equal": runs["split_2"]["history"]
+        == legacy["epochs"][1:],
+        "launches": launches,
+        **s12_io(records, scratch_dir("s12_lm")),
+        "legacy_save_ms_phase7": legacy["save_checkpoint_ms"],
+        "legacy_copy_ms_phase7": legacy["train_state_to_jax_ms"],
+        "legacy_file_bytes_phase7": legacy["file_bytes"]}
+    emit({"s12_lm_sharded_resume": reading})
+    shutil.rmtree(scratch_dir("s12_lm"), ignore_errors=True)
+    require(len(split) == 4 and reading["resume_losses_equal"]
+            and reading["resume_epoch1_equal"],
+            "LM 2 + 2 steps across a sharded --resume differ from phase "
+            "7's 4 straight steps")
+    return {name: sum(r[name] for r in launches.values())
+            for name, _, _ in FLASH_KERNELS}
+
+
+def slice12_phase(lm, engine_cls, fa, qm, dp_data, legacy) -> dict:
+    """Phase 13 (module docstring). Returns the K1-K4 launches of the
+    phase's main paths: K1-K3 on the LM run, none on the DP runs."""
+    from distributed_model_parallel_tpu_torch.cli import data_parallel
+    from distributed_model_parallel_tpu_torch.parallel import (
+        data_parallel as dp_mod,
+    )
+
+    data = s11_cut_val(dp_data)
+    reset_counts(fa, qm)
+    t0 = time.perf_counter()
+    with without_saves():
+        s12_fsdp_runs(data_parallel, dp_mod, data)
+    print(f"phase 13 (a) FSDP at world 1: {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    t0 = time.perf_counter()
+    m2_dir, m2_params = s12_fsdp_m2()
+    print(f"phase 13 (b) FSDP at N 2 over gloo: "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    s12_sharded_dp(data_parallel, dp_mod, data, m2_dir, m2_params)
+    got = dict(counts(fa), int8_matmul=qm.int8_matmul.launches)
+    require(not any(got.values()),
+            f"the DP runs of phase 13 launched K1-K4: {got}")
+    print(f"phase 13 (c) sharded DP checkpoints: "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    launches = s12_lm(lm, engine_cls, fa, qm, legacy)
+    launches["int8_matmul"] = 0
+    print(f"phase 13 (d) LM sharded resume: {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    return launches
+
+
 def main() -> int:
     # cuBLAS reads this when it first starts: the determinism probe's
     # torch.use_deterministic_algorithms needs it (phase 7).
@@ -4015,8 +4633,9 @@ def smoke() -> int:
     phase_done("serving")
 
     # ---- 5. LM training at GPT-2-small width (a main path) -----------
-    lm_rows = [lm_run(lm, CausalLMSequenceParallelEngine, fa, qm, *run)
-               for run in LM_RUNS]
+    with without_saves():
+        lm_rows = [lm_run(lm, CausalLMSequenceParallelEngine, fa, qm, *run)
+                   for run in LM_RUNS]
     phase_done("LM training")
     training_card_vs_cpu(fa, CausalLMSequenceParallelEngine, GPTConfig,
                          init_params, optim, lm_data)
@@ -4024,7 +4643,8 @@ def smoke() -> int:
 
     # ---- 6. data-parallel MobileNetV2 training (a main path) ----------
     reset_counts(fa, qm)
-    _, dp_data = dp_phase()
+    with without_saves():
+        _, dp_data = dp_phase()
     require(not any(counts(fa).values()) and qm.int8_matmul.launches == 0,
             "data-parallel training launched a K1-K4 kernel")
     phase_done("data-parallel training")
@@ -4053,7 +4673,8 @@ def smoke() -> int:
     slice6["int8_matmul"] = serve_ckpt["int8_launches"]
 
     # ---- 8. pipeline model parallelism (the slice-7 paths) -------------
-    _, _, slice7 = pipeline_phase(dp_data, lm, fa, qm)
+    with without_saves():
+        _, _, slice7 = pipeline_phase(dp_data, lm, fa, qm)
     phase_done("pipeline model parallelism")
 
     # ---- 9. serving features (the slice-8 paths) ----------------------
@@ -4063,19 +4684,30 @@ def smoke() -> int:
 
     # ---- 10. remat, CUDA graphs, trace / metrics, ViT and BERT --------
     reset_counts(fa, qm)
-    slice9, replays9 = slice9_phase(lm, fa, qm, lm_rows, dp_data)
+    made_once = contextlib.ExitStack()  # phases 10-13 share BERT's inputs
+    made_once.enter_context(bert_made_once())
+    with without_saves():
+        slice9, replays9 = slice9_phase(lm, fa, qm, lm_rows, dp_data)
     phase_done("remat, steps per dispatch, classifiers")
 
     # ---- 11. gradient reduction (slice 10) ---------------------------
-    slice10 = slice10_phase(lm, fa, qm, dp_data)
+    with without_saves():
+        slice10 = slice10_phase(lm, fa, qm, dp_data)
     phase_done("gradient reduction")
 
     # ---- 12. tensor parallelism, device cache, image folders ---------
-    slice11 = slice11_phase(fa, qm, dp_data)
-    del dp_data
+    with without_saves():
+        slice11 = slice11_phase(fa, qm, dp_data)
     phase_done("tensor parallelism, device cache, image folders")
 
-    # ---- 13. kernels line, card line, last line ----------------------
+    # ---- 13. FSDP, sharded checkpoints, elastic restart ---------------
+    slice12 = slice12_phase(lm, CausalLMSequenceParallelEngine, fa, qm,
+                            dp_data, lm_resume)
+    del dp_data
+    made_once.close()
+    phase_done("FSDP, sharded checkpoints, elastic restart")
+
+    # ---- 14. kernels line, card line, last line ----------------------
     decode = [r for r in shapes if r["M"] == SLOTS]
     step = {key: None if any(r[key] is None for r in decode)
             else LAYERS * sum(r[key] for r in decode)
@@ -4104,6 +4736,8 @@ def smoke() -> int:
         # phase 12: tensor parallelism, the device cache and the image
         # folders (none on this path)
         "launches_slice11": slice11["int8_matmul"],
+        # phase 13: FSDP, the sharded format, elastic restart (none)
+        "launches_slice12": slice12["int8_matmul"],
         "max_abs_err": max_err,
         # Times of one decode step's 48 launches (12 layers x the four
         # projection shapes at M = 8), each shape timed in phase 3.
@@ -4128,7 +4762,8 @@ def smoke() -> int:
                launches_slice9=slice9[name],
                replays_slice9_traced=replays9[name],
                launches_slice10=slice10[name],
-               launches_slice11=slice11[name])
+               launches_slice11=slice11[name],
+               launches_slice12=slice12[name])
           for name, _, replaces in FLASH_KERNELS]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

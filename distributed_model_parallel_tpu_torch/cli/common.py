@@ -397,19 +397,37 @@ def compute_dtype_from_flag(name: str):
 
 
 def add_checkpoint_flags(parser: argparse.ArgumentParser) -> None:
-    """The training CLIs' checkpoint flags. The sharded format and
-    --async-save are carried so a reference launch line is refused with
-    an explanation (`check_lm_args`, `check_data_parallel_args`)."""
+    """The checkpoint-format surface shared by the training CLIs
+    (`checkpointing/`): sharded parallel saves, async off-step-path
+    writes, resharding restore."""
     parser.add_argument("--checkpoint-dir", default="./checkpoint",
                         help="where the best-acc 'ckpt' (and 'last') "
                              "snapshots are written and --resume reads")
     parser.add_argument("--checkpoint-format", default="legacy",
                         choices=("legacy", "sharded"),
-                        help="legacy = one .npz + .json sidecar (the JAX "
-                             "package's format); sharded is not ported "
-                             "yet (sharded-checkpoint slice)")
+                        help="legacy = one .npz + .json sidecar gathered to "
+                             "rank 0 (the JAX package's format); sharded = "
+                             "each rank writes only its own chunks + a JSON "
+                             "manifest (no gather on the save path; restore "
+                             "reshards onto the current mesh, so a restart "
+                             "may resize; every rank needs the same "
+                             "filesystem). Restore reads either format")
     parser.add_argument("--async-save", action="store_true",
-                        help="not ported yet (sharded-checkpoint slice)")
+                        help="move checkpoint file I/O off the step path "
+                             "(sharded format only): one device->host "
+                             "snapshot, then a background writer thread; "
+                             "write errors surface at the next save or at "
+                             "exit, never silently")
+
+
+def check_checkpoint_args(args) -> None:
+    """The shared checkpoint flags, checked at startup (the Trainer
+    checks the same, but only after datasets and meshes are built)."""
+    if args.async_save and args.checkpoint_format != "sharded":
+        raise SystemExit(
+            "--async-save moves the sharded writer off the step path; "
+            "it requires --checkpoint-format sharded (the legacy "
+            "format gathers to host 0 synchronously by design)")
 
 
 def add_auto_tune_flags(parser: argparse.ArgumentParser) -> None:
@@ -430,9 +448,6 @@ SLICES = {
     "seq": "the sequence-parallel slice",
     "moe": "the expert-parallel slice",
     "cm": "the collective-matmul slice",
-    "sharded": "the sharded-checkpoint slice",
-    "fsdp": "the FSDP slice",
-    "elastic": "the elastic-restart slice",
 }
 
 
@@ -452,9 +467,6 @@ def check_lm_args(args) -> None:
          args.moe_every != 2 or args.moe_dispatch != "gspmd"
          or args.moe_overlap or args.expert_shards != 1, s["moe"]),
         ("--collective-matmul", args.collective_matmul, s["cm"]),
-        ("--checkpoint-format sharded / --async-save",
-         args.checkpoint_format != "legacy" or args.async_save,
-         s["sharded"]),
     )
     for flag, bad, later in refusals:
         if bad:
@@ -464,6 +476,7 @@ def check_lm_args(args) -> None:
                 "the JAX package's cli/lm.py"
             )
     check_grad_reduction_args(args)
+    check_checkpoint_args(args)
     if args.pipeline_stages > 1 and (
         args.grad_reduction != "monolithic"
         or args.dcn_slices != 1
@@ -773,13 +786,8 @@ def check_data_parallel_args(args) -> None:
     the slice, before any dataset, process group or engine is built."""
     s = SLICES
     refusals = (
-        ("--engine fsdp", args.engine == "fsdp", s["fsdp"]),
         ("--collective-matmul", args.collective_matmul, s["cm"]),
         ("--plan", args.plan, s["plan"]),
-        ("--checkpoint-format sharded / --async-save",
-         args.checkpoint_format != "legacy" or args.async_save,
-         s["sharded"]),
-        ("--max-restarts", args.max_restarts != 0, s["elastic"]),
         ("--auto-tune / --auto-tune-out / --auto-tune-calibration",
          args.auto_tune or args.auto_tune_out or args.auto_tune_calibration,
          s["tune"]),
@@ -792,16 +800,17 @@ def check_data_parallel_args(args) -> None:
                 "the JAX package's cli/data_parallel.py"
             )
     check_grad_reduction_args(args)
-    # --engine fsdp, which the reference admits here too, is refused
-    # above by its slice.
-    if args.grad_reduction != "monolithic" and args.engine != "ddp":
+    check_checkpoint_args(args)
+    if args.grad_reduction != "monolithic" and args.engine not in (
+            "ddp", "fsdp"):
         raise SystemExit(
             f"--grad-reduction {args.grad_reduction} replaces the "
             "explicit gradient collective of the shard_map engines "
             f"(ddp, fsdp); the declarative --engine {args.engine} step "
             "has no explicit reduction site to bucket or overlap"
         )
-    if args.dcn_compression != "none" and args.engine != "ddp":
+    if args.dcn_compression != "none" and args.engine not in ("ddp",
+                                                             "fsdp"):
         raise SystemExit(
             "--dcn-compression compresses the explicit cross-slice "
             "gradient hop of the shard_map engines (ddp, fsdp); the "
@@ -988,6 +997,7 @@ __all__ = [
     "build_optimizer",
     "build_stages",
     "check_batch_divisibility",
+    "check_checkpoint_args",
     "check_grad_reduction_args",
     "check_overlapped_model",
     "check_data_parallel_args",

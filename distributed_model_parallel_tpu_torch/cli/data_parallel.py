@@ -35,9 +35,17 @@ is Megatron tensor parallelism over M consecutive ranks
 `--device-cache` uploads the train and val images to the device once
 and ships only index vectors (`data/device_cache.py`), under every
 engine; `-type Imagenet|Place365|CUB200` reads an image tree under
-`--data`. The parser keeps the reference's whole flag surface; flags
-whose features belong to later port slices are refused with the slice
-named (`cli/common.check_data_parallel_args`).
+`--data`. `--engine fsdp` shards parameters and optimizer state 1/N over
+the ranks (`parallel/fsdp.py`, ZeRO-3; `--grad-reduction` and
+`--dcn-compression` as under ddp). `--checkpoint-format sharded` has
+every rank write its own chunks (`checkpointing/`, a filesystem all the
+ranks share), `--async-save` writes them from a background thread, and
+`--resume` reads either format at any rank count. `--max-restarts R`
+runs the trainer under `training/elastic.elastic_fit`: a per-epoch
+`last` checkpoint, and up to R restarts from it after a failure. The
+parser keeps the reference's whole flag surface; flags whose features
+belong to later port slices are refused with the slice named
+(`cli/common.check_data_parallel_args`).
 """
 
 from __future__ import annotations
@@ -69,12 +77,14 @@ from distributed_model_parallel_tpu_torch.parallel.data_parallel import (
     DataParallelEngine,
     DDPEngine,
 )
+from distributed_model_parallel_tpu_torch.parallel.fsdp import FSDPEngine
 from distributed_model_parallel_tpu_torch.parallel.tensor_parallel import (
     TensorParallelEngine,
 )
 from distributed_model_parallel_tpu_torch.runtime.dist import (
     initialize_backend,
     is_primary,
+    process_count,
 )
 from distributed_model_parallel_tpu_torch.runtime.mesh import (
     MeshSpec,
@@ -124,8 +134,9 @@ def build_parser() -> argparse.ArgumentParser:
                         "SyncBN semantics); ddp: explicit gradient "
                         "all-reduce, per-rank BN or --sync-bn; tp: "
                         "Megatron tensor parallelism over --model-shards "
-                        "ranks (bert, bert_tiny, vit); fsdp: not ported "
-                        "yet")
+                        "ranks (bert, bert_tiny, vit); fsdp: parameters "
+                        "and optimizer state sharded 1/N over the ranks "
+                        "(ZeRO-3)")
     p.add_argument("--model-shards", default=1, type=int,
                    help="'model' mesh axis size under --engine tp: each "
                         "group of this many consecutive ranks shards the "
@@ -139,7 +150,9 @@ def build_parser() -> argparse.ArgumentParser:
     add_checkpoint_flags(p)
     add_auto_tune_flags(p)
     p.add_argument("--max-restarts", default=0, type=int,
-                   help="not ported yet (elastic-restart slice)")
+                   help="fail-fast elastic mode: restart from the "
+                        "per-epoch checkpoint up to N times on failure "
+                        "(0 = off)")
     p.add_argument("--sync-bn", action="store_true",
                    help="SyncBatchNorm under --engine ddp")
     p.add_argument("--device-normalize", action="store_true",
@@ -193,12 +206,15 @@ def main(argv=None) -> dict:
     model = build_model(args.model, num_classes, remat=args.remat)
     if args.engine == "tp":
         engine = TensorParallelEngine(model, build_optimizer(args), **common)
-    elif args.engine == "ddp":
-        engine = DDPEngine(model, build_optimizer(args), sync_bn=args.sync_bn,
-                           grad_reduction=args.grad_reduction,
-                           bucket_mb=args.bucket_mb,
-                           overlap_stages=args.overlap_stages,
-                           dcn_compression=args.dcn_compression, **common)
+    elif args.engine in ("ddp", "fsdp"):
+        reduction = dict(grad_reduction=args.grad_reduction,
+                         bucket_mb=args.bucket_mb,
+                         overlap_stages=args.overlap_stages,
+                         dcn_compression=args.dcn_compression, **common)
+        engine = (FSDPEngine(model, build_optimizer(args), **reduction)
+                  if args.engine == "fsdp" else
+                  DDPEngine(model, build_optimizer(args),
+                            sync_bn=args.sync_bn, **reduction))
     else:
         engine = DataParallelEngine(model, build_optimizer(args), **common)
     if is_primary():
@@ -208,6 +224,9 @@ def main(argv=None) -> dict:
         if args.engine == "tp":
             print(f"==> tensor parallel: {mesh.data} data x {mesh.model} "
                   "model rank(s)", flush=True)
+        if args.engine == "fsdp":
+            print(f"==> fsdp: parameters and optimizer state sharded over "
+                  f"{mesh.data} data rank(s)", flush=True)
         if args.device_cache:
             print(f"==> device cache: {itf.cache.nbytes} bytes of images "
                   f"on {device}", flush=True)
@@ -216,33 +235,64 @@ def main(argv=None) -> dict:
                   f"(bucket {args.bucket_mb} MB) over {mesh.dcn} slice(s) "
                   f"x {mesh.ici}, dcn wire {args.dcn_compression}",
                   flush=True)
-    cfg = TrainerConfig(
-        epochs=args.epochs,
-        base_lr=args.lr,
-        t_max=90,
-        warmup_period=10,
-        log_file=args.log_file or f"data_para_{args.batch_size}.txt",
-        checkpoint_dir=args.checkpoint_dir,
-        resume=args.resume,
-        steps_per_epoch=args.steps_per_epoch,
-        steps_per_dispatch=args.steps_per_dispatch,
-        profile_dir=args.profile_dir,
-    )
-    trainer = Trainer(engine, train, val, cfg, seed=0)
-    if args.finetune:
-        from distributed_model_parallel_tpu_torch.models.torch_import import (
-            load_torch_checkpoint,
-            mobilenetv2_from_torch_state_dict,
+    checkpoint_dir = args.checkpoint_dir
+
+    def restart_can_resume() -> bool:
+        """Rank 0's answer on every rank: with per-rank disks the ranks
+        must agree on resuming, or they part ways in the restore's
+        broadcast."""
+        from distributed_model_parallel_tpu_torch.training.checkpoint import (
+            latest_exists,
         )
 
-        params, model_state = mobilenetv2_from_torch_state_dict(
-            trainer.state.params, trainer.state.model_state,
-            load_torch_checkpoint(args.finetune))
-        trainer.state = engine.state_from_params(params, model_state)
-        if is_primary():
-            print(f"==> Transplanted torch weights from {args.finetune}",
-                  flush=True)
-    out = trainer.fit()
+        exists = [latest_exists(checkpoint_dir, "last")
+                  or latest_exists(checkpoint_dir)]
+        if process_count() > 1:
+            torch.distributed.broadcast_object_list(exists, src=0)
+        return bool(exists[0])
+
+    def make_trainer(restart: bool) -> Trainer:
+        resume = args.resume or (restart and restart_can_resume())
+        cfg = TrainerConfig(
+            epochs=args.epochs,
+            base_lr=args.lr,
+            t_max=90,
+            warmup_period=10,
+            log_file=args.log_file or f"data_para_{args.batch_size}.txt",
+            checkpoint_dir=checkpoint_dir,
+            resume=resume,
+            steps_per_epoch=args.steps_per_epoch,
+            steps_per_dispatch=args.steps_per_dispatch,
+            profile_dir=args.profile_dir,
+            save_last=args.max_restarts > 0,
+            checkpoint_format=args.checkpoint_format,
+            async_save=args.async_save,
+        )
+        trainer = Trainer(engine, train, val, cfg, seed=0)
+        if args.finetune and not resume:
+            from distributed_model_parallel_tpu_torch.models.torch_import \
+                import load_torch_checkpoint, mobilenetv2_from_torch_state_dict
+
+            # The full trees as the template (FSDP's state holds shards);
+            # state_from_params places them in the engine's layout.
+            params, model_state = mobilenetv2_from_torch_state_dict(
+                *model.init(torch.Generator().manual_seed(0)),
+                load_torch_checkpoint(args.finetune))
+            trainer.state = engine.state_from_params(params, model_state)
+            if is_primary():
+                print(f"==> Transplanted torch weights from {args.finetune}",
+                      flush=True)
+        return trainer
+
+    if args.max_restarts > 0:
+        from distributed_model_parallel_tpu_torch.training.elastic import (
+            elastic_fit,
+        )
+
+        out = elastic_fit(make_trainer, max_restarts=args.max_restarts,
+                          checkpoint_dir=checkpoint_dir)
+    else:
+        out = make_trainer(False).fit()
     if is_primary():
         export_metrics_out(args.metrics_out)
     return out

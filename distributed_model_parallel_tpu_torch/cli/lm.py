@@ -32,12 +32,15 @@ a dispatch on the card, `--profile-dir` writes a torch.profiler trace.
 `--overlap-stages`, `--dcn-slices` and `--dcn-compression` select the
 data-axis gradient reduction (`ops/grad_reduction.py`), with the JAX
 CLI's checks. Flags whose features belong to later port slices
-(sequence shards, MoE, collective matmul, the sharded checkpoint format,
-plans and the tuner) are refused with the slice named
-(`cli/common.check_lm_args`). The best-val-acc model is
-saved to `--checkpoint-dir` with the model's `gpt_config` in its
-sidecar (what `cli/serve.py --checkpoint` checks), and `--resume`
-continues from it.
+(sequence shards, MoE, collective matmul, plans and the tuner) are
+refused with the slice named (`cli/common.check_lm_args`). The
+best-val-acc model is saved to `--checkpoint-dir` with the model's
+`gpt_config` in its sidecar (what `cli/serve.py --checkpoint` checks),
+and `--resume` continues from it. `--checkpoint-format sharded` writes
+the sharded format (`checkpointing/`) and `--async-save` writes it from
+a background thread; under `--pipeline-stages` the sharded format is
+refused at the first save, as the reference's trainer refuses it for a
+restructuring engine.
 """
 
 from __future__ import annotations
@@ -248,6 +251,8 @@ def main(argv=None) -> dict:
         steps_per_epoch=args.steps_per_epoch,
         steps_per_dispatch=args.steps_per_dispatch,
         profile_dir=args.profile_dir,
+        checkpoint_format=args.checkpoint_format,
+        async_save=args.async_save,
         # Recorded in the checkpoint sidecar so that `cli/serve.py
         # --checkpoint` fails fast, naming the field, when the serve
         # flags disagree with the trained model.

@@ -62,10 +62,12 @@ from distributed_model_parallel_tpu_torch.serving.engine import (
     ServingEngine,
 )
 from distributed_model_parallel_tpu_torch.serving.scheduler import Request
-from distributed_model_parallel_tpu_torch.training.checkpoint import (
+from distributed_model_parallel_tpu_torch.checkpointing import (
     checkpoint_metadata,
-    newest_checkpoint_name,
     restore_subtree,
+)
+from distributed_model_parallel_tpu_torch.training.checkpoint import (
+    newest_checkpoint_name,
 )
 
 

@@ -32,8 +32,10 @@ package's structure and names:
   reducer's own stream, forked from and joined back into the compute
   stream, so the collectives are in flight while the host issues the
   next stage's backward, and the step stays capturable in a CUDA graph.
-  `bucketed_psum` / `bucketed_pmean` are the reference's synchronous
-  entry points over it.
+  A gloo group's buckets of CUDA gradients reduce on the host (gloo
+  carries no CUDA tensor in these collectives): copied out, reduced,
+  copied back. `bucketed_psum` / `bucketed_pmean` are the reference's
+  synchronous entry points over it.
 * `data_replica_index`: this rank's index over the factored data axes,
   dcn-major (the global rank).
 
@@ -297,6 +299,10 @@ class Reducer:
             _size(ici_group), _size(dcn_group), self.wire)
         self.denom = _size(ici_group) * _size(dcn_group)
         self._stream = None
+        # gloo carries no CUDA tensor in a reduce-scatter, all-gather or
+        # all-to-all: on the card a gloo group's buckets reduce on the host
+        self._gloo = any(g is not None and dist.get_backend(g) == "gloo"
+                         for g in (ici_group, dcn_group))
 
     def _stream_for(self, device: torch.device):
         if self._stream is None or self._stream.device != device:
@@ -306,7 +312,9 @@ class Reducer:
     def issue(self, grads, *, mean: bool = False) -> PendingReduction:
         leaves = list(tree_leaves(grads))
         stream = None
-        if leaves and leaves[0].is_cuda and self.ici_group is not None:
+        staged = bool(leaves) and leaves[0].is_cuda and self._gloo
+        if leaves and leaves[0].is_cuda and self.ici_group is not None \
+                and not staged:
             stream = self._stream_for(leaves[0].device)
         per_bucket = 2 * (self.ici_group is not None) + (
             _dcn_collectives(self.wire) if self.dcn_group is not None
@@ -318,7 +326,13 @@ class Reducer:
             pad = -flat.shape[0] % self.pad_multiple
             if pad:
                 flat = torch.cat([flat, flat.new_zeros((pad,))])
-            if stream is None:
+            if staged:
+                out, work = _reduce_chain(flat.cpu(), self.ici_group,
+                                          self.dcn_group, self.wire)
+                if work is not None:
+                    work.wait()
+                out, work = out.to(flat.device), None
+            elif stream is None:
                 out, work = _reduce_chain(flat, self.ici_group,
                                           self.dcn_group, self.wire)
             else:

@@ -25,9 +25,16 @@ Everything inside a slice, and every accumulation, stays in the math
 dtype: int8 never sums in int8. `coded_all_to_all` and
 `coded_all_gather` are the group exchanges the reducer rides: encode,
 move the payload and the int8 scales over the process group, decode.
-They stand in for the reference's `coded_ppermute` hops; its custom VJP
-(for exchanges that are differentiated through: FSDP's gathers, MoE's
-dispatch) belongs to those slices.
+`coded_ppermute` is the reference's point-to-point hop: the payload
+sent along a permutation of the group's ranks (`dist.batch_isend_irecv`)
+with the int8 scale riding the same permutation, as a
+`torch.autograd.Function` whose backward sends the cotangent through the
+same codec over the inverse permutation (the reference's custom VJP).
+FSDP's compressed cross-slice weight gather (`parallel/fsdp.py`) runs
+its forward; expert dispatch will differentiate through it.
+
+A gloo group carries no CUDA tensor in these exchanges, so on the card
+a gloo group's hop is staged through the host.
 """
 
 from __future__ import annotations
@@ -156,12 +163,67 @@ def coded_all_gather(x: torch.Tensor, group, wire: str) -> torch.Tensor:
     return _decode_rows(wire, out, scales, x.dtype)
 
 
+def _ppermute(x: torch.Tensor, group, perm) -> torch.Tensor:
+    """`x` sent along `perm`, (src, dst) pairs of ranks of `group`: what
+    this rank receives, or zeros when no pair sends to it (the
+    reference's `lax.ppermute`)."""
+    staged = x.is_cuda and dist.get_backend(group) == "gloo"
+    src_t = x.cpu() if staged else x.contiguous()
+    out = torch.zeros_like(src_t)
+    me = dist.get_rank(group)
+    ops = []
+    for src, dst in perm:
+        if src == me and dst == me:
+            out = src_t.clone()
+        elif src == me:
+            ops.append(dist.P2POp(dist.isend, src_t,
+                                  dist.get_global_rank(group, dst), group))
+        elif dst == me:
+            ops.append(dist.P2POp(dist.irecv, out,
+                                  dist.get_global_rank(group, src), group))
+    if ops:
+        for work in dist.batch_isend_irecv(ops):
+            work.wait()
+    return out.to(x.device) if staged else out
+
+
+def _coded_hop(x: torch.Tensor, group, perm, wire: str) -> torch.Tensor:
+    """encode -> permute the payload (and the int8 scale) -> decode."""
+    payload, scale = wire_encode(wire, x)
+    payload = _ppermute(payload, group, perm)
+    if scale is not None:
+        scale = _ppermute(scale.reshape(1), group, perm).reshape(())
+    return wire_decode(wire, payload, scale, x.dtype)
+
+
+class _CodedPpermute(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, perm, wire):
+        ctx.group, ctx.perm, ctx.wire = group, perm, wire
+        return _coded_hop(x, group, perm, wire)
+
+    @staticmethod
+    def backward(ctx, g):
+        inv = tuple((dst, src) for src, dst in ctx.perm)
+        return _coded_hop(g, ctx.group, inv, ctx.wire), None, None, None
+
+
+def coded_ppermute(x: torch.Tensor, group, perm,
+                   wire: str = "none") -> torch.Tensor:
+    """A permutation hop over `group` whose payload crosses the wire
+    compressed: `perm` is a tuple of (src, dst) pairs of the group's
+    ranks. The backward sends the cotangent through the same codec over
+    the inverse permutation."""
+    return _CodedPpermute.apply(x, group, tuple(perm), check_compression(wire))
+
+
 __all__ = [
     "ABSMAX_FLOOR",
     "COMPRESSION_MODES",
     "check_compression",
     "coded_all_gather",
     "coded_all_to_all",
+    "coded_ppermute",
     "require_dcn_axis",
     "wire_decode",
     "wire_encode",

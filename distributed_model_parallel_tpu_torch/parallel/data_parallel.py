@@ -254,6 +254,16 @@ class _DataParallel:
         self.grad_reductions += pending.collectives
         return pending.wait()
 
+    def _forward_params(self, params, grad: bool = True):
+        """The parameters the forward runs on: the state's own here;
+        `FSDPEngine` gathers its shards."""
+        return params
+
+    def _local_grads(self, grads):
+        """The slice of the mean gradients this rank's state updates:
+        all of them here; `FSDPEngine` keeps its shards'."""
+        return grads
+
     def _overlapped_grads(self, ts: TrainState, x, labels, ctx):
         """The stagewise backward, each stage's buckets issued from the
         hook; returns (logits, ce, mean gradients, new BN state)."""
@@ -292,17 +302,19 @@ class _DataParallel:
                 ts, x, labels, ctx)
             m = _metrics(ce.detach(), logits, labels)
         else:
+            params = self._forward_params(ts.params)
             logits, new_state = self.model.apply(
-                ts.params, ts.model_state, x, ctx)
+                params, ts.model_state, x, ctx)
             ce, m = self.loss_and_metrics(logits, labels)
-            grads = torch.autograd.grad(ce, list(tree_leaves(ts.params)))
+            grads = torch.autograd.grad(ce, list(tree_leaves(params)))
             if self._reducer is not None:
                 grads = self._reduced(self._reducer.issue(
-                    _like(ts.params, iter(grads)), mean=True))
+                    _like(params, iter(grads)), mean=True))
             else:
                 if self.mesh.group is not None:
                     self.grad_reductions += 1
-                grads = _like(ts.params, iter(self._mean_over_ranks(grads)))
+                grads = _like(params, iter(self._mean_over_ranks(grads)))
+            grads = self._local_grads(grads)
         state_leaves = list(tree_leaves(new_state))
         if not self._sync_bn and state_leaves:
             # Per-replica stats averaged before they are kept.
@@ -318,7 +330,8 @@ class _DataParallel:
     def eval_step(self, ts: TrainState, images, labels) -> dict:
         ctx = L.Context(train=False, dtype=self.compute_dtype,
                         model_group=self._model_group)
-        logits, _ = self.model.apply(ts.params, ts.model_state,
+        logits, _ = self.model.apply(self._forward_params(ts.params, False),
+                                     ts.model_state,
                                      self._input(images, ts.step, False),
                                      ctx)
         return self._sum_metrics(self.loss_and_metrics(logits, labels)[1])

@@ -27,7 +27,10 @@ them | v columns of them] (`Split(dim, parts=3)`), and the (3D,) bias
 the same way. `to_canonical` gathers the shards and undoes the
 interleave, so the checkpoint is the reference's layout exactly and
 resumes under `--engine gspmd|ddp`, under the reference's engine, and
-back.
+back. `to_canonical_sharded` is the sharded format's view of the same
+state, with no collective: this rank's shards as rectangles of the
+canonical leaves (three for the fused QKV), written by the ranks of
+data index 0 (`checkpointing/sharded.py`).
 
 A train step, per rank:
 
@@ -60,6 +63,10 @@ from typing import Any, NamedTuple, Optional, Sequence, Tuple
 import torch
 import torch.distributed as dist
 
+from distributed_model_parallel_tpu_torch.checkpointing.sharded import (
+    ShardedState,
+    sharded_state,
+)
 from distributed_model_parallel_tpu_torch.models import layers as L
 from distributed_model_parallel_tpu_torch.models.convert import (
     train_state_from_jax,
@@ -74,6 +81,7 @@ from distributed_model_parallel_tpu_torch.runtime.mesh import (
     Mesh,
     MeshSpec,
     make_mesh,
+    mesh_axes,
 )
 from distributed_model_parallel_tpu_torch.training.optim import tree_map
 
@@ -204,6 +212,21 @@ class TensorParallelEngine(_DataParallel):
         self._model_group = self.mesh.model_group
         self._specs = None  # the layout, from the first parameter tree
 
+    def _shard_axis(self):
+        """(group, count, index) of the axis the state shards over: the
+        model axis here; `FSDPEngine` shards over the data axis."""
+        return (self.mesh.model_group, self.mesh.model,
+                self.mesh.model_index)
+
+    def _holders(self, m: int) -> Tuple[int, ...]:
+        """The global ranks holding shard `m`: model index m of every
+        data index."""
+        return tuple(d * self.mesh.model + m for d in range(self.mesh.data))
+
+    def _axis_entry(self):
+        """The mesh axis name a sharded leaf's manifest spec records."""
+        return "model"
+
     def state_partition_specs(self, ts: TrainState) -> TrainState:
         """The layout of `ts`: a `Split` (or None, replicated) for each
         parameter and optimizer leaf; BN state and the step replicate."""
@@ -220,15 +243,14 @@ class TensorParallelEngine(_DataParallel):
         shards (`rules`) on the engine's device. ValueError when a
         sharded dimension does not split over the model ranks."""
         self._specs = shard_specs(params, self.rules)
+        _, count, index = self._shard_axis()
         return super().state_from_params(
-            shard_tree(params, self._specs, self.mesh.model_index,
-                       self.mesh.model), model_state)
+            shard_tree(params, self._specs, index, count), model_state)
 
     def _full_state(self, ts: TrainState) -> TrainState:
-        """Every sharded leaf gathered over the model group (collective;
+        """Every sharded leaf gathered over the shard axis (collective;
         on the host when the group is gloo, which carries CPU tensors)."""
-        m = self.mesh.model
-        group = self.mesh.model_group
+        group, m, _ = self._shard_axis()
 
         def gather(t, split):
             t = t.detach()
@@ -258,7 +280,7 @@ class TensorParallelEngine(_DataParallel):
     def _full_like(self, ts: TrainState, device="cpu") -> TrainState:
         """A state of empty FULL-shaped leaves (no collective): the
         template of the canonical tree's shapes, dtypes and layouts."""
-        m = self.mesh.model
+        _, m, _ = self._shard_axis()
 
         def full(t, split):
             if split is None:  # its layout too (channels-last convs)
@@ -287,7 +309,7 @@ class TensorParallelEngine(_DataParallel):
         of `like` (default: a fresh `init_state()`)."""
         like = like or self.init_state()
         full = train_state_from_jax(tree, self._full_like(like))
-        m, shards = self.mesh.model_index, self.mesh.model
+        _, shards, m = self._shard_axis()
 
         def local(t, split):
             return shard_leaf(t.detach(), split, m, shards).to(
@@ -302,6 +324,19 @@ class TensorParallelEngine(_DataParallel):
                         if _like_params(f, full.params)
                         else f.to(self.device) for f in opt)),
             full.step)
+
+
+    def to_canonical_sharded(self, ts: TrainState) -> ShardedState:
+        """The sharded checkpoint's view of `ts` (`checkpointing/
+        sharded.py`): this rank's shards as (canonical path, global
+        start, shape, tensor) regions, and every region's holders. No
+        collective and no copy: the save's snapshot copies what this
+        rank writes."""
+        _, count, index = self._shard_axis()
+        return sharded_state(ts, self.state_partition_specs(ts),
+                             count=count, index=index, holders=self._holders,
+                             entry=self._axis_entry(),
+                             mesh_axes=mesh_axes(self.mesh))
 
 
 __all__ = ["CM_SLICE", "MEGATRON_RULES", "Split", "TensorParallelEngine",

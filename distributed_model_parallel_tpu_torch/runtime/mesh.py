@@ -216,6 +216,17 @@ def data_axis_size(mesh: Mesh) -> int:
     return mesh.data
 
 
+def mesh_axes(mesh: Mesh) -> dict:
+    """The reference's `{axis name: size}` record of the mesh, in its
+    axis order (`data`, or `dcn` and `ici` on a factored mesh, then
+    `stage`, `model`, `seq`, `expert`): what a sharded checkpoint's
+    manifest stores and `training/elastic.py` hands to a restart."""
+    data = ({"dcn": mesh.dcn, "ici": mesh.ici} if mesh.dcn > 1
+            else {"data": mesh.data})
+    return {**data, "stage": mesh.stage, "model": mesh.model, "seq": 1,
+            "expert": 1}
+
+
 def data_hierarchy_axes(mesh: Mesh):
     """(group, ici_group, dcn_group) for gradient-reduction wiring: the
     whole data axis for fused collectives, the intra-slice group the
@@ -227,4 +238,4 @@ def data_hierarchy_axes(mesh: Mesh):
 
 __all__ = ["AXIS_SLICES", "Mesh", "MeshSpec", "data_axis_names",
            "data_axis_size", "data_hierarchy_axes", "local_devices",
-           "make_mesh"]
+           "make_mesh", "mesh_axes"]

@@ -27,8 +27,10 @@ resumes in the other:
 Restore: rank 0 reads the file; with more than one rank it broadcasts
 the outcome (an error is raised on every rank), the accuracy, the epoch
 and then every leaf (`torch.distributed`), so ranks with their own disks
-resume identically. The sharded format (`checkpointing/`) belongs to
-the sharded-checkpoint slice (ROADMAP.md).
+resume identically (`agree_and_broadcast`, which the sharded format's
+reader shares). This module is the legacy format's writer and reader;
+`checkpointing/restore.py` is the unified reader, which takes a sharded
+manifest when one is present and this reader otherwise.
 """
 
 from __future__ import annotations
@@ -45,9 +47,6 @@ from distributed_model_parallel_tpu_torch.runtime.dist import (
     is_primary,
     process_count,
 )
-
-SHARDED_SLICE = "the sharded-checkpoint slice"
-
 
 def flatten_tree(tree, prefix: str = "") -> dict:
     """Nested dicts and tuples -> {"a/0/c": leaf}, the JAX package's path
@@ -99,14 +98,20 @@ def save_checkpoint(directory: str, tree: Any, *, acc: float, epoch: int,
     return npz_path
 
 
+def _manifest_path(directory: str, name: str) -> str:
+    # The sharded format's commit point (`checkpointing/manifest.py`,
+    # which imports this module; the file name is spelled here).
+    return os.path.join(directory, f"{name}.manifest.json")
+
+
 def _missing(directory: str, name: str) -> FileNotFoundError:
     npz_path = os.path.join(directory, f"{name}.npz")
-    if os.path.isfile(os.path.join(directory, f"{name}.manifest.json")):
+    if os.path.isfile(_manifest_path(directory, name)):
         return FileNotFoundError(
             f"Error: {directory} holds a sharded checkpoint ({name}."
-            f"manifest.json) and no {name}.npz; the sharded format is not "
-            f"ported to the PyTorch package yet: it belongs to "
-            f"{SHARDED_SLICE} (ROADMAP.md)")
+            f"manifest.json) and no {name}.npz; this is the legacy "
+            "format's reader: restore it through "
+            "checkpointing.restore_checkpoint")
     return FileNotFoundError(f"Error: no checkpoint found at {npz_path}")
 
 
@@ -160,23 +165,16 @@ def _broadcast_leaves(leaves: dict, template: dict) -> dict:
     return out
 
 
-def restore_checkpoint(directory: str, template: Any, *,
-                       name: str = "ckpt") -> Tuple[Any, float, int]:
-    """Restore into the structure of `template` (the canonical tree, or
-    one of `models/convert.ShapeDtype` leaves). Returns (tree of numpy
-    arrays, best_acc, epoch). FileNotFoundError when the file is absent,
-    KeyError / ValueError when a leaf is missing or misshapen — raised
-    on every rank when rank 0's read fails."""
-    npz_path = os.path.join(directory, f"{name}.npz")
+def agree_and_broadcast(read, template) -> Tuple[Any, float, int]:
+    """Rank 0 runs `read()` -> ({path: array}, acc, epoch); with more
+    than one rank the outcome (an error is raised on every rank), the
+    accuracy, the epoch and then every leaf are broadcast, so no rank
+    hangs in a broadcast that rank 0 never reaches. Returns (tree shaped
+    like `template`, acc, epoch)."""
     leaves, acc, epoch, error = {}, 0.0, 0, None
     if is_primary():
         try:
-            if not os.path.isfile(npz_path):
-                raise _missing(directory, name)
-            leaves = _read_leaves(npz_path, template, "")
-            meta = _read_meta(directory, name)
-            acc = float(meta.get("acc", 0.0))
-            epoch = int(meta.get("epoch", 0))
+            leaves, acc, epoch = read()
         except (OSError, KeyError, ValueError) as e:
             error = e
     if process_count() > 1:
@@ -190,22 +188,51 @@ def restore_checkpoint(directory: str, template: Any, *,
     return _unflatten_like(template, leaves), acc, epoch
 
 
+def restore_checkpoint(directory: str, template: Any, *,
+                       name: str = "ckpt") -> Tuple[Any, float, int]:
+    """Restore into the structure of `template` (the canonical tree, or
+    one of `models/convert.ShapeDtype` leaves). Returns (tree of numpy
+    arrays, best_acc, epoch). FileNotFoundError when the file is absent,
+    KeyError / ValueError when a leaf is missing or misshapen — raised
+    on every rank when rank 0's read fails."""
+
+    def read():
+        npz_path = os.path.join(directory, f"{name}.npz")
+        if not os.path.isfile(npz_path):
+            raise _missing(directory, name)
+        leaves = _read_leaves(npz_path, template, "")
+        meta = _read_meta(directory, name)
+        return leaves, float(meta.get("acc", 0.0)), int(meta.get("epoch", 0))
+
+    return agree_and_broadcast(read, template)
+
+
 def latest_exists(directory: str, name: str = "ckpt") -> bool:
-    """True when `{name}.npz` is present (the legacy format; the port
-    writes and reads no other)."""
-    return os.path.isfile(os.path.join(directory, f"{name}.npz"))
+    """True when a restorable checkpoint of either format is present: the
+    legacy `{name}.npz`, or a sharded save's manifest (its commit
+    point, so its existence means a complete save)."""
+    return os.path.isfile(os.path.join(directory, f"{name}.npz")) or \
+        os.path.isfile(_manifest_path(directory, name))
 
 
 def checkpoint_epoch(directory: str, name: str = "ckpt") -> Optional[int]:
-    """Epoch recorded in `{name}.json`, or None when the checkpoint or
-    its sidecar is absent or unreadable."""
+    """Epoch recorded in the sharded manifest or `{name}.json`, or None
+    when the checkpoint or its record is absent or unreadable. The
+    manifest first: the unified reader prefers it when both formats
+    share the directory, so the epoch answered is the snapshot's that
+    would load."""
     if not latest_exists(directory, name):
         return None
-    try:
-        with open(os.path.join(directory, f"{name}.json")) as f:
-            return int(json.load(f).get("epoch", 0))
-    except (OSError, ValueError):
-        return None
+    for meta_path in (_manifest_path(directory, name),
+                      os.path.join(directory, f"{name}.json")):
+        if not os.path.isfile(meta_path):
+            continue
+        try:
+            with open(meta_path) as f:
+                return int(json.load(f).get("epoch", 0))
+        except (OSError, ValueError):
+            continue
+    return None
 
 
 def newest_checkpoint_name(directory: str) -> str:
@@ -225,7 +252,7 @@ def checkpoint_metadata(directory: str, name: str = "ckpt") -> dict:
     """The sidecar (acc, epoch, keys and extra fields, with
     `format: legacy`) without reading any array; FileNotFoundError when
     the checkpoint is absent."""
-    if not latest_exists(directory, name):
+    if not os.path.isfile(os.path.join(directory, f"{name}.npz")):
         raise _missing(directory, name)
     return {"format": "legacy", **_read_meta(directory, name)}
 
@@ -243,6 +270,6 @@ def restore_subtree(directory: str, template: Any, *, name: str = "ckpt",
     return _unflatten_like(template, leaves), meta
 
 
-__all__ = ["SHARDED_SLICE", "checkpoint_epoch", "checkpoint_metadata",
+__all__ = ["agree_and_broadcast", "checkpoint_epoch", "checkpoint_metadata",
            "flatten_tree", "latest_exists", "newest_checkpoint_name",
            "restore_checkpoint", "restore_subtree", "save_checkpoint"]

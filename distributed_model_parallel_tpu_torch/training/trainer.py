@@ -17,16 +17,26 @@ Ranks (`runtime/dist.py`): every rank runs the loop over its own
 loaders; the metric sums are the engine's, already summed over the
 ranks; only rank 0 prints and writes the epoch log and the checkpoints.
 
-Checkpoints (`training/checkpoint.py`, the JAX package's legacy format;
-an engine that shards its state, `collective_checkpoint = True`, gathers
-it through `to_canonical` on every rank and re-slices a restore through
-`from_canonical`):
-`save_best` writes `ckpt` after each epoch whose validation acc1 beats
-the best so far, `save_last` writes `last` after every epoch (its `acc`
-is the best so far), and `resume` restores the newer of the two by
-recorded epoch and continues from the epoch after it. A save is timed
-by the `checkpoint_blocked` span and the `train_checkpoint_blocked_s`
-histogram.
+Checkpoints: `save_best` writes `ckpt` after each epoch whose
+validation acc1 beats the best so far, `save_last` writes `last` after
+every epoch (its `acc` is the best so far), and `resume` restores the
+newer of the two by recorded epoch and continues from the epoch after
+it, through the unified reader (`checkpointing/restore.py`: either
+format). Two formats, the JAX package's:
+* `checkpoint_format="legacy"` (`training/checkpoint.py`): one `.npz`
+  written by rank 0; an engine that shards its state
+  (`collective_checkpoint = True`) gathers it through `to_canonical` on
+  every rank and re-slices a restore through `from_canonical`;
+* `"sharded"` (`checkpointing/`): every rank writes the chunks it owns of
+  the engine's `to_canonical_sharded` view (a replicated state's view
+  for the data-parallel and LM engines), with no collective; an engine
+  whose canonical form restructures its state (the pipeline's) is
+  refused with the reference's message. `async_save` moves the file I/O
+  to a background writer; its errors surface at the next save or when
+  `fit()` exits, and `fit()` drains it, on a failure too.
+A save is timed by the `checkpoint_blocked` span and the
+`train_checkpoint_blocked_s` histogram: the whole write, or only the
+snapshot under `async_save`.
 
 Dispatch groups (`training/multistep.py`): with `steps_per_dispatch` k
 > 1 the loop pulls k batches a group and runs them in one dispatch (a
@@ -39,9 +49,6 @@ cover three steps, from the first group that starts at or past step 10
 (or from the first group, when the epoch is too short): three steps at
 k = 1, one group of k steps when k >= 3. It writes the trace into the
 directory and prints its path.
-
-Left to a later slice, and refused rather than skipped: the sharded
-checkpoint format and `async_save`.
 """
 
 from __future__ import annotations
@@ -54,6 +61,12 @@ from typing import Any, Iterable, Optional
 
 import torch
 
+from distributed_model_parallel_tpu_torch.checkpointing import (
+    AsyncCheckpointer,
+    restore_checkpoint,
+    save_sharded,
+    sharded_state,
+)
 from distributed_model_parallel_tpu_torch.models.convert import (
     train_state_from_jax,
     train_state_spec,
@@ -66,10 +79,9 @@ from distributed_model_parallel_tpu_torch.observability.trace import (
     get_tracer,
 )
 from distributed_model_parallel_tpu_torch.runtime.dist import is_primary
+from distributed_model_parallel_tpu_torch.runtime.mesh import mesh_axes
 from distributed_model_parallel_tpu_torch.training.checkpoint import (
-    SHARDED_SLICE,
     newest_checkpoint_name,
-    restore_checkpoint,
     save_checkpoint,
 )
 from distributed_model_parallel_tpu_torch.training.multistep import (
@@ -100,10 +112,7 @@ class EpochStats:
 
 @dataclasses.dataclass
 class TrainerConfig:
-    """Trainer hyperparameters, the reference's fields. The sharded
-    checkpoint fields exist so a configuration crosses between the
-    packages; their non-default values are refused until their slice
-    lands."""
+    """Trainer hyperparameters, the reference's fields."""
 
     epochs: int = 100
     base_lr: float = 0.1
@@ -125,18 +134,15 @@ class TrainerConfig:
     # Also write a 'last' checkpoint at the end of every epoch; resume
     # prefers it over the best-acc 'ckpt' when it is newer.
     save_last: bool = False
+    # "legacy": one .npz gathered to rank 0; "sharded": every rank writes
+    # its own chunks + a JSON manifest (`checkpointing/`). Restore reads
+    # either.
     checkpoint_format: str = "legacy"
+    # Move the sharded format's file I/O off the step path.
     async_save: bool = False
     # JSON-able fields added to the checkpoint sidecar (the LM CLI
     # records its GPTConfig, which `cli/serve.py --checkpoint` checks).
     checkpoint_extra: Optional[dict] = None
-
-
-def _refused(knob: str, later: str) -> ValueError:
-    return ValueError(
-        f"TrainerConfig.{knob} is not ported to the PyTorch package yet: "
-        f"it belongs to {later} (ROADMAP.md)"
-    )
 
 
 class Trainer:
@@ -145,13 +151,17 @@ class Trainer:
     def __init__(self, engine: Any, train_loader: Iterable,
                  val_loader: Optional[Iterable], config: TrainerConfig,
                  seed: int = 0):
-        for knob, bad, later in (
-            ("checkpoint_format", config.checkpoint_format != "legacy",
-             SHARDED_SLICE),
-            ("async_save", config.async_save, SHARDED_SLICE),
-        ):
-            if bad:
-                raise _refused(knob, later)
+        if config.checkpoint_format not in ("legacy", "sharded"):
+            raise ValueError(
+                "checkpoint_format must be 'legacy' or 'sharded', got "
+                f"{config.checkpoint_format!r}")
+        if config.async_save and config.checkpoint_format != "sharded":
+            raise ValueError(
+                "async_save moves the sharded writer off the step path; "
+                "it requires checkpoint_format='sharded' (the legacy "
+                "format gathers to host 0 synchronously by design)")
+        self._ckpt_writer = AsyncCheckpointer() if config.async_save \
+            else None
         self.engine = engine
         self.train_loader = train_loader
         self.val_loader = val_loader
@@ -176,8 +186,10 @@ class Trainer:
         self.profile_path: Optional[str] = None
 
     def _resume(self) -> None:
-        """Restore the newer of 'last' and 'ckpt' (rank 0 reads, the
-        others receive it) and continue from the epoch after it."""
+        """Restore the newer of 'last' and 'ckpt', of either format (rank
+        0 reads, the others receive it; a sharded file saved on another
+        mesh is re-sliced for this one) and continue from the epoch
+        after it."""
         cfg = self.config
         eng = self.engine
         name = newest_checkpoint_name(cfg.checkpoint_dir)
@@ -387,7 +399,23 @@ class Trainer:
 
     def fit(self) -> dict:
         """Train, validate, checkpoint and log each epoch from
-        `start_epoch`."""
+        `start_epoch`. On a failure the background writer is drained
+        first (a restart reads the directory at once); a write failure
+        met there is printed, not raised, so that the training error is
+        the one that propagates."""
+        try:
+            return self._fit()
+        except BaseException:
+            if self._ckpt_writer is not None:
+                try:
+                    self._ckpt_writer.wait()
+                except Exception as we:  # noqa: BLE001 -- reported below
+                    self._log_print(
+                        "==> WARNING: background checkpoint write failed "
+                        f"during abort: {we!r}")
+            raise
+
+    def _fit(self) -> dict:
         cfg = self.config
         for epoch in range(self.start_epoch, cfg.epochs):
             train_stats = self.train_epoch(epoch)
@@ -396,8 +424,7 @@ class Trainer:
             is_best = (cfg.save_best and self.val_loader is not None
                        and val_stats.acc1 > self.best_acc)
             if is_best or cfg.save_last:
-                # Once an epoch; rank 0 alone writes.
-                payload = self._canonical_payload()
+                payload = self._checkpoint_payload()  # once an epoch
             if is_best:
                 self.best_acc = val_stats.acc1
                 self._log_print("Saving..")
@@ -407,8 +434,34 @@ class Trainer:
                 # lower best_acc and a worse model overwrite 'ckpt'.
                 self._write_checkpoint(payload, "last", epoch)
             self._append_epoch_log(epoch, train_stats, val_stats)
+        if self._ckpt_writer is not None:
+            # The last point where a background write's error surfaces,
+            # and the join that makes the final snapshot durable.
+            self._ckpt_writer.wait()
         return {"best_acc": self.best_acc, "epochs": cfg.epochs,
                 "history": self.history}
+
+    def _checkpoint_payload(self):
+        """What the epoch's saves write: the canonical tree rank 0 writes
+        (legacy), or the engine's `to_canonical_sharded` view (sharded),
+        a replicated state's own view for an engine without that seam,
+        and a refusal for an engine whose canonical form restructures
+        its state."""
+        if self.config.checkpoint_format == "legacy":
+            return self._canonical_payload()
+        fn = getattr(self.engine, "to_canonical_sharded", None)
+        if fn is not None:
+            return fn(self.state)
+        if getattr(self.engine, "to_canonical", None) is not None:
+            raise ValueError(
+                f"{type(self.engine).__name__} defines a RESTRUCTURING "
+                "canonical form (to_canonical) without a "
+                "to_canonical_sharded seam, so its runtime layout cannot "
+                "be written shard-for-shard; use checkpoint_format="
+                "'legacy' with this engine")
+        mesh = getattr(self.engine, "mesh", None)
+        return sharded_state(self.state,
+                             mesh_axes=mesh_axes(mesh) if mesh else None)
 
     def _canonical_payload(self):
         """The canonical tree rank 0 writes (None on the other ranks). An
@@ -422,7 +475,7 @@ class Trainer:
     def _write_checkpoint(self, payload, name: str, epoch: int) -> None:
         """One save, timed by the `checkpoint_blocked` span and the
         `train_checkpoint_blocked_s` histogram: how long it holds the
-        epoch loop."""
+        epoch loop (the snapshot only, under `async_save`)."""
         cfg = self.config
         tracer = get_tracer()
         mx = get_metrics()
@@ -430,9 +483,19 @@ class Trainer:
         try:
             with tracer.span("checkpoint_blocked", snapshot=name,
                              epoch=epoch, format=cfg.checkpoint_format):
-                save_checkpoint(cfg.checkpoint_dir, payload,
-                                acc=self.best_acc, epoch=epoch, name=name,
-                                extra=cfg.checkpoint_extra)
+                if cfg.checkpoint_format == "legacy":
+                    save_checkpoint(cfg.checkpoint_dir, payload,
+                                    acc=self.best_acc, epoch=epoch,
+                                    name=name, extra=cfg.checkpoint_extra)
+                    return
+                if self._ckpt_writer is not None:
+                    # An earlier epoch's failed background write surfaces
+                    # before a new one starts.
+                    self._ckpt_writer.check()
+                save_sharded(cfg.checkpoint_dir, payload, acc=self.best_acc,
+                             epoch=epoch, name=name,
+                             extra=cfg.checkpoint_extra,
+                             writer=self._ckpt_writer)
         finally:
             if t0 is not None:
                 mx.observe("train_checkpoint_blocked_s", tracer.now() - t0)

@@ -504,3 +504,262 @@ def cli_suite(rank, world, payload) -> dict:
         os.chdir(payload["dirs"][where][rank])
         out.append(main(argv)["history"])
     return out
+
+
+def fsdp_model(payload):
+    """The port's model of an FSDP payload: tinycnn(10), or the BERT
+    classifier of `payload["bert"]`."""
+    if payload["model"] == "tinycnn":
+        from distributed_model_parallel_tpu_torch.models.tinycnn import (
+            tiny_cnn,
+        )
+
+        return tiny_cnn(10)
+    from distributed_model_parallel_tpu_torch.models.bert import (
+        BertConfig,
+        bert_for_classification,
+    )
+
+    return bert_for_classification(payload["classes"],
+                                   BertConfig(**payload["bert"]))
+
+
+def fsdp_suite(rank, world, payload) -> dict:
+    """FSDPEngine runs from the reference weights `payload["params"]` /
+    `["state"]`, one per entry of `payload["runs"]` (`name`, `gr`,
+    `opt`, `lr`, and optionally `dcn`, `wire`, `bucket_mb`): SGD or
+    AdamW steps on this rank's rows of each global batch. Returns per
+    run: the per-step metric sums, the gathered canonical tree, this
+    rank's parameter shard shapes in the canonical layout, and the
+    collectives issued."""
+    from distributed_model_parallel_tpu_torch.models.convert import (
+        from_jax_params,
+    )
+    from distributed_model_parallel_tpu_torch.parallel.fsdp import (
+        FSDPEngine,
+    )
+    from distributed_model_parallel_tpu_torch.runtime.mesh import (
+        MeshSpec,
+        make_mesh,
+    )
+    from distributed_model_parallel_tpu_torch.training.checkpoint import (
+        flatten_tree,
+    )
+
+    model = fsdp_model(payload)
+    meshes = {}
+    out = {}
+    for run in payload["runs"]:
+        dcn = run.get("dcn", 1)
+        if dcn not in meshes:
+            meshes[dcn] = make_mesh(MeshSpec(dcn=dcn))
+        eng = FSDPEngine(model, _tp_optimizer(run["opt"]), meshes[dcn],
+                         device="cpu", grad_reduction=run["gr"],
+                         bucket_mb=run.get("bucket_mb", 0.002),
+                         dcn_compression=run.get("wire", "none"),
+                         min_shard_elems=payload.get("min_shard_elems",
+                                                     1024))
+        ts = eng.state_from_params(*from_jax_params(
+            payload["params"], model=model, state=payload["state"]))
+        sums = []
+        for x, y in payload["batches"]:
+            b = len(y) // world
+            rows = slice(rank * b, (rank + 1) * b)
+            ts, m = eng.train_step(ts, *eng.shard_batch(x[rows], y[rows]),
+                                   run["lr"])
+            sums.append({k: float(v) for k, v in m.items()})
+        shapes = {k: tuple(v.permute(2, 3, 1, 0).shape if v.dim() == 4
+                           else v.shape)
+                  for k, v in flatten_tree(ts.params).items()}
+        out[run["name"]] = {
+            "sums": sums, "canonical": eng.to_canonical(ts),
+            "shapes": shapes, "grad_reductions": eng.grad_reductions,
+            "param_gathers": eng.param_gathers}
+    return out
+
+
+def codec_suite(rank, world, payload) -> dict:
+    """`coded_ppermute` forward and backward on this rank's row of
+    `payload["x"]` / `["g"]` for each (perm name, perm, wire) of
+    `payload["hops"]` over the world; `FSDPEngine._coded_dcn_gather` of
+    this rank's rows of `payload["leaf"]` on a `MeshSpec(dcn=2)` mesh for
+    each wire; then `fsdp_suite` on `payload["fsdp"]` when given."""
+    import torch
+    import torch.distributed as dist
+
+    from distributed_model_parallel_tpu_torch.models.tinycnn import tiny_cnn
+    from distributed_model_parallel_tpu_torch.ops.wire_codec import (
+        coded_ppermute,
+    )
+    from distributed_model_parallel_tpu_torch.parallel.fsdp import (
+        FSDPEngine,
+    )
+    from distributed_model_parallel_tpu_torch.runtime.mesh import (
+        MeshSpec,
+        make_mesh,
+    )
+    from distributed_model_parallel_tpu_torch.training.optim import SGD
+
+    out = {}
+    for name, perm, wire in payload["hops"]:
+        x = torch.from_numpy(payload["x"][rank:rank + 1]).requires_grad_()
+        y = coded_ppermute(x, dist.group.WORLD, perm, wire)
+        y.backward(torch.from_numpy(payload["g"][rank:rank + 1]))
+        out["hop", name, wire] = (y.detach().numpy().copy(),
+                                  x.grad.numpy().copy())
+    mesh = make_mesh(MeshSpec(dcn=2))
+    leaf = payload["leaf"]
+    rows = len(leaf) // world
+    shard = torch.from_numpy(leaf[rank * rows:(rank + 1) * rows])
+    for wire in ("none", "bf16", "int8"):
+        eng = FSDPEngine(tiny_cnn(10), SGD(), mesh, device="cpu",
+                         dcn_compression="int8")
+        eng._wire = wire
+        out["gather", wire] = eng._coded_dcn_gather(shard, 0).numpy()
+    if "fsdp" in payload:
+        out["fsdp"] = fsdp_suite(rank, world, payload["fsdp"])
+    return out
+
+
+def _ckpt_engine(payload, kind: str, opt: str):
+    """An FSDPEngine or a TensorParallelEngine (model = the world) on the
+    payload's BERT, on this process's world."""
+    from distributed_model_parallel_tpu_torch.parallel.fsdp import (
+        FSDPEngine,
+    )
+    from distributed_model_parallel_tpu_torch.parallel.tensor_parallel import (
+        TensorParallelEngine,
+    )
+    from distributed_model_parallel_tpu_torch.runtime.dist import (
+        process_count,
+    )
+    from distributed_model_parallel_tpu_torch.runtime.mesh import (
+        MeshSpec,
+        make_mesh,
+    )
+
+    model = fsdp_model(payload)
+    if kind == "tp":
+        return TensorParallelEngine(
+            model, _tp_optimizer(opt),
+            make_mesh(MeshSpec(data=-1, model=process_count())),
+            device="cpu")
+    return FSDPEngine(model, _tp_optimizer(opt), device="cpu")
+
+
+def _ckpt_steps(eng, ts, payload, steps: int, rank: int):
+    """`steps` steps on this data index's rows of the payload's batches."""
+    sums = []
+    d, i = eng.mesh.data, eng.mesh.data_index
+    for x, y in payload["batches"][:steps]:
+        b = len(y) // d
+        ts, m = eng.train_step(ts, *eng.shard_batch(x[i * b:(i + 1) * b],
+                                                    y[i * b:(i + 1) * b]),
+                               payload["lr"])
+        sums.append({k: float(v) for k, v in m.items()})
+    return ts, sums
+
+
+def ckpt_suite(rank, world, payload) -> dict:
+    """Sharded-checkpoint operations, in order (`payload["ops"]`):
+    ("save", kind, directory): the engine (`_ckpt_engine`) from the
+    reference weights, `payload["steps"]` steps, `save_sharded` of its
+    `to_canonical_sharded` view with every all-gather and broadcast of
+    `torch.distributed` made to raise; ("restore", kind, directory):
+    the engine restored from the directory through the unified reader,
+    then one step. Returns per op the gathered canonical tree (after the
+    save's steps, or right after the restore) and, for a restore, the
+    step's sums and the canonical tree after it."""
+    import torch.distributed as dist
+
+    from distributed_model_parallel_tpu_torch import checkpointing
+    from distributed_model_parallel_tpu_torch.models.convert import (
+        from_jax_params,
+    )
+
+    out = []
+    for op, kind, directory in payload["ops"]:
+        eng = _ckpt_engine(payload, kind, payload["opt"])
+        if op == "save":
+            ts = eng.state_from_params(*from_jax_params(
+                payload["params"], model=eng.model, state=payload["state"]))
+            ts, _ = _ckpt_steps(eng, ts, payload, payload["steps"], rank)
+            view = eng.to_canonical_sharded(ts)
+            saved = {}
+
+            def refuse(*a, **k):
+                raise AssertionError("a collective ran on the save path")
+
+            for name in ("all_gather", "all_gather_into_tensor",
+                         "all_gather_object", "broadcast", "all_reduce"):
+                saved[name] = getattr(dist, name)
+                setattr(dist, name, refuse)
+            try:
+                checkpointing.save_sharded(directory, view, acc=1.5,
+                                           epoch=2)
+            finally:
+                for name, fn in saved.items():
+                    setattr(dist, name, fn)
+            dist.barrier()  # rank 0 committed the manifest
+            out.append({"canonical": eng.to_canonical(ts)})
+            continue
+        like = eng.init_state(1)
+        tree, acc, epoch = checkpointing.restore_checkpoint(
+            directory, eng.canonical_spec(like))
+        ts = eng.from_canonical(tree, like)
+        before = eng.to_canonical(ts)
+        ts, sums = _ckpt_steps(eng, ts, payload, 1, rank)
+        out.append({"canonical": before, "meta": (acc, epoch),
+                    "sums": sums, "after": eng.to_canonical(ts)})
+    return out
+
+
+def elastic_cli(rank, world, payload) -> dict:
+    """`cli/data_parallel.main(payload["argv"])` in this rank from
+    `payload["dir"]`, with the training failing once at the start of
+    epoch `payload["fail_epoch"]` (None: never); the val split cut to
+    `payload["val"]` rows; bert_tiny without dropout when
+    `payload["no_dropout"]`, and FSDP's initial weights the reference
+    tree `payload["init"]` when given. Returns the history, the elastic summary and
+    the topology the checkpoint directory recorded before the run."""
+    from distributed_model_parallel_tpu_torch import checkpointing
+    from distributed_model_parallel_tpu_torch.cli import data_parallel
+    from distributed_model_parallel_tpu_torch.data import datasets
+    from distributed_model_parallel_tpu_torch.training import trainer
+
+    datasets.DatasetCollection.init = val_cut(
+        datasets.DatasetCollection.init, payload["val"])
+    if payload.get("no_dropout"):
+        import dataclasses
+
+        from distributed_model_parallel_tpu_torch.cli import common
+
+        tiny = common._bert_tiny_cfg
+        common._bert_tiny_cfg = lambda: dataclasses.replace(
+            tiny(), dropout_rate=0.0)
+    if payload.get("init"):
+        from distributed_model_parallel_tpu_torch.models.convert import (
+            from_jax_params,
+        )
+        from distributed_model_parallel_tpu_torch.parallel.fsdp import (
+            FSDPEngine,
+        )
+
+        params, state = payload["init"]
+        FSDPEngine.init_state = lambda self, seed=0: self.state_from_params(
+            *from_jax_params(params, model=self.model, state=state))
+    real = trainer.Trainer.train_epoch
+    failed = []
+
+    def train_epoch(self, epoch):
+        if epoch == payload.get("fail_epoch") and not failed:
+            failed.append(epoch)
+            raise RuntimeError(f"injected failure in epoch {epoch}")
+        return real(self, epoch)
+
+    trainer.Trainer.train_epoch = train_epoch
+    os.chdir(payload["dir"])
+    topology = checkpointing.saved_topology(payload["ckpt"], "last")
+    out = data_parallel.main(payload["argv"])
+    return {"history": out["history"], "elastic": out.get("elastic"),
+            "topology": topology}

@@ -16,7 +16,8 @@ the other:
   DP CLI (one rank and two gloo ranks, where rank 1 has no file and
   takes rank 0's by broadcast) and the LM CLI;
 * the resume rules (the newer snapshot, missing files and leaves, wrong
-  shapes, the epochs warning, the sharded format refused);
+  shapes, the epochs warning, an unknown format and --async-save
+  without the sharded format refused);
 * `serve --checkpoint` gives the JAX serve CLI's greedy tokens on the
   same directory, written by either package, and its guard names the
   mismatched flag.
@@ -387,7 +388,9 @@ def test_restore_refuses_missing_files_leaves_and_shapes(tmp_path):
     with pytest.raises(FileNotFoundError, match="no checkpoint"):
         ckpt.restore_checkpoint(str(tmp_path), spec)
     (tmp_path / "ckpt.manifest.json").write_text("{}")
-    with pytest.raises(FileNotFoundError, match="sharded-checkpoint slice"):
+    # The legacy reader names the unified one for a sharded directory.
+    with pytest.raises(FileNotFoundError,
+                       match="checkpointing.restore_checkpoint"):
         ckpt.restore_checkpoint(str(tmp_path), spec)
     _write(tmp_path, "ckpt", 0, ts)
     path, leaf = next(iter(ckpt.flatten_tree(spec["params"]).items()))
@@ -415,11 +418,16 @@ def test_resume_past_the_last_epoch_warns_and_trains_nothing(tmp_path,
     assert "fit() will train 0 epochs" in out
 
 
-@pytest.mark.parametrize("knob", [dict(checkpoint_format="sharded"),
+@pytest.mark.parametrize("knob", [dict(checkpoint_format="zarr"),
                                   dict(async_save=True)])
 def test_trainer_refuses_the_sharded_format(knob):
+    """Ported with the sharded-checkpoint slice: the trainer refuses what
+    the reference's refuses, an unknown format and --async-save without
+    the sharded one, with its messages."""
     eng, _ = _trained("tinycnn")
-    with pytest.raises(ValueError, match="sharded-checkpoint slice"):
+    with pytest.raises(ValueError, match=(
+            "must be 'legacy' or 'sharded'" if "checkpoint_format" in knob
+            else "requires checkpoint_format='sharded'")):
         Trainer(eng, [], None, TrainerConfig(**knob))
 
 

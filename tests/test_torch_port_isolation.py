@@ -80,7 +80,10 @@ def test_every_port_module_imports_without_jax():
         "for m in ('training.multistep', 'models.vit', 'models.bert',\n"
         "          'observability.metrics', 'ops.grad_reduction',\n"
         "          'ops.wire_codec', 'parallel.tensor_parallel',\n"
-        "          'data.device_cache'):\n"
+        "          'data.device_cache', 'parallel.fsdp',\n"
+        "          'training.elastic', 'checkpointing.manifest',\n"
+        "          'checkpointing.sharded', 'checkpointing.writer',\n"
+        "          'checkpointing.save', 'checkpointing.restore'):\n"
         "    assert pkg.__name__ + '.' + m in names, m\n"
         "import distributed_model_parallel_tpu_torch.cli.serve\n"
         "print(len(names))\n"
@@ -275,7 +278,12 @@ def test_data_parallel_cli_refuses_out_of_slice_flags(flags, slice_,
     loaders. --engine tp, --model-shards, --device-cache and
     --dataset-type Imagenet, refused before the tensor-parallel,
     device-cache and image-folder slice, now meet the JAX CLI's checks,
-    build index loaders, and read the image tree."""
+    build index loaders, and read the image tree. --engine fsdp,
+    --checkpoint-format sharded and --max-restarts, refused before the
+    FSDP / sharded-checkpoint / elastic slice, now build the FSDP engine,
+    the sharded trainer configuration and the per-epoch 'last' snapshot
+    that elastic restarts resume from; --async-save alone exits with the
+    JAX CLI's message (it needs the sharded format)."""
     from distributed_model_parallel_tpu_torch.cli import data_parallel
 
     if slice_ in ("tensor-parallel", "image-folder"):
@@ -300,15 +308,21 @@ def test_data_parallel_cli_refuses_out_of_slice_flags(flags, slice_,
         with pytest.raises(SystemExit, match=REDUCER_EXITS[flags[0]]):
             data_parallel.main(["--device", "cpu", *flags])
         return
+    if flags[0] == "--async-save":
+        with pytest.raises(SystemExit,
+                           match="requires --checkpoint-format sharded"):
+            data_parallel.main(["--device", "cpu", *flags])
+        return
     if slice_ not in ("activation-rematerialization", "multi-step dispatch",
                       "profiler-capture", "transformer-classifier",
-                      "device-cache"):
+                      "device-cache", "FSDP", "sharded-checkpoint",
+                      "elastic-restart"):
         with pytest.raises(SystemExit, match=f"not ported.*{slice_} slice"):
             data_parallel.main(["--device", "cpu", *flags])
         return
     seen = {}
 
-    class Stop(Exception):
+    class Stop(BaseException):  # not an Exception: no elastic retry
         pass
 
     def build_model(name, num_classes, **kw):
@@ -334,6 +348,11 @@ def test_data_parallel_cli_refuses_out_of_slice_flags(flags, slice_,
         assert seen["model"] == flags[1]
     if flags[-1] == "SyntheticText":
         assert seen["train"].raw and seen["classes"] == 4
+    assert (type(seen["engine"]).__name__ == "FSDPEngine") is \
+        (slice_ == "FSDP")
+    assert cfg.checkpoint_format == ("sharded" if slice_ ==
+                                     "sharded-checkpoint" else "legacy")
+    assert cfg.save_last is (slice_ == "elastic-restart")
     if flags[0] == "--device-cache":  # index loaders, on-device pixels
         assert type(seen["train"]).__name__ == "IndexLoader"
         assert seen["engine"].input_transform.wants_ctx

@@ -359,7 +359,15 @@ def test_cli_refuses_flags_of_later_slices(flags, slice_, monkeypatch):
     --steps-per-dispatch and --profile-dir, refused before their slice
     was ported, now reach the engine and the trainer as in the JAX CLI
     (tests/test_torch_port_remat.py, test_torch_port_multistep.py and
-    test_torch_port_metrics.py hold what they do)."""
+    test_torch_port_metrics.py hold what they do). --checkpoint-format
+    sharded, refused before the sharded-checkpoint slice, now reaches
+    the trainer's configuration, and --async-save alone exits with the
+    JAX CLI's message (it needs the sharded format)."""
+    if flags[0] == "--async-save":
+        with pytest.raises(SystemExit,
+                           match="requires --checkpoint-format sharded"):
+            lm_cli.main(["--device", "cpu", *flags])
+        return
     if flags[0] in ("--dcn-slices", "--dcn-compression"):
         # Ported with the gradient-reduction slice: one rank has no
         # second slice, and a compressed wire needs one.
@@ -369,7 +377,8 @@ def test_cli_refuses_flags_of_later_slices(flags, slice_, monkeypatch):
             lm_cli.main(["--device", "cpu", *flags])
         return
     if slice_ not in ("activation-rematerialization", "multi-step dispatch",
-                      "profiler-capture", "gradient-reduction"):
+                      "profiler-capture", "gradient-reduction",
+                      "sharded-checkpoint"):
         with pytest.raises(SystemExit, match=f"not ported.*{slice_} slice"):
             lm_cli.main(["--device", "cpu", *flags])
         return
@@ -393,3 +402,5 @@ def test_cli_refuses_flags_of_later_slices(flags, slice_, monkeypatch):
                                       "--steps-per-dispatch" else 1)
     assert cfg.profile_dir == ("prof" if flags[0] == "--profile-dir"
                                else None)
+    assert cfg.checkpoint_format == (
+        "sharded" if flags[0] == "--checkpoint-format" else "legacy")
