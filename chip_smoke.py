@@ -91,10 +91,12 @@ Phases; any failure exits non-zero (nothing is caught and passed over):
    losses, ms a step and the convolution kernels of each, then one step
    under `torch.use_deterministic_algorithms(True, warn_only=True)`;
    the deterministic runs must be equal. Then the DP CLI, MobileNetV2
-   f32, two epochs of 12 steps (30 until phase 13 was added): `--engine ddp` twice and `--engine
-   gspmd` once (equal per-step losses), one epoch then `--resume` to
-   two (the straight run's losses and epoch-1 record), each epoch's
-   validation on 10,000 images, save / restore ms and file bytes.
+   f32, two epochs of 8 steps (30 until phase 13 was added, 12 until
+   phase 14 was): `--engine ddp` twice and `--engine gspmd` once (equal
+   per-step losses), one epoch then `--resume` to two (the straight
+   run's losses and epoch-1 record), each epoch's validation on the
+   first 2,560 of the 10,000 val images (all until phase 14 was added),
+   save / restore ms and file bytes.
    (b) the LM CLI at GPT-2-small width, `ulysses_flash` f32, 2 + 2
    steps across `--resume` against 4 straight: equal per-step losses,
    exact K1-K3 launches, save / restore ms and bytes.
@@ -105,11 +107,11 @@ Phases; any failure exits non-zero (nothing is caught and passed over):
    (`cli/model_parallel.py` main) on MobileNetV2 at batch 512, lr 0.4,
    `-j 8`, on phase 6's SyntheticTextures, `--world-size 4` (four
    stages on the one card, so they run one after another: no bubble
-   can show), 6 steps and a validation pass over the first 1,024 of
+   can show), 6 steps and a validation pass over the first 512 of
    the 10,000 validation images each (30 steps and all 10,000 until
    phase 10 was added, 12 steps until phase 11, 10 steps and 2,560
-   images until phase 13; cut in depth to keep the whole run near
-   1,000 s):
+   images until phase 13, 1,024 images until phase 14; cut in depth to
+   keep the whole run near 1,000 s):
    the reference
    split at `--microbatches 1` (the reference's schedule) and at 8 with
    gpipe and 1f1b in f32 and bf16, and interleaved (V 2, the default
@@ -253,13 +255,42 @@ Phases; any failure exits non-zero (nothing is caught and passed over):
    times of the same state. K4 must launch 0 times. Runs whose
    checkpoints no check reads (phases 5, 6, 8, 10-12 and 13 (a)) save
    none: the machine takes 45 GiB of disk writes a call.
-14. One `{"kernels": [...]}` JSON line (int8_matmul, flash_fwd,
+14. Slice 13 (sequence parallelism at N > 1): (a) the LM CLI at
+   `--seq-shards 2` in two spawned processes on the one card, each in a
+   gloo world of 2 that it joins before `cli/lm.main` does (NCCL puts
+   one rank on a GPU; the K/V hops, all-to-alls and all-reduces stage
+   CUDA tensors through the host), GPT-2-small width, `--optimizer sgd`,
+   3 steps and 1 val batch: `ring_flash` f32 at 12 layers, bf16 and
+   `ulysses_flash` f32 at 4, plain `ring` and `ulysses` and a
+   `--grad-reduction bucketed` ring_flash run at 2, each against
+   `--seq-shards 1` in this process at the same flags (f32: per-step
+   losses and rank 0's final parameters within S11_M2_TOL; bf16
+   printed; rank 1's parameters equal to rank 0's bit for bit); exact
+   K1-K4 launches on each seq rank s, counted in the rank (ring_flash:
+   K1 = layers x (s + 1) x (steps + val batches), K2 = K3 = layers x
+   (s + 1) x steps; ulysses_flash as at N 1; the plain cores none; K4
+   none); each rank's
+   ms a step (host-staged gloo, not a ring time), and its device busy
+   over one profiled step of the 12-layer f32 run. (b) K1-K3 at the
+   hop shapes (S13_HOP_CASES: ring_flash's resident block and a masked
+   non-causal hop at (8, 512, 12, 64), ulysses_flash's (8, 1024, 6,
+   64)), f32 and bf16, through the path shape's `flash_case` and
+   `flash_timings`: against their plain versions (FLASH_TOL), with the
+   non-finite and tile-sweep checks, each timed with its bound and SDPA
+   as the yardstick. (c) `SequenceParallelEngine` (BERT, ring_flash,
+   padded key masks) at N 2 over gloo, 2-layer BERT_BASE width, dropout
+   0, 3 SGD steps, against `DDPEngine` at N 1 on the card within
+   S11_M2_TOL, rank 1's parameters equal to rank 0's; K1-K3 12
+   launches a rank and K4 none.
+15. One `{"kernels": [...]}` JSON line (int8_matmul, flash_fwd,
    flash_bwd_dq, flash_bwd_dkv; `launches_slice6` counts phase 7's
    runs, `launches_slice7` phase 8's, `launches_slice8` phase 9's,
    `launches_slice9` phase 10's as the wrappers count them,
    `replays_slice9_traced` the launches that phase 10's profiles of
    4-step graph dispatches show, `launches_slice10` phase 11's,
-   `launches_slice11` phase 12's, `launches_slice12` phase 13's), then
+   `launches_slice11` phase 12's, `launches_slice12` phase 13's,
+   `launches_slice13` phase 14's over both ranks, and each flash
+   kernel's `hop_shapes` its phase-14 (b) rows), then
    the nvidia-smi line, then
    the last line `{"ok": true, "device": {...}}`. Each phase prints its
    seconds.
@@ -909,13 +940,13 @@ def flash_bound(kind, b, t, h, dh, dtype, pairs):
             "bytes" if t_bytes >= t_ops else "operations", nbytes, ops)
 
 
-def flash_case(fa, case, dtype):
+def flash_case(fa, case, dtype, causal=True):
     """K1 (with and without LSE), K2 and K3 against their plain versions
-    at one case; returns the max errors per kernel and the tensors the
-    timings reuse."""
+    at one case, causal or not; returns the max errors per kernel and the
+    tensors the timings reuse."""
     name, b, t, h, dh, kind = case
     q, k, v, do, mask = flash_inputs(b, t, h, dh, kind, dtype, seed=t + dh)
-    kw = dict(scale=1.0 / math.sqrt(dh), causal=True)
+    kw = dict(scale=1.0 / math.sqrt(dh), causal=causal)
     out, lse = fa.flash_fwd(q, k, v, mask, need_lse=True, **kw)
     out_nolse, none = fa.flash_fwd(q, k, v, mask, **kw)
     ref_out, ref_lse = fa.flash_fwd_plain(q, k, v, mask, need_lse=True, **kw)
@@ -971,16 +1002,19 @@ def flash_case(fa, case, dtype):
 
 
 def flash_timings(fa, dtype, tensors):
-    """At the path shape: per kernel the CUDA-event time per launch
-    (host launch included), its device time (profiler), the plain
-    version's time and the bound; SDPA (forward; forward + backward; the
-    backward's device time) as the library yardstick the port never
-    calls; the sweep over every tile TILES lists at Dh 64."""
+    """At one case's tensors (`flash_case`): per kernel the CUDA-event
+    time per launch (host launch included), its device time (profiler),
+    the plain version's time and the bound over the visible pairs (every
+    valid key of every row when not causal); SDPA (forward; forward +
+    backward; the backward's device time) as the library yardstick the
+    port never calls; the sweep over every tile TILES lists at Dh 64."""
     import torch.nn.functional as F
 
     q, k, v, do, mask, lse, delta, kw = tensors
     b, t, h, dh = q.shape
-    pairs = visible_pairs(mask, h)
+    causal = kw["causal"]
+    pairs = (visible_pairs(mask, h) if causal
+             else int(mask.sum()) * t * h)
     calls = {
         "flash_fwd": lambda **x: fa.flash_fwd(q, k, v, mask, need_lse=True,
                                               **kw, **x),
@@ -1000,17 +1034,20 @@ def flash_timings(fa, dtype, tensors):
     qt, kt, vt, dot = (x.transpose(1, 2).contiguous() for x in (q, k, v, do))
     qg, kg, vg = (x.clone().requires_grad_(True) for x in (qt, kt, vt))
     fq, fk, fv = (x.clone().requires_grad_(True) for x in (q, k, v))
+    am = None if causal else mask[:, None, None, :]
 
     def sdpa_fwd():
-        return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+        return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=am,
+                                              is_causal=causal)
 
     def sdpa_fwd_bwd():
         torch.autograd.grad(
-            F.scaled_dot_product_attention(qg, kg, vg, is_causal=True),
+            F.scaled_dot_product_attention(qg, kg, vg, attn_mask=am,
+                                           is_causal=causal),
             (qg, kg, vg), dot)
 
     def flash_fwd_bwd():
-        fa.flash_attention(fq, fk, fv, mask, causal=True).backward(do)
+        fa.flash_attention(fq, fk, fv, mask, causal=causal).backward(do)
 
     rows = {}
     for name, dev_key, _ in FLASH_KERNELS:
@@ -1041,7 +1078,7 @@ def flash_timings(fa, dtype, tensors):
         rows[name]["library_ms"] = None  # no one PyTorch call computes it
         rows[name].update(yard)
     emit({"flash_timings": str(dtype).split(".")[-1], "shape": [b, t, h, dh],
-          **rows})
+          "causal": causal, **rows})
     return rows
 
 
@@ -1588,9 +1625,9 @@ def dp_phase():
 # Checkpoint and resume (slice 6)
 
 # Train steps an epoch of the phase-7 DP runs (60 until the pipeline
-# phase was added; cut in depth to keep the whole run near its earlier
-# length).
-CK_DP_STEPS = 12
+# phase was added, 12 until phase 14 was; cut in depth to keep the whole
+# run near its earlier length).
+CK_DP_STEPS = 8
 CK_DP_FLAGS = DP_FLAGS[:DP_FLAGS.index("--epochs")] + [
     "--steps-per-epoch", str(CK_DP_STEPS)]
 CK_LM_FLAGS = LM_BASE + ["--layers", str(LAYERS), "--attention",
@@ -1767,6 +1804,7 @@ def checkpoint_dp_phase(dp_cli, dp_mod, data):
     from distributed_model_parallel_tpu_torch.data import datasets
 
     runs, io_records = {}, []
+    data = s11_cut_val(data)
     plan = (("ddp_a", ["--engine", "ddp", "--epochs", "2"], "ddp_a"),
             ("ddp_b", ["--engine", "ddp", "--epochs", "2"], "ddp_b"),
             ("gspmd", ["--engine", "gspmd", "--epochs", "2"], "gspmd"),
@@ -1938,7 +1976,7 @@ def checkpoint_serve_phase(serve, engine_cls, cfg_cls, fa, qm, directory,
 # 30 before phase 10 (slice 9) was added, 12 before phase 11 (slice 10)
 PP_STEPS = 6
 PP_TIMED_FROM = 2  # steps 3-6 are timed
-PP_VAL_IMAGES = 1024  # of phase 6's 10,000 (2 batches of 512)
+PP_VAL_IMAGES = 512  # of phase 6's 10,000 (1 batch; 1,024 until phase 14)
 PP_FLAGS = [
     "./data", "--device", "cuda", "--model", "mobilenetv2", "-type",
     "SyntheticTextures", "-b", str(DP_BATCH), "--lr", "0.4", "-j", "8",
@@ -4486,6 +4524,385 @@ def slice12_phase(lm, engine_cls, fa, qm, dp_data, legacy) -> dict:
     return launches
 
 
+S13_STEPS = 3
+S13_LR = 0.05
+S13_LM = LM_BASE + ["--optimizer", "sgd", "--lr", str(S13_LR), "--epochs",
+                    "1", "--steps-per-epoch", str(S13_STEPS)]
+S13_RUNS = (  # (name, layers, extra flags), each at --seq-shards 2 and 1
+    ("ring_flash_f32", 12, ["--attention", "ring_flash"]),
+    ("ring_flash_bf16", 4, ["--attention", "ring_flash", "--dtype",
+                            "bfloat16"]),
+    ("ulysses_flash_f32", 4, ["--attention", "ulysses_flash"]),
+    ("ring_f32", 2, ["--attention", "ring"]),
+    ("ulysses_f32", 2, ["--attention", "ulysses"]),
+    ("ring_flash_bucketed_f32", 2, ["--attention", "ring_flash",
+                                    "--grad-reduction", "bucketed"]),
+)
+# (name, B, T, H, Dh, mask kind, causal): K1-K3 at the shapes the rings
+# give them at GPT-2-small width, T 1024, N 2: ring_flash's resident block
+# (causal) and a visible hop (non-causal, a padded key mask) at T/N rows,
+# ulysses_flash's whole sequence over H/N heads.
+S13_HOP_CASES = (
+    ("ring_resident", 8, 512, 12, 64, "all", True),
+    ("ring_hop", 8, 512, 12, 64, "random", False),
+    ("ulysses_heads", 8, 1024, 6, 64, "all", True),
+)
+S13_BERT = (32, 128, 0.05)  # (batch, T, lr) of (c), 3 SGD steps
+
+
+def s13_sync(device: str) -> None:
+    if device == "cuda":
+        torch.cuda.synchronize()
+
+
+def s13_flat(tree) -> dict:
+    """A parameter tree's leaves by path, copied to the host."""
+    from distributed_model_parallel_tpu_torch.training.optim import (
+        tree_leaves,
+    )
+
+    return dict(zip(leaf_names(tree), (t.detach().float().cpu().clone()
+                                        for t in tree_leaves(tree))))
+
+
+def s13_lm_run(lm, engine_cls, flags, directory, device):
+    """`lm.main(flags)` with each train step timed (synchronized):
+    (per-step losses and ms, the engine, state, batch and lr of the last
+    step, the history)."""
+    steps, seen = [], {}
+    train_step = engine_cls.train_step
+
+    def recorded(self, ts, *batch_lr):
+        s13_sync(device)
+        t0 = time.perf_counter()
+        ts, m = train_step(self, ts, *batch_lr)
+        loss = float(m["loss_sum"] / m["count"])  # waits for the step
+        steps.append({"ms": (time.perf_counter() - t0) * 1e3,
+                      "loss": loss})
+        seen.update(engine=self, state=ts, batch=batch_lr[:-1],
+                    lr=batch_lr[-1])
+        return ts, m
+
+    with patched(engine_cls, "train_step", recorded), without_saves(), \
+            contextlib.redirect_stdout(io.StringIO()):
+        out = lm.main(flags + ["--checkpoint-dir", directory])
+    shutil.rmtree(directory, ignore_errors=True)
+    return steps, seen, out["history"]
+
+
+def s13_want(name, layers, s_idx):
+    """The exact K1-K3 launches of one N 2 run on seq rank `s_idx`: a
+    ring_flash rank runs its resident block and its s visible hops a
+    layer, K1 in every train and val step, K2 / K3 in every train step;
+    ulysses_flash runs each layer's whole sequence once; the plain cores
+    none; K4 never runs."""
+    per = (s_idx + 1 if "ring_flash" in name else
+           1 if "ulysses_flash" in name else 0) * layers
+    return {"flash_fwd": per * (S13_STEPS + LM_VAL_BATCHES),
+            "flash_bwd_dq": per * S13_STEPS,
+            "flash_bwd_dkv": per * S13_STEPS, "int8_matmul": 0}
+
+
+def s13_bert_want() -> dict:
+    """(c)'s K1-K4 launches a rank: 2 layers x 2 pairs (the resident
+    block and the one hop, non-causal) a train step; no K4."""
+    return {**{k: 2 * 2 * S11_M2_STEPS for k, _, _ in FLASH_KERNELS},
+            "int8_matmul": 0}
+
+
+def s13_counts(fa, qm) -> dict:
+    """This process's K1-K4 launches."""
+    return {**counts(fa), "int8_matmul": qm.int8_matmul.launches}
+
+
+def s13_bert_case():
+    """(c): the 2-layer BERT_BASE-width model without dropout, and a
+    seeded global batch with padded tails (the key masks)."""
+    import numpy as np
+
+    from distributed_model_parallel_tpu_torch.models import bert
+
+    b, t, _ = S13_BERT
+    cfg = dataclasses.replace(bert.BERT_BASE, num_layers=2, dropout_rate=0.0)
+    rng = np.random.RandomState(13)
+    ids = rng.randint(1, 512, size=(b, t)).astype(np.int32)
+    for i in range(b):  # 0..t/2-1 pad positions at each row's end
+        ids[i, t - (i * 7) % (t // 2):] = 0
+    return cfg, ids, rng.randint(0, 4, b).astype(np.int32)
+
+
+def s13_gloo_rank(rank, port, out, directory, runs, device):
+    """One rank of (a) and (c): a gloo world of 2 on the one card, which
+    it joins before `cli/lm.main` does (`initialize_backend` is
+    idempotent). For each run of `runs`, the LM CLI at --seq-shards 2:
+    per-step losses and host-staged ms, the K1-K4 launches, one profiled
+    step's device busy, and the final parameters saved under `directory`
+    (`<run>_<rank>.pt`); then `SequenceParallelEngine` (ring_flash) on
+    the BERT case. A gloo that refuses CUDA tensors is reported, not
+    faked."""
+    import pickle
+
+    import torch.distributed as dist
+
+    from distributed_model_parallel_tpu_torch.cli import lm
+    from distributed_model_parallel_tpu_torch.ops import flash_attention as fa
+    from distributed_model_parallel_tpu_torch.ops import quant_matmul as qm
+    from distributed_model_parallel_tpu_torch.parallel import (
+        sequence_parallel as sp,
+    )
+    from distributed_model_parallel_tpu_torch.runtime.mesh import (
+        MeshSpec,
+        make_mesh,
+    )
+    from distributed_model_parallel_tpu_torch.training.optim import SGD
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    if device == "cuda":
+        torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                            rank=rank, world_size=2)
+    result = {}
+    try:
+        probe = torch.ones(4, device=device)
+        try:
+            dist.all_reduce(probe)
+        except RuntimeError as e:
+            result["gloo_cuda_refused"] = str(e)[:300]
+        for name, layers, flags in ([] if result else runs):
+            reset_counts(fa, qm)
+            steps, seen, hist = s13_lm_run(
+                lm, sp.CausalLMSequenceParallelEngine, flags,
+                os.path.join(directory, f"ck_{name}_{rank}"), device)
+            got = s13_counts(fa, qm)
+            torch.save(s13_flat(seen["state"].params),
+                       os.path.join(directory, f"{name}_{rank}.pt"))
+            ms = [s["ms"] for s in steps]
+            row = {"losses": [s["loss"] for s in steps],
+                   "host_staged_gloo_ms": ms, "launches": got,
+                   "val_loss": hist[0]["val"]["loss"]}
+            if device == "cuda" and name == runs[0][0]:
+                # one more step of the first run, profiled on both ranks
+                brk = step_breakdown(seen, sum(ms[1:]) / len(ms[1:]))
+                row.update(device_busy_ms=brk["device_busy_ms"],
+                           flash_kernel_device_ms=brk[
+                               "flash_kernel_device_ms"])
+            result[name] = row
+        if not result.get("gloo_cuda_refused"):
+            reset_counts(fa, qm)
+            cfg, ids, labels = s13_bert_case()
+            eng = sp.SequenceParallelEngine(
+                cfg, 4, SGD(), mesh=make_mesh(MeshSpec(data=-1, seq=2)),
+                attention="ring_flash", device=device)
+            ts = eng.init_state(0)
+            x = eng.shard_batch(ids, labels)
+            losses, ms = [], []
+            for _ in range(S11_M2_STEPS):
+                t0 = time.perf_counter()
+                ts, m = eng.train_step(ts, *x, S13_BERT[2])
+                losses.append(float(m["loss_sum"] / m["count"]))  # waits
+                ms.append((time.perf_counter() - t0) * 1e3)
+            result["bert"] = {"losses": losses, "host_staged_gloo_ms": ms,
+                              "launches": s13_counts(fa, qm)}
+            torch.save(s13_flat(ts.params),
+                       os.path.join(directory, f"bert_{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+        with open(out, "wb") as f:
+            pickle.dump(result, f)
+
+
+def s13_compare(directory, name, want) -> dict:
+    """The ranks' final parameters of run `name` (host trees they saved):
+    rank 1's must equal rank 0's bit for bit (replicas over seq), and
+    rank 0's are held against this process's `want`: within
+    S11_M2_TOL, and the worst leaf."""
+    import numpy as np
+
+    got, other = (torch.load(os.path.join(directory, f"{name}_{r}.pt"))
+                  for r in range(2))
+    require(got.keys() == other.keys()
+            and all(torch.equal(got[k], other[k]) for k in got),
+            f"SP N 2 {name}: seq rank 1's parameters differ from rank 0's")
+    diff = {k: float((got[k] - want[k]).abs().max()) for k in want}
+    worst = max(diff, key=diff.get)
+    close = all(np.allclose(got[k].numpy(), want[k].numpy(), **S11_M2_TOL)
+                for k in want)
+    return {"params_within_bar": close, "worst_leaf": worst,
+            "worst_abs_diff": diff[worst]}
+
+
+def s13_m2(lm, engine_cls, runs, device) -> dict:
+    """(a) and (c): the two gloo ranks run every N 2 run while this
+    process runs each at --seq-shards 1 (and the BERT case on
+    `DDPEngine` at N 1); then the comparisons. Returns the K1-K4
+    launches the ranks' runs made, summed over both ranks."""
+    import multiprocessing
+    import pickle
+
+    from distributed_model_parallel_tpu_torch.models import bert
+    from distributed_model_parallel_tpu_torch.parallel.data_parallel import (
+        DDPEngine,
+    )
+    from distributed_model_parallel_tpu_torch.runtime.dist import free_port
+    from distributed_model_parallel_tpu_torch.runtime.mesh import Mesh
+    from distributed_model_parallel_tpu_torch.training.optim import SGD
+
+    torch.cuda.empty_cache()  # the two ranks share this process's card
+    directory = scratch_dir("s13_m2")
+    os.makedirs(directory, exist_ok=True)
+    n2 = [(name, layers, S13_LM + ["--layers", str(layers), "--seq-shards",
+                                   "2"] + extra)
+          for name, layers, extra in runs]
+    ctx = multiprocessing.get_context("spawn")
+    port = free_port()
+    outs = [os.path.join(directory, f"rank{r}.pkl") for r in range(2)]
+    procs = [ctx.Process(target=s13_gloo_rank,
+                         args=(r, port, outs[r], directory, n2, device))
+             for r in range(2)]
+    t0 = time.perf_counter()
+    for p in procs:
+        p.start()
+    # N 1 in this process meanwhile (world 1 on NCCL)
+    n1 = {}
+    for name, layers, extra in runs:
+        steps, seen, _ = s13_lm_run(
+            lm, engine_cls, S13_LM + ["--layers", str(layers)] + extra,
+            scratch_dir(f"s13_n1_{name}"), device)
+        n1[name] = {"losses": [s["loss"] for s in steps],
+                    "ms": [s["ms"] for s in steps],
+                    "params": s13_flat(seen["state"].params)}
+        del seen
+    cfg, ids, labels = s13_bert_case()
+    eng = DDPEngine(bert.bert_for_classification(4, cfg), SGD(),
+                    Mesh(1, None), device=device)
+    ts = eng.init_state(0)
+    x = eng.shard_batch(ids, labels)
+    bert_n1 = []
+    for _ in range(S11_M2_STEPS):
+        ts, m = eng.train_step(ts, *x, S13_BERT[2])
+        bert_n1.append(float(m["loss_sum"] / m["count"]))
+    bert_params = s13_flat(ts.params)
+    del eng, ts, x
+    for p in procs:
+        p.join(900)
+    hung = [p for p in procs if p.is_alive()]
+    for p in hung:
+        p.kill()
+        p.join(10)
+    require(not hung and all(p.exitcode == 0 for p in procs),
+            f"SP N 2 ranks: exit codes {[p.exitcode for p in procs]}")
+    got = []
+    for path in outs:
+        with open(path, "rb") as f:
+            got.append(pickle.load(f))
+    wall = time.perf_counter() - t0
+    require("gloo_cuda_refused" not in got[0],
+            f"gloo refused CUDA tensors: {got[0].get('gloo_cuda_refused')}")
+    launches = dict.fromkeys(s13_bert_want(), 0)
+    for name, layers, extra in runs:
+        f32 = "bfloat16" not in extra
+        rel = max(abs(a - b) / abs(b) for r in got
+                  for a, b in zip(r[name]["losses"], n1[name]["losses"]))
+        row = {"s13_run": name, "layers": layers, "flags": extra,
+               "n1_losses": n1[name]["losses"], "n1_ms": n1[name]["ms"],
+               "n2_losses": [r[name]["losses"] for r in got],
+               "loss_max_rel": rel, "bar": S11_M2_TOL if f32 else "printed",
+               "n2_val_loss": got[0][name]["val_loss"],
+               "launches_by_rank": [r[name]["launches"] for r in got],
+               "host_staged_gloo_ms_per_step": [
+                   r[name]["host_staged_gloo_ms"] for r in got],
+               "device_busy_ms_by_rank": [r[name].get("device_busy_ms")
+                                          for r in got],
+               "flash_device_ms_by_rank": [
+                   r[name].get("flash_kernel_device_ms") for r in got]}
+        row.update(s13_compare(directory, name, n1[name]["params"]))
+        emit(row)
+        for s_idx, r in enumerate(got):
+            want = s13_want(name, layers, s_idx)
+            require(r[name]["launches"] == want,
+                    f"SP N 2 {name} seq rank {s_idx}: launches "
+                    f"{r[name]['launches']}, want {want}")
+            for k in launches:
+                launches[k] += r[name]["launches"][k]
+        require(got[0][name]["losses"] == got[1][name]["losses"],
+                f"SP N 2 {name}: the ranks' metric sums differ")
+        require(all(map(math.isfinite, got[0][name]["losses"])),
+                f"SP N 2 {name}: losses {got[0][name]['losses']}")
+        if f32:
+            require(rel <= S11_M2_TOL["rtol"] and row["params_within_bar"],
+                    f"SP N 2 {name} differs from N 1: {row}")
+    rel = max(abs(a - b) / abs(b) for r in got
+              for a, b in zip(r["bert"]["losses"], bert_n1))
+    row = {"s13_bert_sp_n2": "SequenceParallelEngine ring_flash vs "
+           "DDPEngine N 1", "model": "BERT_BASE width, 2 layers, dropout 0, "
+           "SGD", "batch_seq_lr": S13_BERT, "n1_losses": bert_n1,
+           "n2_losses": [r["bert"]["losses"] for r in got],
+           "loss_max_rel": rel, "bar": S11_M2_TOL,
+           "launches_by_rank": [r["bert"]["launches"] for r in got],
+           "host_staged_gloo_ms_per_step": [r["bert"]["host_staged_gloo_ms"]
+                                            for r in got], "wall_s": wall}
+    row.update(s13_compare(directory, "bert", bert_params))
+    emit(row)
+    bert_want = s13_bert_want()
+    for r in got:
+        require(r["bert"]["launches"] == bert_want,
+                f"SP BERT N 2 launches {r['bert']['launches']}, want "
+                f"{bert_want}")
+        for k in launches:
+            launches[k] += r["bert"]["launches"][k]
+    require(rel <= S11_M2_TOL["rtol"] and row["params_within_bar"],
+            f"SP BERT N 2 differs from DDP at N 1: {row}")
+    require(launches["int8_matmul"] == 0, "phase 14 launched K4")
+    shutil.rmtree(directory, ignore_errors=True)
+    return launches
+
+
+def s13_hop_kernels(fa) -> dict:
+    """(b) K1-K3 at the hop shapes (S13_HOP_CASES), f32 and bf16, through
+    `flash_case` and `flash_timings` as at the path shape: each kernel
+    against its plain version on the same inputs, its times, its bound
+    over this run's visible pairs, and SDPA's as the yardstick (its
+    backward, dq, dk and dv in one call, as its forward + backward less
+    its forward by CUDA events). Returns each case's row per kernel."""
+    keep = ("max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms",
+            "bound_by", "library_ms", "tile_sweep_device_ms")
+    rows = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        for *case, causal in S13_HOP_CASES:
+            errs, tensors = flash_case(fa, case, dtype, causal)
+            timed = flash_timings(fa, dtype, tensors)
+            del tensors
+            row = {}
+            for n, _, _ in FLASH_KERNELS:
+                got = {**timed[n], "max_abs_err": errs[n]}
+                row[n] = {k: got[k] for k in keep}
+            sdpa_bwd = (timed["flash_bwd_dq"]["sdpa_fwd_bwd_ms"]
+                        - timed["flash_fwd"]["library_ms"])
+            for n in ("flash_bwd_dq", "flash_bwd_dkv"):
+                row[n]["sdpa_bwd_ms"] = sdpa_bwd
+            key = f"{case[0]}_{'f32' if dtype == torch.float32 else 'bf16'}"
+            rows[key] = row
+            emit({"s13_hop_kernels": key, "shape": case[1:5],
+                  "causal": causal, "mask": case[5],
+                  "visible_pairs": timed["flash_fwd"]["visible_pairs"],
+                  **row})
+    return rows
+
+
+def slice13_phase(lm, engine_cls, fa) -> tuple:
+    """Phase 14 (module docstring). Returns (the K1-K4 launches of the
+    phase's N 2 runs over both ranks, the hop-shape kernel rows)."""
+    t0 = time.perf_counter()
+    launches = s13_m2(lm, engine_cls, S13_RUNS, S11_DEVICE)
+    print(f"phase 14 (a, c) sequence parallelism at N 2 over gloo: "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    hops = s13_hop_kernels(fa)
+    print(f"phase 14 (b) K1-K3 at the hop shapes: "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    return launches, hops
+
+
 def main() -> int:
     # cuBLAS reads this when it first starts: the determinism probe's
     # torch.use_deterministic_algorithms needs it (phase 7).
@@ -4707,7 +5124,11 @@ def smoke() -> int:
     made_once.close()
     phase_done("FSDP, sharded checkpoints, elastic restart")
 
-    # ---- 14. kernels line, card line, last line ----------------------
+    # ---- 14. sequence parallelism at N 2 (slice 13) -------------------
+    slice13, hops13 = slice13_phase(lm, CausalLMSequenceParallelEngine, fa)
+    phase_done("sequence parallelism")
+
+    # ---- 15. kernels line, card line, last line ----------------------
     decode = [r for r in shapes if r["M"] == SLOTS]
     step = {key: None if any(r[key] is None for r in decode)
             else LAYERS * sum(r[key] for r in decode)
@@ -4738,6 +5159,8 @@ def smoke() -> int:
         "launches_slice11": slice11["int8_matmul"],
         # phase 13: FSDP, the sharded format, elastic restart (none)
         "launches_slice12": slice12["int8_matmul"],
+        # phase 14: sequence parallelism at N 2 (none)
+        "launches_slice13": slice13["int8_matmul"],
         "max_abs_err": max_err,
         # Times of one decode step's 48 launches (12 layers x the four
         # projection shapes at M = 8), each shape timed in phase 3.
@@ -4763,7 +5186,11 @@ def smoke() -> int:
                replays_slice9_traced=replays9[name],
                launches_slice10=slice10[name],
                launches_slice11=slice11[name],
-               launches_slice12=slice12[name])
+               launches_slice12=slice12[name],
+               # phase 14 (a, c): both gloo ranks of every N 2 run
+               launches_slice13=slice13[name],
+               # phase 14 (b): one launch at each ring / Ulysses shape
+               hop_shapes={case: row[name] for case, row in hops13.items()})
           for name, _, replaces in FLASH_KERNELS]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -163,18 +163,23 @@ def check_overlapped_model(name: str, overlap_stages: int = 0) -> None:
         )
 
 
-def reducer_mesh(dcn_slices: int, **axes):
-    """`make_mesh(MeshSpec(data=-1, dcn=dcn_slices, ...))` for the
-    training CLIs, a bad factorization exiting with the mesh's reason."""
+def reducer_mesh(dcn_slices: int, seq_shards: int = 1, **axes):
+    """`make_mesh(MeshSpec(data=-1, seq=seq_shards, dcn=dcn_slices,
+    ...))` for the training CLIs, a bad factorization exiting with the
+    mesh's reason."""
     from distributed_model_parallel_tpu_torch.runtime.mesh import (
         MeshSpec,
         make_mesh,
     )
 
     try:
-        return make_mesh(MeshSpec(data=-1, dcn=dcn_slices, **axes))
+        return make_mesh(MeshSpec(data=-1, seq=seq_shards, dcn=dcn_slices,
+                                  **axes))
     except ValueError as e:
-        raise SystemExit(f"--dcn-slices {dcn_slices}: {e}") from e
+        flags = f"--dcn-slices {dcn_slices}"
+        if seq_shards != 1:
+            flags += f" / --seq-shards {seq_shards}"
+        raise SystemExit(f"{flags}: {e}") from e
 
 
 def add_metrics_out_flag(parser: argparse.ArgumentParser) -> None:
@@ -445,7 +450,6 @@ def add_auto_tune_flags(parser: argparse.ArgumentParser) -> None:
 SLICES = {
     "plan": "the composed-parallel-plan slice",
     "tune": "the auto-tuning slice",
-    "seq": "the sequence-parallel slice",
     "moe": "the expert-parallel slice",
     "cm": "the collective-matmul slice",
 }
@@ -461,12 +465,10 @@ def check_lm_args(args) -> None:
         ("--auto-tune / --auto-tune-out / --auto-tune-calibration",
          args.auto_tune or args.auto_tune_out or args.auto_tune_calibration,
          s["tune"]),
-        ("--seq-shards > 1", args.seq_shards != 1, s["seq"]),
         ("--moe-experts > 0", args.moe_experts != 0, s["moe"]),
         ("--moe-every / --moe-dispatch / --moe-overlap / --expert-shards",
          args.moe_every != 2 or args.moe_dispatch != "gspmd"
          or args.moe_overlap or args.expert_shards != 1, s["moe"]),
-        ("--collective-matmul", args.collective_matmul, s["cm"]),
     )
     for flag, bad, later in refusals:
         if bad:
@@ -475,6 +477,7 @@ def check_lm_args(args) -> None:
                 f"belongs to {later} (ROADMAP.md) — drop the flag, or run "
                 "the JAX package's cli/lm.py"
             )
+    check_seq_shard_args(args)
     check_grad_reduction_args(args)
     check_checkpoint_args(args)
     if args.pipeline_stages > 1 and (
@@ -505,22 +508,51 @@ def check_lm_args(args) -> None:
     check_lm_pipeline_args(args)
 
 
+def check_seq_shard_args(args) -> None:
+    """The LM CLI's sequence-parallel flags, with the JAX CLI's checks and
+    messages: stages exclude seq shards, collective matmul rings over
+    'seq' (with two shards or more, or under stages, it is refused as a
+    later slice's), the sequence splits evenly, and Ulysses scatters
+    whole heads."""
+    n = args.seq_shards
+    if n < 1:
+        raise SystemExit(f"--seq-shards must be >= 1, got {n}")
+    if args.pipeline_stages > 1 and n > 1:
+        raise SystemExit(
+            "--pipeline-stages and --seq-shards are mutually exclusive "
+            "(one engine per run; compose data parallelism with either)"
+        )
+    if args.collective_matmul and n < 2 and args.pipeline_stages == 1:
+        raise SystemExit(
+            "--collective-matmul rings over the 'seq' axis; a size-1 "
+            "ring is a plain dot, so the flag would silently do "
+            "nothing — set --seq-shards >= 2"
+        )
+    if args.collective_matmul:
+        raise SystemExit(
+            "--collective-matmul is not ported to the PyTorch package yet: "
+            f"it belongs to {SLICES['cm']} (ROADMAP.md) — drop the flag, "
+            "or run the JAX package's cli/lm.py"
+        )
+    if args.seq_len % n:
+        raise SystemExit(
+            f"--seq-len {args.seq_len} not divisible by --seq-shards {n}")
+    if args.attention.startswith("ulysses") and args.heads % n:
+        raise SystemExit(f"ulysses needs heads ({args.heads}) divisible by "
+                         f"'seq' axis size ({n})")
+
+
 def check_lm_pipeline_args(args) -> None:
-    """The LM CLI's pipeline flags (the JAX CLI's checks): stages exclude
-    sequence shards and collective matmul, attend dense (no
-    --attention), and the schedule knobs need --pipeline-stages > 1."""
+    """The LM CLI's pipeline flags (the JAX CLI's checks): stages attend
+    dense (no --attention), and the schedule knobs need
+    --pipeline-stages > 1 (`check_seq_shard_args` keeps sequence shards
+    and collective matmul off the stages)."""
     stages = args.pipeline_stages
-    for flag, bad, why in (
-        ("--collective-matmul", args.collective_matmul,
-         "it decomposes the sequence-parallel engine's FFN collectives; "
-         "stages compute dense locally"),
-        ("--attention", args.attention != "ring",
-         "it selects the sequence-parallel distribution; stages attend "
-         "locally, dense causal"),
-    ):
-        if stages > 1 and bad:
-            raise SystemExit(f"{flag} has no effect under --pipeline-stages "
-                             f"({why}); drop the flag")
+    if stages > 1 and args.attention != "ring":
+        raise SystemExit(
+            "--attention has no effect under --pipeline-stages (it selects "
+            "the sequence-parallel distribution; stages attend locally, "
+            "dense causal); drop the flag")
     if args.microbatches < 1:
         raise SystemExit(
             f"--microbatches must be >= 1, got {args.microbatches}")

@@ -3,10 +3,12 @@
 GPT next-token pretraining on the deterministic Markov-chain corpus
 (`data/lm.py`; its entropy rate is printed as the loss floor), through
 the `Trainer` epoch protocol: with `CausalLMSequenceParallelEngine`
-over data ranks (`torch.distributed`, one process per GPU as on the DP
-CLI: `-b` is the global batch, divided by the world; under `torchrun`
-each rank takes its rows), or split into pipeline stages, every stage
-driven by each rank's one process, with `LMPipelineEngine`
+over a (data, seq) mesh of ranks (`torchrun`, one process per GPU as on
+the DP CLI: `-b` is the global batch; `--seq-shards S` puts S
+consecutive ranks on the columns of each sequence, the reference's
+`MeshSpec(data=-1, seq=S)`, and the rest on its rows), or split into
+pipeline stages, every stage driven by each rank's one process, with
+`LMPipelineEngine`
 (`--pipeline-stages S`, `--microbatches`, `--pipeline-schedule
 gpipe|1f1b|interleaved`, `--virtual-stages`; the stages attend dense and
 causal, so `--attention` is refused there, as in the JAX CLI), whose
@@ -18,6 +20,9 @@ over the ranks, and rank 0 alone prints and writes):
       --attention ulysses_flash               # on the GPU (default)
   python -m distributed_model_parallel_tpu_torch.cli.lm --device cpu \\
       --dim 32 --layers 2 --heads 4 --seq-len 32 -b 4 --epochs 2
+  torchrun --nproc-per-node 2 -m distributed_model_parallel_tpu_torch.cli.lm \\
+      --device cpu --dim 32 --layers 2 --heads 4 --seq-len 32 -b 4 \\
+      --epochs 2 --seq-shards 2 --attention ring_flash
   python -m distributed_model_parallel_tpu_torch.cli.lm --device cpu \\
       --dim 32 --layers 4 --heads 4 --seq-len 32 -b 4 --epochs 2 \\
       --pipeline-stages 2 --microbatches 2 --pipeline-schedule 1f1b
@@ -31,9 +36,11 @@ a dispatch on the card, `--profile-dir` writes a torch.profiler trace.
 `--grad-reduction bucketed|overlapped`, `--bucket-mb`,
 `--overlap-stages`, `--dcn-slices` and `--dcn-compression` select the
 data-axis gradient reduction (`ops/grad_reduction.py`), with the JAX
-CLI's checks. Flags whose features belong to later port slices
-(sequence shards, MoE, collective matmul, plans and the tuner) are
-refused with the slice named (`cli/common.check_lm_args`). The
+CLI's checks, as are `--seq-shards` (`--seq-len` divisible by it, no
+`--pipeline-stages` beside it, `--heads` divisible by it under
+Ulysses). Flags whose features belong to later port slices (MoE,
+collective matmul, plans and the tuner) are refused with the slice
+named (`cli/common.check_lm_args`). The
 best-val-acc model is saved to `--checkpoint-dir` with the model's
 `gpt_config` in its sidecar (what `cli/serve.py --checkpoint` checks),
 and `--resume` continues from it. `--checkpoint-format sharded` writes
@@ -121,7 +128,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--corpus-tokens", default=1 << 16, type=int)
     p.add_argument("--corpus-seed", default=0, type=int)
     p.add_argument("--seq-shards", default=1, type=int,
-                   help="not ported yet (sequence-parallel slice)")
+                   help="'seq' mesh axis size (context parallelism: ring "
+                        "or Ulysses attention over the ranks of a "
+                        "sequence); 1 = plain data parallelism")
     p.add_argument("--pipeline-stages", default=1, type=int,
                    help="split the decoder into S pipeline stages "
                         "(LMPipelineEngine); stage s on the process's "
@@ -213,7 +222,7 @@ def main(argv=None) -> dict:
         )
     else:
         device = initialize_backend(args.device, None)
-        mesh = reducer_mesh(args.dcn_slices)
+        mesh = reducer_mesh(args.dcn_slices, args.seq_shards)
         check_batch_divisibility(args.batch_size, mesh)
         engine = CausalLMSequenceParallelEngine(
             cfg, build_optimizer(args), attention=args.attention,

@@ -163,12 +163,18 @@ def coded_all_gather(x: torch.Tensor, group, wire: str) -> torch.Tensor:
     return _decode_rows(wire, out, scales, x.dtype)
 
 
-def _ppermute(x: torch.Tensor, group, perm) -> torch.Tensor:
-    """`x` sent along `perm`, (src, dst) pairs of ranks of `group`: what
-    this rank receives, or zeros when no pair sends to it (the
-    reference's `lax.ppermute`)."""
-    staged = x.is_cuda and dist.get_backend(group) == "gloo"
-    src_t = x.cpu() if staged else x.contiguous()
+def host_staged(x: torch.Tensor, group) -> bool:
+    """Whether `x` crosses `group` through the host: a gloo group carries
+    no CUDA tensor in send / recv, all-to-all or all-gather."""
+    return x.is_cuda and dist.get_backend(group) == "gloo"
+
+
+def _ppermute_start(x: torch.Tensor, group, perm):
+    """Starts `_ppermute`'s sends and receives and returns the function
+    that waits for them and gives what this rank receives, so that work
+    issued in between overlaps the transfer."""
+    host = host_staged(x, group)
+    src_t = x.cpu() if host else x.contiguous()
     out = torch.zeros_like(src_t)
     me = dist.get_rank(group)
     ops = []
@@ -181,10 +187,21 @@ def _ppermute(x: torch.Tensor, group, perm) -> torch.Tensor:
         elif dst == me:
             ops.append(dist.P2POp(dist.irecv, out,
                                   dist.get_global_rank(group, src), group))
-    if ops:
-        for work in dist.batch_isend_irecv(ops):
+    works = dist.batch_isend_irecv(ops) if ops else []
+
+    def finish() -> torch.Tensor:
+        for work in works:
             work.wait()
-    return out.to(x.device) if staged else out
+        return out.to(x.device) if host else out
+
+    return finish
+
+
+def _ppermute(x: torch.Tensor, group, perm) -> torch.Tensor:
+    """`x` sent along `perm`, (src, dst) pairs of ranks of `group`: what
+    this rank receives, or zeros when no pair sends to it (the
+    reference's `lax.ppermute`)."""
+    return _ppermute_start(x, group, perm)()
 
 
 def _coded_hop(x: torch.Tensor, group, perm, wire: str) -> torch.Tensor:
@@ -224,6 +241,7 @@ __all__ = [
     "coded_all_gather",
     "coded_all_to_all",
     "coded_ppermute",
+    "host_staged",
     "require_dcn_axis",
     "wire_decode",
     "wire_encode",

@@ -1,9 +1,9 @@
-"""The data, model and stage axes of the mesh (the part of
-`runtime/mesh.py` the data-parallel, tensor-parallel, LM and pipeline
-trainers need).
+"""The data, model, seq and stage axes of the mesh (the part of
+`runtime/mesh.py` the data-parallel, tensor-parallel, sequence-parallel,
+LM and pipeline trainers need).
 
 The reference's mesh names device axes and runs one SPMD program over
-them. Here the two axes the ported engines use are:
+them. Here the axes the ported engines use are:
 
 * `data`: how many ranks share the batch and the process group their
   collectives run over. `MeshSpec(data=-1)` resolves to the world size
@@ -24,6 +24,15 @@ them. Here the two axes the ported engines use are:
   `model_group` (the M ranks of this data index) and `data_group` (the
   D ranks of this model index), and `group` is `data_group`: the data
   axis every engine reduces its gradients over;
+* `seq`: the sequence-parallel axis (`parallel/sequence_parallel.py`).
+  `MeshSpec(data=-1, seq=S)` over W ranks is W / S data ranks of S
+  sequence shards each, data-major with `seq` minor, as the reference
+  orders its axes: rank = data_index * S + seq_index (on a factored
+  mesh the data index is the (dcn, ici) pair, dcn-major). The mesh then
+  carries `seq_group` (the S consecutive ranks of this data index, the
+  rings' group) and `group` / `ici_group` / `dcn_group` become the data
+  groups of this rank's seq index. `model` > 1 together with `seq` > 1
+  is the composed-plan slice's mesh and is refused;
 * `stage`: the pipeline's stages, driven by ONE process (as the JAX
   engine's one controller drives every stage through its tick tables).
   The axis is a list of this process's devices; stage s runs on
@@ -31,7 +40,7 @@ them. Here the two axes the ported engines use are:
   a host with S GPUs stage s has its own. A `(data=D, stage=S)` mesh is D
   processes, each running the S-stage pipeline on its own devices.
 
-The other axes belong to later slices and are refused by name.
+The expert axis belongs to a later slice and is refused by name.
 """
 
 from __future__ import annotations
@@ -44,9 +53,9 @@ import torch.distributed as dist
 
 # Later port slices (ROADMAP.md), named by the refusals below.
 AXIS_SLICES = {
-    "seq": "the sequence-parallel slice",
     "expert": "the expert-parallel slice",
 }
+PLAN_SLICE = "the composed-parallel-plan slice"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -54,8 +63,9 @@ class MeshSpec:
     """Logical mesh shape, the reference's fields; -1 on `data` means
     every rank. `dcn` is the cross-slice factor of the data axis (1 =
     one fabric); it must divide the resolved data size. `model` is the
-    tensor-parallel factor; it must divide the world, and excludes
-    `dcn` > 1."""
+    tensor-parallel factor and `seq` the sequence-parallel one; their
+    product must divide the world; `model` excludes `dcn` > 1, and the
+    two exclude each other."""
 
     data: int = -1
     stage: int = 1
@@ -66,7 +76,7 @@ class MeshSpec:
 
     def resolve(self, world: int) -> int:
         """The data-axis size for a world of `world` ranks: world /
-        model."""
+        (model * seq)."""
         for axis, later in AXIS_SLICES.items():
             if getattr(self, axis) != 1:
                 raise ValueError(
@@ -78,14 +88,24 @@ class MeshSpec:
             raise ValueError(f"MeshSpec(stage={self.stage}) must be >= 1")
         if self.model < 1:
             raise ValueError(f"MeshSpec(model={self.model}) must be >= 1")
-        if world % self.model:
-            raise ValueError(f"MeshSpec(model={self.model}) must divide the "
+        if self.seq < 1:
+            raise ValueError(f"MeshSpec(seq={self.seq}) must be >= 1")
+        if self.model > 1 and self.seq > 1:
+            raise ValueError(
+                f"MeshSpec(model={self.model}, seq={self.seq}) composes "
+                "tensor and sequence parallelism, which is not ported to "
+                f"the PyTorch package yet: it belongs to {PLAN_SLICE} "
+                "(ROADMAP.md)")
+        axis, ways = (("seq", self.seq) if self.seq > 1
+                      else ("model", self.model))
+        if world % ways:
+            raise ValueError(f"MeshSpec({axis}={ways}) must divide the "
                              f"world ({world} ranks)")
-        data = world // self.model
+        data = world // ways
         if self.data not in (-1, data):
             raise ValueError(
-                f"MeshSpec(data={self.data}, model={self.model}) needs "
-                f"{self.data * self.model} ranks; the world has {world}")
+                f"MeshSpec(data={self.data}, {axis}={ways}) needs "
+                f"{self.data * ways} ranks; the world has {world}")
         if self.dcn < 1:
             raise ValueError(f"dcn must be >= 1, got {self.dcn}")
         if self.dcn > 1 and self.model > 1:
@@ -109,7 +129,12 @@ class Mesh:
     `dcn` = 1, `ici_group` is `group` and `dcn_group` is None. With
     `model` > 1 each data index holds `model` ranks: `model_group` is
     this rank's (None when `model` is 1), `data_group` the ranks that
-    share its `model_index`, and `group` is `data_group`."""
+    share its `model_index`, and `group` is `data_group`. With `seq` > 1
+    each data index holds `seq` ranks: `seq_group` is this rank's (None
+    when `seq` is 1), and `group`, `ici_group` and `dcn_group` are the
+    data groups of its `seq_index`. `data_seq_group` holds every rank of
+    the data and seq axes (the ones a sequence-parallel engine sums its
+    gradients and metrics over); it is `group` when `seq` is 1."""
 
     data: int
     group: Optional[Any]
@@ -122,10 +147,16 @@ class Mesh:
     model_group: Optional[Any] = None
     data_index: int = 0
     model_index: int = 0
+    seq: int = 1
+    seq_group: Optional[Any] = None
+    seq_index: int = 0
+    data_seq_group: Optional[Any] = None
 
     def __post_init__(self):
         if self.dcn == 1 and self.ici_group is None:
             object.__setattr__(self, "ici_group", self.group)
+        if self.seq == 1 and self.data_seq_group is None:
+            object.__setattr__(self, "data_seq_group", self.group)
 
     @property
     def data_group(self):
@@ -166,6 +197,8 @@ def make_mesh(spec: Optional[MeshSpec] = None,
     world = spec.resolve(dist.get_world_size())
     if spec.model > 1:
         return _model_mesh(world, spec, devices)
+    if spec.seq > 1:
+        return _seq_mesh(world, spec, devices)
     rank = dist.get_rank()
     if spec.dcn == 1:
         return Mesh(world, dist.group.WORLD, spec.stage, devices,
@@ -205,6 +238,45 @@ def _model_mesh(data: int, spec: MeshSpec, devices) -> Mesh:
                 model_index=rank % m)
 
 
+def _seq_mesh(data: int, spec: MeshSpec, devices) -> Mesh:
+    """A (data, seq) mesh, rank = data_index * seq + seq_index, the data
+    index dcn-major on a factored mesh: every rank creates every seq
+    group, then for each seq index its data group, its slices and its
+    cross-slice groups, in the same order (`dist.new_group` is
+    collective over the world), and keeps the ones it belongs to. The
+    mesh's ranks are 0 .. data * seq - 1, the whole world (`resolve`), so
+    its data x seq group is the world's."""
+    s_ways, dcn = spec.seq, spec.dcn
+    ici = data // dcn
+    rank = dist.get_rank()
+    d_idx, s_idx = divmod(rank, s_ways)
+    seq_group = data_group = ici_group = dcn_group = None
+    for d in range(data):
+        g = dist.new_group([d * s_ways + s for s in range(s_ways)])
+        if d == d_idx:
+            seq_group = g
+    for s in range(s_ways):
+        g = dist.new_group([d * s_ways + s for d in range(data)])
+        if s == s_idx:
+            data_group = g
+        if dcn == 1:
+            continue
+        for k in range(dcn):
+            g = dist.new_group([(k * ici + j) * s_ways + s
+                                for j in range(ici)])
+            if s == s_idx and d_idx // ici == k:
+                ici_group = g
+        for j in range(ici):
+            g = dist.new_group([(k * ici + j) * s_ways + s
+                                for k in range(dcn)])
+            if s == s_idx and d_idx % ici == j:
+                dcn_group = g
+    return Mesh(data, data_group, spec.stage, devices, dcn, ici_group,
+                dcn_group, data_index=d_idx, seq=s_ways,
+                seq_group=seq_group, seq_index=s_idx,
+                data_seq_group=dist.group.WORLD)
+
+
 def data_axis_names(mesh: Mesh) -> Tuple[str, ...]:
     """The reference's names of the data axes: ('dcn', 'ici') on a
     factored mesh, ('data',) otherwise."""
@@ -223,8 +295,8 @@ def mesh_axes(mesh: Mesh) -> dict:
     manifest stores and `training/elastic.py` hands to a restart."""
     data = ({"dcn": mesh.dcn, "ici": mesh.ici} if mesh.dcn > 1
             else {"data": mesh.data})
-    return {**data, "stage": mesh.stage, "model": mesh.model, "seq": 1,
-            "expert": 1}
+    return {**data, "stage": mesh.stage, "model": mesh.model,
+            "seq": mesh.seq, "expert": 1}
 
 
 def data_hierarchy_axes(mesh: Mesh):
@@ -236,6 +308,6 @@ def data_hierarchy_axes(mesh: Mesh):
     return mesh.group, mesh.ici_group, mesh.dcn_group
 
 
-__all__ = ["AXIS_SLICES", "Mesh", "MeshSpec", "data_axis_names",
+__all__ = ["AXIS_SLICES", "PLAN_SLICE", "Mesh", "MeshSpec", "data_axis_names",
            "data_axis_size", "data_hierarchy_axes", "local_devices",
            "make_mesh", "mesh_axes"]

@@ -763,3 +763,207 @@ def elastic_cli(rank, world, payload) -> dict:
     out = data_parallel.main(payload["argv"])
     return {"history": out["history"], "elastic": out.get("elastic"),
             "topology": topology}
+
+
+def ring_ops(rank, world, payload) -> dict:
+    """Each (name, causal, dtype) of `payload["cases"]`: the port's
+    sequence-parallel op (`ops/ring_attention.py`) on this rank's columns
+    of the global q, k, v and key mask (numpy, f32) cast to `dtype`, over
+    the seq group of `MeshSpec(data=1, seq=world)`. Returns, per case,
+    the local output and the gradients of sum(out**2) with respect to the
+    local q, k and v, as f32 numpy."""
+    from functools import partial
+
+    import torch
+
+    from distributed_model_parallel_tpu_torch.ops import ring_attention as ra
+    from distributed_model_parallel_tpu_torch.ops.flash_attention import (
+        flash_attention,
+    )
+    from distributed_model_parallel_tpu_torch.runtime.mesh import (
+        MeshSpec,
+        make_mesh,
+    )
+
+    fns = {"ring": ra.ring_attention, "ring_flash": ra.ring_flash_attention,
+           "ulysses": ra.ulysses_attention,
+           "ulysses_flash": partial(ra.ulysses_attention,
+                                    attention_impl=flash_attention)}
+    mesh = make_mesh(MeshSpec(data=1, seq=world))
+    t = payload["q"].shape[1] // world
+    cols = slice(mesh.seq_index * t, (mesh.seq_index + 1) * t)
+    out = {}
+    for name, causal, dtype in payload["cases"]:
+        q, k, v = (torch.from_numpy(payload[x][:, cols]).to(
+            getattr(torch, dtype)).requires_grad_(True) for x in "qkv")
+        mask = torch.from_numpy(payload["mask"][:, cols]).contiguous()
+        o = fns[name](q, k, v, mask, group=mesh.seq_group, causal=causal)
+        o.float().square().sum().backward()
+        out[name, causal, dtype] = [t.detach().float().numpy()
+                                    for t in (o, q.grad, k.grad, v.grad)]
+    return out
+
+
+def _sp_steps(eng, ts, batches, lr):
+    sums = []
+    for batch in batches:
+        ts, m = eng.train_step(ts, *eng.shard_batch(*batch), lr)
+        sums.append({k: float(v) for k, v in m.items()})
+    return ts, sums
+
+
+def sp_suite(rank, world, payload) -> dict:
+    """The sequence-parallel engines from the reference's weights, SGD
+    steps over the global batches of the payload on `MeshSpec(data=d,
+    seq=s, dcn=k)` meshes of the world:
+
+    * `payload["lm"]`: (d, s, k, attention, grad_reduction, wire, layers)
+      configs of `CausalLMSequenceParallelEngine` (SGD(0.9, 1e-2));
+      returns the metric sums a step, the final parameters and momentum
+      in the reference layout and the collectives issued;
+    * `payload["bert"]`: (d, s, attention) configs of
+      `SequenceParallelEngine` (SGD()); the sums and parameters;
+    * `payload["dropout"]`: the LM at dropout 0.1 on (1, world): the
+      mask each rank draws for one key, and the sums and parameters of
+      two runs each with and without remat."""
+    import torch
+
+    from distributed_model_parallel_tpu_torch.models import bert as tbert
+    from distributed_model_parallel_tpu_torch.models import layers as L
+    from distributed_model_parallel_tpu_torch.models.convert import (
+        from_jax_params,
+        to_jax_params,
+    )
+    from distributed_model_parallel_tpu_torch.models.gpt import GPTConfig
+    from distributed_model_parallel_tpu_torch.parallel.sequence_parallel \
+        import CausalLMSequenceParallelEngine, SequenceParallelEngine
+    from distributed_model_parallel_tpu_torch.runtime.mesh import (
+        MeshSpec,
+        make_mesh,
+    )
+    from distributed_model_parallel_tpu_torch.training.optim import SGD
+
+    meshes = {}
+
+    def mesh(d, s, k=1):
+        if (d, s, k) not in meshes:
+            meshes[d, s, k] = make_mesh(MeshSpec(data=d, seq=s, dcn=k))
+        return meshes[d, s, k]
+
+    def lm(cfg, d, s, k=1, **kw):
+        return CausalLMSequenceParallelEngine(
+            cfg, SGD(0.9, 1e-2), device="cpu", mesh=mesh(d, s, k),
+            bucket_mb=0.02, **kw)
+
+    out = {}
+    ids = [(b,) for b in payload.get("ids", ())]
+    for config in payload.get("lm", ()):
+        d, s, k, attention, gr, wire, layers = config
+        eng = lm(GPTConfig(**dict(payload["gpt"], num_layers=layers)),
+                 d, s, k, attention=attention, grad_reduction=gr,
+                 dcn_compression=wire)
+        ts = eng.state_from_params(from_jax_params(
+            payload["gpt_params"][layers]))
+        ts, sums = _sp_steps(eng, ts, ids, payload["lr"])
+        out["lm", config] = {
+            "sums": sums, "params": to_jax_params(ts.params),
+            "momentum": to_jax_params(ts.opt_state.momentum),
+            "collectives": eng.grad_reductions}
+    for config in payload.get("bert", ()):
+        d, s, attention = config
+        cfg = tbert.BertConfig(**payload["bert_cfg"])
+        model = tbert.bert_for_classification(payload["classes"], cfg)
+        eng = SequenceParallelEngine(cfg, payload["classes"], SGD(),
+                                     mesh=mesh(d, s), attention=attention,
+                                     device="cpu")
+        ts = eng.state_from_params(from_jax_params(payload["bert_params"],
+                                                   model=model))
+        ts, sums = _sp_steps(eng, ts, payload["bert_batches"],
+                             payload["bert_lr"])
+        out["bert", config] = {"sums": sums,
+                               "params": to_jax_params(ts.params,
+                                                       model=model)}
+    if "dropout" in payload:
+        drop = payload["dropout"]
+        cfg = GPTConfig(**dict(payload["gpt"], num_layers=2,
+                               dropout_rate=0.1))
+        probe = lm(cfg, 1, world, attention=drop["attention"])
+        ctx = L.Context(train=True, rng=probe._key(0))
+        out["mask"] = L.dropout(torch.ones(4, 8, 8), 0.1,
+                                ctx.child(0)).numpy()
+        runs = []
+        for remat in (False, False, True):
+            eng = lm(cfg, 1, world, attention=drop["attention"],
+                     remat=remat)
+            ts = eng.state_from_params(from_jax_params(drop["params"]))
+            ts, sums = _sp_steps(eng, ts, ids, payload["lr"])
+            runs.append({"sums": sums, "params": to_jax_params(ts.params)})
+        out["dropout_runs"] = runs
+    return out
+
+
+def lm_engine_probe(rank, world, payload) -> dict:
+    """`cli/lm.main(payload["argv"])` in this rank up to the trainer:
+    the engine it builds, described (its mesh axes and attention)."""
+    import torch.distributed as dist
+
+    from distributed_model_parallel_tpu_torch.cli import lm
+
+    seen = {}
+
+    class Stop(Exception):
+        pass
+
+    def trainer(engine, train, val, cfg, **kw):
+        seen["engine"] = engine
+        raise Stop
+
+    lm.Trainer = trainer
+    try:
+        lm.main(payload["argv"])
+    except Stop:
+        pass
+    eng = seen["engine"]
+    return {"data": eng.mesh.data, "seq": eng.mesh.seq,
+            "seq_index": eng.mesh.seq_index,
+            "data_index": eng.mesh.data_index,
+            "data_seq_ranks": dist.get_world_size(eng.mesh.data_seq_group),
+            "attention": eng.attention}
+
+
+def ring_flash_on_card(rank, world, payload) -> dict:
+    """`ring_flash_attention` on the card (cuda:0, shared by the ranks of
+    a gloo world, which stages the hops through the host) on this rank's
+    columns of the global q, k, v and mask: per causal flag, the flash
+    kernels' launches over one forward and backward, the local output
+    and the gradients of sum(out**2), as numpy."""
+    import torch
+
+    from distributed_model_parallel_tpu_torch.ops import flash_attention as fa
+    from distributed_model_parallel_tpu_torch.ops import ring_attention as ra
+    from distributed_model_parallel_tpu_torch.runtime.mesh import (
+        MeshSpec,
+        make_mesh,
+    )
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.cuda.set_device(0)
+    mesh = make_mesh(MeshSpec(data=1, seq=world))
+    t = payload["q"].shape[1] // world
+    cols = slice(mesh.seq_index * t, (mesh.seq_index + 1) * t)
+    kernels = (fa.flash_fwd, fa.flash_bwd_dq, fa.flash_bwd_dkv)
+    out = {}
+    for causal in (True, False):
+        for k in kernels:
+            k.launches = 0
+        q, k, v = (torch.from_numpy(payload[x][:, cols]).cuda()
+                   .requires_grad_(True) for x in "qkv")
+        mask = torch.from_numpy(payload["mask"][:, cols]).cuda()
+        o = ra.ring_flash_attention(q, k, v, mask, group=mesh.seq_group,
+                                    causal=causal)
+        o.square().sum().backward()
+        torch.cuda.synchronize()
+        out[causal] = {"launches": [fn.launches for fn in kernels],
+                       "parts": [x.detach().cpu().numpy()
+                                 for x in (o, q.grad, k.grad, v.grad)]}
+    return out

@@ -1085,3 +1085,105 @@ def test_sharded_save_and_resume_on_the_card_equals_straight(cuda,
                     tree_leaves((straight.params,
                                  tuple(straight.opt_state)))):
         assert torch.equal(a, b)
+
+
+def _sp_inputs(seed, b=2, t=128, h=4, dh=64):
+    rng = np.random.RandomState(seed)
+    x = {n: rng.randn(b, t, h, dh).astype(np.float32) for n in "qkv"}
+    x["mask"] = rng.rand(b, t) > 0.2
+    x["mask"][:, 0] = True
+    x["mask"][-1] = False  # a row with no valid key
+    return x
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ring_and_ulysses_flash_at_one_shard_equal_flash_attention(cuda,
+                                                                   dtype):
+    """At S 1 the sequence-parallel cores are the path they were before
+    the sequence-parallel slice: ring_flash's hop merge and LSE sentinels
+    reduce to the flash kernels' forward and backward, Ulysses to its
+    core; outputs and gradients equal flash_attention's bit for bit,
+    and each launches K1, K2, K3 once."""
+    from functools import partial
+
+    from distributed_model_parallel_tpu_torch.ops import (
+        ring_attention as ra,
+    )
+
+    x = _sp_inputs(11)
+    mask = torch.from_numpy(x["mask"]).to(cuda)
+    results = []
+    for fn in (fa.flash_attention, ra.ring_flash_attention,
+               partial(ra.ulysses_attention,
+                       attention_impl=fa.flash_attention)):
+        before = [k.launches for k in (fa.flash_fwd, fa.flash_bwd_dq,
+                                       fa.flash_bwd_dkv)]
+        q, k, v = (torch.from_numpy(x[n]).to(cuda, dtype).requires_grad_(True)
+                   for n in "qkv")
+        out = fn(q, k, v, mask, causal=True)
+        out.float().square().sum().backward()
+        torch.cuda.synchronize()
+        after = [k.launches for k in (fa.flash_fwd, fa.flash_bwd_dq,
+                                      fa.flash_bwd_dkv)]
+        assert [a - b for a, b in zip(after, before)] == [1, 1, 1]
+        results.append((out, q.grad, k.grad, v.grad))
+    for other in results[1:]:
+        for a, b in zip(results[0], other):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_lm_ring_flash_at_one_shard_equals_ulysses_flash(cuda):
+    """One LM train step at S 1 on the card: ring_flash and
+    ulysses_flash (both the flash kernels on the whole sequence at one
+    shard) give the same metric sums and parameters bit for bit."""
+    from distributed_model_parallel_tpu_torch.data.lm import (
+        synthetic_corpus,
+    )
+    from distributed_model_parallel_tpu_torch.models.gpt import GPTConfig
+    from distributed_model_parallel_tpu_torch.parallel.sequence_parallel \
+        import CausalLMSequenceParallelEngine
+
+    cfg = GPTConfig(vocab_size=97, dim=64, num_layers=2, num_heads=4,
+                    ffn_dim=256, max_position=64, dropout_rate=0.1,
+                    pad_token_id=0)
+    ids = synthetic_corpus(97, 4 * 64, seed=3).reshape(4, 64)
+    got = []
+    for attention in ("ulysses_flash", "ring_flash"):
+        eng = CausalLMSequenceParallelEngine(
+            cfg, SGD(), attention=attention, device="cuda",
+            mesh=Mesh(1, None))
+        ts = eng.init_state(0)
+        ts, m = eng.train_step(ts, *eng.shard_batch(ids), 0.05)
+        got.append((m, list(tree_leaves(ts.params))))
+    (m0, p0), (m1, p1) = got
+    assert all(torch.equal(m0[k], m1[k]) for k in m0)
+    assert all(torch.equal(a, b) for a, b in zip(p0, p1))
+
+
+@pytest.mark.cuda
+def test_ring_flash_at_two_shards_launches_per_rank(cuda, tmp_path):
+    """ring_flash over 2 gloo ranks sharing the card: causal, seq rank s
+    launches K1, K2 and K3 s + 1 times each (its resident block and its
+    s visible hops); non-causal, 2 each; the outputs and gradients equal
+    flash_attention over the whole sequence on the card."""
+    import _torch_port_ranks as ranks
+
+    x = _sp_inputs(12)
+    got = ranks.spawn(2, "ring_flash_on_card", x, tmp_path)
+    mask = torch.from_numpy(x["mask"]).to(cuda)
+    for causal in (True, False):
+        assert [r[causal]["launches"] for r in got] == (
+            [[1] * 3, [2] * 3] if causal else [[2] * 3] * 2)
+        q, k, v = (torch.from_numpy(x[n]).to(cuda).requires_grad_(True)
+                   for n in "qkv")
+        out = fa.flash_attention(q, k, v, mask, causal=causal)
+        out.square().sum().backward()
+        want = [t.detach().cpu().numpy() for t in (out, q.grad, k.grad,
+                                                   v.grad)]
+        for i, w in enumerate(want):
+            part = np.concatenate([r[causal]["parts"][i] for r in got],
+                                  axis=1)
+            np.testing.assert_allclose(part, w, rtol=1e-4, atol=1e-4,
+                                       err_msg=f"{causal} {i}")

@@ -294,11 +294,12 @@ def test_ddp_engine_refuses_later_slices(knob, value, slice_):
 def test_mesh_spec_refuses_other_axes(spec, match):
     """Axes of later slices are refused by name; the dcn factor, ported
     with the gradient-reduction slice, must divide the data axis (the
-    reference's check), and the model axis, ported with the tensor-
-    parallel slice, must divide the world."""
-    if match == "tensor-parallel slice":
+    reference's check), and the model and seq axes, ported with the
+    tensor- and sequence-parallel slices, must divide the world."""
+    if match in ("tensor-parallel slice", "sequence-parallel slice"):
+        axis = "model" if spec.model > 1 else "seq"
         with pytest.raises(ValueError,
-                           match=r"model=2\) must divide the world"):
+                           match=rf"{axis}=2\) must divide the world"):
             spec.resolve(1)
         assert spec.resolve(4) == 2
     elif match == "gradient-reduction slice":

@@ -20,9 +20,13 @@ import pytest
 import torch
 from jax.sharding import Mesh, PartitionSpec as P
 
+import _torch_port_ranks as ranks
 from distributed_model_parallel_tpu.runtime.compat import shard_map
 from distributed_model_parallel_tpu_torch.ops import flash_attention as fa
 from distributed_model_parallel_tpu_torch.ops import ring_attention as ra
+from distributed_model_parallel_tpu_torch.ops.attention import (
+    dot_product_attention,
+)
 
 # The JAX package's ops/__init__ re-exports functions under these module
 # names, so the modules are looked up by path.
@@ -240,11 +244,37 @@ def test_sequence_parallel_cores_at_one_shard_match_jax(name, t):
                                    err_msg=f"d{nm}", **F32["grad"])
 
 
+@pytest.fixture(scope="module")
+def two_shards(tmp_path_factory):
+    """Each core at N = 2 on two gloo ranks (causal, key mask), forward
+    and gradients (`tests/_torch_port_ranks.ring_ops`)."""
+    rng = np.random.RandomState(7)
+    x = {n: rng.randn(B, 32, H, 16).astype(np.float32) for n in "qkv"}
+    x["mask"] = rng.rand(B, 32) > 0.2
+    x["mask"][:, 0] = True
+    got = ranks.spawn(2, "ring_ops", dict(
+        x, cases=[(n, True, "float32") for n in SP_FNS]),
+        tmp_path_factory.mktemp("sp2"))
+    return x, got
+
+
 @pytest.mark.parametrize("name", sorted(SP_FNS))
-def test_more_than_one_sequence_shard_is_refused(name):
-    q = torch.randn(1, 8, 2, 16)
-    with pytest.raises(ValueError, match="sequence-parallel slice"):
-        SP_FNS[name][1](q, q, q, seq_shards=2)
+def test_more_than_one_sequence_shard_is_refused(name, two_shards):
+    """Refused before the sequence-parallel slice; now each core runs
+    over two shards and equals dense attention of the whole sequence,
+    forward and gradients, at the reference's sharded bars
+    (tests/test_sequence_parallel.py)."""
+    x, got = two_shards
+    t = {n: torch.from_numpy(x[n]).requires_grad_(True) for n in "qkv"}
+    want = dot_product_attention(t["q"], t["k"], t["v"],
+                                 torch.from_numpy(x["mask"]), causal=True)
+    want.square().sum().backward()
+    parts = [np.concatenate([r[name, True, "float32"][i] for r in got],
+                            axis=1) for i in range(4)]
+    np.testing.assert_allclose(parts[0], _np(want), **F32["out"])
+    for i, n in enumerate("qkv", 1):
+        np.testing.assert_allclose(parts[i], _np(t[n].grad),
+                                   err_msg=f"d{n}", **F32["grad"])
 
 
 def test_kernel_route_matches_the_references_blocks_viable():

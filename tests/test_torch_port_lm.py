@@ -26,6 +26,7 @@ import numpy as np
 import pytest
 import torch
 
+import _torch_port_ranks as ranks
 from distributed_model_parallel_tpu.data import lm as jlm
 from distributed_model_parallel_tpu.models import gpt as jgpt
 from distributed_model_parallel_tpu.parallel.sequence_parallel import (
@@ -354,7 +355,8 @@ def test_cli_defaults_to_cuda_and_refuses_without_a_gpu():
     (["--steps-per-dispatch", "2"], "multi-step dispatch"),
     (["--profile-dir", "prof"], "profiler-capture"),
 ])
-def test_cli_refuses_flags_of_later_slices(flags, slice_, monkeypatch):
+def test_cli_refuses_flags_of_later_slices(flags, slice_, monkeypatch,
+                                           tmp_path):
     """Flags of later slices exit naming the slice. --remat,
     --steps-per-dispatch and --profile-dir, refused before their slice
     was ported, now reach the engine and the trainer as in the JAX CLI
@@ -362,11 +364,31 @@ def test_cli_refuses_flags_of_later_slices(flags, slice_, monkeypatch):
     test_torch_port_metrics.py hold what they do). --checkpoint-format
     sharded, refused before the sharded-checkpoint slice, now reaches
     the trainer's configuration, and --async-save alone exits with the
-    JAX CLI's message (it needs the sharded format)."""
+    JAX CLI's message (it needs the sharded format). --seq-shards 2,
+    refused before the sequence-parallel slice, builds the (data 1, seq
+    2) mesh on two gloo ranks; --collective-matmul exits with the JAX
+    CLI's message at one shard and names its slice at two."""
     if flags[0] == "--async-save":
         with pytest.raises(SystemExit,
                            match="requires --checkpoint-format sharded"):
             lm_cli.main(["--device", "cpu", *flags])
+        return
+    if flags[0] == "--seq-shards":
+        # Ported with the sequence-parallel slice: two gloo ranks build
+        # the (data 1, seq 2) mesh, each with its seq index, and the
+        # mesh's data x seq group holds both.
+        got = ranks.spawn(2, "lm_engine_probe", {"argv": [
+            "--device", "cpu", *flags, "--seq-len", "32"]}, tmp_path)
+        assert [(r["data"], r["seq"], r["seq_index"], r["data_seq_ranks"])
+                for r in got] == [(1, 2, 0, 2), (1, 2, 1, 2)]
+        return
+    if flags[0] == "--collective-matmul":
+        # The JAX CLI's check first (a one-shard ring does nothing), and
+        # with two shards the refusal naming the slice.
+        with pytest.raises(SystemExit, match="set --seq-shards >= 2"):
+            lm_cli.main(["--device", "cpu", *flags])
+        with pytest.raises(SystemExit, match=f"not ported.*{slice_} slice"):
+            lm_cli.main(["--device", "cpu", *flags, "--seq-shards", "2"])
         return
     if flags[0] in ("--dcn-slices", "--dcn-compression"):
         # Ported with the gradient-reduction slice: one rank has no
