@@ -137,7 +137,8 @@ Phases; any failure exits non-zero (nothing is caught and passed over):
    `ServingEngine.run` on 16 requests sharing a 96-token prefix (16-32
    token tails), with and without `prefix_cache`: equal tokens, hit
    rate, pages reused, TTFT; (c) speculative int8 at k = 4 through the
-   serve CLI, with phase 7's LM checkpoint as target and draft (the
+   serve CLI (8 requests a run; 16 until phase 15 was added), with
+   phase 7's LM checkpoint as target and draft (the
    full-accept path: accept rate above 0.9) and with a fresh 2-layer
    draft (the rollback path): tokens equal to a plain paged int8 run of
    the same target, K4 launched 48 x (target decode + verify steps) + 4
@@ -147,7 +148,8 @@ Phases; any failure exits non-zero (nothing is caught and passed over):
    and on the CPU under BF16_LOGIT_REL. K1-K3 must launch 0 times in
    the phase.
 10. Slice 9 (the training knobs and the transformer classifiers):
-   (a) the LM CLI at phase 5's width and flags with `--remat`, 8 steps,
+   (a) the LM CLI at phase 5's width and flags with `--remat`, 4 steps
+   (8 until phase 15 was added),
    f32 and bf16: per-step losses against phase 5's runs without remat
    (1e-5 f32, S9_REMAT_REL bf16; bit-equality printed), peak memory
    below theirs, K1 = 2 x 12 a step (the recompute) and K2 = K3 = 12;
@@ -168,18 +170,21 @@ Phases; any failure exits non-zero (nothing is caught and passed over):
    kernels and each `.prom` file parse as Prometheus text with the
    `train_step_s` summary; (c) the DP CLI on `--model vit` (SyntheticTextures, batch
    512, AdamW) gspmd f32, ddp f32, ddp bf16, and `--model bert`
-   (BERT_BASE, SyntheticText, batch 512, AdamW, dropout 0.1) f32 with
+   (BERT_BASE, SyntheticText, batch 512, AdamW, dropout 0.1; 2 epochs
+   of 5 steps, of 8 until phase 15 was added) f32 with
    and without `--remat` (remat's peak memory must be the lower): ms a
    step, samples/s, busy / idle, kernels a step, peak memory, losses
    (finite and falling), val acc1; (d) the pipeline CLI on bert_tiny,
-   4 stages, M 4, gpipe and 1f1b (losses falling), and one bert_tiny
+   4 stages, M 4, gpipe and 1f1b, 2 epochs of 8 steps (4 until phase
+   15 was added; losses falling), and one bert_tiny
    step through 4 stages against the DataParallelEngine's within
    PP_STEP_REL; (e) one ViT, one bert_tiny and one 2-layer BERT_BASE-
    width DDP step (dropout 0) on the card against the CPU within
    DP_CARD_VS_CPU. K4 must launch 0 times.
 11. Slice 10 (gradient reduction; DDP's bucketed Reducer and the
    stagewise overlapped backward), at world 1 on NCCL: (a) the DP CLI
-   on MobileNetV2 `--engine ddp` at phase 6's flags, 12 steps and
+   on MobileNetV2 `--engine ddp` at phase 6's flags, 8 steps (12 until
+   phase 15 was added) and
    validation on 2,560 images, f32 and bf16, `--grad-reduction
    monolithic`, `bucketed --bucket-mb 1` and `overlapped --bucket-mb 1`
    (4 segments); (b) the LM CLI at phase 5's width (12 layers,
@@ -201,9 +206,10 @@ Phases; any failure exits non-zero (nothing is caught and passed over):
 12. Slice 11 (tensor parallelism, the device-resident dataset cache,
    the image-folder datasets), on phase 11's SyntheticTextures (val cut
    to 2,560): (a) the DP CLI at world 1 on NCCL, `--model bert`
-   (BERT_BASE, SyntheticText, batch 512, AdamW lr 1e-3, dropout 0.1, 2
-   epochs of 4 steps) and `--model vit` (VIT_CIFAR, batch 512, 8
-   steps; 2 x 6 and 12 until phase 13 was added), f32 and bf16, under `--engine tp --model-shards 1` and under
+   (BERT_BASE, SyntheticText, batch 512, AdamW lr 1e-3, dropout 0.1, 1
+   epoch of 4 steps) and `--model vit` (VIT_CIFAR, batch 512, 4
+   steps; 2 x 6 and 12 until phase 13 was added, 2 x 4 and 8 until
+   phase 15), f32 and bf16, under `--engine tp --model-shards 1` and under
    `--engine gspmd`: per run ms a step, samples/s, busy / idle, kernels
    a step, peak memory; f32 losses and final parameters bit-equal
    between the two engines; BERT f32 tp with `--steps-per-dispatch 4`
@@ -226,9 +232,10 @@ Phases; any failure exits non-zero (nothing is caught and passed over):
 13. Slice 12 (FSDP, the sharded checkpoint format, elastic restart):
    (a) the DP CLI at world 1 on NCCL, `--engine fsdp` against `--engine
    ddp` at the same flags, monolithic, bucketed and overlapped, on
-   BERT_BASE (phase 12's flags: batch 512, AdamW 1e-3, dropout 0.1, 2
-   epochs of 4 steps) in f32 and bf16 and on MobileNetV2 (phase 11's
-   flags at 8 steps, f32): per run ms a step, samples/s, busy / idle, kernels a
+   BERT_BASE (phase 12's flags: batch 512, AdamW 1e-3, dropout 0.1, 1
+   epoch of 2 steps) in f32 and bf16 and on MobileNetV2 (phase 11's
+   flags at 2 steps, f32; 8 until phase 15 was added): per run ms a
+   step, samples/s, busy / idle, kernels a
    step, peak memory and the collectives issued a step (gradient ones
    and FSDP's weight all-gathers); f32 losses and final parameters
    bit-equal between the engines (bf16 printed); BERT f32 fsdp
@@ -260,8 +267,9 @@ Phases; any failure exits non-zero (nothing is caught and passed over):
    gloo world of 2 that it joins before `cli/lm.main` does (NCCL puts
    one rank on a GPU; the K/V hops, all-to-alls and all-reduces stage
    CUDA tensors through the host), GPT-2-small width, `--optimizer sgd`,
-   3 steps and 1 val batch: `ring_flash` f32 at 12 layers, bf16 and
-   `ulysses_flash` f32 at 4, plain `ring` and `ulysses` and a
+   3 steps and 1 val batch: `ring_flash` f32 at 6 layers, bf16 and
+   `ulysses_flash` f32 at 2 (12, 4 and 4 until phase 15 was added),
+   plain `ring` and `ulysses` and a
    `--grad-reduction bucketed` ring_flash run at 2, each against
    `--seq-shards 1` in this process at the same flags (f32: per-step
    losses and rank 0's final parameters within S11_M2_TOL; bf16
@@ -271,7 +279,7 @@ Phases; any failure exits non-zero (nothing is caught and passed over):
    (s + 1) x steps; ulysses_flash as at N 1; the plain cores none; K4
    none); each rank's
    ms a step (host-staged gloo, not a ring time), and its device busy
-   over one profiled step of the 12-layer f32 run. (b) K1-K3 at the
+   over one profiled step of the ring_flash f32 run. (b) K1-K3 at the
    hop shapes (S13_HOP_CASES: ring_flash's resident block and a masked
    non-causal hop at (8, 512, 12, 64), ulysses_flash's (8, 1024, 6,
    64)), f32 and bf16, through the path shape's `flash_case` and
@@ -282,15 +290,39 @@ Phases; any failure exits non-zero (nothing is caught and passed over):
    0, 3 SGD steps, against `DDPEngine` at N 1 on the card within
    S11_M2_TOL, rank 1's parameters equal to rank 0's; K1-K3 12
    launches a rank and K4 none.
-15. One `{"kernels": [...]}` JSON line (int8_matmul, flash_fwd,
+15. Slice 14 (the tp / sp serving layouts, collective matmul): (c) K4
+   against its plain version at the shapes the layouts give it at
+   GPT-2-small width (S14_SHAPES: the Megatron shards at M 8, the row
+   shards with the whole row's absmax as the kernel's input, and the
+   ring chunks of 4 and 2 rows at S 2 and 4), each timed as in phase 3
+   with its bound and `torch._int_mm`; (a, b) two spawned processes on
+   the one card in a gloo world of 2 (joined before the CLIs do) run the
+   serve CLI at phase 4's width and flags (8 requests of 16 new tokens;
+   phase 4 serves 16 of 32) under `--layout tp --model-shards 2`, f32
+   and int8, each with and without `--collective-matmul`, and `--layout
+   sp --seq-shards 2`, contiguous and `--page-size 16`: the K4 launches
+   of each run exact (48 a decode step a rank declarative, 96 on the
+   rings at S 2, 0 in f32), and every layout's engine through a
+   teacher-forced script (8 prompts, S14_STEPS decode steps): the ranks'
+   logits bit-equal, f32 and every prefill within S14_F32_REL of this
+   process's replicated engine, int8 decode within INT8_LOGIT_REL of
+   replicated f32 and int8 (the share inside the reference's
+   elementwise budget printed); tokens/s and decode p50 / p99 labelled
+   host-staged gloo (not a tp or sp time). (d) The same ranks run the
+   LM CLI at `--seq-shards 2 --attention ring_flash` (2 layers) and the
+   DP CLI's BERT_BASE at `--engine tp --model-shards 2` (dropout 0.1, 2
+   steps), each with and without `--collective-matmul`: per-step losses
+   within S14_LOSS_REL, K1-K4 launches equal.
+16. One `{"kernels": [...]}` JSON line (int8_matmul, flash_fwd,
    flash_bwd_dq, flash_bwd_dkv; `launches_slice6` counts phase 7's
    runs, `launches_slice7` phase 8's, `launches_slice8` phase 9's,
    `launches_slice9` phase 10's as the wrappers count them,
    `replays_slice9_traced` the launches that phase 10's profiles of
    4-step graph dispatches show, `launches_slice10` phase 11's,
    `launches_slice11` phase 12's, `launches_slice12` phase 13's,
-   `launches_slice13` phase 14's over both ranks, and each flash
-   kernel's `hop_shapes` its phase-14 (b) rows), then
+   `launches_slice13` phase 14's over both ranks, `launches_slice14`
+   phase 15's, each flash kernel's `hop_shapes` its phase-14 (b) rows,
+   and K4's `shard_and_ring_shapes` its phase-15 (c) rows), then
    the nvidia-smi line, then
    the last line `{"ok": true, "device": {...}}`. Each phase prints its
    seconds.
@@ -377,11 +409,13 @@ def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
 
 
-def bound(m: int, k: int, n: int):
+def bound(m: int, k: int, n: int, absmax: bool = False):
     """Least time for y(M,N) f32 = int8 GEMM of x(M,K) f32 against a
-    prepared (N,K) int8 weight + (N,) f32 scales: each input read once,
-    the output written once, against 2*M*N*K int8 operations."""
-    nbytes = 4 * m * k + n * k + 4 * n + 4 * m * n
+    prepared (N,K) int8 weight + (N,) f32 scales (and, with `absmax`, an
+    (M,) f32 input absmax): each input read once, the output written
+    once, against 2*M*N*K int8 operations."""
+    nbytes = 4 * m * k + n * k + 4 * n + 4 * m * n + (4 * m if absmax
+                                                      else 0)
     ops = 2 * m * n * k
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / INT8_OPS_PER_S
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
@@ -409,9 +443,10 @@ def device_ms(fn, arg_sets, iters: int, key="int8_matmul_kernel"):
     """Mean device time per call of the device kernels whose name holds
     `key` (of every kernel `fn` launches when `key` is None), from
     torch.profiler's CUDA activity: the part of `time_ms` that is not
-    host launch overhead. A profile that records no such kernel (seen
-    now and then on the card) is taken again, twice at most; None if
-    none records one."""
+    host launch overhead. A profile that records fewer such launches
+    than calls (the profiler drops kernel records now and then on the
+    card, and once kept 1 of 60, giving 0.1 us a launch) is taken again,
+    twice at most; None if none records them all."""
     from torch.profiler import ProfilerActivity, profile
 
     fn(*arg_sets[0])
@@ -421,10 +456,10 @@ def device_ms(fn, arg_sets, iters: int, key="int8_matmul_kernel"):
             for i in range(iters):
                 fn(*arg_sets[i % len(arg_sets)])
             torch.cuda.synchronize()
-        total_us = sum(t for t, _, name in device_kernels(prof)
-                       if key is None or key in name)
-        if total_us:
-            return total_us / iters / 1e3
+        seen = [(t, n) for t, n, name in device_kernels(prof)
+                if key is None or key in name]
+        if sum(n for _, n in seen) >= iters:
+            return sum(t for t, _ in seen) / iters / 1e3
     return None
 
 
@@ -432,17 +467,21 @@ def copies_for(nbytes: int) -> int:
     return max(2, min(400, math.ceil(120e6 / nbytes)))
 
 
-def check_shape(qm, m, k, n, seed):
+def check_shape(qm, m, k, n, seed, absmax: bool = False):
     """Phase 3 at one shape: codes, scales and outputs vs the plain
-    version, then the four timings."""
+    version, then the four timings. `absmax`: the kernel takes each
+    row's absmax as an input (1.5 times the row's own, as a slice of a
+    longer row would see), and the plain version the same."""
     g = torch.Generator(device="cuda").manual_seed(seed)
     x = torch.randn((m, k), generator=g, device="cuda")
     w = 0.02 * torch.randn((k, n), generator=g, device="cuda")
     wq_t, wscale = qm.prepare_weight(w)
-    y, codes, scales = qm.int8_matmul(x, wq_t, wscale, return_codes=True)
+    a = (1.5 * x.abs().amax(dim=-1)).contiguous() if absmax else None
+    y, codes, scales = qm.int8_matmul(x, wq_t, wscale, absmax=a,
+                                      return_codes=True)
     torch.cuda.synchronize()
-    ref_codes, ref_scales = qm.quantize_rows(x)
-    ref = qm.int8_matmul_plain(x, wq_t, wscale)
+    ref_codes, ref_scales = qm.quantize_rows(x, a)
+    ref = qm.int8_matmul_plain(x, wq_t, wscale, a)
     require(torch.equal(codes, ref_codes),
             f"int8 codes differ from the plain version at {(m, k, n)}")
     require(torch.equal(scales, ref_scales),
@@ -453,9 +492,16 @@ def check_shape(qm, m, k, n, seed):
     kcopies = [(x, *qm.prepare_weight(w.roll(i, 1)))
                for i in range(copies_for(n * k))]
     fcopies = [(x, w.roll(i, 1)) for i in range(copies_for(4 * n * k))]
-    kernel_ms = time_ms(qm.int8_matmul, kcopies, 300)
-    kernel_device_ms = device_ms(qm.int8_matmul, kcopies, 60)
-    plain_ms = time_ms(qm.int8_matmul_plain, kcopies, 30)
+
+    def kernel(x, wq_t, wscale):
+        return qm.int8_matmul(x, wq_t, wscale, absmax=a)
+
+    def plain(x, wq_t, wscale):
+        return qm.int8_matmul_plain(x, wq_t, wscale, a)
+
+    kernel_ms = time_ms(kernel, kcopies, 300)
+    kernel_device_ms = device_ms(kernel, kcopies, 60)
+    plain_ms = time_ms(plain, kcopies, 30)
     library_ms = time_ms(torch.matmul, fcopies, 300)
     library_device_ms = device_ms(torch.matmul, fcopies, 60, None)
     int_mm_device_ms = None
@@ -465,8 +511,9 @@ def check_shape(qm, m, k, n, seed):
         padded[:m] = codes
         icopies = [(padded, wq.t()) for _, wq, _ in kcopies]
         int_mm_device_ms = device_ms(torch._int_mm, icopies, 60, None)
-    bound_ms, bound_by, nbytes, ops = bound(m, k, n)
-    return {"M": m, "K": k, "N": n, "kernel_ms": kernel_ms,
+    bound_ms, bound_by, nbytes, ops = bound(m, k, n, absmax)
+    return {"M": m, "K": k, "N": n, "input_absmax": absmax,
+            "kernel_ms": kernel_ms,
             "kernel_device_ms": kernel_device_ms,
             "plain_ms": plain_ms, "library_ms": library_ms,
             "library_device_ms": library_device_ms,
@@ -576,18 +623,24 @@ def plain_gemm(qm):
     """Route the engine's int8 GEMM through the plain version
     (`quant_matmul` looks `int8_matmul` up in its module)."""
     return patched(qm, "int8_matmul",
-                   lambda x, wq_t, ws: qm.int8_matmul_plain(x, wq_t, ws))
+                   lambda x, wq_t, ws, absmax=None: qm.int8_matmul_plain(
+                       x, wq_t, ws, absmax))
 
 
+@contextlib.contextmanager
 def recording_gemm(qm, inputs):
     """Record, as (M, K) host copies, the input of every projection the
-    int8 policy runs."""
-    call = qm.QuantMatmul.__call__
+    int8 policy runs (its column and row projections)."""
+    def recording(call):
+        def recorded(self, h, w, b):
+            inputs.append(h.detach().reshape(-1, h.shape[-1]).cpu())
+            return call(self, h, w, b)
+        return recorded
 
-    def recorded(self, h, w, b):
-        inputs.append(h.detach().reshape(-1, h.shape[-1]).cpu())
-        return call(self, h, w, b)
-    return patched(qm.QuantMatmul, "__call__", recorded)
+    with patched(qm.QuantMatmul, "column",
+                 recording(qm.QuantMatmul.column)), \
+            patched(qm.QuantMatmul, "row", recording(qm.QuantMatmul.row)):
+        yield
 
 
 def int8_vs_f32(got, ref):
@@ -2517,7 +2570,9 @@ def serving_features_phase(serve, engine_cls, cfg_cls, fa, qm, ckpt_dir,
     emit({"verify_rows_vs_decode_steps": rows_vs_decode})
     require(rows_vs_decode["int8"]["bit_equal"], "int8 verify rows differ "
             f"from decode steps: {rows_vs_decode['int8']}")
-    spec_flags = PAGED_FLAGS + ["--compute-dtype", "int8"]
+    # 8 requests a run of the pair (16 until phase 15 was added).
+    spec_flags = PAGED_FLAGS + ["--compute-dtype", "int8",
+                                "--num-requests", "8"]
     spec = {}
     for name, target, draft in (
             ("checkpoint_draft", ["--checkpoint", ckpt_dir],
@@ -2580,7 +2635,9 @@ def serving_features_phase(serve, engine_cls, cfg_cls, fa, qm, ckpt_dir,
 # Slice 9: --remat, --steps-per-dispatch (CUDA graphs), --profile-dir,
 # --metrics-out, and the ViT and BERT classifiers
 
-S9_LM_STEPS = 8  # the default corpus gives 8 batches of 8 x 1024
+# The default corpus gives 8 batches of 8 x 1024; 4 of them (8 until
+# phase 15 was added).
+S9_LM_STEPS = 4
 S9_K = 4  # --steps-per-dispatch
 S9_LM = LM_BASE + ["--layers", str(LAYERS), "--attention", "ulysses_flash",
                    "--epochs", "1", "--steps-per-epoch", str(S9_LM_STEPS)]
@@ -2599,15 +2656,15 @@ S9_VIT_RUNS = (("vit_gspmd_f32", ["--engine", "gspmd"]),
 # SyntheticText: 4,096 examples, 8 batches of 512 an epoch. BERT_BASE
 # runs 2 epochs (16 steps, ~0.5 s each), bert_tiny 4 (32 steps: its loss
 # leaves chance after ~10).
-S9_BERT = [
+S9_BERT = [  # 2 epochs of 5 steps (of 8 until phase 15 was added)
     "--device", "cuda", "--model", "bert", "-type", "SyntheticText",
     "-b", str(DP_BATCH), "--val-batch-size", "1024", "--optimizer", "adamw",
-    "--lr", "1e-3", "--epochs", "2"]
+    "--lr", "1e-3", "--epochs", "2", "--steps-per-epoch", "5"]
 S9_BERT_TINY_PP = [
     "./data", "--device", "cuda", "--model", "bert_tiny", "-type",
     "SyntheticText", "-b", str(DP_BATCH), "--optimizer", "adamw",
-    "--lr", "1e-2", "--epochs", "4", "--world-size", "4",
-    "--microbatches", "4"]
+    "--lr", "1e-2", "--epochs", "2", "--world-size", "4",
+    "--microbatches", "4"]  # 2 epochs (16 steps; 4 until phase 15)
 
 
 @contextlib.contextmanager
@@ -2694,7 +2751,7 @@ def s9_grouped_equal(eager, graph) -> bool:
     return i == len(eager)
 
 
-def s9_timing(trainer, k: int, names=(), reps: int = 2) -> dict:
+def s9_timing(trainer, k: int, names=(), reps: int = 1) -> dict:
     """Four train steps of a finished run's Trainer from its own loader:
     as four `train_step` calls (k = 1) or one dispatch of the captured
     graph (k = 4), synchronized, `reps` times after one warm pass (ms a
@@ -3156,7 +3213,7 @@ def slice9_phase(lm, fa, qm, lm_rows, dp_data) -> dict:
 # ---------------------------------------------------------------------
 # Gradient reduction (slice 10)
 
-S10_STEPS = 12
+S10_STEPS = 8  # 12 until phase 15 was added; steps 6-8 are timed
 S10_VAL_IMAGES = 2560  # of phase 6's 10,000, as phase 8 validates
 S10_DP_FLAGS = DP_FLAGS[:DP_FLAGS.index("--steps-per-epoch")] + [
     "--steps-per-epoch", str(S10_STEPS), "--engine", "ddp"]
@@ -3249,7 +3306,7 @@ def s10_modes(name, runs, f32):
 
 def s10_dp(dp_cli, dp_mod, data):
     """(a) MobileNetV2 DDP, f32 and bf16, monolithic / bucketed 1 MB /
-    overlapped 1 MB through the DP CLI, 12 steps each."""
+    overlapped 1 MB through the DP CLI, S10_STEPS steps each."""
     import torch.distributed as dist
 
     from distributed_model_parallel_tpu_torch.data import datasets
@@ -3319,7 +3376,7 @@ def s10_lm(lm, fa, qm):
 
 
 def s10_dispatch(dp_cli, dp_mod, data):
-    """(c) MobileNetV2 DDP bf16, overlapped 1 MB, 12 steps: step by step
+    """(c) MobileNetV2 DDP bf16, overlapped 1 MB, S10_STEPS steps: step by step
     and `--steps-per-dispatch 4` (the overlapped step captured in a CUDA
     graph, its collectives issued from the reducer's stream): dispatch
     sums and final state bit-equal, ms a step and idle share of each."""
@@ -3508,15 +3565,16 @@ def slice10_phase(lm, fa, qm, dp_data) -> dict:
 # Slice 11: tensor parallelism, the device-resident dataset cache and the
 # image-folder datasets
 
-S11_STEPS = 8
+# 4 steps a run (8 until phase 15 was added; the checks are bit-equality
+# and finite losses, which 4 steps show as 8 do).
+S11_STEPS = 4
 # Where phase 12 runs (its flags say it too): what its functions build
 # themselves goes here.
 S11_DEVICE = "cuda"
-S11_BERT = [  # SyntheticText: 8 batches of 512 an epoch; 2 x 4 steps
+S11_BERT = [  # SyntheticText: 8 batches of 512 an epoch; 1 x 4 steps
     "--device", "cuda", "--model", "bert", "-type", "SyntheticText",
     "-b", str(DP_BATCH), "--val-batch-size", "1024", "--optimizer", "adamw",
-    "--lr", "1e-3", "--epochs", "2", "--steps-per-epoch",
-    str(S11_STEPS // 2)]
+    "--lr", "1e-3", "--epochs", "1", "--steps-per-epoch", str(S11_STEPS)]
 S11_VIT = DP_FLAGS[:DP_FLAGS.index("--lr")] + [
     "--model", "vit", "--optimizer", "adamw", "--lr", "1e-2", "--wd", "0.05",
     "-j", "8", "--epochs", "1", "--steps-per-epoch", str(S11_STEPS)]
@@ -3531,7 +3589,7 @@ S11_ENGINES = (("tp", ["--engine", "tp", "--model-shards", "1"]),
 S11_M2_STEPS = 3
 S11_M2_LR = 0.05
 S11_M2_TOL = dict(rtol=1e-5, atol=1e-6)
-S11_CACHE_FLAGS = S10_DP_FLAGS  # MobileNetV2 DDP, 12 steps, batch 512
+S11_CACHE_FLAGS = S10_DP_FLAGS  # MobileNetV2 DDP, S10_STEPS, batch 512
 # The initial state's eval logits, device cache against host loader:
 # f32 rounding, relative to max |logit|.
 S11_LOGIT_REL = 1e-5
@@ -3555,9 +3613,10 @@ def s11_cut_val(data):
 def s11_tp_runs(dp_cli, dp_mod, data) -> list:
     """(a) BERT_BASE and VIT_CIFAR through the DP CLI at world 1 on NCCL,
     f32 and bf16, `--engine tp --model-shards 1` and `--engine gspmd`,
-    12 steps and validation each; in f32 the two engines' per-step losses
-    and final parameters must be bit-equal (every collective is the
-    identity at M 1 and the dropout keys coincide). Then BERT f32 under
+    S11_STEPS steps and validation each; in f32 the two engines'
+    per-step losses and final parameters must be bit-equal (every
+    collective is the identity at M 1 and the dropout keys coincide).
+    Then BERT f32 under
     tp with `--steps-per-dispatch 4`: bit-equal to the eager run."""
     from distributed_model_parallel_tpu_torch.data import datasets
 
@@ -4012,8 +4071,10 @@ def slice11_phase(fa, qm, dp_data) -> dict:
 # ---------------------------------------------------------------------
 # Slice 12: FSDP, the sharded checkpoint format, elastic restart
 
-S12_STEPS = 8
-S12_BERT = S11_BERT  # BERT_BASE, batch 512, AdamW 1e-3, dropout 0.1, 2 x 4
+S12_STEPS = 2  # 8 until phase 15 was added
+# BERT_BASE, batch 512, AdamW 1e-3, dropout 0.1, 1 x 2 (S11_BERT's 1 x 4
+# for the dispatch run)
+S12_BERT = S11_BERT[:-1] + [str(S12_STEPS)]
 S12_BERT_MODES = (("monolithic", []),
                   ("bucketed", ["--grad-reduction", "bucketed"]),
                   ("overlapped", ["--grad-reduction", "overlapped"]))
@@ -4085,7 +4146,7 @@ def s12_fsdp_runs(dp_cli, dp_mod, data) -> list:
                             f"{model} {mode} f32: fsdp at world 1 differs "
                             f"from ddp: {same}")
     d1, d4 = scratch_dir("s12_bert_k1"), scratch_dir(f"s12_bert_k{S9_K}")
-    flags = S12_BERT + ["--engine", "fsdp", "--grad-reduction", "bucketed",
+    flags = S11_BERT + ["--engine", "fsdp", "--grad-reduction", "bucketed",
                         "--checkpoint-dir", "ck"]
     (_, s1, tr1, _, _, _), (_, s4, tr4, _, _, _) = (
         s9_run(dp_cli.main, flags, dp_mod._DataParallel, d1),
@@ -4098,7 +4159,7 @@ def s12_fsdp_runs(dp_cli, dp_mod, data) -> list:
            "dispatch_sums_equal": s9_grouped_equal(s1, s4),
            "graph_captures": graph.captures, "graph_replays": graph.replays}
     emit(row)
-    require(len(s1) == S12_STEPS and row["dispatch_sums_equal"]
+    require(len(s1) == S11_STEPS and row["dispatch_sums_equal"]
             and same["bit_equal"] and graph.replays > 0,
             f"BERT fsdp graph run differs from step by step: {row}")
     return rows
@@ -4529,10 +4590,10 @@ S13_LR = 0.05
 S13_LM = LM_BASE + ["--optimizer", "sgd", "--lr", str(S13_LR), "--epochs",
                     "1", "--steps-per-epoch", str(S13_STEPS)]
 S13_RUNS = (  # (name, layers, extra flags), each at --seq-shards 2 and 1
-    ("ring_flash_f32", 12, ["--attention", "ring_flash"]),
-    ("ring_flash_bf16", 4, ["--attention", "ring_flash", "--dtype",
-                            "bfloat16"]),
-    ("ulysses_flash_f32", 4, ["--attention", "ulysses_flash"]),
+    ("ring_flash_f32", 6, ["--attention", "ring_flash"]),  # 12 until phase 15
+    ("ring_flash_bf16", 2, ["--attention", "ring_flash", "--dtype",
+                            "bfloat16"]),  # 4 layers until phase 15
+    ("ulysses_flash_f32", 2, ["--attention", "ulysses_flash"]),  # and 4
     ("ring_f32", 2, ["--attention", "ring"]),
     ("ulysses_f32", 2, ["--attention", "ulysses"]),
     ("ring_flash_bucketed_f32", 2, ["--attention", "ring_flash",
@@ -4903,6 +4964,424 @@ def slice13_phase(lm, engine_cls, fa) -> tuple:
     return launches, hops
 
 
+# ---- phase 15: the tp / sp serving layouts and collective matmul -----
+
+# (name, serve CLI flags, engine kwargs, K4 launches a decode step a rank):
+# the main path's layouts at phase 4's width and flags, two ranks on the
+# card. The rings run 4 projections x 12 layers x S chunk GEMMs a step.
+S14_SERVE = (
+    ("tp_f32", ["--layout", "tp", "--model-shards", "2"],
+     dict(layout="tp"), 0),
+    ("tp_f32_cm", ["--layout", "tp", "--model-shards", "2",
+                   "--collective-matmul"],
+     dict(layout="tp", collective_matmul=True), 0),
+    ("tp_int8", ["--layout", "tp", "--model-shards", "2",
+                 "--compute-dtype", "int8"],
+     dict(layout="tp", compute_dtype="int8"), 4 * LAYERS),
+    ("tp_int8_cm", ["--layout", "tp", "--model-shards", "2",
+                    "--collective-matmul", "--compute-dtype", "int8"],
+     dict(layout="tp", collective_matmul=True, compute_dtype="int8"),
+     4 * LAYERS * 2),
+    ("sp_f32", ["--layout", "sp", "--seq-shards", "2"], dict(layout="sp"),
+     0),
+    ("sp_f32_paged", ["--layout", "sp", "--seq-shards", "2",
+                      "--page-size", "16"],
+     dict(layout="sp", page_size=16), 0),
+)
+S14_STEPS = 6  # teacher-forced decode steps after the 8 prompts
+# The serve runs' depth: 8 requests (one admission wave) of 16 tokens.
+S14_REQUESTS, S14_NEW = 8, 16
+S14_SERVE_DEPTH = ["--num-requests", str(S14_REQUESTS), "--max-new-tokens",
+                   str(S14_NEW)]
+S14_MAX_LEN, S14_PREFILL = 1024, 128  # phase 4's --max-len, --prefill-len
+# Teacher-forced logits against the replicated layout on the card, as
+# max|got - ref| / max|ref|: f32 layouts (and every layout's f32
+# prefill) against f32 within 1e-4 (the sums of partial products over 2
+# ranks add in another order). int8 decode against replicated f32 and
+# int8 within phase 4's INT8_LOGIT_REL: int8 turns the f32 rounding of
+# another summation order into flipped activation codes, 12 layers
+# deep, as between card and CPU (phase 4: 1.62e-2 of max|logit|); the
+# share of elements inside the reference's elementwise int8 budget
+# (tests/test_serving.py QUANT_LOGIT_RTOL/ATOL, which replicated int8
+# against f32 fails at this width too, phase 4) is printed.
+S14_F32_REL = 1e-4
+S14_INT8_BUDGET = dict(rtol=5e-2, atol=1e-2)
+# (d): the LM at --seq-shards 2 (2 layers, ring_flash) and the DP CLI's
+# BERT_BASE at --engine tp --model-shards 2 (dropout 0.1, 2 SGD steps of
+# 16 sequences, val cut to 128), each with and without --collective-matmul:
+# losses within 1e-5 relative, K1-K3 launches equal.
+S14_LM = S13_LM + ["--layers", "2", "--seq-shards", "2", "--attention",
+                   "ring_flash"]
+S14_DP = ["--device", "cuda", "--model", "bert", "-type", "SyntheticText",
+          "-b", "16", "--val-batch-size", "128", "--optimizer", "sgd",
+          "--lr", "0.05", "--epochs", "1", "--steps-per-epoch", "2",
+          "--engine", "tp", "--model-shards", "2"]
+S14_DP_VAL = 128
+S14_LOSS_REL = 1e-5
+# (c): K4 at the shapes the layouts give it at GPT-2-small width, 8 slots:
+# (M, K, N, input absmax). Megatron shards at M 8 (the column shards
+# whole rows; the row shards, without the rings, with the whole row's
+# absmax as an input) and the ring chunks of 8/S rows at S 2 and 4.
+S14_SHAPES = (
+    (8, 768, 1152, False), (8, 768, 1536, False),
+    (8, 384, 768, True), (8, 1536, 768, True),
+    (4, 768, 1152, False), (4, 384, 768, False),
+    (4, 768, 1536, False), (4, 1536, 768, False),
+    (2, 768, 576, False), (2, 192, 768, False), (2, 768, 768, False),
+)
+
+
+def s14_config():
+    from distributed_model_parallel_tpu_torch.models.gpt import GPTConfig
+
+    return GPTConfig(vocab_size=50257, dim=768, num_layers=LAYERS,
+                     num_heads=12, ffn_dim=3072, max_position=S14_MAX_LEN,
+                     dropout_rate=0.0, pad_token_id=0)
+
+
+def s14_script(eng, params, qm) -> dict:
+    """The teacher-forced script on `eng`: 8 seeded prompts of 16-128
+    tokens (at prefill_len 128) prefilled into the 8 slots, then
+    S14_STEPS decode steps of
+    seeded tokens for every slot. Returns the prefill and decode logits
+    on the host and the K4 launches of the decode steps."""
+    import numpy as np
+
+    rng = np.random.RandomState(14)
+    vocab = eng.cfg.vocab_size
+    lens = rng.randint(eng.prefill_len // 8, eng.prefill_len + 1, SLOTS)
+    prompts = [rng.randint(1, vocab, n).astype(np.int32) for n in lens]
+    tokens = rng.randint(1, vocab, (S14_STEPS, SLOTS))
+    cache = eng.init_cache()
+    host = eng.new_host() if eng.paged_spec is not None else None
+    prefill = []
+    for slot, prompt in enumerate(prompts):
+        ids, length = eng.pad_prompt(prompt)
+        if host is None:
+            cache, nl = eng.prefill(params, cache, ids, length, slot)
+        else:
+            host.ensure_pages(slot, length)
+            cache, nl = eng.paged_prefill_step(
+                params, cache, host.device_row(slot), ids, length)
+        prefill.append(nl.cpu())
+    positions = lens.astype(np.int64)
+    active = np.ones(SLOTS, bool)
+    decode = []
+    qm.int8_matmul.launches = 0
+    for step in range(S14_STEPS):
+        if host is None:
+            cache, logits = eng.decode_step(
+                params, cache, torch.from_numpy(tokens[step]).to(eng.device),
+                torch.from_numpy(active).to(eng.device))
+        else:
+            for slot in range(SLOTS):
+                cache = host.ensure_writable(cache, slot,
+                                             int(positions[slot]))
+            cache, logits = eng.paged_decode_step(
+                params, cache, host.device_table(),
+                *eng.step_inputs(positions, tokens[step], active))
+        decode.append(logits.cpu())
+        positions += 1
+    s13_sync(eng.device.type)
+    return {"prefill": torch.stack(prefill), "decode": torch.stack(decode),
+            "launches": qm.int8_matmul.launches}
+
+
+def s14_dp_steps(cls):
+    """`cls.train_step` recording each step's loss (the float() read
+    waits for the step): (the patch, the losses)."""
+    losses = []
+    train_step = cls.train_step
+
+    def recorded(self, ts, *batch_lr):
+        ts, m = train_step(self, ts, *batch_lr)
+        losses.append(float(m["loss_sum"] / m["count"]))
+        return ts, m
+
+    return patched(cls, "train_step", recorded), losses
+
+
+def s14_gloo_rank(rank, port, out, directory, device):
+    """One rank of phase 15: a gloo world of 2 on the one card, which it
+    joins before the CLIs do (`initialize_backend` is idempotent). (a,
+    b) the serve CLI under each layout of S14_SERVE, with the K4
+    launches its decode steps made, then the same layout's engine through
+    the teacher-forced script (logits saved under `directory`); (d) the
+    LM CLI and the DP CLI with and without --collective-matmul, the
+    per-step losses and the K1-K4 launches. A gloo that refuses CUDA
+    tensors is reported, not faked."""
+    import pickle
+
+    import torch.distributed as dist
+
+    from distributed_model_parallel_tpu_torch.cli import (
+        data_parallel,
+        lm,
+        serve,
+    )
+    from distributed_model_parallel_tpu_torch.data import datasets
+    from distributed_model_parallel_tpu_torch.ops import flash_attention as fa
+    from distributed_model_parallel_tpu_torch.ops import quant_matmul as qm
+    from distributed_model_parallel_tpu_torch.parallel import (
+        data_parallel as dp_mod,
+    )
+    from distributed_model_parallel_tpu_torch.parallel import (
+        sequence_parallel as sp,
+    )
+    from distributed_model_parallel_tpu_torch.runtime.mesh import (
+        MeshSpec,
+        make_mesh,
+    )
+    from distributed_model_parallel_tpu_torch.serving.engine import (
+        ServingEngine,
+    )
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    if device == "cuda":
+        torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                            rank=rank, world_size=2)
+    result = {}
+    try:
+        probe = torch.ones(4, device=device)
+        try:
+            dist.all_reduce(probe)
+        except RuntimeError as e:
+            result["gloo_cuda_refused"] = str(e)[:300]
+        cfg = s14_config()
+        for name, flags, kw, _ in ([] if result else S14_SERVE):
+            reset_counts(fa, qm)
+            t0 = time.perf_counter()
+            rep = serve_run(serve, SERVE_FLAGS + S14_SERVE_DEPTH + flags)
+            result[name] = {"serve": rep["serving"],
+                            "tokens": [r["tokens"] for r in rep["requests"]],
+                            "serve_wall_s": time.perf_counter() - t0,
+                            "serve_launches": {**counts(fa), "int8_matmul":
+                                               qm.int8_matmul.launches}}
+            axis = "model" if kw["layout"] == "tp" else "seq"
+            eng = ServingEngine(cfg, mesh=make_mesh(MeshSpec(
+                data=1, **{axis: 2})), num_slots=SLOTS, max_len=S14_MAX_LEN,
+                prefill_len=S14_PREFILL, device=device, **kw)
+            got = s14_script(eng, eng.init_params(0), qm)
+            result[name]["script_launches"] = got.pop("launches")
+            torch.save(got, os.path.join(directory, f"{name}_{rank}.pt"))
+            del eng, got
+        if not result.get("gloo_cuda_refused"):
+            for cm in (False, True):
+                extra = ["--collective-matmul"] if cm else []
+                reset_counts(fa, qm)
+                steps, _, _ = s13_lm_run(
+                    lm, sp.CausalLMSequenceParallelEngine, S14_LM + extra,
+                    os.path.join(directory, f"lm_{cm}_{rank}"), device)
+                result["lm", cm] = {
+                    "losses": [s["loss"] for s in steps],
+                    "host_staged_gloo_ms": [s["ms"] for s in steps],
+                    "launches": s13_counts(fa, qm)}
+                reset_counts(fa, qm)
+                small = datasets.synthetic_text
+
+                def cut(n, *a, seed=0, **k):
+                    return small(S14_DP_VAL if seed == 2 else n, *a,
+                                 seed=seed, **k)
+
+                rec, losses = s14_dp_steps(dp_mod._DataParallel)
+                with rec, patched(datasets, "synthetic_text", cut), \
+                        without_saves(), \
+                        contextlib.redirect_stdout(io.StringIO()):
+                    data_parallel.main(S14_DP + extra + [
+                        "--checkpoint-dir",
+                        os.path.join(directory, f"dp_{cm}_{rank}")])
+                result["dp", cm] = {"losses": losses,
+                                    "launches": s13_counts(fa, qm)}
+    finally:
+        dist.destroy_process_group()
+        with open(out, "wb") as f:
+            pickle.dump(result, f)
+
+
+def s14_rel(got, ref) -> float:
+    return float((got - ref).abs().max() / ref.abs().max())
+
+
+def s14_kernel_shapes(qm) -> list:
+    """(c) K4 against its plain version at every shape of S14_SHAPES
+    (phase 3's `check_shape`: codes, scales and outputs equal; device
+    time a launch, the bound, torch._int_mm on the same codes)."""
+    rows = []
+    for i, (m, k, n, absmax) in enumerate(S14_SHAPES):
+        r = check_shape(qm, m, k, n, seed=40 + i, absmax=absmax)
+        emit({"s14_int8_matmul_shape": r})
+        rows.append(r)
+    return rows
+
+
+def s14_layouts(fa, qm, phase4) -> dict:
+    """(a), (b) and (d): the two gloo ranks run every serve layout, its
+    teacher-forced script, and the training CLIs' runs, while this
+    process runs the script on the replicated engine (f32 and int8) for
+    the references; then the comparisons. Returns the K1-K4 launches of
+    the ranks' CLI runs, summed over both ranks."""
+    import multiprocessing
+    import pickle
+
+    import numpy as np
+
+    from distributed_model_parallel_tpu_torch.runtime.dist import free_port
+    from distributed_model_parallel_tpu_torch.serving.engine import (
+        ServingEngine,
+    )
+
+    if S11_DEVICE == "cuda":
+        torch.cuda.empty_cache()  # the two ranks share this process's card
+    directory = scratch_dir("s14")
+    os.makedirs(directory, exist_ok=True)
+    ctx = multiprocessing.get_context("spawn")
+    port = free_port()
+    outs = [os.path.join(directory, f"rank{r}.pkl") for r in range(2)]
+    procs = [ctx.Process(target=s14_gloo_rank,
+                         args=(r, port, outs[r], directory, S11_DEVICE))
+             for r in range(2)]
+    t0 = time.perf_counter()
+    for p in procs:
+        p.start()
+    # The replicated references meanwhile, on the same weights (seed 0).
+    cfg = s14_config()
+    ref = {}
+    for mode in ("f32", "int8"):
+        eng = ServingEngine(cfg, num_slots=SLOTS, max_len=S14_MAX_LEN,
+                            prefill_len=S14_PREFILL, compute_dtype=mode,
+                            device=S11_DEVICE)
+        ref[mode] = s14_script(eng, eng.init_params(0), qm)
+        del eng
+    for p in procs:
+        p.join(900)
+    hung = [p for p in procs if p.is_alive()]
+    for p in hung:
+        p.kill()
+        p.join(10)
+    require(not hung and all(p.exitcode == 0 for p in procs),
+            f"phase 15 ranks: exit codes {[p.exitcode for p in procs]}")
+    got = []
+    for path in outs:
+        with open(path, "rb") as f:
+            got.append(pickle.load(f))
+    wall = time.perf_counter() - t0
+    require("gloo_cuda_refused" not in got[0],
+            f"gloo refused CUDA tensors: {got[0].get('gloo_cuda_refused')}")
+    launches = {**dict.fromkeys(counts(fa), 0), "int8_matmul": 0}
+    for name, flags, kw, per_step in S14_SERVE:
+        mode = kw.get("compute_dtype", "f32")
+        logits = [torch.load(os.path.join(directory, f"{name}_{r}.pt"))
+                  for r in range(2)]
+        same = all(torch.equal(logits[0][k], logits[1][k])
+                   for k in ("prefill", "decode"))
+        want = ref[mode]
+        rel = {k: s14_rel(logits[0][k], want[k]) for k in ("prefill",
+                                                           "decode")}
+        rel_f32 = s14_rel(logits[0]["decode"], ref["f32"]["decode"])
+        d = (logits[0]["decode"] - want["decode"]).abs()
+        budget = d <= (S14_INT8_BUDGET["atol"] + S14_INT8_BUDGET["rtol"]
+                       * want["decode"].abs())
+        reps = [r[name]["serve"] for r in got]
+        phase4_tokens = [q["tokens"] for q in phase4[mode]["requests"]]
+        pairs = [(a, b) for ra, rb in zip(got[0][name]["tokens"],
+                                          phase4_tokens)
+                 for a, b in zip(ra, rb)]
+        row = {"s14_layout": name, "flags": flags,
+               "ranks_logits_equal": same,
+               "rel_to_replicated": rel, "decode_rel_to_replicated_f32":
+               rel_f32,
+               "int8_budget_share_within": float(budget.float().mean()),
+               "script_k4_launches_by_rank": [r[name]["script_launches"]
+                                              for r in got],
+               "want_k4_launches_a_rank": per_step * S14_STEPS,
+               "serve_k4_launches_by_rank": [
+                   r[name]["serve_launches"]["int8_matmul"] for r in got],
+               "decode_steps_by_rank": [r["decode_steps"] for r in reps],
+               "greedy_token_agreement_with_phase4": (
+                   sum(a == b for a, b in pairs) / len(pairs)),
+               "host_staged_gloo": {
+                   "tokens_per_s": reps[0]["tokens_per_s"],
+                   "decode_p50_ms": reps[0]["decode_p50_ms"],
+                   "decode_p99_ms": reps[0]["decode_p99_ms"],
+                   "serve_wall_s": got[0][name]["serve_wall_s"]}}
+        emit(row)
+        require(same, f"phase 15 {name}: rank 1's logits differ from rank "
+                "0's")
+        for r, rep in zip(got, reps):
+            require(rep["requests"] == S14_REQUESTS
+                    and rep["generated_tokens"] == S14_REQUESTS * S14_NEW,
+                    f"phase 15 {name}: {rep['requests']} requests, "
+                    f"{rep['generated_tokens']} tokens")
+            require(r[name]["script_launches"] == per_step * S14_STEPS,
+                    f"phase 15 {name}: K4 launched "
+                    f"{r[name]['script_launches']} times in "
+                    f"{S14_STEPS} decode steps, want {per_step} a step")
+            want_serve = per_step * rep["decode_steps"]
+            require(r[name]["serve_launches"] == {
+                **dict.fromkeys(counts(fa), 0), "int8_matmul": want_serve},
+                f"phase 15 {name}: the serve run launched "
+                f"{r[name]['serve_launches']}, want K4 {want_serve}")
+            for k, v in r[name]["serve_launches"].items():
+                launches[k] += v
+        if mode == "f32":
+            require(max(rel.values()) <= S14_F32_REL,
+                    f"phase 15 {name}: logits {rel} from the replicated "
+                    f"layout's, over {S14_F32_REL}")
+        else:
+            require(rel["prefill"] <= S14_F32_REL
+                    and max(rel["decode"], rel_f32) <= INT8_LOGIT_REL,
+                    f"phase 15 {name}: int8 logits past {INT8_LOGIT_REL} "
+                    f"of max|logit| from the replicated layout's: {row}")
+    for kind in ("lm", "dp"):
+        plain, cm = ([r[kind, flag] for r in got] for flag in (False, True))
+        rel = max(abs(a - b) / abs(b) for p, c in zip(plain, cm)
+                  for a, b in zip(c["losses"], p["losses"]))
+        row = {"s14_cm_run": kind,
+               "flags": S14_LM if kind == "lm" else S14_DP,
+               "losses": [r["losses"] for r in plain],
+               "cm_losses": [r["losses"] for r in cm],
+               "loss_max_rel": rel, "bar": S14_LOSS_REL,
+               "launches_by_rank": [r["launches"] for r in plain],
+               "cm_launches_by_rank": [r["launches"] for r in cm]}
+        if kind == "lm":
+            row["cm_host_staged_gloo_ms_per_step"] = [
+                r["host_staged_gloo_ms"] for r in cm]
+        emit(row)
+        require(rel <= S14_LOSS_REL and all(
+            map(math.isfinite, cm[0]["losses"])),
+            f"phase 15 {kind}: --collective-matmul moved the losses: {row}")
+        require(all(c["launches"] == p["launches"]
+                    for p, c in zip(plain, cm)),
+                f"phase 15 {kind}: --collective-matmul changed the K1-K4 "
+                f"launches: {row}")
+        # ring_flash runs K1-K3 on every rank; BERT's dense attention and
+        # training run no kernel of the port.
+        for r in plain + cm:
+            require(r["launches"]["int8_matmul"] == 0 and all(
+                (r["launches"][k] > 0) == (kind == "lm") for k in counts(fa)),
+                f"phase 15 {kind}: launches {r['launches']}")
+            for k, v in r["launches"].items():
+                launches[k] += v
+    emit({"s14_ranks_wall_s": wall})
+    shutil.rmtree(directory, ignore_errors=True)
+    return launches
+
+
+def slice14_phase(fa, qm, phase4) -> tuple:
+    """Phase 15 (module docstring). Returns (the K1-K4 launches of the
+    phase's rank runs over both ranks, the (c) shape rows)."""
+    t0 = time.perf_counter()
+    shapes = s14_kernel_shapes(qm)
+    print(f"phase 15 (c) K4 at the shard and ring-chunk shapes: "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    launches = s14_layouts(fa, qm, phase4)
+    print(f"phase 15 (a, b, d) tp / sp serving and collective matmul over "
+          f"gloo: {time.perf_counter() - t0:.1f} s", flush=True)
+    return launches, shapes
+
+
 def main() -> int:
     # cuBLAS reads this when it first starts: the determinism probe's
     # torch.use_deterministic_algorithms needs it (phase 7).
@@ -5128,7 +5607,12 @@ def smoke() -> int:
     slice13, hops13 = slice13_phase(lm, CausalLMSequenceParallelEngine, fa)
     phase_done("sequence parallelism")
 
-    # ---- 15. kernels line, card line, last line ----------------------
+    # ---- 15. the tp / sp serving layouts, collective matmul -----------
+    slice14, shapes14 = slice14_phase(fa, qm, {"f32": out_f32,
+                                               "int8": out_i8})
+    phase_done("tp / sp serving layouts and collective matmul")
+
+    # ---- 16. kernels line, card line, last line ----------------------
     decode = [r for r in shapes if r["M"] == SLOTS]
     step = {key: None if any(r[key] is None for r in decode)
             else LAYERS * sum(r[key] for r in decode)
@@ -5161,6 +5645,11 @@ def smoke() -> int:
         "launches_slice12": slice12["int8_matmul"],
         # phase 14: sequence parallelism at N 2 (none)
         "launches_slice13": slice13["int8_matmul"],
+        # phase 15: the tp / sp serve runs of both ranks (tp int8: 48 a
+        # decode step a rank, 96 on the rings at S 2), none in (d)
+        "launches_slice14": slice14["int8_matmul"],
+        # phase 15 (c): the Megatron shard and ring-chunk shapes
+        "shard_and_ring_shapes": shapes14,
         "max_abs_err": max_err,
         # Times of one decode step's 48 launches (12 layers x the four
         # projection shapes at M = 8), each shape timed in phase 3.
@@ -5189,6 +5678,9 @@ def smoke() -> int:
                launches_slice12=slice12[name],
                # phase 14 (a, c): both gloo ranks of every N 2 run
                launches_slice13=slice13[name],
+               # phase 15 (d): both ranks' LM runs, with and without
+               # --collective-matmul
+               launches_slice14=slice14[name],
                # phase 14 (b): one launch at each ring / Ulysses shape
                hop_shapes={case: row[name] for case, row in hops13.items()})
           for name, _, replaces in FLASH_KERNELS]})

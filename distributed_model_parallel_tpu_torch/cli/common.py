@@ -39,9 +39,6 @@ from distributed_model_parallel_tpu_torch.models import (
     vit,
 )
 from distributed_model_parallel_tpu_torch.runtime import dist
-from distributed_model_parallel_tpu_torch.serving.engine import (
-    TP_SP_SLICE,
-)
 
 
 def add_grad_reduction_flags(parser: argparse.ArgumentParser) -> None:
@@ -207,23 +204,16 @@ def set_device_numerics() -> None:
     torch.backends.cudnn.benchmark = False
 
 
-def _refuse(flag: str, later: str) -> SystemExit:
-    return SystemExit(
-        f"{flag} is not ported to the PyTorch package yet: it belongs to "
-        f"{later} (ROADMAP.md) — drop the flag, or run the JAX package's "
-        "cli/serve.py"
-    )
-
-
 def check_serving_args(args) -> None:
-    """Startup-time validation of the serving CLI surface: reject
-    training flags, out-of-slice flags and bad values before any engine
-    is built."""
+    """Startup-time validation of the serving CLI surface, the
+    reference's checks and messages: reject training flags, layout flags
+    that do not compose and bad values before any process group or
+    engine is built."""
     if args.pipeline_stages != 1:
         raise SystemExit(
             "--pipeline-stages selects a TRAINING engine's stage wires; "
             "serving decodes token-by-token through one replica's "
-            "layers — drop the flag"
+            "layers (compose tp/sp layouts instead) — drop the flag"
         )
     if args.grad_reduction != "monolithic":
         raise SystemExit(
@@ -243,26 +233,65 @@ def check_serving_args(args) -> None:
     if args.dcn_slices != 1:
         raise SystemExit(
             "--dcn-slices factors the data axis for gradient traffic; "
-            "serving has no 'dcn' axis — drop the flag"
+            "the serving meshes are 'model'/'seq' only — drop the flag"
         )
     if args.dcn_compression != "none":
         raise SystemExit(
             "--dcn-compression compresses the training engines' "
-            "cross-slice hop; serving has no 'dcn' fabric — drop the flag"
+            "cross-slice gradient/dispatch hop; the serving meshes "
+            "have no 'dcn' fabric — drop the flag"
         )
-    # --- features of a later port slice -------------------------------
-    if args.layout != "replicated":
-        raise _refuse(f"--layout {args.layout}", TP_SP_SLICE)
-    if args.model_shards != 1 or args.seq_shards != 1:
-        raise _refuse("--model-shards / --seq-shards", TP_SP_SLICE)
-    if args.collective_matmul:
-        raise _refuse("--collective-matmul", TP_SP_SLICE)
-    if args.compute_dtype != "f32" and args.dtype != "float32":
+    # --- layouts (serving/engine.py) ----------------------------------
+    if args.layout == "tp":
+        if args.model_shards < 2:
+            raise SystemExit(
+                "--layout tp shards heads over the 'model' axis; "
+                "--model-shards must be >= 2 (1 shard IS the "
+                "replicated layout — use --layout replicated)"
+            )
+        if args.seq_shards != 1:
+            raise SystemExit(
+                "--seq-shards belongs to --layout sp; the tp layout "
+                "rings over 'model' — drop one of the flags"
+            )
+    elif args.layout == "sp":
+        if args.seq_shards < 2:
+            raise SystemExit(
+                "--layout sp shards cache positions over the 'seq' "
+                "axis; --seq-shards must be >= 2 (1 shard IS the "
+                "replicated layout — use --layout replicated)"
+            )
+        if args.model_shards != 1:
+            raise SystemExit(
+                "--model-shards belongs to --layout tp; the sp layout "
+                "shards over 'seq' — drop one of the flags"
+            )
+    else:  # replicated
+        if args.model_shards != 1 or args.seq_shards != 1:
+            raise SystemExit(
+                "--model-shards / --seq-shards select the tp / sp "
+                "layouts; pass --layout tp or --layout sp explicitly"
+            )
+    if args.collective_matmul and args.layout != "tp":
         raise SystemExit(
-            "--dtype and --compute-dtype both set the decode "
-            "arithmetic; --dtype bfloat16 is the legacy spelling of "
-            "--compute-dtype bf16 — pass only --compute-dtype"
+            "--collective-matmul rings decode projections over the "
+            "'model' axis; it requires --layout tp with "
+            "--model-shards >= 2"
         )
+    if args.compute_dtype != "f32":
+        if args.dtype != "float32":
+            raise SystemExit(
+                "--dtype and --compute-dtype both set the decode "
+                "arithmetic; --dtype bfloat16 is the legacy spelling of "
+                "--compute-dtype bf16 — pass only --compute-dtype"
+            )
+        if args.compute_dtype == "int8" and args.layout == "sp":
+            raise SystemExit(
+                "--compute-dtype int8 quantizes the decode projection "
+                "GEMMs (replicated/tp layouts); the sp layout's "
+                "shard_map decode has no quantized policy path — use "
+                "bf16 or a tp/replicated layout"
+            )
     # --- paged-cache knobs (serving/kv_cache.py) ---------------------
     if args.page_size < 0:
         raise SystemExit(f"--page-size must be >= 0, got {args.page_size}")
@@ -271,6 +300,12 @@ def check_serving_args(args) -> None:
             raise SystemExit(
                 f"--page-size {args.page_size} must divide --max-len "
                 f"{args.max_len} (the block table covers whole pages)"
+            )
+        if args.layout == "sp" and args.page_size % args.seq_shards:
+            raise SystemExit(
+                f"--layout sp shards each page's positions over "
+                f"'seq': --page-size {args.page_size} must be "
+                f"divisible by --seq-shards {args.seq_shards}"
             )
     else:
         for val, flag in ((args.kv_pages, "--kv-pages"),
@@ -292,12 +327,25 @@ def check_serving_args(args) -> None:
         raise SystemExit(
             f"--prefill-chunk must be >= 0, got {args.prefill_chunk}"
         )
-    if args.prefix_cache and not args.prefill_chunk:
+    if args.prefill_chunk and args.layout == "sp":
         raise SystemExit(
-            "--prefix-cache needs --prefill-chunk: a partial prefix hit "
-            "resumes ingestion mid-prompt, which only the chunked path "
-            "can do"
+            "--prefill-chunk is not supported under --layout sp: sp "
+            "prefill rides the training ring over 'seq' in one pass — "
+            "drop the flag or use the replicated/tp layouts"
         )
+    if args.prefix_cache:
+        if args.layout == "sp":
+            raise SystemExit(
+                "--prefix-cache is not supported under --layout sp "
+                "(shared pages would need coherent copy-on-write "
+                "across 'seq' shards)"
+            )
+        if not args.prefill_chunk:
+            raise SystemExit(
+                "--prefix-cache needs --prefill-chunk: a partial prefix "
+                "hit resumes ingestion mid-prompt, which only the chunked "
+                "path can do"
+            )
     # --- sampling knobs ----------------------------------------------
     if args.temperature < 0:
         raise SystemExit(
@@ -321,6 +369,13 @@ def check_serving_args(args) -> None:
             f"verify step's wasted work dominates), got {spec_k}"
         )
     if spec_k:
+        if args.layout == "sp":
+            raise SystemExit(
+                "--speculative-k is not supported under --layout sp: "
+                "the verify step rides the chunk-shaped paged decode "
+                "path, which sp's shard_map decode does not lower — "
+                "use the replicated/tp layouts"
+            )
         if not args.page_size:
             raise SystemExit(
                 "--speculative-k rolls rejected draft suffixes back by "
@@ -451,7 +506,6 @@ SLICES = {
     "plan": "the composed-parallel-plan slice",
     "tune": "the auto-tuning slice",
     "moe": "the expert-parallel slice",
-    "cm": "the collective-matmul slice",
 }
 
 
@@ -510,10 +564,9 @@ def check_lm_args(args) -> None:
 
 def check_seq_shard_args(args) -> None:
     """The LM CLI's sequence-parallel flags, with the JAX CLI's checks and
-    messages: stages exclude seq shards, collective matmul rings over
-    'seq' (with two shards or more, or under stages, it is refused as a
-    later slice's), the sequence splits evenly, and Ulysses scatters
-    whole heads."""
+    messages: stages exclude seq shards and collective matmul, collective
+    matmul rings over two seq shards or more, the sequence splits evenly,
+    and Ulysses scatters whole heads."""
     n = args.seq_shards
     if n < 1:
         raise SystemExit(f"--seq-shards must be >= 1, got {n}")
@@ -522,17 +575,17 @@ def check_seq_shard_args(args) -> None:
             "--pipeline-stages and --seq-shards are mutually exclusive "
             "(one engine per run; compose data parallelism with either)"
         )
-    if args.collective_matmul and n < 2 and args.pipeline_stages == 1:
+    if args.pipeline_stages > 1 and args.collective_matmul:
+        raise SystemExit(
+            "--collective-matmul decomposes the sequence-parallel "
+            "engine's FFN collectives; it has no effect under "
+            "--pipeline-stages (stages compute dense locally)"
+        )
+    if args.collective_matmul and n < 2:
         raise SystemExit(
             "--collective-matmul rings over the 'seq' axis; a size-1 "
             "ring is a plain dot, so the flag would silently do "
             "nothing — set --seq-shards >= 2"
-        )
-    if args.collective_matmul:
-        raise SystemExit(
-            "--collective-matmul is not ported to the PyTorch package yet: "
-            f"it belongs to {SLICES['cm']} (ROADMAP.md) — drop the flag, "
-            "or run the JAX package's cli/lm.py"
         )
     if args.seq_len % n:
         raise SystemExit(
@@ -818,7 +871,6 @@ def check_data_parallel_args(args) -> None:
     the slice, before any dataset, process group or engine is built."""
     s = SLICES
     refusals = (
-        ("--collective-matmul", args.collective_matmul, s["cm"]),
         ("--plan", args.plan, s["plan"]),
         ("--auto-tune / --auto-tune-out / --auto-tune-calibration",
          args.auto_tune or args.auto_tune_out or args.auto_tune_calibration,
@@ -907,6 +959,10 @@ def check_tensor_parallel_args(args) -> None:
             raise SystemExit(
                 "--model-shards sizes the 'model' mesh axis and only "
                 "applies under --engine tp")
+        if args.collective_matmul:
+            raise SystemExit(
+                "--collective-matmul decomposes the Megatron TP "
+                "projections; it only applies under --engine tp")
         return
     if args.model not in TRANSFORMER_MODELS:
         raise SystemExit(
@@ -917,6 +973,11 @@ def check_tensor_parallel_args(args) -> None:
     if args.model_shards < 1:
         raise SystemExit(
             f"--model-shards must be >= 1, got {args.model_shards}")
+    if args.collective_matmul and args.model_shards < 2:
+        raise SystemExit(
+            "--collective-matmul rings over the 'model' axis; a size-1 "
+            "ring is a plain dot, so the flag would silently do "
+            "nothing — set --model-shards >= 2")
     from distributed_model_parallel_tpu_torch.parallel.tensor_parallel \
         import check_divisibility
 

@@ -31,7 +31,9 @@ stages`); `--dcn-slices K` factors the ranks into K slices and makes the
 reduction hierarchical, `--dcn-compression bf16|int8` compresses its
 cross-slice hop. `--engine tp --model-shards M` (bert, bert_tiny, vit)
 is Megatron tensor parallelism over M consecutive ranks
-(`parallel/tensor_parallel.py`), the world being world / M data ranks;
+(`parallel/tensor_parallel.py`), the world being world / M data ranks,
+and `--collective-matmul` runs its projections on the latency-hiding
+rings (`ops/collective_matmul.py`, Megatron-SP between blocks);
 `--device-cache` uploads the train and val images to the device once
 and ships only index vectors (`data/device_cache.py`), under every
 engine; `-type Imagenet|Place365|CUB200` reads an image tree under
@@ -143,7 +145,10 @@ def build_parser() -> argparse.ArgumentParser:
                         "Megatron projections (must divide the heads and "
                         "the FFN width)")
     p.add_argument("--collective-matmul", action="store_true",
-                   help="not ported yet (collective-matmul slice)")
+                   help="--engine tp: run the Megatron projections as "
+                        "latency-hiding rings over the 'model' axis, the "
+                        "residual stream sequence-sharded between blocks "
+                        "(Megatron-SP; same math)")
     p.add_argument("--plan", default=None, metavar="SPEC",
                    help="not ported yet (composed-parallel-plan slice)")
     add_grad_reduction_flags(p)
@@ -205,7 +210,9 @@ def main(argv=None) -> dict:
                   input_transform=itf, device=device)
     model = build_model(args.model, num_classes, remat=args.remat)
     if args.engine == "tp":
-        engine = TensorParallelEngine(model, build_optimizer(args), **common)
+        engine = TensorParallelEngine(
+            model, build_optimizer(args),
+            collective_matmul=args.collective_matmul, **common)
     elif args.engine in ("ddp", "fsdp"):
         reduction = dict(grad_reduction=args.grad_reduction,
                          bucket_mb=args.bucket_mb,

@@ -38,9 +38,11 @@ a dispatch on the card, `--profile-dir` writes a torch.profiler trace.
 data-axis gradient reduction (`ops/grad_reduction.py`), with the JAX
 CLI's checks, as are `--seq-shards` (`--seq-len` divisible by it, no
 `--pipeline-stages` beside it, `--heads` divisible by it under
-Ulysses). Flags whose features belong to later port slices (MoE,
-collective matmul, plans and the tuner) are refused with the slice
-named (`cli/common.check_lm_args`). The
+Ulysses) and `--collective-matmul` (each block's FFN pair on the rings
+over the seq ranks, `ops/collective_matmul.py`; it needs `--seq-shards`
+>= 2). Flags whose features belong to later port slices (MoE, plans and
+the tuner) are refused with the slice named
+(`cli/common.check_lm_args`). The
 best-val-acc model is saved to `--checkpoint-dir` with the model's
 `gpt_config` in its sidecar (what `cli/serve.py --checkpoint` checks),
 and `--resume` continues from it. `--checkpoint-format sharded` writes
@@ -162,7 +164,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--expert-shards", default=1, type=int,
                    help="not ported yet (expert-parallel slice)")
     p.add_argument("--collective-matmul", action="store_true",
-                   help="not ported yet (collective-matmul slice)")
+                   help="run each block's FFN pair as latency-hiding rings "
+                        "over the 'seq' axis (needs --seq-shards >= 2; "
+                        "same math)")
     p.add_argument("--plan", default=None, metavar="SPEC|auto",
                    help="not ported yet (composed-parallel-plan slice)")
     add_grad_reduction_flags(p)
@@ -230,6 +234,7 @@ def main(argv=None) -> dict:
             grad_reduction=args.grad_reduction, bucket_mb=args.bucket_mb,
             overlap_stages=args.overlap_stages,
             dcn_compression=args.dcn_compression,
+            collective_matmul=args.collective_matmul,
         )
     refuse_uncapturable(engine, args.steps_per_dispatch)
     corpus = synthetic_corpus(

@@ -25,10 +25,22 @@ serve flags.
       --speculative-draft-layers 2]
       speculative decoding with a checkpointed or a fresh-init draft;
   --compute-dtype bf16|int8
-      bf16 activations and cache, or int8 decode projections.
+      bf16 activations and cache, or int8 decode projections;
+  --layout tp --model-shards M [--collective-matmul]
+      Megatron shards over M ranks, the cache's heads sharded; with
+      --collective-matmul the decode projections ride the rings over the
+      slot batch (`serving/decode.DecodeCollectiveMatmul`);
+  --layout sp --seq-shards S
+      the cache's positions sharded over S ranks, prefill over the
+      causal ring, decode merged by the online softmax.
 
-The tp/sp layouts, collective matmul and the mesh flags are refused
-with their slice named (`cli/common.py`).
+The tp and sp layouts run one process a rank (a card), launched by
+`torchrun --nproc-per-node max(M, S)`; the CLI joins the process group
+as `cli/lm.py` does (NCCL on cuda, gloo with --device cpu), every rank
+runs the same loop, and rank 0 prints the report:
+
+  torchrun --nproc-per-node 2 -m distributed_model_parallel_tpu_torch.cli.serve \
+      --layout tp --model-shards 2 --collective-matmul --compute-dtype int8
 """
 
 from __future__ import annotations
@@ -57,6 +69,14 @@ from distributed_model_parallel_tpu_torch.models.convert import (
 from distributed_model_parallel_tpu_torch.models.gpt import (
     GPTConfig,
     init_params,
+)
+from distributed_model_parallel_tpu_torch.runtime.dist import (
+    initialize_backend,
+    is_primary,
+)
+from distributed_model_parallel_tpu_torch.runtime.mesh import (
+    MeshSpec,
+    make_mesh,
 )
 from distributed_model_parallel_tpu_torch.serving.engine import (
     ServingEngine,
@@ -107,13 +127,19 @@ def build_parser() -> argparse.ArgumentParser:
                         "matmul")
     p.add_argument("--layout", default="replicated",
                    choices=("replicated", "tp", "sp"),
-                   help="cache/param layout; only replicated is ported")
+                   help="cache/param layout: replicated; tp = Megatron "
+                        "shards over --model-shards ranks, the cache's "
+                        "heads sharded; sp = the cache's positions "
+                        "sharded over --seq-shards ranks (one process a "
+                        "rank, under torchrun)")
     p.add_argument("--model-shards", default=1, type=int,
-                   help="not ported yet (tp layout)")
+                   help="ranks of the tp layout's 'model' axis")
     p.add_argument("--seq-shards", default=1, type=int,
-                   help="not ported yet (sp layout)")
+                   help="ranks of the sp layout's 'seq' axis")
     p.add_argument("--collective-matmul", action="store_true",
-                   help="not ported yet (tp layout)")
+                   help="tp layout: ring the decode projections over the "
+                        "slot batch (S - 1 overlapped hops a projection) "
+                        "instead of Megatron's all-reduce")
     p.add_argument("--num-slots", default=8, type=int,
                    help="KV-cache slots = max concurrent sequences")
     p.add_argument("--max-len", default=256, type=int,
@@ -261,9 +287,10 @@ def load_checkpoint_params(directory: str, name: str, cfg, seed: int,
     except (FileNotFoundError, KeyError, ValueError) as e:
         raise SystemExit(f"{flag} {directory}: {e}")
     role = "serving" if flag == "--checkpoint" else "speculative draft"
-    print(f"==> {role} checkpoint {directory} ({name}, epoch "
-          f"{meta.get('epoch')}, format {meta.get('format')}, "
-          f"{cfg.num_layers} layers)", flush=True)
+    if is_primary():
+        print(f"==> {role} checkpoint {directory} ({name}, epoch "
+              f"{meta.get('epoch')}, format {meta.get('format')}, "
+              f"{cfg.num_layers} layers)", flush=True)
     return from_jax_params(raw)
 
 
@@ -376,24 +403,39 @@ def main(argv=None) -> dict:
     if args.speculative_k:
         draft_cfg, draft_ckpt = _draft_config(args, cfg)
     set_device_numerics()
-    paged = dict(
+    shards = max(args.model_shards, args.seq_shards)
+    mesh, device = None, args.device
+    if args.layout != "replicated":
+        # One process a rank, as cli/lm.py joins its process group.
+        device = initialize_backend(args.device, None)
+        try:
+            mesh = make_mesh(MeshSpec(data=1, model=args.model_shards,
+                                      seq=args.seq_shards))
+        except ValueError as e:
+            raise SystemExit(
+                f"--layout {args.layout} over {shards} shards: {e} "
+                f"(launch {shards} ranks with torchrun)") from e
+    knobs = dict(
+        mesh=mesh,
+        layout=args.layout,
         num_slots=args.num_slots,
         max_len=args.max_len,
         prefill_len=args.prefill_len,
+        collective_matmul=args.collective_matmul,
         compute_dtype=serve_compute_dtype(args),
         page_size=args.page_size or None,
         num_pages=args.kv_pages or None,
         prefill_chunk=args.prefill_chunk or None,
-        device=args.device,
+        device=device,
     )
     engine = ServingEngine(cfg, prefix_cache=args.prefix_cache,
-                           speculative_k=args.speculative_k, **paged)
+                           speculative_k=args.speculative_k, **knobs)
     draft_engine = draft_params = None
     if args.speculative_k:
-        # The draft mirrors the target's cache knobs except
+        # The draft mirrors every layout knob of the target except
         # prefix_cache: prefix pages are a target-side shortcut, the
         # draft always ingests prompts itself.
-        draft_engine = ServingEngine(draft_cfg, **paged)
+        draft_engine = ServingEngine(draft_cfg, **knobs)
         if draft_ckpt is not None:
             draft_params = draft_engine.place_params(load_checkpoint_params(
                 args.speculative_draft, draft_ckpt, draft_cfg, args.seed,
@@ -441,8 +483,9 @@ def main(argv=None) -> dict:
             "goodput": report.get("goodput"),
             "achieved_tokens_per_s": report.get("tokens_per_s"),
         }
-    export_metrics_out(args.metrics_out)
-    if args.trace_out:
+    if is_primary():
+        export_metrics_out(args.metrics_out)
+    if args.trace_out and is_primary():
         from distributed_model_parallel_tpu_torch.observability import trace
 
         trace.get_tracer().export(args.trace_out)
@@ -468,7 +511,7 @@ def main(argv=None) -> dict:
             "compute_dtype": engine.compute_mode,
             "layout": args.layout,
             "checkpoint": args.checkpoint,
-            "shards": 1,
+            "shards": shards,
             "collective_matmul": args.collective_matmul,
             "num_slots": args.num_slots,
             "max_len": args.max_len,
@@ -483,7 +526,8 @@ def main(argv=None) -> dict:
         },
         "requests": per_request,
     }
-    print(json.dumps(out, indent=2))
+    if is_primary():
+        print(json.dumps(out, indent=2))
     return out
 
 

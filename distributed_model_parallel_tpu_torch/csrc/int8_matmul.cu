@@ -12,6 +12,11 @@
 // wscale (N,) f32 is computed outside the kernel, as in the reference.
 // Integer sums are exact in any order, so splitting K (below) changes no
 // bit: outputs, codes and scales equal the plain version's.
+// Optional input `row_absmax` (M,) f32 replaces max_k |x[m,k]| in the
+// scale (the rest of the formula unchanged): a tensor-parallel rank that
+// holds a slice of each row quantizes with the whole row's absmax, taken
+// by an all-reduce (MAX) before the launch, as the reference's
+// partitioned int8 projection does.
 //
 // What bounds it on an H100: at decode M = num_slots = 8 the kernel
 // streams the int8 weight, K*N bytes a launch (0.6-2.4 MB at GPT-2-small
@@ -156,6 +161,7 @@ int8_matmul_kernel(const float* __restrict__ x,
                    float* __restrict__ out,
                    int8_t* __restrict__ q_out,
                    float* __restrict__ scale_out,
+                   const float* __restrict__ row_absmax,
                    int M, int N, int K, float absmax_floor) {
   using W = typename Vec<V>::W;
   using X = typename Vec<V>::X;
@@ -220,6 +226,7 @@ int8_matmul_kernel(const float* __restrict__ x,
   float rmax = 0.0f;
 #pragma unroll
   for (int q = 0; q < S; ++q) rmax = fmaxf(rmax, s_amax[q][row]);
+  if (row_absmax != nullptr) rmax = m < M ? __ldg(row_absmax + m) : 0.0f;
   const float scale = fmaxf(rmax, absmax_floor) / 127.0f;
   if (lane == 0) {
     s_scale[row] = scale;
@@ -312,8 +319,9 @@ int8_matmul_kernel(const float* __restrict__ x,
 // A launch with the cluster (1, S, 1) set at run time.
 template <int V, int S>
 int launch(const float* x, const int8_t* wq_t, const float* wscale,
-           float* out, int8_t* q_out, float* scale_out, int M, int N, int K,
-           float absmax_floor, cudaStream_t stream) {
+           float* out, int8_t* q_out, float* scale_out,
+           const float* row_absmax, int M, int N, int K, float absmax_floor,
+           cudaStream_t stream) {
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3((N + kCols - 1) / kCols, S, (M + kRows - 1) / kRows);
   cfg.blockDim = dim3(kThreads);
@@ -327,7 +335,8 @@ int launch(const float* x, const int8_t* wq_t, const float* wscale,
   cfg.numAttrs = 1;
   const cudaError_t err =
       cudaLaunchKernelEx(&cfg, int8_matmul_kernel<V, S>, x, wq_t, wscale, out,
-                         q_out, scale_out, M, N, K, absmax_floor);
+                         q_out, scale_out, row_absmax, M, N, K,
+                         absmax_floor);
   return static_cast<int>(err != cudaSuccess ? err : cudaGetLastError());
 }
 
@@ -335,15 +344,16 @@ int launch(const float* x, const int8_t* wq_t, const float* wscale,
 // K / S bytes) fit kChunk.
 template <int V>
 int launch_split(const float* x, const int8_t* wq_t, const float* wscale,
-                 float* out, int8_t* q_out, float* scale_out, int M, int N,
-                 int K, float absmax_floor, cudaStream_t stream) {
+                 float* out, int8_t* q_out, float* scale_out,
+                 const float* row_absmax, int M, int N, int K,
+                 float absmax_floor, cudaStream_t stream) {
   if (K <= kSplitSmallK) {
-    return launch<V, 2>(x, wq_t, wscale, out, q_out, scale_out, M, N, K,
-                        absmax_floor, stream);
+    return launch<V, 2>(x, wq_t, wscale, out, q_out, scale_out, row_absmax,
+                        M, N, K, absmax_floor, stream);
   }
 
-  return launch<V, 8>(x, wq_t, wscale, out, q_out, scale_out, M, N, K,
-                      absmax_floor, stream);
+  return launch<V, 8>(x, wq_t, wscale, out, q_out, scale_out, row_absmax, M,
+                      N, K, absmax_floor, stream);
 }
 
 }  // namespace
@@ -353,11 +363,13 @@ extern "C" {
 // Launches on `stream` and returns the launch's cudaError_t (0 =
 // launched). q_out (M, K) int8 and scale_out (M,) f32 may be null; when
 // given, the kernel also stores the activation codes and scales it
-// computed.
+// computed. row_absmax (M,) f32 may be null (each row's absmax is taken
+// over its K values); when given, it is the absmax each row's scale is
+// computed from.
 int dmp_int8_matmul(const float* x, const int8_t* wq_t, const float* wscale,
                     float* out, int8_t* q_out, float* scale_out,
-                    int M, int N, int K, float absmax_floor,
-                    cudaStream_t stream) {
+                    const float* row_absmax, int M, int N, int K,
+                    float absmax_floor, cudaStream_t stream) {
   if (M <= 0 || N <= 0 || K <= 0 || (K & 3) != 0 || K > kMaxK ||
       (M + kRows - 1) / kRows > 65535) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -367,10 +379,10 @@ int dmp_int8_matmul(const float* x, const int8_t* wq_t, const float* wscale,
                    reinterpret_cast<uintptr_t>(wq_t) % 16 == 0 &&
                    (q_out == nullptr ||
                     reinterpret_cast<uintptr_t>(q_out) % 16 == 0);
-  return vec ? launch_split<4>(x, wq_t, wscale, out, q_out, scale_out, M, N,
-                               K, absmax_floor, stream)
-             : launch_split<1>(x, wq_t, wscale, out, q_out, scale_out, M, N,
-                               K, absmax_floor, stream);
+  return vec ? launch_split<4>(x, wq_t, wscale, out, q_out, scale_out,
+                               row_absmax, M, N, K, absmax_floor, stream)
+             : launch_split<1>(x, wq_t, wscale, out, q_out, scale_out,
+                               row_absmax, M, N, K, absmax_floor, stream);
 }
 
 // The largest K the kernel takes, so the wrapper can refuse a larger one

@@ -70,6 +70,12 @@ class Context:
     # 'column' and 'row' projections in Megatron's f and g collectives
     # over it (`parallel/tensor_parallel.py`). None => no model axis.
     model_group: Optional[Any] = None
+    # (start, total): the activations' axis 1 holds positions [start,
+    # start + T) of `total` (the sequence-sharded residual stream of
+    # Megatron-SP, `parallel/tensor_parallel.py`), so dropout draws each
+    # element's bit from its index in the whole (B, total, ...) tensor:
+    # the masks of the unsharded run. None => the tensor is whole.
+    seq_shard: Optional[tuple] = None
 
     def child(self, i: int) -> "Context":
         """Context for the i-th child of a combinator (the reference's
@@ -157,6 +163,24 @@ def gelu(x: torch.Tensor) -> torch.Tensor:
     return F.gelu(x, approximate="none")
 
 
+def _flat_index(x: torch.Tensor, seq_shard) -> torch.Tensor:
+    """Each element's flat index in the tensor x is a part of: x itself,
+    or, with `seq_shard` (start, total), the (B, total, ...) tensor whose
+    positions [start, start + T) x holds along axis 1."""
+    if seq_shard is None:
+        return torch.arange(x.numel(), dtype=torch.int64, device=x.device)
+    start, total = seq_shard
+    b, t = x.shape[:2]
+    rest = x[0, 0].numel()
+
+    def ar(n):
+        return torch.arange(n, dtype=torch.int64, device=x.device)
+
+    pos = start + ar(t)
+    return ((ar(b)[:, None, None] * total + pos[None, :, None]) * rest
+            + ar(rest)[None, None, :]).reshape(-1)
+
+
 def dropout(x: torch.Tensor, rate: float, ctx: Context) -> torch.Tensor:
     """Inverted dropout: in training, zero each element with probability
     `rate` and scale the kept ones by 1/(1 - rate). The identity in eval,
@@ -168,7 +192,7 @@ def dropout(x: torch.Tensor, rate: float, ctx: Context) -> torch.Tensor:
     if not ctx.train or rate == 0.0 or ctx.rng is None:
         return x
     key = _call_key(ctx)
-    idx = torch.arange(x.numel(), dtype=torch.int64, device=x.device)
+    idx = _flat_index(x, ctx.seq_shard)
     bits = _mix32(idx ^ (key.to(x.device) if torch.is_tensor(key) else key))
     keep = (bits < int(round((1.0 - rate) * 2.0 ** 32))).view(x.shape)
     return torch.where(keep, x / (1.0 - rate), torch.zeros_like(x))
@@ -225,18 +249,23 @@ def reduce_from_model_parallel(x: torch.Tensor, group) -> torch.Tensor:
         group) else x
 
 
-def project(h, w, b, ctx: Context, *, role: Optional[str] = None):
-    """Dense projection `h @ w + b`, or `ctx.matmul(h, w, b)` when a
-    projection policy is threaded. `role` is the reference's Megatron
-    role: under a model group (`ctx.model_group`), a "column" projection
-    (qkv, ffn-in; `w` a column shard) runs on f(h), and a "row"
-    projection (attn-out, ffn-out; `w` a row shard) is g(h @ w) + b, the
-    bias added once, after the all-reduce. Without one both are
-    `h @ w + b`."""
+def project(h, w, b, ctx: Context, *, role: Optional[str] = None,
+            scope: Optional[str] = None):
+    """Dense projection `h @ w + b`, or the threaded projection policy's
+    `column` / `row` (`ctx.matmul`: the int8 decode policy, the
+    collective-matmul rings) unless the policy opts `scope` ("attn" or
+    "ffn") out with a false attribute of that name, as the reference's
+    `project` reads its policy's flags. `role` is the
+    reference's Megatron role: under a model group (`ctx.model_group`), a
+    "column" projection (qkv, ffn-in; `w` a column shard) runs on f(h),
+    and a "row" projection (attn-out, ffn-out; `w` a row shard) is
+    g(h @ w) + b, the bias added once, after the all-reduce. Without one
+    both are `h @ w + b`."""
     w = w.to(h.dtype)
     b = b.to(h.dtype)
-    if ctx.matmul is not None:
-        return ctx.matmul(h, w, b)
+    mm = ctx.matmul
+    if mm is not None and getattr(mm, scope or "", True):
+        return (mm.column if role == "column" else mm.row)(h, w, b)
     group = ctx.model_group
     if role == "column":
         h = copy_to_model_parallel(h, group)

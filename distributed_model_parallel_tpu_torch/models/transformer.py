@@ -68,7 +68,7 @@ def multi_head_attention(
     matching rows of the output projection): the heads are counted from
     the qkv width."""
     h, mask = x
-    b, t, dim = h.shape
+    dim = h.shape[-1]
     if dim % num_heads:
         raise ValueError(f"dim {dim} not divisible by num_heads {num_heads}")
     dh = dim // num_heads
@@ -80,14 +80,17 @@ def multi_head_attention(
             "over the model shards")
     heads = local // dh
     qkv = L.project(h, params["qkv"]["w"], params["qkv"]["b"], ctx,
-                    role="column")
-    q, k, v = torch.split(qkv, local, dim=-1)
-    q = q.reshape(b, t, heads, dh)
-    k = k.reshape(b, t, heads, dh)
-    v = v.reshape(b, t, heads, dh)
+                    role="column", scope="attn")
+    # Batch and length come from the projection: under the collective
+    # matmul rings h holds this rank's slots (the decode rings,
+    # `serving/decode.DecodeCollectiveMatmul`) or positions (Megatron-SP,
+    # `ops/collective_matmul.CollectiveMatmul`), and the column
+    # projection gathers every slot's or position's rows.
+    q, k, v = (a.reshape(*qkv.shape[:2], heads, dh)
+               for a in torch.split(qkv, local, dim=-1))
     o = attention_fn(q, k, v, mask)
-    o = L.project(o.reshape(b, t, local), params["out"]["w"],
-                  params["out"]["b"], ctx, role="row")
+    o = L.project(o.reshape(*o.shape[:2], local), params["out"]["w"],
+                  params["out"]["b"], ctx, role="row", scope="attn")
     return L.dropout(o, dropout_rate, ctx), mask
 
 
@@ -95,9 +98,9 @@ def feed_forward(params, x, ctx: L.Context, *, dropout_rate: float = 0.0):
     """Position-wise FFN (dense -> exact gelu -> dense) on (hidden, mask)."""
     h, mask = x
     y = L.gelu(L.project(h, params["in"]["w"], params["in"]["b"], ctx,
-                         role="column"))
+                         role="column", scope="ffn"))
     y = L.project(y, params["out"]["w"], params["out"]["b"], ctx,
-                  role="row")
+                  role="row", scope="ffn")
     return L.dropout(y, dropout_rate, ctx), mask
 
 

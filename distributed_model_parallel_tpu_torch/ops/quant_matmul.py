@@ -31,7 +31,7 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import weakref
-from typing import Dict, Optional, Tuple
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -96,11 +96,15 @@ def quantize_weight(w: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     return q.to(torch.int8), scale
 
 
-def quantize_rows(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+def quantize_rows(x: torch.Tensor, absmax: Optional[torch.Tensor] = None
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     """x (M, K) -> (q int8 (M, K), xscale f32 (M, 1)): per-token dynamic
-    absmax scales. `torch.round` rounds half to even, like `jnp.round`."""
+    absmax scales. `torch.round` rounds half to even, like `jnp.round`.
+    `absmax` (M,) replaces each row's own absmax (a tensor-parallel slice
+    of a row quantizes with the whole row's, `row_absmax`)."""
     xf = x.float()
-    absmax = xf.abs().amax(dim=-1, keepdim=True)
+    absmax = (xf.abs().amax(dim=-1, keepdim=True) if absmax is None
+              else absmax.float().reshape(-1, 1))
     scale = _div127(torch.clamp_min(absmax, ABSMAX_FLOOR))
     q = torch.clamp(torch.round(xf / scale), -127.0, 127.0)
     return q.to(torch.int8), scale
@@ -117,20 +121,34 @@ def prepare_weight(w: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
 
 
 def int8_matmul_plain(
-    x: torch.Tensor, wq_t: torch.Tensor, wscale: torch.Tensor
+    x: torch.Tensor, wq_t: torch.Tensor, wscale: torch.Tensor,
+    absmax: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """The kernel's function in plain torch, same arithmetic: quantize
-    the rows, exact integer dot, `float(acc) * xscale * wscale`.
+    the rows (against `absmax` when given), exact integer dot,
+    `float(acc) * xscale * wscale`.
 
     The integer dot runs as a float64 matmul of the int8 values, which
     is exact here (every partial sum is an integer below 2**53) and
     works on CUDA, where torch has no integer matmul."""
-    q, xscale = quantize_rows(x)
+    q, xscale = quantize_rows(x, absmax)
     acc = (q.double() @ wq_t.double().t()).to(torch.int32)
     return acc.float() * xscale * wscale[None, :]
 
 
-def _check_operands(x, wq_t, wscale) -> None:
+def row_absmax(x: torch.Tensor, group=None) -> torch.Tensor:
+    """(M,) f32 absmax of each row of x (M, K), taken over the rows'
+    slices on every rank of `group` (an all-reduce MAX, exact): the
+    reference's partitioned int8 projection quantizes a row sharded over
+    the model axis with the whole row's absmax."""
+    amax = x.float().abs().amax(dim=-1).contiguous()
+    if group is not None and torch.distributed.get_world_size(group) > 1:
+        torch.distributed.all_reduce(
+            amax, op=torch.distributed.ReduceOp.MAX, group=group)
+    return amax
+
+
+def _check_operands(x, wq_t, wscale, absmax=None) -> None:
     if x.dim() != 2 or x.dtype != torch.float32 or not x.is_contiguous():
         raise ValueError(
             "int8_matmul: x must be a contiguous 2-D float32 tensor, got "
@@ -160,6 +178,13 @@ def _check_operands(x, wq_t, wscale) -> None:
             f"int8_matmul: shapes disagree: x {tuple(x.shape)}, wq_t "
             f"{tuple(wq_t.shape)} (N, K), wscale {tuple(wscale.shape)}"
         )
+    if absmax is not None and (
+            absmax.shape != (m,) or absmax.dtype != torch.float32
+            or not absmax.is_contiguous() or absmax.device != x.device):
+        raise ValueError(
+            f"int8_matmul: absmax must be a contiguous float32 (M,) = ({m},) "
+            f"tensor on {x.device}, got {tuple(absmax.shape)} "
+            f"{absmax.dtype} on {absmax.device}")
     if not (x.device == wq_t.device == wscale.device):
         raise ValueError(
             f"int8_matmul: operands on different devices: {x.device}, "
@@ -175,7 +200,7 @@ def _library() -> ctypes.CDLL:
         lib.dmp_int8_matmul.argtypes = [
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float,
+            ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float,
             ctypes.c_void_p,
         ]
         lib.dmp_int8_matmul.restype = ctypes.c_int
@@ -190,10 +215,13 @@ def int8_matmul(
     wq_t: torch.Tensor,
     wscale: torch.Tensor,
     *,
+    absmax: Optional[torch.Tensor] = None,
     return_codes: bool = False,
 ):
     """x (M, K) f32 @ prepared weight (wq_t (N, K) int8, wscale (N,) f32)
-    -> (M, N) f32, in the int8 contract's arithmetic.
+    -> (M, N) f32, in the int8 contract's arithmetic; `absmax` (M,) f32,
+    when given, is what each row's scale is computed from in place of the
+    row's own absmax (`row_absmax`).
 
     On CPU tensors this is `int8_matmul_plain`. On CUDA tensors it
     launches `csrc/int8_matmul.cu` on the current stream (and raises if
@@ -201,10 +229,10 @@ def int8_matmul(
     counts kernel launches. `return_codes=True` also returns the
     activation codes (M, K) int8 and scales (M, 1) f32 the kernel (or
     the plain version) computed, for checking them."""
-    _check_operands(x, wq_t, wscale)
+    _check_operands(x, wq_t, wscale, absmax)
     if x.device.type == "cpu":
-        y = int8_matmul_plain(x, wq_t, wscale)
-        return (y, *quantize_rows(x)) if return_codes else y
+        y = int8_matmul_plain(x, wq_t, wscale, absmax)
+        return (y, *quantize_rows(x, absmax)) if return_codes else y
     if x.device.type != "cuda":
         raise ValueError(
             f"int8_matmul: no kernel for device {x.device} (cuda or cpu)"
@@ -231,6 +259,7 @@ def int8_matmul(
             out.data_ptr(),
             codes.data_ptr() if codes is not None else None,
             scales.data_ptr() if scales is not None else None,
+            absmax.data_ptr() if absmax is not None else None,
             m, n, k, ABSMAX_FLOOR,
             torch.cuda.current_stream(x.device).cuda_stream,
         )
@@ -255,13 +284,15 @@ def quant_matmul(
     mode: str = "int8",
     *,
     prepared: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+    absmax: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """x (..., K) @ w (K, N) in `mode` arithmetic.
 
     "f32" is the identity dot; "bf16" casts both operands and returns
     bf16 (downstream layers follow x.dtype); "int8" quantizes per the
     module contract and returns f32. `prepared` is `prepare_weight(w)`
-    when the caller cached it."""
+    (or its slice of a whole weight's) when the caller cached it;
+    `absmax` (one per row of x) replaces the rows' own absmax."""
     check_compute_dtype(mode)
     if mode == "f32":
         return x @ w
@@ -270,49 +301,106 @@ def quant_matmul(
     lead = x.shape[:-1]
     x2 = x.reshape(-1, x.shape[-1]).float().contiguous()
     wq_t, wscale = prepared if prepared is not None else prepare_weight(w)
-    y = int8_matmul(x2, wq_t, wscale)
+    y = int8_matmul(x2, wq_t, wscale, absmax=absmax)
     return y.reshape(*lead, w.shape[-1])
 
 
-@dataclasses.dataclass
-class QuantMatmul:
-    """`Context.matmul` policy for quantized decode: called as
-    `policy(h, w, b)`, every projection runs through `quant_matmul`.
+def quant_dot(mode: Optional[str], prepared=None) -> Optional[Callable]:
+    """The chunk GEMM to inject into a collective-matmul ring's fold
+    (`ops/collective_matmul.py`): None for f32 (the fold keeps its plain
+    `chunk @ w`), else a 2-argument dot in `mode` arithmetic; under int8
+    `prepared` is the weight's kernel operands, made once."""
+    if mode is None or mode == "f32":
+        return None
+    check_compute_dtype(mode)
+    return lambda a, b: quant_matmul(a, b, mode, prepared=prepared)
 
-    `prepare(w)` quantizes a weight once and keeps it for the weight
-    tensor's lifetime (keyed on the tensor's identity, checked through a
-    weak reference so a recycled id never hits a stale entry)."""
 
-    mode: str = "int8"
-    _prepared: Dict[int, tuple] = dataclasses.field(
-        default_factory=dict, repr=False, compare=False
-    )
+class PreparedWeights:
+    """int8 kernel operands made once per weight tensor and kept for its
+    lifetime (keyed on the tensor's identity, checked through a weak
+    reference so a recycled id never hits a stale entry)."""
 
-    def prepare(self, w: torch.Tensor) -> None:
-        if self.mode == "int8":
-            self._prepared[id(w)] = (weakref.ref(w), prepare_weight(w))
+    def __init__(self):
+        self._prepared: Dict[int, tuple] = {}
 
-    def _lookup(self, w):
+    def put(self, w: torch.Tensor, operands=None) -> None:
+        """Keep `operands` (default `prepare_weight(w)`) for `w`."""
+        self._prepared[id(w)] = (weakref.ref(w),
+                                 operands or prepare_weight(w))
+
+    def get(self, w: torch.Tensor):
         entry = self._prepared.get(id(w))
         if entry is not None and entry[0]() is w:
             return entry[1]
         return None
 
-    def __call__(self, h, w, b):
+
+@dataclasses.dataclass
+class QuantMatmul:
+    """`Context.matmul` policy for NON-ring quantized decode (replicated
+    and tp without rings): every projection runs through `quant_matmul`.
+
+    Under a tensor-parallel model group (`group`) each rank holds the
+    Megatron shards, and the arithmetic is the reference's, whose
+    partitioner keeps the unsharded semantics: a column projection (qkv,
+    ffn-in) sees whole rows and a column shard of the weight, whose
+    per-column scales are the whole weight's, so it runs locally; a row
+    projection (attn-out, ffn-out) sees a slice of each row and a row
+    shard of the weight, so each row quantizes with the WHOLE row's
+    absmax (`row_absmax`, an all-reduce MAX), the weight's codes and
+    scales are the whole weight's, sliced (`prepare(w, operands=...)`,
+    made in `ServingEngine.place_params`), and the dequantized f32
+    partial products are all-reduced (SUM) before the bias is added
+    once.
+
+    `prepare(w)` quantizes a weight once (per shard where its scales are
+    local)."""
+
+    mode: str = "int8"
+    group: Any = None
+    _weights: PreparedWeights = dataclasses.field(
+        default_factory=PreparedWeights, repr=False, compare=False
+    )
+
+    def prepare(self, w: torch.Tensor, operands=None) -> None:
+        if self.mode == "int8":
+            self._weights.put(w, operands)
+
+    def _lookup(self, w: torch.Tensor):
+        return self._weights.get(w)
+
+    def column(self, h, w, b):
         y = quant_matmul(h, w, self.mode, prepared=self._lookup(w))
+        return y + b.to(y.dtype)
+
+    def row(self, h, w, b):
+        group = self.group
+        sharded = (group is not None
+                   and torch.distributed.get_world_size(group) > 1)
+        absmax = (row_absmax(h.reshape(-1, h.shape[-1]), group)
+                  if sharded and self.mode == "int8" else None)
+        y = quant_matmul(h, w, self.mode, prepared=self._lookup(w),
+                         absmax=absmax)
+        if sharded:
+            y = y.contiguous()
+            torch.distributed.all_reduce(y, group=group)
         return y + b.to(y.dtype)
 
 
 __all__ = [
     "ABSMAX_FLOOR",
     "COMPUTE_DTYPES",
+    "PreparedWeights",
     "QuantMatmul",
     "check_compute_dtype",
     "int8_matmul",
     "int8_matmul_plain",
     "normalize_compute_dtype",
     "prepare_weight",
+    "quant_dot",
     "quant_matmul",
     "quantize_rows",
     "quantize_weight",
+    "row_absmax",
 ]

@@ -169,32 +169,45 @@ def host_staged(x: torch.Tensor, group) -> bool:
     return x.is_cuda and dist.get_backend(group) == "gloo"
 
 
+def _ppermutes_start(hops, group):
+    """Starts the sends and receives of several permutations at once, one
+    `batch_isend_irecv`: `hops` is a sequence of (x, perm) pairs, each as
+    `_ppermute` takes them. Returns the function that waits for them and
+    gives what this rank receives of each, in order, so that work issued
+    in between overlaps the transfers."""
+    me = dist.get_rank(group)
+    ops, outs = [], []
+    for x, perm in hops:
+        host = host_staged(x, group)
+        src_t = x.cpu() if host else x.contiguous()
+        out = torch.zeros_like(src_t)
+        for src, dst in perm:
+            if src == me and dst == me:
+                out = src_t.clone()
+            elif src == me:
+                ops.append(dist.P2POp(dist.isend, src_t, dist.get_global_rank(
+                    group, dst), group))
+            elif dst == me:
+                ops.append(dist.P2POp(dist.irecv, out, dist.get_global_rank(
+                    group, src), group))
+        outs.append((out, x.device if host else None))
+    works = dist.batch_isend_irecv(ops) if ops else []
+
+    def finish() -> list:
+        for work in works:
+            work.wait()
+        return [out if device is None else out.to(device)
+                for out, device in outs]
+
+    return finish
+
+
 def _ppermute_start(x: torch.Tensor, group, perm):
     """Starts `_ppermute`'s sends and receives and returns the function
     that waits for them and gives what this rank receives, so that work
     issued in between overlaps the transfer."""
-    host = host_staged(x, group)
-    src_t = x.cpu() if host else x.contiguous()
-    out = torch.zeros_like(src_t)
-    me = dist.get_rank(group)
-    ops = []
-    for src, dst in perm:
-        if src == me and dst == me:
-            out = src_t.clone()
-        elif src == me:
-            ops.append(dist.P2POp(dist.isend, src_t,
-                                  dist.get_global_rank(group, dst), group))
-        elif dst == me:
-            ops.append(dist.P2POp(dist.irecv, out,
-                                  dist.get_global_rank(group, src), group))
-    works = dist.batch_isend_irecv(ops) if ops else []
-
-    def finish() -> torch.Tensor:
-        for work in works:
-            work.wait()
-        return out.to(x.device) if host else out
-
-    return finish
+    finish = _ppermutes_start([(x, perm)], group)
+    return lambda: finish()[0]
 
 
 def _ppermute(x: torch.Tensor, group, perm) -> torch.Tensor:

@@ -54,9 +54,14 @@ reference's `pmean(psum(g, 'seq'), 'data')`.
 
 The attention core comes from `ATTENTION`, the reference's registry:
 `ulysses_flash` and `ring_flash` run the flash kernels
-(`ops/flash_attention.py`), `ring` and `ulysses` plain torch. Collective
-matmul and MoE belong to later slices and are refused with a ValueError
-naming the slice.
+(`ops/flash_attention.py`), `ring` and `ulysses` plain torch.
+`collective_matmul=True` runs the FFN pair of every block on the rings
+over the seq group (`ops/collective_matmul.LocalCollectiveMatmul`: each
+rank's column / row block of the whole weights, gathered over every
+rank's positions and reduce-scattered back), the attention projections
+unchanged; the FFN width must divide by S (the reference's message).
+MoE belongs to a later slice and is refused with a ValueError naming
+it.
 """
 
 from __future__ import annotations
@@ -89,6 +94,9 @@ from distributed_model_parallel_tpu_torch.models.gpt import (
     lm_targets,
     stem_apply,
 )
+from distributed_model_parallel_tpu_torch.ops.collective_matmul import (
+    LocalCollectiveMatmul,
+)
 from distributed_model_parallel_tpu_torch.ops.grad_reduction import (
     MONOLITHIC_BUCKET_MB,
     Reducer,
@@ -118,8 +126,7 @@ from distributed_model_parallel_tpu_torch.training.optim import (
     tree_map,
 )
 
-# Later port slices (ROADMAP.md), named by the refusals below.
-CM_SLICE = "the collective-matmul slice"
+# The later port slice (ROADMAP.md) named by the refusals below.
 MOE_SLICE = "the expert-parallel slice"
 
 
@@ -156,23 +163,46 @@ def _check_seq_len(ids, max_position: int, cfg_name: str) -> None:
         )
 
 
+def _seq_matmul_policy(enabled: bool, ffn_dim: int, mesh: Mesh):
+    """The collective-matmul policy of the SP engines (None when off):
+    `LocalCollectiveMatmul` over the seq group, the FFN pair only,
+    validated here so a non-divisible FFN width fails at construction
+    (the reference's message)."""
+    if not enabled:
+        return None
+    if ffn_dim % mesh.seq:
+        raise ValueError(
+            f"collective_matmul=True chunks the FFN width over the "
+            f"'seq' axis: intermediate/ffn dim {ffn_dim} must be "
+            f"divisible by the {mesh.seq} sequence shards"
+        )
+    return LocalCollectiveMatmul(group=mesh.seq_group)
+
+
 class _SeqAxis:
     """What both engines do with the (data, seq) mesh."""
 
-    def _check_config(self, num_heads: int) -> None:
-        """The attention name, the later slice's collective matmul, and
-        Ulysses' whole heads a shard (the reference's message)."""
+    def _check_config(self, num_heads: int, ffn_dim: int) -> None:
+        """The attention name, Ulysses' whole heads a shard (the
+        reference's message), and the collective-matmul policy."""
         if self.attention not in ATTENTION:
             raise ValueError(
                 f"attention must be one of {sorted(ATTENTION)}, "
                 f"got {self.attention!r}"
             )
-        if self.collective_matmul:
-            raise _not_ported("collective_matmul", CM_SLICE)
         n = self.mesh.seq
         if self.attention.startswith("ulysses") and num_heads % n:
             raise ValueError(f"ulysses needs heads ({num_heads}) divisible "
                              f"by 'seq' axis size ({n})")
+        self._matmul = _seq_matmul_policy(self.collective_matmul, ffn_dim,
+                                          self.mesh)
+
+    def _ctx(self, train: bool, step=None) -> L.Context:
+        """The context of a step: dropout keyed by `_key(step)` in
+        training, the collective-matmul policy on the FFN pair."""
+        return L.Context(train=train, dtype=self.compute_dtype,
+                         rng=self._key(step) if train else None,
+                         matmul=self._matmul)
 
     def _rank(self) -> int:
         """This rank's data index."""
@@ -266,7 +296,7 @@ class CausalLMSequenceParallelEngine(_SeqAxis):
                 f"'overlapped', got {self.grad_reduction!r}"
             )
         self.mesh = self.mesh or make_mesh()
-        self._check_config(self.cfg.num_heads)
+        self._check_config(self.cfg.num_heads, self.cfg.ffn_dim)
         if getattr(self.cfg, "num_experts", 0) > 0:
             raise _not_ported("GPTConfig.num_experts > 0", MOE_SLICE)
         if self.compute_dtype not in (None, torch.float32, torch.bfloat16):
@@ -395,8 +425,7 @@ class CausalLMSequenceParallelEngine(_SeqAxis):
         step: the gradient of the local loss SUM, summed over the seq
         shards and the data ranks and divided by max(global valid
         tokens, 1). Dropout draws from `_key(step)`."""
-        ctx = L.Context(train=True, dtype=self.compute_dtype,
-                        rng=self._key(ts.step))
+        ctx = self._ctx(True, ts.step)
         leaves = list(tree_leaves(ts.params))
         if self.grad_reduction == "overlapped":
             pending = []
@@ -445,7 +474,7 @@ class CausalLMSequenceParallelEngine(_SeqAxis):
 
     @torch.no_grad()
     def eval_step(self, ts: TrainState, ids, targets) -> dict:
-        ctx = L.Context(train=False, dtype=self.compute_dtype)
+        ctx = self._ctx(False)
         return self._sum_metrics(
             self.local_sums(self.forward(ts.params, ids, ctx), targets))
 
@@ -471,7 +500,7 @@ class SequenceParallelEngine(_SeqAxis):
 
     def __post_init__(self):
         self.mesh = self.mesh or make_mesh()
-        self._check_config(self.cfg.num_heads)
+        self._check_config(self.cfg.num_heads, self.cfg.intermediate_size)
         if self.cfg.num_experts > 0:
             raise _not_ported("BertConfig.num_experts > 0", MOE_SLICE)
         if self.compute_dtype not in (None, torch.float32, torch.bfloat16):
@@ -547,8 +576,7 @@ class SequenceParallelEngine(_SeqAxis):
         gradients are summed over the seq shards and averaged over the
         data ranks (one all-reduce over `data_seq_group`). Returns
         (state, metric sums over the mesh)."""
-        ctx = L.Context(train=True, dtype=self.compute_dtype,
-                        rng=self._key(ts.step))
+        ctx = self._ctx(True, ts.step)
         logits, is_cls = self.forward(ts.params, ts.model_state, ids, ctx)
         ce = cross_entropy(logits, labels) * is_cls
         grads = torch.autograd.grad(ce, list(tree_leaves(ts.params)))
@@ -563,8 +591,7 @@ class SequenceParallelEngine(_SeqAxis):
     @torch.no_grad()
     def eval_step(self, ts: TrainState, ids, labels) -> dict:
         logits, is_cls = self.forward(
-            ts.params, ts.model_state, ids,
-            L.Context(train=False, dtype=self.compute_dtype))
+            ts.params, ts.model_state, ids, self._ctx(False))
         ce = cross_entropy(logits, labels) * is_cls
         return self._masked_sums(ce, logits, labels, is_cls)
 

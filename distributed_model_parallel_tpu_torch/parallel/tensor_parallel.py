@@ -50,8 +50,21 @@ A train step, per rank:
 Divisibility: the port needs num_heads % M == 0 and ffn_dim % M == 0
 (the reference's partitioner shards a 6-head (192, 576) QKV at M 4 into
 144-column shards that split heads; the port's local attention cannot),
-checked by `check_divisibility`. Collective matmul belongs to a later
-slice and is refused.
+checked by `check_divisibility`.
+
+`collective_matmul=True` runs each block's four projections on the
+latency-hiding rings over the model group
+(`ops/collective_matmul.CollectiveMatmul`) in place of f and g, with the
+residual stream sequence-sharded between them (Megatron-SP): the model
+runs by its stem / blocks / head anatomy (`models/staging.StageParts`),
+the stem's output scattered to this rank's T/M positions and the blocks'
+gathered before the head, so the sequence length must divide by M (the
+reference's message; ViT's 65 tokens at M 2 are refused, as there).
+Dropout in the blocks draws each element's bit from its index in the
+whole sequence (`Context.seq_shard`), so the masks are those without the
+rings. The blocks' replicated leaves (LayerNorms, row biases) then see
+this rank's positions only, so their gradients are summed over the model
+group after the data mean.
 """
 
 from __future__ import annotations
@@ -73,6 +86,11 @@ from distributed_model_parallel_tpu_torch.models.convert import (
     train_state_spec,
     train_state_to_jax,
 )
+from distributed_model_parallel_tpu_torch.ops.collective_matmul import (
+    CollectiveMatmul,
+    gather_seq,
+    scatter_seq,
+)
 from distributed_model_parallel_tpu_torch.parallel.data_parallel import (
     TrainState,
     _DataParallel,
@@ -83,9 +101,10 @@ from distributed_model_parallel_tpu_torch.runtime.mesh import (
     make_mesh,
     mesh_axes,
 )
-from distributed_model_parallel_tpu_torch.training.optim import tree_map
-
-CM_SLICE = "the collective-matmul slice"
+from distributed_model_parallel_tpu_torch.training.optim import (
+    tree_leaves,
+    tree_map,
+)
 
 
 class Split(NamedTuple):
@@ -172,6 +191,43 @@ def check_divisibility(num_heads: int, ffn_dim: int, shards: int) -> None:
             "split a head across shards; the port does not)")
 
 
+def megatron_sp(model: L.Layer, group, policy) -> L.Layer:
+    """`model` (a `staging.staged_model`: stem, blocks, head) run with
+    Megatron-SP over `group` (module doc): the stem on the whole
+    sequence, its output scattered to this rank's positions, the blocks
+    under the ring `policy` with `Context.seq_shard` set, their output
+    gathered before the head; the parameter tree and the `Context.child`
+    chain are `model`'s own."""
+    parts = model.parts
+    if parts is None:
+        raise ValueError(
+            "collective_matmul=True runs the model by its stem / blocks / "
+            "head anatomy (models/staging.staged_model); this model has "
+            "none")
+
+    def apply(params, state, x, ctx):
+        (h, mask), stem_state = parts.stem.apply(
+            params["stem"], state["stem"], x, ctx.child(0))
+        total = h.shape[1]
+        h = scatter_seq(h, group)
+        start = (0 if group is None else dist.get_rank(group)) * h.shape[1]
+        block_ctx = dataclasses.replace(ctx.child(1), matmul=policy,
+                                        seq_shard=(start, total))
+        block_states = {}
+        for i, block in enumerate(parts.blocks):
+            key = str(i)
+            (h, mask), block_states[key] = block.apply(
+                params["blocks"][key], state["blocks"][key], (h, mask),
+                block_ctx.child(i))
+        y, head_state = parts.head.apply(
+            params["head"], state["head"], (gather_seq(h, group), mask),
+            ctx.child(2))
+        return y, {"stem": stem_state, "blocks": block_states,
+                   "head": head_state}
+
+    return dataclasses.replace(model, apply=apply)
+
+
 def _like_params(opt_field, params) -> bool:
     """True for an optimizer-state field shaped like the parameters (the
     momentum, the moments), False for a scalar (AdamW's count)."""
@@ -201,16 +257,32 @@ class TensorParallelEngine(_DataParallel):
     collective_checkpoint = True
 
     def __post_init__(self):
-        if self.collective_matmul:
-            raise ValueError(
-                "TensorParallelEngine collective_matmul=True is not ported "
-                f"to the PyTorch package yet: it belongs to {CM_SLICE} "
-                "(ROADMAP.md)")
         if self.mesh is None:
             self.mesh = make_mesh(MeshSpec(data=-1))
         self._setup(sync_bn=True)
         self._model_group = self.mesh.model_group
         self._specs = None  # the layout, from the first parameter tree
+        self._matmul = None
+        if self.collective_matmul:
+            self._matmul = CollectiveMatmul(group=self._model_group)
+            self.model = megatron_sp(self.model, self._model_group,
+                                     self._matmul)
+
+    def _local_grads(self, grads):
+        """Under Megatron-SP the blocks' replicated leaves (LayerNorms,
+        row biases) saw this rank's positions only: their gradients are
+        summed over the model group (one all-reduce)."""
+        if self._matmul is None or self.mesh.model == 1:
+            return grads
+        partial = [(g, s) for g, s in zip(tree_leaves(grads["blocks"]),
+                                          tree_leaves(self._specs["blocks"]))
+                   if s is None]
+        flat = torch.cat([g.reshape(-1) for g, _ in partial])
+        dist.all_reduce(flat, group=self._model_group)
+        for (g, _), piece in zip(partial, flat.split(
+                [g.numel() for g, _ in partial])):
+            g.copy_(piece.view(g.shape))
+        return grads
 
     def _shard_axis(self):
         """(group, count, index) of the axis the state shards over: the
@@ -339,6 +411,6 @@ class TensorParallelEngine(_DataParallel):
                              mesh_axes=mesh_axes(self.mesh))
 
 
-__all__ = ["CM_SLICE", "MEGATRON_RULES", "Split", "TensorParallelEngine",
-           "check_divisibility", "shard_leaf", "shard_specs", "shard_tree",
+__all__ = ["MEGATRON_RULES", "Split", "TensorParallelEngine",
+           "check_divisibility", "megatron_sp", "shard_leaf", "shard_specs", "shard_tree",
            "unshard_leaf"]

@@ -1,6 +1,5 @@
 """Incremental (KV-cached) decode and prefill through the
-`attention_fn(q, k, v, mask)` seam (port of `serving/decode.py`,
-replicated layout).
+`attention_fn(q, k, v, mask)` seam (port of `serving/decode.py`).
 
 The decoder blocks are not rewritten for inference: each step hands the
 blocks a fresh recorder as their attention core, and each block's one
@@ -12,8 +11,15 @@ call becomes one layer's cache update + attention.
     against the cached prefix with `dot_product_attention` and a
     per-slot key-validity mask — the core the dense model runs, so
     logits match full recompute.
-  * prefill (`PrefillRecorder`): wraps causal dense attention and
-    captures each layer's full-prompt K/V for the cache write.
+  * sp decode (`SeqShardedCacheAttention`, `PagedSeqShardedCacheAttention`):
+    the cache's positions are sharded over the seq group; each rank
+    writes the new K/V only where it owns the position, attends q over
+    its own positions, and the partial softmaxes merge exactly by the
+    online recurrence (`_sp_online_softmax_attend`: an all-reduce MAX of
+    the running max, then one SUM of the exp-sums and weighted values).
+  * prefill (`PrefillRecorder`): wraps causal attention (dense, or the
+    slice-13 ring over the seq group under sp) and captures each layer's
+    K/V for the cache write.
   * paged twins (`PagedCacheAttention`, `PagedChunkAttention`,
     `PagedVerifyAttention`): K/V live in a page pool reached through a
     block table; each recorder gathers the slot's pages into the same
@@ -28,18 +34,39 @@ positions, without a second copy of a multi-hundred-megabyte cache per
 step. A pool write the reference's scatter would drop (an inactive
 slot, an unallocated `-1` entry, a row past the block table) goes to
 the pool's sink page (`serving/kv_cache.py`), which no gather reads.
-The tp/sp recorders (`PagedSeqShardedCacheAttention`,
-`DecodeCollectiveMatmul`) belong to the tp/sp serving slice.
+
+Decode-time tp projections can ride the latency-hiding rings
+(`DecodeCollectiveMatmul`): at decode the sequence axis is one token,
+so `ops/collective_matmul`'s rings run over the SLOT batch instead. The
+residual stream between blocks holds this rank's slots, column
+projections gather every slot's rows round the model group's ring (S -
+1 hops), row projections reduce-scatter the partial sums back to the
+slots' owners, and the cache attention between them runs on every slot
+and this rank's heads, exactly as without the rings: 4 L (S - 1) hops a
+decode step (`decode_ring_permutes`), and as many a verify step, whose
+k + 1 tokens a slot ride the same rings.
 """
 
 from __future__ import annotations
 
-from typing import List
+import dataclasses
+from typing import Any, List, Optional
 
 import torch
+import torch.distributed as dist
 
 from distributed_model_parallel_tpu_torch.ops.attention import (
     dot_product_attention,
+)
+from distributed_model_parallel_tpu_torch.ops.collective_matmul import (
+    ag_matmul,
+    ag_matmul_quant,
+    matmul_rs,
+    matmul_rs_quant,
+)
+from distributed_model_parallel_tpu_torch.ops.quant_matmul import (
+    PreparedWeights,
+    quant_dot,
 )
 
 
@@ -56,10 +83,12 @@ def decode_stem(stem_params, tokens, positions, dtype=None):
     return _cast(h[:, None, :], dtype)
 
 
-def prefill_stem(stem_params, ids, dtype=None):
-    """Prompt stem over (B, T) ids at positions [0, T)."""
-    return _cast(stem_params["word"][ids]
-                 + stem_params["position"][: ids.shape[1]][None], dtype)
+def prefill_stem(stem_params, ids, dtype=None, offset: int = 0):
+    """Prompt stem over (B, T) ids at positions [offset, offset + T) (0
+    for the dense layouts; the rank's global offset under the sp
+    layout)."""
+    pos = stem_params["position"][offset:offset + ids.shape[1]]
+    return _cast(stem_params["word"][ids] + pos[None], dtype)
 
 
 def chunk_stem(stem_params, ids, start: int, dtype=None):
@@ -131,6 +160,72 @@ class CacheAttention:
         write_position(kc, k_new, self.positions, self.active)
         write_position(vc, v_new, self.positions, self.active)
         return dot_product_attention(q, kc, vc, mask=self.valid)
+
+
+def _group_index(group) -> int:
+    return 0 if group is None else dist.get_rank(group)
+
+
+def _sp_online_softmax_attend(q, kc, vc, valid, group):
+    """The exact cross-rank attention merge both sp decode recorders
+    share: each rank scores q against ITS keys under `valid` (slots,
+    local keys), then the partial softmaxes combine by the online
+    recurrence in f32: an all-reduce MAX of the running max, and one SUM
+    of the exp-sums and the weighted values together (the reference's two
+    psums, packed in one all-reduce: the same elementwise sums)."""
+    dh = q.shape[-1]
+    scale = 1.0 / torch.sqrt(torch.tensor(float(dh)))
+    logits = torch.einsum("bqhd,bkhd->bhqk", q.float(),
+                          kc.float()) * scale.to(q.device)
+    neg = torch.finfo(torch.float32).min
+    vmask = valid[:, None, None, :]
+    logits = torch.where(vmask, logits, neg)
+    m = logits.amax(dim=-1).contiguous()  # (slots, H, 1)
+    if group is not None:
+        dist.all_reduce(m, op=dist.ReduceOp.MAX, group=group)
+    p = torch.where(vmask, torch.exp(logits - m[..., None]), 0.0)
+    denom = p.sum(dim=-1)  # (slots, H, 1)
+    num = torch.einsum("bhqk,bkhd->bqhd", p, vc.float())  # (slots,1,H,Dh)
+    if group is not None:
+        packed = torch.cat([denom.reshape(-1), num.reshape(-1)])
+        dist.all_reduce(packed, group=group)
+        denom = packed[:denom.numel()].view(denom.shape)
+        num = packed[denom.numel():].view(num.shape)
+    out = num / denom.transpose(1, 2)[..., None]
+    return out.to(q.dtype)
+
+
+class SeqShardedCacheAttention:
+    """attention_fn for one decode step under the sp layout: the cache's
+    position axis is sharded over `group`, this rank holding positions
+    [i C, (i+1) C) of every slot in its local cache (layers, slots, C, H,
+    Dh). The rank writes the new K/V only where it owns the slot's
+    position, attends q over its positions, and the partial softmaxes
+    merge exactly (`_sp_online_softmax_attend`)."""
+
+    def __init__(self, k, v, positions, active, *, group=None):
+        self.k = k
+        self.v = v
+        self.positions = positions
+        self.group = group
+        self.layer = 0
+        chunk = k.shape[2]
+        start = _group_index(group) * chunk
+        local = positions - start
+        self.local = local.clamp(0, chunk - 1)
+        self.owns = (local >= 0) & (local < chunk) & active
+        # Every global position <= the slot's lives on exactly one rank,
+        # so the union over ranks is the dense prefix mask.
+        gpos = start + torch.arange(chunk, device=k.device)
+        self.valid = gpos[None, :] <= positions[:, None]  # (slots, C)
+
+    def __call__(self, q, k_new, v_new, mask):
+        i = self.layer
+        self.layer += 1
+        kc, vc = self.k[i], self.v[i]
+        write_position(kc, k_new, self.local, self.owns)
+        write_position(vc, v_new, self.local, self.owns)
+        return _sp_online_softmax_attend(q, kc, vc, self.valid, self.group)
 
 
 class PrefillRecorder:
@@ -212,6 +307,49 @@ class PagedCacheAttention:
             _write_pool(pool, self.rows, new[:, 0])
             views.append(view)
         return dot_product_attention(q, *views, mask=self.valid)
+
+
+class PagedSeqShardedCacheAttention:
+    """attention_fn for one PAGED decode step under the sp layout: each
+    PAGE's positions are sharded over `group`, this rank holding offsets
+    [i psub, (i+1) psub) of every page in its local pool (layers,
+    num_pages + 1, psub, H, Dh), psub = page / S. The rank writes the new
+    K/V only where it owns the slot's within-page offset, and the
+    partial softmaxes merge exactly (`_sp_online_softmax_attend`): the
+    paged twin of `SeqShardedCacheAttention`."""
+
+    def __init__(self, k, v, block_table, positions, active,
+                 page_size: int, *, group=None):
+        self.k = k
+        self.v = v
+        self.bt = block_table
+        self.group = group
+        self.layer = 0
+        psub = k.shape[2]  # page / S offsets a rank
+        idx = _group_index(group)
+        off = positions % page_size
+        self.owns = (torch.div(off, psub, rounding_mode="floor") == idx) \
+            & active
+        # The local flat index of global position p in the gathered view.
+        self.local = (torch.div(positions, page_size, rounding_mode="floor")
+                      * psub + off % psub)
+        self.rows = _pool_rows(block_table, self.local[:, None],
+                               self.owns[:, None], psub, k.shape[1] - 1)
+        f = torch.arange(block_table.shape[1] * psub, device=k.device)
+        gpos = (torch.div(f, psub, rounding_mode="floor") * page_size
+                + idx * psub + f % psub)
+        self.valid = gpos[None, :] <= positions[:, None]  # (slots, view)
+
+    def __call__(self, q, k_new, v_new, mask):
+        i = self.layer
+        self.layer += 1
+        views = []
+        for pool, new in ((self.k[i], k_new), (self.v[i], v_new)):
+            view = _gather_pages(pool, self.bt)
+            write_position(view, new, self.local, self.owns)
+            _write_pool(pool, self.rows, new[:, 0])
+            views.append(view)
+        return _sp_online_softmax_attend(q, *views, self.valid, self.group)
 
 
 class PagedChunkAttention:
@@ -328,13 +466,79 @@ class PagedVerifyAttention:
             for j in range(t)], dim=1)
 
 
+# ---------------------------------------- decode-time collective matmul
+
+
+@dataclasses.dataclass
+class DecodeCollectiveMatmul:
+    """Latency-hiding policy for tp DECODE and VERIFY steps
+    (`Context.matmul` -> `layers.project`): the projections ride
+    `ops/collective_matmul`'s rings over the SLOT batch of the model
+    group `group` (module doc). Column projections (qkv, ffn-in) take
+    this rank's slots (slots/S, T, D), gather every slot's rows through
+    the `ag_matmul` ring and return (slots, T, F/S); row projections
+    (attn-out, ffn-out) take (slots, T, F/S) and reduce-scatter the
+    partial sums back onto this rank's slots, (slots/S, T, D). The
+    flattened slots * T rows ring as one batch: T is 1 for a decode step
+    and k + 1 for a verify step, the same hops either way.
+
+    `compute_dtype` ("bf16" | "int8" | None) injects the chunk GEMM
+    (`ops/quant_matmul.quant_dot`): under int8 each chunk product is the
+    int8 kernel (K4) on the chunk's rows against this rank's weight
+    block, quantized once (`prepare`) with the block's OWN scales, as the
+    reference's `matmul_rs_quant` does inside its shard_map; the hops
+    carry the same activation chunks as the f32 rings. The engine checks
+    that the slots, 3 dim, dim and ffn_dim divide by the group's size."""
+
+    group: Any
+    compute_dtype: Optional[str] = None
+    _weights: PreparedWeights = dataclasses.field(
+        default_factory=PreparedWeights, repr=False, compare=False)
+
+    def prepare(self, w: torch.Tensor) -> None:
+        """Quantize this rank's weight block `w` once (int8)."""
+        if self.compute_dtype == "int8":
+            self._weights.put(w)
+
+    def _dot(self, w):
+        return quant_dot(self.compute_dtype, self._weights.get(w))
+
+    def column(self, h, w, b):
+        """(slots/S, T, D) this rank's slots -> (slots, T, F/S)."""
+        t = h.shape[1]
+        h2 = h.reshape(-1, h.shape[-1])
+        dot = self._dot(w)
+        y = (ag_matmul(h2, w, self.group) if dot is None
+             else ag_matmul_quant(h2, w, self.group, dot))
+        return (y + b.to(y.dtype)).reshape(-1, t, y.shape[-1])
+
+    def row(self, h, w, b):
+        """(slots, T, F/S) -> (slots/S, T, D), this rank's slots."""
+        t = h.shape[1]
+        h2 = h.reshape(-1, h.shape[-1])
+        dot = self._dot(w)
+        y = (matmul_rs(h2, w, self.group) if dot is None
+             else matmul_rs_quant(h2, w, self.group, dot))
+        return (y + b.to(y.dtype)).reshape(-1, t, y.shape[-1])
+
+
+def decode_ring_permutes(num_layers: int, size: int) -> int:
+    """The hops of one decode (or verify) step on the rings: 4 projection
+    rings a block (qkv, attn-out, ffn-in, ffn-out), S - 1 hops each."""
+    return 4 * num_layers * (size - 1)
+
+
 __all__ = [
     "CacheAttention",
+    "DecodeCollectiveMatmul",
     "PagedCacheAttention",
     "PagedChunkAttention",
+    "PagedSeqShardedCacheAttention",
     "PagedVerifyAttention",
     "PrefillRecorder",
+    "SeqShardedCacheAttention",
     "chunk_stem",
+    "decode_ring_permutes",
     "decode_stem",
     "prefill_stem",
     "verify_stem",

@@ -1,6 +1,5 @@
 """ServingEngine: prefill/decode split with continuous batching over the
-contiguous or the block-paged KV cache (port of `serving/engine.py`,
-replicated layout).
+contiguous or the block-paged KV cache (port of `serving/engine.py`).
 
 One decode step advances EVERY cache slot one token, whatever position
 each slot sits at (the mixed-position batch of continuous batching).
@@ -36,8 +35,32 @@ tree carried over by `models/convert.py`. `compute_dtype`:
          activations and cache stay f32, exactly as in the reference.
 
 Each weight is quantized (int8) or cast (bf16) once, in `place_params`.
-The tp/sp layouts, collective matmul and a device mesh belong to a later
-port slice and are refused with a ValueError naming it.
+
+Layouts, each logit-identical to the replicated one at the reference's
+bars; under tp and sp every rank of the mesh (`runtime/mesh.Mesh`, one
+process a card) runs the same host loop (`run`) on the same next-token
+logits, so admission, sampling and eviction stay in lockstep, and the
+caller reports from rank 0:
+
+  replicated — parameters and cache whole on every rank.
+  tp — the parameters' Megatron shards over the mesh's model group
+       (`parallel/tensor_parallel.MEGATRON_RULES`, split by
+       `place_params` from the dense tree), the cache's heads sharded
+       (`serving/kv_cache.py`). Without rings the blocks run Megatron's
+       f / g (`layers.project` over `Context.model_group`), and int8 is
+       `QuantMatmul` over the group (whole-row scales, as the
+       reference's partitioner computes them); with `collective_matmul`
+       the decode and verify steps' projections ride the rings over the
+       slot batch (`serving/decode.DecodeCollectiveMatmul`), the
+       residual stream holding this rank's slots and the logits
+       all-gathered at the end. Prefill runs f / g in both.
+  sp — parameters whole, the cache's positions sharded over the seq
+       group: prefill splits the prompt over the group and runs the
+       slice-13 ring (`ops/ring_attention.ring_attention`, causal), the
+       next-token logits are the owning rank's row (an all-reduce of it
+       and zeros), and each rank keeps its positions of the all-gathered
+       prompt K/V; decode merges the ranks' partial attention exactly
+       (`SeqShardedCacheAttention`, `PagedSeqShardedCacheAttention`).
 """
 
 from __future__ import annotations
@@ -48,6 +71,7 @@ from typing import Any, Optional, Sequence
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from distributed_model_parallel_tpu_torch.models import layers as L
 from distributed_model_parallel_tpu_torch.models.gpt import (
@@ -68,13 +92,29 @@ from distributed_model_parallel_tpu_torch.ops.attention import (
 from distributed_model_parallel_tpu_torch.ops.quant_matmul import (
     QuantMatmul,
     normalize_compute_dtype,
+    prepare_weight,
+)
+from distributed_model_parallel_tpu_torch.ops.ring_attention import (
+    ring_attention,
+)
+from distributed_model_parallel_tpu_torch.ops.wire_codec import host_staged
+from distributed_model_parallel_tpu_torch.parallel.tensor_parallel import (
+    MEGATRON_RULES,
+    Split,
+    check_divisibility,
+    shard_leaf,
+    shard_specs,
+    shard_tree,
 )
 from distributed_model_parallel_tpu_torch.serving.decode import (
     CacheAttention,
+    DecodeCollectiveMatmul,
     PagedCacheAttention,
     PagedChunkAttention,
+    PagedSeqShardedCacheAttention,
     PagedVerifyAttention,
     PrefillRecorder,
+    SeqShardedCacheAttention,
     chunk_stem,
     decode_stem,
     prefill_stem,
@@ -97,20 +137,23 @@ from distributed_model_parallel_tpu_torch.serving.scheduler import (
     Scheduler,
 )
 
-# The later port slice (ROADMAP.md) named by the refusals below.
-TP_SP_SLICE = "the tp/sp serving-layout slice"
-
-
-def _not_ported(knob: str, later: str) -> ValueError:
-    return ValueError(
-        f"{knob} is not ported to the PyTorch package yet: it belongs to "
-        f"{later} (ROADMAP.md). The port serves the replicated layout on "
-        "one device."
-    )
+# The row-parallel (Split(0)) projections: their int8 weight codes and
+# scales under tp without rings are the whole weight's, sliced.
+_ROW_PROJECTIONS = (("attn", "out"), ("ffn", "out"))
 
 
 def _to_device(array: np.ndarray, dtype, device) -> torch.Tensor:
     return torch.from_numpy(np.asarray(array).astype(dtype)).to(device)
+
+
+def _all_gather_dim0(x: torch.Tensor, group) -> torch.Tensor:
+    """The group's x concatenated along dim 0, in rank order (on a gloo
+    group a CUDA tensor crosses through the host)."""
+    n = dist.get_world_size(group)
+    src = x.cpu() if host_staged(x, group) else x.contiguous()
+    out = src.new_empty((n * src.shape[0], *src.shape[1:]))
+    dist.all_gather_into_tensor(out, src, group=group)
+    return out.to(x.device)
 
 
 @dataclasses.dataclass
@@ -145,12 +188,6 @@ class ServingEngine:
 
     def __post_init__(self):
         cfg = self.cfg
-        if self.mesh is not None:
-            raise _not_ported("a device mesh", TP_SP_SLICE)
-        if self.layout in ("tp", "sp"):
-            raise _not_ported(f"layout={self.layout!r}", TP_SP_SLICE)
-        if self.collective_matmul:
-            raise _not_ported("collective_matmul", TP_SP_SLICE)
         self.device = torch.device(self.device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(
@@ -179,6 +216,12 @@ class ServingEngine:
         self._act_dtype = (
             torch.bfloat16 if self.compute_mode == "bf16" else None
         )
+        if self.compute_mode == "int8" and self.layout == "sp":
+            raise ValueError(
+                "compute_dtype='int8' quantizes the decode projections "
+                "(replicated/tp layouts); the sp layout's shard_map "
+                "decode has no quantized policy path"
+            )
         cache_dtype = self._act_dtype or torch.float32
         head_dim = cfg.dim // cfg.num_heads
         self.spec = KVCacheSpec(
@@ -186,7 +229,7 @@ class ServingEngine:
             max_len=self.max_len, num_heads=cfg.num_heads,
             head_dim=head_dim, dtype=cache_dtype,
         )
-        self.spec.validate(self.layout)
+        self.spec.validate(self.layout, self.mesh)
         self.paged_spec = None
         if self.page_size is None:
             for flag, name in ((self.prefill_chunk, "prefill_chunk"),
@@ -214,17 +257,34 @@ class ServingEngine:
                 num_heads=cfg.num_heads, head_dim=head_dim,
                 dtype=cache_dtype,
             )
-            self.paged_spec.validate(self.layout)
-            if self.prefill_chunk is not None and self.prefill_chunk < 1:
-                raise ValueError(
-                    f"prefill_chunk must be >= 1, got {self.prefill_chunk}"
-                )
-            if self.prefix_cache and self.prefill_chunk is None:
-                raise ValueError(
-                    "prefix_cache needs chunked prefill (prefill_chunk): "
-                    "a partial prefix hit resumes ingestion mid-prompt, "
-                    "which only the chunked path can do"
-                )
+            self.paged_spec.validate(self.layout, self.mesh)
+            if self.prefill_chunk is not None:
+                if self.prefill_chunk < 1:
+                    raise ValueError(
+                        f"prefill_chunk must be >= 1, got "
+                        f"{self.prefill_chunk}"
+                    )
+                if self.layout == "sp":
+                    raise ValueError(
+                        "prefill_chunk is not supported under the sp "
+                        "layout: sp prefill rides the training ring over "
+                        "'seq' in one pass (use monolithic prefill, or "
+                        "the replicated/tp layouts)"
+                    )
+            if self.prefix_cache:
+                if self.layout == "sp":
+                    raise ValueError(
+                        "prefix_cache is not supported under the sp "
+                        "layout (shared pages would need coherent "
+                        "copy-on-write across 'seq' shards)"
+                    )
+                if self.prefill_chunk is None:
+                    raise ValueError(
+                        "prefix_cache needs chunked prefill "
+                        "(prefill_chunk): a partial prefix hit resumes "
+                        "ingestion mid-prompt, which only the chunked "
+                        "path can do"
+                    )
         if self.speculative_k:
             if not 1 <= self.speculative_k <= 8:
                 raise ValueError(
@@ -232,6 +292,14 @@ class ServingEngine:
                     f"{self.speculative_k} (the verify step scores k+1 "
                     "positions; past ~8 the acceptance tail pays for "
                     "nothing)"
+                )
+            if self.layout == "sp":
+                raise ValueError(
+                    "speculative_k is not supported under the sp layout: "
+                    "the verify step is a chunk-shaped batched write the "
+                    "'seq'-sharded shard_map decode has no path for (same "
+                    "refusal shape as sp+int8) — use the replicated/tp "
+                    "layouts"
                 )
             if self.page_size is None:
                 raise ValueError(
@@ -246,60 +314,152 @@ class ServingEngine:
                     f"a verify round writes k+1 positions into a "
                     f"max_len={self.max_len} cache"
                 )
-        # The decode/verify projection policy; prefill stays f32 (the
-        # decode hot floor is the target).
-        self._decode_mm = (
-            QuantMatmul() if self.compute_mode == "int8" else None
-        )
-        self._ctx = L.Context(train=False, dtype=self._act_dtype)
-        self._decode_ctx = L.Context(train=False, dtype=self._act_dtype,
-                                     matmul=self._decode_mm)
+        if self.collective_matmul and self.layout != "tp":
+            raise ValueError(
+                "collective_matmul=True rings decode projections over the "
+                "'model' axis; it requires layout='tp' "
+                f"(got {self.layout!r})"
+            )
+        # This rank's axis of the layout: the model group under tp, the
+        # seq group under sp (None: one rank, every collective skipped).
+        self._group, self._shards, self._index = None, 1, 0
+        self._mm = None
+        if self.layout == "tp":
+            s = self.mesh.model
+            self._group, self._shards = self.mesh.model_group, s
+            self._index = self.mesh.model_index
+            if self.num_slots % s:
+                raise ValueError(
+                    f"tp layout shards the slot batch over 'model': "
+                    f"num_slots {self.num_slots} not divisible by {s} "
+                    "shards"
+                )
+            # The port's Megatron shards hold whole heads and FFN columns
+            # (ROADMAP §C: heads % M).
+            check_divisibility(cfg.num_heads, cfg.ffn_dim, s)
+            if self.collective_matmul:
+                if s < 2:
+                    raise ValueError(
+                        "collective_matmul=True needs a 'model' axis >= 2 "
+                        "to ring over (a 1-shard ring is a plain dot)"
+                    )
+                for n, label in (
+                    (self.num_slots, "num_slots"),
+                    (3 * cfg.dim, "qkv width (3*dim)"),
+                    (cfg.dim, "dim"),
+                    (cfg.ffn_dim, "ffn_dim"),
+                ):
+                    if n % s:
+                        raise ValueError(
+                            f"decode collective_matmul: {label} ({n}) must "
+                            f"be divisible by the {s}-way 'model' axis"
+                        )
+                self._mm = DecodeCollectiveMatmul(
+                    group=self._group,
+                    compute_dtype=(
+                        "int8" if self.compute_mode == "int8" else None
+                    ),
+                )
+        if self.layout == "sp":
+            s = self.mesh.seq
+            self._group, self._shards = self.mesh.seq_group, s
+            self._index = self.mesh.seq_index
+            if self.prefill_len % s:
+                raise ValueError(
+                    f"sp prefill shards the prompt over 'seq': "
+                    f"prefill_len {self.prefill_len} not divisible by "
+                    f"{s} shards"
+                )
+        # The decode/verify projection policy: the rings when built above;
+        # otherwise, under int8, the non-ring quantized policy (over the
+        # model group under tp). Prefill stays f32 (the decode hot floor
+        # is the target).
+        self._decode_mm = self._mm
+        if self.compute_mode == "int8" and self._mm is None:
+            self._decode_mm = QuantMatmul(
+                group=self._group if self.layout == "tp" else None)
+        model_group = self._group if self.layout == "tp" else None
+        self._ctx = L.Context(train=False, dtype=self._act_dtype,
+                              model_group=model_group)
+        self._decode_ctx = dataclasses.replace(self._ctx,
+                                               matmul=self._decode_mm)
         # The verify step's rows reduce as decode rows do (LayerNorm per
         # position here, attention and head per position in
         # `paged_verify_step`), so accepted rows are the decode steps'
         # logits bit for bit wherever the projections are row-exact
-        # (int8; f32 and bf16 GEMMs round by shape on the card).
+        # (int8; f32 and bf16 GEMMs round by shape on the card). Under
+        # the rings a verify step's slots * (k + 1) rows ride the decode
+        # step's rings: 4 L (S - 1) hops.
         self._verify_ctx = dataclasses.replace(self._decode_ctx,
                                                norm_per_position=True)
 
     # ------------------------------------------------------------ state
 
     def init_params(self, seed: int = 0) -> dict:
-        """Fresh parameters from `seed` (`models/gpt.init_params`),
-        placed on this engine's device."""
+        """Fresh parameters from `seed` (`models/gpt.init_params`, the
+        dense tree), placed into this engine's layout."""
         return self.place_params(
             init_params(self.cfg, seed, device=self.device)
         )
 
     def place_params(self, params) -> dict:
-        """Move a `gpt_lm` parameter tree to this engine's device (f32).
-        Under int8, quantize every decode projection weight once (the
-        weight scales are static per weight); under bf16, cast every
-        block projection's weight and bias to bf16 once (the cast the
-        reference makes at each projection), leaving the embeddings,
-        LayerNorms and head f32."""
+        """Place a dense `gpt_lm` parameter tree (a checkpoint, a
+        training engine's canonical params) into this engine's layout on
+        its device (f32): under tp, this rank's Megatron shards
+        (`MEGATRON_RULES`, as `TensorParallelEngine` splits them), so a
+        tree placed into tp equals one placed replicated and then split;
+        replicated and sp keep it whole. Under int8, quantize every
+        decode projection weight once (the weight scales are static: a
+        whole column's for the column shards, the whole weight's, sliced,
+        for the row shards without rings, the block's own under the
+        rings); under bf16, cast every block projection's weight and bias
+        to bf16 once (the cast the reference makes at each projection),
+        leaving the embeddings, LayerNorms and head f32."""
         def place(tree):
             if isinstance(tree, dict):
                 return {k: place(v) for k, v in tree.items()}
             return tree.to(self.device, torch.float32)
 
-        params = place(params)
-        for block in params["blocks"].values():
+        full = place(params)
+        params = full
+        if self.layout == "tp":
+            params = shard_tree(full, shard_specs(full, MEGATRON_RULES),
+                                self._index, self._shards)
+        for key, block in params["blocks"].items():
             for group, names in (("attn", ("qkv", "out")),
                                  ("ffn", ("in", "out"))):
                 for name in names:
                     lin = block[group][name]
                     if self._decode_mm is not None:
-                        self._decode_mm.prepare(lin["w"])
+                        self._decode_mm.prepare(
+                            lin["w"], *self._whole_weight_operands(
+                                full["blocks"][key][group][name]["w"],
+                                (group, name)))
                     if self._act_dtype is not None:
-                        for key in ("w", "b"):
-                            lin[key] = lin[key].to(self._act_dtype)
+                        for k in ("w", "b"):
+                            lin[k] = lin[k].to(self._act_dtype)
         return params
 
+    def _whole_weight_operands(self, w_full, projection) -> tuple:
+        """() for a weight quantized on its own; under tp without rings,
+        a row projection's int8 operands are the WHOLE weight's codes and
+        per-column scales, this rank's rows of them (the reference's
+        partitioned quantization)."""
+        if (self.layout != "tp" or self._mm is not None
+                or projection not in _ROW_PROJECTIONS
+                or self.compute_mode != "int8"):
+            return ()
+        wq_t, wscale = prepare_weight(w_full)  # (N, K): rows of w are K
+        return ((shard_leaf(wq_t, Split(1), self._index,
+                            self._shards).contiguous(), wscale),)
+
     def init_cache(self) -> dict:
+        """This rank's part of the cache (`serving/kv_cache.py`)."""
         if self.paged_spec is not None:
-            return init_paged_cache(self.paged_spec, self.device)
-        return init_cache(self.spec, self.device)
+            return init_paged_cache(
+                self.paged_spec.local(self.layout, self.mesh), self.device)
+        return init_cache(self.spec.local(self.layout, self.mesh),
+                          self.device)
 
     def new_host(self) -> PagedCacheHost:
         """Fresh host half of the paged cache (block tables, page pool,
@@ -325,7 +485,9 @@ class ServingEngine:
     def _prefill_pass(self, params, ids, length: int):
         """The padded prompt (1, prefill_len) through the blocks: (next
         logits (vocab,) f32, per-layer K and V stacks (L, prefill_len,
-        H, Dh))."""
+        H, Dh) of this rank's heads)."""
+        if self.layout == "sp":
+            return self._sp_prefill_pass(params, ids, length)
         mask = torch.arange(self.prefill_len,
                             device=self.device)[None, :] < length
         h = prefill_stem(params["stem"], ids, self._act_dtype)
@@ -338,16 +500,53 @@ class ServingEngine:
         return (next_logits, torch.stack([k[0] for k in rec.ks]),
                 torch.stack([v[0] for v in rec.vs]))
 
+    def _sp_prefill_pass(self, params, ids, length: int):
+        """`_prefill_pass` under sp: this rank runs its prefill_len / S
+        prompt positions through the blocks over the causal ring; the
+        next logits are the row of the rank that owns position length -
+        1 (summed with the others' zeros over the group, so every rank
+        holds them); the K/V stacks are all-gathered over the group."""
+        tl = self.prefill_len // self._shards
+        offset = self._index * tl
+        gmask = (offset + torch.arange(tl, device=self.device))[None, :] \
+            < length
+        h = prefill_stem(params["stem"], ids[:, offset:offset + tl],
+                         self._act_dtype, offset=offset)
+        rec = PrefillRecorder(partial(ring_attention, group=self._group,
+                                      causal=True))
+        h, _ = decoder_blocks(params["blocks"], (h, gmask), self.cfg,
+                              self._ctx, rec)
+        if (length - 1) // tl == self._index:
+            row = head_apply(params["head"], h[:, length - 1 - offset])[0]
+        else:
+            row = torch.zeros(self.cfg.vocab_size, device=self.device)
+        row = row.contiguous()
+        dist.all_reduce(row, group=self._group)
+        return row, *(
+            _all_gather_dim0(torch.stack([x[0] for x in xs]).transpose(
+                0, 1), self._group).transpose(0, 1)
+            for xs in (rec.ks, rec.vs))
+
+    def _positions_held(self) -> slice:
+        """The cache positions this rank holds of each slot."""
+        if self.layout != "sp":
+            return slice(0, self.max_len)
+        chunk = self.max_len // self._shards
+        return slice(self._index * chunk, (self._index + 1) * chunk)
+
     @torch.no_grad()
     def prefill(self, params, cache, ids, length: int, slot: int):
         """One padded prompt (1, prefill_len) of `length` real tokens
-        into `slot` of the contiguous cache: writes the slot's stripe in
-        place and returns (cache, next-token logits (vocab,) f32)."""
-        p_len = self.prefill_len
+        into `slot` of the contiguous cache: writes the slot's stripe (its
+        positions this rank holds) in place and returns (cache,
+        next-token logits (vocab,) f32)."""
         next_logits, ks, vs = self._prefill_pass(params, ids, length)
+        held = self._positions_held()
         for name, stack in (("k", ks), ("v", vs)):
-            cache[name][:, slot, :p_len] = stack.to(cache[name].dtype)
-            cache[name][:, slot, p_len:] = 0
+            padded = stack.new_zeros((stack.shape[0], self.max_len,
+                                      *stack.shape[2:]))
+            padded[:, : stack.shape[1]] = stack
+            cache[name][:, slot] = padded[:, held].to(cache[name].dtype)
         cache["lengths"][slot] = length
         return cache, next_logits
 
@@ -358,28 +557,49 @@ class ServingEngine:
         device. Updates the cache in place and returns (cache, logits
         (slots, vocab) f32)."""
         positions = cache["lengths"]
-        rec = CacheAttention(cache["k"], cache["v"], positions, active)
+        if self.layout == "sp":
+            rec = SeqShardedCacheAttention(cache["k"], cache["v"],
+                                           positions, active,
+                                           group=self._group)
+        else:
+            rec = CacheAttention(cache["k"], cache["v"], positions, active)
         logits = self._decode_pass(params, rec, tokens, positions)
         cache["lengths"] = torch.where(active, positions + 1, positions)
         return cache, logits
 
+    def _own_slots(self, h: torch.Tensor) -> torch.Tensor:
+        """Under the rings, this rank's slots of h (slots, ...): the
+        residual stream the ring projections take; else h."""
+        if self._mm is None:
+            return h
+        n = h.shape[0] // self._shards
+        return h[self._index * n:(self._index + 1) * n]
+
+    def _every_slot(self, logits: torch.Tensor) -> torch.Tensor:
+        """Under the rings, every rank's slots of logits gathered in slot
+        order (each rank then holds the whole batch's); else logits."""
+        if self._mm is None:
+            return logits
+        return _all_gather_dim0(logits, self._group)
+
     def _decode_pass(self, params, rec, tokens, positions):
         cfg = self.cfg
-        h = decode_stem(params["stem"], tokens,
-                        positions.clamp(0, cfg.max_position - 1),
-                        self._act_dtype)
+        h = self._own_slots(decode_stem(
+            params["stem"], tokens, positions.clamp(0, cfg.max_position - 1),
+            self._act_dtype))
         mask = torch.ones((self.num_slots, 1), dtype=torch.bool,
                           device=self.device)
         h, _ = decoder_blocks(params["blocks"], (h, mask), cfg,
                               self._decode_ctx, rec)
-        return head_apply(params["head"], h)[:, 0, :]
+        return self._every_slot(head_apply(params["head"], h)[:, 0, :])
 
     @torch.no_grad()
     def paged_prefill_step(self, params, cache, bt_row, ids, length: int):
         """Monolithic prefill of one padded prompt into the pages of one
         slot's block-table row `bt_row` (pages_per_slot,): the padded
-        K/V lands page by page, unallocated entries write nothing.
-        Returns (cache, next-token logits (vocab,) f32)."""
+        K/V lands page by page (under sp, this rank's offsets of each
+        page), unallocated entries write nothing. Returns (cache,
+        next-token logits (vocab,) f32)."""
         next_logits, ks, vs = self._prefill_pass(params, ids, length)
         self._scatter_slot_pages(cache, ks, vs, bt_row)
         return cache, next_logits
@@ -389,6 +609,9 @@ class ServingEngine:
         pages, in place; `-1` entries go to the sink page."""
         spec = self.paged_spec
         n_pages, page = spec.pages_per_slot, spec.page_size
+        psub = cache["k"].shape[2]  # offsets of a page this rank holds
+        start = self._index * psub if self.layout == "sp" else 0
+        mine = slice(start, start + psub)
         dst = torch.where(bt_row >= 0, bt_row, spec.num_pages)
         for name, stack in (("k", ks), ("v", vs)):
             buf = cache[name]
@@ -397,7 +620,7 @@ class ServingEngine:
             padded[:, : stack.shape[1]] = stack
             buf[:, dst] = padded.reshape(
                 stack.shape[0], n_pages, page, *stack.shape[2:]
-            ).to(buf.dtype)
+            )[:, :, mine].to(buf.dtype)
 
     @torch.no_grad()
     def chunk_prefill_step(self, params, cache, bt_row, ids, start: int,
@@ -423,8 +646,14 @@ class ServingEngine:
         pages_per_slot), positions and tokens (slots,) int64, active
         (slots,) bool, all on the device. Writes the pool in place and
         returns (cache, logits (slots, vocab) f32)."""
-        rec = PagedCacheAttention(cache["k"], cache["v"], bt, positions,
-                                  active, self.paged_spec.page_size)
+        page = self.paged_spec.page_size
+        if self.layout == "sp":
+            rec = PagedSeqShardedCacheAttention(
+                cache["k"], cache["v"], bt, positions, active, page,
+                group=self._group)
+        else:
+            rec = PagedCacheAttention(cache["k"], cache["v"], bt, positions,
+                                      active, page)
         return cache, self._decode_pass(params, rec, tokens, positions)
 
     @torch.no_grad()
@@ -433,21 +662,22 @@ class ServingEngine:
         """Speculative verify: every slot's (k+1)-token span
         `tokens_chunk` (slots, k+1) scored at positions pos..pos+k in one
         step, under the decode projection policy (one int8 GEMM launch a
-        projection, M = slots * (k+1)). Writes the spans into the pool
+        projection, M = slots * (k+1); under the rings, the decode step's
+        rings with slots * (k+1) rows). Writes the spans into the pool
         and returns (cache, logits (slots, k+1, vocab) f32)."""
         rec = PagedVerifyAttention(cache["k"], cache["v"], bt, positions,
                                    active, self.paged_spec.page_size)
-        h = verify_stem(params["stem"], tokens_chunk, positions,
-                        self._act_dtype)
+        h = self._own_slots(verify_stem(params["stem"], tokens_chunk,
+                                        positions, self._act_dtype))
         mask = torch.ones(tokens_chunk.shape, dtype=torch.bool,
                           device=self.device)
         h, _ = decoder_blocks(params["blocks"], (h, mask), self.cfg,
                               self._verify_ctx, rec)
         # The head per position, at the decode step's (slots, 1, dim)
         # shape: rows equal to a decode step's (`PagedVerifyAttention`).
-        return cache, torch.cat([
+        return cache, self._every_slot(torch.cat([
             head_apply(params["head"], h[:, j:j + 1].contiguous())
-            for j in range(h.shape[1])], dim=1)
+            for j in range(h.shape[1])], dim=1))
 
     # ---------------------------------------------------------- serving
 
@@ -806,4 +1036,4 @@ class ServingEngine:
         return sched
 
 
-__all__ = ["ServingEngine", "TP_SP_SLICE"]
+__all__ = ["ServingEngine"]

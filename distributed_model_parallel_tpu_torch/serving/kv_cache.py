@@ -1,5 +1,4 @@
-"""Preallocated KV caches (port of `serving/kv_cache.py`, replicated
-layout).
+"""Preallocated KV caches (port of `serving/kv_cache.py`).
 
 Two granularities share this module:
 
@@ -22,8 +21,20 @@ write ever needs a device-to-host sync to be filtered out. Gathers
 never read it.
 
 Within a slot, axes follow the (B, T, H, Dh) attention convention, so
-the cache feeds `dot_product_attention` without transposes. The tp/sp
-layouts belong to a later port slice.
+the cache feeds `dot_product_attention` without transposes.
+
+Layouts (`validate(layout, mesh)`, with the reference's checks and
+messages). Each rank allocates its own part (`local`), the shape the
+reference's `cache_pspecs` / `paged_pspecs` give each device:
+
+  replicated — the whole cache on every rank;
+  tp — heads sharded over the mesh's model axis: (L, slots, max_len,
+       H/M, Dh), or (L, pages + 1, page, H/M, Dh);
+  sp — positions sharded over the seq axis: a contiguous rank holds
+       positions [i max_len/S, (i+1) max_len/S) of every slot, (L,
+       slots, max_len/S, H, Dh); a paged rank holds offsets [i page/S,
+       (i+1) page/S) of EVERY page, (L, pages + 1, page/S, H, Dh), so
+       the block tables stay global and their gathers local.
 """
 
 from __future__ import annotations
@@ -36,9 +47,31 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-# The reference's layouts; only "replicated" is ported (the engine
-# refuses tp/sp by name).
 LAYOUTS = ("replicated", "tp", "sp")
+
+
+def _check_layout(layout: str, mesh, heads: int, seq_dim: int,
+                  seq_label: str, seq_reason: str) -> None:
+    """The reference's layout checks shared by both specs: a mesh for tp
+    / sp, heads % model for tp, `seq_dim` % seq for sp."""
+    if layout not in LAYOUTS:
+        raise ValueError(
+            f"layout must be one of {LAYOUTS}, got {layout!r}"
+        )
+    if layout == "replicated":
+        return
+    if mesh is None:
+        raise ValueError(f"layout {layout!r} needs a mesh")
+    if layout == "tp" and heads % mesh.model:
+        raise ValueError(
+            f"tp cache shards heads over 'model': num_heads {heads} not "
+            f"divisible by {mesh.model} shards"
+        )
+    if layout == "sp" and seq_dim % mesh.seq:
+        raise ValueError(
+            f"{seq_reason}: {seq_label} {seq_dim} not divisible by "
+            f"{mesh.seq} shards"
+        )
 
 
 @dataclasses.dataclass(frozen=True)
@@ -52,11 +85,21 @@ class KVCacheSpec:
     head_dim: int
     dtype: torch.dtype = torch.float32
 
-    def validate(self, layout: str) -> None:
-        if layout not in LAYOUTS:
-            raise ValueError(
-                f"layout must be one of {LAYOUTS}, got {layout!r}"
-            )
+    def validate(self, layout: str, mesh=None) -> None:
+        """Fail at construction when the cache cannot be laid out on the
+        mesh (`runtime/mesh.Mesh`)."""
+        _check_layout(layout, mesh, self.num_heads, self.max_len,
+                      "max_len", "sp cache shards positions over 'seq'")
+
+    def local(self, layout: str, mesh=None) -> "KVCacheSpec":
+        """This rank's part of the cache under `layout` (module doc)."""
+        if layout == "tp":
+            return dataclasses.replace(
+                self, num_heads=self.num_heads // mesh.model)
+        if layout == "sp":
+            return dataclasses.replace(self,
+                                       max_len=self.max_len // mesh.seq)
+        return self
 
     @property
     def slot_stripe_bytes(self) -> int:
@@ -164,7 +207,7 @@ class PagedKVCacheSpec:
             * self.head_dim * itemsize
         )
 
-    def validate(self, layout: str) -> None:
+    def validate(self, layout: str, mesh=None) -> None:
         if layout not in LAYOUTS:
             raise ValueError(
                 f"layout must be one of {LAYOUTS}, got {layout!r}"
@@ -184,6 +227,20 @@ class PagedKVCacheSpec:
                 f"full-length sequence ({self.pages_per_slot} pages "
                 f"of {self.page_size})"
             )
+        _check_layout(layout, mesh, self.num_heads, self.page_size,
+                      "page_size", "sp shards each page's positions over "
+                      "'seq'")
+
+    def local(self, layout: str, mesh=None) -> "PagedKVCacheSpec":
+        """This rank's part of the pool under `layout`: its heads (tp) or
+        its offsets of every page (sp, `page_size` / S)."""
+        if layout == "tp":
+            return dataclasses.replace(
+                self, num_heads=self.num_heads // mesh.model)
+        if layout == "sp":
+            return dataclasses.replace(
+                self, page_size=self.page_size // mesh.seq)
+        return self
 
 
 def init_paged_cache(spec: PagedKVCacheSpec, device="cpu") -> dict:

@@ -85,19 +85,24 @@ def port_first_step(mode, host, prompts, tokens, inputs=None):
         ids, length = eng.pad_prompt(prompt)
         cache, row = eng.prefill(p, cache, ids, length, slot)
         pre.append(row)
-    call = tqm.QuantMatmul.__call__
+    calls = {name: getattr(tqm.QuantMatmul, name) for name in ("column",
+                                                               "row")}
 
-    def recorded(self, h, w, b):
-        inputs.append(h.detach().reshape(-1, h.shape[-1]).numpy().copy())
-        return call(self, h, w, b)
+    def recording(call):
+        def recorded(self, h, w, b):
+            inputs.append(h.detach().reshape(-1, h.shape[-1]).numpy().copy())
+            return call(self, h, w, b)
+        return recorded
 
     if inputs is not None:
-        tqm.QuantMatmul.__call__ = recorded
+        for name, call in calls.items():
+            setattr(tqm.QuantMatmul, name, recording(call))
     try:
         logits = eng.decode_step(p, cache, torch.as_tensor(tokens),
                                  torch.ones(SLOTS, dtype=torch.bool))[1]
     finally:
-        tqm.QuantMatmul.__call__ = call
+        for name, call in calls.items():
+            setattr(tqm.QuantMatmul, name, call)
     return torch.stack(pre).numpy(), logits.numpy()
 
 

@@ -66,7 +66,7 @@ def build(variants):
               flush=True)
         handle = ctypes.CDLL(str(lib))
         handle.dmp_int8_matmul.argtypes = (
-            [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3
+            [ctypes.c_void_p] * 7 + [ctypes.c_int] * 3
             + [ctypes.c_float, ctypes.c_void_p])
         handle.dmp_int8_matmul.restype = ctypes.c_int
         libs[v] = handle
@@ -80,7 +80,7 @@ def runner(handle):
         out = torch.empty((m, n), device=x.device)
         rc = handle.dmp_int8_matmul(
             x.data_ptr(), wq_t.data_ptr(), wscale.data_ptr(), out.data_ptr(),
-            None, None, m, n, k, qm.ABSMAX_FLOOR,
+            None, None, None, m, n, k, qm.ABSMAX_FLOOR,
             torch.cuda.current_stream().cuda_stream)
         cs.require(rc == 0, f"launch failed: cudaError {rc}")
         return out

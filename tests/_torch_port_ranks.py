@@ -325,7 +325,8 @@ def tp_suite(rank, world, payload) -> dict:
     """TensorParallelEngine runs on a tiny BERT (`payload["bert"]`), one
     per entry of `payload["runs"]`: `model` ranks a model group (the
     world's data ranks being world / model), `opt` "sgd" or "adamw",
-    `dropout` the config's rate, and the start: the reference weights
+    `dropout` the config's rate, `cm` collective matmul (Megatron-SP),
+    and the start: the reference weights
     `payload["params"]`, or a canonical tree (`resume`, restored through
     a checkpoint file that rank 0 writes and every rank reads); `steps`
     SGD or AdamW steps at `lr` on the batches from index `first`, each
@@ -360,6 +361,7 @@ def tp_suite(rank, world, payload) -> dict:
     from distributed_model_parallel_tpu_torch.training.checkpoint import (
         flatten_tree,
     )
+    from distributed_model_parallel_tpu_torch.training.optim import SGD
 
     out = {}
     for run in payload["runs"]:
@@ -373,7 +375,9 @@ def tp_suite(rank, world, payload) -> dict:
                 mesh.data, mesh.data_group, data_index=mesh.data_index),
                 device="cpu")
         else:
-            eng = TensorParallelEngine(model, opt, mesh, device="cpu")
+            eng = TensorParallelEngine(model, opt, mesh, device="cpu",
+                                       collective_matmul=run.get("cm",
+                                                                 False))
         state = model.init(torch.Generator().manual_seed(0))[1]
         if "resume" in run:
             directory = os.path.join(payload["dir"], run["name"])
@@ -416,6 +420,26 @@ def tp_suite(rank, world, payload) -> dict:
                                                        "ffn/out/w"))},
             "backend": dist_backend(mesh.model_group),
         }
+    if "vit_probe" in payload:
+        # ViT's 65 tokens (64 patches and the class token) under
+        # Megatron-SP at M = world: refused at the first step.
+        import numpy as np
+
+        from distributed_model_parallel_tpu_torch.models.vit import (
+            ViTConfig,
+            vit,
+        )
+
+        eng = TensorParallelEngine(
+            vit(10, ViTConfig(**payload["vit_probe"])), SGD(),
+            make_mesh(MeshSpec(data=1, model=world)), device="cpu",
+            collective_matmul=True)
+        images = np.zeros((2, 32, 32, 3), np.float32)
+        try:
+            eng.train_step(eng.init_state(0), *eng.shard_batch(
+                images, np.zeros(2, np.int32)), 0.1)
+        except ValueError as e:
+            out["vit_refusal"] = str(e)
     return out
 
 
@@ -823,6 +847,8 @@ def sp_suite(rank, world, payload) -> dict:
       in the reference layout and the collectives issued;
     * `payload["bert"]`: (d, s, attention) configs of
       `SequenceParallelEngine` (SGD()); the sums and parameters;
+    * `payload["lm_cm"]` and `payload["bert_cm"]`: configs of the same
+      forms run with `collective_matmul=True`;
     * `payload["dropout"]`: the LM at dropout 0.1 on (1, world): the
       mask each rank draws for one key, and the sums and parameters of
       two runs each with and without remat."""
@@ -857,32 +883,35 @@ def sp_suite(rank, world, payload) -> dict:
 
     out = {}
     ids = [(b,) for b in payload.get("ids", ())]
-    for config in payload.get("lm", ()):
-        d, s, k, attention, gr, wire, layers = config
-        eng = lm(GPTConfig(**dict(payload["gpt"], num_layers=layers)),
-                 d, s, k, attention=attention, grad_reduction=gr,
-                 dcn_compression=wire)
-        ts = eng.state_from_params(from_jax_params(
-            payload["gpt_params"][layers]))
-        ts, sums = _sp_steps(eng, ts, ids, payload["lr"])
-        out["lm", config] = {
-            "sums": sums, "params": to_jax_params(ts.params),
-            "momentum": to_jax_params(ts.opt_state.momentum),
-            "collectives": eng.grad_reductions}
-    for config in payload.get("bert", ()):
-        d, s, attention = config
-        cfg = tbert.BertConfig(**payload["bert_cfg"])
-        model = tbert.bert_for_classification(payload["classes"], cfg)
-        eng = SequenceParallelEngine(cfg, payload["classes"], SGD(),
-                                     mesh=mesh(d, s), attention=attention,
-                                     device="cpu")
-        ts = eng.state_from_params(from_jax_params(payload["bert_params"],
-                                                   model=model))
-        ts, sums = _sp_steps(eng, ts, payload["bert_batches"],
-                             payload["bert_lr"])
-        out["bert", config] = {"sums": sums,
-                               "params": to_jax_params(ts.params,
-                                                       model=model)}
+    for key in ("lm", "lm_cm"):
+        for config in payload.get(key, ()):
+            d, s, k, attention, gr, wire, layers = config
+            eng = lm(GPTConfig(**dict(payload["gpt"], num_layers=layers)),
+                     d, s, k, attention=attention, grad_reduction=gr,
+                     dcn_compression=wire, collective_matmul=key == "lm_cm")
+            ts = eng.state_from_params(from_jax_params(
+                payload["gpt_params"][layers]))
+            ts, sums = _sp_steps(eng, ts, ids, payload["lr"])
+            out[key, config] = {
+                "sums": sums, "params": to_jax_params(ts.params),
+                "momentum": to_jax_params(ts.opt_state.momentum),
+                "collectives": eng.grad_reductions}
+    for key in ("bert", "bert_cm"):
+        for config in payload.get(key, ()):
+            d, s, attention = config
+            cfg = tbert.BertConfig(**payload["bert_cfg"])
+            model = tbert.bert_for_classification(payload["classes"], cfg)
+            eng = SequenceParallelEngine(
+                cfg, payload["classes"], SGD(), mesh=mesh(d, s),
+                attention=attention, device="cpu",
+                collective_matmul=key == "bert_cm")
+            ts = eng.state_from_params(from_jax_params(
+                payload["bert_params"], model=model))
+            ts, sums = _sp_steps(eng, ts, payload["bert_batches"],
+                                 payload["bert_lr"])
+            out[key, config] = {"sums": sums,
+                                "params": to_jax_params(ts.params,
+                                                        model=model)}
     if "dropout" in payload:
         drop = payload["dropout"]
         cfg = GPTConfig(**dict(payload["gpt"], num_layers=2,
@@ -966,4 +995,188 @@ def ring_flash_on_card(rank, world, payload) -> dict:
         out[causal] = {"launches": [fn.launches for fn in kernels],
                        "parts": [x.detach().cpu().numpy()
                                  for x in (o, q.grad, k.grad, v.grad)]}
+    return out
+
+
+def cm_ops(rank, world, payload) -> dict:
+    """The collective-matmul rings (`ops/collective_matmul.py`) over the
+    world's group: for each case, this rank's rows of the global x
+    (`ag`: x (B, T, D), w (D, F) column-sharded) or this rank's column
+    block of x and row block of w (`rs`: x (B, T, F), w (F, D)). Returns
+    the ring's output, the naive op's, and the ring's gradients of
+    sum(out * g) (g the global cotangent, this rank's part) for x and w,
+    with the hops each ring issued."""
+    import torch
+    import torch.distributed as dist
+
+    from distributed_model_parallel_tpu_torch.ops import collective_matmul \
+        as cm
+
+    group, i = dist.group.WORLD, rank
+    out = {}
+    for name in ("ag", "rs"):
+        x, w, g = (payload[name][k] for k in ("x", "w", "g"))
+        if name == "ag":
+            t, f = x.shape[-2] // world, w.shape[-1] // world
+            xl, wl = x[..., i * t:(i + 1) * t, :], w[:, i * f:(i + 1) * f]
+            gl = g[..., i * f:(i + 1) * f]
+            ring, naive = cm.ag_matmul, cm.naive_ag_matmul
+        else:
+            f, t = x.shape[-1] // world, x.shape[-2] // world
+            xl, wl = x[..., i * f:(i + 1) * f], w[i * f:(i + 1) * f]
+            gl = g[..., i * t:(i + 1) * t, :]
+            ring, naive = cm.matmul_rs, cm.naive_matmul_rs
+        tx, tw = (torch.from_numpy(a.copy()).requires_grad_(True)
+                  for a in (xl, wl))
+        hops = cm.hops
+        y = ring(tx, tw, group)
+        fwd_hops = cm.hops - hops
+        (y * torch.from_numpy(gl.copy())).sum().backward()
+        with torch.no_grad():
+            y_naive = naive(tx, tw, group)
+        out[name] = {"y": y.detach().numpy(), "naive": y_naive.numpy(),
+                     "dx": tx.grad.numpy(), "dw": tw.grad.numpy(),
+                     "hops": fwd_hops,
+                     "bwd_hops": cm.hops - hops - fwd_hops}
+    return out
+
+
+def run_serving_script(eng, params, script) -> list:
+    """Drive `eng` (contiguous or paged) through `script`, teacher-forced:
+    ("prefill", slot, prompt) -> next logits (vocab,); ("decode", tokens,
+    active) -> logits (slots, vocab) of every slot; ("verify", tokens
+    (slots, T), active) -> logits (slots, T, vocab), every active slot's
+    span then kept; ("release", slot) frees a paged slot's pages. Returns
+    the logits of each step as numpy, in order."""
+    import numpy as np
+    import torch
+
+    n = eng.num_slots
+    cache = eng.init_cache()
+    host = eng.new_host() if eng.paged_spec is not None else None
+    positions = np.zeros(n, np.int64)
+    out = []
+
+    def device(a, dtype):
+        return torch.from_numpy(np.asarray(a).astype(dtype))
+
+    for op, *args in script:
+        if op == "release":
+            host.release(args[0])
+            continue
+        if op == "prefill":
+            slot, prompt = args
+            ids, length = eng.pad_prompt(prompt)
+            if host is None:
+                cache, logits = eng.prefill(params, cache, ids, length, slot)
+            else:
+                host.ensure_pages(slot, int(prompt.size))
+                cache, logits = eng.paged_prefill_step(
+                    params, cache, host.device_row(slot), ids, length)
+            positions[slot] = prompt.size
+        elif op == "decode" and host is None:
+            tokens, active = args
+            cache, logits = eng.decode_step(params, cache,
+                                            device(tokens, np.int64),
+                                            device(active, bool))
+            positions[active] += 1
+        elif op == "decode":
+            tokens, active = args
+            for slot in np.nonzero(active)[0]:
+                cache = host.ensure_writable(cache, int(slot),
+                                             int(positions[slot]))
+            cache, logits = eng.paged_decode_step(
+                params, cache, host.device_table(),
+                *eng.step_inputs(positions, tokens, active))
+            positions[active] += 1
+        else:  # verify
+            tokens, active = args
+            t = tokens.shape[1]
+            for slot in np.nonzero(active)[0]:
+                host.ensure_pages(int(slot), int(positions[slot]) + t)
+            cache, logits = eng.paged_verify_step(
+                params, cache, host.device_table(),
+                device(positions, np.int64), device(tokens, np.int64),
+                device(active, bool))
+            positions[active] += t
+        out.append(logits.float().numpy())
+    return out
+
+
+def serving_layouts(rank, world, payload) -> dict:
+    """The port's `ServingEngine` under `payload["layout"]` ("tp" over
+    `MeshSpec(data=1, model=world)`, "sp" over `seq=world`) from the
+    reference's weights: for each (name, engine kwargs, script) of
+    `payload["cases"]`, the script's logits (`run_serving_script`); for
+    each (name, engine kwargs, requests) of `payload["runs"]`
+    (speculative when the kwargs say so, with a draft mirroring the
+    layout), the generated tokens and the scheduler's counts; and under
+    tp, whether this rank's placed shards equal the replicated placement
+    split (`placed_equals_split`)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from distributed_model_parallel_tpu_torch.models.convert import (
+        from_jax_params,
+    )
+    from distributed_model_parallel_tpu_torch.models.gpt import GPTConfig
+    from distributed_model_parallel_tpu_torch.ops import collective_matmul \
+        as cm
+    from distributed_model_parallel_tpu_torch.parallel import (
+        tensor_parallel as tp,
+    )
+    from distributed_model_parallel_tpu_torch.runtime.mesh import (
+        MeshSpec,
+        make_mesh,
+    )
+    from distributed_model_parallel_tpu_torch.serving.engine import (
+        ServingEngine,
+    )
+    from distributed_model_parallel_tpu_torch.serving.scheduler import (
+        Request,
+    )
+    from distributed_model_parallel_tpu_torch.training.optim import (
+        tree_leaves,
+    )
+
+    axis = "model" if payload["layout"] == "tp" else "seq"
+    mesh = make_mesh(MeshSpec(data=1, **{axis: world}))
+    cfg = GPTConfig(**payload["cfg"])
+
+    def engine(kw, config=cfg):
+        return ServingEngine(config, mesh=mesh, layout=payload["layout"],
+                             device="cpu", **kw)
+
+    out = {"logits": {}, "hops": {}, "runs": {}}
+    for name, kw, script in payload["cases"]:
+        eng = engine(kw)
+        params = eng.place_params(from_jax_params(payload["params"]))
+        hops = cm.hops
+        out["logits"][name] = run_serving_script(eng, params, script)
+        out["hops"][name] = cm.hops - hops
+    for name, kw, requests in payload.get("runs", ()):
+        eng = engine(kw)
+        params = eng.place_params(from_jax_params(payload["params"]))
+        draft = draft_params = None
+        if kw.get("speculative_k"):
+            dcfg = dataclasses.replace(cfg, num_layers=1)
+            draft = engine({k: v for k, v in kw.items()
+                            if k != "speculative_k"}, dcfg)
+            draft_params = draft.place_params(
+                from_jax_params(payload["draft_params"]))
+        sched = eng.run(params, [Request(rid=i, prompt=p, max_new_tokens=m)
+                                 for i, (p, m) in enumerate(requests)],
+                        draft=draft, draft_params=draft_params)
+        out["runs"][name] = {f.rid: list(f.tokens) for f in sched.finished}
+    if payload["layout"] == "tp":
+        full = from_jax_params(payload["params"])
+        rep = ServingEngine(cfg, device="cpu").place_params(full)
+        split = tp.shard_tree(rep, tp.shard_specs(rep, tp.MEGATRON_RULES),
+                              mesh.model_index, world)
+        placed = engine({}).place_params(from_jax_params(payload["params"]))
+        out["placed_equals_split"] = all(
+            torch.equal(a, b)
+            for a, b in zip(tree_leaves(placed), tree_leaves(split)))
     return out

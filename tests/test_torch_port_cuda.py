@@ -73,6 +73,62 @@ def test_int8_kernel_matches_plain(cuda, m, k, n):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n", [
+    (8, 384, 768), (8, 1536, 768),   # tp row shards at M 8 (S 2)
+    (4, 1536, 768), (2, 192, 768),   # ring chunks at S 2 and S 4
+    (9, 36, 33), (8, 776, 40),       # a second row tile; 4-byte words
+])
+def test_int8_kernel_with_input_absmax_matches_plain(cuda, m, k, n):
+    """An input absmax per row (a tensor-parallel rank's slice of a row
+    quantized with the whole row's, `row_absmax`): codes, scales and
+    outputs equal the plain version's on the same absmax, including a
+    zero absmax (the floor) and one below the slice's own (clipped
+    codes)."""
+    g = torch.Generator(device=cuda).manual_seed(m * 11 + k + n)
+    x = torch.randn((m, k), generator=g, device=cuda)
+    wq_t, ws = qm.prepare_weight(torch.randn((k, n), generator=g,
+                                             device=cuda))
+    amax = x.abs().amax(dim=-1) * torch.linspace(0.5, 3.0, m, device=cuda)
+    amax[0] = 0.0
+    amax = amax.contiguous()
+    before = qm.int8_matmul.launches
+    y, q, s = qm.int8_matmul(x, wq_t, ws, absmax=amax, return_codes=True)
+    torch.cuda.synchronize()
+    assert qm.int8_matmul.launches == before + 1
+    rq, rs = qm.quantize_rows(x, amax)
+    assert torch.equal(q, rq) and torch.equal(s, rs)
+    assert torch.equal(y, qm.int8_matmul_plain(x, wq_t, ws, amax))
+    assert not torch.equal(y, qm.int8_matmul_plain(x, wq_t, ws))
+    with pytest.raises(ValueError, match="absmax must be"):
+        qm.int8_matmul(x, wq_t, ws, absmax=amax[:-1].contiguous())
+
+
+@pytest.mark.cuda
+def test_quant_dot_under_a_ring_of_one(cuda):
+    """`quant_dot("int8")` as the chunk GEMM of the collective-matmul
+    rings: a ring of one rank (no group) is the plain dot, one K4 launch
+    a projection, equal to `quant_matmul`; the f32 seam is None (the
+    ring's own `chunk @ w`)."""
+    from distributed_model_parallel_tpu_torch.ops import collective_matmul \
+        as cm
+
+    g = torch.Generator(device=cuda).manual_seed(5)
+    x = torch.randn((8, 768), generator=g, device=cuda)
+    w = 0.02 * torch.randn((768, 1152), generator=g, device=cuda)
+    prepared = qm.prepare_weight(w)
+    dot = qm.quant_dot("int8", prepared)
+    assert qm.quant_dot("f32") is None and qm.quant_dot(None) is None
+    before, hops = qm.int8_matmul.launches, cm.hops
+    for ring in (cm.ag_matmul_quant, cm.matmul_rs_quant):
+        y = ring(x, w, None, dot)
+        assert torch.equal(y, qm.quant_matmul(x, w, "int8",
+                                              prepared=prepared))
+    torch.cuda.synchronize()
+    assert qm.int8_matmul.launches == before + 4
+    assert cm.hops == hops
+
+
+@pytest.mark.cuda
 def test_int8_kernel_refuses_what_it_cannot_take(cuda):
     x = torch.randn((8, 30), device=cuda)  # K not a multiple of 4
     wq_t, ws = qm.prepare_weight(torch.randn((30, 16), device=cuda))

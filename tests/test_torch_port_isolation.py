@@ -84,7 +84,8 @@ def test_every_port_module_imports_without_jax():
         "          'training.elastic', 'checkpointing.manifest',\n"
         "          'checkpointing.sharded', 'checkpointing.writer',\n"
         "          'checkpointing.save', 'checkpointing.restore',\n"
-        "          'ops.ring_attention', 'parallel.sequence_parallel'):\n"
+        "          'ops.ring_attention', 'parallel.sequence_parallel',\n"
+        "          'ops.collective_matmul'):\n"
         "    assert pkg.__name__ + '.' + m in names, m\n"
         "import distributed_model_parallel_tpu_torch.cli.serve\n"
         "print(len(names))\n"
@@ -152,25 +153,29 @@ class _Built(Exception):
     ["--speculative-draft", "ckpt"],
 ])
 def test_cli_refuses_out_of_slice_flags(flags, monkeypatch):
-    """The tp/sp flags stay refused, naming their slice. The paged,
-    speculative and bf16 flags (refused before the paged-serving slice)
-    now pass the reference CLI's own checks: where the reference's
-    `check_serving_args` accepts a flag the port builds its engine with
-    it; where it refuses one (a paged knob without --page-size, a draft
-    without --speculative-k) the port's message is the reference's
-    (tests/test_torch_port_serving_paged.py compares the two packages'
-    checks on more flag sets)."""
-    if flags[0] in ("--layout", "--collective-matmul"):
-        with pytest.raises(SystemExit, match="not ported.*tp/sp.*slice"):
-            serve.main(["--device", "cpu", *flags])
-        return
-    built = {}
+    """Every serving flag passes the reference CLI's own checks: where
+    the reference's `check_serving_args` accepts a flag the port builds
+    its engine with it; where it refuses one (a paged knob without
+    --page-size, a draft without --speculative-k, --collective-matmul
+    without --layout tp) the port's message is the reference's
+    (tests/test_torch_port_serving_paged.py and tests/
+    test_torch_port_serving_layouts.py compare the two packages' checks
+    on more flag sets). The tp and sp flags (refused before the tp/sp
+    serving slice) join the process group and build the engine on the
+    mesh of their axis."""
+    built, meshes = {}, []
 
     def build(cfg, **kw):
         built.update(kw)
         raise _Built
 
+    def mesh_of(spec):
+        meshes.append(spec)
+        return "mesh"
+
     monkeypatch.setattr(serve, "ServingEngine", build)
+    monkeypatch.setattr(serve, "initialize_backend", lambda *a: "cpu")
+    monkeypatch.setattr(serve, "make_mesh", mesh_of)
     try:
         serve.main(["--device", "cpu", *flags])
     except _Built:
@@ -182,12 +187,19 @@ def test_cli_refuses_out_of_slice_flags(flags, monkeypatch):
         "--compute-dtype": ("compute_dtype", "bf16"),
         "--dtype": ("compute_dtype", "bf16"),
     }.get(flags[0])
+    if flags[0] == "--layout":
+        want = ("layout", flags[1])
     if want is not None:
         assert built[want[0]] == want[1]
+        if flags[0] == "--layout":
+            axis = {"tp": "model", "sp": "seq"}[flags[1]]
+            assert built["mesh"] == "mesh" and built["device"] == "cpu"
+            assert [(m.data, getattr(m, axis)) for m in meshes] == [(1, 2)]
     else:
         assert "set --page-size" in built["refused"] or \
             "requires --page-size" in built["refused"] or \
-            "set --speculative-k" in built["refused"]
+            "set --speculative-k" in built["refused"] or \
+            "requires --layout tp" in built["refused"]
 
 
 class _Prologue(Exception):
@@ -284,15 +296,21 @@ def test_data_parallel_cli_refuses_out_of_slice_flags(flags, slice_,
     FSDP / sharded-checkpoint / elastic slice, now build the FSDP engine,
     the sharded trainer configuration and the per-epoch 'last' snapshot
     that elastic restarts resume from; --async-save alone exits with the
-    JAX CLI's message (it needs the sharded format)."""
+    JAX CLI's message (it needs the sharded format). --collective-matmul,
+    refused before the collective-matmul slice, meets the JAX CLI's
+    check (it needs --engine tp)."""
     from distributed_model_parallel_tpu_torch.cli import data_parallel
 
-    if slice_ in ("tensor-parallel", "image-folder"):
+    if slice_ in ("tensor-parallel", "image-folder", "collective-matmul"):
         # Ported: the reference CLI's checks now apply (tp shards only the
-        # transformer models; --model-shards needs --engine tp), and an
-        # image-folder type reads its tree under --data.
+        # transformer models; --model-shards and --collective-matmul need
+        # --engine tp), and an image-folder type reads its tree under
+        # --data.
         exits = {"--engine": "--model mobilenetv2 has none",
-                 "--model-shards": "only applies under --engine tp"}
+                 "--model-shards": "only applies under --engine tp",
+                 "--collective-matmul": "decomposes the Megatron TP "
+                                        "projections; it only applies "
+                                        "under --engine tp"}
         monkeypatch.chdir(tmp_path)
         if flags[0] in exits:
             with pytest.raises(SystemExit, match=exits[flags[0]]):

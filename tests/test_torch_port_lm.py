@@ -36,6 +36,7 @@ from distributed_model_parallel_tpu.runtime.mesh import MeshSpec, make_mesh
 from distributed_model_parallel_tpu.training import metrics as jmetrics
 from distributed_model_parallel_tpu.training import optim as joptim
 from distributed_model_parallel_tpu_torch.cli import lm as lm_cli
+from distributed_model_parallel_tpu_torch.cli.common import check_lm_args
 from distributed_model_parallel_tpu_torch.data import lm as tlm
 from distributed_model_parallel_tpu_torch.models import gpt as tgpt
 from distributed_model_parallel_tpu_torch.models import layers as L
@@ -46,6 +47,7 @@ from distributed_model_parallel_tpu_torch.models.convert import (
 from distributed_model_parallel_tpu_torch.parallel.sequence_parallel import (
     CausalLMSequenceParallelEngine,
 )
+from distributed_model_parallel_tpu_torch.runtime.mesh import Mesh
 from distributed_model_parallel_tpu_torch.training import metrics as tmetrics
 from distributed_model_parallel_tpu_torch.training import optim as toptim
 
@@ -281,7 +283,11 @@ def test_engine_refuses_later_slices(knob, value, slice_):
     slice is ported, builds an engine that checkpoints its blocks
     (tests/test_torch_port_remat.py holds its steps). The reducer's
     knobs are ported too: bucketed builds, a compressed wire needs a
-    'dcn' axis (the reference's message)."""
+    'dcn' axis (the reference's message). Collective matmul is ported:
+    at one seq shard, as in the reference, it builds the FFN policy,
+    whose one-rank ring is the plain dot, and a step equals the step
+    without it (tests/test_torch_port_sequence_parallel.py holds it at
+    two shards)."""
     if knob == "grad_reduction":
         eng = CausalLMSequenceParallelEngine(
             tgpt.GPTConfig(**CFG_KW), toptim.SGD(), device="cpu",
@@ -298,10 +304,18 @@ def test_engine_refuses_later_slices(knob, value, slice_):
             **{knob: value})
         assert eng.remat is True
     else:
-        with pytest.raises(ValueError, match=slice_):
-            CausalLMSequenceParallelEngine(
-                tgpt.GPTConfig(**CFG_KW), toptim.SGD(), device="cpu",
-                **{knob: value})
+        from distributed_model_parallel_tpu_torch.ops.collective_matmul \
+            import LocalCollectiveMatmul
+
+        engines = [CausalLMSequenceParallelEngine(
+            tgpt.GPTConfig(**CFG_KW), toptim.SGD(), device="cpu",
+            mesh=Mesh(1, None), **{knob: cm}) for cm in (value, False)]
+        assert isinstance(engines[0]._matmul, LocalCollectiveMatmul)
+        ids = np.random.RandomState(0).randint(
+            1, CFG_KW["vocab_size"], (2, 8)).astype(np.int32)
+        sums = [eng.train_step(eng.init_state(0), *eng.shard_batch(ids),
+                               0.1)[1] for eng in engines]
+        assert float(sums[0]["loss_sum"]) == float(sums[1]["loss_sum"])
     with pytest.raises(ValueError, match="expert-parallel slice"):
         CausalLMSequenceParallelEngine(
             tgpt.GPTConfig(**dict(CFG_KW, num_experts=4)), toptim.SGD(),
@@ -366,8 +380,9 @@ def test_cli_refuses_flags_of_later_slices(flags, slice_, monkeypatch,
     the trainer's configuration, and --async-save alone exits with the
     JAX CLI's message (it needs the sharded format). --seq-shards 2,
     refused before the sequence-parallel slice, builds the (data 1, seq
-    2) mesh on two gloo ranks; --collective-matmul exits with the JAX
-    CLI's message at one shard and names its slice at two."""
+    2) mesh on two gloo ranks; --collective-matmul, refused before the
+    collective-matmul slice, exits with the JAX CLI's message at one
+    shard and under --pipeline-stages, and passes the checks at two."""
     if flags[0] == "--async-save":
         with pytest.raises(SystemExit,
                            match="requires --checkpoint-format sharded"):
@@ -383,12 +398,16 @@ def test_cli_refuses_flags_of_later_slices(flags, slice_, monkeypatch,
                 for r in got] == [(1, 2, 0, 2), (1, 2, 1, 2)]
         return
     if flags[0] == "--collective-matmul":
-        # The JAX CLI's check first (a one-shard ring does nothing), and
-        # with two shards the refusal naming the slice.
+        # The JAX CLI's checks (a one-shard ring does nothing; stages
+        # compute dense), and with two shards the flag passes them.
         with pytest.raises(SystemExit, match="set --seq-shards >= 2"):
             lm_cli.main(["--device", "cpu", *flags])
-        with pytest.raises(SystemExit, match=f"not ported.*{slice_} slice"):
-            lm_cli.main(["--device", "cpu", *flags, "--seq-shards", "2"])
+        with pytest.raises(SystemExit, match="no effect under "
+                                             "--pipeline-stages"):
+            lm_cli.main(["--device", "cpu", *flags, "--layers", "2",
+                         "--pipeline-stages", "2"])
+        check_lm_args(lm_cli.build_parser().parse_args(
+            [*flags, "--seq-shards", "2"]))
         return
     if flags[0] in ("--dcn-slices", "--dcn-compression"):
         # Ported with the gradient-reduction slice: one rank has no

@@ -341,7 +341,8 @@ def test_model_parallel_cli_refusals(flags, match, tmp_path, monkeypatch):
     (["--pipeline-stages", "2", "--attention", "ulysses"],
      "--attention has no effect under --pipeline-stages"),
     (["--pipeline-stages", "2", "--collective-matmul"],
-     "not ported.*collective-matmul slice"),
+     "--collective-matmul decomposes the sequence-parallel engine's FFN "
+     "collectives; it has no effect under --pipeline-stages"),
     (["--microbatches", "2"], "no effect without --pipeline-stages"),
     (["--pipeline-schedule", "1f1b"], "no effect without --pipeline-stages"),
     (["--virtual-stages", "2"], "no effect without --pipeline-stages"),

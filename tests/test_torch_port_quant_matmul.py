@@ -139,14 +139,17 @@ def test_cached_weight_quantization_equals_per_call():
     cached.prepare(tw)
     assert cached._lookup(tw) is not None
     assert cached._lookup(tw.clone()) is None  # identity, not value
-    assert torch.equal(cached(tx, tw, tb), per_call(tx, tw, tb))
-    # The reference's column and row seams compute the same projection.
+    assert torch.equal(cached.column(tx, tw, tb),
+                       per_call.column(tx, tw, tb))
+    # The column and row seams compute the same projection (no model
+    # group), as the reference's do.
     for proj in ("column", "row"):
         ref = np.asarray(getattr(jqm.QuantMatmul(), proj)(
             jnp.asarray(x), jnp.asarray(w), jnp.asarray(b)
         ))
         np.testing.assert_allclose(
-            cached(tx, tw, tb).numpy(), ref, rtol=RTOL, atol=ATOL
+            getattr(cached, proj)(tx, tw, tb).numpy(), ref, rtol=RTOL,
+            atol=ATOL
         )
 
 

@@ -66,6 +66,10 @@ LM_CONFIGS = {
         (2, 2, 2, "ring_flash", "bucketed", "int8", 1)],
 }
 BERT_CONFIGS = [(2, 2, "ring"), (2, 2, "ulysses")]
+# Collective matmul (the FFN pair on the rings over 'seq'), each config
+# also run above without it.
+LM_CM_CONFIGS = [LM_CONFIGS[2][0], LM_CONFIGS[2][2]]
+BERT_CM_CONFIGS = [BERT_CONFIGS[0]]
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -131,11 +135,12 @@ def port(weights, tmp_path_factory):
             "ids": _ids(), "lr": LR}
     return {
         2: ranks.spawn(2, "sp_suite", dict(
-            base, lm=LM_CONFIGS[2],
+            base, lm=LM_CONFIGS[2], lm_cm=LM_CM_CONFIGS,
             dropout={"attention": "ring_flash", "params": weights[2]}),
             tmp_path_factory.mktemp("w2")),
         4: ranks.spawn(4, "sp_suite", dict(
             base, lm=LM_CONFIGS[4], bert=BERT_CONFIGS,
+            bert_cm=BERT_CM_CONFIGS,
             bert_cfg=BERT_KW, classes=CLASSES, bert_params=weights["bert"],
             bert_batches=_bert_batches(), bert_lr=BERT_LR),
             tmp_path_factory.mktemp("w4")),
@@ -149,12 +154,12 @@ def _close(got, want, **tol):
                                    **tol)
 
 
-def _jax_lm(config):
+def _jax_lm(config, **kw):
     d, s, k, attention, gr, wire, layers = config
     eng = jsp.CausalLMSequenceParallelEngine(
         _gpt(layers), JSGD(0.9, 1e-2), _jmesh(d, s, k), attention=attention,
         donate=False, grad_reduction=gr, bucket_mb=0.02,
-        dcn_compression=wire)
+        dcn_compression=wire, **kw)
     ts = eng.init_state(jax.random.PRNGKey(0))
     sums = []
     for ids in _ids():
@@ -195,6 +200,76 @@ def test_lm_monolithic_is_one_all_reduce_a_step(port):
             if config[4] == "monolithic" and config[5] == "none":
                 assert all(r["lm", config]["collectives"] == 3
                            for r in port[world])
+
+
+@pytest.mark.parametrize("config", LM_CM_CONFIGS,
+                         ids=["d{}-s{}-dcn{}-{}-{}-{}-L{}".format(*c)
+                              for c in LM_CM_CONFIGS])
+def test_lm_collective_matmul_matches_reference_and_plain(port, config):
+    """`collective_matmul=True` (the FFN pair on the rings over the seq
+    ranks) at S 2: metric sums, parameters and momentum after 3 steps
+    against the reference engine with the same flag, and against the
+    port's run of the same config without it (same math, another
+    summation order: the f32 bar)."""
+    want_sums, want_p, want_mom = _jax_lm(config, collective_matmul=True)
+    for res in port[2]:
+        got, plain = res["lm_cm", config], res["lm", config]
+        for g, w, p in zip(got["sums"], want_sums, plain["sums"]):
+            assert g["count"] == w["count"] == p["count"]
+            assert g["correct1"] == w["correct1"]
+            np.testing.assert_allclose(g["loss_sum"], w["loss_sum"],
+                                       rtol=TOL["rtol"])
+            np.testing.assert_allclose(g["loss_sum"], p["loss_sum"],
+                                       rtol=TOL["rtol"])
+        for want in (want_p, plain["params"]):
+            _close(got["params"], want, **TOL)
+        for want in (want_mom, plain["momentum"]):
+            _close(got["momentum"], want, **TOL)
+
+
+def _jax_bert(config, **kw):
+    d, s, attention = config
+    eng = jsp.SequenceParallelEngine(JBertConfig(**BERT_KW), CLASSES,
+                                     JSGD(), _jmesh(d, s),
+                                     attention=attention, donate=False, **kw)
+    ts = eng.init_state(jax.random.PRNGKey(0))
+    want = []
+    for ids, labels in _bert_batches():
+        ts, m = eng.train_step(ts, *eng.shard_batch(ids, labels),
+                               jnp.float32(BERT_LR))
+        want.append({k: float(v) for k, v in m.items()})
+    return want, _np(ts.params)
+
+
+@pytest.mark.parametrize("config", BERT_CM_CONFIGS,
+                         ids=["d{}-s{}-{}".format(*c)
+                              for c in BERT_CM_CONFIGS])
+def test_bert_collective_matmul_matches_reference_and_plain(port, config):
+    """`SequenceParallelEngine(collective_matmul=True)` at (2, 2): 3 SGD
+    steps against the reference engine with the flag and the port's run
+    without it."""
+    want, want_p = _jax_bert(config, collective_matmul=True)
+    for res in port[4]:
+        got, plain = res["bert_cm", config], res["bert", config]
+        for g, w, p in zip(got["sums"], want, plain["sums"]):
+            assert (g["count"], g["correct1"]) == (w["count"], w["correct1"])
+            np.testing.assert_allclose(g["loss_sum"], w["loss_sum"], **TOL)
+            np.testing.assert_allclose(g["loss_sum"], p["loss_sum"], **TOL)
+        _close(got["params"], want_p, **TOL)
+        _close(got["params"], plain["params"], **TOL)
+
+
+def test_collective_matmul_refuses_an_ffn_width_off_the_ring():
+    """The FFN width must split over the seq ranks (the reference's
+    message, at construction)."""
+    cfg = GPTConfig(**dict(GPT_KW, num_layers=1, ffn_dim=63))
+    with pytest.raises(ValueError) as got:
+        tsp.CausalLMSequenceParallelEngine(
+            cfg, SGD(), device="cpu", mesh=Mesh(1, None, seq=2),
+            collective_matmul=True)
+    with pytest.raises(ValueError) as want:
+        jsp._seq_matmul_policy(True, 63, 2)
+    assert str(got.value) == str(want.value)
 
 
 @pytest.mark.parametrize("config", BERT_CONFIGS,
@@ -377,6 +452,11 @@ def test_cli_refuses_ulysses_heads_with_the_reference_message():
                      "--seq-shards", "2", "--attention", "ulysses"])
     assert str(got.value) == ("ulysses needs heads (3) divisible by 'seq' "
                               "axis size (2)")
-    with pytest.raises(SystemExit, match="not ported.*collective-matmul"):
-        lm_cli.main(["--device", "cpu", "--seq-shards", "2",
-                     "--collective-matmul"])
+    # --collective-matmul at two shards passes the checks the reference's
+    # refuses it by (its runs: the engine tests above).
+    from distributed_model_parallel_tpu_torch.cli.common import (
+        check_seq_shard_args,
+    )
+
+    check_seq_shard_args(lm_cli.build_parser().parse_args(
+        ["--seq-shards", "2", "--collective-matmul"]))

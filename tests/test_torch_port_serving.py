@@ -274,15 +274,16 @@ def test_sampler_lanes_match_reference_bit_for_bit():
             assert ts.pick(row, i % 3) == js.pick(row, i % 3)
 
 
-# The tp/sp layouts, collective matmul and a mesh stay refused, naming
-# their slice; the paged, speculative and bf16 knobs (refused before the
-# paged-serving slice) now behave as the reference's: accepted, or
-# refused with the reference's own message.
+# Every knob of the reference's engine behaves as the reference's:
+# accepted, or refused with the reference's own message (the tp/sp
+# layouts without a mesh, collective matmul outside tp; a one-device
+# mesh under the replicated layout is accepted).
 KNOB_SLICE = 4
+ONE_DEVICE_MESH = "one-device mesh"
 
 
 @pytest.mark.parametrize("knob", [
-    dict(layout="tp"), dict(layout="sp"), dict(mesh=object()),
+    dict(layout="tp"), dict(layout="sp"), dict(mesh=ONE_DEVICE_MESH),
     dict(collective_matmul=True), dict(page_size=8), dict(num_pages=4),
     dict(prefill_chunk=4), dict(prefix_cache=True),
     dict(speculative_k=2), dict(compute_dtype="bf16"),
@@ -290,12 +291,20 @@ KNOB_SLICE = 4
 ])
 def test_out_of_slice_knobs_raise(knob):
     kw = dict(ENGINE_KW, **knob)
-    if list(knob) in (["layout"], ["mesh"], ["collective_matmul"]):
-        with pytest.raises(ValueError, match="not ported.*tp/sp"):
-            ServingEngine(GPTConfig(**CFG_KW), device="cpu", **kw)
-        return
     jkw = {k: (jnp.bfloat16 if v is torch.bfloat16 else v)
            for k, v in kw.items()}
+    if kw.get("mesh") == ONE_DEVICE_MESH:
+        from distributed_model_parallel_tpu.runtime.mesh import (
+            MeshSpec as JaxMeshSpec,
+            make_mesh as jax_make_mesh,
+        )
+        from distributed_model_parallel_tpu_torch.runtime.mesh import (
+            MeshSpec as TorchMeshSpec,
+            make_mesh as torch_make_mesh,
+        )
+        jkw["mesh"] = jax_make_mesh(JaxMeshSpec(data=1),
+                                    devices=jax.devices()[:1])
+        kw["mesh"] = torch_make_mesh(TorchMeshSpec(data=1))
     try:
         jeng = JaxEngine(JaxGPTConfig(**CFG_KW), **jkw)
     except ValueError as e:

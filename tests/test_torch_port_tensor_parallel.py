@@ -79,6 +79,9 @@ from distributed_model_parallel_tpu_torch.runtime.mesh import Mesh, MeshSpec
 from distributed_model_parallel_tpu_torch.training import checkpoint as ckpt
 
 F32 = dict(rtol=1e-5, atol=1e-6)
+# ViT at CIFAR's 65 tokens (64 patches and the class token), cut narrow.
+VIT_PROBE = dict(image_size=32, patch_size=4, dim=16, num_layers=1,
+                 num_heads=2, mlp_dim=32)
 TINY = dict(vocab_size=97, hidden_size=32, num_layers=1, num_heads=4,
             intermediate_size=64, max_position=16, dropout_rate=0.0)
 BATCH, SEQ, CLASSES, STEPS = 16, 12, 4, 3
@@ -111,11 +114,11 @@ def _tree(jts):
         "opt_state": jts.opt_state._asdict(), "step": jts.step})
 
 
-def _jax_engine(d, m, opt):
+def _jax_engine(d, m, opt, **kw):
     mesh = j_make_mesh(JMeshSpec(data=d, model=m),
                        devices=jax.devices()[:d * m])
     return JTensorParallelEngine(j_bert(CLASSES, JBertConfig(**TINY)),
-                                 _optim(opt, True), mesh, donate=False)
+                                 _optim(opt, True), mesh, donate=False, **kw)
 
 
 def _jax_run(eng, opt, ts, batches):
@@ -144,6 +147,9 @@ def reference():
         qkv = ts.params["blocks"]["0"]["attn"]["qkv"]["w"]
         out["shard_shape", m] = qkv.addressable_shards[0].data.shape
         out[d, m, opt] = _jax_run(eng, opt, ts, batches)
+    eng = _jax_engine(1, 2, "sgd", collective_matmul=True)
+    out["cm"] = _jax_run(eng, "sgd", eng.init_state(jax.random.PRNGKey(0)),
+                         batches)
     return out
 
 
@@ -187,15 +193,23 @@ def port(reference, tmp_path_factory):
                      dict(name="from_ddp", model=2, opt="sgd", steps=1,
                           first=2, lr=LR["sgd"],
                           resume=train_state_to_jax(dts))]
+            cm = dict(model=2, opt="sgd", steps=STEPS, lr=LR["sgd"])
+            runs += [dict(cm, name=("cm", 0.0), cm=True),
+                     dict(cm, name=("cm", 0.1), cm=True, dropout=0.1),
+                     dict(cm, name=("tp", 0.1, 2), dropout=0.1)]
         else:
             runs += [dict(name=(name, 0.1), model=2, opt="sgd", steps=STEPS,
                           lr=LR["sgd"], dropout=0.1, ddp=name == "ddp")
                      for name in ("tp", "ddp")]
         (tmp / f"w{world}").mkdir()
-        got = ranks.spawn(world, "tp_suite", dict(common, runs=runs),
+        extra = {"vit_probe": VIT_PROBE} if world == 2 else {}
+        got = ranks.spawn(world, "tp_suite", dict(common, runs=runs,
+                                                  **extra),
                           tmp / f"w{world}")
         out.update({run["name"]: [r[run["name"]] for r in got]
                     for run in runs})
+        if extra:
+            out["vit_refusal"] = [r["vit_refusal"] for r in got]
     return out
 
 
@@ -309,6 +323,50 @@ def test_dropout_tp_matches_ddp(port):
         "loss_sum"]
 
 
+def test_collective_matmul_matches_jax_cm_and_plain_tp(reference, port):
+    """`collective_matmul=True` at (data 1, model 2), Megatron-SP with
+    the rings: per-step sums and the gathered state against the JAX
+    engine with the same flag, and against the port's TP without it
+    (same math, the sums in another order: the f32 bar)."""
+    want_sums, want_trees = reference["cm"]
+    for r, plain in zip(port["cm", 0.0], port[1, 2, "sgd"]):
+        assert r["backend"] == "gloo"
+        for g, w, p in zip(r["sums"], want_sums, plain["sums"]):
+            close_sums(g, w)
+            close_sums(g, p)
+        close_tree(r["canonical"], want_trees[-1])
+        close_tree(r["canonical"], plain["canonical"])
+
+
+def test_collective_matmul_dropout_matches_plain_tp(port):
+    """Dropout 0.1 at (1, 2): the sequence-sharded blocks draw each
+    element's bit from its index in the whole sequence, so the rings'
+    run draws the masks of the run without them and stays within the f32
+    bar of it; the replicated leaves stay bit-equal across the model
+    ranks (their gradients summed over the model group)."""
+    cm, plain = port["cm", 0.1], port["tp", 0.1, 2]
+    for a, b in zip(cm, plain):
+        for g, w in zip(a["sums"], b["sums"]):
+            close_sums(g, w)
+        close_tree(a["canonical"], b["canonical"])
+    assert cm[0]["sums"][1]["loss_sum"] != port["cm", 0.0][0]["sums"][1][
+        "loss_sum"]
+    for k, v in cm[0]["replicated"].items():
+        np.testing.assert_array_equal(cm[1]["replicated"][k], v, err_msg=k)
+
+
+def test_collective_matmul_refuses_vits_65_tokens_as_jax(port):
+    """ViT's 65 tokens do not split over 2 model ranks: the reference's
+    message, at the first step, on every rank."""
+    from distributed_model_parallel_tpu.ops.collective_matmul import (
+        _check_div,
+    )
+
+    with pytest.raises(ValueError) as want:
+        _check_div("column", 65, 2, "sequence length")
+    assert port["vit_refusal"] == [str(want.value)] * 2
+
+
 def _resume_third_step(tree, engine_kind, reference, tmp_path):
     """Save `tree` (the canonical state after 2 steps) as a checkpoint,
     restore it under the port's DDP engine or JAX's TP engine at (1, 2),
@@ -410,6 +468,10 @@ def test_cli_tp_on_two_ranks(tmp_path, monkeypatch):
      "must be >= 1"),
     (["--engine", "tp", "--model", "vit", "--model-shards", "2"],
      r"model=2\) must divide the world \(1 ranks\)"),
+    (["--engine", "tp", "--model", "bert_tiny", "--collective-matmul"],
+     "a size-1 ring is a plain dot"),
+    (["--engine", "ddp", "--collective-matmul"],
+     "it only applies under --engine tp"),
 ])
 def test_cli_tp_refusals(flags, match, tmp_path, monkeypatch):
     monkeypatch.chdir(tmp_path)
