@@ -21,7 +21,12 @@ replicated leaf therefore collapses to one chunk that rank 0 writes; an
 FSDP leaf sharded N ways yields N chunks, one a rank; a tensor-parallel
 leaf's shards are written by the ranks of data index 0. The head-aligned
 QKV shard (`Split(1, 3)`) is three rectangles of the canonical (D, 3D)
-leaf: [q | k | v] columns of the rank's heads.
+leaf: [q | k | v] columns of the rank's heads. An expert stack
+(`parallel/expert_parallel.py`, a leading-E `Split(0)`) is N blocks of
+E/N experts: written by the expert ranks of data index 0 under gspmd,
+one a data rank under the hierarchical dispatch; the resharding restore
+reassembles the whole stack, so a file saved at one S restores at
+another.
 """
 
 from __future__ import annotations

@@ -176,6 +176,8 @@ def reducer_mesh(dcn_slices: int, seq_shards: int = 1, **axes):
         flags = f"--dcn-slices {dcn_slices}"
         if seq_shards != 1:
             flags += f" / --seq-shards {seq_shards}"
+        if axes.get("expert", 1) != 1:
+            flags += f" / --expert-shards {axes['expert']}"
         raise SystemExit(f"{flags}: {e}") from e
 
 
@@ -505,7 +507,6 @@ def add_auto_tune_flags(parser: argparse.ArgumentParser) -> None:
 SLICES = {
     "plan": "the composed-parallel-plan slice",
     "tune": "the auto-tuning slice",
-    "moe": "the expert-parallel slice",
 }
 
 
@@ -519,10 +520,6 @@ def check_lm_args(args) -> None:
         ("--auto-tune / --auto-tune-out / --auto-tune-calibration",
          args.auto_tune or args.auto_tune_out or args.auto_tune_calibration,
          s["tune"]),
-        ("--moe-experts > 0", args.moe_experts != 0, s["moe"]),
-        ("--moe-every / --moe-dispatch / --moe-overlap / --expert-shards",
-         args.moe_every != 2 or args.moe_dispatch != "gspmd"
-         or args.moe_overlap or args.expert_shards != 1, s["moe"]),
     )
     for flag, bad, later in refusals:
         if bad:
@@ -532,6 +529,7 @@ def check_lm_args(args) -> None:
                 "the JAX package's cli/lm.py"
             )
     check_seq_shard_args(args)
+    check_moe_args(args)
     check_grad_reduction_args(args)
     check_checkpoint_args(args)
     if args.pipeline_stages > 1 and (
@@ -560,6 +558,77 @@ def check_lm_args(args) -> None:
                 "least one decoder block"
             )
     check_lm_pipeline_args(args)
+
+
+def check_moe_args(args) -> None:
+    """The LM CLI's MoE flags, with the JAX CLI's checks and messages:
+    they need --moe-experts; MoE trains under the expert-parallel LM
+    engine, so it refuses --seq-shards, --pipeline-stages (and with them
+    --collective-matmul, which needs --seq-shards >= 2),
+    --attention and --grad-reduction; --moe-overlap
+    and --dcn-compression need the hierarchical dispatch, which keeps
+    --expert-shards at 1."""
+    if args.moe_experts < 0:
+        raise SystemExit(
+            f"--moe-experts must be >= 0, got {args.moe_experts}")
+    if args.moe_experts == 0:
+        for flag, bad in (
+            ("--moe-dispatch", args.moe_dispatch != "gspmd"),
+            ("--moe-overlap", args.moe_overlap),
+            ("--expert-shards", args.expert_shards != 1),
+            ("--moe-every", args.moe_every != 2),
+        ):
+            if bad:
+                raise SystemExit(
+                    f"{flag} configures the MoE expert exchange; it "
+                    "has no effect without --moe-experts > 0")
+        return
+    if args.seq_shards > 1 or args.pipeline_stages > 1:
+        raise SystemExit(
+            "--moe-experts trains under the expert-parallel LM "
+            "engine (GSPMD data x expert); it composes with "
+            "neither --seq-shards > 1 nor --pipeline-stages > 1 — "
+            "per-shard routing would break the dense capacity "
+            "semantics")
+    if args.attention != "ring":
+        raise SystemExit(
+            "--attention selects the sequence-parallel "
+            "distribution and has no effect under --moe-experts "
+            "(the MoE LM attends locally, dense causal); drop the "
+            "flag")
+    if args.grad_reduction != "monolithic":
+        raise SystemExit(
+            "--grad-reduction bucketed/overlapped addresses the "
+            "sequence-parallel engine's explicit reducer; the "
+            "expert-parallel LM engine is GSPMD — drop the flag")
+    if args.moe_overlap and args.moe_dispatch != "hierarchical":
+        raise SystemExit(
+            "--moe-overlap chunks the hierarchical exchange; set "
+            "--moe-dispatch hierarchical")
+    if args.dcn_compression != "none" and \
+            args.moe_dispatch != "hierarchical":
+        raise SystemExit(
+            "--dcn-compression compresses the hierarchical "
+            "exchange's cross-slice messages; the gspmd dispatch "
+            "has no explicit 'dcn' hop — set --moe-dispatch "
+            "hierarchical (with --dcn-slices >= 2) or drop the flag")
+    if args.moe_dispatch == "hierarchical" and args.expert_shards != 1:
+        raise SystemExit(
+            "--moe-dispatch hierarchical shards experts over the "
+            "(factored) data fabric; --expert-shards must stay 1 "
+            "(the 'expert' axis is the gspmd layout)")
+
+
+def check_moe_experts_divide(num_experts: int, mesh) -> None:
+    """Under the hierarchical dispatch each data rank owns an E/S expert
+    block: the JAX CLI's check, after the mesh is built."""
+    ways = mesh.data
+    if num_experts % ways:
+        raise SystemExit(
+            f"--moe-dispatch hierarchical shards "
+            f"--moe-experts {num_experts} over the "
+            f"{ways}-way data fabric; the count must divide "
+            "evenly (each device owns an E/S expert block)")
 
 
 def check_seq_shard_args(args) -> None:
@@ -1095,6 +1164,8 @@ __all__ = [
     "check_overlapped_model",
     "check_data_parallel_args",
     "check_lm_args",
+    "check_moe_args",
+    "check_moe_experts_divide",
     "check_lm_pipeline_args",
     "check_model_parallel_args",
     "check_pipeline_schedule_args",

@@ -40,8 +40,16 @@ CLI's checks, as are `--seq-shards` (`--seq-len` divisible by it, no
 `--pipeline-stages` beside it, `--heads` divisible by it under
 Ulysses) and `--collective-matmul` (each block's FFN pair on the rings
 over the seq ranks, `ops/collective_matmul.py`; it needs `--seq-shards`
->= 2). Flags whose features belong to later port slices (MoE, plans and
-the tuner) are refused with the slice named
+>= 2). `--moe-experts E` swaps the FFN of every `--moe-every`-th block
+for a routed MoE of E experts and trains under `ExpertParallelLMEngine`
+(`parallel/expert_parallel.py`) on `MeshSpec(data=-1,
+expert=--expert-shards, dcn=--dcn-slices)`: `--moe-dispatch gspmd` holds
+E/N experts on each of the N ranks of an expert group, `hierarchical`
+E/S on each data rank with the two-level token exchange
+(`ops/expert_dispatch.py`; `--moe-overlap` chunks it, `--dcn-compression`
+codes its cross-slice hops), with the JAX CLI's checks
+(`cli/common.check_moe_args`). Flags whose features belong to later port
+slices (plans and the tuner) are refused with the slice named
 (`cli/common.check_lm_args`). The
 best-val-acc model is saved to `--checkpoint-dir` with the model's
 `gpt_config` in its sidecar (what `cli/serve.py --checkpoint` checks),
@@ -68,6 +76,7 @@ from distributed_model_parallel_tpu_torch.cli.common import (
     build_optimizer,
     check_batch_divisibility,
     check_lm_args,
+    check_moe_experts_divide,
     compute_dtype_from_flag,
     export_metrics_out,
     reducer_mesh,
@@ -82,7 +91,11 @@ from distributed_model_parallel_tpu_torch.data.lm import (
 )
 from distributed_model_parallel_tpu_torch.models.gpt import (
     GPTConfig,
+    gpt_lm_model,
     split_stages,
+)
+from distributed_model_parallel_tpu_torch.parallel.expert_parallel import (
+    ExpertParallelLMEngine,
 )
 from distributed_model_parallel_tpu_torch.parallel.pipeline import (
     LMPipelineEngine,
@@ -153,16 +166,30 @@ def build_parser() -> argparse.ArgumentParser:
                    help="attention core; *_flash = the flash-attention "
                         "CUDA kernels (ops/flash_attention.py)")
     p.add_argument("--moe-experts", default=0, type=int,
-                   help="not ported yet (expert-parallel slice)")
+                   help="Mixture-of-Experts: swap the FFN of every "
+                        "--moe-every-th decoder block for a routed MoE "
+                        "with this many experts (models/moe.py) and "
+                        "train under the expert-parallel LM engine; "
+                        "0 = dense (default)")
     p.add_argument("--moe-every", default=2, type=int,
-                   help="not ported yet (expert-parallel slice)")
+                   help="which decoder blocks are MoE (1 = every "
+                        "layer, 2 = every other, ...)")
     p.add_argument("--moe-dispatch", default="gspmd",
                    choices=("gspmd", "hierarchical"),
-                   help="not ported yet (expert-parallel slice)")
+                   help="MoE token exchange: gspmd = experts sharded "
+                        "over an --expert-shards 'expert' mesh axis; "
+                        "hierarchical = experts ride the (--dcn-slices "
+                        "factored) data fabric through the explicit "
+                        "two-level exchange (ops/expert_dispatch.py)")
     p.add_argument("--moe-overlap", action="store_true",
-                   help="not ported yet (expert-parallel slice)")
+                   help="chunk the hierarchical exchange so expert FFN "
+                        "compute on chunk k hides the communication of "
+                        "chunk k+1 (requires --moe-dispatch "
+                        "hierarchical; same math)")
     p.add_argument("--expert-shards", default=1, type=int,
-                   help="not ported yet (expert-parallel slice)")
+                   help="'expert' mesh axis size (gspmd dispatch); "
+                        "hierarchical dispatch shards experts over the "
+                        "data fabric instead and requires 1")
     p.add_argument("--collective-matmul", action="store_true",
                    help="run each block's FFN pair as latency-hiding rings "
                         "over the 'seq' axis (needs --seq-shards >= 2; "
@@ -204,6 +231,8 @@ def main(argv=None) -> dict:
         max_position=args.seq_len,
         dropout_rate=args.dropout,
         pad_token_id=0,
+        num_experts=args.moe_experts,
+        moe_every=args.moe_every,
     )
     set_device_numerics()
     cdt = compute_dtype_from_flag(args.dtype)
@@ -224,6 +253,18 @@ def main(argv=None) -> dict:
             virtual_stages=args.virtual_stages,
             pad_token_id=cfg.pad_token_id,
         )
+    elif args.moe_experts > 0:
+        device = initialize_backend(args.device, None)
+        mesh = reducer_mesh(args.dcn_slices, expert=args.expert_shards)
+        check_batch_divisibility(args.batch_size, mesh)
+        if args.moe_dispatch == "hierarchical":
+            check_moe_experts_divide(args.moe_experts, mesh)
+        engine = ExpertParallelLMEngine(
+            gpt_lm_model(cfg, remat=args.remat), build_optimizer(args),
+            mesh, compute_dtype=cdt, device=device,
+            dispatch=args.moe_dispatch, overlap=args.moe_overlap,
+            dcn_compression=args.dcn_compression,
+            pad_token_id=cfg.pad_token_id)
     else:
         device = initialize_backend(args.device, None)
         mesh = reducer_mesh(args.dcn_slices, args.seq_shards)

@@ -11,8 +11,9 @@ nhwc=False)`), and it splits into pipeline stages the same way
 (`split_stages`: embeddings on stage 0, the blocks spread, the head on
 the last; the wire carries the (hidden, mask) pair).
 
-Mixture-of-Experts layers (`num_experts > 0`) belong to the expert-
-parallel slice and are refused.
+Mixture-of-Experts: `num_experts > 0` makes every `moe_every`-th encoder
+layer (1-based) a routed MoE block (`models/moe.py`), the reference's
+alternating recipe; its state carries the load-balance loss.
 """
 
 from __future__ import annotations
@@ -24,6 +25,7 @@ import torch
 
 from distributed_model_parallel_tpu_torch.models import layers as L
 from distributed_model_parallel_tpu_torch.models import staging
+from distributed_model_parallel_tpu_torch.models.moe import moe_encoder_layer
 from distributed_model_parallel_tpu_torch.models.transformer import (
     AttentionFn,
     encoder_layer_block,
@@ -32,8 +34,6 @@ from distributed_model_parallel_tpu_torch.models.transformer import (
 from distributed_model_parallel_tpu_torch.ops.attention import (
     dot_product_attention,
 )
-
-MOE_SLICE = "the expert-parallel slice"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -48,8 +48,8 @@ class BertConfig:
     dropout_rate: float = 0.1
     layer_norm_eps: float = 1e-12
     pad_token_id: int = 0
-    # Mixture-of-Experts fields, kept so configs cross between the
-    # packages; num_experts > 0 is refused (expert-parallel slice).
+    # Mixture-of-Experts: num_experts > 0 swaps the FFN of every
+    # `moe_every`-th encoder layer for a routed MoE (`models/moe.py`).
     num_experts: int = 0
     moe_every: int = 2
     moe_top_k: int = 2
@@ -92,16 +92,21 @@ def _embeddings(cfg: BertConfig) -> L.Layer:
 
 def _encoder_blocks(cfg: BertConfig,
                     attention_fn: AttentionFn) -> List[L.Layer]:
-    if cfg.num_experts > 0:
-        raise NotImplementedError(
-            "BertConfig.num_experts > 0 (MoE encoder layers) is not ported "
-            f"to the PyTorch package yet: it belongs to {MOE_SLICE} "
-            "(ROADMAP.md)"
-        )
-    return [encoder_layer_block(
+    if cfg.num_experts > 0 and cfg.moe_every < 1:
+        raise ValueError(
+            f"moe_every must be >= 1 when num_experts > 0, got "
+            f"{cfg.moe_every} (1 = every layer, 2 = every other, ...)")
+    return [moe_encoder_layer(
         cfg.hidden_size, cfg.num_heads, cfg.intermediate_size,
+        cfg.num_experts, top_k=cfg.moe_top_k,
+        capacity_factor=cfg.moe_capacity_factor,
         dropout_rate=cfg.dropout_rate, eps=cfg.layer_norm_eps,
-        attention_fn=attention_fn) for _ in range(cfg.num_layers)]
+        attention_fn=attention_fn)
+        if cfg.num_experts > 0 and (i + 1) % cfg.moe_every == 0
+        else encoder_layer_block(
+            cfg.hidden_size, cfg.num_heads, cfg.intermediate_size,
+            dropout_rate=cfg.dropout_rate, eps=cfg.layer_norm_eps,
+            attention_fn=attention_fn) for i in range(cfg.num_layers)]
 
 
 def head_apply(params, h_cls: torch.Tensor) -> torch.Tensor:

@@ -8,7 +8,10 @@ inverse, for round trips.
 
 Two families:
 * the GPT (`gpt_lm`), the default: every leaf keeps its layout (linear
-  weights stay (K, N));
+  weights stay (K, N)); a MoE block's router and expert stacks
+  (`models/moe.py`) cross as they are, and a MoE LM's load-balance
+  state ("moe_aux" scalars) crosses in the training state's
+  `model_state`;
 * every `Layer` model (`models/tinycnn.py`, `mobilenetv2.py`,
   `resnet.py`, `vit.py`, `bert.py`), selected by passing the port's
   `model`: its tree gives
@@ -47,6 +50,15 @@ _BLOCK = {
     "ffn": {"in": _LINEAR, "out": _LINEAR},
     "ln2": _NORM,
 }
+# A MoE decoder block (`models/moe.py`): the FFN replaced by the router
+# and the expert stacks (leading E axis).
+_MOE_BLOCK = {
+    "attn": {"qkv": _LINEAR, "out": _LINEAR},
+    "ln1": _NORM,
+    "moe": {"router": ("w",),
+            "experts": ("w_in", "b_in", "w_out", "b_out")},
+    "ln2": _NORM,
+}
 
 
 def _check_keys(tree, spec, path: str) -> None:
@@ -72,7 +84,10 @@ def _check_layout(tree) -> None:
     n = len(blocks)
     _check_keys(blocks, tuple(str(i) for i in range(n)), "params/blocks")
     for i in range(n):
-        _check_keys(blocks[str(i)], _BLOCK, f"params/blocks/{i}")
+        block = blocks[str(i)]
+        spec = (_MOE_BLOCK if isinstance(block, Mapping) and "moe" in block
+                else _BLOCK)
+        _check_keys(block, spec, f"params/blocks/{i}")
 
 
 def _check_against(tree, spec, path: str, to_port: bool) -> None:
@@ -113,7 +128,9 @@ def _to_jax_leaf(t) -> np.ndarray:
     t = t.detach().to("cpu", torch.float32)
     if t.dim() == 4:  # conv weight: OIHW -> HWIO
         t = t.permute(2, 3, 1, 0)
-    return np.ascontiguousarray(t.numpy())
+    # reshape: np.ascontiguousarray lifts a 0-d leaf (a MoE aux value)
+    # to (1,)
+    return np.ascontiguousarray(t.numpy()).reshape(tuple(t.shape))
 
 
 def from_jax_params(tree, device="cpu", *, model=None, state=None):

@@ -17,6 +17,17 @@ The pipeline engine takes the same model as `Layer` stages
 (`split_stages`): the stem (ids -> (hidden, mask)), one `Layer` per
 decoder block, and a head that flattens the logits to (B*T, vocab);
 each block runs the same `_block` body as `decoder_blocks`.
+`gpt_lm_model` is the whole model as one `Layer` (the reference's
+`gpt_lm(cfg)`: `staging.staged_model` of stem, blocks and head), which
+the expert-parallel LM engine drives.
+
+Mixture-of-Experts: `num_experts > 0` makes every `moe_every`-th block
+(1-based) a routed MoE block (`models/moe.py`, eps 1e-5), whose
+parameters are {"attn", "ln1", "moe": {"router", "experts"}, "ln2"} and
+whose state carries the load-balance loss ("moe_aux"). MoE stacks run as
+`Layer`s only (`gpt_lm_model`, `decoder_block_layers`): the functional
+forward (`decoder_blocks`, `gpt_lm`) has no state to return it through
+and refuses them.
 """
 
 from __future__ import annotations
@@ -29,6 +40,7 @@ import numpy as np
 import torch
 
 from distributed_model_parallel_tpu_torch.models import layers as L
+from distributed_model_parallel_tpu_torch.models import moe
 from distributed_model_parallel_tpu_torch.models import staging
 from distributed_model_parallel_tpu_torch.models.transformer import (
     AttentionFn,
@@ -61,8 +73,8 @@ class GPTConfig:
     # id treated as padding in the attention mask; None = every
     # position is real.
     pad_token_id: Optional[int] = None
-    # Mixture-of-Experts fields, kept so configs cross between the
-    # packages; num_experts > 0 is refused (expert-parallel slice).
+    # Mixture-of-Experts: num_experts > 0 swaps the FFN of every
+    # `moe_every`-th block for a routed MoE (`models/moe.py`).
     num_experts: int = 0
     moe_every: int = 2
     moe_top_k: int = 2
@@ -78,7 +90,8 @@ def _init_stem(cfg: GPTConfig, g: torch.Generator) -> dict:
             "position": _normal(g, cfg.max_position, cfg.dim)}
 
 
-def _init_block(cfg: GPTConfig, g: torch.Generator) -> dict:
+def _init_block(cfg: GPTConfig, g: torch.Generator,
+                moe_block: bool = False) -> dict:
     device = g.device
 
     def normal(*shape):
@@ -92,16 +105,33 @@ def _init_block(cfg: GPTConfig, g: torch.Generator) -> dict:
         return {"scale": torch.ones(cfg.dim, device=device),
                 "bias": torch.zeros(cfg.dim, device=device)}
 
-    return {"attn": {"qkv": linear(cfg.dim, 3 * cfg.dim),
-                     "out": linear(cfg.dim, cfg.dim)},
-            "ln1": norm(),
-            "ffn": {"in": linear(cfg.dim, cfg.ffn_dim),
-                    "out": linear(cfg.ffn_dim, cfg.dim)},
-            "ln2": norm()}
+    block = {"attn": {"qkv": linear(cfg.dim, 3 * cfg.dim),
+                      "out": linear(cfg.dim, cfg.dim)},
+             "ln1": norm()}  # drawn first: a seed gives the same weights
+    if moe_block:
+        block["moe"] = moe.moe_params(g, cfg.dim, cfg.ffn_dim,
+                                      cfg.num_experts)
+    else:
+        block["ffn"] = {"in": linear(cfg.dim, cfg.ffn_dim),
+                        "out": linear(cfg.ffn_dim, cfg.dim)}
+    block["ln2"] = norm()
+    return block
 
 
 def _init_head(cfg: GPTConfig, g: torch.Generator) -> dict:
     return {"w": _normal(g, cfg.dim, cfg.vocab_size)}
+
+
+def is_moe_block(cfg: GPTConfig, i: int) -> bool:
+    """Whether block i is a MoE block: every `moe_every`-th, 1-based."""
+    return cfg.num_experts > 0 and (i + 1) % cfg.moe_every == 0
+
+
+def _check_moe_every(cfg) -> None:
+    if cfg.num_experts > 0 and cfg.moe_every < 1:
+        raise ValueError(
+            f"moe_every must be >= 1 when num_experts > 0, got "
+            f"{cfg.moe_every} (1 = every layer, 2 = every other, ...)")
 
 
 def init_params(cfg: GPTConfig, seed: int = 0, device="cpu") -> dict:
@@ -110,8 +140,10 @@ def init_params(cfg: GPTConfig, seed: int = 0, device="cpu") -> dict:
     drawn on `device` by a `torch.Generator`. The reference's init draws
     from jax.random, so the numbers differ; parity runs carry one tree
     across with `models/convert.py`."""
+    _check_moe_every(cfg)
     g = torch.Generator(device=torch.device(device)).manual_seed(seed)
-    blocks = {str(i): _init_block(cfg, g) for i in range(cfg.num_layers)}
+    blocks = {str(i): _init_block(cfg, g, is_moe_block(cfg, i))
+              for i in range(cfg.num_layers)}
     return {"stem": _init_stem(cfg, g), "blocks": blocks,
             "head": _init_head(cfg, g)}
 
@@ -138,13 +170,17 @@ def head_apply(params, h: torch.Tensor) -> torch.Tensor:
     return h.float() @ params["w"]
 
 
-def _attention(cfg: GPTConfig, attention_fn: Optional[AttentionFn]):
+def _attention(attention_fn: Optional[AttentionFn]):
+    return attention_fn or partial(dot_product_attention, causal=True)
+
+
+def _dense_only(cfg: GPTConfig, what: str) -> None:
     if cfg.num_experts > 0:
         raise NotImplementedError(
-            "MoE decoder blocks (num_experts > 0) are not ported yet "
-            "(expert-parallel slice)"
-        )
-    return attention_fn or partial(dot_product_attention, causal=True)
+            f"{what} runs dense decoder blocks only: a MoE stack "
+            "(num_experts > 0) returns its load-balance loss through the "
+            "layer state, so it runs as a Layer (gpt_lm_model, the "
+            "expert-parallel LM engine)")
 
 
 def _block(params, x, cfg: GPTConfig, ctx: L.Context, attn):
@@ -164,7 +200,8 @@ def decoder_blocks(params, x, cfg: GPTConfig, ctx: L.Context,
     reference's child i of the stack. `remat=True` checkpoints each
     block (`layers.remat`: its forward, the attention kernel included,
     runs again in the backward pass)."""
-    attn = _attention(cfg, attention_fn)
+    _dense_only(cfg, "decoder_blocks")
+    attn = _attention(attention_fn)
     for i in range(cfg.num_layers):
         x = block_apply(params[str(i)], x, cfg, ctx.child(i), attn,
                         remat=remat)
@@ -198,8 +235,11 @@ def _lm_stem(cfg: GPTConfig) -> L.Layer:
 def decoder_block_layers(cfg: GPTConfig,
                          attention_fn: Optional[AttentionFn] = None):
     """The decoder blocks as a list of `Layer`s over (hidden, mask), for
-    the pipeline stages; the same block body as `decoder_blocks`."""
-    attn = _attention(cfg, attention_fn)
+    the pipeline stages and `gpt_lm_model`; the dense ones run the same
+    block body as `decoder_blocks`, every `moe_every`-th is
+    `moe.moe_encoder_layer` (eps 1e-5) when `num_experts > 0`."""
+    _check_moe_every(cfg)
+    attn = _attention(attention_fn)
 
     def init(gen):
         return _init_block(cfg, gen), {}
@@ -207,7 +247,39 @@ def decoder_block_layers(cfg: GPTConfig,
     def apply(params, state, x, ctx):
         return _block(params, x, cfg, ctx, attn), state
 
-    return [L.Layer(init, apply) for _ in range(cfg.num_layers)]
+    dense = L.Layer(init, apply)
+    return [moe.moe_encoder_layer(
+        cfg.dim, cfg.num_heads, cfg.ffn_dim, cfg.num_experts,
+        top_k=cfg.moe_top_k, capacity_factor=cfg.moe_capacity_factor,
+        dropout_rate=cfg.dropout_rate, eps=EPS, attention_fn=attn)
+        if is_moe_block(cfg, i) else dense for i in range(cfg.num_layers)]
+
+
+def _lm_head(cfg: GPTConfig) -> L.Layer:
+    """The untied head over (hidden, mask): logits (B, T, vocab) f32."""
+
+    def init(gen):
+        return _init_head(cfg, gen), {}
+
+    def apply(params, state, x, ctx):
+        return head_apply(params, x[0]), state
+
+    return L.Layer(init, apply)
+
+
+def gpt_lm_model(cfg: GPTConfig, *,
+                 attention_fn: Optional[AttentionFn] = None,
+                 remat: bool = False) -> L.Layer:
+    """The whole LM as one `Layer` (the reference's `gpt_lm(cfg)`): ids
+    (B, T) -> logits (B, T, vocab) f32, the tree {"stem", "blocks":
+    {"0", ...}, "head"} of `init_params` and state {"stem": {},
+    "blocks": {i: {} or {"moe": {"moe_aux"}}}, "head": {}}. `remat=True`
+    checkpoints each block (`layers.remat`)."""
+    blocks = decoder_block_layers(cfg, attention_fn)
+    if remat:
+        blocks = [L.remat(b) for b in blocks]
+    return staging.staged_model(_lm_stem(cfg), blocks, _lm_head(cfg),
+                                nhwc=False)
 
 
 def _lm_head_flat(cfg: GPTConfig) -> L.Layer:
@@ -243,6 +315,7 @@ def gpt_lm(params, ids: torch.Tensor, cfg: GPTConfig,
            attention_fn: Optional[AttentionFn] = None) -> torch.Tensor:
     """Full-sequence forward: ids (B, T) -> logits (B, T, vocab) f32 (the
     recompute oracle the cached decode is held against)."""
+    _dense_only(cfg, "gpt_lm")
     ctx = ctx or L.Context()
     x = stem_apply(params["stem"], ids, cfg, ctx.child(0))
     h, _ = decoder_blocks(params["blocks"], x, cfg, ctx.child(1),
@@ -290,8 +363,10 @@ __all__ = [
     "decoder_block_layers",
     "decoder_blocks",
     "gpt_lm",
+    "gpt_lm_model",
     "head_apply",
     "init_params",
+    "is_moe_block",
     "lm_loss",
     "lm_loss_fn",
     "lm_targets",

@@ -76,6 +76,12 @@ class Context:
     # element's bit from its index in the whole (B, total, ...) tensor:
     # the masks of the unsharded run. None => the tensor is whole.
     seq_shard: Optional[tuple] = None
+    # MoE expert-exchange policy (`ops/expert_dispatch.ExpertDispatch` /
+    # `LocalExpertDispatch`, or the expert-group policy of
+    # `parallel/expert_parallel.py`): `models/moe.py` hands it the
+    # (hidden, dispatch, combine, expert weights) of a layer in place of
+    # its dense einsums. None => every expert runs here, dense.
+    expert_dispatch: Optional[Any] = None
 
     def child(self, i: int) -> "Context":
         """Context for the i-th child of a combinator (the reference's
@@ -83,6 +89,29 @@ class Context:
         if self.rng is None:
             return self
         return dataclasses.replace(self, rng_path=self.rng_path + (i,))
+
+
+# The reserved state key under which a layer returns a differentiable
+# penalty (`models/moe.py`'s load-balance loss).
+AUX_KEY = "moe_aux"
+
+
+def aux_loss(state):
+    """The sum of every `moe_aux` leaf of a post-forward state tree (the
+    reference's `parallel/data_parallel.aux_loss`): the engines add it to
+    the loss they differentiate; the metrics keep the plain cross-
+    entropy. 0.0 (a no-op addend) when the model has no such layer."""
+    total = 0.0
+    if isinstance(state, dict):
+        for key, leaf in state.items():
+            if key == AUX_KEY and torch.is_tensor(leaf):
+                total = total + leaf
+            else:
+                total = total + aux_loss(leaf)
+    elif isinstance(state, (tuple, list)):
+        for leaf in state:
+            total = total + aux_loss(leaf)
+    return total
 
 
 # ---------------------------------------------------------------------------
@@ -512,7 +541,7 @@ def remat(layer: Layer) -> Layer:
     return Layer(layer.init, apply)
 
 
-__all__ = ["Context", "Layer", "avg_pool2d", "batchnorm2d", "conv2d",
+__all__ = ["AUX_KEY", "Context", "Layer", "aux_loss", "avg_pool2d", "batchnorm2d", "conv2d",
            "copy_to_model_parallel", "dropout", "flatten", "fold_in",
            "gelu", "global_avg_pool", "layernorm", "linear", "max_pool2d",
            "named", "project", "reduce_from_model_parallel", "relu",

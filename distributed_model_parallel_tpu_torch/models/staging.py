@@ -261,6 +261,7 @@ def stagewise_value_and_grad(
     stage_states: Sequence[Any],
     x: Any,
     *,
+    aux_of_state: Optional[Callable] = None,
     on_stage_grads: Optional[Callable] = None,
 ):
     """Segment-by-segment value and gradient, late layers first.
@@ -277,9 +278,14 @@ def stagewise_value_and_grad(
     their place. Returns (loss, loss_aux, stage_grads, stage_new_states)
     in `partition_tree` layout (reassemble with `unpartition_tree`); in
     f32 the gradients equal one `torch.autograd.grad` over the whole
-    model bit for bit."""
+    model bit for bit.
+
+    Differentiable penalties riding the state (`moe_aux`) enter through
+    `aux_of_state(new_state_k) -> scalar` (the reference's channel):
+    each stage's aux joins its backward with a unit cotangent, which
+    adds its gradient exactly as a monolithic `loss + sum(aux)` would."""
     n = len(stage_fns)
-    inputs, outputs, new_states = [], [], []
+    inputs, outputs, new_states, auxes = [], [], [], []
     y = x
     for k in range(n):
         if k:
@@ -288,18 +294,24 @@ def stagewise_value_and_grad(
         y, ns = stage_fns[k](stage_params[k], stage_states[k], y)
         outputs.append(y)
         new_states.append(ns)
+        a = aux_of_state(ns) if aux_of_state is not None else None
+        auxes.append(a if torch.is_tensor(a) and a.requires_grad else None)
     loss, loss_aux = loss_fn(y)
     grads: List[Any] = [None] * n
-    outs, cot = [loss], None
+    outs, cot = [loss], [torch.ones_like(loss)]
     for k in reversed(range(n)):
         p_leaves = list(tree_leaves(stage_params[k]))
         x_leaves = _float_leaves(inputs[k]) if k else []
+        if auxes[k] is not None:
+            outs = outs + [auxes[k]]
+            cot = cot + [torch.ones_like(auxes[k])]
         got = torch.autograd.grad(outs, p_leaves + x_leaves,
                                   grad_outputs=cot)
         g = tree_like(stage_params[k], iter(got[:len(p_leaves)]))
         grads[k] = g if on_stage_grads is None else on_stage_grads(k, g)
         if k:
-            outs, cot = _float_leaves(outputs[k - 1]), got[len(p_leaves):]
+            outs = _float_leaves(outputs[k - 1])
+            cot = list(got[len(p_leaves):])
     return loss.detach(), loss_aux, grads, new_states
 
 

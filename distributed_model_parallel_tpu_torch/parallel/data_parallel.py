@@ -52,6 +52,10 @@ import torch.distributed as dist
 
 from distributed_model_parallel_tpu_torch.models import layers as L
 from distributed_model_parallel_tpu_torch.models import staging
+from distributed_model_parallel_tpu_torch.ops.expert_dispatch import (
+    GlobalAux,
+    LocalExpertDispatch,
+)
 from distributed_model_parallel_tpu_torch.ops.grad_reduction import (
     MONOLITHIC_BUCKET_MB,
     Reducer,
@@ -74,7 +78,6 @@ from distributed_model_parallel_tpu_torch.training.optim import (
 )
 
 GRAD_REDUCTIONS = ("monolithic", "bucketed", "overlapped")
-EXPERT_SLICE = "the expert-parallel slice"
 
 
 class TrainState(NamedTuple):
@@ -161,6 +164,10 @@ class _DataParallel:
         #: the tensor-parallel model group the layers' f and g run over
         #: (`TensorParallelEngine`); None for the data-parallel engines
         self._model_group = None
+        #: the MoE policy (`Context.expert_dispatch`): None runs every
+        #: expert here with the rank's own aux loss (the DDP engines); the
+        #: global-batch engines set `GlobalAux`
+        self._expert_dispatch = None
         #: gradient collectives issued: one all-reduce a step
         #: (monolithic, with a process group), or the Reducer's count
         self.grad_reductions = 0
@@ -281,7 +288,7 @@ class _DataParallel:
             staging.stage_apply_fns(self.model.parts, cuts, ctx), loss_head,
             staging.partition_tree(ts.params, cuts),
             staging.partition_tree(ts.model_state, cuts), x,
-            on_stage_grads=reduce_stage)
+            aux_of_state=L.aux_loss, on_stage_grads=reduce_stage)
         stage_grads = [self._reduced(p) for p in reversed(pending)]
         return (logits, ce, staging.unpartition_tree(stage_grads, cuts),
                 staging.unpartition_tree(stage_states, cuts))
@@ -295,6 +302,7 @@ class _DataParallel:
         ctx = L.Context(train=True, dtype=self.compute_dtype,
                         bn_group=self._bn_group,
                         model_group=self._model_group,
+                        expert_dispatch=self._expert_dispatch,
                         rng=step_key(ts.step, self._rank()))
         x = self._input(images, ts.step, True)
         if self._grad_reduction == "overlapped":
@@ -306,7 +314,9 @@ class _DataParallel:
             logits, new_state = self.model.apply(
                 params, ts.model_state, x, ctx)
             ce, m = self.loss_and_metrics(logits, labels)
-            grads = torch.autograd.grad(ce, list(tree_leaves(params)))
+            aux = L.aux_loss(new_state)  # MoE load balance, else 0.0
+            loss = ce + aux if torch.is_tensor(aux) else ce
+            grads = torch.autograd.grad(loss, list(tree_leaves(params)))
             if self._reducer is not None:
                 grads = self._reduced(self._reducer.issue(
                     _like(params, iter(grads)), mean=True))
@@ -315,9 +325,10 @@ class _DataParallel:
                     self.grad_reductions += 1
                 grads = _like(params, iter(self._mean_over_ranks(grads)))
             grads = self._local_grads(grads)
-        state_leaves = list(tree_leaves(new_state))
+        state_leaves = [t.detach() for t in tree_leaves(new_state)]
         if not self._sync_bn and state_leaves:
-            # Per-replica stats averaged before they are kept.
+            # Per-replica stats (and MoE aux values) averaged before they
+            # are kept.
             new_state = _like(new_state, iter(self._mean_over_ranks(
                 state_leaves)))
         write_back(ts.model_state, new_state)
@@ -329,7 +340,8 @@ class _DataParallel:
     @torch.no_grad()
     def eval_step(self, ts: TrainState, images, labels) -> dict:
         ctx = L.Context(train=False, dtype=self.compute_dtype,
-                        model_group=self._model_group)
+                        model_group=self._model_group,
+                        expert_dispatch=self._expert_dispatch)
         logits, _ = self.model.apply(self._forward_params(ts.params, False),
                                      ts.model_state,
                                      self._input(images, ts.step, False),
@@ -357,6 +369,7 @@ class DataParallelEngine(_DataParallel):
 
     def __post_init__(self):
         self._setup(sync_bn=True)
+        self._expert_dispatch = GlobalAux(self.mesh.group)
 
 
 @dataclasses.dataclass
@@ -374,7 +387,18 @@ class DDPEngine(_DataParallel):
     reference engine in `tests/test_torch_port_grad_reduction.py`. `dcn_compression` ("none" | "bf16" |
     "int8", `ops/wire_codec.py`) compresses the cross-slice hop and
     needs a factored mesh; under "monolithic" it routes the reduction
-    through one flat bucket per dtype."""
+    through one flat bucket per dtype.
+
+    MoE models (`models/moe.py`): the aux loss of each rank's shard is
+    added to its loss (the reference's shard_map semantics), and the aux
+    values kept in the state are averaged over the ranks.
+    `expert_dispatch="hierarchical"` runs each MoE layer's experts 1/S
+    over the data fabric through the two-level exchange
+    (`ops/expert_dispatch.LocalExpertDispatch`: whole weights in storage,
+    each rank its E/S block); `expert_overlap=True` chunks the exchange
+    so the FFN of one chunk runs while the next moves. It composes with
+    every `grad_reduction` and with `dcn_compression`, which then codes
+    the exchange's cross-slice hops too."""
 
     model: L.Layer
     optimizer: Any
@@ -387,6 +411,7 @@ class DDPEngine(_DataParallel):
     overlap_stages: int = 0
     dcn_compression: str = "none"
     expert_dispatch: Optional[str] = None
+    expert_overlap: bool = False
     device: Any = "cuda"
 
     def __post_init__(self):
@@ -396,14 +421,23 @@ class DDPEngine(_DataParallel):
                 f"'overlapped', got {self.grad_reduction!r}"
             )
         check_compression(self.dcn_compression)
-        if self.expert_dispatch is not None:
+        if self.expert_dispatch not in (None, "hierarchical"):
             raise ValueError(
-                f"DDPEngine expert_dispatch={self.expert_dispatch!r} is not "
-                f"ported to the PyTorch package yet: it belongs to "
-                f"{EXPERT_SLICE} (ROADMAP.md)"
+                "expert_dispatch must be None or 'hierarchical', got "
+                f"{self.expert_dispatch!r}"
+            )
+        if self.expert_overlap and self.expert_dispatch is None:
+            raise ValueError(
+                "expert_overlap=True chunks the hierarchical MoE "
+                "exchange; set expert_dispatch='hierarchical'"
             )
         self._setup(self.sync_bn, self.grad_reduction, self.bucket_mb,
                     self.overlap_stages, self.dcn_compression)
+        if self.expert_dispatch == "hierarchical":
+            self._expert_dispatch = LocalExpertDispatch(
+                self.mesh.ici_group, self.mesh.dcn_group,
+                overlap=self.expert_overlap,
+                dcn_compression=self.dcn_compression)
 
 
 __all__ = ["DDPEngine", "DataParallelEngine", "GRAD_REDUCTIONS",

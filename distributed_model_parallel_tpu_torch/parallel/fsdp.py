@@ -54,6 +54,7 @@ import torch.distributed as dist
 from distributed_model_parallel_tpu_torch.checkpointing.sharded import (
     port_dim,
 )
+from distributed_model_parallel_tpu_torch.models import layers as L
 from distributed_model_parallel_tpu_torch.models import staging
 from distributed_model_parallel_tpu_torch.models.convert import params_spec
 from distributed_model_parallel_tpu_torch.ops.wire_codec import (
@@ -329,11 +330,15 @@ class FSDPEngine(TensorParallelEngine):
             if k > 0:
                 prefetched = self._gather_tree(shards[k - 1], specs[k - 1])
             x_k = staging._cut(xs[k]) if k else xs[k]
-            out, _ = fns[k](full_k, states[k], x_k)
+            out, ns = fns[k](full_k, states[k], x_k)
             p_leaves = list(tree_leaves(full_k))
             x_leaves = staging._float_leaves(x_k) if k else []
-            got = torch.autograd.grad(staging._float_leaves(out),
-                                      p_leaves + x_leaves, grad_outputs=cot)
+            outs, cots = staging._float_leaves(out), list(cot)
+            aux = L.aux_loss(ns)  # a MoE stage's load-balance loss
+            if torch.is_tensor(aux):
+                outs, cots = outs + [aux], cots + [torch.ones_like(aux)]
+            got = torch.autograd.grad(outs, p_leaves + x_leaves,
+                                      grad_outputs=cots)
             dp = tree_like(full_k, iter(got[:len(p_leaves)]))
             pending.append((k, self._reducer.issue(dp, mean=True)))
             cot = got[len(p_leaves):]

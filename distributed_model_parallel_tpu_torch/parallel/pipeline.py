@@ -593,9 +593,11 @@ class PipelineEngine:
             if any(path.endswith("moe_aux") for path in _paths(st)):
                 raise NotImplementedError(
                     f"chunk {l} carries MoE state: MoE layers are not "
-                    "supported inside PipelineEngine stages (the load-"
-                    "balance aux loss cannot reach the last-stage loss)"
-                )
+                    "supported inside PipelineEngine stages: the load-"
+                    "balance aux loss cannot reach the last-stage loss "
+                    "without a differentiated 'stage' collective. Train "
+                    "MoE models with the DP / DDP / TensorParallel / "
+                    "ExpertParallel engines.")
         params = tuple(
             tree_map(lambda t, d=d: t.detach().to(d, torch.float32).clone()
                      .requires_grad_(True), p)

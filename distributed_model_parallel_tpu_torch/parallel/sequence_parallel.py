@@ -60,8 +60,9 @@ over the seq group (`ops/collective_matmul.LocalCollectiveMatmul`: each
 rank's column / row block of the whole weights, gathered over every
 rank's positions and reduce-scattered back), the attention projections
 unchanged; the FFN width must divide by S (the reference's message).
-MoE belongs to a later slice and is refused with a ValueError naming
-it.
+MoE configs are refused with the reference's NotImplementedError:
+per-shard routing under 'seq' sharding would break the dense capacity
+semantics, and the MoE text path is `parallel/expert_parallel.py`.
 """
 
 from __future__ import annotations
@@ -126,10 +127,6 @@ from distributed_model_parallel_tpu_torch.training.optim import (
     tree_map,
 )
 
-# The later port slice (ROADMAP.md) named by the refusals below.
-MOE_SLICE = "the expert-parallel slice"
-
-
 def _ulysses_flash(*args, **kw):
     return ulysses_attention(*args, attention_impl=flash_attention, **kw)
 
@@ -140,13 +137,6 @@ ATTENTION = {
     "ulysses": ulysses_attention,
     "ulysses_flash": _ulysses_flash,     # flash kernels as the core
 }
-
-
-def _not_ported(knob: str, later: str) -> ValueError:
-    return ValueError(
-        f"{knob} is not ported to the PyTorch package yet: it belongs to "
-        f"{later} (ROADMAP.md)"
-    )
 
 
 def _check_seq_len(ids, max_position: int, cfg_name: str) -> None:
@@ -298,7 +288,11 @@ class CausalLMSequenceParallelEngine(_SeqAxis):
         self.mesh = self.mesh or make_mesh()
         self._check_config(self.cfg.num_heads, self.cfg.ffn_dim)
         if getattr(self.cfg, "num_experts", 0) > 0:
-            raise _not_ported("GPTConfig.num_experts > 0", MOE_SLICE)
+            raise NotImplementedError(
+                "GPTConfig.num_experts > 0 is not supported by "
+                "CausalLMSequenceParallelEngine; train MoE LMs with "
+                "parallel/expert_parallel.ExpertParallelLMEngine "
+                "(cli/lm.py --moe-experts).")
         if self.compute_dtype not in (None, torch.float32, torch.bfloat16):
             raise ValueError(
                 f"compute_dtype must be None, float32 or bfloat16, got "
@@ -502,7 +496,10 @@ class SequenceParallelEngine(_SeqAxis):
         self.mesh = self.mesh or make_mesh()
         self._check_config(self.cfg.num_heads, self.cfg.intermediate_size)
         if self.cfg.num_experts > 0:
-            raise _not_ported("BertConfig.num_experts > 0", MOE_SLICE)
+            raise NotImplementedError(
+                "BertConfig.num_experts > 0 is not supported by "
+                "SequenceParallelEngine; train MoE models with the "
+                "DP / DDP / TensorParallel / ExpertParallel engines.")
         if self.compute_dtype not in (None, torch.float32, torch.bfloat16):
             raise ValueError(
                 f"compute_dtype must be None, float32 or bfloat16, got "

@@ -91,6 +91,9 @@ from distributed_model_parallel_tpu_torch.ops.collective_matmul import (
     gather_seq,
     scatter_seq,
 )
+from distributed_model_parallel_tpu_torch.ops.expert_dispatch import (
+    GlobalAux,
+)
 from distributed_model_parallel_tpu_torch.parallel.data_parallel import (
     TrainState,
     _DataParallel,
@@ -260,6 +263,7 @@ class TensorParallelEngine(_DataParallel):
         if self.mesh is None:
             self.mesh = make_mesh(MeshSpec(data=-1))
         self._setup(sync_bn=True)
+        self._expert_dispatch = GlobalAux(self.mesh.group)
         self._model_group = self.mesh.model_group
         self._specs = None  # the layout, from the first parameter tree
         self._matmul = None

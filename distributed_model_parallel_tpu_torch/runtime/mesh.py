@@ -33,14 +33,23 @@ them. Here the axes the ported engines use are:
   rings' group) and `group` / `ici_group` / `dcn_group` become the data
   groups of this rank's seq index. `model` > 1 together with `seq` > 1
   is the composed-plan slice's mesh and is refused;
+* `expert`: the expert-parallel axis (`parallel/expert_parallel.py`).
+  `MeshSpec(data=-1, expert=N)` over W ranks is W / N data ranks of N
+  expert ranks each, laid out as the seq axis is, with `expert`
+  innermost as in the reference's axis order ('data', 'stage', 'model',
+  'seq', 'expert'): rank = data_index * N + expert_index. The mesh then
+  carries `expert_group` (the N consecutive ranks of this data index)
+  and `group` / `ici_group` / `dcn_group` become the data groups of this
+  rank's expert index: the batch shards over the data axes only, so the
+  N ranks of an expert group see the same rows (the reference's
+  `data_axis_names` excludes 'expert'). `expert` > 1 beside `model` > 1
+  or `seq` > 1 is the composed-plan slice's mesh and is refused;
 * `stage`: the pipeline's stages, driven by ONE process (as the JAX
   engine's one controller drives every stage through its tick tables).
   The axis is a list of this process's devices; stage s runs on
   `devices[s % len(devices)]`, so on one GPU every stage shares it and on
   a host with S GPUs stage s has its own. A `(data=D, stage=S)` mesh is D
   processes, each running the S-stage pipeline on its own devices.
-
-The expert axis belongs to a later slice and is refused by name.
 """
 
 from __future__ import annotations
@@ -51,11 +60,11 @@ from typing import Any, Optional, Sequence, Tuple
 import torch
 import torch.distributed as dist
 
-# Later port slices (ROADMAP.md), named by the refusals below.
-AXIS_SLICES = {
-    "expert": "the expert-parallel slice",
-}
+# The later port slice (ROADMAP.md) named by the refusals below.
 PLAN_SLICE = "the composed-parallel-plan slice"
+
+
+_KINDS = {"model": "tensor", "seq": "sequence", "expert": "expert"}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -63,9 +72,9 @@ class MeshSpec:
     """Logical mesh shape, the reference's fields; -1 on `data` means
     every rank. `dcn` is the cross-slice factor of the data axis (1 =
     one fabric); it must divide the resolved data size. `model` is the
-    tensor-parallel factor and `seq` the sequence-parallel one; their
-    product must divide the world; `model` excludes `dcn` > 1, and the
-    two exclude each other."""
+    tensor-parallel factor, `seq` the sequence-parallel one and `expert`
+    the expert-parallel one; the one above 1 must divide the world;
+    `model` excludes `dcn` > 1, and the three exclude each other."""
 
     data: int = -1
     stage: int = 1
@@ -76,28 +85,25 @@ class MeshSpec:
 
     def resolve(self, world: int) -> int:
         """The data-axis size for a world of `world` ranks: world /
-        (model * seq)."""
-        for axis, later in AXIS_SLICES.items():
-            if getattr(self, axis) != 1:
-                raise ValueError(
-                    f"MeshSpec.{axis}={getattr(self, axis)} is not ported "
-                    f"to the PyTorch package yet: it belongs to {later} "
-                    "(ROADMAP.md)"
-                )
+        (model * seq * expert)."""
         if self.stage < 1:
             raise ValueError(f"MeshSpec(stage={self.stage}) must be >= 1")
         if self.model < 1:
             raise ValueError(f"MeshSpec(model={self.model}) must be >= 1")
         if self.seq < 1:
             raise ValueError(f"MeshSpec(seq={self.seq}) must be >= 1")
-        if self.model > 1 and self.seq > 1:
+        if self.expert < 1:
+            raise ValueError(f"MeshSpec(expert={self.expert}) must be >= 1")
+        inner = [(a, getattr(self, a)) for a in ("model", "seq", "expert")
+                 if getattr(self, a) > 1]
+        if len(inner) > 1:
+            named = ", ".join(f"{a}={n}" for a, n in inner)
             raise ValueError(
-                f"MeshSpec(model={self.model}, seq={self.seq}) composes "
-                "tensor and sequence parallelism, which is not ported to "
-                f"the PyTorch package yet: it belongs to {PLAN_SLICE} "
-                "(ROADMAP.md)")
-        axis, ways = (("seq", self.seq) if self.seq > 1
-                      else ("model", self.model))
+                f"MeshSpec({named}) composes "
+                f"{' and '.join(_KINDS[a] for a, _ in inner)} parallelism, "
+                "which is not ported to the PyTorch package yet: it belongs "
+                f"to {PLAN_SLICE} (ROADMAP.md)")
+        axis, ways = inner[0] if inner else ("model", 1)
         if world % ways:
             raise ValueError(f"MeshSpec({axis}={ways}) must divide the "
                              f"world ({world} ranks)")
@@ -134,7 +140,10 @@ class Mesh:
     when `seq` is 1), and `group`, `ici_group` and `dcn_group` are the
     data groups of its `seq_index`. `data_seq_group` holds every rank of
     the data and seq axes (the ones a sequence-parallel engine sums its
-    gradients and metrics over); it is `group` when `seq` is 1."""
+    gradients and metrics over); it is `group` when `seq` is 1. With
+    `expert` > 1 each data index holds `expert` ranks: `expert_group` is
+    this rank's (None when `expert` is 1), and `group`, `ici_group` and
+    `dcn_group` are the data groups of its `expert_index`."""
 
     data: int
     group: Optional[Any]
@@ -151,6 +160,9 @@ class Mesh:
     seq_group: Optional[Any] = None
     seq_index: int = 0
     data_seq_group: Optional[Any] = None
+    expert: int = 1
+    expert_group: Optional[Any] = None
+    expert_index: int = 0
 
     def __post_init__(self):
         if self.dcn == 1 and self.ici_group is None:
@@ -198,7 +210,9 @@ def make_mesh(spec: Optional[MeshSpec] = None,
     if spec.model > 1:
         return _model_mesh(world, spec, devices)
     if spec.seq > 1:
-        return _seq_mesh(world, spec, devices)
+        return _inner_mesh(world, spec, devices, "seq")
+    if spec.expert > 1:
+        return _inner_mesh(world, spec, devices, "expert")
     rank = dist.get_rank()
     if spec.dcn == 1:
         return Mesh(world, dist.group.WORLD, spec.stage, devices,
@@ -238,42 +252,47 @@ def _model_mesh(data: int, spec: MeshSpec, devices) -> Mesh:
                 model_index=rank % m)
 
 
-def _seq_mesh(data: int, spec: MeshSpec, devices) -> Mesh:
-    """A (data, seq) mesh, rank = data_index * seq + seq_index, the data
-    index dcn-major on a factored mesh: every rank creates every seq
-    group, then for each seq index its data group, its slices and its
-    cross-slice groups, in the same order (`dist.new_group` is
-    collective over the world), and keeps the ones it belongs to. The
-    mesh's ranks are 0 .. data * seq - 1, the whole world (`resolve`), so
-    its data x seq group is the world's."""
-    s_ways, dcn = spec.seq, spec.dcn
+def _inner_mesh(data: int, spec: MeshSpec, devices, axis: str) -> Mesh:
+    """A (data, seq) or (data, expert) mesh, `axis` the inner one: rank =
+    data_index * ways + inner_index, the data index dcn-major on a
+    factored mesh. Every rank creates every inner group, then for each
+    inner index its data group, its slices and its cross-slice groups,
+    in the same order (`dist.new_group` is collective over the world),
+    and keeps the ones it belongs to. The mesh's ranks are 0 .. data *
+    ways - 1, the whole world (`resolve`), so a (data, seq) mesh's data
+    x seq group is the world's."""
+    ways, dcn = getattr(spec, axis), spec.dcn
     ici = data // dcn
     rank = dist.get_rank()
-    d_idx, s_idx = divmod(rank, s_ways)
-    seq_group = data_group = ici_group = dcn_group = None
+    d_idx, i_idx = divmod(rank, ways)
+    inner_group = data_group = ici_group = dcn_group = None
     for d in range(data):
-        g = dist.new_group([d * s_ways + s for s in range(s_ways)])
+        g = dist.new_group([d * ways + i for i in range(ways)])
         if d == d_idx:
-            seq_group = g
-    for s in range(s_ways):
-        g = dist.new_group([d * s_ways + s for d in range(data)])
-        if s == s_idx:
+            inner_group = g
+    for i in range(ways):
+        g = dist.new_group([d * ways + i for d in range(data)])
+        if i == i_idx:
             data_group = g
         if dcn == 1:
             continue
         for k in range(dcn):
-            g = dist.new_group([(k * ici + j) * s_ways + s
+            g = dist.new_group([(k * ici + j) * ways + i
                                 for j in range(ici)])
-            if s == s_idx and d_idx // ici == k:
+            if i == i_idx and d_idx // ici == k:
                 ici_group = g
         for j in range(ici):
-            g = dist.new_group([(k * ici + j) * s_ways + s
+            g = dist.new_group([(k * ici + j) * ways + i
                                 for k in range(dcn)])
-            if s == s_idx and d_idx % ici == j:
+            if i == i_idx and d_idx % ici == j:
                 dcn_group = g
+    if axis == "expert":
+        return Mesh(data, data_group, spec.stage, devices, dcn, ici_group,
+                    dcn_group, data_index=d_idx, expert=ways,
+                    expert_group=inner_group, expert_index=i_idx)
     return Mesh(data, data_group, spec.stage, devices, dcn, ici_group,
-                dcn_group, data_index=d_idx, seq=s_ways,
-                seq_group=seq_group, seq_index=s_idx,
+                dcn_group, data_index=d_idx, seq=ways,
+                seq_group=inner_group, seq_index=i_idx,
                 data_seq_group=dist.group.WORLD)
 
 
@@ -296,7 +315,7 @@ def mesh_axes(mesh: Mesh) -> dict:
     data = ({"dcn": mesh.dcn, "ici": mesh.ici} if mesh.dcn > 1
             else {"data": mesh.data})
     return {**data, "stage": mesh.stage, "model": mesh.model,
-            "seq": mesh.seq, "expert": 1}
+            "seq": mesh.seq, "expert": mesh.expert}
 
 
 def data_hierarchy_axes(mesh: Mesh):
@@ -308,6 +327,6 @@ def data_hierarchy_axes(mesh: Mesh):
     return mesh.group, mesh.ici_group, mesh.dcn_group
 
 
-__all__ = ["AXIS_SLICES", "PLAN_SLICE", "Mesh", "MeshSpec", "data_axis_names",
+__all__ = ["PLAN_SLICE", "Mesh", "MeshSpec", "data_axis_names",
            "data_axis_size", "data_hierarchy_axes", "local_devices",
            "make_mesh", "mesh_axes"]

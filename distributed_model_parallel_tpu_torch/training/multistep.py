@@ -67,7 +67,8 @@ def check_capturable(engine: Any) -> None:
     device = getattr(engine, "device", None)
     if mesh is not None and device is not None \
             and torch.device(device).type == "cuda":
-        for name in ("group", "model_group", "seq_group"):
+        for name in ("group", "model_group", "seq_group",
+                     "expert_group"):
             group = getattr(mesh, name, None)
             if group is not None and \
                     torch.distributed.get_backend(group) == "gloo":

@@ -1180,3 +1180,181 @@ def serving_layouts(rank, world, payload) -> dict:
             torch.equal(a, b)
             for a, b in zip(tree_leaves(placed), tree_leaves(split)))
     return out
+
+
+def moe_suite(rank, world, payload) -> dict:
+    """The port's expert parallelism over the world (`tests/
+    test_torch_port_moe_exchange.py`):
+
+    * `payload["ops"]`: for each (dcn, overlap, wire) case, this rank's
+      (E, b, C, D) buffer `xin[rank]` through `dispatch_exchange`, the
+      flat all-to-all and back through `combine_exchange`, and
+      `exchanged_expert_ffn` with this rank's expert block of `w`: its
+      output and the gradients of sum(out * cot[rank]), with the hops;
+    * `payload["ep"]`: (data, expert, dcn, dispatch, overlap, wire)
+      configs of `ExpertParallelLMEngine` from the reference's weights,
+      SGD(0.9, 1e-2) over the global id batches: metric sums a step, the
+      canonical parameters, hops and the local expert-parameter bytes;
+    * `payload["ddp"]`: (grad_reduction, expert_dispatch, overlap)
+      configs of `DDPEngine` on the MoE BERT classifier ("gspmd": the
+      `DataParallelEngine`);
+    * `payload["save"]` / `payload["restore"]`: a hierarchical EP state
+      saved in the sharded format after `len(ids) - 1` steps, and one
+      restored at this world's S, each then taking the last step;
+    * `payload["cli"]`: `cli/lm.main` runs, as `cli_suite`'s."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from distributed_model_parallel_tpu_torch import checkpointing
+    from distributed_model_parallel_tpu_torch.models import bert as tbert
+    from distributed_model_parallel_tpu_torch.models.convert import (
+        from_jax_params,
+    )
+    from distributed_model_parallel_tpu_torch.models.gpt import (
+        GPTConfig,
+        gpt_lm_model,
+    )
+    from distributed_model_parallel_tpu_torch.ops import expert_dispatch \
+        as xd
+    from distributed_model_parallel_tpu_torch.parallel.data_parallel import (
+        DataParallelEngine,
+        DDPEngine,
+    )
+    from distributed_model_parallel_tpu_torch.parallel.expert_parallel \
+        import ExpertParallelLMEngine
+    from distributed_model_parallel_tpu_torch.runtime.mesh import (
+        MeshSpec,
+        make_mesh,
+    )
+    from distributed_model_parallel_tpu_torch.training.optim import SGD
+
+    meshes = {}
+
+    def mesh(d, n=1, k=1):
+        if (d, n, k) not in meshes:
+            meshes[d, n, k] = make_mesh(MeshSpec(data=d, expert=n, dcn=k))
+        return meshes[d, n, k]
+
+    def t(a, grad=False):
+        return torch.from_numpy(np.array(a, copy=True)).requires_grad_(grad)
+
+    out = {}
+    for case in payload.get("ops", ()):
+        k, overlap, wire = case
+        m = mesh(world, 1, k)
+        xin, w, cot = (payload["xin"][rank], payload["w"],
+                       payload["cot"][rank])
+        el = w["w_in"].shape[0] // world
+        rec = {}
+        if not overlap and wire == "none":
+            z = xd.dispatch_exchange(t(xin), m.ici_group, m.dcn_group)
+            rec["z"] = z.numpy()
+            rec["flat"] = xd.flat_expert_exchange(t(xin), m.group).numpy()
+            rec["back"] = xd.combine_exchange(z, m.ici_group,
+                                              m.dcn_group).numpy()
+            rec["flat_back"] = xd.flat_expert_return(
+                t(rec["flat"]), m.group).numpy()
+        tx = t(xin, True)
+        tw = {n: t(v[rank * el:(rank + 1) * el], True) for n, v in w.items()}
+        before = xd.hops
+        y = xd.exchanged_expert_ffn(tx, tw, m.ici_group, m.dcn_group,
+                                    overlap, wire)
+        rec["fwd_hops"] = xd.hops - before
+        (y * t(cot)).sum().backward()
+        rec["bwd_hops"] = xd.hops - before - rec["fwd_hops"]
+        rec["y"] = y.detach().numpy()
+        rec["dx"] = tx.grad.numpy()
+        rec["dw"] = {n: v.grad.numpy() for n, v in tw.items()}
+        out["ops", case] = rec
+
+    ids = payload.get("ids", ())
+
+    def lm_engine(d, n, k, dispatch, overlap, wire):
+        cfg = GPTConfig(**payload["gpt"])
+        return ExpertParallelLMEngine(
+            gpt_lm_model(cfg), SGD(0.9, 1e-2), mesh(d, n, k), device="cpu",
+            dispatch=dispatch, overlap=overlap, dcn_compression=wire,
+            pad_token_id=0)
+
+    def lm_steps(eng, ts, batches):
+        sums = []
+        for b in batches:
+            ts, m = eng.train_step(ts, *eng.shard_batch(b), payload["lr"])
+            sums.append({key: float(v) for key, v in m.items()})
+        return ts, sums
+
+    def start(eng):
+        state = eng.model.init(torch.Generator())[1]
+        return eng.state_from_params(from_jax_params(payload["params"]),
+                                     state)
+
+    def expert_bytes(ts):
+        return sum(v.numel() * v.element_size()
+                   for b in ts.params["blocks"].values() if "moe" in b
+                   for v in b["moe"]["experts"].values())
+
+    for config in payload.get("ep", ()):
+        eng = lm_engine(*config)
+        before = xd.hops
+        ts, sums = lm_steps(eng, start(eng), ids)
+        out["ep", config] = {"sums": sums,
+                             "tree": eng.to_canonical(ts),
+                             "hops": xd.hops - before,
+                             "expert_bytes": expert_bytes(ts),
+                             "grad_reductions": eng.grad_reductions}
+    for config in payload.get("ddp", ()):
+        gr, dispatch, overlap = config
+        cfg = tbert.BertConfig(**payload["bert"])
+        model = tbert.bert_for_classification(payload["classes"], cfg)
+        if gr == "gspmd":  # the global-batch engine
+            eng = DataParallelEngine(model, SGD(0.9, 1e-2), mesh(world),
+                                     device="cpu")
+        else:
+            eng = DDPEngine(model, SGD(0.9, 1e-2), mesh(world),
+                            device="cpu", grad_reduction=gr, bucket_mb=0.02,
+                            expert_dispatch=dispatch, expert_overlap=overlap)
+        ts = eng.state_from_params(*from_jax_params(
+            payload["bert_params"], model=model,
+            state=payload["bert_state"]))
+        sums = []
+        for b_ids, labels in payload["bert_batches"]:
+            rows = slice(rank * len(labels) // world,
+                         (rank + 1) * len(labels) // world)
+            ts, m = eng.train_step(ts, *eng.shard_batch(b_ids[rows],
+                                                        labels[rows]),
+                                   payload["lr"])
+            sums.append({key: float(v) for key, v in m.items()})
+        out["ddp", config] = {
+            "sums": sums, "params": {p: v.detach().numpy() for p, v in
+                                     _flat_leaves(ts.params).items()}}
+    if "save" in payload:
+        eng = lm_engine(world, 1, 1, "hierarchical", False, "none")
+        ts, _ = lm_steps(eng, start(eng), ids[:-1])
+        checkpointing.save_sharded(payload["save"],
+                                   eng.to_canonical_sharded(ts), acc=0.0,
+                                   epoch=0)
+        dist.barrier()
+        ts, sums = lm_steps(eng, ts, ids[-1:])
+        out["saved_then"] = {"sums": sums,
+                             "tree": eng.to_canonical(ts)}
+    for config in payload.get("restore", ()):
+        eng = lm_engine(*config)
+        like = start(eng)
+        tree, _, _ = checkpointing.restore_checkpoint(
+            payload["restore_dir"], eng.canonical_spec(like))
+        ts, sums = lm_steps(eng, eng.from_canonical(tree, like), ids[-1:])
+        out["restored", config] = {"sums": sums,
+                                   "tree": eng.to_canonical(ts)}
+    if "cli" in payload:
+        out["cli"] = cli_suite(rank, world, payload["cli"])
+    return out
+
+
+def _flat_leaves(tree, prefix="") -> dict:
+    if isinstance(tree, dict):
+        flat = {}
+        for key, v in tree.items():
+            flat.update(_flat_leaves(v, f"{prefix}{key}/"))
+        return flat
+    return {prefix[:-1]: tree}

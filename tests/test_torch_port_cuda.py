@@ -1243,3 +1243,70 @@ def test_ring_flash_at_two_shards_launches_per_rank(cuda, tmp_path):
                                   axis=1)
             np.testing.assert_allclose(part, w, rtol=1e-4, atol=1e-4,
                                        err_msg=f"{causal} {i}")
+
+
+def _moe_lm():
+    """A small MoE GPT (block 1 of 2 routed, 4 experts) whose capacity
+    factor 0.5 drops tokens."""
+    from distributed_model_parallel_tpu_torch.models.gpt import (
+        GPTConfig,
+        gpt_lm_model,
+    )
+
+    return gpt_lm_model(GPTConfig(
+        vocab_size=97, dim=64, num_layers=2, num_heads=4, ffn_dim=256,
+        max_position=32, dropout_rate=0.0, pad_token_id=0, num_experts=4,
+        moe_every=2, moe_capacity_factor=0.5))
+
+
+@pytest.mark.cuda
+def test_moe_lm_step_on_the_card_matches_the_cpu(cuda):
+    """One ExpertParallelLMEngine step with dropped tokens, on the card
+    against the CPU: loss and every parameter at rtol 1e-5, TF32 off."""
+    from distributed_model_parallel_tpu_torch.parallel.expert_parallel \
+        import ExpertParallelLMEngine
+
+    model = _moe_lm()
+    params, state = model.init(torch.Generator().manual_seed(0))
+    ids = np.random.RandomState(0).randint(1, 97, (4, 32))
+    out = {}
+    for dev in ("cuda", "cpu"):
+        eng = ExpertParallelLMEngine(model, SGD(), Mesh(1, None),
+                                     device=dev, pad_token_id=0)
+        ts, m = eng.train_step(eng.state_from_params(params, state),
+                               *eng.shard_batch(ids), 0.05)
+        out[dev] = (m, [t.detach().cpu() for t in tree_leaves(ts.params)])
+    (mc, pc), (mh, ph) = out["cuda"], out["cpu"]
+    torch.testing.assert_close(mc["loss_sum"].cpu(), mh["loss_sum"],
+                               rtol=1e-5, atol=0)
+    for a, b in zip(pc, ph):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-7)
+
+
+@pytest.mark.cuda
+def test_moe_hierarchical_at_one_rank_equals_gspmd_on_the_card(cuda):
+    """At one rank the hierarchical exchange is the identity: three steps
+    of hierarchical (with and without overlap) equal gspmd's bit for
+    bit on the card."""
+    from distributed_model_parallel_tpu_torch.parallel.expert_parallel \
+        import ExpertParallelLMEngine
+
+    model = _moe_lm()
+    params, state = model.init(torch.Generator().manual_seed(1))
+    ids = np.random.RandomState(1).randint(1, 97, (4, 32))
+    runs = []
+    for dispatch, overlap in (("gspmd", False), ("hierarchical", False),
+                              ("hierarchical", True)):
+        eng = ExpertParallelLMEngine(model, SGD(), Mesh(1, None),
+                                     device=cuda, dispatch=dispatch,
+                                     overlap=overlap, pad_token_id=0)
+        ts = eng.state_from_params(params, state)
+        losses = []
+        for _ in range(3):
+            ts, m = eng.train_step(ts, *eng.shard_batch(ids), 0.05)
+            losses.append(m["loss_sum"].cpu())
+        runs.append((losses, [t.detach().cpu()
+                              for t in tree_leaves(ts.params)]))
+    for losses, leaves in runs[1:]:
+        assert all(torch.equal(a, b) for a, b in zip(losses, runs[0][0]))
+        assert all(torch.equal(a, b) for a, b in zip(leaves, runs[0][1]))

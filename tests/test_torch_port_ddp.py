@@ -271,11 +271,26 @@ def test_ddp_engine_refuses_later_slices(knob, value, slice_):
     """Knobs of later slices are refused, naming the slice. The
     reducer's knobs, refused before the gradient-reduction slice was
     ported, now behave as the reference's: a bucketed engine builds on
-    any mesh, a compressed wire needs a 'dcn' axis (its message)."""
+    any mesh, a compressed wire needs a 'dcn' axis (its message). The
+    expert dispatch, refused before the expert-parallel slice, builds
+    the hierarchical exchange's policy (tests/test_torch_port_moe_
+    exchange.py holds its steps); an unknown dispatch or the overlap
+    without it is refused with the reference's message."""
     kw = dict(mesh=ONE_PROCESS, device="cpu")
-    if slice_ != "gradient-reduction":
-        with pytest.raises(ValueError, match=f"not ported.*{slice_} slice"):
-            DDPEngine(tiny_cnn(10), SGD(), **kw, **{knob: value})
+    if slice_ == "expert-parallel":
+        from distributed_model_parallel_tpu_torch.ops.expert_dispatch \
+            import LocalExpertDispatch
+
+        eng = DDPEngine(tiny_cnn(10), SGD(), **kw, **{knob: value},
+                        expert_overlap=True)
+        assert isinstance(eng._expert_dispatch, LocalExpertDispatch)
+        assert eng._expert_dispatch.overlap
+        with pytest.raises(ValueError, match="must be None or "
+                                             "'hierarchical'"):
+            DDPEngine(tiny_cnn(10), SGD(), **kw, **{knob: "flat"})
+        with pytest.raises(ValueError, match="set expert_dispatch="
+                                             "'hierarchical'"):
+            DDPEngine(tiny_cnn(10), SGD(), **kw, expert_overlap=True)
     elif knob == "grad_reduction":
         eng = DDPEngine(tiny_cnn(10), SGD(), **kw, **{knob: value})
         assert eng.grad_reduction == value and eng._reducer is not None
@@ -294,10 +309,13 @@ def test_ddp_engine_refuses_later_slices(knob, value, slice_):
 def test_mesh_spec_refuses_other_axes(spec, match):
     """Axes of later slices are refused by name; the dcn factor, ported
     with the gradient-reduction slice, must divide the data axis (the
-    reference's check), and the model and seq axes, ported with the
-    tensor- and sequence-parallel slices, must divide the world."""
-    if match in ("tensor-parallel slice", "sequence-parallel slice"):
-        axis = "model" if spec.model > 1 else "seq"
+    reference's check), and the model, seq and expert axes, ported with
+    the tensor-, sequence- and expert-parallel slices, must divide the
+    world."""
+    if match in ("tensor-parallel slice", "sequence-parallel slice",
+                 "expert-parallel slice"):
+        axis = next(a for a in ("model", "seq", "expert")
+                    if getattr(spec, a) > 1)
         with pytest.raises(ValueError,
                            match=rf"{axis}=2\) must divide the world"):
             spec.resolve(1)

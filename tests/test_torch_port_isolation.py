@@ -1,6 +1,6 @@
 """The PyTorch port stands alone: no file of
-`distributed_model_parallel_tpu_torch/` (nor `chip_smoke.py`, nor
-`pp_host_probe.py`) imports jax or the JAX package, every port module
+`distributed_model_parallel_tpu_torch/` (nor `chip_smoke.py`,
+`chip_smoke_probe.py` or `pp_host_probe.py`) imports jax or the JAX package, every port module
 imports in a process where
 jax cannot be imported, and the port's serve and data-parallel CLIs
 run on the GPU by default, refuse to start without one unless
@@ -50,8 +50,9 @@ def _imports(path: Path):
 
 
 def test_no_file_of_the_port_imports_jax_or_the_jax_package():
-    files = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py",
-                                          REPO / "pp_host_probe.py"]
+    files = sorted(PORT.rglob("*.py")) + [
+        REPO / "chip_smoke.py", REPO / "chip_smoke_probe.py",
+        REPO / "pp_host_probe.py"]
     assert len(files) > 10
     bad = [
         f"{f.relative_to(REPO)}:{line} imports {name}"

@@ -316,7 +316,10 @@ def test_engine_refuses_later_slices(knob, value, slice_):
         sums = [eng.train_step(eng.init_state(0), *eng.shard_batch(ids),
                                0.1)[1] for eng in engines]
         assert float(sums[0]["loss_sum"]) == float(sums[1]["loss_sum"])
-    with pytest.raises(ValueError, match="expert-parallel slice"):
+    # MoE stacks train under the expert-parallel LM engine; this one
+    # refuses them with the reference's message.
+    with pytest.raises(NotImplementedError, match="not supported by "
+                       "CausalLMSequenceParallelEngine.*ExpertParallel"):
         CausalLMSequenceParallelEngine(
             tgpt.GPTConfig(**dict(CFG_KW, num_experts=4)), toptim.SGD(),
             device="cpu")
@@ -408,6 +411,32 @@ def test_cli_refuses_flags_of_later_slices(flags, slice_, monkeypatch,
                          "--pipeline-stages", "2"])
         check_lm_args(lm_cli.build_parser().parse_args(
             [*flags, "--seq-shards", "2"]))
+        return
+    if flags[0] == "--moe-dispatch":
+        with pytest.raises(SystemExit, match="configures the MoE expert "
+                           "exchange; it has no effect without "
+                           "--moe-experts > 0"):
+            lm_cli.main(["--device", "cpu", *flags])
+        return
+    if flags[0] == "--moe-experts":
+        got = {}
+
+        class Built(Exception):
+            pass
+
+        def built(engine, train, val, cfg, **kw):
+            got.update(engine=engine, cfg=cfg)
+            raise Built
+
+        monkeypatch.setattr(lm_cli, "Trainer", built)
+        with pytest.raises(Built):
+            lm_cli.main(["--device", "cpu", *flags])
+        from distributed_model_parallel_tpu_torch.parallel.expert_parallel \
+            import ExpertParallelLMEngine
+
+        assert isinstance(got["engine"], ExpertParallelLMEngine)
+        assert got["engine"].dispatch == "gspmd"
+        assert got["cfg"].checkpoint_extra["gpt_config"]["num_experts"] == 4
         return
     if flags[0] in ("--dcn-slices", "--dcn-compression"):
         # Ported with the gradient-reduction slice: one rank has no

@@ -208,8 +208,19 @@ def test_bert_stages_step_equals_the_whole_model(schedule):
 
 
 def test_bert_refuses_moe_and_vit_names_the_image_size():
-    with pytest.raises(NotImplementedError, match="expert-parallel slice"):
-        bert.bert_for_classification(2, bert.BertConfig(num_experts=4))
+    # MoE encoder layers are built since the expert-parallel slice: every
+    # moe_every-th layer routes its FFN (tests/test_torch_port_moe.py
+    # holds the stack against the reference), and moe_every 0 is refused
+    # with the reference's message.
+    moe_bert = bert.bert_for_classification(
+        2, bert.BertConfig(num_layers=2, num_experts=4, hidden_size=32,
+                           num_heads=4, intermediate_size=64))
+    _, state = moe_bert.init(torch.Generator())
+    assert state["blocks"]["0"] == {}
+    assert set(state["blocks"]["1"]["moe"]) == {"moe_aux"}
+    with pytest.raises(ValueError, match="moe_every must be >= 1"):
+        bert.bert_for_classification(2, bert.BertConfig(num_experts=4,
+                                                        moe_every=0))
     model = vit.vit(10, vit.ViTConfig(**VIT))
     p, s = model.init(torch.Generator())
     with pytest.raises(ValueError, match="configured for 8x8"):
