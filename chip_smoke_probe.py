@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
-"""Measurements behind two settings of chip_smoke.py. Run from the
-repository root on a machine with a CUDA GPU (about two minutes on an
+"""Measurements behind three settings of chip_smoke.py. Run from the
+repository root on a machine with a CUDA GPU (about three minutes on an
 H100):
 
-    python3 chip_smoke_probe.py          # both parts, on the card
+    python3 chip_smoke_probe.py          # every part, on the card
+    python3 chip_smoke_probe.py fsdp     # only part 3 (or: tally, ep)
     python3 chip_smoke_probe.py --cpu    # part 2 at small widths, gloo
                                          # CPU ranks
 
@@ -18,6 +19,11 @@ H100):
    smoke runs them, then the int8 run again with the dcn stage's decoded
    int8 chunks zeroed (a broken wire), its readings printed rather than
    held.
+3. The int8 dcn bars of phase 13 (b) (S12_M2_INT8_LOSS_REL,
+   S12_M2_INT8_PARAM_REL): FSDP at N 2 on a dcn 2 mesh with the int8
+   wire against N 1 as the smoke runs it, then again with every chunk
+   that the weight gather's `coded_ppermute` hops deliver zeroed (a
+   broken wire), its readings printed rather than held.
 """
 
 import os
@@ -49,6 +55,37 @@ def broken_rank(*args, **kw):
 
     xd.wire_decode = zeroed
     return cs.s15_gloo_rank(*args, **kw)
+
+
+def broken_fsdp_rank(*args, **kw):
+    """`chip_smoke.s12_gloo_rank` with every chunk that FSDP's coded
+    weight gather receives over the cross-slice ring zeroed."""
+    from distributed_model_parallel_tpu_torch.parallel import fsdp
+
+    real = fsdp.coded_ppermute
+
+    def zeroed(x, group, perm, wire="none"):
+        out = real(x, group, perm, wire)
+        return torch.zeros_like(out) if wire == "int8" else out
+
+    fsdp.coded_ppermute = zeroed
+    return cs.s12_gloo_rank(*args, **kw)
+
+
+def fsdp_bars():
+    t0 = time.perf_counter()
+    cs.s12_fsdp_m2()
+    print(f"sound wire: {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    rank, require = cs.s12_gloo_rank, cs.require
+    cs.s12_gloo_rank = broken_fsdp_rank
+    cs.require = lambda ok, msg: ok or print("broken wire, not held:",
+                                             msg[:3000], flush=True)
+    try:
+        cs.s12_fsdp_m2()
+    finally:
+        cs.s12_gloo_rank, cs.require = rank, require
+    print(f"broken wire: {time.perf_counter() - t0:.1f} s", flush=True)
 
 
 def int8_bars(lm, device):
@@ -116,6 +153,8 @@ def main() -> int:
     from distributed_model_parallel_tpu_torch.cli import lm
 
     cpu = "--cpu" in sys.argv[1:]
+    parts = [a for a in sys.argv[1:] if a != "--cpu"] or ["tally", "ep",
+                                                         "fsdp"]
     os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     try:
         with cs.lm_corpus_made_once():
@@ -126,8 +165,12 @@ def main() -> int:
             cs.require(torch.cuda.is_available(), "no CUDA GPU")
             torch.backends.cuda.matmul.allow_tf32 = False
             torch.backends.cudnn.allow_tf32 = False
-            tally_timing()
-            int8_bars(lm, "cuda")
+            if "tally" in parts:
+                tally_timing()
+            if "ep" in parts:
+                int8_bars(lm, "cuda")
+            if "fsdp" in parts:
+                fsdp_bars()
     finally:
         for directory in cs.SCRATCH:
             shutil.rmtree(directory, ignore_errors=True)

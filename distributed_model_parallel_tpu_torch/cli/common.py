@@ -505,18 +505,135 @@ def add_auto_tune_flags(parser: argparse.ArgumentParser) -> None:
 
 # Later port slices named by the `check_*_args` refusals.
 SLICES = {
-    "plan": "the composed-parallel-plan slice",
     "tune": "the auto-tuning slice",
 }
 
 
-def check_lm_args(args) -> None:
+def _parse_plan(spec: str):
+    from distributed_model_parallel_tpu_torch.parallel.plan import (
+        parse_plan,
+    )
+
+    try:
+        return parse_plan(spec)
+    except ValueError as e:
+        raise SystemExit(f"--plan: {e}") from e
+
+
+def check_lm_plan_args(args):
+    """The LM CLI's `--plan` with the JAX CLI's guards and messages (None
+    without the flag): `auto` rides the tuner (refused, naming its
+    slice); the plan IS the mesh factorization, so the per-axis flags,
+    the schedule flags (the pp token's suffix spells the schedule),
+    `--microbatches` at pp 1, an ep token, `--moe-experts`, `--attention`
+    and `--collective-matmul` at sp 1, `--dcn-slices` and the reducer
+    knobs (one fused reduction) are refused."""
+    if not args.plan:
+        return None
+    if args.plan == "auto":
+        raise SystemExit(
+            "--plan auto rides the tuner (--auto-tune search or "
+            "--auto-tune PLAN.json picks the spec from the plan family's "
+            "search space), which is not ported to the PyTorch package "
+            f"yet: it belongs to {SLICES['tune']} (ROADMAP.md) — spell "
+            "the plan, e.g. --plan pp2xsp2xdp2")
+    plan = _parse_plan(args.plan)
+    if args.pipeline_stages > 1 or args.seq_shards > 1:
+        raise SystemExit(
+            f"--plan {plan.spec} IS the mesh factorization; it "
+            "composes with neither --pipeline-stages nor "
+            "--seq-shards (the plan's pp/sp fields replace them) "
+            "— drop the per-axis flags")
+    if args.pipeline_schedule != "gpipe" or args.virtual_stages != 1:
+        raise SystemExit(
+            f"plan {plan.spec}: ParallelPlan.schedule rides the "
+            "pp token's suffix (--plan pp2-1f1b, pp4-int2); "
+            "--pipeline-schedule and --virtual-stages ride "
+            "--pipeline-stages, not --plan — drop the flags and "
+            "spell the schedule in the spec")
+    if args.microbatches != 1 and plan.pp <= 1:
+        raise SystemExit(
+            f"--microbatches schedules the plan's pipeline axis, "
+            f"but plan {plan.spec} has pp=1 — add a ppN token or "
+            "drop the flag")
+    if plan.ep > 1:
+        raise SystemExit(
+            f"plan {plan.spec}: the CLI's expert surface is "
+            "--moe-experts/--moe-dispatch (experts ride the data "
+            "fabric); the plan's ep field is the engine/tuner "
+            "surface — drop the ep token")
+    if args.moe_experts > 0:
+        raise SystemExit(
+            f"--moe-experts trains under the expert-parallel "
+            f"engine, but plan {plan.spec} has ParallelPlan.ep=1 "
+            "and ep composition is not built — drop --plan or "
+            "--moe-experts")
+    if args.attention != "ring" and plan.tp_or_sp <= 1:
+        raise SystemExit(
+            f"--attention selects the 'seq'-axis distribution, "
+            f"but plan {plan.spec} has sp=1 (stages attend "
+            "locally, dense causal) — add an spN token or drop "
+            "the flag")
+    if args.collective_matmul and plan.tp_or_sp <= 1:
+        raise SystemExit(
+            f"--collective-matmul rings over the plan's 'seq' "
+            f"axis, but plan {plan.spec} has sp=1 — add an spN "
+            "token or drop the flag")
+    if args.dcn_slices != 1:
+        raise SystemExit(
+            f"--dcn-slices factors the data axis for the "
+            "hierarchical reducer; the stage-major plan mesh "
+            f"(plan {plan.spec}) lays its pp field across the "
+            "slice boundary by construction — drop the flag")
+    if (args.grad_reduction != "monolithic"
+            or args.dcn_compression != "none"
+            or args.bucket_mb is not None
+            or args.overlap_stages is not None):
+        raise SystemExit(
+            f"plan {plan.spec} reduces gradients with ONE fused "
+            "psum over ('stage','data','seq'); the "
+            "--grad-reduction/--bucket-mb/--overlap-stages/"
+            "--dcn-compression knobs ride the single-axis "
+            "engines — drop the flags or --plan")
+    return plan
+
+
+def check_plan_world(plan, world: int, global_batch: int, seq_len: int,
+                     microbatches: int) -> None:
+    """The JAX LM CLI's plan checks after the backend is up: the plan
+    needs its ranks (the port's ranks are its devices, so a world the
+    plan does not fill, whose extra ranks would idle, is refused too),
+    the batch divides into its microbatches x data shards and the
+    sequence into its seq shards."""
+    if plan.num_devices > world:
+        raise SystemExit(
+            f"--plan {plan.spec} needs {plan.num_devices} "
+            f"device(s), {world} present")
+    if plan.num_devices < world:
+        raise SystemExit(
+            f"--plan {plan.spec} factors {plan.num_devices} device(s); "
+            f"this world has {world} ranks, one a device — launch "
+            f"{plan.num_devices} ranks or respell the plan's data axis")
+    plan_mb = (microbatches if microbatches != 1
+               else plan.pp * plan.virtual_stages)
+    if global_batch % max(plan.dp * plan_mb, 1):
+        raise SystemExit(
+            f"--batch-size {global_batch} must divide into "
+            f"{plan_mb} microbatch(es) x {plan.dp}-way 'data' "
+            f"shards (plan {plan.spec})")
+    if seq_len % plan.tp_or_sp:
+        raise SystemExit(
+            f"--seq-len {seq_len} not divisible by plan "
+            f"{plan.spec}'s {plan.tp_or_sp}-way 'seq' axis")
+
+
+def check_lm_args(args):
     """Startup-time validation of the LM CLI surface: every flag whose
     feature belongs to a later port slice is refused, naming the slice,
-    before any engine or corpus is built."""
+    before any engine or corpus is built. Returns the parsed `--plan`
+    (None without it)."""
     s = SLICES
     refusals = (
-        ("--plan", args.plan, s["plan"]),
         ("--auto-tune / --auto-tune-out / --auto-tune-calibration",
          args.auto_tune or args.auto_tune_out or args.auto_tune_calibration,
          s["tune"]),
@@ -528,7 +645,8 @@ def check_lm_args(args) -> None:
                 f"belongs to {later} (ROADMAP.md) — drop the flag, or run "
                 "the JAX package's cli/lm.py"
             )
-    check_seq_shard_args(args)
+    plan = check_lm_plan_args(args)
+    check_seq_shard_args(args, plan)
     check_moe_args(args)
     check_grad_reduction_args(args)
     check_checkpoint_args(args)
@@ -557,7 +675,8 @@ def check_lm_args(args) -> None:
                 f"--layers {args.layers}: a backward segment needs at "
                 "least one decoder block"
             )
-    check_lm_pipeline_args(args)
+    check_lm_pipeline_args(args, plan)
+    return plan
 
 
 def check_moe_args(args) -> None:
@@ -631,12 +750,13 @@ def check_moe_experts_divide(num_experts: int, mesh) -> None:
             "evenly (each device owns an E/S expert block)")
 
 
-def check_seq_shard_args(args) -> None:
+def check_seq_shard_args(args, plan=None) -> None:
     """The LM CLI's sequence-parallel flags, with the JAX CLI's checks and
     messages: stages exclude seq shards and collective matmul, collective
-    matmul rings over two seq shards or more, the sequence splits evenly,
-    and Ulysses scatters whole heads."""
-    n = args.seq_shards
+    matmul rings over two seq shards or more (under `--plan` the plan's
+    sp field rules), the sequence splits evenly, and Ulysses scatters
+    whole heads."""
+    n = plan.tp_or_sp if plan is not None else args.seq_shards
     if n < 1:
         raise SystemExit(f"--seq-shards must be >= 1, got {n}")
     if args.pipeline_stages > 1 and n > 1:
@@ -650,13 +770,13 @@ def check_seq_shard_args(args) -> None:
             "engine's FFN collectives; it has no effect under "
             "--pipeline-stages (stages compute dense locally)"
         )
-    if args.collective_matmul and n < 2:
+    if args.collective_matmul and n < 2 and plan is None:
         raise SystemExit(
             "--collective-matmul rings over the 'seq' axis; a size-1 "
             "ring is a plain dot, so the flag would silently do "
             "nothing — set --seq-shards >= 2"
         )
-    if args.seq_len % n:
+    if args.seq_len % n and plan is None:
         raise SystemExit(
             f"--seq-len {args.seq_len} not divisible by --seq-shards {n}")
     if args.attention.startswith("ulysses") and args.heads % n:
@@ -664,11 +784,12 @@ def check_seq_shard_args(args) -> None:
                          f"'seq' axis size ({n})")
 
 
-def check_lm_pipeline_args(args) -> None:
+def check_lm_pipeline_args(args, plan=None) -> None:
     """The LM CLI's pipeline flags (the JAX CLI's checks): stages attend
     dense (no --attention), and the schedule knobs need
     --pipeline-stages > 1 (`check_seq_shard_args` keeps sequence shards
-    and collective matmul off the stages)."""
+    and collective matmul off the stages); under `--plan` the plan's pp
+    field takes --microbatches (`check_lm_plan_args`)."""
     stages = args.pipeline_stages
     if stages > 1 and args.attention != "ring":
         raise SystemExit(
@@ -682,6 +803,8 @@ def check_lm_pipeline_args(args) -> None:
         raise SystemExit(
             f"--pipeline-stages must be >= 1, got {stages}")
     if stages == 1:
+        if plan is not None:
+            return
         for flag, bad in (
             ("--microbatches", args.microbatches != 1),
             ("--pipeline-schedule", args.pipeline_schedule != "gpipe"),
@@ -934,13 +1057,37 @@ def add_common_tpu_flags(parser: argparse.ArgumentParser) -> None:
     add_metrics_out_flag(parser)
 
 
-def check_data_parallel_args(args) -> None:
+def check_data_parallel_plan(args):
+    """The data-parallel CLI's `--plan dpN|fsdpN` (None without it), the
+    JAX CLI's degenerate plan spelling of `--engine ddp|fsdp`, with its
+    guards: pp / sp / ep tokens are the LM CLI's surface, and an
+    `--engine` that is not the one the plan spells conflicts. Sets
+    `args.engine`."""
+    if not args.plan:
+        return None
+    plan = _parse_plan(args.plan)
+    if plan.pp > 1 or plan.tp_or_sp > 1 or plan.ep > 1:
+        raise SystemExit(
+            f"--plan {plan.spec}: the image engines run the "
+            "data axis only — the plan's pp/sp/ep fields are the "
+            "LM CLI's surface (cli/lm.py --plan)")
+    want = "fsdp" if plan.fsdp else "ddp"
+    if args.engine not in ("gspmd", want):
+        raise SystemExit(
+            f"--plan {plan.spec} spells --engine {want} (plan "
+            f"field {'fsdp' if plan.fsdp else 'dp'}); it "
+            f"conflicts with --engine {args.engine} — drop one")
+    args.engine = want
+    return plan
+
+
+def check_data_parallel_args(args):
     """Startup-time validation of the data-parallel CLI surface: every
     flag whose feature belongs to a later port slice is refused, naming
-    the slice, before any dataset, process group or engine is built."""
+    the slice, before any dataset, process group or engine is built.
+    Returns the parsed `--plan` (None without it)."""
     s = SLICES
     refusals = (
-        ("--plan", args.plan, s["plan"]),
         ("--auto-tune / --auto-tune-out / --auto-tune-calibration",
          args.auto_tune or args.auto_tune_out or args.auto_tune_calibration,
          s["tune"]),
@@ -952,6 +1099,7 @@ def check_data_parallel_args(args) -> None:
                 f"belongs to {later} (ROADMAP.md) — drop the flag, or run "
                 "the JAX package's cli/data_parallel.py"
             )
+    plan = check_data_parallel_plan(args)
     check_grad_reduction_args(args)
     check_checkpoint_args(args)
     if args.grad_reduction != "monolithic" and args.engine not in (
@@ -1001,6 +1149,7 @@ def check_data_parallel_args(args) -> None:
         raise SystemExit("--sync-bn selects SyncBatchNorm under --engine "
                          "ddp; --engine gspmd always normalizes over the "
                          "global batch")
+    return plan
 
 
 # The models `--engine tp` shards: the Megatron rules match their
@@ -1163,12 +1312,15 @@ __all__ = [
     "check_grad_reduction_args",
     "check_overlapped_model",
     "check_data_parallel_args",
+    "check_data_parallel_plan",
     "check_lm_args",
+    "check_lm_plan_args",
     "check_moe_args",
     "check_moe_experts_divide",
     "check_lm_pipeline_args",
     "check_model_parallel_args",
     "check_pipeline_schedule_args",
+    "check_plan_world",
     "check_serving_args",
     "check_tensor_parallel_args",
     "compute_dtype_from_flag",

@@ -44,10 +44,12 @@ every rank write its own chunks (`checkpointing/`, a filesystem all the
 ranks share), `--async-save` writes them from a background thread, and
 `--resume` reads either format at any rank count. `--max-restarts R`
 runs the trainer under `training/elastic.elastic_fit`: a per-epoch
-`last` checkpoint, and up to R restarts from it after a failure. The
-parser keeps the reference's whole flag surface; flags whose features
-belong to later port slices are refused with the slice named
-(`cli/common.check_data_parallel_args`).
+`last` checkpoint, and up to R restarts from it after a failure.
+`--plan dpN|fsdpN` is the reference's degenerate plan spelling of
+`--engine ddp|fsdp` on an N-rank world (`cli/common.
+check_data_parallel_plan`). The parser keeps the reference's whole flag
+surface; flags whose features belong to later port slices are refused
+with the slice named (`cli/common.check_data_parallel_args`).
 """
 
 from __future__ import annotations
@@ -150,7 +152,11 @@ def build_parser() -> argparse.ArgumentParser:
                         "residual stream sequence-sharded between blocks "
                         "(Megatron-SP; same math)")
     p.add_argument("--plan", default=None, metavar="SPEC",
-                   help="not ported yet (composed-parallel-plan slice)")
+                   help="degenerate ParallelPlan spec for the image "
+                        "engines (dpN / fsdpN): the declarative spelling "
+                        "of --engine ddp/fsdp on an N-rank data world; "
+                        "pp/sp/ep tokens are the LM CLI's surface "
+                        "(cli/lm.py --plan)")
     add_grad_reduction_flags(p)
     add_checkpoint_flags(p)
     add_auto_tune_flags(p)
@@ -174,7 +180,7 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv=None) -> dict:
     args = build_parser().parse_args(argv)
-    check_data_parallel_args(args)
+    plan = check_data_parallel_args(args)
     if args.device == "cuda" and not torch.cuda.is_available():
         raise SystemExit(
             "--device cuda (the default): no CUDA device is available; "
@@ -182,6 +188,13 @@ def main(argv=None) -> dict:
         )
     setup_metrics_out(args.metrics_out)
     device = initialize_backend(args.device, args.dist_url)
+    world = (torch.distributed.get_world_size()
+             if torch.distributed.is_initialized() else 1)
+    if plan is not None and plan.num_devices != world:
+        raise SystemExit(
+            f"--plan {plan.spec} factors {plan.num_devices} "
+            f"device(s); this world has {world} — "
+            "respell the plan's data axis")
     set_device_numerics()
     if args.engine == "tp":
         try:

@@ -26,6 +26,9 @@ over the ranks, and rank 0 alone prints and writes):
   python -m distributed_model_parallel_tpu_torch.cli.lm --device cpu \\
       --dim 32 --layers 4 --heads 4 --seq-len 32 -b 4 --epochs 2 \\
       --pipeline-stages 2 --microbatches 2 --pipeline-schedule 1f1b
+  torchrun --nproc-per-node 4 -m distributed_model_parallel_tpu_torch.cli.lm \\
+      --device cpu --dim 32 --layers 4 --heads 4 --seq-len 32 -b 4 \\
+      --epochs 2 --plan pp2xsp2 --attention ring_flash
 
 The parser keeps the reference's flag surface and adds `--device`
 (cuda, the default, or cpu). `--attention ulysses_flash` and
@@ -48,9 +51,12 @@ E/N experts on each of the N ranks of an expert group, `hierarchical`
 E/S on each data rank with the two-level token exchange
 (`ops/expert_dispatch.py`; `--moe-overlap` chunks it, `--dcn-compression`
 codes its cross-slice hops), with the JAX CLI's checks
-(`cli/common.check_moe_args`). Flags whose features belong to later port
-slices (plans and the tuner) are refused with the slice named
-(`cli/common.check_lm_args`). The
+(`cli/common.check_moe_args`). `--plan SPEC` composes the axes through
+`parallel/plan.build_plan_engine` on a stage-major plan mesh of ranks
+(pipeline stages as ranks of their own beside seq and data ranks), with
+the JAX CLI's guards (`cli/common.check_lm_plan_args`); `--plan auto`
+and the tuner's flags belong to a later port slice and are refused with
+the slice named (`cli/common.check_lm_args`). The
 best-val-acc model is saved to `--checkpoint-dir` with the model's
 `gpt_config` in its sidecar (what `cli/serve.py --checkpoint` checks),
 and `--resume` continues from it. `--checkpoint-format sharded` writes
@@ -77,6 +83,7 @@ from distributed_model_parallel_tpu_torch.cli.common import (
     check_batch_divisibility,
     check_lm_args,
     check_moe_experts_divide,
+    check_plan_world,
     compute_dtype_from_flag,
     export_metrics_out,
     reducer_mesh,
@@ -195,7 +202,17 @@ def build_parser() -> argparse.ArgumentParser:
                         "over the 'seq' axis (needs --seq-shards >= 2; "
                         "same math)")
     p.add_argument("--plan", default=None, metavar="SPEC|auto",
-                   help="not ported yet (composed-parallel-plan slice)")
+                   help="composed ParallelPlan spec (parallel/plan.py): "
+                        "one declarative mesh factorization over the "
+                        "ranks — tokens ppN/spN/dpN/fsdpN joined by 'x', "
+                        "e.g. pp2xsp2xdp2 or fsdp4; the pp token takes a "
+                        "schedule suffix (pp2-1f1b, pp4-int2 for "
+                        "interleaved with V=2 virtual stages; default "
+                        "gpipe) — driven through build_plan_engine "
+                        "(degenerate specs route to the single-axis "
+                        "engines). Replaces the per-axis flags "
+                        "(--pipeline-stages, --seq-shards); 'auto' rides "
+                        "the tuner (not ported yet)")
     add_grad_reduction_flags(p)
     add_checkpoint_flags(p)
     add_auto_tune_flags(p)
@@ -215,7 +232,7 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv=None) -> dict:
     args = build_parser().parse_args(argv)
-    check_lm_args(args)
+    plan = check_lm_args(args)
     if args.device == "cuda" and not torch.cuda.is_available():
         raise SystemExit(
             "--device cuda (the default): no CUDA device is available; "
@@ -236,7 +253,32 @@ def main(argv=None) -> dict:
     )
     set_device_numerics()
     cdt = compute_dtype_from_flag(args.dtype)
-    if args.pipeline_stages > 1:
+    if plan is not None:
+        # The plan lays its own stage-major mesh over the ranks
+        # (runtime/mesh.make_plan_mesh), one rank a device.
+        from distributed_model_parallel_tpu_torch.parallel.plan import (
+            build_plan_engine,
+        )
+
+        device = initialize_backend(args.device, None)
+        world = (torch.distributed.get_world_size()
+                 if torch.distributed.is_initialized() else 1)
+        check_plan_world(plan, world, args.batch_size, args.seq_len,
+                         args.microbatches)
+        try:
+            engine = build_plan_engine(
+                cfg, build_optimizer(args), plan, device=device,
+                num_microbatches=(args.microbatches
+                                  if args.microbatches != 1 else None),
+                attention=args.attention,
+                collective_matmul=args.collective_matmul,
+                compute_dtype=cdt, remat=args.remat)
+        except (ValueError, NotImplementedError) as e:
+            raise SystemExit(f"--plan {plan.spec}: {e}") from e
+        if is_primary():
+            print(f"==> plan {plan.spec}: {type(engine).__name__} on "
+                  f"{world} rank(s) of {device.type}", flush=True)
+    elif args.pipeline_stages > 1:
         # One process drives every stage (runtime/mesh.py); the data
         # axis spans the ranks, as in the reference's MeshSpec(data=-1,
         # stage=S).

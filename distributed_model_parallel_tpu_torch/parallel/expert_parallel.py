@@ -85,7 +85,7 @@ from distributed_model_parallel_tpu_torch.parallel.tensor_parallel import (
     TensorParallelEngine,
 )
 from distributed_model_parallel_tpu_torch.runtime.mesh import (
-    PLAN_SLICE,
+    EP_TP_ITEM,
     MeshSpec,
     data_axis_names,
     make_mesh,
@@ -206,14 +206,14 @@ class ExpertParallelEngine(TensorParallelEngine):
             raise ValueError(
                 "collective_matmul=True rings over a 'model' axis, which "
                 "the expert-parallel engine does not carry: EP x TP on one "
-                f"mesh belongs to {PLAN_SLICE} (ROADMAP.md)")
+                f"mesh is {EP_TP_ITEM}")
         if self.mesh is None:
             self.mesh = make_mesh(MeshSpec(data=-1))
         mesh = self.mesh
         if mesh.model > 1:
             raise ValueError(
                 f"a mesh with model={mesh.model} composes tensor and expert "
-                f"parallelism, which belongs to {PLAN_SLICE} (ROADMAP.md)")
+                f"parallelism, which is {EP_TP_ITEM}")
         if self.dispatch == "hierarchical":
             if mesh.expert > 1:
                 raise ValueError(

@@ -57,6 +57,18 @@ step whose stages share one device can be captured in a CUDA graph
 JAX engine's `remat_layer` does: a chunk's forward under autograd keeps
 only its input and runs again in the backward pass. MoE layers are
 refused (the JAX engine refuses them too).
+
+Stages as ranks (a composed plan's mesh, `runtime/mesh.make_plan_mesh`):
+each stage is a process of its own and holds only its chunks. The same
+tick tables drive it (`rank_tick_rows`), run by `run_stage_ticks`: a
+rank runs its own items and, at the end of every tick, swaps one packed
+payload each way with its neighbouring stage ranks (`StageWire`,
+activations downstream, cotangents upstream). gpipe cannot be autograd
+through one loop across processes: its forward ticks keep their graphs
+and the same ticks, reversed, run the backward. `LMPipelineEngine` on
+such a mesh is the reference plan's pp-only route; the gradients are
+averaged over the stage's data ranks, the metrics summed over the plan,
+and `to_canonical` gathers the chunks onto the plan's first rank.
 """
 
 from __future__ import annotations
@@ -71,10 +83,14 @@ import torch.distributed as dist
 from distributed_model_parallel_tpu_torch.models import layers as L
 from distributed_model_parallel_tpu_torch.models.convert import (
     train_state_from_jax,
+    train_state_spec,
     train_state_to_jax,
 )
 from distributed_model_parallel_tpu_torch.models.gpt import lm_targets
 from distributed_model_parallel_tpu_torch.models.staging import chunk_owner
+from distributed_model_parallel_tpu_torch.ops.wire_codec import (
+    _ppermutes_start,
+)
 from distributed_model_parallel_tpu_torch.parallel.data_parallel import (
     TrainState,
     _like,
@@ -83,7 +99,7 @@ from distributed_model_parallel_tpu_torch.parallel.data_parallel import (
     step_key,
     write_back,
 )
-from distributed_model_parallel_tpu_torch.runtime.mesh import Mesh
+from distributed_model_parallel_tpu_torch.runtime.mesh import Mesh, PlanMesh
 from distributed_model_parallel_tpu_torch.training.metrics import (
     cross_entropy,
     valid_count,
@@ -466,8 +482,281 @@ def build_interleaved_schedule(
 
 
 # ---------------------------------------------------------------------------
+# Stages as ranks: the wire between stage ranks and the per-rank tick program
+# ---------------------------------------------------------------------------
+
+
+def fill_drain_rows(num_stages: int, num_microbatches: int) -> list:
+    """The gpipe forward ticks: T = M + S - 1 rows of (stage, PIPE_FWD,
+    microbatch, chunk 0) items, stage s running microbatch t - s."""
+    S, M = num_stages, num_microbatches
+    return [[(s, PIPE_FWD, t - s, 0) for s in range(S) if 0 <= t - s < M]
+            for t in range(M + S - 1)]
+
+
+def rank_tick_rows(schedule: str, num_stages: int, num_microbatches: int,
+                   virtual_stages: int = 1):
+    """(train rows, eval rows) of a pipeline whose stages are ranks.
+    `gpipe`: the fill-drain forward ticks, then the same ticks reversed
+    as backward ticks (stage s runs the backward of microbatch M - 1 - u
+    + S - 1 - s at backward tick u), so the cotangents ride back one hop
+    a tick, as the reference's reversed ppermutes carry them; `1f1b` and
+    `interleaved`: the tables of `build_interleaved_schedule`. Eval runs
+    the fill-drain ticks, or the interleaved forward ticks when V > 1."""
+    S, M, V = num_stages, num_microbatches, virtual_stages
+    fwd = fill_drain_rows(S, M)
+    if schedule == "gpipe":
+        bwd = [[(s, PIPE_BWD, M - 1 - u + S - 1 - s, 0) for s in range(S)
+                if 0 <= M - 1 - u + S - 1 - s < M] for u in range(M + S - 1)]
+        return fwd + bwd, fwd
+    sc = build_interleaved_schedule(S, M, V)
+    rows = [[(s, int(sc.work[t, s]), int(sc.micro[t, s]),
+              int(sc.chunk[t, s])) for s in range(S)
+             if sc.work[t, s] != PIPE_IDLE] for t in range(sc.num_ticks)]
+    return rows, (fwd if V == 1 else [
+        [item for item in row if item[1] == PIPE_FWD] for row in rows])
+
+
+class WireLeaf(NamedTuple):
+    """One leaf that crosses a chunk boundary: its shape and dtype (a
+    bool leaf, the LM's attention mask, rides as 0 / 1)."""
+
+    shape: tuple
+    dtype: torch.dtype
+
+
+class StageWire:
+    """The hops between this stage rank and the other stage ranks of its
+    column (`runtime/mesh.PlanMesh.stage_ranks`). A chunk boundary's
+    leaves travel packed into one flat buffer of the wire dtype, the
+    reference's packed (h, mask) ppermute payload; the cotangents of its
+    floating leaves travel the other way in a second one. At the end of
+    a tick `exchange` issues the tick's sends and receives, activations
+    and cotangents together, as one `batch_isend_irecv`
+    (`ops/wire_codec._ppermutes_start`, through the host when the group
+    is gloo and the tensors are CUDA). Each side derives the tick's
+    pairs from the same tick rows, so only payloads that exist move.
+    `hops` counts the payloads this rank sent."""
+
+    def __init__(self, leaves, wire_dtype: torch.dtype, column, device):
+        self.leaves = [WireLeaf(tuple(lf.shape), lf.dtype) for lf in leaves]
+        self.dtype = wire_dtype
+        self.column = tuple(column)
+        self.device = torch.device(device)
+        self._sizes = [int(np.prod(lf.shape)) for lf in self.leaves]
+        self._float = [lf.dtype.is_floating_point for lf in self.leaves]
+        self.act_numel = sum(self._sizes)
+        self.cot_numel = sum(n for n, f in zip(self._sizes, self._float)
+                             if f)
+        self.hops = 0
+
+    def pack(self, leaves) -> torch.Tensor:
+        return torch.cat([t.detach().to(self.dtype).reshape(-1)
+                          for t in leaves])
+
+    def unpack(self, flat: torch.Tensor, grad: bool) -> list:
+        """A received activation buffer -> the boundary's leaves, the
+        floating ones new graph leaves that take a gradient when
+        `grad`."""
+        out = []
+        for piece, lf, f in zip(flat.split(self._sizes), self.leaves,
+                                self._float):
+            piece = piece.view(lf.shape)
+            out.append(piece.to(lf.dtype).requires_grad_(grad) if f
+                       else piece > 0.5)
+        return out
+
+    def pack_cot(self, grads) -> torch.Tensor:
+        return torch.cat([g.to(self.dtype).reshape(-1) for g in grads])
+
+    def unpack_cot(self, flat: torch.Tensor) -> list:
+        sizes = [n for n, f in zip(self._sizes, self._float) if f]
+        shapes = [lf for lf, f in zip(self.leaves, self._float) if f]
+        return [p.view(lf.shape).to(lf.dtype)
+                for p, lf in zip(flat.split(sizes), shapes)]
+
+    def exchange(self, up_pairs, down_pairs, up, down):
+        """One tick's hops: `up_pairs` / `down_pairs` are the tick's
+        (src stage, dst stage) activation / cotangent sends of this
+        column, `up` / `down` this rank's payloads (None when it sends
+        none). Returns the (activation, cotangent) buffers this rank
+        receives, None where it receives none."""
+        col, me = self.column, dist.get_rank()
+        hops, mine = [], []
+        for pairs, x, n in ((up_pairs, up, self.act_numel),
+                            (down_pairs, down, self.cot_numel)):
+            perm = [(col[a], col[b]) for a, b in pairs]
+            if not any(me in pair for pair in perm):
+                mine.append(None)
+                continue
+            if x is None:
+                x = torch.zeros(n, dtype=self.dtype, device=self.device)
+            else:
+                self.hops += 1
+            hops.append((x, perm))
+            mine.append(any(dst == me for _, dst in perm))
+        outs = iter(_ppermutes_start(hops, dist.group.WORLD)()
+                    if hops else [])
+        got = []
+        for m in mine:
+            out = next(outs) if m is not None else None
+            got.append(out if m else None)
+        return tuple(got)
+
+
+def run_stage_ticks(rows, *, num_stages: int, num_chunks: int,
+                    stage_index: int, wire: Optional[StageWire], first,
+                    apply, last, params, train: bool, keep: bool):
+    """This stage rank's share of a tick program (`rank_tick_rows`):
+    chunk l = v * S + s runs on stage s. `first(m)` is chunk 0's input
+    of microbatch m, `apply(l, m, x)` runs chunk l (a list of boundary
+    leaves in, a list out; the last chunk's output is its logits),
+    `last(m, y)` gives the last chunk's (loss SUM, metric sums) of
+    microbatch m, and `params(l)` the leaves chunk l differentiates.
+
+    A forward item runs its chunk on the input that arrived at an
+    earlier tick and puts its output on the wire (on the last chunk it
+    adds the microbatch's metrics). A backward item seeds its chunk with
+    the cotangent that arrived from downstream, or with d(loss sum) = 1
+    on the last chunk, adds the parameter gradients to the chunk's sum
+    and sends the input cotangent upstream. With `keep` (gpipe) the
+    forward keeps its graph and the backward differentiates it; without
+    it (1f1b, interleaved) the forward runs without a graph, keeps only
+    its input, and the backward runs the chunk again under autograd on
+    it. The loss lives on the last stage only and no reduction runs
+    before the gradient. Returns (metric sums of this rank's last-chunk
+    microbatches or None, {chunk: summed parameter gradients})."""
+    S, C, me = num_stages, num_chunks, stage_index
+    inbox, cots, kept, grads = {}, {}, {}, {}
+    sums = None
+
+    def floats(leaves):
+        return [t for t in leaves if t.is_floating_point()]
+
+    def differentiate(l, outs, seeds, x_leaves):
+        p = list(params(l))
+        xs = [t for t in x_leaves if t.requires_grad]
+        g = torch.autograd.grad(outs, p + xs, seeds, allow_unused=True)
+        gp = [torch.zeros_like(a) if b is None else b
+              for a, b in zip(p, g)]
+        grads[l] = gp if l not in grads else [
+            a + b for a, b in zip(grads[l], gp)]
+        return [torch.zeros_like(x) if b is None else b
+                for x, b in zip(xs, g[len(p):])]
+
+    def run_chunk(l, m, grad: bool, consume: bool):
+        if l == 0:
+            x_leaves, x = [], first(m)
+        else:
+            buf = inbox.pop((l, m)) if consume else inbox[(l, m)]
+            x_leaves = wire.unpack(buf, grad)
+            x = x_leaves
+        with torch.set_grad_enabled(grad):
+            y = apply(l, m, x)
+        return x_leaves, y
+
+    for row in rows:
+        up_pairs, down_pairs, sent = [], [], []
+        up = down = None
+        for s, kind, m, v in row:
+            l = v * S + s
+            if kind == PIPE_FWD and l < C - 1:
+                up_pairs.append((s, (l + 1) % S))
+                sent.append(("up", s, l + 1, m))
+            if kind == PIPE_BWD and l > 0:
+                down_pairs.append((s, (l - 1) % S))
+                sent.append(("down", s, l - 1, m))
+            if s != me:
+                continue
+            if kind == PIPE_FWD:
+                grad = train and keep
+                x_leaves, y = run_chunk(l, m, grad, consume=not train or keep)
+                if l == C - 1:
+                    loss, ms = last(m, y)
+                    ms = {k: t.detach() for k, t in ms.items()}
+                    sums = ms if sums is None else {
+                        k: sums[k] + ms[k] for k in sums}
+                    if grad:
+                        kept[(l, m)] = (x_leaves, [loss], None)
+                else:
+                    up = wire.pack(y)
+                    if grad:
+                        kept[(l, m)] = (x_leaves, floats(y), None)
+                continue
+            if keep:
+                x_leaves, outs, _ = kept.pop((l, m))
+            else:
+                x_leaves, y = run_chunk(l, m, True, consume=True)
+                outs = [last(m, y)[0]] if l == C - 1 else floats(y)
+            seeds = (None if l == C - 1
+                     else wire.unpack_cot(cots.pop((l, m))))
+            with torch.enable_grad():
+                gx = differentiate(l, outs, seeds, x_leaves)
+            if l > 0:
+                down = wire.pack_cot(gx)
+        if wire is None or (not up_pairs and not down_pairs):
+            continue
+        got_up, got_down = wire.exchange(up_pairs, down_pairs, up, down)
+        for kind, s, l2, m in sent:
+            if l2 % S != me:
+                continue
+            if kind == "up" and got_up is not None:
+                inbox[(l2, m)] = got_up
+            elif kind == "down" and got_down is not None:
+                cots[(l2, m)] = got_down
+    return sums, grads
+
+
+# ---------------------------------------------------------------------------
 # The engine
 # ---------------------------------------------------------------------------
+
+
+def plan_metric_sums(mesh: PlanMesh, sums, device) -> dict:
+    """Metric sums over a plan's ranks: one all-reduce over its
+    `plan_group` (only the last stage's ranks hold any; the others add
+    zeros)."""
+    keys = ("correct1", "correct5", "count", "loss_sum")
+    flat = (torch.stack([sums[k].float() for k in keys]) if sums
+            else torch.zeros(len(keys), device=device))
+    if mesh.plan_group is not None:
+        dist.all_reduce(flat, group=mesh.plan_group)
+    return dict(zip(keys, flat.unbind()))
+
+
+def gather_stage_trees(mesh: PlanMesh, tree):
+    """Each stage's canonical `tree` (from its data 0, seq 0 rank)
+    gathered onto the plan's first rank and merged there (`merge_trees`);
+    None on the other ranks. Collective over the plan's ranks; `tree`
+    itself on a plan of one rank."""
+    if mesh.plan_group is None:
+        return tree
+    first = mesh.ranks[0]
+    got = [None] * mesh.size if dist.get_rank() == first else None
+    send = tree if (mesh.data_index, mesh.seq_index) == (0, 0) else None
+    dist.gather_object(send, got, dst=first, group=mesh.plan_group)
+    if got is None:
+        return None
+    parts = [t for t in got if t is not None]
+    out = parts[0]
+    for part in parts[1:]:
+        out = merge_trees(out, part)
+    return out
+
+
+def merge_trees(a, b):
+    """The union of two canonical trees that hold different stages'
+    parts: dicts key by key, per-chunk tuples chunk by chunk (a chunk
+    another rank holds is an empty dict), `a`'s leaf where both hold
+    one."""
+    if isinstance(a, dict) and isinstance(b, dict):
+        out = dict(a)
+        for k, v in b.items():
+            out[k] = merge_trees(out[k], v) if k in out else v
+        return out
+    if isinstance(a, tuple) and isinstance(b, tuple):
+        return tuple(map(merge_trees, a, b))
+    return a
 
 
 def _leaves(x) -> list:
@@ -485,10 +774,12 @@ def _unwire(leaves: list, dtypes: list):
 
 class _StageIO(NamedTuple):
     """Input leaf dtypes per chunk and the wire dtype: the common type of
-    every stage-I/O leaf (the JAX engine's `_wire_dtype`)."""
+    every stage-I/O leaf (the JAX engine's `_wire_dtype`); `leaves` holds
+    each chunk's input leaves as `WireLeaf`s (shape and dtype)."""
 
     ins: list
     wire: torch.dtype
+    leaves: list
 
 
 @dataclasses.dataclass
@@ -543,9 +834,25 @@ class PipelineEngine:
                 f"size {S} x virtual_stages {V} needs {C}"
             )
         M = self.num_microbatches
-        #: the device of each logical chunk
-        self.devices = [self.mesh.stage_device(chunk_owner(l, S))
-                        for l in range(C)]
+        # Stages as ranks (a plan mesh, `runtime/mesh.make_plan_mesh`):
+        # this rank runs and holds only its own stage's chunks.
+        self._ranked = isinstance(self.mesh, PlanMesh)
+        if self._ranked:
+            if self.mesh.seq != 1:
+                raise ValueError(
+                    "the pipeline engine's stage ranks carry no 'seq' "
+                    "axis; pp x sp plans run ComposedPlanEngine "
+                    "(parallel/plan.py)")
+            #: this rank's logical chunks
+            self.mine = [l for l in range(C)
+                         if chunk_owner(l, S) == self.mesh.stage_index]
+            self.devices = [self.mesh.device] * C
+            self._rank_rows = rank_tick_rows(self.schedule, S, M, V)
+            self._wires: dict = {}
+        else:
+            #: the device of each logical chunk
+            self.devices = [self.mesh.stage_device(chunk_owner(l, S))
+                            for l in range(C)]
         self._bn_group = (self.mesh.group
                           if self.sync_bn and self.mesh.data > 1 else None)
         self._io_cache: dict = {}
@@ -598,6 +905,15 @@ class PipelineEngine:
                     "without a differentiated 'stage' collective. Train "
                     "MoE models with the DP / DDP / TensorParallel / "
                     "ExpertParallel engines.")
+        if self._ranked:
+            def meta(t):
+                return torch.empty_like(t, device="meta")
+
+            self._meta_params = tuple(tree_map(meta, p) for p in params)
+            self._meta_state = tuple(tree_map(meta, s) for s in model_state)
+            params, model_state = (
+                tuple(t if l in self.mine else {} for l, t in enumerate(x))
+                for x in (params, model_state))
         params = tuple(
             tree_map(lambda t, d=d: t.detach().to(d, torch.float32).clone()
                      .requires_grad_(True), p)
@@ -608,16 +924,45 @@ class PipelineEngine:
         return TrainState(params, model_state, self.optimizer.init(params),
                           0)
 
-    def to_canonical(self, ts: TrainState) -> dict:
+    @property
+    def collective_checkpoint(self) -> bool:
+        """On stage ranks `Trainer` gathers checkpoints through
+        `to_canonical` on every rank (each holds its own chunks)."""
+        return self._ranked
+
+    def to_canonical(self, ts: TrainState):
         """The JAX engine's canonical checkpoint tree, as numpy: per-chunk
         tuples of params, BN state and optimizer buffers in logical order
-        (`models/convert.train_state_to_jax`)."""
-        return train_state_to_jax(ts)
+        (`models/convert.train_state_to_jax`). On stage ranks the
+        stages' chunks are gathered onto the plan's first rank
+        (collective; the other ranks get None)."""
+        tree = train_state_to_jax(ts)
+        return gather_stage_trees(self.mesh, tree) if self._ranked else tree
+
+    def canonical_spec(self, ts: TrainState) -> dict:
+        """`to_canonical`'s shapes and dtypes on stage ranks, without a
+        collective (the restore template)."""
+        return train_state_spec(TrainState(
+            self._meta_params, self._meta_state,
+            self.optimizer.init(self._meta_params), ts.step))
 
     def from_canonical(self, tree, like: Optional[TrainState] = None):
         """Inverse of `to_canonical`, into the devices and layouts of
-        `like` (default: a fresh `init_state()`)."""
-        return train_state_from_jax(tree, like or self.init_state())
+        `like` (default: a fresh `init_state()`); on stage ranks this
+        rank keeps its own chunks of the whole tree."""
+        like = like or self.init_state()
+        if self._ranked:
+            def keep(x):
+                if isinstance(x, dict):
+                    return {k: keep(v) for k, v in x.items()}
+                if isinstance(x, (tuple, list)):
+                    return tuple(t if l in self.mine else {}
+                                 for l, t in enumerate(x))
+                return x
+
+            tree = {k: (tree[k] if k == "step" else keep(tree[k]))
+                    for k in tree}
+        return train_state_from_jax(tree, like)
 
     def shard_batch(self, images, labels):
         """This rank's host batch -> the inputs on the first stage's
@@ -651,11 +996,15 @@ class PipelineEngine:
 
             ctx = L.Context(train=train, dtype=self.compute_dtype)
             x = meta(x_mb)
-            ins, dtypes = [], {x.dtype}
+            ins, specs, dtypes = [], [], {x.dtype}
+            params, states = ((self._meta_params, self._meta_state)
+                              if self._ranked
+                              else (ts.params, ts.model_state))
             with torch.no_grad():
-                for stage, p, s in zip(self.stages, ts.params,
-                                       ts.model_state):
+                for stage, p, s in zip(self.stages, params, states):
                     ins.append([t.dtype for t in _leaves(x)])
+                    specs.append([WireLeaf(tuple(t.shape), t.dtype)
+                                  for t in _leaves(x)])
                     x, _ = stage.apply(tree_map(meta, p), tree_map(meta, s),
                                        x, ctx)
                     dtypes.update(t.dtype for t in _leaves(x))
@@ -669,7 +1018,7 @@ class PipelineEngine:
             wire = dtypes.pop()
             for d in dtypes:
                 wire = torch.promote_types(wire, d)
-            self._io_cache[key] = _StageIO(ins, wire)
+            self._io_cache[key] = _StageIO(ins, wire, specs)
         return self._io_cache[key]
 
     def _ctx(self, train: bool, key, l: int, m: int) -> L.Context:
@@ -797,10 +1146,81 @@ class PipelineEngine:
             dist.all_reduce(flat, group=self.mesh.group)
         return dict(zip(keys, flat.unbind()))
 
+    def _rank_ticks(self, ts: TrainState, images, labels, train: bool):
+        """This stage rank's ticks (`run_stage_ticks`): (metric sums of
+        its last-chunk microbatches or None, {chunk: summed parameter
+        gradients}, new BN state)."""
+        mbs = self._microbatches(self._input(images))
+        labels_mbs = list(labels.reshape(self.num_microbatches, -1))
+        io = self._stage_io(ts, mbs[0], train=train)
+        S, C = self.num_stages, self.num_chunks
+        wire = None
+        if S > 1:
+            if any(io.leaves[l] != io.leaves[1] for l in range(2, C)):
+                raise ValueError(
+                    "stage ranks send one packed payload a hop: every "
+                    "chunk boundary must carry the same leaves (the LM's "
+                    "(hidden, mask) pair)")
+            wkey = (tuple(io.leaves[1]), io.wire)
+            if wkey not in self._wires:
+                self._wires[wkey] = StageWire(io.leaves[1], io.wire,
+                                              self.mesh.stage_ranks,
+                                              self.mesh.device)
+            wire = self._wires[wkey]
+        state = list(ts.model_state)
+        key = step_key(ts.step, self.mesh.data_index) if train else None
+        keep = self.schedule == "gpipe"
+
+        def apply(l, m, x):
+            if l > 0:
+                x = tuple(x) if len(x) > 1 else x[0]
+            y, new = self._exec[l].apply(ts.params[l], state[l], x,
+                                         self._ctx(train, key, l, m))
+            if train and (keep or not torch.is_grad_enabled()):
+                state[l] = new  # forward items fold BN statistics
+            return y if l == C - 1 else _leaves(y)
+
+        def last(m, y):
+            lbl = labels_mbs[m]
+            ce = cross_entropy(y.float(), lbl)
+            return ce * valid_count(lbl), _metrics(ce, y.float(), lbl)
+
+        sums, grads = run_stage_ticks(
+            self._rank_rows[0 if train else 1], num_stages=S, num_chunks=C,
+            stage_index=self.mesh.stage_index, wire=wire,
+            first=lambda m: mbs[m], apply=apply, last=last,
+            params=lambda l: list(tree_leaves(ts.params[l])), train=train,
+            keep=keep)
+        return sums, grads, tuple(state)
+
+    @property
+    def wire_hops(self) -> int:
+        """Payloads this stage rank has put on the stage wire."""
+        return sum(w.hops for w in getattr(self, "_wires", {}).values())
+
+    def _rank_train_step(self, ts: TrainState, images, labels, lr):
+        sums, grads, new_state = self._rank_ticks(ts, images, labels, True)
+        loss_norm = valid_count(labels).clamp_min(1.0)
+        flat = [g / loss_norm.to(g.device)
+                for l in sorted(grads) for g in grads[l]]
+        if self.mesh.group is not None:
+            self.grad_reductions += 1
+        grads = _like(ts.params, iter(self._mean_over_data(flat)))
+        if not self.sync_bn:
+            new_state = _like(new_state, iter(self._mean_over_data(
+                list(tree_leaves(new_state)))))
+        write_back(ts.model_state, new_state)
+        params, opt_state = self.optimizer.update(
+            ts.params, ts.opt_state, grads, lr)
+        return (TrainState(params, ts.model_state, opt_state, ts.step + 1),
+                plan_metric_sums(self.mesh, sums, labels.device))
+
     def train_step(self, ts: TrainState, images, labels, lr):
         """One optimizer step; parameters, BN state and optimizer state
         are updated in place. Returns (state, metric sums over every data
         rank)."""
+        if self._ranked:
+            return self._rank_train_step(ts, images, labels, lr)
         mbs = self._microbatches(self._input(images))
         labels_mbs = list(labels.reshape(self.num_microbatches, -1))
         io = self._stage_io(ts, mbs[0], train=True)
@@ -834,6 +1254,9 @@ class PipelineEngine:
 
     @torch.no_grad()
     def eval_step(self, ts: TrainState, images, labels) -> dict:
+        if self._ranked:
+            sums, _, _ = self._rank_ticks(ts, images, labels, False)
+            return plan_metric_sums(self.mesh, sums, labels.device)
         mbs = self._microbatches(self._input(images))
         io = self._stage_io(ts, mbs[0], train=False)
         logits, _, _ = self._run(self._eval_rows, ts, mbs, None, io,

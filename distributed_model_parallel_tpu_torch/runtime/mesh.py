@@ -32,7 +32,7 @@ them. Here the axes the ported engines use are:
   carries `seq_group` (the S consecutive ranks of this data index, the
   rings' group) and `group` / `ici_group` / `dcn_group` become the data
   groups of this rank's seq index. `model` > 1 together with `seq` > 1
-  is the composed-plan slice's mesh and is refused;
+  is refused: a composed plan lays its axes out on `make_plan_mesh`;
 * `expert`: the expert-parallel axis (`parallel/expert_parallel.py`).
   `MeshSpec(data=-1, expert=N)` over W ranks is W / N data ranks of N
   expert ranks each, laid out as the seq axis is, with `expert`
@@ -43,13 +43,21 @@ them. Here the axes the ported engines use are:
   rank's expert index: the batch shards over the data axes only, so the
   N ranks of an expert group see the same rows (the reference's
   `data_axis_names` excludes 'expert'). `expert` > 1 beside `model` > 1
-  or `seq` > 1 is the composed-plan slice's mesh and is refused;
+  (EP x TP) is refused, naming its queued item (`EP_TP_ITEM`), and
+  beside `seq` > 1 as the reference's plans refuse it (ep composes with
+  the data axis only);
 * `stage`: the pipeline's stages, driven by ONE process (as the JAX
   engine's one controller drives every stage through its tick tables).
   The axis is a list of this process's devices; stage s runs on
   `devices[s % len(devices)]`, so on one GPU every stage shares it and on
   a host with S GPUs stage s has its own. A `(data=D, stage=S)` mesh is D
   processes, each running the S-stage pipeline on its own devices.
+
+`make_plan_mesh(pp, dp, sp)` is the other stage axis, the one a composed
+plan (`parallel/plan.py`) needs: the reference's stage-major ('stage',
+'data', 'seq') mesh over RANKS, rank = (stage * dp + data) * sp + seq,
+so that a pipeline stage is a rank of its own next to its seq and data
+ranks (`PlanMesh`).
 """
 
 from __future__ import annotations
@@ -60,8 +68,11 @@ from typing import Any, Optional, Sequence, Tuple
 import torch
 import torch.distributed as dist
 
-# The later port slice (ROADMAP.md) named by the refusals below.
-PLAN_SLICE = "the composed-parallel-plan slice"
+# The queued ROADMAP.md item named by the EP x TP refusals.
+EP_TP_ITEM = "the EP x TP mesh item (ROADMAP.md section A)"
+# Where every other composition of the inner axes lives.
+PLAN_WAY = ("a composed plan (parallel/plan.py, --plan) lays its axes out "
+            "on runtime/mesh.make_plan_mesh")
 
 
 _KINDS = {"model": "tensor", "seq": "sequence", "expert": "expert"}
@@ -98,11 +109,15 @@ class MeshSpec:
                  if getattr(self, a) > 1]
         if len(inner) > 1:
             named = ", ".join(f"{a}={n}" for a, n in inner)
+            kinds = " and ".join(_KINDS[a] for a, _ in inner)
+            if self.model > 1 and self.expert > 1:
+                raise ValueError(
+                    f"MeshSpec({named}) composes {kinds} parallelism on "
+                    "one mesh, which is not ported to the PyTorch package "
+                    f"yet: it is {EP_TP_ITEM}")
             raise ValueError(
-                f"MeshSpec({named}) composes "
-                f"{' and '.join(_KINDS[a] for a, _ in inner)} parallelism, "
-                "which is not ported to the PyTorch package yet: it belongs "
-                f"to {PLAN_SLICE} (ROADMAP.md)")
+                f"MeshSpec({named}) composes {kinds} parallelism, which "
+                f"MeshSpec does not lay out: {PLAN_WAY}")
         axis, ways = inner[0] if inner else ("model", 1)
         if world % ways:
             raise ValueError(f"MeshSpec({axis}={ways}) must divide the "
@@ -296,6 +311,122 @@ def _inner_mesh(data: int, spec: MeshSpec, devices, axis: str) -> Mesh:
                 data_seq_group=dist.group.WORLD)
 
 
+@dataclasses.dataclass(frozen=True)
+class PlanMesh:
+    """The stage-major ('stage', 'data', 'seq') mesh of a composed plan,
+    over ranks: `ranks[(stage * data + d) * seq + q]` is the global rank
+    at (stage, d, q). This rank sits at (`stage_index`, `data_index`,
+    `seq_index`) and computes on `device`. Its groups (None where the
+    group would hold this rank alone, and every collective over it is the
+    identity):
+
+    * `seq_group`: the seq ranks of its (stage, data), the rings' group;
+    * `group` (`data_group`): the data ranks of its (stage, seq), the
+      FSDP gathers' group;
+    * `data_seq_group`: every rank of its stage, the group of the plan's
+      fused gradient reduction (its stage does not span the world, so
+      this is not the world's group);
+    * `plan_group`: every rank of the plan (the metric sums).
+
+    `stage_ranks` is its column, the global rank of each stage at its
+    (data, seq): the ranks its stage wire talks to."""
+
+    stage: int
+    data: int
+    seq: int
+    ranks: Tuple[int, ...]
+    device: torch.device
+    stage_index: int = 0
+    data_index: int = 0
+    seq_index: int = 0
+    seq_group: Optional[Any] = None
+    group: Optional[Any] = None
+    data_seq_group: Optional[Any] = None
+    plan_group: Optional[Any] = None
+    stage_ranks: Tuple[int, ...] = (0,)
+
+    @property
+    def data_group(self):
+        return self.group
+
+    @property
+    def size(self) -> int:
+        return self.stage * self.data * self.seq
+
+    def rank_of(self, stage: int, data: int, seq: int) -> int:
+        """The global rank at (stage, data, seq)."""
+        return self.ranks[(stage * self.data + data) * self.seq + seq]
+
+    def stage_holders(self, stage: int, data: Optional[int] = None
+                      ) -> Tuple[int, ...]:
+        """The global ranks of `stage` (of its data index `data` only,
+        when given), in rank order."""
+        ds = range(self.data) if data is None else (data,)
+        return tuple(self.rank_of(stage, d, q) for d in ds
+                     for q in range(self.seq))
+
+
+def make_plan_mesh(pp: int, dp: int, sp: int, device="cuda",
+                   ranks: Optional[Sequence[int]] = None) -> PlanMesh:
+    """The reference's `make_plan_mesh` over ranks (`PlanMesh`): the plan
+    occupies `ranks` (default: the world's first pp * dp * sp ranks),
+    stage-major, each rank computing on `device` (default: its current
+    CUDA device; "cpu" only when asked). Every rank of the world creates
+    every group of the mesh in the same order (`dist.new_group` is
+    collective over the world), so a rank outside `ranks` calls it too
+    and gets a mesh whose `stage_index` is -1. Without a process group
+    the plan is one rank."""
+    for name, ways in (("pp", pp), ("dp", dp), ("sp", sp)):
+        if ways < 1:
+            raise ValueError(f"make_plan_mesh: {name}={ways} must be >= 1")
+    n = pp * dp * sp
+    device = torch.device(device)
+    if not dist.is_initialized():
+        if n != 1:
+            raise ValueError(f"a plan of {n} ranks needs a process group "
+                             "of at least that many ranks")
+        return PlanMesh(1, 1, 1, (0,), device)
+    world = dist.get_world_size()
+    ranks = tuple(range(n) if ranks is None else ranks)
+    if len(ranks) != n or len(set(ranks)) != n or \
+            not all(0 <= r < world for r in ranks):
+        raise ValueError(f"a {pp} x {dp} x {sp} plan needs {n} distinct "
+                         f"ranks of the world of {world}, got {ranks}")
+    me = dist.get_rank()
+    pos = ranks.index(me) if me in ranks else -1
+    s_idx, rest = divmod(pos, dp * sp) if pos >= 0 else (-1, 0)
+    d_idx, q_idx = divmod(rest, sp) if pos >= 0 else (-1, -1)
+
+    def at(s, d, q):
+        return ranks[(s * dp + d) * sp + q]
+
+    def group(members):
+        g = dist.new_group(list(members)) if len(members) > 1 else None
+        return g if me in members else None
+
+    seq_group = data_group = data_seq_group = None
+    for s in range(pp):
+        for d in range(dp):
+            g = group([at(s, d, q) for q in range(sp)])
+            if (s, d) == (s_idx, d_idx):
+                seq_group = g
+    for s in range(pp):
+        for q in range(sp):
+            g = group([at(s, d, q) for d in range(dp)])
+            if (s, q) == (s_idx, q_idx):
+                data_group = g
+    for s in range(pp):
+        g = group([at(s, d, q) for d in range(dp) for q in range(sp)])
+        if s == s_idx:
+            data_seq_group = g
+    plan_group = group(list(ranks))
+    column = (tuple(at(s, d_idx, q_idx) for s in range(pp)) if pos >= 0
+              else ())
+    return PlanMesh(pp, dp, sp, ranks, device, s_idx, d_idx, q_idx,
+                    seq_group, data_group, data_seq_group, plan_group,
+                    column)
+
+
 def data_axis_names(mesh: Mesh) -> Tuple[str, ...]:
     """The reference's names of the data axes: ('dcn', 'ici') on a
     factored mesh, ('data',) otherwise."""
@@ -310,8 +441,11 @@ def data_axis_size(mesh: Mesh) -> int:
 def mesh_axes(mesh: Mesh) -> dict:
     """The reference's `{axis name: size}` record of the mesh, in its
     axis order (`data`, or `dcn` and `ici` on a factored mesh, then
-    `stage`, `model`, `seq`, `expert`): what a sharded checkpoint's
-    manifest stores and `training/elastic.py` hands to a restart."""
+    `stage`, `model`, `seq`, `expert`; a plan mesh's ('stage', 'data',
+    'seq')): what a sharded checkpoint's manifest stores and
+    `training/elastic.py` hands to a restart."""
+    if isinstance(mesh, PlanMesh):
+        return {"stage": mesh.stage, "data": mesh.data, "seq": mesh.seq}
     data = ({"dcn": mesh.dcn, "ici": mesh.ici} if mesh.dcn > 1
             else {"data": mesh.data})
     return {**data, "stage": mesh.stage, "model": mesh.model,
@@ -327,6 +461,6 @@ def data_hierarchy_axes(mesh: Mesh):
     return mesh.group, mesh.ici_group, mesh.dcn_group
 
 
-__all__ = ["PLAN_SLICE", "Mesh", "MeshSpec", "data_axis_names",
-           "data_axis_size", "data_hierarchy_axes", "local_devices",
-           "make_mesh", "mesh_axes"]
+__all__ = ["EP_TP_ITEM", "Mesh", "MeshSpec", "PLAN_WAY", "PlanMesh",
+           "data_axis_names", "data_axis_size", "data_hierarchy_axes",
+           "local_devices", "make_mesh", "make_plan_mesh", "mesh_axes"]

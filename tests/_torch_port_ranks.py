@@ -1358,3 +1358,177 @@ def _flat_leaves(tree, prefix="") -> dict:
             flat.update(_flat_leaves(v, f"{prefix}{key}/"))
         return flat
     return {prefix[:-1]: tree}
+
+
+def plan_suite(rank, world, payload) -> dict:
+    """Composed plans (`parallel/plan.py`) from the reference's weights.
+    `payload["runs"]` lists (name, spec, ranks, options) runs; every rank
+    builds every run's engine in order (the plan meshes' groups are
+    collective over the world), then runs the ones whose ranks hold it,
+    in order: SGD(*payload["sgd"]) steps over `payload["batches"]` and an eval
+    step on the last batch. A run's first rank returns its metric sums a
+    step, the eval sums, the canonical parameters and momentum
+    (`to_canonical`), the stage-wire hops and the fused reductions of its
+    ranks; `options["fsdp_shapes"]` adds this rank's parameter shapes. A
+    pp-only plan (`LMPipelineEngine` on stage ranks) starts from the same
+    weights cut into its chunks (`staging.partition_tree`)."""
+    import torch.distributed as dist
+
+    from distributed_model_parallel_tpu_torch.models.convert import (
+        from_jax_params,
+    )
+    from distributed_model_parallel_tpu_torch.models import staging
+    from distributed_model_parallel_tpu_torch.models.gpt import GPTConfig
+    from distributed_model_parallel_tpu_torch.parallel.plan import (
+        build_plan_engine,
+    )
+    from distributed_model_parallel_tpu_torch.training.optim import SGD
+
+    cfg = GPTConfig(**payload["gpt"])
+    engines = [build_plan_engine(cfg, SGD(*payload["sgd"]), spec,
+                                 ranks=ranks, device="cpu",
+                                 **opts.get("kw", {}))
+               for _, spec, ranks, opts in payload["runs"]]
+    params = from_jax_params(payload["params"])
+    out = {}
+    for eng, (name, spec, ranks, opts) in zip(engines, payload["runs"]):
+        if rank not in ranks:
+            continue
+        if hasattr(eng, "stages"):
+            cuts = staging.split_points(len(eng.stages), None,
+                                        cfg.num_layers)
+            empty = {"stem": {}, "head": {},
+                     "blocks": {str(i): {} for i in range(cfg.num_layers)}}
+            ts = eng.state_from_params(staging.partition_tree(params, cuts),
+                                       staging.partition_tree(empty, cuts))
+        else:
+            ts = eng.state_from_params(params)
+        sums = []
+        for ids in payload["batches"]:
+            ts, m = eng.train_step(ts, *eng.shard_batch(ids), payload["lr"])
+            sums.append({k: float(v) for k, v in m.items()})
+        ev = eng.eval_step(ts, *eng.shard_batch(payload["batches"][-1]))
+        tree = eng.to_canonical(ts)
+        mine = (eng.wire_hops, eng.grad_reductions)
+        counts = [mine]
+        if eng.mesh.plan_group is not None:
+            counts = [None] * len(ranks) if rank == ranks[0] else None
+            dist.gather_object(mine, counts, dst=ranks[0],
+                               group=eng.mesh.plan_group)
+        if rank == ranks[0]:
+            out[name] = {"sums": sums, "eval": {k: float(v)
+                                                for k, v in ev.items()},
+                         "params": tree["params"],
+                         "momentum": tree["opt_state"]["momentum"],
+                         "hops": [c[0] for c in counts],
+                         "reductions": [c[1] for c in counts]}
+        if opts.get("fsdp_shapes"):
+            out[name, "shapes", rank] = {
+                k: tuple(v.shape) for k, v in _flat_leaves(ts.params).items()}
+    return out
+
+
+def plan_ckpt_suite(rank, world, payload) -> dict:
+    """Composed plans through both checkpoint formats, in order
+    (`payload["ops"]`; each op's engine is built on every rank, its
+    `key` naming (spec, optimizer) in `payload["engines"]`):
+
+    * ("save", key, dir): the engine from the reference weights, one
+      step, `save_sharded` of its `to_canonical_sharded` view with every
+      collective of `torch.distributed` made to raise;
+    * ("legacy", key, dir): the same, written by rank 0 in the legacy
+      format (`to_canonical`);
+    * ("restore", key, dir[, save_to]): the engine restored from `dir`
+      (either format) through the unified reader, optionally saved again
+      (sharded) to `save_to`, then one step;
+    * ("cli", argv, dirs): `cli/lm.main(argv)` from this rank's dir.
+
+    Returns rank 0's per-op record: the canonical tree (after the save's
+    step, or right after the restore), the restore's (acc, epoch) and
+    the step's sums; for "cli", every rank's files under its dir."""
+    import torch.distributed as dist
+
+    from distributed_model_parallel_tpu_torch import checkpointing
+    from distributed_model_parallel_tpu_torch.models.convert import (
+        from_jax_params,
+    )
+    from distributed_model_parallel_tpu_torch.models.gpt import GPTConfig
+    from distributed_model_parallel_tpu_torch.parallel.plan import (
+        build_plan_engine,
+    )
+    from distributed_model_parallel_tpu_torch.training import checkpoint
+    from distributed_model_parallel_tpu_torch.training.optim import (
+        SGD,
+        AdamW,
+    )
+
+    cfg = GPTConfig(**payload["gpt"])
+
+    def engine(key):
+        spec, opt = payload["engines"][key]
+        return build_plan_engine(
+            cfg, AdamW() if opt == "adamw" else SGD(*payload["sgd"]), spec,
+            device="cpu")
+
+    def step(eng, ts):
+        ts, m = eng.train_step(ts, *eng.shard_batch(payload["ids"]),
+                               payload["lr"])
+        return ts, {k: float(v) for k, v in m.items()}
+
+    def save(eng, ts, directory):
+        view = eng.to_canonical_sharded(ts)
+        saved = {}
+
+        def refuse(*a, **k):
+            raise AssertionError("a collective ran on the save path")
+
+        for name in ("all_gather", "all_gather_into_tensor",
+                     "all_gather_object", "gather_object", "broadcast",
+                     "all_reduce"):
+            saved[name] = getattr(dist, name)
+            setattr(dist, name, refuse)
+        try:
+            checkpointing.save_sharded(directory, view, acc=3.0, epoch=1)
+        finally:
+            for name, fn in saved.items():
+                setattr(dist, name, fn)
+        dist.barrier()  # rank 0 committed the manifest
+
+    out = []
+    for op, key, directory, *rest in payload["ops"]:
+        if op == "cli":
+            from distributed_model_parallel_tpu_torch.cli import lm
+
+            os.chdir(directory[rank])
+            lm.main(key)
+            files = sorted(str(p.relative_to(directory[rank]))
+                           for p in Path(directory[rank]).rglob("*")
+                           if p.is_file())
+            got = [None] * world if rank == 0 else None
+            dist.gather_object(files, got, dst=0)
+            out.append({"files": got})
+            continue
+        eng = engine(key)
+        if op in ("save", "legacy"):
+            ts = eng.state_from_params(from_jax_params(payload["params"]))
+            ts, sums = step(eng, ts)
+            tree = eng.to_canonical(ts)
+            if op == "save":
+                save(eng, ts, directory)
+            else:
+                checkpoint.save_checkpoint(directory, tree, acc=3.0,
+                                           epoch=1)
+                dist.barrier()
+            out.append({"canonical": tree, "sums": sums})
+            continue
+        like = eng.init_state(1)
+        tree, acc, epoch = checkpointing.restore_checkpoint(
+            directory, eng.canonical_spec(like))
+        ts = eng.from_canonical(tree, like)
+        before = eng.to_canonical(ts)
+        if rest:
+            save(eng, ts, rest[0])
+        ts, sums = step(eng, ts)
+        out.append({"canonical": before, "meta": (acc, epoch),
+                    "sums": sums})
+    return out if rank == 0 else None

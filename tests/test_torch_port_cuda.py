@@ -1310,3 +1310,88 @@ def test_moe_hierarchical_at_one_rank_equals_gspmd_on_the_card(cuda):
     for losses, leaves in runs[1:]:
         assert all(torch.equal(a, b) for a, b in zip(losses, runs[0][0]))
         assert all(torch.equal(a, b) for a, b in zip(leaves, runs[0][1]))
+
+
+@pytest.mark.cuda
+def test_plan_dp1_on_the_card_matches_the_dense_step_and_the_cpu(cuda):
+    """`--plan dp1` (the composed engine's dp-only tick program, world 1
+    on NCCL): three SGD steps of a small GPT on the card equal the dense
+    single-rank engine's on the card and the plan's own on the CPU within
+    the f32 bar, losses and every parameter."""
+    from distributed_model_parallel_tpu_torch.models.gpt import (
+        GPTConfig,
+        init_params,
+    )
+    from distributed_model_parallel_tpu_torch.parallel.plan import (
+        ComposedPlanEngine,
+        build_plan_engine,
+    )
+    from distributed_model_parallel_tpu_torch.parallel.sequence_parallel \
+        import CausalLMSequenceParallelEngine
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = GPTConfig(vocab_size=97, dim=64, num_layers=2, num_heads=4,
+                    ffn_dim=256, max_position=64, dropout_rate=0.0,
+                    pad_token_id=0)
+    params = init_params(cfg, 0)
+    ids = np.random.RandomState(16).randint(1, 97, (4, 64))
+    initialize_backend("cuda")
+    try:
+        runs = {}
+        for name, device in (("plan", "cuda"), ("dense", "cuda"),
+                             ("plan_cpu", "cpu")):
+            eng = (build_plan_engine(cfg, SGD(), "dp1", device=device)
+                   if name.startswith("plan") else
+                   CausalLMSequenceParallelEngine(cfg, SGD(), device=device,
+                                                  mesh=Mesh(1, None)))
+            if name.startswith("plan"):
+                assert isinstance(eng, ComposedPlanEngine)
+            ts = eng.state_from_params(params)
+            losses = []
+            for _ in range(3):
+                ts, m = eng.train_step(ts, *eng.shard_batch(ids), 0.05)
+                losses.append(float(m["loss_sum"] / m["count"]))
+            runs[name] = (losses, [t.detach().cpu()
+                                   for t in tree_leaves(ts.params)])
+    finally:
+        dist.destroy_process_group()
+    for other in ("dense", "plan_cpu"):
+        np.testing.assert_allclose(runs["plan"][0], runs[other][0],
+                                   rtol=1e-5)
+        for a, b in zip(runs["plan"][1], runs[other][1]):
+            torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.cuda
+def test_plan_dp1_graph_dispatch_equals_eager_steps(cuda):
+    """`--plan dp1 --steps-per-dispatch 4` at world 1 on NCCL: two 4-step
+    dispatches of the composed engine's step (a CUDA graph replayed)
+    equal eight eager steps bit for bit, metric sums and parameters."""
+    from distributed_model_parallel_tpu_torch.data.lm import (
+        synthetic_corpus,
+    )
+    from distributed_model_parallel_tpu_torch.models.gpt import GPTConfig
+    from distributed_model_parallel_tpu_torch.parallel.plan import (
+        build_plan_engine,
+    )
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = GPTConfig(vocab_size=97, dim=64, num_layers=2, num_heads=4,
+                    ffn_dim=256, max_position=64, dropout_rate=0.1,
+                    pad_token_id=0)
+    corpus = synthetic_corpus(97, 8 * 4 * 64 + 1, seed=5)
+    batches = [(corpus[i * 256:(i + 1) * 256].reshape(4, 64),)
+               for i in range(8)]
+    initialize_backend("cuda")
+    try:
+        def make():
+            eng = build_plan_engine(cfg, SGD(), "dp1", device="cuda")
+            return eng, eng.init_state(0)
+
+        (gs, gl, graph, _), (es, el, _), _ = _graph_vs_eager(
+            make, [batches[:4], batches[4:]], 0.05, 4)
+    finally:
+        dist.destroy_process_group()
+    assert graph.replays == 7 and gs == es
+    for a, b in zip(gl, el):
+        assert torch.equal(a, b)

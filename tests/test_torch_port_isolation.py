@@ -299,7 +299,8 @@ def test_data_parallel_cli_refuses_out_of_slice_flags(flags, slice_,
     that elastic restarts resume from; --async-save alone exits with the
     JAX CLI's message (it needs the sharded format). --collective-matmul,
     refused before the collective-matmul slice, meets the JAX CLI's
-    check (it needs --engine tp)."""
+    check (it needs --engine tp). --plan, refused before the composed-
+    parallel-plan slice, meets the JAX CLI's world check."""
     from distributed_model_parallel_tpu_torch.cli import data_parallel
 
     if slice_ in ("tensor-parallel", "image-folder", "collective-matmul"):
@@ -331,6 +332,14 @@ def test_data_parallel_cli_refuses_out_of_slice_flags(flags, slice_,
     if flags[0] == "--async-save":
         with pytest.raises(SystemExit,
                            match="requires --checkpoint-format sharded"):
+            data_parallel.main(["--device", "cpu", *flags])
+        return
+    if flags[0] == "--plan":
+        # Ported with the composed-parallel-plan slice: dp2 spells
+        # --engine ddp on a two-rank world, and one rank is refused with
+        # the JAX CLI's message.
+        with pytest.raises(SystemExit, match=r"--plan dp2 factors 2 "
+                                             r"device\(s\); this world has 1"):
             data_parallel.main(["--device", "cpu", *flags])
         return
     if slice_ not in ("activation-rematerialization", "multi-step dispatch",

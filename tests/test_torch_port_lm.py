@@ -385,10 +385,19 @@ def test_cli_refuses_flags_of_later_slices(flags, slice_, monkeypatch,
     refused before the sequence-parallel slice, builds the (data 1, seq
     2) mesh on two gloo ranks; --collective-matmul, refused before the
     collective-matmul slice, exits with the JAX CLI's message at one
-    shard and under --pipeline-stages, and passes the checks at two."""
+    shard and under --pipeline-stages, and passes the checks at two.
+    --plan, refused before the composed-parallel-plan slice, meets the
+    JAX CLI's device check."""
     if flags[0] == "--async-save":
         with pytest.raises(SystemExit,
                            match="requires --checkpoint-format sharded"):
+            lm_cli.main(["--device", "cpu", *flags])
+        return
+    if flags[0] == "--plan":
+        # Ported with the composed-parallel-plan slice: the plan needs
+        # its four ranks (tests/test_torch_port_plan.py runs them).
+        with pytest.raises(SystemExit, match=r"--plan pp2xdp2 needs 4 "
+                                             r"device\(s\), 1 present"):
             lm_cli.main(["--device", "cpu", *flags])
         return
     if flags[0] == "--seq-shards":

@@ -328,7 +328,7 @@ def test_shard_batch_refuses_overlong_sequences_with_the_reference_message():
 
 
 def test_mesh_refuses_model_with_seq():
-    with pytest.raises(ValueError, match="composed-parallel-plan slice"):
+    with pytest.raises(ValueError, match="make_plan_mesh"):
         MeshSpec(model=2, seq=2).resolve(4)
     assert MeshSpec(seq=2).resolve(4) == 2
     assert MeshSpec(seq=2, dcn=2).resolve(4) == 2
