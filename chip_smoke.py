@@ -284,9 +284,9 @@ The phases:
    one rank on a GPU; the K/V hops, all-to-alls and all-reduces stage
    CUDA tensors through the host), GPT-2-small width, `--optimizer sgd`,
    2 steps (3 until phase 16 was added) and 1 val batch: `ring_flash`
-   f32 at 4 layers, bf16 and
-   `ulysses_flash` f32 at 2 (12, 4 and 4 until phase 15 was added; the
-   f32 run 6 until phase 16),
+   f32, bf16 and
+   `ulysses_flash` f32 at 2 layers (12, 4 and 4 until phase 15 was
+   added; the f32 run 6 until phase 16 and 4 until phase 18),
    plain `ring` and `ulysses` and a
    `--grad-reduction bucketed` ring_flash run at 2, each against
    `--seq-shards 1` in this process at the same flags (f32: per-step
@@ -315,14 +315,16 @@ The phases:
    ring chunks of 4 and 2 rows at S 2 and 4), each timed as in phase 3
    with its bound and `torch._int_mm`; (a, b) two spawned processes on
    the one card in a gloo world of 2 (joined before the CLIs do) run the
-   serve CLI at phase 4's width and flags (8 requests of 8 new tokens,
-   16 until phase 16 was added; phase 4 serves 16 of 32) under `--layout tp --model-shards 2`, f32
+   serve CLI at phase 4's width and flags (8 requests of 4 new tokens,
+   16 and 8 until phases 16 and 18 were added; phase 4 serves 16 of
+   32) under `--layout tp --model-shards 2`, f32
    and int8, each with and without `--collective-matmul`, and `--layout
    sp --seq-shards 2`, contiguous and `--page-size 16`: the K4 launches
    of each run exact (48 a decode step a rank declarative, 96 on the
    rings at S 2, 0 in f32), and every layout's engine through a
    teacher-forced script (8 prompts, S14_STEPS decode steps): the ranks'
-   logits bit-equal, f32 and every prefill within S14_F32_REL of this
+   logits bit-equal (S14_STEPS 3, 6 until phase 18), f32 and every
+   prefill within S14_F32_REL of this
    process's replicated engine, int8 decode within INT8_LOGIT_REL of
    replicated f32 and int8 (the share inside the reference's
    elementwise budget printed); tokens/s and decode p50 / p99 labelled
@@ -333,7 +335,8 @@ The phases:
    within S14_LOSS_REL, K1-K4 launches equal.
 16. Slice 15 (expert parallelism): (a) the LM CLI with `--moe-experts 8
    --moe-every 2` at GPT-2-small width (12 layers, 6 of them MoE, top-2,
-   capacity factor 1.25, AdamW), 3 steps and 1 val batch, gspmd f32 and
+   capacity factor 1.25, AdamW), 2 steps (3 until phase 18 was added)
+   and 1 val batch, gspmd f32 and
    bf16 and hierarchical f32 at S 1: per run ms and loss a step,
    tokens/s, peak memory, one profiled step's device busy, idle share
    and top kernels, K1-K4 0 launches, losses finite; the hierarchical
@@ -356,7 +359,8 @@ The phases:
    none. (d) The phase's seconds.
 17. Slice 16 (composed parallel plans): (a) `cli.lm --plan dp1` at world
    1 on NCCL at GPT-2-small width (12 layers; the composed engine's
-   dp-only tick program), SGD, 3 steps and 1 val batch, f32 and bf16:
+   dp-only tick program), SGD, 2 steps (3 until phase 18 was added) and
+   1 val batch, f32 and bf16:
    per-step ms and loss, tokens/s, peak memory above the start, K1-K4 0
    launches; the f32 run against the dense single-rank LM CLI run of the
    same flags and seed (the same weights) within S11_M2_TOL, losses and
@@ -379,7 +383,33 @@ The phases:
    (4, 512, 12, 64) for the ring's resident block and masked hop and
    (4, 1024, 6, 64) for Ulysses), f32 and bf16, as in phase 14 (b):
    against their plain versions (FLASH_TOL), timed with their bounds.
-18. One `{"kernels": [...]}` JSON line (int8_matmul, flash_fwd,
+18. Slice 17 (EP x TP, the collective-contract linter): (a)
+   `ExpertParallelLMEngine` with `EXPERT_RULES + MEGATRON_RULES` on
+   `MeshSpec(data=1, model=2, expert=2)`, four gloo ranks on the one card
+   started as one wave (host-staged; their ms are host copies, not EP x
+   TP times), the MoE
+   GPT at GPT-2-small width (dim 768, 12 heads, 8 experts, top-2) with 2
+   blocks, dropout 0, SGD, 2 steps and 1 val batch on seeded ids, against
+   the same engine at N 1 in this process: losses, val loss and rank 0's
+   gathered parameters within S11_M2_TOL, the ranks' losses equal,
+   attention projection and expert bytes a rank half of N 1's, no
+   exchange hops (the gspmd dispatch moves tokens in the expert group's
+   f / g), K1-K4 none (the MoE LM attends dense in f32). (b) Meanwhile,
+   in processes of their own, the linter's CLI on the card
+   (`analysis/lint.py --device cuda`: each combo's engine on CUDA
+   tensors, one rank of its world on torch's fake process group, the
+   NCCL path's calls): the pre-gate matrix clean, each combo's
+   collectives a rank printed, and one deliberate break a family
+   (`tests/_torch_port_ranks.lint_self_test`: the hierarchical MoE
+   exchange forced to a flat all-to-all, buckets all-reduced whole,
+   FSDP sharding nothing, the int8 wire sent in f32, the decode rings'
+   projection gathered, a plan's gradient reduction widened across
+   stages), each named by its rule. (c) The phase's seconds.
+   Depth cut to make room (the whole script reads at most 900 s): phase
+   14's `ring_flash` f32 run 4 -> 2 layers, phase 15's serve runs 8 -> 4
+   new tokens and its teacher-forced script 6 -> 3 decode steps, phases
+   16 (a) and 17 (a) 3 -> 2 steps.
+19. One `{"kernels": [...]}` JSON line (int8_matmul, flash_fwd,
    flash_bwd_dq, flash_bwd_dkv; `launches_slice6` counts phase 7's
    runs, `launches_slice7` phase 8's, `launches_slice8` phase 9's,
    `launches_slice9` phase 10's as the wrappers count them,
@@ -388,7 +418,9 @@ The phases:
    `launches_slice11` phase 12's, `launches_slice12` phase 13's,
    `launches_slice13` phase 14's over both ranks, `launches_slice14`
    phase 15's, `launches_slice15` phase 16's over every rank,
-   `launches_slice16` phase 17's over every rank, each flash
+   `launches_slice16` phase 17's over every rank, `launches_slice17`
+   phase 18's (the EP x TP ranks' and the linted serve steps' K4), each
+   flash
    kernel's `hop_shapes` its phase-14 (b) rows, `plan_hop_shapes` its
    phase-17 (c) rows,
    and K4's `shard_and_ring_shapes` its phase-15 (c) rows), then
@@ -4853,8 +4885,8 @@ S13_LR = 0.05
 S13_LM = LM_BASE + ["--optimizer", "sgd", "--lr", str(S13_LR), "--epochs",
                     "1", "--steps-per-epoch", str(S13_STEPS)]
 S13_RUNS = (  # (name, layers, extra flags), each at --seq-shards 2 and 1
-    ("ring_flash_f32", 4, ["--attention", "ring_flash"]),  # 12, then 6
-    # until phases 15 and 16 were added
+    ("ring_flash_f32", 2, ["--attention", "ring_flash"]),  # 12, 6, then 4
+    # until phases 15, 16 and 18 were added
     ("ring_flash_bf16", 2, ["--attention", "ring_flash", "--dtype",
                             "bfloat16"]),  # 4 layers until phase 15
     ("ulysses_flash_f32", 2, ["--attention", "ulysses_flash"]),  # and 4
@@ -5261,9 +5293,11 @@ S14_SERVE = (
                       "--page-size", "16"],
      dict(layout="sp", page_size=16), 0),
 )
-S14_STEPS = 6  # teacher-forced decode steps after the 8 prompts
+S14_STEPS = 3  # teacher-forced decode steps after the 8 prompts (6
+# until phase 18 was added)
 # The serve runs' depth: 8 requests (one admission wave) of 16 tokens.
-S14_REQUESTS, S14_NEW = 8, 8  # 16 new tokens until phase 16
+S14_REQUESTS, S14_NEW = 8, 4  # 16, then 8 new tokens until phases 16
+# and 18 were added
 S14_SERVE_DEPTH = ["--num-requests", str(S14_REQUESTS), "--max-new-tokens",
                    str(S14_NEW)]
 S14_MAX_LEN, S14_PREFILL = 1024, 128  # phase 4's --max-len, --prefill-len
@@ -5663,7 +5697,7 @@ def slice14_phase(fa, qm, phase4) -> tuple:
 # (a) the LM CLI's MoE path at GPT-2-small width: 8 experts on every
 # second block (6 of 12), top-2, capacity factor 1.25, AdamW (the CLI's
 # default), 3 steps and 1 val batch.
-S15_STEPS = 3
+S15_STEPS = 2  # 3 until phase 18 was added
 S15_LM = LM_BASE + ["--layers", str(LAYERS), "--moe-experts", "8",
                     "--moe-every", "2", "--epochs", "1",
                     "--steps-per-epoch", str(S15_STEPS)]
@@ -6108,7 +6142,7 @@ def slice15_phase(lm, fa, qm) -> dict:
 # engine's dp-only tick program), and the dense single-rank LM step at
 # the same flags and seed (the same weights): the f32 plan within
 # S11_M2_TOL of it, losses and every parameter.
-S16_STEPS = 3
+S16_STEPS = 2  # 3 until phase 18 was added
 S16_A = LM_BASE + ["--layers", str(LAYERS), "--optimizer", "sgd", "--lr",
                    str(S13_LR), "--epochs", "1", "--steps-per-epoch",
                    str(S16_STEPS)]
@@ -6487,6 +6521,282 @@ def slice16_phase(fa) -> tuple:
     return launches, hops
 
 
+# ---- phase 18: EP x TP and the collective-contract linter (slice 17) ----
+
+# (a) EP x TP on one (data, model, expert) mesh: `ExpertParallelLMEngine`
+# with `EXPERT_RULES + MEGATRON_RULES` on `MeshSpec(data=1, model=2,
+# expert=2)`, four gloo ranks on the one card (host-staged hops; their ms
+# are host copies, not EP x TP times), against the same engine at N 1 in
+# this process: the MoE GPT at GPT-2-small width (dim 768, 12 heads, FFN
+# 3072, vocab 50257, T 1024, batch 8) with 2 blocks (block 1 routed: 8
+# experts, top-2, capacity factor 1.25), dropout 0, SGD, 2 steps and 1
+# val batch on seeded ids. The four ranks start as one wave (phase 17's
+# S16_WAVES run up to 8 rank processes a wave beside this process).
+S17_STEPS, S17_LR = 2, 0.05
+S17_MESH = (1, 2, 2)  # (data, model, expert)
+S17_GPT = dict(vocab_size=50257, dim=768, num_layers=2, num_heads=12,
+               ffn_dim=3072, max_position=1024, dropout_rate=0.0,
+               num_experts=8, moe_every=2, moe_top_k=2,
+               moe_capacity_factor=1.25)
+
+
+def s17_batches():
+    """(train id batches, val batch): seeded (8, 1024) ids."""
+    import numpy as np
+
+    rng = np.random.RandomState(17)
+    ids = [rng.randint(1, S17_GPT["vocab_size"], size=(8, 1024))
+           for _ in range(S17_STEPS + 1)]
+    return ids[:-1], ids[-1]
+
+
+def s17_engine(mesh, device):
+    from distributed_model_parallel_tpu_torch.models.gpt import (
+        GPTConfig,
+        gpt_lm_model,
+    )
+    from distributed_model_parallel_tpu_torch.parallel.expert_parallel \
+        import EXPERT_RULES, MEGATRON_RULES, ExpertParallelLMEngine
+    from distributed_model_parallel_tpu_torch.training.optim import SGD
+
+    return ExpertParallelLMEngine(
+        gpt_lm_model(GPTConfig(**S17_GPT)), SGD(), mesh, device=device,
+        rules=EXPERT_RULES + MEGATRON_RULES)
+
+
+def s17_bytes(ts) -> dict:
+    """This rank's bytes of the attention projections (qkv and out
+    weights, Megatron's shards) and of the expert stacks."""
+    def size(t):
+        return t.numel() * t.element_size()
+
+    blocks = ts.params["blocks"].values()
+    return {"attention": sum(size(b["attn"][p]["w"]) for b in blocks
+                             for p in ("qkv", "out")),
+            "experts": s15_expert_bytes(ts)}
+
+
+def s17_steps(eng, device) -> dict:
+    """The engine from seed 0 through S17_STEPS SGD steps and one val
+    batch: per-step losses and ms, the val loss, the state."""
+    train, val = s17_batches()
+    ts = eng.init_state(0)
+    losses, ms = [], []
+    for ids in train:
+        s13_sync(device)
+        t0 = time.perf_counter()
+        ts, m = eng.train_step(ts, *eng.shard_batch(ids), S17_LR)
+        losses.append(float(m["loss_sum"] / m["count"]))  # waits
+        ms.append((time.perf_counter() - t0) * 1e3)
+    m = eng.eval_step(ts, *eng.shard_batch(val))
+    return {"losses": losses, "ms": ms,
+            "val_loss": float(m["loss_sum"] / m["count"]), "state": ts}
+
+
+def s17_gloo_rank(rank, world, port, out, directory, device):
+    """One rank of (a): the gloo world of 4 on the one card, the EP x TP
+    engine's steps, this rank's bytes, the exchange's hops and K1-K4
+    launches, and (rank 0) the canonical parameters saved under
+    `directory`."""
+    import pickle
+
+    import numpy as np
+    import torch.distributed as dist
+
+    from distributed_model_parallel_tpu_torch.ops import expert_dispatch as xd
+    from distributed_model_parallel_tpu_torch.ops import flash_attention as fa
+    from distributed_model_parallel_tpu_torch.ops import quant_matmul as qm
+    from distributed_model_parallel_tpu_torch.runtime.mesh import (
+        MeshSpec,
+        make_mesh,
+    )
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    if device == "cuda":
+        torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                            rank=rank, world_size=world)
+    result = {}
+    try:
+        d, m, e = S17_MESH
+        eng = s17_engine(make_mesh(MeshSpec(data=d, model=m, expert=e)),
+                         device)
+        reset_counts(fa, qm)
+        hops = xd.hops
+        run = s17_steps(eng, device)
+        tree = eng.to_canonical(run["state"])  # collective over the ranks
+        if rank == 0:
+            np.savez(os.path.join(directory, "eptp.npz"),
+                     **dict(zip(leaf_names(tree["params"]),
+                                optim_leaves(tree["params"]))))
+        result = {"losses": run["losses"], "val_loss": run["val_loss"],
+                  "host_staged_gloo_ms": run["ms"],
+                  "hops": xd.hops - hops, "bytes": s17_bytes(run["state"]),
+                  "launches": s13_counts(fa, qm)}
+    finally:
+        dist.destroy_process_group()
+        with open(out, "wb") as f:
+            pickle.dump(result, f)
+
+
+def s17_eptp(device) -> dict:
+    """(a): the four ranks beside the N 1 run in this process; the ranks'
+    losses (and val loss) and rank 0's gathered parameters within
+    S11_M2_TOL of N 1's, the ranks' losses equal, attention and expert
+    bytes a rank half of N 1's, no exchange hops (the gspmd dispatch's
+    tokens move inside the expert group's f / g all-reduces), K1-K4
+    none (the MoE LM attends dense in f32). Returns the ranks'
+    launches."""
+    import multiprocessing
+    import pickle
+
+    import numpy as np
+
+    from distributed_model_parallel_tpu_torch.runtime.dist import free_port
+    from distributed_model_parallel_tpu_torch.runtime.mesh import Mesh
+
+    torch.cuda.empty_cache()
+    directory = scratch_dir("s17_eptp")
+    os.makedirs(directory, exist_ok=True)
+    world = math.prod(S17_MESH)
+    ctx = multiprocessing.get_context("spawn")
+    port = free_port()
+    outs = [os.path.join(directory, f"rank{r}.pkl") for r in range(world)]
+    procs = [ctx.Process(target=s17_gloo_rank,
+                         args=(r, world, port, outs[r], directory, device))
+             for r in range(world)]
+    t0 = time.perf_counter()
+    for p in procs:
+        p.start()
+    n1_eng = s17_engine(Mesh(1, None, devices=(torch.device(device),)),
+                        device)
+    n1 = s17_steps(n1_eng, device)
+    n1_tree = n1_eng.to_canonical(n1["state"])
+    n1_params = dict(zip(leaf_names(n1_tree["params"]),
+                         optim_leaves(n1_tree["params"])))
+    n1_bytes = s17_bytes(n1["state"])
+    del n1_eng, n1_tree
+    n1.pop("state")
+    torch.cuda.empty_cache()
+    got = s15_join("eptp", procs, outs)
+    saved = np.load(os.path.join(directory, "eptp.npz"))
+    diff = {n: float(np.abs(saved[n] - v).max()) for n, v in n1_params.items()}
+    worst = max(diff, key=diff.get)
+    launches = dict.fromkeys(("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv",
+                              "int8_matmul"), 0)
+    for r in got:
+        for key in launches:
+            launches[key] += r["launches"][key]
+    row = {"s17_eptp": {"mesh_data_model_expert": list(S17_MESH),
+                        "n1_losses": n1["losses"],
+                        "n1_val_loss": n1["val_loss"], "n1_ms": n1["ms"],
+                        "losses_by_rank": [r["losses"] for r in got],
+                        "val_loss_by_rank": [r["val_loss"] for r in got],
+                        "worst_leaf": worst, "worst_abs_diff": diff[worst],
+                        "params_within_bar": all(
+                            np.allclose(saved[n], v, **S11_M2_TOL)
+                            for n, v in n1_params.items()),
+                        "bytes_by_rank": [r["bytes"] for r in got],
+                        "n1_bytes": n1_bytes,
+                        "hops_by_rank": [r["hops"] for r in got],
+                        "launches": launches,
+                        "host_staged_gloo_ms_per_step": [
+                            r["host_staged_gloo_ms"] for r in got],
+                        "wall_s": time.perf_counter() - t0}}
+    emit(row)
+    r0 = row["s17_eptp"]
+    require(r0["params_within_bar"], f"EP x TP parameters off N 1's: {r0}")
+    for r in got:
+        require(np.allclose(r["losses"], n1["losses"], **S11_M2_TOL)
+                and np.allclose(r["val_loss"], n1["val_loss"], **S11_M2_TOL),
+                f"EP x TP losses off N 1's: {r0}")
+        require(r["losses"] == got[0]["losses"],
+                "EP x TP: the ranks' metric sums differ")
+        require(all(2 * r["bytes"][k] == n1_bytes[k] for k in n1_bytes),
+                f"EP x TP bytes a rank {r['bytes']} are not half of N 1's "
+                f"{n1_bytes}")
+        require(r["hops"] == 0, f"EP x TP issued {r['hops']} exchange hops")
+    require(not any(launches.values()), f"EP x TP launched {launches}")
+    shutil.rmtree(directory, ignore_errors=True)
+    return launches
+
+
+def s17_lint_start(device, *args):
+    """(b): the linter's CLI in a process of its own (it plays one rank
+    of each combo's world on torch's fake process group, which needs a
+    process without a process group)."""
+    return subprocess.Popen(
+        [sys.executable, "-m", "distributed_model_parallel_tpu_torch."
+         "analysis.lint", "--device", device, *args],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+
+def s17_breaks_start(device):
+    """(b): each pre-gate family's deliberate break linted in a process
+    of its own (the test helper `tests/_torch_port_ranks.lint_self_test`,
+    which patches the port's code for the length of each lint)."""
+    tests = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                         "tests")
+    code = (f"import sys; sys.path.insert(0, {tests!r}); "
+            "import _torch_port_ranks as r; "
+            f"sys.exit(r.lint_self_test({device!r}))")
+    return subprocess.Popen(
+        [sys.executable, "-c", code],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+
+def s17_lint_finish(proc, what) -> list:
+    out, err = proc.communicate(timeout=600)
+    require(proc.returncode == 0,
+            f"the linter's {what} exited {proc.returncode}: {err[-3000:]}")
+    return [json.loads(line) for line in out.splitlines()
+            if line.startswith("{")]
+
+
+def s17_lint(pregate, selftest) -> int:
+    """(b): the pre-gate matrix on the card clean, combo by combo (its
+    collectives a rank printed), and each family's deliberate break
+    named by its rule. Returns the K4 launches of the linted serve
+    steps."""
+    from distributed_model_parallel_tpu_torch.analysis import lint
+
+    lines = s17_lint_finish(pregate, "--pregate")
+    legs = [line["leg"] for line in lines if "leg" in line]
+    summary = lines[-1]["hlo_lint"]
+    emit({"s17_lint_pregate": legs, "summary": summary})
+    require([leg["name"] for leg in legs] ==
+            [c.name for c in lint.pregate_matrix()]
+            and all(leg.get("violations") == 0 for leg in legs)
+            and summary["errors"] == 0,
+            f"the pre-gate matrix does not lint clean on the card: {lines}")
+    caught = [line["self_test"] for line in s17_lint_finish(
+        selftest, "breaks")]
+    emit({"s17_lint_self_test": caught})
+    require([c["combo"] for c in caught] ==
+            [c.name for c in lint.pregate_matrix()]
+            and all(c["caught"] for c in caught),
+            f"a family's break went unnamed: {caught}")
+    return sum(leg.get("k4_launches") or 0 for leg in legs)
+
+
+def slice17_phase(device=S11_DEVICE) -> dict:
+    """Phase 18 (module docstring). Returns the K1-K4 launches of the
+    phase: (a)'s ranks' and the linted serve steps' K4."""
+    t_phase = time.perf_counter()
+    pregate = s17_lint_start(device, "--pregate")
+    selftest = s17_breaks_start(device)
+    launches = s17_eptp(device)
+    print(f"phase 18 (a) EP x TP over gloo: "
+          f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    launches["int8_matmul"] += s17_lint(pregate, selftest)
+    print(f"phase 18 (b) the linter on the card (after (a)): "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    print(f"phase 18 (c) EP x TP and the linter: "
+          f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+    return launches
+
+
 def main() -> int:
     # cuBLAS reads this when it first starts: the determinism probe's
     # torch.use_deterministic_algorithms needs it (phase 7).
@@ -6731,6 +7041,10 @@ def smoke() -> int:
     slice16, hops16 = slice16_phase(fa)
     phase_done("composed parallel plans")
 
+    # ---- 18. EP x TP and the collective-contract linter (slice 17) ----
+    slice17 = slice17_phase()
+    phase_done("EP x TP and the linter")
+
     corpus_once.close()
 
     # ---- 18. kernels line, card line, last line ----------------------
@@ -6773,6 +7087,10 @@ def smoke() -> int:
         "launches_slice15": slice15["int8_matmul"],
         # phase 17: the plan runs (none on this path)
         "launches_slice16": slice16["int8_matmul"],
+        # phase 18: the EP x TP ranks (none) and the pre-gate matrix's
+        # one linted int8 serve step (16: 4 projections x 2 layers x 2
+        # ring chunks at S 2)
+        "launches_slice17": slice17["int8_matmul"],
         # phase 15 (c): the Megatron shard and ring-chunk shapes
         "shard_and_ring_shapes": shapes14,
         "max_abs_err": max_err,
@@ -6814,6 +7132,8 @@ def smoke() -> int:
                # phase 17 (b): every rank of pp2xsp2 ring_flash and
                # ulysses_flash
                launches_slice16=slice16[name],
+               # phase 18: the EP x TP LM attends dense (none)
+               launches_slice17=slice17[name],
                # phase 14 (b): one launch at each ring / Ulysses shape
                hop_shapes={case: row[name] for case, row in hops13.items()},
                # phase 17 (c): the same at the plan's microbatch

@@ -127,17 +127,18 @@ def _regions(shape: Tuple[int, ...], cdim: int, parts: int, count: int,
     return out
 
 
-def sharded_state(ts, specs=None, *, count: int = 1, index: int = 0,
-                  holders: Optional[Callable[[int], Tuple[int, ...]]] = None,
-                  entry: Any = None, mesh_axes: Optional[dict] = None
-                  ) -> ShardedState:
+def sharded_state(ts, specs=None, *,
+                  place: Optional[Callable[[Any], tuple]] = None,
+                  mesh_axes: Optional[dict] = None) -> ShardedState:
     """The `ShardedState` of the port's `TrainState` `ts`. `specs` is a
     TrainState of the same structure whose leaves are `Split`s or None
-    (an engine's `state_partition_specs`; None for a replicated state);
-    a split leaf is sharded `count` ways, this rank holding shard
-    `index` and `holders(m)` the ranks holding shard m; `entry` is the
-    mesh axis name (or tuple of names) the manifest's spec records.
-    Every rank holds every replicated leaf. No collective."""
+    (an engine's `state_partition_specs`; None for a replicated state).
+    `place(split)` gives a split leaf's (count, index, holders, entry):
+    it is sharded `count` ways over its axis (one tree may shard over
+    several: EP x TP), this rank holding shard `index` and `holders(m)`
+    the ranks holding shard m; `entry` is the mesh axis name (or tuple
+    of names) the manifest's spec records. Every rank holds every
+    replicated leaf. No collective."""
     world = process_count()
     everyone = tuple(range(world))
     leaves = flatten_tree(_tree(ts))
@@ -152,6 +153,7 @@ def sharded_state(ts, specs=None, *, count: int = 1, index: int = 0,
             out[path] = ShardedLeaf(shape, _dtype_name(t), [],
                                     {whole: everyone}, {whole: data})
             continue
+        count, index, holders, entry = place(split)
         ndim = len(shape)
         cdim = canonical_dim(split.dim, ndim)
         full = list(shape)

@@ -39,6 +39,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from distributed_model_parallel_tpu_torch.analysis import record
 from distributed_model_parallel_tpu_torch.models import layers as L
 from distributed_model_parallel_tpu_torch.models import moe
 from distributed_model_parallel_tpu_torch.models import staging
@@ -167,6 +168,8 @@ def stem_apply(params, ids: torch.Tensor, cfg: GPTConfig, ctx: L.Context,
 
 def head_apply(params, h: torch.Tensor) -> torch.Tensor:
     """Untied vocabulary projection; logits in f32."""
+    if record.ON:
+        record.note("dot", mode="f32", shape=tuple(params["w"].shape))
     return h.float() @ params["w"]
 
 

@@ -33,6 +33,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from distributed_model_parallel_tpu_torch.analysis import record
+
 
 @dataclasses.dataclass(frozen=True)
 class Context:
@@ -295,6 +297,10 @@ def project(h, w, b, ctx: Context, *, role: Optional[str] = None,
     mm = ctx.matmul
     if mm is not None and getattr(mm, scope or "", True):
         return (mm.column if role == "column" else mm.row)(h, w, b)
+    if record.ON:
+        record.note("dot",
+                    mode="bf16" if h.dtype == torch.bfloat16 else "f32",
+                    shape=tuple(w.shape))
     group = ctx.model_group
     if role == "column":
         h = copy_to_model_parallel(h, group)

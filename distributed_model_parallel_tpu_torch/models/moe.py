@@ -36,6 +36,7 @@ the reference's GSPMD computes them over the global batch.
 
 from __future__ import annotations
 
+import dataclasses
 import math
 
 import torch
@@ -158,6 +159,13 @@ def moe_feed_forward(params, x, ctx: L.Context, *, num_experts: int,
         raise ValueError(
             f"top_k {top_k} must be in [1, num_experts {num_experts}]")
     h, mask = x
+    group = (getattr(ctx.matmul, "group", None)
+             if ctx.seq_shard is not None else None)
+    if group is not None and torch.distributed.get_world_size(group) > 1:
+        return _sequence_sharded(
+            params, x, ctx, group, num_experts=num_experts, top_k=top_k,
+            capacity_factor=capacity_factor,
+            aux_loss_weight=aux_loss_weight, dropout_rate=dropout_rate)
     b, t, _ = h.shape
     e = num_experts
     cap = capacity(t, e, top_k, capacity_factor)
@@ -195,6 +203,32 @@ def moe_feed_forward(params, x, ctx: L.Context, *, num_experts: int,
     p_e = p_sum / n_valid
     aux = aux_loss_weight * e * torch.sum(f_e * p_e)
     return (out, mask), {AUX_KEY: aux}
+
+
+def _sequence_sharded(params, x, ctx: L.Context, group, **kw):
+    """The routed FFN under Megatron-SP (`parallel/tensor_parallel.
+    megatron_sp`: this rank holds T/M positions of the residual stream,
+    `ctx.seq_shard`): the reference routes every token of the WHOLE
+    sequence against one capacity, so the positions are gathered over
+    the model group, routed and run there on every rank alike, and this
+    rank keeps its own rows of the output. The gather's backward sums
+    the ranks' cotangents (`gather_seq_summed`), so each rank's MoE
+    gradients hold its own rows' share, and the engine sums them over
+    the model group. The load-balance loss, computed whole on every
+    rank, keeps its value and contributes 1/M of its gradient on each."""
+    from distributed_model_parallel_tpu_torch.ops.collective_matmul import (
+        gather_seq_summed,
+    )
+
+    h, mask = x
+    start, _ = ctx.seq_shard
+    full = gather_seq_summed(h, group)
+    (out, mask), st = moe_feed_forward(
+        params, (full, mask), dataclasses.replace(ctx, seq_shard=None), **kw)
+    aux = st[AUX_KEY]
+    m = torch.distributed.get_world_size(group)
+    aux = aux / m + (aux - aux / m).detach()
+    return (out[:, start:start + h.shape[1]], mask), {AUX_KEY: aux}
 
 
 def moe_block(params, state, x, ctx: L.Context, *, num_heads: int,

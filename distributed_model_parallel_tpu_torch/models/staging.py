@@ -28,6 +28,7 @@ from typing import Any, Callable, List, Optional, Sequence, Tuple
 
 import torch
 
+from distributed_model_parallel_tpu_torch.analysis import record
 from distributed_model_parallel_tpu_torch.models import layers as L
 from distributed_model_parallel_tpu_torch.training.optim import (
     tree_leaves,
@@ -305,6 +306,8 @@ def stagewise_value_and_grad(
         if auxes[k] is not None:
             outs = outs + [auxes[k]]
             cot = cot + [torch.ones_like(auxes[k])]
+        if record.ON:
+            record.note("bwd_stage", stage=k)
         got = torch.autograd.grad(outs, p_leaves + x_leaves,
                                   grad_outputs=cot)
         g = tree_like(stage_params[k], iter(got[:len(p_leaves)]))

@@ -74,6 +74,8 @@ from typing import Any, Callable, List, Optional, Tuple
 import torch
 import torch.distributed as dist
 
+from distributed_model_parallel_tpu_torch.analysis import record
+from distributed_model_parallel_tpu_torch.analysis.record import scope
 from distributed_model_parallel_tpu_torch.ops.wire_codec import (
     _ppermutes_start,
     host_staged,
@@ -104,6 +106,10 @@ def _split(size: int) -> Tuple[int, int]:
 
 
 def _plain(a, b):
+    if record.ON:
+        record.note("dot",
+                    mode="bf16" if a.dtype == torch.bfloat16 else "f32",
+                    shape=tuple(b.shape))
     return a @ b
 
 
@@ -276,14 +282,16 @@ class _AgMatmul(torch.autograd.Function):
     def forward(ctx, x, w, group):
         ctx.group = group
         ctx.save_for_backward(x, w)
-        return _ag_matmul_impl(x, w, group)
+        with scope("ag_matmul"):
+            return _ag_matmul_impl(x, w, group)
 
     @staticmethod
     def backward(ctx, dy):
         x, w = ctx.saved_tensors
         dy = dy.contiguous()
-        dx = _matmul_rs_impl(dy, w.t(), ctx.group)
-        dw = _ag_dw_ring(x, dy, ctx.group)
+        with scope("ag_matmul"):
+            dx = _matmul_rs_impl(dy, w.t(), ctx.group)
+            dw = _ag_dw_ring(x, dy, ctx.group)
         return dx.to(x.dtype), dw.to(w.dtype), None
 
 
@@ -292,12 +300,14 @@ class _MatmulRs(torch.autograd.Function):
     def forward(ctx, x, w, group):
         ctx.group = group
         ctx.save_for_backward(x, w)
-        return _matmul_rs_impl(x, w, group)
+        with scope("matmul_rs"):
+            return _matmul_rs_impl(x, w, group)
 
     @staticmethod
     def backward(ctx, dy):
         x, w = ctx.saved_tensors
-        dx, dw = _rs_bwd_ring(x, w, dy.contiguous(), ctx.group)
+        with scope("matmul_rs"):
+            dx, dw = _rs_bwd_ring(x, w, dy.contiguous(), ctx.group)
         return dx.to(x.dtype), dw.to(w.dtype), None
 
 
@@ -324,13 +334,15 @@ def ag_matmul_quant(x, w, group, dot: Optional[Dot]):
     """Forward-only `ag_matmul` with an injected chunk GEMM
     (`quant_dot`): the same hops carrying the same activation chunks in
     their own dtype; only the chunk dot's arithmetic changes."""
-    return _ag_matmul_impl(x, w, group, dot=dot)
+    with scope("ag_matmul"):
+        return _ag_matmul_impl(x, w, group, dot=dot)
 
 
 def matmul_rs_quant(x, w, group, dot: Optional[Dot]):
     """Forward-only `matmul_rs` with an injected chunk GEMM; the partial
     sums travel and accumulate in the dot's output dtype."""
-    return _matmul_rs_impl(x, w, group, dot=dot)
+    with scope("matmul_rs"):
+        return _matmul_rs_impl(x, w, group, dot=dot)
 
 
 # ----------------------------------------------------- naive references
@@ -409,6 +421,33 @@ class _GatherSeq(torch.autograd.Function):
         return g.narrow(1, _index(ctx.group) * t, t).contiguous(), None
 
 
+class _GatherSeqSummed(torch.autograd.Function):
+    """`_GatherSeq` for a region each rank runs on the WHOLE sequence but
+    leaves with its own rows only (the routed MoE FFN under Megatron-SP,
+    `models/moe.py`): the ranks' cotangents of the gathered tensor
+    differ, so the backward sums them over the group (one all-reduce)
+    before taking this rank's rows."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return _all_gather_rows(x, group, dim=1)
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.contiguous()
+        dist.all_reduce(g, group=ctx.group)
+        n = _size(ctx.group)
+        t = g.shape[1] // n
+        return g.narrow(1, _index(ctx.group) * t, t).contiguous(), None
+
+
+def gather_seq_summed(x: torch.Tensor, group) -> torch.Tensor:
+    """Every rank's positions, in order, with the cotangent summed over
+    the group on the way back (`_GatherSeqSummed`)."""
+    return _GatherSeqSummed.apply(x, group) if _size(group) > 1 else x
+
+
 def scatter_seq(x: torch.Tensor, group) -> torch.Tensor:
     """Megatron-SP's entry: x (B, T, ...) replicated over `group` ->
     this rank's T/S positions. The sequence length must split over the
@@ -482,6 +521,7 @@ __all__ = [
     "matmul_rs",
     "matmul_rs_quant",
     "gather_seq",
+    "gather_seq_summed",
     "naive_ag_matmul",
     "naive_matmul_rs",
     "scatter_seq",

@@ -72,6 +72,7 @@ from typing import Any, Optional
 import torch
 import torch.distributed as dist
 
+from distributed_model_parallel_tpu_torch.analysis.record import scope
 from distributed_model_parallel_tpu_torch.models.layers import (
     _AllReduceSum,
     reduce_from_model_parallel,
@@ -116,16 +117,19 @@ def _hops_start(pairs, group, wire: str = "none"):
     the decoded chunks received, in order."""
     global hops
     hops += len(pairs)
-    sent, meta = [], []
+    sent, meta, words = [], [], []
     for x, perm in pairs:
         # contiguous: a chunk of a transposed buffer is a strided view,
         # and a host-staged (gloo) send copies the view as it is
         payload, scale = wire_encode(wire, x.contiguous())
         sent.append((payload, perm))
+        words.append("" if wire == "none" else "dcn_wire")
         if scale is not None:
             sent.append((scale.reshape(1), perm))
+            words.append("dcn_scale")
         meta.append((scale is not None, x.dtype))
-    finish = _ppermutes_start(sent, group)
+    with scope("moe_ring"):
+        finish = _ppermutes_start(sent, group, words)
 
     def received() -> list:
         got = iter(finish())

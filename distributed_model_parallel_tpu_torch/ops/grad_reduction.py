@@ -53,6 +53,8 @@ from typing import Any, List, Optional, Sequence, Tuple
 import torch
 import torch.distributed as dist
 
+from distributed_model_parallel_tpu_torch.analysis import record
+from distributed_model_parallel_tpu_torch.analysis.record import scope
 from distributed_model_parallel_tpu_torch.ops.wire_codec import (
     coded_all_gather,
     coded_all_to_all,
@@ -220,7 +222,8 @@ def _reduce_chain(flat, ici_group, dcn_group, wire):
     the last work or None). Each half waits for the one before it: gloo
     may run one group's collectives on several threads at once, and
     NCCL orders another group's only through a stream wait."""
-    shard, work = ring_reduce_scatter(flat, ici_group, async_op=True)
+    with scope("bucket_ring"):
+        shard, work = ring_reduce_scatter(flat, ici_group, async_op=True)
     if dcn_group is not None:
         if work is not None:
             work.wait()
@@ -230,7 +233,8 @@ def _reduce_chain(flat, ici_group, dcn_group, wire):
             dist.all_reduce(shard, group=dcn_group)
     elif work is not None:
         work.wait()
-    return ring_all_gather(shard, ici_group, async_op=True)
+    with scope("bucket_ring"):
+        return ring_all_gather(shard, ici_group, async_op=True)
 
 
 def reduce_bucket_flat(flat: torch.Tensor, ici_group, dcn_group=None,
@@ -266,6 +270,8 @@ class PendingReduction:
     def wait(self):
         """Join the collectives into the current stream and unpack the
         buckets into a tree shaped like the issued one."""
+        if record.ON:
+            record.note("reduce_wait")
         if self.stream is not None:
             torch.cuda.current_stream(self.stream.device).wait_stream(
                 self.stream)

@@ -36,6 +36,8 @@ from typing import Any, Callable, Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from distributed_model_parallel_tpu_torch.analysis import record
+
 # The wire codec's denormal guard, copied from the reference's
 # `ops/wire_codec.py` (127 * smallest normal f32): a floored scale stays
 # normal, so an all-zero row or column decodes to exact zeros. Stored as
@@ -294,6 +296,8 @@ def quant_matmul(
     (or its slice of a whole weight's) when the caller cached it;
     `absmax` (one per row of x) replaces the rows' own absmax."""
     check_compute_dtype(mode)
+    if record.ON:
+        record.note("dot", mode=mode, shape=tuple(w.shape))
     if mode == "f32":
         return x @ w
     if mode == "bf16":

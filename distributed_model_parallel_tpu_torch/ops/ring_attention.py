@@ -58,6 +58,7 @@ from typing import Optional
 import torch
 import torch.distributed as dist
 
+from distributed_model_parallel_tpu_torch.analysis.record import scope
 from distributed_model_parallel_tpu_torch.ops.attention import (
     dot_product_attention,
 )
@@ -89,7 +90,8 @@ def _hop_start(x: torch.Tensor, group, back: bool = False):
     n = dist.get_world_size(group)
     perm = tuple(((i + 1) % n, i) if back else (i, (i + 1) % n)
                  for i in range(n))
-    return _ppermute_start(x.contiguous(), group, perm)
+    with scope("kv_ring"):
+        return _ppermute_start(x.contiguous(), group, perm)
 
 
 def _hop(x: torch.Tensor, group, back: bool = False) -> torch.Tensor:
@@ -108,7 +110,8 @@ def _all_to_all(x: torch.Tensor, group, split: int,
     if host:
         send = send.cpu()
     recv = torch.empty_like(send)
-    dist.all_to_all_single(recv, send, group=group)
+    with scope("ulysses"):
+        dist.all_to_all_single(recv, send, group=group)
     if host:
         recv = recv.to(x.device)
     return torch.cat(recv.unbind(0), dim=concat)
@@ -122,7 +125,8 @@ def _all_gather_seq(mask: torch.Tensor, group) -> torch.Tensor:
     if host_staged(m, group):
         m = m.cpu()
     out = m.new_empty((n * m.shape[0], m.shape[1]))
-    dist.all_gather_into_tensor(out, m, group=group)
+    with scope("kv_ring"):
+        dist.all_gather_into_tensor(out, m, group=group)
     out = out.view(n, *m.shape)
     return torch.cat(out.unbind(0), dim=1).to(mask.device).bool()
 

@@ -44,6 +44,11 @@ from typing import Optional, Tuple
 import torch
 import torch.distributed as dist
 
+from distributed_model_parallel_tpu_torch.analysis.record import (
+    op_scopes,
+    scope,
+)
+
 # "none" keeps the f32 wire byte for byte.
 COMPRESSION_MODES: Tuple[str, ...] = ("none", "bf16", "int8")
 
@@ -140,10 +145,12 @@ def coded_all_to_all(chunks: torch.Tensor, group, wire: str) -> torch.Tensor:
     j's row for this rank, decoded."""
     payload, scales = _encode_rows(wire, chunks)
     recv = torch.empty_like(payload)
-    dist.all_to_all_single(recv, payload, group=group)
+    with scope("dcn_wire"):
+        dist.all_to_all_single(recv, payload, group=group)
     if scales is not None:
         got = torch.empty_like(scales)
-        dist.all_to_all_single(got, scales, group=group)
+        with scope("dcn_scale"):
+            dist.all_to_all_single(got, scales, group=group)
         scales = got
     return _decode_rows(wire, recv, scales, chunks.dtype)
 
@@ -154,12 +161,15 @@ def coded_all_gather(x: torch.Tensor, group, wire: str) -> torch.Tensor:
     payload, scale = wire_encode(wire, x)
     k = dist.get_world_size(group)
     out = payload.new_empty((k * payload.numel(),))
-    dist.all_gather_into_tensor(out, payload.reshape(-1), group=group)
+    with scope("dcn_wire"):
+        dist.all_gather_into_tensor(out, payload.reshape(-1), group=group)
     out = out.view((k,) + tuple(payload.shape))
     scales = None
     if scale is not None:
         scales = scale.new_empty((k,))
-        dist.all_gather_into_tensor(scales, scale.reshape(1), group=group)
+        with scope("dcn_scale"):
+            dist.all_gather_into_tensor(scales, scale.reshape(1),
+                                        group=group)
     return _decode_rows(wire, out, scales, x.dtype)
 
 
@@ -169,15 +179,17 @@ def host_staged(x: torch.Tensor, group) -> bool:
     return x.is_cuda and dist.get_backend(group) == "gloo"
 
 
-def _ppermutes_start(hops, group):
+def _ppermutes_start(hops, group, scopes=None):
     """Starts the sends and receives of several permutations at once, one
     `batch_isend_irecv`: `hops` is a sequence of (x, perm) pairs, each as
-    `_ppermute` takes them. Returns the function that waits for them and
-    gives what this rank receives of each, in order, so that work issued
-    in between overlaps the transfers."""
+    `_ppermute` takes them; `scopes[i]` names hop i's records for the
+    linter (`analysis/record.op_scopes`). Returns the function that
+    waits for them and gives what this rank receives of each, in order,
+    so that work issued in between overlaps the transfers."""
     me = dist.get_rank(group)
-    ops, outs = [], []
-    for x, perm in hops:
+    ops, outs, words = [], [], []
+    for i, (x, perm) in enumerate(hops):
+        word = scopes[i] if scopes else ""
         host = host_staged(x, group)
         src_t = x.cpu() if host else x.contiguous()
         out = torch.zeros_like(src_t)
@@ -187,11 +199,14 @@ def _ppermutes_start(hops, group):
             elif src == me:
                 ops.append(dist.P2POp(dist.isend, src_t, dist.get_global_rank(
                     group, dst), group))
+                words.append(word)
             elif dst == me:
                 ops.append(dist.P2POp(dist.irecv, out, dist.get_global_rank(
                     group, src), group))
+                words.append(word)
         outs.append((out, x.device if host else None))
-    works = dist.batch_isend_irecv(ops) if ops else []
+    with op_scopes(words):
+        works = dist.batch_isend_irecv(ops) if ops else []
 
     def finish() -> list:
         for work in works:
@@ -220,9 +235,11 @@ def _ppermute(x: torch.Tensor, group, perm) -> torch.Tensor:
 def _coded_hop(x: torch.Tensor, group, perm, wire: str) -> torch.Tensor:
     """encode -> permute the payload (and the int8 scale) -> decode."""
     payload, scale = wire_encode(wire, x)
-    payload = _ppermute(payload, group, perm)
+    with scope("dcn_wire"):
+        payload = _ppermute(payload, group, perm)
     if scale is not None:
-        scale = _ppermute(scale.reshape(1), group, perm).reshape(())
+        with scope("dcn_scale"):
+            scale = _ppermute(scale.reshape(1), group, perm).reshape(())
     return wire_decode(wire, payload, scale, x.dtype)
 
 

@@ -50,6 +50,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from distributed_model_parallel_tpu_torch.analysis.record import scope
 from distributed_model_parallel_tpu_torch.models import layers as L
 from distributed_model_parallel_tpu_torch.models import staging
 from distributed_model_parallel_tpu_torch.ops.expert_dispatch import (
@@ -236,7 +237,9 @@ class _DataParallel:
 
     def _sum_metrics(self, m: dict) -> dict:
         keys = sorted(m)
-        flat = self._all_reduce(torch.stack([m[k].float() for k in keys]))
+        with scope("metrics"):
+            flat = self._all_reduce(torch.stack([m[k].float()
+                                                 for k in keys]))
         return dict(zip(keys, flat.unbind()))
 
     # ------------------------------------------------------------- steps
@@ -282,7 +285,8 @@ class _DataParallel:
             return ce, logits.detach()
 
         def reduce_stage(k, stage_grads):
-            pending.append(self._reducer.issue(stage_grads, mean=True))
+            with scope(f"grad_reduce_stage{k}"):
+                pending.append(self._reducer.issue(stage_grads, mean=True))
 
         ce, logits, _, stage_states = staging.stagewise_value_and_grad(
             staging.stage_apply_fns(self.model.parts, cuts, ctx), loss_head,

@@ -48,9 +48,22 @@ loss over the flattened tokens, and `shard_batch` taking the GLOBAL ids
 (the LM CLI's loader) and keeping its data index's rows, their targets
 built on the host (`models/gpt.lm_targets`).
 
-Refused: `MeshSpec(model > 1, expert > 1)` (EP x TP on one mesh, the
-reference's `EXPERT_RULES + MEGATRON_RULES`) belongs to the composed-
-plan slice, as does `collective_matmul` here.
+EP x TP: `rules=EXPERT_RULES + MEGATRON_RULES` on `MeshSpec(model=M,
+expert=E)` (rank = (data_index * M + model_index) * E + expert_index,
+`runtime/mesh.py`) runs tensor, expert and data parallelism in one step,
+as the reference's concatenated rule sets do on its (data, model,
+expert) mesh. Each `Split` names its axis: attention and the dense FFN
+shard over `model` with Megatron's f / g (`layers.project` over the
+model group, as in `TensorParallelEngine`), the expert stacks over
+`expert` and the token exchange runs over the expert group; the batch
+shards over the data axes only and the gradients and metrics are summed
+over the data group. The ranks of a model group hold the same experts
+and route the same tokens (attention's g makes the hidden states whole
+on each of them). Rule order decides which rule claims a leaf, as in
+the reference: the first whose pattern matches. `dispatch="hierarchical"`
+beside `model > 1` exchanges over each model index's data group.
+`collective_matmul=True` needs a `model` axis, as the reference's
+`TensorParallelEngine` does.
 """
 
 from __future__ import annotations
@@ -66,6 +79,9 @@ import torch.distributed as dist
 from distributed_model_parallel_tpu_torch.models import layers as L
 from distributed_model_parallel_tpu_torch.models.gpt import lm_targets
 from distributed_model_parallel_tpu_torch.models.moe import dense_experts
+from distributed_model_parallel_tpu_torch.ops.collective_matmul import (
+    CollectiveMatmul,
+)
 from distributed_model_parallel_tpu_torch.ops.expert_dispatch import (
     ExpertDispatch,
     sum_aux_over,
@@ -83,12 +99,13 @@ from distributed_model_parallel_tpu_torch.parallel.tensor_parallel import (
     MEGATRON_RULES,
     Split,
     TensorParallelEngine,
+    megatron_sp,
 )
 from distributed_model_parallel_tpu_torch.runtime.mesh import (
-    EP_TP_ITEM,
     MeshSpec,
     data_axis_names,
     make_mesh,
+    mesh_axes,
 )
 from distributed_model_parallel_tpu_torch.training.metrics import (
     cross_entropy,
@@ -101,10 +118,10 @@ from distributed_model_parallel_tpu_torch.training.optim import (
 # The stacked expert weights (`models/moe.py` paths .../moe/experts/*)
 # split on their leading E axis, the reference's EXPERT_RULES.
 EXPERT_RULES: Tuple[Tuple[str, Split], ...] = (
-    (r"experts/w_in$", Split(0)),
-    (r"experts/b_in$", Split(0)),
-    (r"experts/w_out$", Split(0)),
-    (r"experts/b_out$", Split(0)),
+    (r"experts/w_in$", Split(0, axis="expert")),
+    (r"experts/b_in$", Split(0, axis="expert")),
+    (r"experts/w_out$", Split(0, axis="expert")),
+    (r"experts/b_out$", Split(0, axis="expert")),
 )
 
 
@@ -202,18 +219,14 @@ class ExpertParallelEngine(TensorParallelEngine):
                 "exchange's cross-slice messages; the gspmd dispatch "
                 "has no explicit 'dcn' hop — set "
                 "dispatch='hierarchical' or drop dcn_compression")
-        if self.collective_matmul:
-            raise ValueError(
-                "collective_matmul=True rings over a 'model' axis, which "
-                "the expert-parallel engine does not carry: EP x TP on one "
-                f"mesh is {EP_TP_ITEM}")
         if self.mesh is None:
             self.mesh = make_mesh(MeshSpec(data=-1))
         mesh = self.mesh
-        if mesh.model > 1:
+        if self.collective_matmul and mesh.model == 1:
             raise ValueError(
-                f"a mesh with model={mesh.model} composes tensor and expert "
-                f"parallelism, which is {EP_TP_ITEM}")
+                "collective_matmul=True needs a 'model' mesh axis to "
+                "ring over (the Megatron projection axis); this mesh "
+                f"has {tuple(mesh_axes(mesh))}")
         if self.dispatch == "hierarchical":
             if mesh.expert > 1:
                 raise ValueError(
@@ -227,10 +240,14 @@ class ExpertParallelEngine(TensorParallelEngine):
             policy = ExpertGroupDispatch(mesh.expert_group, mesh.expert,
                                          mesh.expert_index, mesh.group)
         self._setup(sync_bn=True)
-        self._model_group = None
+        self._model_group = mesh.model_group
         self._specs = None
         self._matmul = None
         self._expert_dispatch = policy
+        if self.collective_matmul:
+            self._matmul = CollectiveMatmul(group=self._model_group)
+            self.model = megatron_sp(self.model, self._model_group,
+                                     self._matmul)
 
     # ------------------------------------------------------ shard axis
 
@@ -238,23 +255,41 @@ class ExpertParallelEngine(TensorParallelEngine):
     def _hierarchical(self) -> bool:
         return self.dispatch == "hierarchical"
 
-    def _shard_axis(self):
-        """(group, count, index) of the axis the expert stacks shard over:
-        the expert group, or the data group in hierarchical mode."""
+    def _shard_axis(self, split: Optional[Split] = None):
+        """(group, count, index) of the axis `split` shards over: a
+        Megatron leaf's model axis (EP x TP), else the expert axis the
+        expert stacks shard over, or the data group in hierarchical
+        mode."""
         m = self.mesh
+        if split is not None and split.axis != "expert":
+            return super()._shard_axis(split)
         if self._hierarchical:
             return m.group, m.data, m.data_index
         return m.expert_group, m.expert, m.expert_index
 
-    def _holders(self, m: int) -> Tuple[int, ...]:
-        """The global ranks holding expert shard `m`: expert index m of
-        every data index, or data rank m in hierarchical mode."""
+    def _holders(self, m: int, split: Optional[Split] = None
+                 ) -> Tuple[int, ...]:
+        """The global ranks holding shard `m` of a leaf split like
+        `split`: expert index m of every (data, model) index, data rank
+        m's model group in hierarchical mode, or a Megatron leaf's."""
+        mesh = self.mesh
+        if split is not None and split.axis != "expert":
+            return super()._holders(m, split)
         if self._hierarchical:
-            return (m,)
-        n = self.mesh.expert
-        return tuple(d * n + m for d in range(self.mesh.data))
+            return tuple(m * mesh.model + j for j in range(mesh.model))
+        return tuple((d * mesh.model + j) * mesh.expert + m
+                     for d in range(mesh.data) for j in range(mesh.model))
 
-    def _axis_entry(self):
+    def _model_partial(self, split: Optional[Split]) -> bool:
+        """Under Megatron-SP the MoE router and expert stacks ran on the
+        whole sequence but kept this rank's rows (`models/moe.py`): like
+        the replicated leaves, their gradients hold this rank's positions'
+        share and are summed over the model group."""
+        return split is None or split.axis == "expert"
+
+    def _axis_entry(self, split: Optional[Split] = None):
+        if split is not None and split.axis != "expert":
+            return "model"
         if self._hierarchical:
             names = data_axis_names(self.mesh)
             return names if len(names) > 1 else names[0]
@@ -264,20 +299,21 @@ class ExpertParallelEngine(TensorParallelEngine):
 
     def _ctx(self, train: bool, step=None) -> L.Context:
         return L.Context(train=train, dtype=self.compute_dtype,
+                         model_group=self._model_group,
                          expert_dispatch=self._expert_dispatch,
                          rng=(step_key(step, self.mesh.data_index)
                               if train else None))
 
     def _reduce_grads(self, grads: list) -> list:
         """The gradients SUMMED over the data group (one all-reduce): all
-        of them in gspmd mode, the replicated ones in hierarchical mode
-        (an expert shard's gradient is complete where it lies)."""
+        of them in gspmd mode, all but the expert stacks in hierarchical
+        mode (an expert shard's gradient is complete where it lies)."""
         group = self.mesh.group
         if group is None:
             return grads
         specs = list(tree_leaves(self._specs))
         pick = [i for i, s in enumerate(specs)
-                if s is None or not self._hierarchical]
+                if s is None or s.axis != "expert" or not self._hierarchical]
         flat = torch.cat([grads[i].reshape(-1) for i in pick])
         dist.all_reduce(flat, group=group)
         self.grad_reductions += 1
@@ -305,7 +341,8 @@ class ExpertParallelEngine(TensorParallelEngine):
         leaves = list(tree_leaves(ts.params))
         grads = self._reduce_grads(list(torch.autograd.grad(loss, leaves)))
         write_back(ts.model_state, new_state)
-        return self._sum_metrics(m), tree_like(ts.params, iter(grads))
+        return self._sum_metrics(m), self._local_grads(
+            tree_like(ts.params, iter(grads)))
 
     def train_step(self, ts: TrainState, inputs, labels, lr):
         """One optimizer step; parameters, optimizer state and the kept

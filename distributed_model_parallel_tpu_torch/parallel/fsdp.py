@@ -51,6 +51,8 @@ from typing import Sequence, Tuple
 import torch
 import torch.distributed as dist
 
+from distributed_model_parallel_tpu_torch.analysis import record
+from distributed_model_parallel_tpu_torch.analysis.record import scope
 from distributed_model_parallel_tpu_torch.checkpointing.sharded import (
     port_dim,
 )
@@ -201,13 +203,13 @@ class FSDPEngine(TensorParallelEngine):
 
     # ------------------------------------------------------------ layout
 
-    def _shard_axis(self):
+    def _shard_axis(self, split=None):
         return self.mesh.group, self.mesh.data, self.mesh.data_index
 
-    def _holders(self, m: int) -> Tuple[int, ...]:
+    def _holders(self, m: int, split=None) -> Tuple[int, ...]:
         return (m,)
 
-    def _axis_entry(self):
+    def _axis_entry(self, split=None):
         names = data_axis_names(self.mesh)
         return names[0] if len(names) == 1 else names
 
@@ -274,7 +276,8 @@ class FSDPEngine(TensorParallelEngine):
         perm = tuple((i, (i + 1) % k) for i in range(k))
         cur = block
         for s in range(1, k):
-            cur = coded_ppermute(cur, mesh.dcn_group, perm, self._wire)
+            with scope("fsdp_gather"):
+                cur = coded_ppermute(cur, mesh.dcn_group, perm, self._wire)
             full.narrow(dim, ((j - s) % k) * n, n).copy_(cur)
         return full
 
@@ -324,11 +327,16 @@ class FSDPEngine(TensorParallelEngine):
         # recomputed forward and backward; stage k's buckets issued as
         # soon as its gradients exist.
         pending = []
-        prefetched = self._gather_tree(shards[n - 1], specs[n - 1])
+        with scope(f"prefetch_gather_stage{n - 1}"):
+            prefetched = self._gather_tree(shards[n - 1], specs[n - 1])
         for k in reversed(range(n)):
             full_k = prefetched
             if k > 0:
-                prefetched = self._gather_tree(shards[k - 1], specs[k - 1])
+                with scope(f"prefetch_gather_stage{k - 1}"):
+                    prefetched = self._gather_tree(shards[k - 1],
+                                                   specs[k - 1])
+            if record.ON:
+                record.note("bwd_stage", stage=k)
             x_k = staging._cut(xs[k]) if k else xs[k]
             out, ns = fns[k](full_k, states[k], x_k)
             p_leaves = list(tree_leaves(full_k))
@@ -340,7 +348,8 @@ class FSDPEngine(TensorParallelEngine):
             got = torch.autograd.grad(outs, p_leaves + x_leaves,
                                       grad_outputs=cots)
             dp = tree_like(full_k, iter(got[:len(p_leaves)]))
-            pending.append((k, self._reducer.issue(dp, mean=True)))
+            with scope(f"grad_reduce_stage{k}"):
+                pending.append((k, self._reducer.issue(dp, mean=True)))
             cot = got[len(p_leaves):]
         stage_grads = [None] * n
         for k, p in pending:

@@ -80,6 +80,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from distributed_model_parallel_tpu_torch.analysis.record import scope
 from distributed_model_parallel_tpu_torch.models import layers as L
 from distributed_model_parallel_tpu_torch.models.convert import (
     train_state_from_jax,
@@ -595,8 +596,9 @@ class StageWire:
                 self.hops += 1
             hops.append((x, perm))
             mine.append(any(dst == me for _, dst in perm))
-        outs = iter(_ppermutes_start(hops, dist.group.WORLD)()
-                    if hops else [])
+        with scope("plan_wire"):
+            outs = iter(_ppermutes_start(hops, dist.group.WORLD)()
+                        if hops else [])
         got = []
         for m in mine:
             out = next(outs) if m is not None else None
@@ -720,7 +722,8 @@ def plan_metric_sums(mesh: PlanMesh, sums, device) -> dict:
     flat = (torch.stack([sums[k].float() for k in keys]) if sums
             else torch.zeros(len(keys), device=device))
     if mesh.plan_group is not None:
-        dist.all_reduce(flat, group=mesh.plan_group)
+        with scope("metrics"):
+            dist.all_reduce(flat, group=mesh.plan_group)
     return dict(zip(keys, flat.unbind()))
 
 
@@ -1143,7 +1146,8 @@ class PipelineEngine:
         keys = sorted(m)
         flat = torch.stack([m[k].float() for k in keys])
         if self.mesh.group is not None:
-            dist.all_reduce(flat, group=self.mesh.group)
+            with scope("metrics"):
+                dist.all_reduce(flat, group=self.mesh.group)
         return dict(zip(keys, flat.unbind()))
 
     def _rank_ticks(self, ts: TrainState, images, labels, train: bool):

@@ -68,6 +68,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from distributed_model_parallel_tpu_torch.analysis.record import scope
 from distributed_model_parallel_tpu_torch.checkpointing.sharded import (
     ShardedLeaf,
     ShardedState,
@@ -472,7 +473,7 @@ class ComposedPlanEngine:
         d, _ = _sharded_dim(spec)
         if d is None:
             return t
-        with torch.no_grad():
+        with torch.no_grad(), scope("plan_fsdp_gather"):
             full = (t.detach().clone() if self.mesh.group is None else
                     torch.cat(_all_gather(t, self.mesh.group, self.plan.dp),
                               dim=d))
@@ -632,7 +633,8 @@ class ComposedPlanEngine:
         flat = torch.cat([g.reshape(-1) for g in acc] + [count])
         if self.mesh.data_seq_group is not None:
             self.grad_reductions += 1
-            dist.all_reduce(flat, group=self.mesh.data_seq_group)
+            with scope("plan_grad"):
+                dist.all_reduce(flat, group=self.mesh.data_seq_group)
         g = flat[:-1] / flat[-1:].clamp_min(1.0)
         g_tree = tree_like(mat, iter(
             p.view(t.shape) for p, t in

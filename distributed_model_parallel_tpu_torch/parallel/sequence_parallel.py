@@ -75,6 +75,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from distributed_model_parallel_tpu_torch.analysis.record import scope
 from distributed_model_parallel_tpu_torch.models import layers as L
 from distributed_model_parallel_tpu_torch.models import staging
 from distributed_model_parallel_tpu_torch.models.bert import (
@@ -242,9 +243,11 @@ class _SeqAxis:
         if self.mesh.data_seq_group is None:
             return {k: v.detach() for k, v in m.items()}
         keys = sorted(m)
-        return dict(zip(keys, self._all_reduce(
-            torch.stack([m[k].detach().float() for k in keys]),
-            self.mesh.data_seq_group).unbind()))
+        with scope("metrics"):
+            flat = self._all_reduce(
+                torch.stack([m[k].detach().float() for k in keys]),
+                self.mesh.data_seq_group)
+        return dict(zip(keys, flat.unbind()))
 
     def _flat_sum(self, grads, group) -> list:
         """The gradients flattened, all-reduced over `group` and split
@@ -429,9 +432,10 @@ class CausalLMSequenceParallelEngine(_SeqAxis):
                 return m["loss_sum"], m
 
             def reduce_segment(k, seg_grads):
-                seg_grads = _like(seg_grads, iter(self._seq_summed(
-                    tree_leaves(seg_grads))))
-                pending.append(self._reducer.issue(seg_grads))
+                with scope(f"grad_reduce_stage{k}"):
+                    seg_grads = _like(seg_grads, iter(self._seq_summed(
+                        tree_leaves(seg_grads))))
+                    pending.append(self._reducer.issue(seg_grads))
 
             _, m, _, _ = staging.stagewise_value_and_grad(
                 self._segment_fns(ctx), loss_head,

@@ -111,13 +111,17 @@ from distributed_model_parallel_tpu_torch.training.optim import (
 
 
 class Split(NamedTuple):
-    """How a leaf shards over the model axis: along `dim`, which is the
+    """How a leaf shards over a mesh axis: along `dim`, which is the
     concatenation of `parts` equal blocks (3 for the fused [q | k | v]),
     each block split contiguously into M pieces; rank m holds piece m of
-    every block, concatenated in block order."""
+    every block, concatenated in block order. `axis` names the mesh axis
+    ("" = the engine's own: 'model' here, the data axes under FSDP);
+    `EXPERT_RULES` say "expert", so that with `MEGATRON_RULES` beside
+    them one tree shards over two axes (EP x TP)."""
 
     dim: int
     parts: int = 1
+    axis: str = ""
 
 
 # Megatron's layout on the transformer block tree (`models/transformer.py`
@@ -272,6 +276,11 @@ class TensorParallelEngine(_DataParallel):
             self.model = megatron_sp(self.model, self._model_group,
                                      self._matmul)
 
+    def _model_partial(self, split: Optional[Split]) -> bool:
+        """Whether a block leaf laid out like `split` saw this rank's
+        positions only under Megatron-SP: the replicated ones."""
+        return split is None
+
     def _local_grads(self, grads):
         """Under Megatron-SP the blocks' replicated leaves (LayerNorms,
         row biases) saw this rank's positions only: their gradients are
@@ -280,7 +289,7 @@ class TensorParallelEngine(_DataParallel):
             return grads
         partial = [(g, s) for g, s in zip(tree_leaves(grads["blocks"]),
                                           tree_leaves(self._specs["blocks"]))
-                   if s is None]
+                   if self._model_partial(s)]
         flat = torch.cat([g.reshape(-1) for g, _ in partial])
         dist.all_reduce(flat, group=self._model_group)
         for (g, _), piece in zip(partial, flat.split(
@@ -288,20 +297,32 @@ class TensorParallelEngine(_DataParallel):
             g.copy_(piece.view(g.shape))
         return grads
 
-    def _shard_axis(self):
-        """(group, count, index) of the axis the state shards over: the
-        model axis here; `FSDPEngine` shards over the data axis."""
+    def _shard_axis(self, split: Optional[Split] = None):
+        """(group, count, index) of the axis `split` shards over: the
+        model axis here; `FSDPEngine` shards over the data axis, and
+        `ExpertParallelEngine` an expert stack over its expert axis."""
         return (self.mesh.model_group, self.mesh.model,
                 self.mesh.model_index)
 
-    def _holders(self, m: int) -> Tuple[int, ...]:
-        """The global ranks holding shard `m`: model index m of every
-        data index."""
-        return tuple(d * self.mesh.model + m for d in range(self.mesh.data))
+    def _holders(self, m: int, split: Optional[Split] = None
+                 ) -> Tuple[int, ...]:
+        """The global ranks holding shard `m` of a leaf split like
+        `split`: model index m of every data (and expert) index."""
+        mesh = self.mesh
+        return tuple((d * mesh.model + m) * mesh.expert + i
+                     for d in range(mesh.data) for i in range(mesh.expert))
 
-    def _axis_entry(self):
+    def _axis_entry(self, split: Optional[Split] = None):
         """The mesh axis name a sharded leaf's manifest spec records."""
         return "model"
+
+    def _shard_tree(self, tree, specs):
+        """This rank's shard of every leaf of the FULL `tree`."""
+        def local(t, split):
+            _, count, index = self._shard_axis(split)
+            return shard_leaf(t, split, index, count)
+
+        return tree_map(local, tree, specs)
 
     def state_partition_specs(self, ts: TrainState) -> TrainState:
         """The layout of `ts`: a `Split` (or None, replicated) for each
@@ -319,17 +340,15 @@ class TensorParallelEngine(_DataParallel):
         shards (`rules`) on the engine's device. ValueError when a
         sharded dimension does not split over the model ranks."""
         self._specs = shard_specs(params, self.rules)
-        _, count, index = self._shard_axis()
         return super().state_from_params(
-            shard_tree(params, self._specs, index, count), model_state)
+            self._shard_tree(params, self._specs), model_state)
 
     def _full_state(self, ts: TrainState) -> TrainState:
         """Every sharded leaf gathered over the shard axis (collective;
         on the host when the group is gloo, which carries CPU tensors)."""
-        group, m, _ = self._shard_axis()
-
         def gather(t, split):
             t = t.detach()
+            group, m, _ = self._shard_axis(split)
             if split is None or m == 1:
                 return t.to("cpu", copy=True)  # a snapshot, not a view
             if dist.get_backend(group) == "gloo":
@@ -356,11 +375,10 @@ class TensorParallelEngine(_DataParallel):
     def _full_like(self, ts: TrainState, device="cpu") -> TrainState:
         """A state of empty FULL-shaped leaves (no collective): the
         template of the canonical tree's shapes, dtypes and layouts."""
-        _, m, _ = self._shard_axis()
-
         def full(t, split):
             if split is None:  # its layout too (channels-last convs)
                 return torch.empty_like(t, device=device)
+            _, m, _ = self._shard_axis(split)
             shape = list(t.shape)
             shape[split.dim] *= m
             return torch.empty(shape, dtype=t.dtype, device=device)
@@ -385,9 +403,9 @@ class TensorParallelEngine(_DataParallel):
         of `like` (default: a fresh `init_state()`)."""
         like = like or self.init_state()
         full = train_state_from_jax(tree, self._full_like(like))
-        _, shards, m = self._shard_axis()
 
         def local(t, split):
+            _, shards, m = self._shard_axis(split)
             return shard_leaf(t.detach(), split, m, shards).to(
                 self.device).clone()
 
@@ -408,11 +426,14 @@ class TensorParallelEngine(_DataParallel):
         start, shape, tensor) regions, and every region's holders. No
         collective and no copy: the save's snapshot copies what this
         rank writes."""
-        _, count, index = self._shard_axis()
+        def place(split):
+            _, count, index = self._shard_axis(split)
+            return (count, index,
+                    lambda m: self._holders(m, split),
+                    self._axis_entry(split))
+
         return sharded_state(ts, self.state_partition_specs(ts),
-                             count=count, index=index, holders=self._holders,
-                             entry=self._axis_entry(),
-                             mesh_axes=mesh_axes(self.mesh))
+                             place=place, mesh_axes=mesh_axes(self.mesh))
 
 
 __all__ = ["MEGATRON_RULES", "Split", "TensorParallelEngine",

@@ -42,10 +42,17 @@ them. Here the axes the ported engines use are:
   and `group` / `ici_group` / `dcn_group` become the data groups of this
   rank's expert index: the batch shards over the data axes only, so the
   N ranks of an expert group see the same rows (the reference's
-  `data_axis_names` excludes 'expert'). `expert` > 1 beside `model` > 1
-  (EP x TP) is refused, naming its queued item (`EP_TP_ITEM`), and
-  beside `seq` > 1 as the reference's plans refuse it (ep composes with
-  the data axis only);
+  `data_axis_names` excludes 'expert'). `expert` > 1 beside `seq` > 1 is
+  refused as the reference's plans refuse it (ep composes with the data
+  axis only);
+* `model` and `expert` together (EP x TP, the reference's `EXPERT_RULES
+  + MEGATRON_RULES` on one program): `MeshSpec(data=-1, model=M,
+  expert=E)` over W ranks is W / (M * E) data ranks, in the reference's
+  axis order (data, stage, model, seq, expert): rank = (data_index * M +
+  model_index) * E + expert_index. The mesh carries `model_group` (the
+  M ranks of its (data, expert) index), `expert_group` (the E ranks of
+  its (data, model) index) and `group`, the data group of its (model,
+  expert) index;
 * `stage`: the pipeline's stages, driven by ONE process (as the JAX
   engine's one controller drives every stage through its tick tables).
   The axis is a list of this process's devices; stage s runs on
@@ -68,8 +75,6 @@ from typing import Any, Optional, Sequence, Tuple
 import torch
 import torch.distributed as dist
 
-# The queued ROADMAP.md item named by the EP x TP refusals.
-EP_TP_ITEM = "the EP x TP mesh item (ROADMAP.md section A)"
 # Where every other composition of the inner axes lives.
 PLAN_WAY = ("a composed plan (parallel/plan.py, --plan) lays its axes out "
             "on runtime/mesh.make_plan_mesh")
@@ -84,8 +89,9 @@ class MeshSpec:
     every rank. `dcn` is the cross-slice factor of the data axis (1 =
     one fabric); it must divide the resolved data size. `model` is the
     tensor-parallel factor, `seq` the sequence-parallel one and `expert`
-    the expert-parallel one; the one above 1 must divide the world;
-    `model` excludes `dcn` > 1, and the three exclude each other."""
+    the expert-parallel one; their product must divide the world;
+    `model` excludes `dcn` > 1, `seq` excludes the other two, and
+    `model` composes with `expert` (EP x TP)."""
 
     data: int = -1
     stage: int = 1
@@ -107,25 +113,21 @@ class MeshSpec:
             raise ValueError(f"MeshSpec(expert={self.expert}) must be >= 1")
         inner = [(a, getattr(self, a)) for a in ("model", "seq", "expert")
                  if getattr(self, a) > 1]
-        if len(inner) > 1:
+        if self.seq > 1 and len(inner) > 1:
             named = ", ".join(f"{a}={n}" for a, n in inner)
             kinds = " and ".join(_KINDS[a] for a, _ in inner)
-            if self.model > 1 and self.expert > 1:
-                raise ValueError(
-                    f"MeshSpec({named}) composes {kinds} parallelism on "
-                    "one mesh, which is not ported to the PyTorch package "
-                    f"yet: it is {EP_TP_ITEM}")
             raise ValueError(
                 f"MeshSpec({named}) composes {kinds} parallelism, which "
                 f"MeshSpec does not lay out: {PLAN_WAY}")
-        axis, ways = inner[0] if inner else ("model", 1)
+        named = ", ".join(f"{a}={n}" for a, n in inner) or "model=1"
+        ways = self.model * self.seq * self.expert
         if world % ways:
-            raise ValueError(f"MeshSpec({axis}={ways}) must divide the "
+            raise ValueError(f"MeshSpec({named}) must divide the "
                              f"world ({world} ranks)")
         data = world // ways
         if self.data not in (-1, data):
             raise ValueError(
-                f"MeshSpec(data={self.data}, {axis}={ways}) needs "
+                f"MeshSpec(data={self.data}, {named}) needs "
                 f"{self.data * ways} ranks; the world has {world}")
         if self.dcn < 1:
             raise ValueError(f"dcn must be >= 1, got {self.dcn}")
@@ -158,7 +160,11 @@ class Mesh:
     gradients and metrics over); it is `group` when `seq` is 1. With
     `expert` > 1 each data index holds `expert` ranks: `expert_group` is
     this rank's (None when `expert` is 1), and `group`, `ici_group` and
-    `dcn_group` are the data groups of its `expert_index`."""
+    `dcn_group` are the data groups of its `expert_index`. With both
+    `model` and `expert` above 1 (EP x TP), `model_group` is the model
+    ranks of this rank's (data, expert) index, `expert_group` the expert
+    ranks of its (data, model) index, and `group` the data ranks of its
+    (model, expert) index."""
 
     data: int
     group: Optional[Any]
@@ -222,6 +228,8 @@ def make_mesh(spec: Optional[MeshSpec] = None,
     if not dist.is_initialized():
         return Mesh(spec.resolve(1), None, spec.stage, devices)
     world = spec.resolve(dist.get_world_size())
+    if spec.model > 1 and spec.expert > 1:
+        return _model_expert_mesh(world, spec, devices)
     if spec.model > 1:
         return _model_mesh(world, spec, devices)
     if spec.seq > 1:
@@ -265,6 +273,42 @@ def _model_mesh(data: int, spec: MeshSpec, devices) -> Mesh:
     return Mesh(data, data_group, spec.stage, devices, model=m,
                 model_group=model_group, data_index=rank // m,
                 model_index=rank % m)
+
+
+def _model_expert_mesh(data: int, spec: MeshSpec, devices) -> Mesh:
+    """A (data, model, expert) mesh, rank = (data_index * model +
+    model_index) * expert + expert_index: every rank creates every model
+    group, every expert group and every data group, in that order
+    (`dist.new_group` is collective over the world), and keeps the three
+    it belongs to."""
+    m, e = spec.model, spec.expert
+    rank = dist.get_rank()
+    d_idx, rest = divmod(rank, m * e)
+    m_idx, e_idx = divmod(rest, e)
+
+    def at(d, j, i):
+        return (d * m + j) * e + i
+
+    model_group = expert_group = data_group = None
+    for d in range(data):
+        for i in range(e):
+            g = dist.new_group([at(d, j, i) for j in range(m)])
+            if (d, i) == (d_idx, e_idx):
+                model_group = g
+    for d in range(data):
+        for j in range(m):
+            g = dist.new_group([at(d, j, i) for i in range(e)])
+            if (d, j) == (d_idx, m_idx):
+                expert_group = g
+    for j in range(m):
+        for i in range(e):
+            g = dist.new_group([at(d, j, i) for d in range(data)])
+            if (j, i) == (m_idx, e_idx):
+                data_group = g
+    return Mesh(data, data_group, spec.stage, devices, model=m,
+                model_group=model_group, data_index=d_idx,
+                model_index=m_idx, expert=e, expert_group=expert_group,
+                expert_index=e_idx)
 
 
 def _inner_mesh(data: int, spec: MeshSpec, devices, axis: str) -> Mesh:
@@ -461,6 +505,6 @@ def data_hierarchy_axes(mesh: Mesh):
     return mesh.group, mesh.ici_group, mesh.dcn_group
 
 
-__all__ = ["EP_TP_ITEM", "Mesh", "MeshSpec", "PLAN_WAY", "PlanMesh",
+__all__ = ["Mesh", "MeshSpec", "PLAN_WAY", "PlanMesh",
            "data_axis_names", "data_axis_size", "data_hierarchy_axes",
            "local_devices", "make_mesh", "make_plan_mesh", "mesh_axes"]

@@ -55,6 +55,7 @@ from typing import Any, List, Optional
 import torch
 import torch.distributed as dist
 
+from distributed_model_parallel_tpu_torch.analysis.record import scope
 from distributed_model_parallel_tpu_torch.ops.attention import (
     dot_product_attention,
 )
@@ -508,8 +509,9 @@ class DecodeCollectiveMatmul:
         t = h.shape[1]
         h2 = h.reshape(-1, h.shape[-1])
         dot = self._dot(w)
-        y = (ag_matmul(h2, w, self.group) if dot is None
-             else ag_matmul_quant(h2, w, self.group, dot))
+        with scope("serve_ring"):
+            y = (ag_matmul(h2, w, self.group) if dot is None
+                 else ag_matmul_quant(h2, w, self.group, dot))
         return (y + b.to(y.dtype)).reshape(-1, t, y.shape[-1])
 
     def row(self, h, w, b):
@@ -517,8 +519,9 @@ class DecodeCollectiveMatmul:
         t = h.shape[1]
         h2 = h.reshape(-1, h.shape[-1])
         dot = self._dot(w)
-        y = (matmul_rs(h2, w, self.group) if dot is None
-             else matmul_rs_quant(h2, w, self.group, dot))
+        with scope("serve_ring"):
+            y = (matmul_rs(h2, w, self.group) if dot is None
+                 else matmul_rs_quant(h2, w, self.group, dot))
         return (y + b.to(y.dtype)).reshape(-1, t, y.shape[-1])
 
 

@@ -73,6 +73,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from distributed_model_parallel_tpu_torch.analysis.record import scope
 from distributed_model_parallel_tpu_torch.models import layers as L
 from distributed_model_parallel_tpu_torch.models.gpt import (
     GPTConfig,
@@ -580,7 +581,8 @@ class ServingEngine:
         order (each rank then holds the whole batch's); else logits."""
         if self._mm is None:
             return logits
-        return _all_gather_dim0(logits, self._group)
+        with scope("serve_logits"):
+            return _all_gather_dim0(logits, self._group)
 
     def _decode_pass(self, params, rec, tokens, positions):
         cfg = self.cfg

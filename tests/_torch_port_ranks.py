@@ -6,20 +6,72 @@ This module imports neither jax nor the JAX package: a spawned rank
 imports the module of its target, and so starts with torch and the port
 only. `spawn` starts `world` CPU ranks on gloo (one thread each, as the
 suite runs several workers at once), runs one of the functions below in
-every rank and returns their results, rank by rank. Every join has a
-timeout, and the process group has one, so a lost rank fails the test
-instead of hanging the suite.
+every rank and returns their results, rank by rank. The world's joins
+share one deadline, and the process group has a timeout, so a lost rank
+fails the test instead of hanging the suite.
+
+Every port test file also imports `torch_port_worker`, which leaves its
+pytest worker as it found it:
+
+* one torch thread while the file's tests run. The suite runs several
+  pytest workers at once (`-n 6` on a host of 8 cores); torch's default
+  of one intra-op thread a core then puts six thread pools on the same
+  cores, and the small tensors of these tests spend their time waiting
+  for each other's threads (a 2-epoch CLI run read 364 s so, and 10 s
+  on one thread). The rank processes run one thread each already;
+* no process group left behind. An in-process CLI run joins a world of
+  one gloo rank (`runtime/dist.initialize_backend`) and keeps it; the
+  file's last test closes it, so that no later file in the worker finds
+  a world it did not make and no worker ends with a gloo store open.
 """
 
 from __future__ import annotations
 
+import contextlib
+import dataclasses
 import multiprocessing
 import os
 import pickle
+import time
 import traceback
 from pathlib import Path
+from unittest import mock
+
+import pytest
 
 TIMEOUT_S = 120
+
+
+_DEFAULT = {}
+
+
+@pytest.fixture(autouse=True, scope="module")
+def torch_port_worker():
+    import torch
+    import torch.distributed as dist
+
+    threads = _DEFAULT.setdefault("threads", torch.get_num_threads())
+    torch.set_num_threads(1)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(threads)
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+@pytest.fixture
+def default_torch_threads():
+    """torch's own thread count for one test whose f32 bar was set at it:
+    a conv's weight gradient sums in another order on one thread, and a
+    bar of 1e-5 may see that order."""
+    import torch
+
+    torch.set_num_threads(_DEFAULT.get("threads", torch.get_num_threads()))
+    try:
+        yield
+    finally:
+        torch.set_num_threads(1)
 
 
 def spawn(world: int, fn: str, payload, tmp_path: Path) -> list:
@@ -33,9 +85,13 @@ def spawn(world: int, fn: str, payload, tmp_path: Path) -> list:
              for r in range(world)]
     for p in procs:
         p.start()
+    # One deadline for the whole world: joined one after the other with
+    # TIMEOUT_S each, a stuck world of 8 would hold the worker 8 times
+    # as long before it is killed.
+    deadline = time.monotonic() + TIMEOUT_S
     try:
         for p in procs:
-            p.join(TIMEOUT_S)
+            p.join(max(0.0, deadline - time.monotonic()))
     finally:
         hung = [p for p in procs if p.is_alive()]
         for p in hung:
@@ -1348,6 +1404,115 @@ def moe_suite(rank, world, payload) -> dict:
                                    "tree": eng.to_canonical(ts)}
     if "cli" in payload:
         out["cli"] = cli_suite(rank, world, payload["cli"])
+    if "eptp" in payload:
+        out["eptp"] = eptp_cases(rank, world, payload["eptp"])
+    return out
+
+
+def eptp_cases(rank, world, payload) -> dict:
+    """EP x TP (`ExpertParallelEngine(rules=EXPERT_RULES +
+    MEGATRON_RULES)` on `MeshSpec(data, model, expert)`), from the
+    reference's weights (`tests/test_torch_port_moe_exchange.py`,
+    `tests/test_torch_port_plan.py`):
+
+    * `payload["bert"]` configs (data, model, expert[, "cm"]): the MoE
+      BERT classifier (on the collective-matmul rings with "cm"), SGD
+      over the global batch `ids` / `labels` (each data index its
+      rows): per-step mean losses, this rank's qkv and w_in shapes, the
+      canonical parameters;
+    * `payload["lm"]` configs (data, model, expert[, dispatch]):
+      `ExpertParallelLMEngine` on the MoE GPT over the global id batches:
+      per-step sums, canonical parameters; with `payload["save"]`, the
+      first config's state after the steps is saved in the sharded
+      format there;
+    * `payload["restore"]`: (config, directory) pairs restored at the
+      config and taken one step on the last batch."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from distributed_model_parallel_tpu_torch import checkpointing
+    from distributed_model_parallel_tpu_torch.models import bert as tbert
+    from distributed_model_parallel_tpu_torch.models.convert import (
+        from_jax_params,
+    )
+    from distributed_model_parallel_tpu_torch.models.gpt import (
+        GPTConfig,
+        gpt_lm_model,
+    )
+    from distributed_model_parallel_tpu_torch.parallel.expert_parallel \
+        import (EXPERT_RULES, MEGATRON_RULES, ExpertParallelEngine,
+                ExpertParallelLMEngine)
+    from distributed_model_parallel_tpu_torch.runtime.mesh import (
+        MeshSpec,
+        make_mesh,
+    )
+    from distributed_model_parallel_tpu_torch.training.optim import SGD
+
+    rules = EXPERT_RULES + MEGATRON_RULES
+    out = {}
+    for config in payload.get("bert", ()):
+        mesh = make_mesh(MeshSpec(data=config[0], model=config[1],
+                                  expert=config[2]))
+        cfg = tbert.BertConfig(**payload["bert_cfg"])
+        model = tbert.bert_for_classification(payload["classes"], cfg)
+        eng = ExpertParallelEngine(model, SGD(), mesh, device="cpu",
+                                   rules=rules,
+                                   collective_matmul="cm" in config[3:])
+        ts = eng.state_from_params(*from_jax_params(
+            payload["bert_params"], model=model, state=payload["bert_state"]))
+        ids, labels = payload["ids"], payload["labels"]
+        rows = len(labels) // mesh.data
+        mine = slice(mesh.data_index * rows, (mesh.data_index + 1) * rows)
+        losses = []
+        for _ in range(payload["steps"]):
+            ts, m = eng.train_step(ts, *eng.shard_batch(ids[mine],
+                                                        labels[mine]),
+                                   payload["lr"])
+            losses.append(float(m["loss_sum"]) / float(m["count"]))
+        blocks = ts.params["blocks"]
+        out["bert", config] = {
+            "losses": losses,
+            "qkv": tuple(blocks["0"]["attn"]["qkv"]["w"].shape),
+            "w_in": tuple(blocks["1"]["moe"]["experts"]["w_in"].shape),
+            "tree": eng.to_canonical(ts)["params"]}
+    for config in payload.get("lm", ()):
+        mesh = make_mesh(MeshSpec(data=config[0], model=config[1],
+                                  expert=config[2]))
+        eng = ExpertParallelLMEngine(
+            gpt_lm_model(GPTConfig(**payload["gpt"])), SGD(0.9, 1e-2), mesh,
+            device="cpu", rules=rules, pad_token_id=0,
+            dispatch=config[3] if config[3:] else "gspmd")
+        ts = eng.state_from_params(from_jax_params(payload["gpt_params"]),
+                                   eng.model.init(torch.Generator())[1])
+        sums = []
+        for b in payload["lm_ids"]:
+            ts, m = eng.train_step(ts, *eng.shard_batch(b), payload["lm_lr"])
+            sums.append({k: float(v) for k, v in m.items()})
+        out["lm", config] = {"sums": sums,
+                             "tree": eng.to_canonical(ts)}
+        if payload.get("save") and config == payload["lm"][0]:
+            checkpointing.save_sharded(payload["save"],
+                                       eng.to_canonical_sharded(ts),
+                                       acc=0.0, epoch=0)
+            dist.barrier()
+    for config, directory in payload.get("restore", ()):
+        mesh = make_mesh(MeshSpec(data=config[0], model=config[1],
+                                  expert=config[2]))
+        eng = ExpertParallelLMEngine(
+            gpt_lm_model(GPTConfig(**payload["gpt"])), SGD(0.9, 1e-2), mesh,
+            device="cpu", rules=rules, pad_token_id=0)
+        like = eng.init_state(1)
+        tree, _, _ = checkpointing.restore_checkpoint(
+            directory, eng.canonical_spec(like))
+        ts, m = eng.train_step(eng.from_canonical(tree, like),
+                               *eng.shard_batch(payload["lm_ids"][-1]),
+                               payload["lm_lr"])
+        out["restored", config, directory] = {
+            "sums": {k: float(v) for k, v in m.items()},
+            "tree": eng.to_canonical(ts)}
+        out["restored_shapes", config, directory] = {
+            k: tuple(v.shape) for k, v in _flat_leaves(ts.params).items()}
     return out
 
 
@@ -1425,6 +1590,8 @@ def plan_suite(rank, world, payload) -> dict:
         if opts.get("fsdp_shapes"):
             out[name, "shapes", rank] = {
                 k: tuple(v.shape) for k, v in _flat_leaves(ts.params).items()}
+    if "eptp" in payload:
+        out["eptp", rank] = eptp_cases(rank, world, payload["eptp"])
     return out
 
 
@@ -1532,3 +1699,279 @@ def plan_ckpt_suite(rank, world, payload) -> dict:
         out.append({"canonical": before, "meta": (acc, epoch),
                     "sums": sums})
     return out if rank == 0 else None
+
+
+def _record_rows(rec) -> list:
+    """A recording's collectives as comparable rows."""
+    return [(r.op, r.ranks, r.dtype, r.elems, r.scope)
+            for r in rec.records]
+
+
+def lint_records(rank, world, payload) -> dict:
+    """The linter's combos (`analysis/lint.py`) on real gloo ranks
+    (`tests/test_torch_port_analysis.py`): every rank builds and steps
+    each combo of `payload["combos"]` (Combo keyword dicts, each spanning
+    this world) under `recording()`; returns this rank's rows a combo."""
+    from distributed_model_parallel_tpu_torch.analysis import lint
+
+    out = {}
+    for kw in payload["combos"]:
+        combo = lint.Combo(**kw)
+        _, rec, _ = lint.record_step(combo, "cpu")
+        out[combo.name] = _record_rows(rec)
+    return out
+
+
+def fake_lint_records(combos) -> dict:
+    """The same combos as rank 0 on the fake process group, in this
+    process (which must have no process group)."""
+    from distributed_model_parallel_tpu_torch.analysis import lint
+
+    out = {}
+    for kw in combos:
+        combo = lint.Combo(**kw)
+        _, rec, _ = lint.record_combo(combo, "cpu")
+        out[combo.name] = _record_rows(rec)
+    return out
+
+
+def lint_sites() -> list:
+    """Every call site (`path:line`) the recorder saw while the whole
+    lint matrix, its self-test breaks and the drivers below ran, in this
+    process (which must have no process group). The drivers reach the
+    sites no combo steps through: the monolithic baselines the rings and
+    the exchange replace, Ulysses' all-to-all, the checkpoint restore's
+    broadcast, the tensor-parallel canonical gather and the sp serving
+    layout's prefill and decode."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from distributed_model_parallel_tpu_torch.analysis import lint
+    from distributed_model_parallel_tpu_torch.analysis.record import (
+        fake_world,
+        recording,
+    )
+    from distributed_model_parallel_tpu_torch.models.bert import (
+        bert_for_classification,
+    )
+    from distributed_model_parallel_tpu_torch.ops import collective_matmul \
+        as cm
+    from distributed_model_parallel_tpu_torch.ops import expert_dispatch \
+        as xd
+    from distributed_model_parallel_tpu_torch.ops.ring_attention import (
+        ulysses_attention,
+    )
+    from distributed_model_parallel_tpu_torch.parallel.tensor_parallel \
+        import TensorParallelEngine
+    from distributed_model_parallel_tpu_torch.runtime.mesh import (
+        MeshSpec,
+        make_mesh,
+    )
+    from distributed_model_parallel_tpu_torch.serving.engine import (
+        ServingEngine,
+    )
+    from distributed_model_parallel_tpu_torch.training import checkpoint
+    from distributed_model_parallel_tpu_torch.training.optim import SGD
+
+    sites = set()
+
+    def keep(rec):
+        sites.update(r.site for r in rec.records)
+
+    for combo in lint.full_matrix():
+        keep(lint.record_combo(combo, "cpu")[1])
+    for _, combo, brk, _ in lint_breaks():
+        with brk():
+            keep(lint.record_combo(combo, "cpu")[1])
+    with fake_world(0, 2):
+        world = dist.group.WORLD
+        tp = TensorParallelEngine(
+            bert_for_classification(4, lint._bert_cfg(2)), SGD(),
+            make_mesh(MeshSpec(data=1, model=2)), device="cpu")
+        ts = tp.init_state(0)
+        serve = ServingEngine(lint._gpt_cfg(num_layers=1, num_heads=2),
+                              make_mesh(MeshSpec(data=1, seq=2)),
+                              layout="sp", num_slots=2, max_len=16,
+                              prefill_len=8, device="cpu")
+        params, cache = serve.init_params(0), serve.init_cache()
+        ids = torch.ones((1, 8), dtype=torch.int64)
+        with recording() as rec:
+            x = torch.zeros((2, 4, 8))
+            cm.naive_ag_matmul(x, torch.zeros((8, 4)), world)
+            cm.naive_matmul_rs(x, torch.zeros((8, 4)), world)
+            xd.flat_expert_return(xd.flat_expert_exchange(
+                torch.zeros((4, 1, 2, 8)), world), world)
+            q = torch.zeros((1, 4, 2, 8))
+            ulysses_attention(q, q, q, group=world)
+            checkpoint._broadcast_leaves({"a": np.ones(3, np.float32)},
+                                         {"a": np.ones(3, np.float32)})
+            tp.to_canonical(ts)
+            serve.prefill(params, cache, ids, 5, 0)
+            serve.decode_step(params, cache, torch.zeros(2, dtype=torch.int64),
+                              torch.ones(2, dtype=torch.bool))
+        keep(rec)
+    return sorted(sites)
+
+# ------------------------------------------------ the linter's breaks
+#
+# One deliberate contract break per family of the linter's pre-gate
+# matrix (`analysis/lint.pregate_matrix`), each a patch of the port's
+# own code for the length of a `with` block. `lint_self_test` lints each
+# combo under its break, which must be named by the rule it violates
+# (`tests/test_torch_port_analysis.py`; chip_smoke.py's phase 18 (b)
+# runs it on the card).
+
+
+@contextlib.contextmanager
+def flat_moe_exchange():
+    """The hierarchical MoE exchange forced to the flat all-to-all over
+    the whole world (the exchange the two-level path replaces)."""
+    import torch
+    import torch.distributed as dist
+
+    from distributed_model_parallel_tpu_torch.ops import (
+        expert_dispatch as xd,
+    )
+
+    class _Flat(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, x, fwd, bwd):
+            ctx.bwd = bwd
+            return fwd(x, dist.group.WORLD)
+
+        @staticmethod
+        def backward(ctx, g):
+            return ctx.bwd(g.contiguous(), dist.group.WORLD), None, None
+
+    def flat(xin, w, ici, dcn=None, overlap=False, wire="none", dtype=None):
+        z = _Flat.apply(xin, xd.flat_expert_exchange, xd.flat_expert_return)
+        y = xd.expert_ffn(w, z, dtype)
+        return _Flat.apply(y, xd.flat_expert_return, xd.flat_expert_exchange)
+
+    with mock.patch.object(xd, "exchanged_expert_ffn", flat):
+        yield
+
+
+@contextlib.contextmanager
+def monolithic_buckets():
+    """Every gradient bucket all-reduced whole over the data fabric
+    instead of its reduce-scatter / all-gather halves."""
+    import torch.distributed as dist
+
+    from distributed_model_parallel_tpu_torch.ops import grad_reduction
+
+    def chain(flat, ici_group, dcn_group, wire):
+        dist.all_reduce(flat)
+        return flat, None
+
+    with mock.patch.object(grad_reduction, "_reduce_chain", chain):
+        yield
+
+
+@contextlib.contextmanager
+def fsdp_replicated():
+    """FSDP's at-rest policy made to shard nothing."""
+    from distributed_model_parallel_tpu_torch.parallel import fsdp
+    from distributed_model_parallel_tpu_torch.training.optim import tree_map
+
+    def specs(tree, *args, **kwargs):
+        return tree_map(lambda _: fsdp.P(), tree)
+
+    with mock.patch.object(fsdp, "fsdp_specs", specs):
+        yield
+
+
+@contextlib.contextmanager
+def uncoded_wire():
+    """The cross-slice codec made to send f32 payloads (the int8 scale
+    still riding beside them)."""
+    import torch
+
+    from distributed_model_parallel_tpu_torch.ops import wire_codec
+
+    def encode(wire, x):
+        if wire == "int8":
+            return x.float(), torch.ones((), device=x.device)
+        return x, None
+
+    with mock.patch.object(wire_codec, "wire_encode", encode):
+        yield
+
+
+@contextlib.contextmanager
+def gathered_projection():
+    """The decode rings' column projections replaced by one monolithic
+    all-gather of the rows and a local product."""
+    from distributed_model_parallel_tpu_torch.ops.collective_matmul import (
+        _all_gather_rows,
+    )
+    from distributed_model_parallel_tpu_torch.serving import decode
+
+    def column(self, h, w, b):
+        t = h.shape[1]
+        y = _all_gather_rows(h.reshape(-1, h.shape[-1]), self.group) @ w
+        return (y + b.to(y.dtype)).reshape(-1, t, y.shape[-1])
+
+    with mock.patch.object(decode.DecodeCollectiveMatmul, "column", column):
+        yield
+
+
+@contextlib.contextmanager
+def world_plan_grad():
+    """A composed plan's gradient reduction widened to the whole world
+    (across the stage fabric)."""
+    import torch.distributed as dist
+
+    from distributed_model_parallel_tpu_torch.parallel import plan
+
+    make = plan.make_plan_mesh
+
+    def widened(*args, **kwargs):
+        return dataclasses.replace(make(*args, **kwargs),
+                                   data_seq_group=dist.group.WORLD)
+
+    with mock.patch.object(plan, "make_plan_mesh", widened):
+        yield
+
+
+def lint_breaks() -> list:
+    """(family, combo, break, the rule that must name it) for each
+    family of the linter's `pregate_matrix()`."""
+    from distributed_model_parallel_tpu_torch.analysis import lint
+
+    pre = lint.pregate_matrix()
+    return [("ddp", pre[0], monolithic_buckets, "no-grad-all-reduce"),
+            ("fsdp", pre[1], fsdp_replicated, "fsdp-at-rest-sharded"),
+            ("ep", pre[2], flat_moe_exchange, "moe-hierarchical-a2a"),
+            ("dcn_wire", pre[3], uncoded_wire, "dcn-compressed-payload"),
+            ("serve", pre[4], gathered_projection, "serve-decode-ring"),
+            ("speculative", pre[5], gathered_projection,
+             "spec-verify-step"),
+            ("plan", pre[6], world_plan_grad, "plan-grad-fabric")]
+
+
+def lint_self_test(device: str) -> int:
+    """Each family's break (`lint_breaks`) linted in this process (which
+    must have no process group): prints one `{"self_test": ...}` line a
+    family, with the rules it violated and whether the expected one is
+    among them; returns 1 when a break went unnamed, else 0.
+
+        python -c "import sys; sys.path.insert(0, 'tests');
+            import _torch_port_ranks as r; sys.exit(r.lint_self_test('cpu'))"
+    """
+    import json
+
+    from distributed_model_parallel_tpu_torch.analysis import lint
+
+    out = []
+    for family, combo, brk, want in lint_breaks():
+        with brk():
+            rep = lint.lint_combo(combo, device)
+        named = sorted({f.rule for f in rep.errors})
+        out.append({"family": family, "combo": combo.name,
+                    "expected": want, "named": named,
+                    "caught": want in named})
+    for r in out:
+        print(json.dumps({"self_test": r}), flush=True)
+    return 0 if all(r["caught"] for r in out) else 1

@@ -97,6 +97,7 @@ from distributed_model_parallel_tpu_torch.training.trainer import (
     Trainer,
     TrainerConfig,
 )
+from _torch_port_ranks import torch_port_worker  # noqa: F401,E402
 
 GPT_KW = dict(vocab_size=64, dim=32, num_layers=2, num_heads=4, ffn_dim=64,
               max_position=32, dropout_rate=0.0, pad_token_id=0)

@@ -79,6 +79,7 @@ from distributed_model_parallel_tpu_torch.training.trainer import (
     Trainer,
     TrainerConfig,
 )
+from _torch_port_ranks import torch_port_worker  # noqa: F401,E402
 
 F32 = dict(rtol=1e-5, atol=1e-6)
 EXACT = dict(rtol=0, atol=0)

@@ -58,6 +58,10 @@ from distributed_model_parallel_tpu_torch.training.optim import (
     tree_leaves,
     tree_map,
 )
+from _torch_port_ranks import (  # noqa: F401,E402
+    default_torch_threads,
+    torch_port_worker,
+)
 
 F32 = dict(rtol=1e-5, atol=1e-6)
 BF16 = dict(rtol=1e-2, atol=1e-2)
@@ -167,7 +171,7 @@ def test_batchnorm_matches_jax(train, dtype):
      L.residual(L.conv2d(4, 4, 3, padding=1),
                 L.named([("c", L.conv2d(4, 4, 1))]))),
 ])
-def test_layers_match_jax(name, jlayer, tlayer):
+def test_layers_match_jax(name, jlayer, tlayer, default_torch_threads):
     """Forward and input gradient of each image layer on the same
     weights; the weight gradients for the convolutions."""
     rng = np.random.RandomState(1)

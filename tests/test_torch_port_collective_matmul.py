@@ -31,6 +31,7 @@ from distributed_model_parallel_tpu.ops.collective_matmul import (
 from distributed_model_parallel_tpu.runtime.compat import shard_map
 
 from tests._torch_port_ranks import spawn
+from _torch_port_ranks import torch_port_worker  # noqa: F401,E402
 
 SIZES = (2, 3, 4)
 OP_TOL = dict(rtol=1e-5, atol=1e-7)

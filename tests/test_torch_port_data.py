@@ -19,6 +19,7 @@ from distributed_model_parallel_tpu.data import loader as jloader
 from distributed_model_parallel_tpu_torch import native
 from distributed_model_parallel_tpu_torch.data import datasets as tds
 from distributed_model_parallel_tpu_torch.data import loader as tloader
+from _torch_port_ranks import torch_port_worker  # noqa: F401,E402
 
 
 # ------------------------------------------------------------ datasets

@@ -17,6 +17,7 @@ from distributed_model_parallel_tpu_torch.cli import data_parallel as dp_cli
 from distributed_model_parallel_tpu_torch.cli import model_parallel as mp_cli
 from distributed_model_parallel_tpu_torch.data import datasets as tds
 from distributed_model_parallel_tpu_torch.data.loader import Loader
+from _torch_port_ranks import torch_port_worker  # noqa: F401,E402
 
 CLASSES = ("cat", "dog", "eel")
 

@@ -62,6 +62,7 @@ from distributed_model_parallel_tpu_torch.runtime.mesh import (
     make_mesh,
 )
 from distributed_model_parallel_tpu_torch.training.optim import SGD
+from _torch_port_ranks import torch_port_worker  # noqa: F401,E402
 
 BATCH, STEPS, LR = 16, 3, 0.1
 ENGINE = dict(rtol=1e-4, atol=1e-5)

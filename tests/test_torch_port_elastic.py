@@ -42,6 +42,7 @@ from distributed_model_parallel_tpu_torch.parallel.fsdp import FSDPEngine
 from distributed_model_parallel_tpu_torch.models.tinycnn import tiny_cnn
 from distributed_model_parallel_tpu_torch.training import elastic
 from distributed_model_parallel_tpu_torch.training.optim import SGD
+from _torch_port_ranks import torch_port_worker  # noqa: F401,E402
 
 F32 = dict(rtol=1e-5, atol=1e-6)
 VAL = 64

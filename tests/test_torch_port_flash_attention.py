@@ -27,6 +27,7 @@ from distributed_model_parallel_tpu_torch.ops import ring_attention as ra
 from distributed_model_parallel_tpu_torch.ops.attention import (
     dot_product_attention,
 )
+from _torch_port_ranks import torch_port_worker  # noqa: F401,E402
 
 # The JAX package's ops/__init__ re-exports functions under these module
 # names, so the modules are looked up by path.

@@ -11,6 +11,7 @@ import pytest
 import torch
 
 from distributed_model_parallel_tpu_torch.ops import flash_attention as fa
+from _torch_port_ranks import torch_port_worker  # noqa: F401,E402
 
 SOURCE = (Path(fa.__file__).resolve().parent.parent / "csrc"
           / "flash_attention.cu")

@@ -48,6 +48,7 @@ from distributed_model_parallel_tpu_torch.training.checkpoint import (
     flatten_tree,
 )
 from distributed_model_parallel_tpu_torch.training.optim import SGD, AdamW
+from _torch_port_ranks import torch_port_worker  # noqa: F401,E402
 
 CNN = dict(rtol=1e-4, atol=1e-5)
 LR = {"sgd": 0.05, "adamw": 1e-3}

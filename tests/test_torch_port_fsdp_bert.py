@@ -23,6 +23,7 @@ from distributed_model_parallel_tpu.models.bert import (
 from distributed_model_parallel_tpu.models.bert import (
     bert_for_classification as j_bert,
 )
+from _torch_port_ranks import torch_port_worker  # noqa: F401,E402
 
 F32 = dict(rtol=1e-5, atol=1e-6)
 TINY = dict(vocab_size=97, hidden_size=32, num_layers=2, num_heads=4,

@@ -36,6 +36,7 @@ from distributed_model_parallel_tpu.runtime.compat import shard_map
 from distributed_model_parallel_tpu_torch.training.checkpoint import (
     flatten_tree,
 )
+from _torch_port_ranks import torch_port_worker  # noqa: F401,E402
 
 WIRES = ("none", "bf16", "int8")
 BUDGET = {"none": 1e-5, "bf16": 1e-2, "int8": 5e-2}

@@ -86,6 +86,7 @@ from distributed_model_parallel_tpu_torch.training.optim import (
     SGD,
     tree_leaves,
 )
+from _torch_port_ranks import torch_port_worker  # noqa: F401,E402
 
 F32 = dict(rtol=1e-5, atol=1e-7)
 LOOSE = dict(rtol=5e-2, atol=2e-2)  # bf16 leaves, compressed wires

@@ -2,7 +2,8 @@
 `distributed_model_parallel_tpu_torch/` (nor `chip_smoke.py`,
 `chip_smoke_probe.py` or `pp_host_probe.py`) imports jax or the JAX package, every port module
 imports in a process where
-jax cannot be imported, and the port's serve and data-parallel CLIs
+jax cannot be imported (the linter's `analysis/` modules and its fake
+process group included), and the port's serve and data-parallel CLIs
 run on the GPU by default, refuse to start without one unless
 `--device cpu` is given, and refuse the flags of later port slices by
 name.
@@ -23,6 +24,7 @@ from distributed_model_parallel_tpu_torch.observability import (
     metrics,
     trace,
 )
+from _torch_port_ranks import torch_port_worker  # noqa: F401,E402
 
 REPO = Path(__file__).resolve().parent.parent
 PORT = REPO / "distributed_model_parallel_tpu_torch"
@@ -86,9 +88,14 @@ def test_every_port_module_imports_without_jax():
         "          'checkpointing.sharded', 'checkpointing.writer',\n"
         "          'checkpointing.save', 'checkpointing.restore',\n"
         "          'ops.ring_attention', 'parallel.sequence_parallel',\n"
-        "          'ops.collective_matmul'):\n"
+        "          'ops.collective_matmul', 'analysis.record',\n"
+        "          'analysis.collectives', 'analysis.rules',\n"
+        "          'analysis.lint'):\n"
         "    assert pkg.__name__ + '.' + m in names, m\n"
         "import distributed_model_parallel_tpu_torch.cli.serve\n"
+        "from distributed_model_parallel_tpu_torch.analysis import record\n"
+        "with record.fake_world(1, 2):\n"
+        "    pass\n"
         "print(len(names))\n"
     )
     proc = subprocess.run(

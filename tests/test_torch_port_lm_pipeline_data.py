@@ -26,6 +26,7 @@ from distributed_model_parallel_tpu.parallel.pipeline import (
 )
 from distributed_model_parallel_tpu.training.optim import SGD as JSGD
 from test_torch_port_pipeline import F32, _jax_mesh, _np, close_sums
+from _torch_port_ranks import torch_port_worker  # noqa: F401,E402
 
 GPT_KW = dict(vocab_size=64, dim=32, num_layers=2, num_heads=4, ffn_dim=64,
               max_position=16, dropout_rate=0.0, pad_token_id=0)

@@ -23,6 +23,7 @@ from distributed_model_parallel_tpu_torch.training.trainer import (
     Trainer,
     TrainerConfig,
 )
+from _torch_port_ranks import torch_port_worker  # noqa: F401,E402
 
 
 def _feed(mod, n):

@@ -69,6 +69,7 @@ from distributed_model_parallel_tpu_torch.parallel.expert_parallel import (
 )
 from distributed_model_parallel_tpu_torch.training import checkpoint as ckpt
 from distributed_model_parallel_tpu_torch.training.optim import SGD
+from _torch_port_ranks import torch_port_worker  # noqa: F401,E402
 
 F32 = dict(rtol=1e-5, atol=1e-6)
 GRAD = dict(rtol=1e-5, atol=1e-5)

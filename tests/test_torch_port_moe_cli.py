@@ -33,6 +33,7 @@ from distributed_model_parallel_tpu_torch.cli.common import (
     check_moe_experts_divide,
 )
 from distributed_model_parallel_tpu_torch.runtime.mesh import Mesh
+from _torch_port_ranks import torch_port_worker  # noqa: F401,E402
 
 BASE = ["--dim", "32", "--layers", "2", "--heads", "4", "--seq-len", "16",
         "-b", "8", "--vocab-size", "64", "--corpus-tokens", "2048",

@@ -34,6 +34,16 @@ Bars: f32 rtol 1e-5 / atol 1e-6; the compressed cross-slice wires 1e-2
   equals the S 4 run's.
 * The LM CLI on the 4 ranks resumed from the port's one-rank MoE
   checkpoint equals the one-rank resume.
+* EP x TP (`rules=EXPERT_RULES + MEGATRON_RULES` on `MeshSpec(data=1,
+  model=2, expert=2)`): the reference test's MoE BERT classifier
+  (`tests/test_expert_parallel.py` `test_tp_ep_dp_compose_on_one_mesh`:
+  hidden 32, 2 layers, 4 heads, FFN 64, E 2, SGD lr 0.05, 3 steps)
+  against the reference's plain-DP trajectory at rtol 1e-5 (the
+  reference's own test holds 1e-4), qkv halved on its output axis and
+  w_in on E; the MoE GPT LM against the reference's and the port's one-
+  rank runs; its sharded file restored at (1, 1) here, and a one-rank
+  file restored on the ranks. (2, 2, 2) runs in `tests/
+  test_torch_port_plan.py`'s 8-rank spawn.
 """
 
 import os
@@ -43,6 +53,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 import torch.distributed as dist
 
 import _torch_port_ranks as ranks
@@ -73,6 +84,9 @@ from distributed_model_parallel_tpu_torch.models.gpt import (
     GPTConfig,
     gpt_lm_model,
 )
+from distributed_model_parallel_tpu_torch.models.convert import (
+    from_jax_params,
+)
 from distributed_model_parallel_tpu_torch.ops.expert_dispatch import (
     exchange_permutes,
 )
@@ -81,6 +95,7 @@ from distributed_model_parallel_tpu_torch.parallel.expert_parallel import (
 )
 from distributed_model_parallel_tpu_torch.runtime.mesh import Mesh
 from distributed_model_parallel_tpu_torch.training.optim import SGD
+from _torch_port_ranks import torch_port_worker  # noqa: F401,E402
 
 TOL = dict(rtol=1e-5, atol=1e-6)
 BUDGET = {"none": None, "bf16": 1e-2, "int8": 5e-2}
@@ -124,6 +139,53 @@ CLI_RUNS = [["--expert-shards", "2"],
             ["--moe-dispatch", "hierarchical", "--moe-overlap",
              "--dcn-slices", "2"]]
 E, B_LOC, CAP, D = 4, 2, 3, 8
+# EP x TP: the reference test's configuration
+EPTP_BERT = dict(vocab_size=67, hidden_size=32, num_layers=2, num_heads=4,
+                 intermediate_size=64, max_position=16, dropout_rate=0.0,
+                 num_experts=2, moe_every=2)
+EPTP_CLASSES, EPTP_STEPS, EPTP_LR = 4, 3, 0.05
+EPTP_MESH = (1, 2, 2)  # (data, model, expert) on the 4 ranks
+EPTP_CM = EPTP_MESH + ("cm",)  # ... with the collective-matmul rings
+EPTP_HIER = (2, 2, 1, "hierarchical")  # experts over the data fabric
+
+
+def eptp_reference() -> dict:
+    """The reference test's run: its MoE BERT classifier's initial
+    weights, the global batch, and the plain 8-way DP engine's per-step
+    mean losses (the trajectory EP x TP must follow)."""
+    model = j_bert(EPTP_CLASSES, JBertConfig(**EPTP_BERT))
+    dp = JDataParallelEngine(model, JSGD(), _jmesh(8), donate=False)
+    rng = np.random.RandomState(0)
+    ids = rng.randint(1, 67, size=(8, 16)).astype(np.int32)
+    labels = rng.randint(0, 4, size=(8,)).astype(np.int32)
+    ts = dp.init_state(jax.random.PRNGKey(0))
+    out = {"bert_params": _np(ts.params), "bert_state": _np(ts.model_state),
+           "ids": ids, "labels": labels}
+    i, lb = dp.shard_batch(ids, labels)
+    losses = []
+    for _ in range(EPTP_STEPS):
+        ts, m = dp.train_step(ts, i, lb, jnp.float32(EPTP_LR))
+        losses.append(float(m["loss_sum"]) / float(m["count"]))
+    out["losses"] = losses
+    return out
+
+
+def eptp_payload(ref: dict, **extra) -> dict:
+    return dict(bert_cfg=EPTP_BERT, classes=EPTP_CLASSES, steps=EPTP_STEPS,
+                lr=EPTP_LR, **{k: ref[k] for k in ("bert_params",
+                                                   "bert_state", "ids",
+                                                   "labels")}, **extra)
+
+
+def check_eptp_bert(got: dict, ref: dict, config) -> None:
+    """One rank's EP x TP BERT run against the reference trajectory, and
+    its shard shapes."""
+    d, m, e = config[:3]
+    np.testing.assert_allclose(got["losses"], ref["losses"], rtol=1e-5)
+    qkv = ref["bert_params"]["blocks"]["0"]["attn"]["qkv"]["w"].shape
+    w_in = ref["bert_params"]["blocks"]["1"]["moe"]["experts"]["w_in"].shape
+    assert got["qkv"] == (qkv[0], qkv[1] // m)
+    assert got["w_in"] == (w_in[0] // e,) + tuple(w_in[1:])
 
 
 def _np(tree):
@@ -247,6 +309,13 @@ def port(reference, tmp_path_factory):
             "--epochs", "2", "--resume", "--checkpoint-dir",
             str(root / f"ck_r{i}")], i))
     xin, w, cot = _ops_data(WORLD)
+    # the port's one-rank MoE LM run, saved in the sharded format after
+    # all but the last batch for the ranks to restore at EP x TP
+    one = _one_rank_lm(reference["params"], _ids()[:-1])
+    checkpointing.save_sharded(str(root / "one_rank_sharded"),
+                               one["eng"].to_canonical_sharded(one["ts"]),
+                               acc=0.0, epoch=0)
+    ep_tp = eptp_reference()
     got = ranks.spawn(WORLD, "moe_suite", dict(
         gpt=GPT, params=reference["params"], ids=_ids(), lr=LR, ops=OPS,
         xin=xin, w=w, cot=cot, ep=EP, ddp=DDP, bert=BERT, classes=CLASSES,
@@ -254,9 +323,32 @@ def port(reference, tmp_path_factory):
         bert_state=reference["bert_state"], bert_batches=_bert_batches(),
         save=str(root / "sharded"), restore=RESTORE,
         restore_dir=str(root / "sharded"),
-        cli={"runs": runs, "dirs": dirs}), root)
+        cli={"runs": runs, "dirs": dirs},
+        eptp=eptp_payload(
+            ep_tp, bert=[EPTP_MESH, EPTP_CM], lm=[EPTP_MESH, EPTP_HIER],
+            gpt=GPT,
+            gpt_params=reference["params"], lm_ids=_ids(), lm_lr=LR,
+            save=str(root / "eptp_sharded"),
+            restore=[(EPTP_MESH, str(root / "one_rank_sharded"))])), root)
     return {"ranks": got, "one_rank_cli": one_rank,
-            "sharded": str(root / "sharded")}
+            "sharded": str(root / "sharded"), "eptp_ref": ep_tp,
+            "eptp_sharded": str(root / "eptp_sharded"),
+            "one_rank_sharded": str(root / "one_rank_sharded")}
+
+
+def _one_rank_lm(params, batches):
+    """The port's EP LM engine on one rank (no process group) from the
+    reference's weights: its engine, state and per-step sums."""
+    eng = ExpertParallelLMEngine(gpt_lm_model(GPTConfig(**GPT)),
+                                 SGD(0.9, 1e-2), Mesh(1, None), device="cpu",
+                                 pad_token_id=0)
+    ts = eng.state_from_params(from_jax_params(params),
+                               eng.model.init(torch.Generator())[1])
+    sums = []
+    for b in batches:
+        ts, m = eng.train_step(ts, *eng.shard_batch(b), LR)
+        sums.append({k: float(v) for k, v in m.items()})
+    return {"eng": eng, "ts": ts, "sums": sums}
 
 
 def _close(got, want, budget=None, **tol):
@@ -418,3 +510,64 @@ def test_cli_on_four_ranks_resumes_like_one_rank(port, case):
                 [got[0][key][m] for m in ("loss", "acc1", "count")],
                 [want[key][m] for m in ("loss", "acc1", "count")],
                 rtol=1e-5)
+
+
+@pytest.mark.parametrize("config", [EPTP_MESH, EPTP_CM],
+                         ids=["plain", "collective_matmul"])
+def test_ep_tp_bert_matches_the_reference_dp_trajectory(port, config):
+    """EP x TP at (data 1, model 2, expert 2) on the 4 ranks, with
+    Megatron's f / g and on the collective-matmul rings (Megatron-SP, the
+    MoE FFN routing the whole sequence): every rank's per-step losses
+    equal the reference's plain-DP trajectory at rtol 1e-5, its qkv
+    holds half the output columns and its w_in half the experts."""
+    ref = port["eptp_ref"]
+    for res in port["ranks"]:
+        check_eptp_bert(res["eptp"]["bert", config], ref, config)
+
+
+@pytest.mark.parametrize("config", [EPTP_MESH, EPTP_HIER],
+                         ids=["gspmd-d1m2e2", "hierarchical-d2m2"])
+def test_ep_tp_lm_matches_the_reference_and_one_rank(port, reference,
+                                                      config):
+    """The MoE GPT LM at (1, 2, 2), and with the hierarchical exchange
+    over the data group of each model index at (data 2, model 2):
+    per-step sums and the gathered parameters against the reference
+    engine's run and the port's own one-rank run of the same steps."""
+    one = _one_rank_lm(reference["params"], _ids())
+    for res in port["ranks"]:
+        got = res["eptp"]["lm", config]
+        _sums_close(got["sums"], reference["ep"][0], None)
+        _sums_close(got["sums"], one["sums"], None)
+        _close(got["tree"]["params"], reference["ep"][1], **TOL)
+        _close(got["tree"]["params"],
+               one["eng"].to_canonical(one["ts"])["params"], **TOL)
+
+
+def test_ep_tp_sharded_checkpoint_restores_at_one_rank_and_back(port,
+                                                                 reference):
+    """The (1, 2, 2) state saved in the sharded format restores at
+    (1, 1) here bit-exactly; the one-rank state saved after two steps
+    restores on the ranks at (1, 2, 2), whose third step equals the
+    one-rank third step."""
+    saved = port["ranks"][0]["eptp"]["lm", EPTP_MESH]["tree"]
+    eng = ExpertParallelLMEngine(gpt_lm_model(GPTConfig(**GPT)),
+                                 SGD(0.9, 1e-2), Mesh(1, None), device="cpu",
+                                 pad_token_id=0)
+    like = eng.init_state(0)
+    tree, _, _ = checkpointing.restore_checkpoint(port["eptp_sharded"],
+                                                  eng.canonical_spec(like))
+    got = eng.to_canonical(eng.from_canonical(tree, like))
+    for a, b in zip(jax.tree_util.tree_leaves(got),
+                    jax.tree_util.tree_leaves(saved)):
+        np.testing.assert_array_equal(a, b)
+    one = _one_rank_lm(reference["params"], _ids())
+    key = ("restored", EPTP_MESH, port["one_rank_sharded"])
+    shapes = ("restored_shapes",) + key[1:]
+    for res in port["ranks"]:
+        step = res["eptp"][key]
+        _sums_close([step["sums"]], one["sums"][-1:], None)
+        _close(step["tree"]["params"],
+               one["eng"].to_canonical(one["ts"])["params"], **TOL)
+        assert res["eptp"][shapes]["blocks/1/moe/experts/w_in"][0] * 2 == \
+            GPT["num_experts"]
+

@@ -58,6 +58,7 @@ from distributed_model_parallel_tpu_torch.training.trainer import (
     Trainer,
     TrainerConfig,
 )
+from _torch_port_ranks import torch_port_worker  # noqa: F401,E402
 
 BN = dict(rtol=1e-4, atol=1e-5)
 F32 = dict(rtol=1e-5, atol=1e-6)

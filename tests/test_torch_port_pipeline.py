@@ -54,6 +54,7 @@ from distributed_model_parallel_tpu_torch.runtime.mesh import (
     make_mesh,
 )
 from distributed_model_parallel_tpu_torch.training.optim import SGD
+from _torch_port_ranks import torch_port_worker  # noqa: F401,E402
 
 F32 = dict(rtol=1e-5, atol=1e-6)
 BF16 = dict(rtol=5e-2, atol=5e-2)

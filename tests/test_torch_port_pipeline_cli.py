@@ -63,6 +63,7 @@ from test_torch_port_pipeline import (
     port_step,
     port_trees,
 )
+from _torch_port_ranks import torch_port_worker  # noqa: F401,E402
 
 DEEP = dict(rtol=5e-4, atol=5e-4)
 

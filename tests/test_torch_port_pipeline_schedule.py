@@ -30,6 +30,7 @@ from distributed_model_parallel_tpu_torch.models import resnet, staging
 from distributed_model_parallel_tpu_torch.models import tinycnn
 from distributed_model_parallel_tpu_torch.models.convert import params_spec
 from distributed_model_parallel_tpu_torch.parallel import pipeline
+from _torch_port_ranks import torch_port_worker  # noqa: F401,E402
 
 # The JAX package's models/__init__ exports a `resnet` function that
 # shadows the module.

@@ -33,6 +33,11 @@ steps at lr 0.1, from the reference's seed-0 weights.
   atol 1e-6, and equals the port's one-process pipeline engine's.
 * A composed engine built without a device runs on the card, not the
   CPU.
+* EP x TP at (data 2, model 2, expert 2) on the 8 ranks, after the
+  plans: the reference test's MoE BERT classifier
+  (`tests/test_expert_parallel.py` `test_tp_ep_dp_compose_on_one_mesh`)
+  against the reference's plain-DP trajectory at rtol 1e-5, with qkv
+  halved on its output axis and w_in on E on every rank.
 """
 
 import concurrent.futures
@@ -47,6 +52,7 @@ import torch
 import torch.distributed as dist
 
 import _torch_port_ranks as ranks
+import test_torch_port_moe_exchange as moe_exchange
 from distributed_model_parallel_tpu.cli import data_parallel as j_dp_cli
 from distributed_model_parallel_tpu.cli import lm as j_lm_cli
 from distributed_model_parallel_tpu.models import layers as JL
@@ -83,12 +89,14 @@ from distributed_model_parallel_tpu_torch.runtime.mesh import (
     MeshSpec,
 )
 from distributed_model_parallel_tpu_torch.training.optim import SGD
+from _torch_port_ranks import torch_port_worker  # noqa: F401,E402
 
 GPT = dict(vocab_size=61, dim=32, num_layers=4, num_heads=4, ffn_dim=64,
            max_position=16, dropout_rate=0.0)
 B, T, LR, STEPS = 8, 16, 0.1, 3
 SGD_ARGS = (0.9, 1e-4)
 WORLD = 8
+EPTP_MESH = (2, 2, 2)  # (data, model, expert): EP x TP on the 8 ranks
 TOL = dict(rtol=1e-5, atol=1e-6)
 DENSE_TOL = dict(rtol=2e-4, atol=2e-5)  # tests/test_plan.py _run_parity
 R4, R8 = [0, 1, 2, 3], list(range(8))
@@ -195,10 +203,12 @@ def runs(weights, tmp_path_factory):
     dense and composed runs compile and step here."""
     params, state = weights
     root = tmp_path_factory.mktemp("plan_ranks")
+    ep_tp = moe_exchange.eptp_reference()
     with concurrent.futures.ThreadPoolExecutor(1) as pool:
         fut = pool.submit(ranks.spawn, WORLD, "plan_suite", dict(
             gpt=GPT, params=_np(params), batches=_batches(), lr=LR,
-            sgd=SGD_ARGS, runs=RUNS), root)
+            sgd=SGD_ARGS, runs=RUNS,
+            eptp=moe_exchange.eptp_payload(ep_tp, bert=[EPTP_MESH])), root)
         dense = _jax_dense(params, state)
         composed = _jax_composed(params, state)
         pp_only = _jax_pp_only(params, state)
@@ -206,7 +216,7 @@ def runs(weights, tmp_path_factory):
         for part in fut.result():
             got.update(part)
     return {"ranks": got, "dense": dense, "composed": composed,
-            "pp_only": pp_only}
+            "pp_only": pp_only, "eptp_ref": ep_tp}
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -340,10 +350,15 @@ def test_composed_engine_refusals_match_reference():
 
 
 def test_mesh_spec_refusals_name_the_plan_mesh_and_ep_tp():
-    with pytest.raises(ValueError, match="EP x TP mesh item"):
-        MeshSpec(model=2, expert=2).resolve(4)
-    with pytest.raises(ValueError, match="make_plan_mesh"):
-        MeshSpec(seq=2, expert=2).resolve(4)
+    """EP x TP lays out on MeshSpec (the (data, model, expert) mesh);
+    the seq axis beside another inner axis still points at the plan
+    mesh."""
+    assert MeshSpec(model=2, expert=2).resolve(8) == 2
+    with pytest.raises(ValueError, match="must divide the world"):
+        MeshSpec(model=2, expert=2).resolve(6)
+    for spec in (MeshSpec(seq=2, expert=2), MeshSpec(model=2, seq=2)):
+        with pytest.raises(ValueError, match="make_plan_mesh"):
+            spec.resolve(4)
 
 
 # ------------------------------------------------------------ the CLIs
@@ -587,3 +602,14 @@ def test_composed_engine_defaults_to_the_card():
     if not torch.cuda.is_available():
         with pytest.raises((AssertionError, RuntimeError)):
             eng.init_state(0)
+
+
+def test_ep_tp_on_a_data_model_expert_mesh_matches_the_reference(runs):
+    """EP x TP x DP at (2, 2, 2): every rank's per-step losses equal the
+    reference's plain 8-way DP trajectory at rtol 1e-5 (the reference's
+    own test holds 1e-4), its qkv shard holds half the output columns
+    and its w_in half the experts."""
+    got = [runs["ranks"]["eptp", r]["bert", EPTP_MESH] for r in range(WORLD)]
+    for g in got:
+        moe_exchange.check_eptp_bert(g, runs["eptp_ref"], EPTP_MESH)
+

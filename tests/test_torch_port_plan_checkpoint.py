@@ -37,6 +37,7 @@ from distributed_model_parallel_tpu.training.optim import SGD as JSGD
 from distributed_model_parallel_tpu_torch.training.checkpoint import (
     flatten_tree,
 )
+from _torch_port_ranks import torch_port_worker  # noqa: F401,E402
 
 GPT = dict(vocab_size=61, dim=16, num_layers=4, num_heads=2, ffn_dim=32,
            max_position=16, dropout_rate=0.0)

@@ -23,6 +23,7 @@ from distributed_model_parallel_tpu.ops.wire_codec import (
     ABSMAX_FLOOR as JAX_FLOOR,
 )
 from distributed_model_parallel_tpu_torch.ops import quant_matmul as tqm
+from _torch_port_ranks import torch_port_worker  # noqa: F401,E402
 
 RTOL = ATOL = 1e-5
 # (m, k, n, seed): the reference's path-parity shapes (m=256 -> two

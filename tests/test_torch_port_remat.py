@@ -71,6 +71,7 @@ from test_torch_port_pipeline import (
     jax_step,
     port_step,
 )
+from _torch_port_ranks import torch_port_worker  # noqa: F401,E402
 
 # The JAX package's models/__init__ binds the name `vit` to the constructor.
 jvit = importlib.import_module("distributed_model_parallel_tpu.models.vit")

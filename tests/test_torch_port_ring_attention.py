@@ -44,6 +44,7 @@ from distributed_model_parallel_tpu_torch.parallel.sequence_parallel import (
 )
 from distributed_model_parallel_tpu_torch.runtime.mesh import Mesh
 from distributed_model_parallel_tpu_torch.training.optim import SGD
+from _torch_port_ranks import torch_port_worker  # noqa: F401,E402
 
 jra = importlib.import_module("distributed_model_parallel_tpu.ops."
                               "ring_attention")

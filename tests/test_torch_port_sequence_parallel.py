@@ -44,6 +44,7 @@ from distributed_model_parallel_tpu_torch.parallel import (
 )
 from distributed_model_parallel_tpu_torch.runtime.mesh import Mesh, MeshSpec
 from distributed_model_parallel_tpu_torch.training.optim import SGD
+from _torch_port_ranks import torch_port_worker  # noqa: F401,E402
 
 TOL = dict(rtol=1e-5, atol=1e-6)
 BUDGET = {"none": None, "int8": 5e-2}

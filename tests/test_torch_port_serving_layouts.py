@@ -59,6 +59,7 @@ from distributed_model_parallel_tpu_torch.serving.decode import (
 )
 
 from tests._torch_port_ranks import spawn
+from _torch_port_ranks import torch_port_worker  # noqa: F401,E402
 
 CFG_KW = dict(vocab_size=61, dim=16, num_layers=2, num_heads=4, ffn_dim=32,
               max_position=16, dropout_rate=0.0)

@@ -62,6 +62,7 @@ from distributed_model_parallel_tpu_torch.serving.scheduler import Request
 from distributed_model_parallel_tpu_torch.training.checkpoint import (
     save_checkpoint,
 )
+from _torch_port_ranks import torch_port_worker  # noqa: F401,E402
 
 CFG_KW = dict(vocab_size=97, dim=64, num_layers=2, num_heads=4,
               ffn_dim=256, max_position=32, dropout_rate=0.0,

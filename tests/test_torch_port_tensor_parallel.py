@@ -77,6 +77,7 @@ from distributed_model_parallel_tpu_torch.parallel.tensor_parallel import (
 )
 from distributed_model_parallel_tpu_torch.runtime.mesh import Mesh, MeshSpec
 from distributed_model_parallel_tpu_torch.training import checkpoint as ckpt
+from _torch_port_ranks import torch_port_worker  # noqa: F401,E402
 
 F32 = dict(rtol=1e-5, atol=1e-6)
 # ViT at CIFAR's 65 tokens (64 patches and the class token), cut narrow.

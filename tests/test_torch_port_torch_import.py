@@ -38,6 +38,7 @@ from distributed_model_parallel_tpu_torch.models.torch_import import (
 from distributed_model_parallel_tpu_torch.training import checkpoint as ckpt
 from distributed_model_parallel_tpu_torch.training.trainer import Trainer
 from test_torch_import import make_state_dict, torch_forward
+from _torch_port_ranks import torch_port_worker  # noqa: F401,E402
 
 LOGIT_TOL = dict(rtol=5e-4, atol=5e-4)
 

@@ -54,6 +54,7 @@ from distributed_model_parallel_tpu_torch.training.optim import (
     AdamW,
     tree_leaves,
 )
+from _torch_port_ranks import torch_port_worker  # noqa: F401,E402
 
 # The JAX package's models/__init__ binds `vit` and `bert`-family names
 # to constructors; the modules come from importlib.

@@ -32,6 +32,7 @@ from distributed_model_parallel_tpu.ops import wire_codec as jwc
 from distributed_model_parallel_tpu.runtime.compat import shard_map
 from distributed_model_parallel_tpu_torch.ops import grad_reduction as tgr
 from distributed_model_parallel_tpu_torch.ops import wire_codec as twc
+from _torch_port_ranks import torch_port_worker  # noqa: F401,E402
 
 
 def _chunks():
