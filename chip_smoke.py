@@ -94,7 +94,8 @@ The phases:
    checkpoints under one temporary directory in the working directory,
    deleted at the end):
    (a) the f32 determinism probe: a MobileNetV2 DDP step at batch 512,
-   the same batches twice with cuDNN free to choose its algorithms and
+   8 batches (12 until phase 19 was added) twice with cuDNN free to
+   choose its algorithms and
    twice with `cudnn.deterministic` (the CLIs' setting), per-step
    losses, ms a step and the convolution kernels of each, then one step
    under `torch.use_deterministic_algorithms(True, warn_only=True)`;
@@ -315,9 +316,9 @@ The phases:
    ring chunks of 4 and 2 rows at S 2 and 4), each timed as in phase 3
    with its bound and `torch._int_mm`; (a, b) two spawned processes on
    the one card in a gloo world of 2 (joined before the CLIs do) run the
-   serve CLI at phase 4's width and flags (8 requests of 4 new tokens,
-   16 and 8 until phases 16 and 18 were added; phase 4 serves 16 of
-   32) under `--layout tp --model-shards 2`, f32
+   serve CLI at phase 4's width and flags (4 requests of 4 new tokens;
+   16 of 8, 8 of 8 and 8 of 4 until phases 16, 18 and 19 were added;
+   phase 4 serves 16 of 32) under `--layout tp --model-shards 2`, f32
    and int8, each with and without `--collective-matmul`, and `--layout
    sp --seq-shards 2`, contiguous and `--page-size 16`: the K4 launches
    of each run exact (48 a decode step a rank declarative, 96 on the
@@ -409,7 +410,31 @@ The phases:
    14's `ring_flash` f32 run 4 -> 2 layers, phase 15's serve runs 8 -> 4
    new tokens and its teacher-forced script 6 -> 3 decode steps, phases
    16 (a) and 17 (a) 3 -> 2 steps.
-19. One `{"kernels": [...]}` JSON line (int8_matmul, flash_fwd,
+19. Slice 18 (the auto-tuner and its gates): (a) costgate's pre-gate
+   on the card (`observability/costgate.py --pregate --device cuda`,
+   one process of its own: each combo one rank of its world on the fake
+   process group): exit 0, each combo's predicted comm ms printed beside
+   the committed ledger's row, which it must equal, and the full matrix
+   name-checked; (b) plangate's pre-gate the same way: exit 0, 2 cells
+   searched, 12 name-checked; (c) `cli.lm --plan auto --auto-tune
+   search` on 4 gloo ranks on the one card (host-staged; their ms are
+   host copies, not plan times), GPT-2-small width with 2 blocks a
+   stage (4 layers), SGD, 2 steps and 1 val batch: the applied spec,
+   its predicted ms and finalists printed, every rank's plan the same
+   bytes, and losses and rank 0's gathered parameters within
+   S11_M2_TOL of the same CLI with `--plan <spec>` spelled (4 more ranks
+   started together, waiting for the tuned run's plan file); (d)
+   `cli.data_parallel --engine ddp --auto-tune search` (MobileNetV2,
+   Synthetic, 2 ranks) against its knobs spelled by hand on 2 more
+   ranks: losses and rank 0's parameters bit-equal. The K1-K4 launches
+   of (a) and of every rank (the searches' recorded steps included)
+   are `launches_slice18`. Phase 3 prints `cost.quant_matmul_s` at the
+   four decode shapes beside K4's device time and its bound, and the
+   card's rates of this script come from `observability/cost.py`. (c)
+   and (d) start their 12 rank processes as one wave. Depth cut to make
+   room: phase 7 (a)'s determinism probe 12 -> 8 batches, phase 15's
+   serve runs 8 -> 4 requests.
+20. One `{"kernels": [...]}` JSON line (int8_matmul, flash_fwd,
    flash_bwd_dq, flash_bwd_dkv; `launches_slice6` counts phase 7's
    runs, `launches_slice7` phase 8's, `launches_slice8` phase 9's,
    `launches_slice9` phase 10's as the wrappers count them,
@@ -419,7 +444,8 @@ The phases:
    `launches_slice13` phase 14's over both ranks, `launches_slice14`
    phase 15's, `launches_slice15` phase 16's over every rank,
    `launches_slice16` phase 17's over every rank, `launches_slice17`
-   phase 18's (the EP x TP ranks' and the linted serve steps' K4), each
+   phase 18's (the EP x TP ranks' and the linted serve steps' K4),
+   `launches_slice18` phase 19's, each
    flash
    kernel's `hop_shapes` its phase-14 (b) rows, `plan_hop_shapes` its
    phase-17 (c) rows,
@@ -445,8 +471,17 @@ import time
 
 import torch
 
-HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
-INT8_OPS_PER_S = 1979e12  # H100 SXM dense int8 tensor-core peak
+# The card's rates, from the port's cost engine (one home, each with its
+# datasheet source there): HBM3, and the dense int8 / bf16 tensor-core
+# and f32 CUDA-core peaks of an H100 SXM5.
+from distributed_model_parallel_tpu_torch.observability.cost import (  # noqa: E402,E501
+    BW_HBM_EFFECTIVE as HBM_BYTES_PER_S,
+    MXU_RATE,
+)
+
+INT8_OPS_PER_S = MXU_RATE["int8"]
+F32_OPS_PER_S = MXU_RATE["f32"]  # TF32 off: outside the tensor cores
+BF16_OPS_PER_S = MXU_RATE["bf16"]
 DECODE_SHAPES = (  # (name, K, N) of one GPT-2-small decoder block
     ("attn.qkv", 768, 2304), ("attn.out", 768, 768),
     ("ffn.in", 768, 3072), ("ffn.out", 3072, 768),
@@ -1067,8 +1102,6 @@ def small_model_matches_cpu(engine_cls, cfg_cls, init_params):
 # Flash attention (K1-K3) and LM training
 
 
-F32_OPS_PER_S = 67e12    # H100 SXM f32 outside the tensor cores
-BF16_OPS_PER_S = 989e12  # H100 SXM dense bf16 tensor-core peak
 # How each flash kernel is built (the kernels line's "design").
 FLASH_DESIGN = {
     "flash_fwd": "bf16: mma.sync m16n8k16 (q fragments resident, p fed "
@@ -1906,8 +1939,9 @@ CK_DP_FLAGS = DP_FLAGS[:DP_FLAGS.index("--epochs")] + [
 CK_LM_FLAGS = LM_BASE + ["--layers", str(LAYERS), "--attention",
                          "ulysses_flash", "--dtype", "float32",
                          "--steps-per-epoch", "2"]
-CK_PROBE_STEPS = 12  # steps of each determinism probe run
-CK_PROBE_TIMED_FROM = 3  # steps 4-12 are timed
+CK_PROBE_STEPS = 8  # steps of each determinism probe run (12 until
+# phase 19 was added)
+CK_PROBE_TIMED_FROM = 3  # steps 4-8 are timed
 # Kernel names a profiled DP step shows for its convolutions (cuDNN's
 # and the CUTLASS-style sm90 kernels it dispatches to).
 CONV_KERNEL_KEYS = ("conv", "wgrad", "dgrad", "fprop", "xmma", "implicit",
@@ -5295,9 +5329,9 @@ S14_SERVE = (
 )
 S14_STEPS = 3  # teacher-forced decode steps after the 8 prompts (6
 # until phase 18 was added)
-# The serve runs' depth: 8 requests (one admission wave) of 16 tokens.
-S14_REQUESTS, S14_NEW = 8, 4  # 16, then 8 new tokens until phases 16
-# and 18 were added
+# The serve runs' depth: 4 requests (one admission wave) of 4 tokens.
+S14_REQUESTS, S14_NEW = 4, 4  # 16 / 8 requests and 8 new tokens until
+# phases 16, 18 and 19 were added
 S14_SERVE_DEPTH = ["--num-requests", str(S14_REQUESTS), "--max-new-tokens",
                    str(S14_NEW)]
 S14_MAX_LEN, S14_PREFILL = 1024, 128  # phase 4's --max-len, --prefill-len
@@ -6797,6 +6831,319 @@ def slice17_phase(device=S11_DEVICE) -> dict:
     return launches
 
 
+# ---- phase 19: the auto-tuner and its gates (slice 18) -----------------
+
+# (a) costgate's and (b) plangate's pre-gates on the card, each in a
+# process of its own (the search and the pricing record one rank of each
+# combo's world on torch's fake process group, which needs a process
+# without one). (c) `cli.lm --plan auto --auto-tune search` on 4 gloo
+# ranks on the one card (host-staged; their ms are host copies, not plan
+# times) at GPT-2-small width with 2 blocks a stage (4 layers), SGD, 2
+# steps and 1 val batch, against the same CLI with the applied spec
+# spelled (`--plan <spec>`, 4 more ranks started together, which wait
+# for the tuned run's plan file): losses and rank 0's gathered
+# parameters within S11_M2_TOL. (d) `cli.data_parallel --engine ddp
+# --auto-tune search` (MobileNetV2, Synthetic, 2 ranks) against the
+# applied knobs spelled by hand on 2 more ranks: bit-equal losses and
+# parameters.
+S18_LM = S13_LM + ["--layers", "4"]
+S18_DP = S16_DP + ["--engine", "ddp"]
+# The 12 rank processes start together (the DP ranks are small: 8
+# full-width LM ranks is the most a wave of phase 17 runs).
+S18_PAIRS = (  # (tuned, hand): (name, world, CLI, flags, the run it spells)
+    (("lm_tuned", 4, "lm", S18_LM + ["--plan", "auto", "--auto-tune",
+                                      "search"], None),
+     ("lm_hand", 4, "lm", S18_LM, "lm_tuned")),
+    (("dp_tuned", 2, "dp", S18_DP + ["--auto-tune", "search"], None),
+     ("dp_hand", 2, "dp", S18_DP, "dp_tuned")),
+)
+S18_KNOB_FLAGS = (("grad_reduction", "--grad-reduction"),
+                  ("bucket_mb", "--bucket-mb"),
+                  ("overlap_stages", "--overlap-stages"),
+                  ("dcn_compression", "--dcn-compression"))
+
+
+def s18_spelled(cli, plan) -> list:
+    """The flags that spell an applied plan by hand: the LM's spec, or
+    the DP CLI's reducer knobs (None and the defaults left out)."""
+    if cli == "lm":
+        return ["--plan", plan["knobs"]["plan"]]
+    out = []
+    for knob, flag in S18_KNOB_FLAGS:
+        v = plan["knobs"][knob]
+        if v is not None and v not in ("monolithic", "none"):
+            out += [flag, str(v)]
+    return out
+
+
+def s18_read_plan(path):
+    """The tuned run's plan file, once rank 0 has written all of it."""
+    from distributed_model_parallel_tpu_torch.tuning.plan import load_plan
+
+    deadline = time.monotonic() + 600
+    while True:
+        try:
+            return load_plan(path)
+        except (OSError, ValueError):
+            require(time.monotonic() < deadline, f"no plan in {path}")
+            time.sleep(0.1)
+
+
+def s18_gloo_rank(rank, world, port, out, directory, name, cli, flags,
+                  device, spells):
+    """One rank of (c) or (d): the CLI in a gloo world on the one card
+    that it joins itself from the launcher's variables (the tuner's hook
+    runs first: its search needs a process without a process group); a
+    tuned run writes its plan (rank 0) and records what it applied and
+    how long the hook took; a hand run (`spells`) waits for that plan and
+    spells it. Per-step losses and host-staged ms, K1-K4 launches (the
+    search's recorded steps included), and (rank 0) the gathered
+    canonical parameters saved under `directory`."""
+    import pickle
+
+    import numpy as np
+    import torch.distributed as dist
+
+    from distributed_model_parallel_tpu_torch.models.convert import (
+        train_state_to_jax,
+    )
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    if device == "cuda":
+        torch.cuda.set_device(0)
+        torch.zeros(1, device=device)  # the CUDA context, now
+    os.environ.update(RANK=str(rank), WORLD_SIZE=str(world), LOCAL_RANK="0",
+                      MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port))
+    plan_path = os.path.join(directory, f"{spells or name}.plan.json")
+    if spells:
+        flags = flags + s18_spelled(cli, s18_read_plan(plan_path))
+    else:
+        flags = flags + ["--auto-tune-out", plan_path]
+    mod = s16_main(cli)
+    hook_name = "auto_tune_lm" if cli == "lm" else "auto_tune_data_parallel"
+    real, applied = getattr(mod, hook_name), {}
+    # the search's recorded steps run this class's train_step too: they
+    # run unpatched, so that only the CLI's steps are timed
+    engine_cls = s16_engine_cls(cli)(flags)
+    train_step = engine_cls.train_step
+
+    def hook(args):
+        t0 = time.perf_counter()
+        with patched(engine_cls, "train_step", train_step):
+            plan = real(args)
+        applied.update(plan=plan, search_s=time.perf_counter() - t0)
+        return plan
+
+    def gloo(kind, dist_url=None, **kw):
+        dist.init_process_group("gloo", init_method="env://", rank=rank,
+                                world_size=world)
+        return torch.device(kind, 0) if kind == "cuda" else \
+            torch.device("cpu")
+
+    result = {}
+    corpus_once = contextlib.ExitStack()
+    corpus_once.enter_context(lm_corpus_made_once())
+    try:
+        with patched(mod, "initialize_backend", gloo), \
+                patched(mod, hook_name, hook):
+            steps, seen, hist, got, _ = s16_run(
+                cli, flags, os.path.join(directory, f"ck_{name}_{rank}"),
+                device)
+        eng, ts = seen["engine"], seen["state"]
+        tree = (eng.to_canonical(ts) if hasattr(eng, "to_canonical")
+                else train_state_to_jax(ts))
+        if rank == 0:
+            np.savez(os.path.join(directory, f"{name}.npz"),
+                     **{k: v for k, v in zip(leaf_names(tree["params"]),
+                                             optim_leaves(tree["params"]))})
+        result = {"losses": [s["loss"] for s in steps],
+                  "host_staged_gloo_ms": [s["ms"] for s in steps],
+                  "launches": got, "val_loss": hist[0]["val"]["loss"],
+                  "engine": type(eng).__name__, "flags": flags,
+                  "plan": applied.get("plan"),
+                  "search_s": applied.get("search_s")}
+    finally:
+        corpus_once.close()
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        with open(out, "wb") as f:
+            pickle.dump(result, f)
+
+
+def s18_gate_start(module, device):
+    """(a) / (b): a gate's pre-gate CLI on `device` in a process of its
+    own; the last line it prints is its K4 launches."""
+    code = ("import json, sys\n"
+            f"from distributed_model_parallel_tpu_torch.{module} import main\n"
+            "from distributed_model_parallel_tpu_torch.ops import "
+            "quant_matmul as qm\n"
+            f"rc = main(['--pregate', '--device', {device!r}])\n"
+            "print(json.dumps({'k4_launches': qm.int8_matmul.launches}))\n"
+            "sys.exit(rc)\n")
+    return subprocess.Popen([sys.executable, "-c", code],
+                            cwd=os.path.dirname(os.path.abspath(__file__)),
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True)
+
+
+def s18_gates(costgate, plangate) -> int:
+    """(a): the pre-gate exits 0, each combo's predicted comm ms printed,
+    the rows equal to the committed ledger's; (b): plangate's pre-gate
+    exits 0 and names every grid cell. Returns (a)'s and (b)'s K4
+    launches."""
+    from distributed_model_parallel_tpu_torch.analysis import lint
+    from distributed_model_parallel_tpu_torch.observability import (
+        costgate as cg,
+    )
+
+    k4 = 0
+    for proc, what in ((costgate, "costgate"), (plangate, "plangate")):
+        out, err = proc.communicate(timeout=600)
+        require(proc.returncode == 0, f"{what} --pregate on the card exited "
+                f"{proc.returncode}: {out[-2000:]} {err[-3000:]}")
+        lines = [json.loads(line) for line in out.splitlines()
+                 if line.startswith("{")]
+        k4 += lines[-1]["k4_launches"]
+        legs = [line["leg"] for line in lines if "leg" in line]
+        summary = lines[-2][what]
+        if what == "costgate":
+            committed = cg.load_ledger(cg.DEFAULT_LEDGER)["combos"]
+            emit({"s18_costgate_pregate": [
+                {"combo": leg["name"],
+                 "predicted_comm_ms": leg["predicted_step_s"] * 1e3,
+                 "collectives": leg["n_collectives"],
+                 "committed_ms": committed[leg["name"]]["predicted_step_s"]
+                 * 1e3} for leg in legs], "summary": summary})
+            require([leg["name"] for leg in legs] ==
+                    [c.name for c in lint.pregate_matrix()]
+                    and all(leg["predicted_step_s"] ==
+                            committed[leg["name"]]["predicted_step_s"]
+                            for leg in legs)
+                    and summary["failures"] == 0
+                    and summary["name_checked"] == len(committed),
+                    f"costgate's rows on the card differ: {lines}")
+        else:
+            emit({"s18_plangate_pregate": legs, "summary": summary})
+            require(summary["failures"] == 0 and summary["gated"] == 2
+                    and summary["name_checked"] == 12,
+                    f"plangate on the card: {lines}")
+    return k4
+
+
+def s18_spawn(world, name, cli, flags, directory, device, spells):
+    import multiprocessing
+
+    from distributed_model_parallel_tpu_torch.runtime.dist import free_port
+
+    ctx = multiprocessing.get_context("spawn")
+    port = free_port()
+    outs = [os.path.join(directory, f"{name}_rank{r}.pkl")
+            for r in range(world)]
+    procs = [ctx.Process(target=s18_gloo_rank,
+                         args=(r, world, port, outs[r], directory, name, cli,
+                               flags, device, spells))
+             for r in range(world)]
+    for p in procs:
+        p.start()
+    return procs, outs
+
+
+def s18_runs(device) -> dict:
+    """(c) and (d): every tuned and hand-spelled run started together;
+    the tuned ranks applied one plan, byte for byte; the hand run spells
+    it; losses and rank 0's gathered parameters within S11_M2_TOL (LM)
+    or bit-equal (DP). Returns the ranks' K1-K4 launches."""
+    import numpy as np
+
+    from distributed_model_parallel_tpu_torch.tuning.plan import dumps_plan
+
+    torch.cuda.empty_cache()
+    directory = scratch_dir("s18_runs")
+    os.makedirs(directory, exist_ok=True)
+    launches = dict.fromkeys(("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv",
+                              "int8_matmul"), 0)
+    t0 = time.perf_counter()
+    started = {name: s18_spawn(world, name, cli, flags, directory, device,
+                               spells)
+               for pair in S18_PAIRS
+               for name, world, cli, flags, spells in pair}
+    got = {name: s15_join(name, *started[name]) for name in started}
+    for pair in S18_PAIRS:
+        (tuned, world, cli, _, _), (hand, _, _, _, _) = pair
+        plans = [r["plan"] for r in got[tuned]]
+        plan = plans[0]
+        a = np.load(os.path.join(directory, f"{tuned}.npz"))
+        b = np.load(os.path.join(directory, f"{hand}.npz"))
+        diff = {k: float(np.abs(a[k] - b[k]).max()) for k in b.files}
+        worst = max(diff, key=diff.get)
+        rel = max(abs(x - y) / abs(y) for r, h in zip(got[tuned], got[hand])
+                  for x, y in zip(r["losses"], h["losses"]))
+        row = {"s18_run": tuned, "world": world, "cli": cli,
+               "cell": plan["cell"], "applied": plan["combo"],
+               "knobs": plan["knobs"],
+               "predicted_ms": plan["predicted"]["predicted_step_s"] * 1e3,
+               "finalists": plan["search"]["finalist_combos"],
+               "search_s_by_rank": [r["search_s"] for r in got[tuned]],
+               "hand_flags": s18_spelled(cli, plan),
+               "engine": got[tuned][0]["engine"],
+               "losses_by_rank": [r["losses"] for r in got[tuned]],
+               "hand_losses_by_rank": [r["losses"] for r in got[hand]],
+               "loss_max_rel": rel, "bar": S11_M2_TOL,
+               "losses_bit_equal": all(
+                   r["losses"] == h["losses"]
+                   for r, h in zip(got[tuned], got[hand])),
+               "worst_leaf": worst, "worst_abs_diff": diff[worst],
+               "params_bit_equal": sorted(a.files) == sorted(b.files)
+               and all(np.array_equal(a[k], b[k]) for k in b.files),
+               "params_within_bar": sorted(a.files) == sorted(b.files)
+               and all(np.allclose(a[k], b[k], **S11_M2_TOL)
+                       for k in b.files),
+               "launches_by_rank": [r["launches"] for r in got[tuned]
+                                    + got[hand]],
+               "host_staged_gloo_ms_per_step": [
+                   r["host_staged_gloo_ms"] for r in got[tuned]],
+               "wall_s": time.perf_counter() - t0}
+        emit(row)
+        require(all(p is not None and dumps_plan(p) == dumps_plan(plan)
+                    for p in plans),
+                f"{tuned}: the ranks applied different plans")
+        require(all(math.isfinite(x) for r in got[tuned]
+                    for x in r["losses"]), f"{tuned}: losses {row}")
+        if cli == "lm":
+            require(plan["cell"]["family"] == "plan"
+                    and row["engine"] == "ComposedPlanEngine"
+                    and rel <= S11_M2_TOL["rtol"]
+                    and row["params_within_bar"],
+                    f"{tuned} differs from --plan spelled: {row}")
+        else:
+            require(row["losses_bit_equal"] and row["params_bit_equal"],
+                    f"{tuned} differs from its knobs by hand: {row}")
+        for r in got[tuned] + got[hand]:
+            for k in launches:
+                launches[k] += r["launches"][k]
+    shutil.rmtree(directory, ignore_errors=True)
+    return launches
+
+
+def slice18_phase(device=S11_DEVICE) -> dict:
+    """Phase 19 (module docstring). Returns the phase's K1-K4 launches:
+    the gates' (the pre-gate's int8 serve combo runs K4) and the ranks'
+    (their searches' recorded steps included)."""
+    t_phase = time.perf_counter()
+    costgate = s18_gate_start("observability.costgate", device)
+    plangate = s18_gate_start("tuning.plangate", device)
+    launches = s18_runs(device)
+    print(f"phase 19 (c, d) tuned runs over gloo: "
+          f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    launches["int8_matmul"] += s18_gates(costgate, plangate)
+    print(f"phase 19 (a, b) the gates on the card (after (c, d)): "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    print(f"phase 19 the auto-tuner: {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    return launches
+
+
 def main() -> int:
     # cuBLAS reads this when it first starts: the determinism probe's
     # torch.use_deterministic_algorithms needs it (phase 7).
@@ -6901,6 +7248,20 @@ def smoke() -> int:
         shapes.append(r)
         emit({"int8_matmul_shape": r})
     max_err = max(r["max_abs_err"] for r in shapes)
+    # the cost engine's decode roofline (weight stream or int8 peak, the
+    # closed form the tuner prices serving with) beside K4's measured
+    # device time and this script's bound at the four decode shapes
+    from distributed_model_parallel_tpu_torch.observability.cost import (
+        quant_matmul_s,
+    )
+
+    emit({"k4_cost_engine_vs_measured": [{
+        "projection": r["projection"], "M": r["M"], "K": r["K"],
+        "N": r["N"],
+        "cost_quant_matmul_s_ms": quant_matmul_s(r["M"], r["K"], r["N"],
+                                                 "int8") * 1e3,
+        "device_ms": r["kernel_device_ms"], "bound_ms": r["bound_ms"]}
+        for r in shapes[:len(DECODE_SHAPES)]]})
     phase_done("int8 kernel vs plain")
     flash_errs, flash_times = flash_phase(fa)
     phase_done("flash kernels vs plain")
@@ -7045,9 +7406,13 @@ def smoke() -> int:
     slice17 = slice17_phase()
     phase_done("EP x TP and the linter")
 
+    # ---- 19. the auto-tuner and its gates (slice 18) ------------------
+    slice18 = slice18_phase()
+    phase_done("the auto-tuner and its gates")
+
     corpus_once.close()
 
-    # ---- 18. kernels line, card line, last line ----------------------
+    # ---- 20. kernels line, card line, last line ----------------------
     decode = [r for r in shapes if r["M"] == SLOTS]
     step = {key: None if any(r[key] is None for r in decode)
             else LAYERS * sum(r[key] for r in decode)
@@ -7091,6 +7456,10 @@ def smoke() -> int:
         # one linted int8 serve step (16: 4 projections x 2 layers x 2
         # ring chunks at S 2)
         "launches_slice17": slice17["int8_matmul"],
+        # phase 19: costgate's pre-gate int8 ring serve step (16) and the
+        # tuned runs' ranks (none: the plans and MobileNetV2 attend dense
+        # or not at all)
+        "launches_slice18": slice18["int8_matmul"],
         # phase 15 (c): the Megatron shard and ring-chunk shapes
         "shard_and_ring_shapes": shapes14,
         "max_abs_err": max_err,
@@ -7134,6 +7503,8 @@ def smoke() -> int:
                launches_slice16=slice16[name],
                # phase 18: the EP x TP LM attends dense (none)
                launches_slice17=slice17[name],
+               # phase 19: the tuned plan attends dense at sp 1 (none)
+               launches_slice18=slice18[name],
                # phase 14 (b): one launch at each ring / Ulysses shape
                hop_shapes={case: row[name] for case, row in hops13.items()},
                # phase 17 (c): the same at the plan's microbatch

@@ -78,7 +78,14 @@ class Combo:
     moe_dispatch: str = "gspmd"
     moe_overlap: bool = False
     dcn_compression: str = "none"
+    # the tuner's reducer knobs (`tuning/`): None / 0 keep BUCKET_MB and
+    # the engines' auto segment count, and every older combo name
+    bucket_mb: Optional[float] = None
+    overlap_stages: int = 0
     page_size: Optional[int] = None
+    # shapes the serve host's ingest loop only (the same decode step);
+    # rides the name for the tuner's plan identity
+    prefill_chunk: int = 0
     compute_dtype: Optional[str] = None
     speculative_k: int = 0
     plan: Optional[str] = None
@@ -104,8 +111,14 @@ class Combo:
             bits.append(f"M{self.num_microbatches}")
         if self.dcn_compression != "none":
             bits.append(f"wire-{self.dcn_compression}")
+        if self.bucket_mb is not None:
+            bits.append(f"b{self.bucket_mb:g}")
+        if self.overlap_stages:
+            bits.append(f"seg{self.overlap_stages}")
         if self.page_size is not None:
             bits.append(f"pg{self.page_size}")
+        if self.prefill_chunk:
+            bits.append(f"ck{self.prefill_chunk}")
         if self.model != "mlp":
             bits.append(self.model)
         if self.collective_matmul:
@@ -359,6 +372,7 @@ def _build_data_engine(combo: Combo, device) -> Run:
     import torch
 
     cdt = torch.bfloat16 if combo.bf16 else None
+    bmb = BUCKET_MB if combo.bucket_mb is None else combo.bucket_mb
     full_leaf_shapes: Tuple = ()
     if combo.engine == "dp":
         eng = DataParallelEngine(model, SGD(), mesh, compute_dtype=cdt,
@@ -366,14 +380,15 @@ def _build_data_engine(combo: Combo, device) -> Run:
     elif combo.engine == "ddp":
         eng = DDPEngine(model, SGD(), mesh, sync_bn=True, compute_dtype=cdt,
                         grad_reduction=combo.grad_reduction,
-                        bucket_mb=BUCKET_MB,
+                        bucket_mb=bmb, overlap_stages=combo.overlap_stages,
                         dcn_compression=combo.dcn_compression,
                         device=device)
     else:
         eng = F.FSDPEngine(model, SGD(), mesh, min_shard_elems=64,
                            compute_dtype=cdt,
                            grad_reduction=combo.grad_reduction,
-                           bucket_mb=BUCKET_MB,
+                           bucket_mb=bmb,
+                           overlap_stages=combo.overlap_stages,
                            dcn_compression=combo.dcn_compression,
                            device=device)
     ts = eng.init_state(0)
@@ -385,8 +400,8 @@ def _build_data_engine(combo: Combo, device) -> Run:
             if s_ is not None)
     plans, n_seg, state_shapes = _reducer_plans(
         params, state, len(model.parts.blocks), combo.grad_reduction,
-        BUCKET_MB, facts["ici_size"], facts["dcn_size"],
-        combo.dcn_compression)
+        bmb, facts["ici_size"], facts["dcn_size"],
+        combo.dcn_compression, combo.overlap_stages)
     im, lb = image_batch(16 * (s // 2 or 1))
     batch = eng.shard_batch(_rows(im, mesh), _rows(lb, mesh))
     target = LintTarget(
@@ -501,14 +516,17 @@ def _build_sp_lm(combo: Combo, device) -> Run:
     mesh = make_mesh(MeshSpec(data=s, seq=seq, dcn=combo.dcn))
     facts = _mesh_facts(mesh)
     cfg = _gpt_cfg()
+    bmb = BUCKET_MB if combo.bucket_mb is None else combo.bucket_mb
     eng = CausalLMSequenceParallelEngine(
         cfg, SGD(), grad_reduction=combo.grad_reduction,
-        bucket_mb=BUCKET_MB, collective_matmul=combo.collective_matmul,
+        bucket_mb=bmb, overlap_stages=combo.overlap_stages,
+        collective_matmul=combo.collective_matmul,
         dcn_compression=combo.dcn_compression, mesh=mesh, device=device)
     ts = eng.init_state(0)
     plans, n_seg, _ = _reducer_plans(
-        ts.params, {}, cfg.num_layers, combo.grad_reduction, BUCKET_MB,
-        facts["ici_size"], facts["dcn_size"], combo.dcn_compression)
+        ts.params, {}, cfg.num_layers, combo.grad_reduction, bmb,
+        facts["ici_size"], facts["dcn_size"], combo.dcn_compression,
+        combo.overlap_stages)
     ids, _ = _token_batch(4 * s, 16, 61)
     batch = eng.shard_batch(ids)
     target = LintTarget(

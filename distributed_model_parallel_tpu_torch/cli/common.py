@@ -5,8 +5,8 @@
 The parsers carry the reference's whole flag surface, so a pasted
 launch line fails with an explanation instead of an argparse error;
 flags whose features belong to later port slices are refused loudly,
-naming the slice (`check_serving_args`, `check_lm_args`,
-`check_data_parallel_args`, `check_model_parallel_args`). The image
+naming the slice (`check_serving_args`, `check_model_parallel_args`).
+The image
 side: `MODELS`, `build_model`, `STAGE_BUILDERS` (the pipeline splits),
 `stats_for`, `build_loaders` (per-rank loaders from the global batch;
 token-id datasets ship raw), `build_index_loaders` (its `--device-cache`
@@ -492,23 +492,6 @@ def check_checkpoint_args(args) -> None:
             "format gathers to host 0 synchronously by design)")
 
 
-def add_auto_tune_flags(parser: argparse.ArgumentParser) -> None:
-    """The tuner's flags, carried so they are refused by name."""
-    parser.add_argument("--auto-tune", default=None, metavar="PLAN|search",
-                        help="not ported yet (auto-tuning slice)")
-    parser.add_argument("--auto-tune-out", default=None, metavar="PATH",
-                        help="not ported yet (auto-tuning slice)")
-    parser.add_argument("--auto-tune-calibration", default=None,
-                        metavar="JSON",
-                        help="not ported yet (auto-tuning slice)")
-
-
-# Later port slices named by the `check_*_args` refusals.
-SLICES = {
-    "tune": "the auto-tuning slice",
-}
-
-
 def _parse_plan(spec: str):
     from distributed_model_parallel_tpu_torch.parallel.plan import (
         parse_plan,
@@ -522,8 +505,9 @@ def _parse_plan(spec: str):
 
 def check_lm_plan_args(args):
     """The LM CLI's `--plan` with the JAX CLI's guards and messages (None
-    without the flag): `auto` rides the tuner (refused, naming its
-    slice); the plan IS the mesh factorization, so the per-axis flags,
+    without the flag): `auto` rides the tuner (`--auto-tune` replaces it
+    with the searched spec before this check, `tuning/apply.py`; alone
+    it is refused); the plan IS the mesh factorization, so the per-axis flags,
     the schedule flags (the pp token's suffix spells the schedule),
     `--microbatches` at pp 1, an ep token, `--moe-experts`, `--attention`
     and `--collective-matmul` at sp 1, `--dcn-slices` and the reducer
@@ -532,11 +516,9 @@ def check_lm_plan_args(args):
         return None
     if args.plan == "auto":
         raise SystemExit(
-            "--plan auto rides the tuner (--auto-tune search or "
-            "--auto-tune PLAN.json picks the spec from the plan family's "
-            "search space), which is not ported to the PyTorch package "
-            f"yet: it belongs to {SLICES['tune']} (ROADMAP.md) — spell "
-            "the plan, e.g. --plan pp2xsp2xdp2")
+            "--plan auto rides the tuner: add --auto-tune search "
+            "(or --auto-tune PLAN.json) to pick the spec from the "
+            "plan family's search space")
     plan = _parse_plan(args.plan)
     if args.pipeline_stages > 1 or args.seq_shards > 1:
         raise SystemExit(
@@ -628,23 +610,10 @@ def check_plan_world(plan, world: int, global_batch: int, seq_len: int,
 
 
 def check_lm_args(args):
-    """Startup-time validation of the LM CLI surface: every flag whose
-    feature belongs to a later port slice is refused, naming the slice,
-    before any engine or corpus is built. Returns the parsed `--plan`
-    (None without it)."""
-    s = SLICES
-    refusals = (
-        ("--auto-tune / --auto-tune-out / --auto-tune-calibration",
-         args.auto_tune or args.auto_tune_out or args.auto_tune_calibration,
-         s["tune"]),
-    )
-    for flag, bad, later in refusals:
-        if bad:
-            raise SystemExit(
-                f"{flag} is not ported to the PyTorch package yet: it "
-                f"belongs to {later} (ROADMAP.md) — drop the flag, or run "
-                "the JAX package's cli/lm.py"
-            )
+    """Startup-time validation of the LM CLI surface, with the JAX CLI's
+    checks, before any engine or corpus is built (after the tuner's hook
+    has set the knobs it owns). Returns the parsed `--plan` (None
+    without it)."""
     plan = check_lm_plan_args(args)
     check_seq_shard_args(args, plan)
     check_moe_args(args)
@@ -1082,23 +1051,10 @@ def check_data_parallel_plan(args):
 
 
 def check_data_parallel_args(args):
-    """Startup-time validation of the data-parallel CLI surface: every
-    flag whose feature belongs to a later port slice is refused, naming
-    the slice, before any dataset, process group or engine is built.
-    Returns the parsed `--plan` (None without it)."""
-    s = SLICES
-    refusals = (
-        ("--auto-tune / --auto-tune-out / --auto-tune-calibration",
-         args.auto_tune or args.auto_tune_out or args.auto_tune_calibration,
-         s["tune"]),
-    )
-    for flag, bad, later in refusals:
-        if bad:
-            raise SystemExit(
-                f"{flag} is not ported to the PyTorch package yet: it "
-                f"belongs to {later} (ROADMAP.md) — drop the flag, or run "
-                "the JAX package's cli/data_parallel.py"
-            )
+    """Startup-time validation of the data-parallel CLI surface, with the
+    JAX CLI's checks, before any dataset, process group or engine is
+    built (after the tuner's hook has set the knobs it owns). Returns
+    the parsed `--plan` (None without it)."""
     plan = check_data_parallel_plan(args)
     check_grad_reduction_args(args)
     check_checkpoint_args(args)
@@ -1293,10 +1249,8 @@ def export_metrics_out(path) -> None:
 
 __all__ = [
     "MODELS",
-    "SLICES",
     "STAGE_BUILDERS",
     "add_common_tpu_flags",
-    "add_auto_tune_flags",
     "add_dispatch_flags",
     "add_remat_flag",
     "add_checkpoint_flags",

@@ -47,9 +47,12 @@ runs the trainer under `training/elastic.elastic_fit`: a per-epoch
 `last` checkpoint, and up to R restarts from it after a failure.
 `--plan dpN|fsdpN` is the reference's degenerate plan spelling of
 `--engine ddp|fsdp` on an N-rank world (`cli/common.
-check_data_parallel_plan`). The parser keeps the reference's whole flag
-surface; flags whose features belong to later port slices are refused
-with the slice named (`cli/common.check_data_parallel_args`).
+check_data_parallel_plan`). `--auto-tune search|PLAN.json` lets the
+tuner pick the reducer knobs of `--engine ddp|fsdp` or the ring knob of
+`--engine tp` (`tuning/apply.auto_tune_data_parallel`, with the JAX
+CLI's guards): every rank searches before the process group starts,
+and rank 0 prints the applied plan. The parser keeps the reference's
+whole flag surface.
 """
 
 from __future__ import annotations
@@ -59,7 +62,6 @@ import argparse
 import torch
 
 from distributed_model_parallel_tpu_torch.cli.common import (
-    add_auto_tune_flags,
     add_checkpoint_flags,
     add_common_tpu_flags,
     add_grad_reduction_flags,
@@ -97,6 +99,10 @@ from distributed_model_parallel_tpu_torch.runtime.mesh import (
 from distributed_model_parallel_tpu_torch.training.trainer import (
     Trainer,
     TrainerConfig,
+)
+from distributed_model_parallel_tpu_torch.tuning.apply import (
+    add_auto_tune_flags,
+    auto_tune_data_parallel,
 )
 
 
@@ -180,6 +186,11 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv=None) -> dict:
     args = build_parser().parse_args(argv)
+    if args.auto_tune:
+        # Before the CLI's guards, as in the JAX CLI: the tuner writes
+        # its knobs onto args, and an inconsistent plan still meets every
+        # check. Before the process group too (tuning/apply.py).
+        auto_tune_data_parallel(args)
     plan = check_data_parallel_args(args)
     if args.device == "cuda" and not torch.cuda.is_available():
         raise SystemExit(

@@ -54,9 +54,12 @@ codes its cross-slice hops), with the JAX CLI's checks
 (`cli/common.check_moe_args`). `--plan SPEC` composes the axes through
 `parallel/plan.build_plan_engine` on a stage-major plan mesh of ranks
 (pipeline stages as ranks of their own beside seq and data ranks), with
-the JAX CLI's guards (`cli/common.check_lm_plan_args`); `--plan auto`
-and the tuner's flags belong to a later port slice and are refused with
-the slice named (`cli/common.check_lm_args`). The
+the JAX CLI's guards (`cli/common.check_lm_plan_args`). `--auto-tune
+search|PLAN.json` lets the tuner pick the knobs of the engine the flags
+select, and `--plan auto --auto-tune ...` the plan spec itself
+(`tuning/apply.auto_tune_lm`, with the JAX CLI's guards): every rank
+searches before the process group starts, and rank 0 prints the
+applied plan. The
 best-val-acc model is saved to `--checkpoint-dir` with the model's
 `gpt_config` in its sidecar (what `cli/serve.py --checkpoint` checks),
 and `--resume` continues from it. `--checkpoint-format sharded` writes
@@ -73,7 +76,6 @@ import argparse
 import torch
 
 from distributed_model_parallel_tpu_torch.cli.common import (
-    add_auto_tune_flags,
     add_checkpoint_flags,
     add_dispatch_flags,
     add_remat_flag,
@@ -122,6 +124,10 @@ from distributed_model_parallel_tpu_torch.runtime.mesh import (
 from distributed_model_parallel_tpu_torch.training.trainer import (
     Trainer,
     TrainerConfig,
+)
+from distributed_model_parallel_tpu_torch.tuning.apply import (
+    add_auto_tune_flags,
+    auto_tune_lm,
 )
 
 
@@ -212,7 +218,8 @@ def build_parser() -> argparse.ArgumentParser:
                         "(degenerate specs route to the single-axis "
                         "engines). Replaces the per-axis flags "
                         "(--pipeline-stages, --seq-shards); 'auto' rides "
-                        "the tuner (not ported yet)")
+                        "the tuner (with --auto-tune search or "
+                        "--auto-tune PLAN.json)")
     add_grad_reduction_flags(p)
     add_checkpoint_flags(p)
     add_auto_tune_flags(p)
@@ -232,6 +239,11 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv=None) -> dict:
     args = build_parser().parse_args(argv)
+    if args.auto_tune:
+        # Before the CLI's guards, as in the JAX CLI: the tuner writes
+        # its knobs onto args, and an inconsistent plan still meets every
+        # check. Before the process group too (tuning/apply.py).
+        auto_tune_lm(args)
     plan = check_lm_args(args)
     if args.device == "cuda" and not torch.cuda.is_available():
         raise SystemExit(

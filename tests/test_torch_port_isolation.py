@@ -90,7 +90,10 @@ def test_every_port_module_imports_without_jax():
         "          'ops.ring_attention', 'parallel.sequence_parallel',\n"
         "          'ops.collective_matmul', 'analysis.record',\n"
         "          'analysis.collectives', 'analysis.rules',\n"
-        "          'analysis.lint'):\n"
+        "          'analysis.lint', 'observability.cost',\n"
+        "          'observability.calibrate', 'observability.costgate',\n"
+        "          'tuning.plan', 'tuning.space', 'tuning.search',\n"
+        "          'tuning.apply', 'tuning.plangate'):\n"
         "    assert pkg.__name__ + '.' + m in names, m\n"
         "import distributed_model_parallel_tpu_torch.cli.serve\n"
         "from distributed_model_parallel_tpu_torch.analysis import record\n"
@@ -254,6 +257,42 @@ def test_data_parallel_cli_defaults_to_cuda_and_refuses_without_a_gpu():
         data_parallel.main([])
 
 
+def reference_reject_explicit():
+    """The reference's `tuning/apply._reject_explicit` and its flag lists
+    a hook, read from its source (no jax import): {hook: [flag, ...]},
+    and the function that raises its message."""
+    tree = ast.parse((REPO / "distributed_model_parallel_tpu" / "tuning"
+                      / "apply.py").read_text())
+    fns = {f.name: f for f in tree.body if isinstance(f, ast.FunctionDef)}
+    ns = {}
+    exec(compile(ast.Module([fns["_reject_explicit"]], []), "apply.py",
+                 "exec"), ns)
+    lists = {}
+    for name, fn in fns.items():
+        for node in ast.walk(fn):
+            if (isinstance(node, ast.Call)
+                    and getattr(node.func, "id", "") == "_reject_explicit"):
+                lists[name] = [e.elts[0].value for e in node.args[0].elts]
+    return lists, ns["_reject_explicit"]
+
+
+def reference_reject_message(reject, flag) -> str:
+    with pytest.raises(SystemExit) as e:
+        reject([(flag, True)])
+    return str(e.value.code)
+
+
+# what sets each of the tuner's knob flags on the command line
+KNOB_ARGV = {
+    "--grad-reduction": ["--grad-reduction", "bucketed"],
+    "--bucket-mb": ["--bucket-mb", "4"],
+    "--overlap-stages": ["--overlap-stages", "2"],
+    "--dcn-compression": ["--dcn-compression", "bf16"],
+    "--collective-matmul": ["--collective-matmul"],
+    "--plan": ["--plan", "dp2"],
+}
+
+
 REDUCER_EXITS = {
     "--grad-reduction": "no explicit reduction site to bucket or overlap",
     "--bucket-mb": "only applies under --grad-reduction bucketed",
@@ -307,7 +346,9 @@ def test_data_parallel_cli_refuses_out_of_slice_flags(flags, slice_,
     JAX CLI's message (it needs the sharded format). --collective-matmul,
     refused before the collective-matmul slice, meets the JAX CLI's
     check (it needs --engine tp). --plan, refused before the composed-
-    parallel-plan slice, meets the JAX CLI's world check."""
+    parallel-plan slice, meets the JAX CLI's world check. --auto-tune and
+    --auto-tune-out, refused before the auto-tuning slice, meet the
+    reference's knob-flag refusals and write the applied plan."""
     from distributed_model_parallel_tpu_torch.cli import data_parallel
 
     if slice_ in ("tensor-parallel", "image-folder", "collective-matmul"):
@@ -348,6 +389,39 @@ def test_data_parallel_cli_refuses_out_of_slice_flags(flags, slice_,
         with pytest.raises(SystemExit, match=r"--plan dp2 factors 2 "
                                              r"device\(s\); this world has 1"):
             data_parallel.main(["--device", "cpu", *flags])
+        return
+    if slice_ == "auto-tuning":
+        # Ported with the auto-tuning slice (tuning/apply.py): the plan
+        # owns the knobs, and each knob flag beside --auto-tune exits with
+        # the reference's message; --auto-tune-out writes the applied
+        # plan (here tp's at 2 model shards, before the one-rank world
+        # refuses the mesh).
+        import torch.distributed as dist
+
+        monkeypatch.chdir(tmp_path)
+        if flags[0] == "--auto-tune":
+            lists, reject = reference_reject_explicit()
+            for flag in lists["auto_tune_data_parallel"]:
+                with pytest.raises(SystemExit) as e:
+                    data_parallel.main(["--device", "cpu", *flags,
+                                        "--engine", "ddp", *KNOB_ARGV[flag]])
+                assert str(e.value.code) == reference_reject_message(
+                    reject, flag)
+            return
+        from distributed_model_parallel_tpu_torch.tuning.plan import (
+            load_plan,
+        )
+
+        if dist.is_initialized():  # the search needs a process without one
+            dist.destroy_process_group()
+        with pytest.raises(SystemExit, match="--model-shards 2"):
+            data_parallel.main(["--device", "cpu", *flags, "--auto-tune",
+                                "search", "--engine", "tp", "--model-shards",
+                                "2", "--model", "bert_tiny", "-type",
+                                "SyntheticText"])
+        plan = load_plan(str(tmp_path / flags[1]))
+        assert plan["cell"]["family"] == "tp" and plan["combo"] in (
+            "tp/S2", "tp/S2/cm")
         return
     if slice_ not in ("activation-rematerialization", "multi-step dispatch",
                       "profiler-capture", "transformer-classifier",

@@ -19,6 +19,7 @@ Tolerances:
 """
 
 import json
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -388,7 +389,8 @@ def test_cli_refuses_flags_of_later_slices(flags, slice_, monkeypatch,
     collective-matmul slice, exits with the JAX CLI's message at one
     shard and under --pipeline-stages, and passes the checks at two.
     --plan, refused before the composed-parallel-plan slice, meets the
-    JAX CLI's device check."""
+    JAX CLI's device check. --auto-tune, refused before the auto-tuning
+    slice, meets the reference's knob-flag refusals."""
     if flags[0] == "--async-save":
         with pytest.raises(SystemExit,
                            match="requires --checkpoint-format sharded"):
@@ -400,6 +402,34 @@ def test_cli_refuses_flags_of_later_slices(flags, slice_, monkeypatch,
         with pytest.raises(SystemExit, match=r"--plan pp2xdp2 needs 4 "
                                              r"device\(s\), 1 present"):
             lm_cli.main(["--device", "cpu", *flags])
+        return
+    if flags[0] == "--auto-tune":
+        # Ported with the auto-tuning slice (tuning/apply.py): the plan
+        # owns the knobs, and each knob flag of the reference's list beside
+        # --auto-tune exits with the reference's message.
+        import ast
+
+        from distributed_model_parallel_tpu.tuning import apply as japply
+
+        tree = ast.parse(Path(japply.__file__).read_text())
+        fn = next(f for f in tree.body if isinstance(f, ast.FunctionDef)
+                  and f.name == "auto_tune_lm")
+        call = next(n for n in ast.walk(fn) if isinstance(n, ast.Call)
+                    and getattr(n.func, "id", "") == "_reject_explicit")
+        knob_argv = {"--grad-reduction": ["--grad-reduction", "bucketed"],
+                     "--bucket-mb": ["--bucket-mb", "4"],
+                     "--overlap-stages": ["--overlap-stages", "2"],
+                     "--dcn-compression": ["--dcn-compression", "int8"],
+                     "--collective-matmul": ["--collective-matmul"],
+                     "--moe-dispatch": ["--moe-dispatch", "hierarchical"],
+                     "--moe-overlap": ["--moe-overlap"],
+                     "--plan": ["--plan", "dp2"]}
+        for flag in [e.elts[0].value for e in call.args[0].elts]:
+            with pytest.raises(SystemExit) as e:
+                lm_cli.main(["--device", "cpu", *flags, *knob_argv[flag]])
+            with pytest.raises(SystemExit) as want:
+                japply._reject_explicit([(flag, True)])
+            assert str(e.value.code) == str(want.value.code)
         return
     if flags[0] == "--seq-shards":
         # Ported with the sequence-parallel slice: two gloo ranks build
