@@ -19,7 +19,9 @@ The phases:
    (nvidia-smi). TF32 is switched off for matmuls and cuDNN, so every
    f32 product on the card is a full-precision one.
 2. Build: compile `csrc/int8_matmul.cu` and `csrc/flash_attention.cu`
-   with nvcc for sm_90a, one process each, started together, and print
+   with nvcc for sm_90a, one process for the first and six for the
+   second's kernel / dtype parts (`_cuda.PARTS`; one process until phase
+   20 was added), all started together, and print
    the build times and each kernel's ptxas registers and spills; the
    flash kernels at their default tiles (K3 at Dh 64) and the int8
    kernel must not spill.
@@ -434,7 +436,31 @@ The phases:
    and (d) start their 12 rank processes as one wave. Depth cut to make
    room: phase 7 (a)'s determinism probe 12 -> 8 batches, phase 15's
    serve runs 8 -> 4 requests.
-20. One `{"kernels": [...]}` JSON line (int8_matmul, flash_fwd,
+20. Slice 19 (the run report, `observability/report.py` over
+   `attribution.py`): (a) the report's `--pregate` in a process of its
+   own (`python -m ...observability.report --pregate`): exit 0 and its
+   `{"obsreport": {"pregate": "ok", ...}}` line; (b) the report with
+   `--profile-dir` over phase 10's torch.profiler captures (the LM k = 4
+   traces, f32 and bf16, and the MobileNetV2 one), as text and `--json`:
+   the rows whose names hold `flash_fwd_kernel`, `flash_bwd_dq_kernel`
+   and `flash_bwd_dkv_kernel` sum to the kernel events
+   `s9_trace_kernels` counts in the same file, their total ms to those
+   events' summed dur (within the report's 1e-6 ms rounding a row); the
+   main track (a host thread), the wall, the residual share and the
+   K1-K3 rows printed; (c) one `cli.serve` run at GPT-2-small width
+   (phase 4's flags, int8, 4 requests of 4 new tokens) with
+   `--trace-out x.json --metrics-out y.json`, rendered with `--ledger
+   distributed_model_parallel_tpu_torch/observability/cost_ledger.json
+   --combo serve/S2`: exit 0, the `prefill`, `decode_step`, `queued` and
+   `decode` rows, `serve_ttft_s` in the SLO section, the predicted ms
+   the ledger row's `predicted_step_s` x 1e3; its K4 launches (48 a
+   decode step) are `launches_slice19`. (d) The phase's seconds. Room
+   made in fixed costs, no run dropped: phase 2 builds the flash source
+   in six parts at once, and every gloo rank process of phases 12-19
+   forks from one server that imported torch, this script and the port's
+   CLIs once (`rank_context`), where each was a fresh interpreter that
+   imported them again.
+21. One `{"kernels": [...]}` JSON line (int8_matmul, flash_fwd,
    flash_bwd_dq, flash_bwd_dkv; `launches_slice6` counts phase 7's
    runs, `launches_slice7` phase 8's, `launches_slice8` phase 9's,
    `launches_slice9` phase 10's as the wrappers count them,
@@ -445,7 +471,7 @@ The phases:
    phase 15's, `launches_slice15` phase 16's over every rank,
    `launches_slice16` phase 17's over every rank, `launches_slice17`
    phase 18's (the EP x TP ranks' and the linted serve steps' K4),
-   `launches_slice18` phase 19's, each
+   `launches_slice18` phase 19's, `launches_slice19` phase 20's, each
    flash
    kernel's `hop_shapes` its phase-14 (b) rows, `plan_hop_shapes` its
    phase-17 (c) rows,
@@ -459,6 +485,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import importlib
 import io
 import json
 import math
@@ -1862,6 +1889,31 @@ def dp_layer_times(dtype, iters=3):
         calls["bn_port_ms"].append((port_bn_step, bn_args))
         calls["bn_cudnn_fused_ms"].append((cudnn_bn_step, bn_args))
     return {key: timed(kind) for key, kind in calls.items()}
+
+
+# The modules a gloo rank process of phases 12-19 imports, loaded once
+# by the fork server every rank forks from (`rank_context`).
+RANK_PRELOAD = ("__main__",
+                "distributed_model_parallel_tpu_torch.cli.data_parallel",
+                "distributed_model_parallel_tpu_torch.cli.lm",
+                "distributed_model_parallel_tpu_torch.cli.serve")
+
+
+def rank_context():
+    """The multiprocessing context every gloo rank process starts from:
+    a fork server that imported torch, this script and the port's CLIs
+    once (`RANK_PRELOAD`; none of them touches CUDA at import), so a rank
+    starts as a fork of it instead of a fresh interpreter that imports
+    them again (every rank was spawned until phase 20 was added). The
+    server is a new interpreter, started by the first call (phase 2, so
+    that it loads during the build) and ended with this process."""
+    import multiprocessing
+    from multiprocessing import forkserver
+
+    ctx = multiprocessing.get_context("forkserver")
+    ctx.set_forkserver_preload(list(RANK_PRELOAD))
+    forkserver.ensure_running()
+    return ctx
 
 
 def in_background(fn):
@@ -3349,7 +3401,7 @@ def s9_transformer_checks() -> dict:
     from distributed_model_parallel_tpu_torch.cli.common import (
         _bert_tiny_cfg,
     )
-    from distributed_model_parallel_tpu_torch.models import bert, vit
+    from distributed_model_parallel_tpu_torch.models import bert
     from distributed_model_parallel_tpu_torch.parallel.data_parallel import (
         DataParallelEngine,
         DDPEngine,
@@ -3360,6 +3412,9 @@ def s9_transformer_checks() -> dict:
     )
     from distributed_model_parallel_tpu_torch.runtime.mesh import Mesh
     from distributed_model_parallel_tpu_torch.training.optim import SGD
+
+    vit = importlib.import_module(
+        "distributed_model_parallel_tpu_torch.models.vit")
 
     cuda = torch.device("cuda")
     cfg = dataclasses.replace(_bert_tiny_cfg(), dropout_rate=0.0)
@@ -4056,7 +4111,6 @@ def s11_tp_m2() -> dict:
     losses and the gathered parameters within S11_M2_TOL; the qkv shard
     (768, 1152) at BERT_BASE width. The ms print labelled as host-staged
     gloo times: not a TP time."""
-    import multiprocessing
     import pickle
 
     import numpy as np
@@ -4077,7 +4131,7 @@ def s11_tp_m2() -> dict:
 
     cases = s11_m2_cases()
     torch.cuda.empty_cache()  # the two ranks share this process's card
-    ctx = multiprocessing.get_context("spawn")
+    ctx = rank_context()
     port = free_port()
     outs = [scratch_dir(f"s11_m2_rank{r}.pkl") for r in range(2)]
     os.makedirs(os.path.dirname(outs[0]), exist_ok=True)
@@ -4568,7 +4622,6 @@ def s12_fsdp_m2() -> dict:
     against N 1. The ms are host-staged gloo, not FSDP times. Returns
     the directory of the N 2 sharded checkpoint and rank 0's gathered
     parameters."""
-    import multiprocessing
     import pickle
 
     import numpy as np
@@ -4592,7 +4645,7 @@ def s12_fsdp_m2() -> dict:
 
     torch.cuda.empty_cache()  # the two ranks share this process's card
     directory = scratch_dir("s12_m2_sharded")
-    ctx = multiprocessing.get_context("spawn")
+    ctx = rank_context()
     port = free_port()
     outs = [scratch_dir(f"s12_m2_rank{r}.pkl") for r in range(2)]
     procs = [ctx.Process(target=s12_gloo_rank,
@@ -5041,7 +5094,6 @@ def s13_gloo_rank(rank, port, out, directory, runs, device):
     import torch.distributed as dist
 
     from distributed_model_parallel_tpu_torch.cli import lm
-    from distributed_model_parallel_tpu_torch.ops import flash_attention as fa
     from distributed_model_parallel_tpu_torch.ops import quant_matmul as qm
     from distributed_model_parallel_tpu_torch.parallel import (
         sequence_parallel as sp,
@@ -5051,6 +5103,9 @@ def s13_gloo_rank(rank, port, out, directory, runs, device):
         make_mesh,
     )
     from distributed_model_parallel_tpu_torch.training.optim import SGD
+
+    fa = importlib.import_module(
+        "distributed_model_parallel_tpu_torch.ops.flash_attention")
 
     torch.backends.cuda.matmul.allow_tf32 = False
     if device == "cuda":
@@ -5135,7 +5190,6 @@ def s13_m2(lm, engine_cls, runs, device) -> dict:
     process runs each at --seq-shards 1 (and the BERT case on
     `DDPEngine` at N 1); then the comparisons. Returns the K1-K4
     launches the ranks' runs made, summed over both ranks."""
-    import multiprocessing
     import pickle
 
     from distributed_model_parallel_tpu_torch.models import bert
@@ -5152,7 +5206,7 @@ def s13_m2(lm, engine_cls, runs, device) -> dict:
     n2 = [(name, layers, S13_LM + ["--layers", str(layers), "--seq-shards",
                                    "2"] + extra)
           for name, layers, extra in runs]
-    ctx = multiprocessing.get_context("spawn")
+    ctx = rank_context()
     port = free_port()
     outs = [os.path.join(directory, f"rank{r}.pkl") for r in range(2)]
     procs = [ctx.Process(target=s13_gloo_rank,
@@ -5461,7 +5515,6 @@ def s14_gloo_rank(rank, port, out, directory, device):
         serve,
     )
     from distributed_model_parallel_tpu_torch.data import datasets
-    from distributed_model_parallel_tpu_torch.ops import flash_attention as fa
     from distributed_model_parallel_tpu_torch.ops import quant_matmul as qm
     from distributed_model_parallel_tpu_torch.parallel import (
         data_parallel as dp_mod,
@@ -5476,6 +5529,9 @@ def s14_gloo_rank(rank, port, out, directory, device):
     from distributed_model_parallel_tpu_torch.serving.engine import (
         ServingEngine,
     )
+
+    fa = importlib.import_module(
+        "distributed_model_parallel_tpu_torch.ops.flash_attention")
 
     torch.backends.cuda.matmul.allow_tf32 = False
     if device == "cuda":
@@ -5565,7 +5621,6 @@ def s14_layouts(fa, qm, phase4) -> dict:
     process runs the script on the replicated engine (f32 and int8) for
     the references; then the comparisons. Returns the K1-K4 launches of
     the ranks' CLI runs, summed over both ranks."""
-    import multiprocessing
     import pickle
 
     import numpy as np
@@ -5579,7 +5634,7 @@ def s14_layouts(fa, qm, phase4) -> dict:
         torch.cuda.empty_cache()  # the two ranks share this process's card
     directory = scratch_dir("s14")
     os.makedirs(directory, exist_ok=True)
-    ctx = multiprocessing.get_context("spawn")
+    ctx = rank_context()
     port = free_port()
     outs = [os.path.join(directory, f"rank{r}.pkl") for r in range(2)]
     procs = [ctx.Process(target=s14_gloo_rank,
@@ -5925,10 +5980,12 @@ def s15_gloo_rank(rank, world, port, out, directory, name, flags, device,
 
     from distributed_model_parallel_tpu_torch.cli import lm
     from distributed_model_parallel_tpu_torch.ops import expert_dispatch as xd
-    from distributed_model_parallel_tpu_torch.ops import flash_attention as fa
     from distributed_model_parallel_tpu_torch.ops import quant_matmul as qm
     from distributed_model_parallel_tpu_torch.parallel.expert_parallel \
         import ExpertParallelLMEngine
+
+    fa = importlib.import_module(
+        "distributed_model_parallel_tpu_torch.ops.flash_attention")
 
     torch.backends.cuda.matmul.allow_tf32 = False
     if device == "cuda":
@@ -5982,11 +6039,10 @@ def optim_leaves(tree):
 def s15_spawn(world, name, flags, directory, device, go=None):
     """Start `world` gloo rank processes of run `name` (waiting for the
     file `go`, when given); returns (procs, their result files)."""
-    import multiprocessing
 
     from distributed_model_parallel_tpu_torch.runtime.dist import free_port
 
-    ctx = multiprocessing.get_context("spawn")
+    ctx = rank_context()
     port = free_port()
     outs = [os.path.join(directory, f"{name}_rank{r}.pkl")
             for r in range(world)]
@@ -6269,8 +6325,10 @@ def s16_main(cli):
 def s16_run(cli, flags, directory, device):
     """One CLI run of this phase, each train step timed: (steps, seen,
     history, K1-K4 launches, peak bytes above the start)."""
-    from distributed_model_parallel_tpu_torch.ops import flash_attention as fa
     from distributed_model_parallel_tpu_torch.ops import quant_matmul as qm
+
+    fa = importlib.import_module(
+        "distributed_model_parallel_tpu_torch.ops.flash_attention")
 
     reset_counts(fa, qm)
     if device == "cuda":
@@ -6388,11 +6446,10 @@ def s16_gloo_rank(rank, world, port, out, directory, name, cli, flags,
 
 
 def s16_spawn(world, name, cli, flags, directory, device, go=None):
-    import multiprocessing
 
     from distributed_model_parallel_tpu_torch.runtime.dist import free_port
 
-    ctx = multiprocessing.get_context("spawn")
+    ctx = rank_context()
     port = free_port()
     outs = [os.path.join(directory, f"{name}_rank{r}.pkl")
             for r in range(world)]
@@ -6638,12 +6695,14 @@ def s17_gloo_rank(rank, world, port, out, directory, device):
     import torch.distributed as dist
 
     from distributed_model_parallel_tpu_torch.ops import expert_dispatch as xd
-    from distributed_model_parallel_tpu_torch.ops import flash_attention as fa
     from distributed_model_parallel_tpu_torch.ops import quant_matmul as qm
     from distributed_model_parallel_tpu_torch.runtime.mesh import (
         MeshSpec,
         make_mesh,
     )
+
+    fa = importlib.import_module(
+        "distributed_model_parallel_tpu_torch.ops.flash_attention")
 
     torch.backends.cuda.matmul.allow_tf32 = False
     if device == "cuda":
@@ -6681,7 +6740,6 @@ def s17_eptp(device) -> dict:
     tokens move inside the expert group's f / g all-reduces), K1-K4
     none (the MoE LM attends dense in f32). Returns the ranks'
     launches."""
-    import multiprocessing
     import pickle
 
     import numpy as np
@@ -6693,7 +6751,7 @@ def s17_eptp(device) -> dict:
     directory = scratch_dir("s17_eptp")
     os.makedirs(directory, exist_ok=True)
     world = math.prod(S17_MESH)
-    ctx = multiprocessing.get_context("spawn")
+    ctx = rank_context()
     port = free_port()
     outs = [os.path.join(directory, f"rank{r}.pkl") for r in range(world)]
     procs = [ctx.Process(target=s17_gloo_rank,
@@ -7031,11 +7089,10 @@ def s18_gates(costgate, plangate) -> int:
 
 
 def s18_spawn(world, name, cli, flags, directory, device, spells):
-    import multiprocessing
 
     from distributed_model_parallel_tpu_torch.runtime.dist import free_port
 
-    ctx = multiprocessing.get_context("spawn")
+    ctx = rank_context()
     port = free_port()
     outs = [os.path.join(directory, f"{name}_rank{r}.pkl")
             for r in range(world)]
@@ -7144,6 +7201,172 @@ def slice18_phase(device=S11_DEVICE) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------
+# Slice 19: the run report (trace attribution, obsreport and its
+# pre-gate) over the port's traces and torch.profiler captures
+
+S19_LEDGER = os.path.join("distributed_model_parallel_tpu_torch",
+                          "observability", "cost_ledger.json")
+S19_COMBO = "serve/S2"
+# (c): phase 4's serve flags at 4 requests of 4 new tokens, int8
+S19_SERVE = SERVE_FLAGS + ["--num-requests", "4", "--max-new-tokens", "4",
+                           "--compute-dtype", "int8"]
+S19_SERVE_ROWS = ("prefill", "decode_step", "queued", "decode")
+
+
+def s19_report(report, argv) -> tuple:
+    """The port's report CLI in this process: (exit code, stdout)."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = report.main(argv)
+    return rc, buf.getvalue()
+
+
+def s19_pregate() -> dict:
+    """(a) The report's pre-gate in a process of its own: exit 0 and its
+    `{"obsreport": {"pregate": "ok", ...}}` line."""
+    proc = subprocess.run(
+        [sys.executable, "-m",
+         "distributed_model_parallel_tpu_torch.observability.report",
+         "--pregate"], capture_output=True, text=True, timeout=120)
+    lines = proc.stdout.strip().splitlines()
+    line = json.loads(lines[-1]) if lines else {}
+    require(proc.returncode == 0 and line.get("obsreport", {}).get(
+        "pregate") == "ok", f"the report's pre-gate: rc {proc.returncode}, "
+        f"{proc.stdout[-2000:]} {proc.stderr[-2000:]}")
+    emit({"s19_pregate": line["obsreport"]})
+    return line["obsreport"]
+
+
+def s19_profile(report, name, prof_dir, kernel_names) -> dict:
+    """(b) The report over one --profile-dir capture of phase 10, as text
+    and as JSON: the rows whose names hold each flash kernel's sum to the
+    kernel events `s9_trace_kernels` counts in the same file, their total
+    ms to those events' summed dur (within the report's 1e-6 ms rounding
+    a row)."""
+    from distributed_model_parallel_tpu_torch.observability.attribution \
+        import profile_dir_traces
+
+    path = profile_dir_traces(prof_dir)[0]
+    rc_text, text = s19_report(report, ["--profile-dir", prof_dir])
+    rc_json, out = s19_report(report, ["--profile-dir", prof_dir, "--json"])
+    require(rc_text == rc_json == 0 and "unattributed residual" in text,
+            f"report over {name}'s trace: rc {rc_text} / {rc_json}")
+    attr = json.loads(out)["attribution"]
+    _, counted = s9_trace_kernels(path, kernel_names)
+    with open(path) as f:
+        events = [e for e in json.load(f)["traceEvents"]
+                  if e.get("cat") == "kernel"]
+    rows = {}
+    for kname in kernel_names:
+        mine = [p for p in attr["phases"] if kname in p["name"]]
+        count = sum(p["count"] for p in mine)
+        total = sum(p["total_ms"] for p in mine)
+        dur_ms = sum(float(e["dur"]) for e in events
+                     if kname in e.get("name", "")) / 1e3
+        require(count == counted[kname]
+                and abs(total - dur_ms) <= 1e-6 * max(1, len(mine)),
+                f"{name}: report rows {kname} {count} launches / {total} "
+                f"ms, the trace {counted[kname]} / {dur_ms} ms")
+        rows[kname] = {"rows": len(mine), "count": count, "total_ms": total,
+                       "mean_ms": total / count if count else None,
+                       "trace_dur_ms": dur_ms}
+    require(attr["main_tid"] < 1000 and attr["wall_ms"] > 0,
+            f"{name}: main track {attr['main_tid']}, wall "
+            f"{attr['wall_ms']} ms")
+    row = {"s19_profile": name, "main_track": attr["main_tid"],
+           "wall_ms": attr["wall_ms"],
+           "residual_share": attr["residual_share"],
+           "spans": attr["n_events"], "flash_rows": rows}
+    emit(row)
+    return row
+
+
+def s19_serve(serve, report, qm) -> int:
+    """(c) One int8 serve run at GPT-2-small width with --trace-out and
+    --metrics-out, rendered against the port's ledger at S19_COMBO: exit
+    0, the serve rows and the SLO section present, the predicted ms the
+    ledger row's. Returns its K4 launches."""
+    from distributed_model_parallel_tpu_torch.observability import (
+        metrics,
+        trace,
+    )
+
+    d = scratch_dir("s19_serve")
+    os.makedirs(d, exist_ok=True)
+    trace_path, metrics_path = (os.path.join(d, "x.json"),
+                                os.path.join(d, "y.json"))
+    trace.set_tracer(None)
+    metrics.set_metrics(None)
+    qm.int8_matmul.launches = 0
+    try:
+        out = serve_run(serve, S19_SERVE + ["--trace-out", trace_path,
+                                            "--metrics-out", metrics_path])
+    finally:  # the CLI enabled the process-wide tracer and registry
+        trace.set_tracer(None)
+        metrics.set_metrics(None)
+    launches = qm.int8_matmul.launches
+    steps = out["serving"]["decode_steps"]
+    require(out["serving"]["device"] == torch.cuda.get_device_name(0)
+            and steps > 0 and launches == 4 * LAYERS * steps,
+            f"phase 20 serve: {launches} K4 launches over {steps} decode "
+            f"steps on {out['serving']['device']}")
+    argv = ["--trace", trace_path, "--metrics", metrics_path, "--ledger",
+            S19_LEDGER, "--combo", S19_COMBO]
+    rc_text, text = s19_report(report, argv)
+    rc_json, got = s19_report(report, argv + ["--json"])
+    got = json.loads(got)
+    names = {p["name"]: p for p in got["attribution"]["phases"]}
+    with open(S19_LEDGER) as f:
+        want_ms = round(float(json.load(f)["combos"][S19_COMBO][
+            "predicted_step_s"]) * 1e3, 6)
+    row = got["measured_vs_predicted"][0]
+    require(rc_text == rc_json == 0
+            and all(n in names for n in S19_SERVE_ROWS)
+            and "-- SLO histograms --" in text
+            and any(line.startswith("serve_ttft_s")
+                    for line in text.splitlines())
+            and row["combo"] == S19_COMBO and row["predicted_ms"] == want_ms,
+            f"phase 20 serve report: rc {rc_text} / {rc_json}, rows "
+            f"{sorted(names)}, predicted {row}, want {want_ms}:\n{text}")
+    emit({"s19_serve_report": S19_COMBO, "k4_launches": launches,
+          "decode_steps": steps, "predicted_ms": row["predicted_ms"],
+          "main_track": got["attribution"]["main_tid"],
+          "wall_ms": got["attribution"]["wall_ms"],
+          "residual_share": got["attribution"]["residual_share"],
+          "rows": {n: {"count": names[n]["count"],
+                       "total_ms": names[n]["total_ms"]}
+                   for n in S19_SERVE_ROWS},
+          "serve_ttft_s": got["metrics"]["histograms"]["serve_ttft_s"]})
+    return launches
+
+
+def slice19_phase(serve, fa, qm) -> dict:
+    """Phase 20 (module docstring). Returns the phase's K1-K4 launches:
+    (c)'s K4."""
+    from distributed_model_parallel_tpu_torch.observability import report
+
+    t_phase = time.perf_counter()
+    s19_pregate()
+    kernel_names = [kname for _, kname, _ in FLASH_KERNELS]
+    for dtype in ("float32", "bfloat16"):
+        d = scratch_dir(f"s9_lm_{dtype}")
+        s19_profile(report, f"lm_{dtype}",
+                    os.path.dirname(s9_trace_path(d)), kernel_names)
+    s19_profile(report, "mobilenetv2_ddp_bf16",
+                os.path.join(scratch_dir(f"s9_dp_k{S9_K}"), "prof"),
+                kernel_names)
+    print(f"phase 20 (a, b) pre-gate and the profile traces: "
+          f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+    reset_counts(fa, qm)
+    launches = {name: 0 for name, _, _ in FLASH_KERNELS}
+    launches["int8_matmul"] = s19_serve(serve, report, qm)
+    require(not any(counts(fa).values()), "phase 20 launched K1-K3")
+    print(f"phase 20 the run report: {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    return launches
+
+
 def main() -> int:
     # cuBLAS reads this when it first starts: the determinism probe's
     # torch.use_deterministic_algorithms needs it (phase 7).
@@ -7185,7 +7408,6 @@ def smoke() -> int:
         init_params,
     )
     from distributed_model_parallel_tpu_torch.ops import _cuda
-    from distributed_model_parallel_tpu_torch.ops import flash_attention as fa
     from distributed_model_parallel_tpu_torch.ops import quant_matmul as qm
     from distributed_model_parallel_tpu_torch.parallel.sequence_parallel \
         import CausalLMSequenceParallelEngine
@@ -7193,14 +7415,18 @@ def smoke() -> int:
         ServingEngine,
     )
     from distributed_model_parallel_tpu_torch.training import optim
+    fa = importlib.import_module(
+        "distributed_model_parallel_tpu_torch.ops.flash_attention")
     phase_done("device")
 
     corpus_once = contextlib.ExitStack()  # every in-process LM CLI run
     corpus_once.enter_context(lm_corpus_made_once())
 
     # ---- 2. build: both sources at once, one nvcc each ----------------
-    # phase 6's images meanwhile (numpy on the host, ~22 s)
+    # phase 6's images meanwhile (numpy on the host, ~22 s), and the
+    # gloo ranks' fork server loads its modules
     textures = in_background(make_textures)
+    rank_context()
     t0 = time.perf_counter()
     for source in ("int8_matmul.cu", "flash_attention.cu"):
         # a library left by an earlier run would give no ptxas report
@@ -7412,7 +7638,11 @@ def smoke() -> int:
 
     corpus_once.close()
 
-    # ---- 20. kernels line, card line, last line ----------------------
+    # ---- 20. the run report (slice 19) -------------------------------
+    slice19 = slice19_phase(serve, fa, qm)
+    phase_done("the run report")
+
+    # ---- 21. kernels line, card line, last line ----------------------
     decode = [r for r in shapes if r["M"] == SLOTS]
     step = {key: None if any(r[key] is None for r in decode)
             else LAYERS * sum(r[key] for r in decode)
@@ -7460,6 +7690,9 @@ def smoke() -> int:
         # tuned runs' ranks (none: the plans and MobileNetV2 attend dense
         # or not at all)
         "launches_slice18": slice18["int8_matmul"],
+        # phase 20 (c): the int8 serve run the report renders (48 a
+        # decode step)
+        "launches_slice19": slice19["int8_matmul"],
         # phase 15 (c): the Megatron shard and ring-chunk shapes
         "shard_and_ring_shapes": shapes14,
         "max_abs_err": max_err,
@@ -7505,6 +7738,8 @@ def smoke() -> int:
                launches_slice17=slice17[name],
                # phase 19: the tuned plan attends dense at sp 1 (none)
                launches_slice18=slice18[name],
+               # phase 20: none (the report reads phase 10's traces)
+               launches_slice19=slice19[name],
                # phase 14 (b): one launch at each ring / Ulysses shape
                hop_shapes={case: row[name] for case, row in hops13.items()},
                # phase 17 (c): the same at the plan's microbatch

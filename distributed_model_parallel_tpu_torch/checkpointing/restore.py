@@ -35,9 +35,15 @@ from distributed_model_parallel_tpu_torch.checkpointing.manifest import (
     manifest_exists,
     manifest_path,
 )
-from distributed_model_parallel_tpu_torch.training import (
-    checkpoint as legacy,
-)
+
+
+def _legacy():
+    """The legacy format's module (`training/checkpoint.py`), imported at
+    first use: `training/__init__` re-exports the Trainer, which imports
+    this package, so a module-level import here would close the cycle."""
+    from distributed_model_parallel_tpu_torch.training import checkpoint
+
+    return checkpoint
 
 
 def _assemble_leaf(directory: str, manifest: Manifest, key: str,
@@ -80,7 +86,7 @@ def _read_leaves(directory: str, name: str, template: Any,
         out = {path: _assemble_leaf(directory, manifest, prefix + path,
                                     tuple(leaf.shape), leaf.dtype,
                                     npz_cache, name)
-               for path, leaf in legacy.flatten_tree(template).items()}
+               for path, leaf in _legacy().flatten_tree(template).items()}
     finally:
         for f in npz_cache.values():
             f.close()
@@ -93,13 +99,13 @@ def restore_checkpoint(directory: str, template: Any, *,
     `.npz` otherwise. Returns (tree of full numpy arrays shaped like
     `template`, best_acc, epoch) on every rank (module docstring)."""
     if not manifest_exists(directory, name):
-        return legacy.restore_checkpoint(directory, template, name=name)
+        return _legacy().restore_checkpoint(directory, template, name=name)
 
     def read():
         leaves, manifest = _read_leaves(directory, name, template)
         return leaves, manifest.acc, manifest.epoch
 
-    return legacy.agree_and_broadcast(read, template)
+    return _legacy().agree_and_broadcast(read, template)
 
 
 def _manifest_meta(m: Manifest) -> dict:
@@ -118,10 +124,11 @@ def restore_subtree(directory: str, template: Any, *, name: str = "ckpt",
     keys are looked up under `{prefix}/{leaf path}`. Read on this
     process alone."""
     if not manifest_exists(directory, name):
-        return legacy.restore_subtree(directory, template, name=name,
-                                      prefix=prefix)
+        return _legacy().restore_subtree(directory, template, name=name,
+                                         prefix=prefix)
     leaves, manifest = _read_leaves(directory, name, template, prefix + "/")
-    return legacy._unflatten_like(template, leaves), _manifest_meta(manifest)
+    return (_legacy()._unflatten_like(template, leaves),
+            _manifest_meta(manifest))
 
 
 def checkpoint_metadata(directory: str, name: str = "ckpt") -> dict:
@@ -135,7 +142,7 @@ def checkpoint_metadata(directory: str, name: str = "ckpt") -> dict:
             f"Error: no checkpoint found at "
             f"{os.path.join(directory, name + '.npz')} (nor a "
             f"{name}.manifest.json)")
-    return legacy.checkpoint_metadata(directory, name)
+    return _legacy().checkpoint_metadata(directory, name)
 
 
 def saved_topology(directory: str, name: str = "ckpt") -> Optional[dict]:

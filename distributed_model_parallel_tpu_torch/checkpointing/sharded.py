@@ -41,9 +41,6 @@ from distributed_model_parallel_tpu_torch.runtime.dist import (
     process_count,
     process_index,
 )
-from distributed_model_parallel_tpu_torch.training.checkpoint import (
-    flatten_tree,
-)
 
 # A region of a leaf: ((start, stop), ...) per dimension.
 Region = Tuple[Tuple[int, int], ...]
@@ -139,6 +136,12 @@ def sharded_state(ts, specs=None, *,
     the ranks holding shard m; `entry` is the mesh axis name (or tuple
     of names) the manifest's spec records. Every rank holds every
     replicated leaf. No collective."""
+    # imported here: `training/__init__` re-exports the Trainer, which
+    # imports this package (`restore._legacy`)
+    from distributed_model_parallel_tpu_torch.training.checkpoint import (
+        flatten_tree,
+    )
+
     world = process_count()
     everyone = tuple(range(world))
     leaves = flatten_tree(_tree(ts))

@@ -34,9 +34,18 @@ from distributed_model_parallel_tpu_torch.data.loader import Loader
 from distributed_model_parallel_tpu_torch.models import (
     bert,
     mobilenetv2,
-    resnet,
     tinycnn,
-    vit,
+)
+from distributed_model_parallel_tpu_torch.models.resnet import (
+    resnet18,
+    resnet50,
+)
+from distributed_model_parallel_tpu_torch.models.resnet import (
+    split_stages as resnet_split_stages,
+)
+from distributed_model_parallel_tpu_torch.models.vit import (
+    VIT_CIFAR,
+    vit_cifar,
 )
 from distributed_model_parallel_tpu_torch.runtime import dist
 
@@ -846,10 +855,10 @@ def _bert_stages(num_stages, num_classes, boundaries, cfg=None):
 MODELS = {
     "mobilenetv2": mobilenetv2.mobilenet_v2,
     "mobilenetv2_nobn": mobilenetv2.mobilenet_v2_nobn,
-    "resnet18": resnet.resnet18,
-    "resnet50": resnet.resnet50,
+    "resnet18": resnet18,
+    "resnet50": resnet50,
     "tinycnn": tinycnn.tiny_cnn,
-    "vit": vit.vit_cifar,  # CIFAR-scale ViT (32² inputs, 4x4 patches)
+    "vit": vit_cifar,  # CIFAR-scale ViT (32² inputs, 4x4 patches)
     # Token-id classifiers (pair with --dataset-type SyntheticText):
     "bert": _bert_model,
     "bert_tiny": lambda c, *, remat=False: _bert_model(
@@ -865,9 +874,9 @@ STAGE_BUILDERS = {
         n, c, boundaries=b),
     "mobilenetv2_nobn": lambda n, c, b: mobilenetv2.split_stages(
         n, c, batchnorm=False, boundaries=b),
-    "resnet18": lambda n, c, b: resnet.split_stages(
+    "resnet18": lambda n, c, b: resnet_split_stages(
         18, n, c, cifar=True, boundaries=b),
-    "resnet50": lambda n, c, b: resnet.split_stages(50, n, c, boundaries=b),
+    "resnet50": lambda n, c, b: resnet_split_stages(50, n, c, boundaries=b),
     "tinycnn": lambda n, c, b: tinycnn.split_stages(n, c, boundaries=b),
     # Transformer pipelines: the wire carries the (hidden, mask) pair.
     "bert": _bert_stages,
@@ -1116,7 +1125,7 @@ TRANSFORMER_MODELS = ("bert", "bert_tiny", "vit")
 def model_widths(name: str) -> Tuple[int, int]:
     """(attention heads, FFN width) of a TRANSFORMER_MODELS entry."""
     if name == "vit":
-        return vit.VIT_CIFAR.num_heads, vit.VIT_CIFAR.mlp_dim
+        return VIT_CIFAR.num_heads, VIT_CIFAR.mlp_dim
     cfg = _bert_tiny_cfg() if name == "bert_tiny" else bert.BERT_BASE
     return cfg.num_heads, cfg.intermediate_size
 

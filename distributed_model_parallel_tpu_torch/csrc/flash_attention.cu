@@ -1130,16 +1130,18 @@ int launch_rows(K kernel, const Args& a, int B, cudaStream_t stream) {
 // the same. Dh 64 (GPT-2 small) has the sweep's tiles; (128 rows, 128
 // keys) is left out because the f32 K1 needs 242 KB of shared memory
 // there, over the 227 KB a block may have.
-template <typename T>
-int dispatch_rows(int which, const Args& a, int B, int D, int rows,
-                  int keys, cudaStream_t stream) {
+template <typename T, int kWhich>
+int dispatch_rows(const Args& a, int B, int D, int rows, int keys,
+                  cudaStream_t stream) {
 #define DMP_QCASE(DD, RR, KK)                                              \
   if (D == DD && rows == RR && keys == KK) {                               \
-    return which == 0                                                      \
-               ? launch_rows<T, DD, RR, KK, false>(                        \
-                     flash_fwd_kernel<T, DD, RR, KK>, a, B, stream)        \
-               : launch_rows<T, DD, RR, KK, true>(                         \
-                     flash_bwd_dq_kernel<T, DD, RR, KK>, a, B, stream);    \
+    if constexpr (kWhich == 0) {                                           \
+      return launch_rows<T, DD, RR, KK, false>(                            \
+          flash_fwd_kernel<T, DD, RR, KK>, a, B, stream);                  \
+    } else {                                                               \
+      return launch_rows<T, DD, RR, KK, true>(                             \
+          flash_bwd_dq_kernel<T, DD, RR, KK>, a, B, stream);               \
+    }                                                                      \
   }
   DMP_QCASE(16, 64, 64) DMP_QCASE(32, 64, 64)
   DMP_QCASE(64, 64, 32) DMP_QCASE(64, 64, 64) DMP_QCASE(64, 64, 128)
@@ -1185,6 +1187,59 @@ int dispatch_dkv(const Args& a, int B, int D, int keys, int rows,
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
+}  // namespace
+
+// ------------------------------------------------------------- parts
+// The six (kernel, dtype) dispatches, each behind a C symbol: t0, t1 are
+// the kernel's tile (rows, keys for K1 / K2; keys, rows for K3). Built
+// whole, this file defines them all. ops/_cuda.py builds it in parts
+// instead, one nvcc each, all at once: with DMP_FLASH_PART = p (0-5)
+// only the p-th dispatch and its kernels are compiled, part 0 also
+// holds the entry points, and the objects link into one library. The
+// kernels are the same; the build takes the time of its largest part.
+#ifdef DMP_FLASH_PART
+#define DMP_IN_PART(P) (DMP_FLASH_PART == (P))
+#else
+#define DMP_IN_PART(P) 1
+#endif
+
+extern "C" {
+int dmp_flash_part_fwd_f32(const void*, int, int, int, int, cudaStream_t);
+int dmp_flash_part_fwd_bf16(const void*, int, int, int, int, cudaStream_t);
+int dmp_flash_part_dq_f32(const void*, int, int, int, int, cudaStream_t);
+int dmp_flash_part_dq_bf16(const void*, int, int, int, int, cudaStream_t);
+int dmp_flash_part_dkv_f32(const void*, int, int, int, int, cudaStream_t);
+int dmp_flash_part_dkv_bf16(const void*, int, int, int, int, cudaStream_t);
+
+#define DMP_PART_FN(NAME, CALL)                                            \
+  int NAME(const void* a, int B, int D, int t0, int t1,                    \
+           cudaStream_t stream) {                                          \
+    return CALL(*static_cast<const Args*>(a), B, D, t0, t1, stream);       \
+  }
+#if DMP_IN_PART(0)
+DMP_PART_FN(dmp_flash_part_fwd_f32, (dispatch_rows<float, 0>))
+#endif
+#if DMP_IN_PART(1)
+DMP_PART_FN(dmp_flash_part_fwd_bf16, (dispatch_rows<bf16, 0>))
+#endif
+#if DMP_IN_PART(2)
+DMP_PART_FN(dmp_flash_part_dq_f32, (dispatch_rows<float, 1>))
+#endif
+#if DMP_IN_PART(3)
+DMP_PART_FN(dmp_flash_part_dq_bf16, (dispatch_rows<bf16, 1>))
+#endif
+#if DMP_IN_PART(4)
+DMP_PART_FN(dmp_flash_part_dkv_f32, dispatch_dkv<float>)
+#endif
+#if DMP_IN_PART(5)
+DMP_PART_FN(dmp_flash_part_dkv_bf16, dispatch_dkv<bf16>)
+#endif
+#undef DMP_PART_FN
+}  // extern "C"
+
+#if DMP_IN_PART(0)
+namespace {
+
 Operand operand(const void* p, const long long* s) {
   return Operand{p, s[0], s[1], s[2]};
 }
@@ -1196,8 +1251,12 @@ bool bad_shape(const Args& a, int B) {
 int run_rows(int which, const Args& a, int B, int D, int rows, int keys,
              int bf16_in, cudaStream_t stream) {
   if (bad_shape(a, B)) return static_cast<int>(cudaErrorInvalidValue);
-  return bf16_in ? dispatch_rows<bf16>(which, a, B, D, rows, keys, stream)
-                 : dispatch_rows<float>(which, a, B, D, rows, keys, stream);
+  if (which == 0) {
+    return (bf16_in ? dmp_flash_part_fwd_bf16 : dmp_flash_part_fwd_f32)(
+        &a, B, D, rows, keys, stream);
+  }
+  return (bf16_in ? dmp_flash_part_dq_bf16 : dmp_flash_part_dq_f32)(
+      &a, B, D, rows, keys, stream);
 }
 
 }  // namespace
@@ -1264,8 +1323,9 @@ int dmp_flash_bwd_dkv(const void* q, const void* k, const void* v,
   a.out1 = dv;
   a.Tq = Tq; a.Tk = Tk; a.H = H; a.scale = scale; a.causal = causal;
   if (bad_shape(a, B)) return static_cast<int>(cudaErrorInvalidValue);
-  return bf16_in ? dispatch_dkv<bf16>(a, B, D, keys, rows, stream)
-                 : dispatch_dkv<float>(a, B, D, keys, rows, stream);
+  return (bf16_in ? dmp_flash_part_dkv_bf16 : dmp_flash_part_dkv_f32)(
+      &a, B, D, keys, rows, stream);
 }
 
 }  // extern "C"
+#endif  // DMP_IN_PART(0)

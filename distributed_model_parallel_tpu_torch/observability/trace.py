@@ -208,4 +208,8 @@ def enable() -> Tracer:
     return t
 
 
-__all__ = ["Tracer", "enable", "get_tracer", "set_tracer"]
+def disable() -> None:
+    get_tracer().enabled = False
+
+
+__all__ = ["Tracer", "disable", "enable", "get_tracer", "set_tracer"]

@@ -6,7 +6,11 @@ seconds). The library lands in `<package>/build/`, named by a hash of
 the source and the flags, so an edited source rebuilds and an unchanged
 one loads the library already there. Nothing is built at import time:
 the first wrapper call that needs a kernel builds it, or `build` builds
-several sources at once, one nvcc process each, started together.
+several sources at once, one nvcc process each, started together. A
+source listed in `PARTS` is compiled in parts instead, one nvcc process
+a part, all started with the rest, and its objects are linked into the
+one library (`flash_attention.cu`: its six kernel / dtype dispatches,
+so its build takes the time of the largest).
 """
 
 from __future__ import annotations
@@ -28,11 +32,17 @@ BUILD = PACKAGE / "build"
 # sm_90a keeps the Hopper-only instructions (wgmma, setmaxnreg) open to
 # the kernels. No --use_fast_math: kernels that must match the reference
 # bit for bit rely on IEEE division and rounding.
+ARCH: Tuple[str, ...] = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS: Tuple[str, ...] = (
-    "-gencode", "arch=compute_90a,code=sm_90a",
+    *ARCH,
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",
 )
+
+#: source -> (macro, parts): nvcc -c -D<macro>=p for p in range(parts),
+#: the objects linked into the source's library.
+PARTS: Dict[str, Tuple[str, int]] = {"flash_attention.cu": ("DMP_FLASH_PART",
+                                                            6)}
 
 _lock = threading.Lock()
 _loaded: Dict[str, ctypes.CDLL] = {}
@@ -63,37 +73,64 @@ def library_path(source: str) -> Path:
     src = CSRC / source
     digest = hashlib.sha256(
         src.read_bytes() + "\0".join(NVCC_FLAGS).encode()
+        + repr(PARTS.get(source)).encode()
     ).hexdigest()[:16]
     return BUILD / f"lib{src.stem}-{digest}.so"
 
 
+def _popen(cmd):
+    return subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True), cmd
+
+
 def _start(source: str):
-    """Start nvcc for `csrc/<source>` into a temporary file; returns
-    (process, command, temporary path, library path)."""
+    """Start nvcc for `csrc/<source>` into a temporary file, or one nvcc
+    a part into temporary objects (`PARTS`); returns (the [(process,
+    command)] started, the objects to link, temporary path, library
+    path)."""
     BUILD.mkdir(parents=True, exist_ok=True)
     lib = library_path(source)
     tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
-    cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / source)]
-    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                            stderr=subprocess.STDOUT, text=True)
-    return proc, cmd, tmp, lib
+    if source not in PARTS:
+        cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / source)]
+        return [_popen(cmd)], [], tmp, lib
+    macro, parts = PARTS[source]
+    flags = [f for f in NVCC_FLAGS if f != "-shared"]
+    objs = [tmp.with_name(f"{tmp.name}.{p}.o") for p in range(parts)]
+    procs = [_popen([nvcc(), *flags, "-c", f"-D{macro}={p}", "-o", str(o),
+                     str(CSRC / source)]) for p, o in enumerate(objs)]
+    return procs, objs, tmp, lib
 
 
-def _finish(source: str, started, t0: float) -> None:
-    proc, cmd, tmp, lib = started
+def _wait(source: str, proc, cmd) -> str:
     out, _ = proc.communicate()
     if proc.returncode != 0:
         raise RuntimeError(
             f"nvcc failed ({proc.returncode}) building {source}:\n"
             f"{' '.join(cmd)}\n{out}"
         )
+    return out
+
+
+def _finish(source: str, started, t0: float) -> None:
+    procs, objs, tmp, lib = started
+    try:
+        out = "".join(_wait(source, proc, cmd) for proc, cmd in procs)
+        if objs:
+            out += _wait(source, *_popen(
+                [nvcc(), *ARCH, "-shared", "-o", str(tmp),
+                 *map(str, objs)]))
+    finally:
+        for o in objs:
+            o.unlink(missing_ok=True)
     os.replace(tmp, lib)  # atomic: a concurrent loader sees all or none
     build_info[source] = (time.perf_counter() - t0, out)
 
 
 def build(sources) -> None:
     """Build every source of `sources` whose library is not on disk yet,
-    one nvcc process each, all started together."""
+    one nvcc process each (a part each under `PARTS`), all started
+    together."""
     with _lock:
         t0 = time.perf_counter()
         started = {s: _start(s) for s in sources
@@ -102,10 +139,11 @@ def build(sources) -> None:
             for source, st in started.items():
                 _finish(source, st, t0)
         finally:
-            for proc, *_ in started.values():
-                if proc.poll() is None:
-                    proc.kill()
-                    proc.wait()
+            for procs, *_ in started.values():
+                for proc, _ in procs:
+                    if proc.poll() is None:
+                        proc.kill()
+                        proc.wait()
 
 
 def load(source: str) -> ctypes.CDLL:
@@ -120,5 +158,5 @@ def load(source: str) -> ctypes.CDLL:
         return lib
 
 
-__all__ = ["BUILD", "CSRC", "NVCC_FLAGS", "build", "build_info",
+__all__ = ["BUILD", "CSRC", "NVCC_FLAGS", "PARTS", "build", "build_info",
            "library_path", "load", "nvcc"]

@@ -254,6 +254,12 @@ def make_mesh(spec: Optional[MeshSpec] = None,
                 ici_group, dcn_group, data_index=rank)
 
 
+def local_mesh(**axes: int) -> Mesh:
+    """Convenience: `make_mesh(MeshSpec(**axes))`, e.g. `local_mesh(seq=2)`
+    (an unspecified `data` absorbs the remaining ranks)."""
+    return make_mesh(MeshSpec(**axes))
+
+
 def _model_mesh(data: int, spec: MeshSpec, devices) -> Mesh:
     """A (data, model) mesh, rank = data_index * model + model_index:
     every rank creates every model group and then every data group, in
@@ -507,4 +513,5 @@ def data_hierarchy_axes(mesh: Mesh):
 
 __all__ = ["Mesh", "MeshSpec", "PLAN_WAY", "PlanMesh",
            "data_axis_names", "data_axis_size", "data_hierarchy_axes",
-           "local_devices", "make_mesh", "make_plan_mesh", "mesh_axes"]
+           "local_devices", "local_mesh", "make_mesh", "make_plan_mesh",
+           "mesh_axes"]

@@ -50,6 +50,22 @@ import torch
 LAYOUTS = ("replicated", "tp", "sp")
 
 
+def cache_pspecs(layout: str) -> dict:
+    """The mesh axis each cache dimension is sharded over under
+    `layout`, one entry a dimension of k / v (None: whole on every rank;
+    () replicates the leaf), in the order of the reference's
+    PartitionSpec tree: tp shards the heads over 'model', sp the
+    positions over 'seq'. The paged pool (L, pages + 1, page, H, Dh)
+    shards the same dimensions (`paged_pspecs` in the reference)."""
+    if layout == "tp":
+        kv = (None, None, None, "model", None)
+    elif layout == "sp":
+        kv = (None, None, "seq", None, None)
+    else:
+        kv = ()
+    return {"k": kv, "v": kv, "lengths": ()}
+
+
 def _check_layout(layout: str, mesh, heads: int, seq_dim: int,
                   seq_label: str, seq_reason: str) -> None:
     """The reference's layout checks shared by both specs: a mesh for tp
@@ -642,6 +658,7 @@ __all__ = [
     "PagedKVCacheSpec",
     "PrefixCache",
     "SlotAllocator",
+    "cache_pspecs",
     "copy_page",
     "init_cache",
     "init_paged_cache",

@@ -29,6 +29,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import importlib
 import multiprocessing
 import os
 import pickle
@@ -570,8 +571,6 @@ def cli_suite(rank, world, payload) -> dict:
     `cli/<module>.main(argv)` in this rank, from
     `payload["dirs"][index][rank]`; returns each run's history. With
     `payload["val"]` the val splits are cut to that many rows."""
-    import importlib
-
     if payload.get("val"):
         from distributed_model_parallel_tpu_torch.data import datasets
 
@@ -856,7 +855,6 @@ def ring_ops(rank, world, payload) -> dict:
 
     import torch
 
-    from distributed_model_parallel_tpu_torch.ops import ring_attention as ra
     from distributed_model_parallel_tpu_torch.ops.flash_attention import (
         flash_attention,
     )
@@ -864,6 +862,9 @@ def ring_ops(rank, world, payload) -> dict:
         MeshSpec,
         make_mesh,
     )
+
+    ra = importlib.import_module(
+        "distributed_model_parallel_tpu_torch.ops.ring_attention")
 
     fns = {"ring": ra.ring_attention, "ring_flash": ra.ring_flash_attention,
            "ulysses": ra.ulysses_attention,
@@ -1024,12 +1025,15 @@ def ring_flash_on_card(rank, world, payload) -> dict:
     and the gradients of sum(out**2), as numpy."""
     import torch
 
-    from distributed_model_parallel_tpu_torch.ops import flash_attention as fa
-    from distributed_model_parallel_tpu_torch.ops import ring_attention as ra
     from distributed_model_parallel_tpu_torch.runtime.mesh import (
         MeshSpec,
         make_mesh,
     )
+
+    fa = importlib.import_module(
+        "distributed_model_parallel_tpu_torch.ops.flash_attention")
+    ra = importlib.import_module(
+        "distributed_model_parallel_tpu_torch.ops.ring_attention")
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.cuda.set_device(0)

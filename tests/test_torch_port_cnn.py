@@ -29,6 +29,8 @@ Tolerances:
   5.8e-3).
 """
 
+import importlib
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -44,7 +46,7 @@ from distributed_model_parallel_tpu.training.metrics import (
     cross_entropy as j_cross_entropy,
 )
 from distributed_model_parallel_tpu_torch.models import layers as L
-from distributed_model_parallel_tpu_torch.models import mobilenetv2, resnet
+from distributed_model_parallel_tpu_torch.models import mobilenetv2
 from distributed_model_parallel_tpu_torch.models import tinycnn
 from distributed_model_parallel_tpu_torch.models.convert import (
     from_jax_params,
@@ -62,6 +64,10 @@ from _torch_port_ranks import (  # noqa: F401,E402
     default_torch_threads,
     torch_port_worker,
 )
+
+resnet = importlib.import_module(
+
+    "distributed_model_parallel_tpu_torch.models.resnet")
 
 F32 = dict(rtol=1e-5, atol=1e-6)
 BF16 = dict(rtol=1e-2, atol=1e-2)

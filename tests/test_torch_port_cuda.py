@@ -8,6 +8,8 @@ JAX:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_port_cuda.py
 """
 
+import importlib
+
 import numpy as np
 import pytest
 import torch
@@ -140,7 +142,8 @@ def test_int8_kernel_refuses_what_it_cannot_take(cuda):
 
 # ------------------------------------------------ flash attention K1-K3
 
-from distributed_model_parallel_tpu_torch.ops import flash_attention as fa  # noqa: E402
+fa = importlib.import_module(
+    "distributed_model_parallel_tpu_torch.ops.flash_attention")
 
 # Kernel vs plain version on the card. f32: both sum f32 products, in
 # another order, over up to T terms: rtol 1e-4, atol 2e-5. bf16: out,
@@ -691,9 +694,11 @@ def test_graph_dispatch_equals_eager_steps_lm_flash(cuda, remat):
     from distributed_model_parallel_tpu_torch.data.lm import (
         synthetic_corpus,
     )
-    from distributed_model_parallel_tpu_torch.ops import flash_attention as fa
     from distributed_model_parallel_tpu_torch.parallel.sequence_parallel \
         import CausalLMSequenceParallelEngine
+
+    fa = importlib.import_module(
+        "distributed_model_parallel_tpu_torch.ops.flash_attention")
 
     torch.backends.cuda.matmul.allow_tf32 = False
     corpus = synthetic_corpus(97, 8 * 4 * 64 + 1, seed=3)
@@ -769,7 +774,8 @@ def test_bert_dropout_under_graph_and_remat_equals_eager(cuda):
 def test_vit_step_on_the_card_matches_the_cpu(cuda):
     """One ViT DDP step (2 layers, dim 64, 32x32 images) on the card
     against the CPU: loss and every parameter at rtol 1e-5, TF32 off."""
-    from distributed_model_parallel_tpu_torch.models import vit
+    vit = importlib.import_module(
+        "distributed_model_parallel_tpu_torch.models.vit")
 
     torch.backends.cudnn.allow_tf32 = False
     cfg = vit.ViTConfig(image_size=32, patch_size=4, dim=64, num_layers=2,
@@ -1163,9 +1169,8 @@ def test_ring_and_ulysses_flash_at_one_shard_equal_flash_attention(cuda,
     and each launches K1, K2, K3 once."""
     from functools import partial
 
-    from distributed_model_parallel_tpu_torch.ops import (
-        ring_attention as ra,
-    )
+    ra = importlib.import_module(
+        "distributed_model_parallel_tpu_torch.ops.ring_attention")
 
     x = _sp_inputs(11)
     mask = torch.from_numpy(x["mask"]).to(cuda)

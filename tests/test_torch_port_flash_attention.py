@@ -22,17 +22,22 @@ from jax.sharding import Mesh, PartitionSpec as P
 
 import _torch_port_ranks as ranks
 from distributed_model_parallel_tpu.runtime.compat import shard_map
-from distributed_model_parallel_tpu_torch.ops import flash_attention as fa
-from distributed_model_parallel_tpu_torch.ops import ring_attention as ra
 from distributed_model_parallel_tpu_torch.ops.attention import (
     dot_product_attention,
 )
 from _torch_port_ranks import torch_port_worker  # noqa: F401,E402
 
+fa = importlib.import_module(
+    "distributed_model_parallel_tpu_torch.ops.flash_attention")
+ra = importlib.import_module(
+    "distributed_model_parallel_tpu_torch.ops.ring_attention")
+
 # The JAX package's ops/__init__ re-exports functions under these module
 # names, so the modules are looked up by path.
-jpa = importlib.import_module("distributed_model_parallel_tpu.ops.pallas_attention")
-jra = importlib.import_module("distributed_model_parallel_tpu.ops.ring_attention")
+jpa = importlib.import_module(
+    "distributed_model_parallel_tpu.ops.pallas_attention")
+jra = importlib.import_module(
+    "distributed_model_parallel_tpu.ops.ring_attention")
 
 F32 = dict(out=dict(rtol=1e-5, atol=1e-5), grad=dict(rtol=2e-4, atol=2e-5))
 BF16 = dict(out=dict(rtol=5e-2, atol=5e-2), grad=dict(rtol=1e-1, atol=1e-1))

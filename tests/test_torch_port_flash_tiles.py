@@ -4,14 +4,17 @@ dispatches to, read from the source, their shared-memory fit, and the
 16-byte alignment rule of the kernels' operands. No GPU and no jax needed: a tile listed but not built
 would only fail at launch on the card."""
 
+import importlib
 import re
 from pathlib import Path
 
 import pytest
 import torch
 
-from distributed_model_parallel_tpu_torch.ops import flash_attention as fa
 from _torch_port_ranks import torch_port_worker  # noqa: F401,E402
+
+fa = importlib.import_module(
+    "distributed_model_parallel_tpu_torch.ops.flash_attention")
 
 SOURCE = (Path(fa.__file__).resolve().parent.parent / "csrc"
           / "flash_attention.cu")

@@ -27,6 +27,7 @@ Tolerances:
 """
 
 import argparse
+import importlib
 import math
 
 import jax
@@ -62,10 +63,8 @@ from distributed_model_parallel_tpu_torch.models import bert as tbert
 from distributed_model_parallel_tpu_torch.models import gpt as tgpt
 from distributed_model_parallel_tpu_torch.models import layers as L
 from distributed_model_parallel_tpu_torch.models import mobilenetv2 as tmbv2
-from distributed_model_parallel_tpu_torch.models import resnet as tresnet
 from distributed_model_parallel_tpu_torch.models import staging
 from distributed_model_parallel_tpu_torch.models import tinycnn as ttiny
-from distributed_model_parallel_tpu_torch.models import vit as tvit
 from distributed_model_parallel_tpu_torch.models.convert import (
     from_jax_params,
 )
@@ -87,6 +86,12 @@ from distributed_model_parallel_tpu_torch.training.optim import (
     tree_leaves,
 )
 from _torch_port_ranks import torch_port_worker  # noqa: F401,E402
+
+tresnet = importlib.import_module(
+
+    "distributed_model_parallel_tpu_torch.models.resnet")
+tvit = importlib.import_module(
+    "distributed_model_parallel_tpu_torch.models.vit")
 
 F32 = dict(rtol=1e-5, atol=1e-7)
 LOOSE = dict(rtol=5e-2, atol=2e-2)  # bf16 leaves, compressed wires

@@ -92,6 +92,7 @@ def test_every_port_module_imports_without_jax():
         "          'analysis.collectives', 'analysis.rules',\n"
         "          'analysis.lint', 'observability.cost',\n"
         "          'observability.calibrate', 'observability.costgate',\n"
+        "          'observability.attribution', 'observability.report',\n"
         "          'tuning.plan', 'tuning.space', 'tuning.search',\n"
         "          'tuning.apply', 'tuning.plangate'):\n"
         "    assert pkg.__name__ + '.' + m in names, m\n"

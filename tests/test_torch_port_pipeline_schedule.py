@@ -26,11 +26,15 @@ import distributed_model_parallel_tpu.models.staging as j_staging
 import distributed_model_parallel_tpu.models.tinycnn as j_tinycnn
 import distributed_model_parallel_tpu.parallel.pipeline as j_pipeline
 from distributed_model_parallel_tpu_torch.models import gpt, mobilenetv2
-from distributed_model_parallel_tpu_torch.models import resnet, staging
+from distributed_model_parallel_tpu_torch.models import staging
 from distributed_model_parallel_tpu_torch.models import tinycnn
 from distributed_model_parallel_tpu_torch.models.convert import params_spec
 from distributed_model_parallel_tpu_torch.parallel import pipeline
 from _torch_port_ranks import torch_port_worker  # noqa: F401,E402
+
+resnet = importlib.import_module(
+
+    "distributed_model_parallel_tpu_torch.models.resnet")
 
 # The JAX package's models/__init__ exports a `resnet` function that
 # shadows the module.

@@ -41,7 +41,7 @@ from distributed_model_parallel_tpu.runtime.mesh import MeshSpec as JMeshSpec
 from distributed_model_parallel_tpu.runtime.mesh import make_mesh as j_mesh
 from distributed_model_parallel_tpu.training.optim import SGD as JSGD
 from distributed_model_parallel_tpu_torch.data.lm import synthetic_corpus
-from distributed_model_parallel_tpu_torch.models import bert, tinycnn, vit
+from distributed_model_parallel_tpu_torch.models import bert, tinycnn
 from distributed_model_parallel_tpu_torch.models import gpt as tgpt
 from distributed_model_parallel_tpu_torch.models import layers as L
 from distributed_model_parallel_tpu_torch.models.convert import (
@@ -72,6 +72,10 @@ from test_torch_port_pipeline import (
     port_step,
 )
 from _torch_port_ranks import torch_port_worker  # noqa: F401,E402
+
+vit = importlib.import_module(
+
+    "distributed_model_parallel_tpu_torch.models.vit")
 
 # The JAX package's models/__init__ binds the name `vit` to the constructor.
 jvit = importlib.import_module("distributed_model_parallel_tpu.models.vit")

@@ -31,7 +31,7 @@ from distributed_model_parallel_tpu.training import checkpoint as jckpt
 from distributed_model_parallel_tpu.training import optim as joptim
 from distributed_model_parallel_tpu_torch.cli.common import MODELS
 from distributed_model_parallel_tpu_torch.data import datasets as tds
-from distributed_model_parallel_tpu_torch.models import bert, staging, vit
+from distributed_model_parallel_tpu_torch.models import bert, staging
 from distributed_model_parallel_tpu_torch.models import layers as L
 from distributed_model_parallel_tpu_torch.models.convert import (
     from_jax_params,
@@ -55,6 +55,10 @@ from distributed_model_parallel_tpu_torch.training.optim import (
     tree_leaves,
 )
 from _torch_port_ranks import torch_port_worker  # noqa: F401,E402
+
+vit = importlib.import_module(
+
+    "distributed_model_parallel_tpu_torch.models.vit")
 
 # The JAX package's models/__init__ binds `vit` and `bert`-family names
 # to constructors; the modules come from importlib.
